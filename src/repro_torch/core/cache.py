@@ -573,14 +573,17 @@ def make_cache(
     device="cuda",
     cluster=None,
 ) -> CortexCache:
-    """``backend="kernel"`` runs stage 1 on the ``ann_topk`` kernel over an
-    index mirrored on ``device``; ``backend="numpy"`` is the host path.
-    ``cluster`` (clustered IVF routing) is not ported yet."""
+    """``backend="kernel"`` runs stage 1 on the CUDA kernels over an index
+    mirrored on ``device``; ``backend="numpy"`` is the host path.
+    ``cluster`` (a ``core.clustering.ClusterConfig``) switches stage 1 to
+    the clustered IVF routing (DESIGN.md §12); None = brute force."""
+    router = None
     if cluster is not None:
-        raise NotImplementedError(
-            "clustered stage 1 is not ported yet (ROADMAP slice "
-            "'Clustered stage 1')")
-    index = VectorIndex(index_capacity, dim, backend=backend, device=device)
+        from repro_torch.core.clustering import ClusterRouter
+
+        router = ClusterRouter(index_capacity, dim, cluster)
+    index = VectorIndex(index_capacity, dim, backend=backend, router=router,
+                        device=device)
     seri = Seri(index, judge, tau_sim=tau_sim, tau_lsm=tau_lsm, top_k=top_k)
     return CortexCache(
         seri, capacity_bytes=capacity_bytes, max_ttl=max_ttl,

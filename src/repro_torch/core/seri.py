@@ -17,8 +17,10 @@ a single ``judge.score_pairs`` call. The scalar entry points are one-query
 wrappers over the batched path, so scalar and batched execution are the
 same code and produce identical results.
 
-The clustered (IVF) router is not ported yet (ROADMAP slice "Clustered
-stage 1"): stage 1 is brute force.
+With a :class:`~repro_torch.core.clustering.ClusterRouter` attached,
+stage 1 runs as a clustered (IVF) routed scan once the router has trained:
+the CUDA ``ann_topk_ivf`` kernel over a bucket layout gathered from the
+device mirror (kernel backend), or the reference's numpy routed scan.
 """
 from __future__ import annotations
 
@@ -30,37 +32,47 @@ import torch
 
 from repro_torch.core.semantic_element import SemanticElement
 from repro_torch.device import resolve_device
-from repro_torch.kernels.ops import ann_topk_batch
+from repro_torch.kernels.ops import ann_topk_batch, ann_topk_ivf_batch
 
-_CLUSTER_SLICE = "ROADMAP slice 'Clustered stage 1'"
+
+def probe_count(cfg) -> int:
+    """Clusters each query probes on the kernel backend (all of them for
+    ``nprobe=None``), as the reference's kernel paths compute it."""
+    return cfg.n_clusters if cfg.nprobe is None \
+        else min(cfg.nprobe, cfg.n_clusters)
 
 
 class RowIndex:
-    """Fixed-capacity free-list row allocator — the management half of the
-    fp32 hot index below: active mask, row→se_id mapping, row alloc/free.
-    Subclasses own the storage arrays and zero them in ``_clear_rows``.
+    """Fixed-capacity free-list row allocator — the management half
+    shared by the fp32 hot index below and the int8 warm index
+    (``core/tiers.py::QuantIndex``): active mask, row→se_id mapping, row
+    alloc/free. Subclasses own the storage arrays and zero them in
+    ``_clear_rows``, so the two tiers' row lifecycles cannot drift.
 
     ``row_se`` is an int64 array (-1 = free) so batched search paths
     resolve row→se_id with one fancy-indexed gather instead of a
-    per-candidate Python loop.
+    per-candidate Python loop. An optional
+    :class:`~repro_torch.core.clustering.ClusterRouter` observes the row
+    lifecycle (``note_add``/``note_remove``) to keep its cluster
+    buckets free-list-consistent (DESIGN.md §12).
 
     ``active_dev`` is the device mirror of ``active`` when the subclass
-    keeps one (None otherwise); every write to ``active`` writes it too."""
+    keeps one (the kernel backend; None otherwise); every write to
+    ``active`` writes it too."""
 
     def __init__(self, capacity: int, dim: int, router=None):
-        if router is not None:
-            raise NotImplementedError(
-                f"a cluster router is not ported yet ({_CLUSTER_SLICE})")
         self.capacity = capacity
         self.dim = dim
         self.active = np.zeros(capacity, bool)
         self.row_se = np.full(capacity, -1, np.int64)
-        self.router = None
+        self.router = router
         self.active_dev: Optional[torch.Tensor] = None
-        # rows touched by the most recent search_batch call (the active
-        # rows of the brute-force scan) — the engine's scan-proportional
-        # latency term; the busiest shard's share equals it unsharded
+        # rows touched by the most recent search_batch call (active rows
+        # for brute force; centroids + gathered members for the routed
+        # scan) — the engine's scan-proportional latency term
         self.last_scanned = 0
+        # the busiest shard's share of last_scanned (DESIGN.md §13);
+        # equal to last_scanned for brute force and unsharded routing
         self.last_scanned_max_shard = 0
         self._free = list(range(capacity - 1, -1, -1))
 
@@ -88,6 +100,45 @@ class RowIndex:
     def _clear_rows(self, ra: np.ndarray) -> None:
         raise NotImplementedError
 
+    def _routed_dispatch(self, q: np.ndarray, kernel_scan, routed_scan,
+                         brute_scan):
+        """The one stage-1 dispatch both index flavors share: the CUDA
+        routed scan when the index is on the kernel backend and clusters
+        exist, the numpy routed scan when the router is trained, brute
+        force otherwise. Returns ``(rows, scores, routed)`` — ``routed``
+        tells the caller to apply the kernel NEG-slot row filter."""
+        ready = self.router is not None and self.router.ready
+        if ready and self.active_dev is not None and \
+                np.any(self.router.counts > 0):
+            return (*kernel_scan(), True)
+        if ready:
+            info = self.router.route(q)
+            if info is not None:
+                return (*routed_scan(info), True)
+        self.last_scanned = len(self)
+        self.last_scanned_max_shard = self.last_scanned
+        return (*brute_scan(), False)
+
+    def _kernel_probe(self, quant: bool):
+        """The router's device layout and probe count for a kernel routed
+        scan; raises for a sharded router (not ported yet)."""
+        rt = self.router
+        if rt.n_shards > 1:
+            raise NotImplementedError(
+                "a sharded routed scan on the kernel backend is not ported "
+                "yet (ROADMAP slice 'Sharded stage 1')")
+        return rt.kernel_layout(self, quant=quant), probe_count(rt.cfg)
+
+    def _note_probed(self, sel: torch.Tensor, enabled: torch.Tensor) -> None:
+        """Rows-scanned accounting from the kernel's own cluster selection:
+        the live centroids plus the members of every probed cluster."""
+        rt = self.router
+        sel, enabled = sel.cpu().numpy(), enabled.cpu().numpy()
+        probed = np.unique(sel[enabled > 0])
+        self.last_scanned = int((rt.counts > 0).sum()
+                                + rt.counts[probed].sum())
+        self.last_scanned_max_shard = self.last_scanned
+
     def remove_rows(self, rows) -> None:
         """Batched removal: one fancy-indexed store per field."""
         rows = [r for r in rows if self.active[r]]
@@ -99,6 +150,8 @@ class RowIndex:
             self.active_dev[self._dev_rows(ra)] = False
         self._clear_rows(ra)
         self.row_se[ra] = -1
+        if self.router is not None:
+            self.router.note_remove(ra)
         for r in rows:
             self._free.append(r)
 
@@ -206,7 +259,13 @@ class VectorIndex(RowIndex):
     ``active_dev`` on ``device``, written at every write site of the host
     arrays (``_alloc``, ``remove_rows``, ``add``, ``add_batch``,
     ``_clear_rows``), so a search moves only the (B, D) query block to the
-    device and the (B, k) results back — never the matrix."""
+    device and the (B, k) results back — never the matrix.
+
+    With a :class:`~repro_torch.core.clustering.ClusterRouter` attached,
+    stage 1 runs as a clustered (IVF-style) routed scan — centroids
+    first, then only the selected clusters' member rows — instead of
+    the full-matrix brute force (DESIGN.md §12). Until the router has
+    trained (or without one) the brute path runs unchanged."""
 
     def __init__(self, capacity: int, dim: int, backend: str = "kernel",
                  router=None, device="cuda"):
@@ -229,31 +288,65 @@ class VectorIndex(RowIndex):
         self.emb[row] = embedding
         if self.emb_dev is not None:
             self.emb_dev[row] = torch.from_numpy(self.emb[row])
+        if self.router is not None:
+            self.router.note_add(row, self.emb[row], self)
         return row
 
     def add_batch(self, se_ids, embeddings) -> np.ndarray:
         """Bulk add for large prefills (the million-entry sweeps): one
         vectorized alloc+store per block instead of n scalar calls.
-        Returns the allocated rows in allocation order."""
+
+        Stays on the scalar :meth:`add` path until the router trains —
+        the first refresh must trigger at the same index size as a
+        sequential loop would hit — then switches to bulk allocation +
+        ``note_add_batch`` (which itself splits at the router's exact
+        refresh points). Every block goes to the device mirror too.
+        Returns the allocated rows, ascending.
+        """
         embs = np.asarray(embeddings, np.float32)
         ids = np.asarray(se_ids, np.int64)
         n = len(ids)
         if len(self._free) < n:
             raise RuntimeError("index full — evict first")
-        ra = np.array([self._free.pop() for _ in range(n)], np.int64)
-        self.active[ra] = True
-        self.row_se[ra] = ids
-        self.emb[ra] = embs
-        if self.emb_dev is not None:
-            rd = self._dev_rows(ra)
-            self.active_dev[rd] = True
-            self.emb_dev[rd] = torch.from_numpy(self.emb[ra]).to(rd.device)
-        return ra
+        rows = np.empty(n, np.int64)
+        i = 0
+        while i < n and self.router is not None \
+                and not self.router.trained:
+            rows[i] = self.add(int(ids[i]), embs[i])
+            i += 1
+        rt = self.router
+        while i < n:
+            # allocate only up to the router's next refresh boundary: a
+            # refresh sees exactly the rows a sequential loop would have
+            # active (bulk-allocating ahead would leak not-yet-noted
+            # rows into the training sample and re-bucketing pass)
+            take = n - i
+            if rt is not None:
+                take = min(take, max(1, rt.cfg.refresh_every - rt._muts))
+            ra = np.array([self._free.pop() for _ in range(take)],
+                          np.int64)
+            self.active[ra] = True
+            self.row_se[ra] = ids[i:i + take]
+            self.emb[ra] = embs[i:i + take]
+            if self.emb_dev is not None:
+                rd = self._dev_rows(ra)
+                self.active_dev[rd] = True
+                self.emb_dev[rd] = torch.from_numpy(self.emb[ra]).to(
+                    rd.device)
+            rows[i:i + take] = ra
+            if rt is not None:
+                rt.note_add_batch(ra, self.emb[ra], self)
+            i += take
+        return rows
 
     def _clear_rows(self, ra: np.ndarray) -> None:
         self.emb[ra] = 0.0
         if self.emb_dev is not None:
             self.emb_dev[self._dev_rows(ra)] = 0.0
+
+    def route_embs(self, rows: np.ndarray) -> np.ndarray:
+        """Unit-norm fp32 rows for centroid training/assignment."""
+        return self.emb[rows]
 
     # ----------------------------------------------------------- search
 
@@ -261,6 +354,44 @@ class VectorIndex(RowIndex):
         """Top-k rows with cosine ≥ tau_sim. q: (dim,) unit-norm.
         Returns (se_ids, sims) sorted by similarity desc."""
         return self.search_batch(q[None], k, tau_sim)[0]
+
+    def _search_routed(self, q: np.ndarray, k: int, routed):
+        """Scan only the routed clusters' member rows. The gathered
+        union is in ascending row order and the not-allowed mask uses
+        the same -1.0 sentinel as the brute path's inactive mask, so at
+        nprobe=all the scored matrix is exactly the brute matrix
+        restricted to active rows — same values, same tie order."""
+        g_rows, allowed, self.last_scanned = routed
+        rt = self.router
+        s = np.where(allowed, q @ self.emb[g_rows].T, -1.0)
+        if rt.n_shards > 1:
+            # shard-parallel selection over the SAME score matrix: each
+            # shard top-k's its owned member columns, finalists merge
+            # under topk_desc's (value desc, row asc) order — so the
+            # result is bit-identical to the unsharded path and the
+            # float-reduction tolerance across shard counts is zero
+            owners = rt.shard_of[rt.assign[g_rows]]
+            n_cent = self.last_scanned - len(g_rows)
+            self.last_scanned_max_shard = n_cent + int(
+                np.bincount(owners, minlength=rt.n_shards).max())
+            lrows, sims = sharded_topk_merge(s, owners, rt.n_shards, k)
+        else:
+            self.last_scanned_max_shard = self.last_scanned
+            lrows, sims = topk_desc(s, k)                      # (B, k)
+        return g_rows[lrows], sims
+
+    def _search_routed_kernel(self, q: np.ndarray, k: int):
+        """Routed scan on the kernel backend: routing (centroid scores +
+        top-nprobe, through the ``ann_topk`` kernel) and the bucket scan
+        (``ann_topk_ivf``) run on the device, so no host-side
+        route()/gather happens at all — rows-scanned accounting derives
+        from the kernel's own cluster selection."""
+        lay, nprobe = self._kernel_probe(quant=False)
+        sims, rows, sel, en = ann_topk_ivf_batch(
+            lay.centroids, lay.live, lay.payload, lay.bucket_rows,
+            lay.bucket_valid, q, nprobe, k)
+        self._note_probed(sel, en)
+        return rows.cpu().numpy(), sims.cpu().numpy()
 
     def _search_brute(self, q: np.ndarray, k: int):
         if self.emb_dev is not None:
@@ -276,11 +407,12 @@ class VectorIndex(RowIndex):
     def search_batch(self, q: np.ndarray, k: int, tau_sim: float):
         """Batched stage-1: q (B, dim) -> list of B (se_ids, sims) pairs.
 
-        One masked matmul over the whole query block (numpy) or one
-        ``ann_topk`` launch (kernel). Each query is selected on its own;
-        the CUDA kernel's sums do not even depend on B. Kernel entries
-        below the gate (NEG-scored inactive rows included) are dropped
-        with the τ_sim filter.
+        One masked matmul over the whole query block (numpy brute) or over
+        the routed cluster union (numpy IVF), or one kernel launch (kernel
+        backend). Each query is selected on its own, so batching never
+        changes retrieval semantics. Kernel entries below the gate
+        (NEG-scored inactive rows included) are dropped with the τ_sim
+        filter, and routed NEG slots by their row -1.
         """
         b = q.shape[0]
         if len(self) == 0:
@@ -289,12 +421,17 @@ class VectorIndex(RowIndex):
             empty = ([], np.zeros(0, np.float32))
             return [empty] * b
         q = np.asarray(q, np.float32)
-        self.last_scanned = len(self)
-        self.last_scanned_max_shard = self.last_scanned
-        rows, sims = self._search_brute(q, k)
+        rows, sims, routed = self._routed_dispatch(
+            q,
+            lambda: self._search_routed_kernel(q, k),
+            lambda info: self._search_routed(q, k, info),
+            lambda: self._search_brute(q, k),
+        )
         out = []
         for i in range(b):
             keep = sims[i] >= tau_sim
+            if routed:
+                keep &= rows[i] >= 0   # kernel NEG slots carry row -1
             r = rows[i][keep]
             # row→se_id as ONE int64 gather (no per-candidate Python loop)
             out.append((self.row_se[r].tolist(),

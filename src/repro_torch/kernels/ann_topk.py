@@ -9,8 +9,10 @@ and ``rows`` (B, k) int32. Products and sums in fp32, inactive rows score
 with ``vals <= NEG / 2`` carry unspecified rows (callers drop them through
 the τ_sim gate).
 
-What bounds it on an H100: it reads N·D·4 + N + B·D·4 bytes and does
-2·N·D·B fp32 operations. At D = 768 the bytes bound it below B ≈ 40
+What bounds it on an H100: a scan must read the active mask (N bytes),
+the active rows (D·4 bytes each) and the queries, and do 2·D·B fp32
+operations per active row; the kernel reads every row, N·D·4 + N + B·D·4
+bytes. At D = 768 the bytes bound it below B ≈ 40
 (3.35 TB/s against 67 TFLOP/s of fp32 CUDA-core rate) and the operations
 above; the engine's micro-batches sit well below. The simple design
 streams each 512-row tile once per block of 1, 4 or 16 queries (the

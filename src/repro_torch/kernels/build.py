@@ -1,12 +1,14 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 Each source ``csrc/<name>.cu`` exports a plain C interface and compiles
-into its own shared library for Hopper (``sm_90a``). The library goes to
+into its own shared library for Hopper (``sm_90a``); the headers beside
+them (``csrc/*.cuh``) hold what the kernels share. The library goes to
 ``build/repro_torch/`` at the root of the checkout (listed in
-``.gitignore``), named by a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one loads at once. Builds happen
-at first use, never at import. A failed build raises: there is no fall
-back to a kernel's plain version.
+``.gitignore``), named by a hash of the source, the headers and the flags,
+so an edited source rebuilds and an unchanged one loads at once. Builds
+happen at first use, never at import; :func:`build_all` starts one nvcc per
+source, all at once. A failed build raises: there is no fall back to a
+kernel's plain version.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("ann_topk",)
+SOURCES = ("ann_topk", "ann_topk_quant", "ann_topk_ivf")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -48,30 +50,39 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=SOURCES) -> dict[str, Built]:
-    """Compile every library in ``names`` that is not built yet."""
+    """Compile every library in ``names`` that is not built yet, one nvcc
+    process per source, all started together."""
     out = {n: Built(library_path(n)) for n in names}
-    for n, built in out.items():
-        if built.path.exists():
-            continue
-        nvcc = _nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = built.path.with_name(f"{built.path.name}.{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
+    todo = [n for n, built in out.items() if not built.path.exists()]
+    if not todo:
+        return out
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = {}
+    for n in todo:
+        tmp = out[n].path.with_name(f"{out[n].path.name}.{os.getpid()}.tmp")
+        procs[n] = (tmp, subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        built.log, built.seconds = proc.stdout, time.perf_counter() - t0
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for n, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        out[n].log, out[n].seconds = log, time.perf_counter() - t0
         if proc.returncode != 0:
-            raise RuntimeError(f"CUDA build failed: {n}.cu (nvcc exit "
-                               f"{proc.returncode}):\n{proc.stdout}")
-        os.replace(tmp, built.path)
+            failed.append(f"{n}.cu (nvcc exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out[n].path)
+    if failed:
+        raise RuntimeError("CUDA build failed: " + "\n".join(failed))
     return out
 
 

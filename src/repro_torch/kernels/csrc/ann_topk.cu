@@ -12,8 +12,10 @@
 //   value descending, then row ascending on ties. Entries whose value is
 //   NEG carry unspecified rows.
 //
-// What bounds it on an H100: the kernel must read the whole matrix once,
-// N*D*4 + N + B*D*4 bytes, and do 2*N*D*B fp32 operations. At D = 768 the
+// What bounds it on an H100: a scan must read the active mask (N bytes),
+// the active rows (D*4 bytes each) and the queries, and do 2*D*B fp32
+// operations per active row; this kernel reads every row, N*D*4 + N +
+// B*D*4 bytes. At D = 768 the
 // bytes bound it below B ~ 40 (3.35 TB/s against 67 TFLOP/s of fp32 CUDA-core
 // rate) and the operations above. The engine's micro-batches are B <= 16, so
 // the scan is a memory-bound stream.
@@ -22,27 +24,29 @@
 //   pass 1, ann_tile_topk: one CTA per (512-row tile, block of QB queries).
 //     QB is 1, 4 or 16, picked by the caller from B: a block of 16 at B = 1
 //     or 4 pays for the empty slots' registers and shuffles (chip_smoke.py
-//     times both; PERF.md). The query block sits in shared memory as fp32. Each warp scores ROWS
-//     rows at once: lanes stream D with 16-byte loads (coalesced), hold the
-//     ROWS x QB partial sums in registers, so one shared-memory read of q
-//     feeds ROWS FMAs, and finish with a fixed-order xor-butterfly. Every
-//     row goes through the same code and the same summation order, so
-//     exact-duplicate embeddings tie bitwise and the row-ascending rule
-//     decides, as the reference assumes. No tensor cores: TF32 would break
-//     row parity with the host path. Scores go to shared memory; then k
-//     warp-wide argmax passes per query (ties to the lowest row) write the
-//     tile's k finalists.
-//   pass 2, ann_merge_topk: one CTA per query takes the top k of its
+//     times both; PERF.md). The query block sits in shared memory as fp32.
+//     Each warp scores ROWS rows at once in the summation order of
+//     dot.cuh (lanes stream D with 16-byte loads, hold the ROWS x QB
+//     partial sums in registers, so one shared-memory read of q feeds ROWS
+//     FMAs, and finish with a fixed xor butterfly): every row gets the same
+//     order, so exact-duplicate embeddings tie bitwise and the row-ascending
+//     rule decides, as the reference assumes, and a row scores the same
+//     here as in the routed scan (ann_topk_ivf.cu). No tensor cores: TF32
+//     would break row parity with the host path. Scores go to shared
+//     memory; then k warp-wide argmax passes per query (select.cuh, ties to
+//     the lowest row) write the tile's k finalists.
+//   pass 2, sel::merge_topk: one CTA per query takes the top k of its
 //     ntiles*k finalists with the same total order.
 // Neither pass allocates: the caller passes the finalist scratch buffers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <climits>
-#include <cmath>
 #include <cstddef>
 #include <cstdint>
+
+#include "dot.cuh"
+#include "select.cuh"
 
 namespace {
 
@@ -51,68 +55,7 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int ROWS = 4;          // rows a warp scores at once
 constexpr int K_MAX = 64;
-constexpr float NEG = -3.0e38f;  // the reference's inactive-row score
-constexpr unsigned FULL = 0xffffffffu;
 constexpr size_t SMEM_MAX = 232448;  // H100: 227 KB of dynamic shared memory
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// VEC consecutive elements of one row, as fp32.
-template <typename T, int VEC>
-struct Loader;
-
-template <>
-struct Loader<float, 4> {
-  static __device__ __forceinline__ void load(const float* p, float (&o)[4]) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-  }
-};
-
-template <>
-struct Loader<__nv_bfloat16, 8> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              float (&o)[8]) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      o[2 * i] = f.x;
-      o[2 * i + 1] = f.y;
-    }
-  }
-};
-
-template <typename T>
-struct Loader<T, 1> {
-  static __device__ __forceinline__ void load(const T* p, float (&o)[1]) {
-    o[0] = to_f32(p[0]);
-  }
-};
-
-// VEC fp32 query values from shared memory (16-byte loads when VEC allows)
-template <int VEC>
-__device__ __forceinline__ void load_q(const float* p, float (&o)[VEC]) {
-  if constexpr (VEC % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < VEC / 4; ++i) {
-      const float4 t = reinterpret_cast<const float4*>(p)[i];
-      o[4 * i] = t.x; o[4 * i + 1] = t.y; o[4 * i + 2] = t.z; o[4 * i + 3] = t.w;
-    }
-  } else {
-#pragma unroll
-    for (int v = 0; v < VEC; ++v) o[v] = p[v];
-  }
-}
-
-// (value desc, index asc): does (v, i) rank before (bv, bi)?
-__device__ __forceinline__ bool ranks_before(float v, int i, float bv, int bi) {
-  return v > bv || (v == bv && i < bi);
-}
 
 template <typename T, int VEC, int QB>
 __global__ void __launch_bounds__(THREADS)
@@ -133,10 +76,9 @@ ann_tile_topk(const T* __restrict__ emb, const uint8_t* __restrict__ active,
   const int warp = threadIdx.x >> 5;
 
   for (int i = threadIdx.x; i < nq * d; i += THREADS)
-    sq[i] = to_f32(q[static_cast<size_t>(q0) * d + i]);
+    sq[i] = dot::to_f32(q[static_cast<size_t>(q0) * d + i]);
   __syncthreads();
 
-  const int nvec = d / VEC;  // the host picks VEC so that it divides d
   for (int r0 = warp * ROWS; r0 < TILE_N; r0 += WARPS * ROWS) {
     const T* erow[ROWS];
 #pragma unroll
@@ -145,36 +87,7 @@ ann_tile_topk(const T* __restrict__ emb, const uint8_t* __restrict__ active,
       erow[r] = emb + static_cast<size_t>(row) * d;
     }
     float acc[ROWS][QB];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-      for (int j = 0; j < QB; ++j) acc[r][j] = 0.f;
-
-    for (int c = lane; c < nvec; c += 32) {
-      float e[ROWS][VEC];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) Loader<T, VEC>::load(erow[r] + c * VEC, e[r]);
-#pragma unroll
-      for (int j = 0; j < QB; ++j) {
-        if (j < nq) {
-          float qv[VEC];
-          load_q<VEC>(sq + j * d + c * VEC, qv);
-#pragma unroll
-          for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-            for (int v = 0; v < VEC; ++v)
-              acc[r][j] = fmaf(e[r][v], qv[v], acc[r][j]);
-        }
-      }
-    }
-    // xor butterfly: a fixed tree, and every lane ends with the same sum
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-      for (int j = 0; j < QB; ++j)
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          acc[r][j] += __shfl_xor_sync(FULL, acc[r][j], off);
+    dot::warp_dot<T, VEC, ROWS, QB>(erow, sq, d, nq, lane, acc);
     if (lane == 0) {
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
@@ -182,7 +95,7 @@ ann_tile_topk(const T* __restrict__ emb, const uint8_t* __restrict__ active,
         const bool live = row < n && active[row] != 0;
 #pragma unroll
         for (int j = 0; j < QB; ++j)
-          if (j < nq) sc[j * TILE_N + r0 + r] = live ? acc[r][j] : NEG;
+          if (j < nq) sc[j * TILE_N + r0 + r] = live ? acc[r][j] : sel::NEG;
       }
     }
   }
@@ -190,79 +103,8 @@ ann_tile_topk(const T* __restrict__ emb, const uint8_t* __restrict__ active,
 
   // per-tile top-k: one warp per query, k argmax passes
   for (int j = warp; j < nq; j += WARPS) {
-    float* s = sc + j * TILE_N;
     const size_t out = (static_cast<size_t>(q0 + j) * ntiles + tile) * k;
-    for (int p = 0; p < k; ++p) {
-      float best = -INFINITY;
-      int bi = INT_MAX;
-      for (int i = lane; i < TILE_N; i += 32) {
-        const float v = s[i];
-        if (v > best) { best = v; bi = i; }  // i ascends: keeps the lowest
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(FULL, best, off);
-        const int oi = __shfl_xor_sync(FULL, bi, off);
-        if (ranks_before(ov, oi, best, bi)) { best = ov; bi = oi; }
-      }
-      if (lane == 0) {
-        fv[out + p] = best;
-        fr[out + p] = row0 + bi;
-        s[bi] = -INFINITY;  // taken: below every score, NEG included
-      }
-      __syncwarp();
-    }
-  }
-}
-
-// One CTA per query: top k of the m = ntiles*k finalists, (value desc, row
-// asc). Marks each winner taken in fv, which is scratch.
-__global__ void __launch_bounds__(THREADS)
-ann_merge_topk(float* fv, const int* fr, int m, int k, float* __restrict__ vals,
-               int* __restrict__ rows) {
-  __shared__ float sv[WARPS];
-  __shared__ int sr[WARPS];
-  __shared__ int sp[WARPS];
-  const int bq = blockIdx.x;
-  float* v = fv + static_cast<size_t>(bq) * m;
-  const int* r = fr + static_cast<size_t>(bq) * m;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int p = 0; p < k; ++p) {
-    float best = -INFINITY;
-    int br = INT_MAX, bp = -1;
-    for (int i = threadIdx.x; i < m; i += THREADS) {
-      const float x = v[i];
-      const int xr = r[i];
-      if (ranks_before(x, xr, best, br)) { best = x; br = xr; bp = i; }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(FULL, best, off);
-      const int orow = __shfl_xor_sync(FULL, br, off);
-      const int op = __shfl_xor_sync(FULL, bp, off);
-      if (ranks_before(ov, orow, best, br)) { best = ov; br = orow; bp = op; }
-    }
-    if (lane == 0) { sv[warp] = best; sr[warp] = br; sp[warp] = bp; }
-    __syncthreads();
-    if (warp == 0) {
-      best = lane < WARPS ? sv[lane] : -INFINITY;
-      br = lane < WARPS ? sr[lane] : INT_MAX;
-      bp = lane < WARPS ? sp[lane] : -1;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(FULL, best, off);
-        const int orow = __shfl_xor_sync(FULL, br, off);
-        const int op = __shfl_xor_sync(FULL, bp, off);
-        if (ranks_before(ov, orow, best, br)) { best = ov; br = orow; bp = op; }
-      }
-      if (lane == 0) {
-        vals[static_cast<size_t>(bq) * k + p] = best;
-        rows[static_cast<size_t>(bq) * k + p] = br;
-        v[bp] = -INFINITY;
-      }
-    }
-    __syncthreads();
+    sel::warp_topk(sc + j * TILE_N, TILE_N, k, fv + out, fr + out, row0);
   }
 }
 
@@ -332,9 +174,10 @@ int ann_topk_launch(int dtype, int qb, const void* emb, const void* active,
         : launch_qb<__nv_bfloat16, 1>(qb, emb, act, q, n, d, b, k, ntiles, pv, pr, s);
   }
   if (err != cudaSuccess) return err;
-  ann_merge_topk<<<b, THREADS, 0, s>>>(pv, pr, ntiles * k, k,
-                                       static_cast<float*>(vals),
-                                       static_cast<int*>(rows));
+  // one CTA per query merges its ntiles*k finalists
+  sel::merge_topk<THREADS><<<b, THREADS, 0, s>>>(pv, pr, ntiles * k, k,
+                                                 static_cast<float*>(vals),
+                                                 static_cast<int*>(rows));
   return cudaGetLastError();
 }
 

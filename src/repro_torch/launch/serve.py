@@ -5,9 +5,15 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --backend numpy \
       --device cpu --cache-ratio 0.05 --n-requests 300 --concurrency 16
 
-Stage 1 runs on the CUDA ``ann_topk`` kernel by default
-(``backend="kernel"``, ``device="cuda"``); ``device="cpu"`` runs the
-kernel's plain PyTorch version, and ``backend="numpy"`` the host path.
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload longtail \
+      --warm-frac 0.5 --cluster --backend kernel --device cuda
+
+Stage 1 runs on the CUDA kernels by default (``backend="kernel"``,
+``device="cuda"``): ``ann_topk`` for the brute scan and the routing,
+``ann_topk_ivf`` for the clustered scan (``--cluster``), and
+``ann_topk_quant``/``ann_topk_ivf_quant`` for the int8 warm tier
+(``--warm-frac``); ``device="cpu"`` runs the kernels' plain PyTorch
+versions, and ``backend="numpy"`` the host path.
 Options whose subsystems are not ported yet raise ``NotImplementedError``
 naming their ROADMAP slice.
 """
@@ -17,7 +23,9 @@ import argparse
 import json
 
 from repro_torch.core.cache import make_cache
+from repro_torch.core.clustering import ClusterConfig
 from repro_torch.core.judge import OracleJudge
+from repro_torch.core.tiers import make_tiered_cache
 from repro_torch.data.workloads import (longtail_workload, swe_workload,
                                         trend_workload, zipf_workload)
 from repro_torch.data.world import SemanticWorld
@@ -26,8 +34,6 @@ from repro_torch.serving.engine import Engine, EngineConfig, ExactCache
 from repro_torch.serving.gpu import GPU, GPUConfig
 from repro_torch.serving.remote import RemoteDataService
 
-TIERS = "Tiered storage"
-CLUSTERED = "Clustered stage 1"
 SHARDED = "Sharded stage 1"
 FRESHNESS = "Freshness, federation, robustness"
 TELEMETRY = "Observability export and telemetry"
@@ -88,12 +94,15 @@ def run_once(
     judge_timeout: float = 0.25,
     warmup_frac: float = 0.0,
     warm_frac: float | None = None,
+    warm_value_ratio: float = 0.4,
     warm_access_latency: float = 0.01,
     tail_len: int | None = None,
     churn_period: float | None = None,
     invalidation: bool = False,
     refresh_ahead: bool = False,
     cluster: bool = False,
+    n_clusters: int = 64,
+    nprobe: int | None = 8,
     t_cache_per_row: float = 0.0,
     shards: int = 1,
     t_shard_merge: float = 0.0,
@@ -112,8 +121,6 @@ def run_once(
     """One engine run; the summary dict equals the reference's
     ``repro.launch.serve.run_once`` for the same arguments."""
     for option, asked, roadmap_slice in (
-        ("warm_frac", bool(warm_frac), TIERS),
-        ("cluster", cluster, CLUSTERED),
         ("shards > 1", shards > 1, SHARDED),
         ("churn_period", churn_period is not None, FRESHNESS),
         ("invalidation", invalidation, FRESHNESS),
@@ -150,10 +157,29 @@ def run_once(
         # for event.
         judge = JudgePipeline(oracle, judge_cfg=jcfg, max_len=judge_max_len,
                               band=band)
-        cache = make_cache(
-            capacity_bytes=cap, dim=dim, judge=judge, eviction=eviction,
-            max_ttl=max_ttl, backend=backend, device=device,
-        )
+        # clustered (IVF) stage-1 routing, DESIGN.md §12; nprobe=None
+        # probes every cluster (the brute-force-parity mode)
+        ccfg = ClusterConfig(
+            n_clusters=n_clusters, nprobe=nprobe, seed=seed + 5,
+        ) if cluster else None
+        if warm_frac:
+            # tiered storage at EQUAL total bytes: the warm slice comes
+            # OUT of the same budget, it is never additional capacity
+            warm_bytes = int(cap * warm_frac)
+            # the warm tier's extra access latency is an engine-side
+            # virtual-time cost: EngineConfig.t_cache_warm (below)
+            cache = make_tiered_cache(
+                hot_bytes=cap - warm_bytes, warm_bytes=warm_bytes,
+                dim=dim, judge=judge, eviction=eviction, max_ttl=max_ttl,
+                warm_value_ratio=warm_value_ratio, cluster=ccfg,
+                backend=backend, device=device,
+            )
+        else:
+            cache = make_cache(
+                capacity_bytes=cap, dim=dim, judge=judge, eviction=eviction,
+                max_ttl=max_ttl, cluster=ccfg, backend=backend,
+                device=device,
+            )
     elif mode == "exact":
         exact = ExactCache(cap, max_ttl=max_ttl)
     clock = VirtualClock()
@@ -230,6 +256,15 @@ def main(argv=None):
     ap.add_argument("--t-cache-per-row", type=float, default=0.0,
                     help="stage-1 latency per row scanned (the scan-"
                          "proportional model; 0 = legacy flat cost)")
+    ap.add_argument("--warm-frac", type=float, default=None,
+                    help="split this fraction of the byte budget into an "
+                         "int8/zlib warm tier (DESIGN.md §10)")
+    ap.add_argument("--cluster", action="store_true",
+                    help="clustered (IVF) stage-1 routing (DESIGN.md §12)")
+    ap.add_argument("--n-clusters", type=int, default=64)
+    ap.add_argument("--nprobe", type=int, default=8,
+                    help="clusters probed per query; 0 = all (the "
+                         "brute-force-parity mode)")
     ap.add_argument("--trend-duration", type=float, default=None,
                     help="trend workload: compress the same requests "
                          "into this many virtual seconds (default 600)")
@@ -238,8 +273,6 @@ def main(argv=None):
                          "to a seeded reservoir of this size")
     # options of subsystems not ported yet: accepted so that asking for
     # them names the ROADMAP slice instead of failing to parse
-    ap.add_argument("--warm-frac", type=float, default=None)
-    ap.add_argument("--cluster", action="store_true")
     ap.add_argument("--shards", type=int, default=1)
     ap.add_argument("--churn-period", type=float, default=None)
     ap.add_argument("--invalidation", action="store_true")
@@ -278,6 +311,8 @@ def main(argv=None):
         invalidation=args.invalidation,
         refresh_ahead=args.refresh_ahead,
         cluster=args.cluster,
+        n_clusters=args.n_clusters,
+        nprobe=args.nprobe or None,
         t_cache_per_row=args.t_cache_per_row,
         shards=args.shards,
         trace=args.trace,

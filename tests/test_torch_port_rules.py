@@ -1,6 +1,6 @@
 """Rules of the port: what it may import, how it picks its device, what it
-refuses until its ROADMAP slice lands, and the config arithmetic the
-stage-2 judge prices itself with."""
+refuses until its ROADMAP slice lands, what it builds, and the config
+arithmetic the stage-2 judge prices itself with."""
 import ast
 import dataclasses
 import os
@@ -95,8 +95,6 @@ def test_cuda_without_cuda_raises(monkeypatch):
 
 
 UNPORTED = {
-    "warm_frac": ({"warm_frac": 0.5}, "Tiered storage"),
-    "cluster": ({"cluster": True}, "Clustered stage 1"),
     "shards": ({"shards": 2}, "Sharded stage 1"),
     "churn_period": ({"churn_period": 20.0}, "Freshness"),
     "invalidation": ({"invalidation": True}, "Freshness"),
@@ -119,15 +117,31 @@ def test_unported_option_names_its_roadmap_slice(option):
         run_once(n_requests=10, backend="numpy", device="cpu", **kwargs)
 
 
+@pytest.mark.parametrize("option", ["warm_frac", "cluster"])
+def test_tiers_and_clustering_no_longer_raise(option):
+    """The options of the ported slices run; shards > 1 still raises."""
+    kwargs = {"warm_frac": 0.5} if option == "warm_frac" else \
+        {"cluster": True}
+    out = run_once(n_requests=10, backend="numpy", device="cpu", **kwargs)
+    assert out["hit_rate"] >= 0
+    with pytest.raises(NotImplementedError, match="Sharded stage 1"):
+        run_once(n_requests=10, backend="numpy", device="cpu", shards=2,
+                 **kwargs)
+
+
 def test_unported_entry_points_raise():
+    from repro_torch.core.clustering import ClusterConfig
+
     with pytest.raises(NotImplementedError, match="Freshness"):
         serve_main(["--regions", "3", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="Real stage-2 compute"):
         ModelJudge()
     world = SemanticWorld(n_intents=10, dim=8, seed=0)
-    with pytest.raises(NotImplementedError, match="Clustered stage 1"):
-        make_cache(capacity_bytes=1000, dim=8, judge=OracleJudge(world),
-                   backend="numpy", cluster=object())
+    cache = make_cache(capacity_bytes=1000, dim=8, judge=OracleJudge(world),
+                       backend="kernel", device="cpu",
+                       cluster=ClusterConfig(n_shards=2))
+    with pytest.raises(NotImplementedError, match="Sharded stage 1"):
+        cache.seri.index.router.kernel_shard_buckets(cache.seri.index)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -140,3 +154,17 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         build.load("ann_topk")
     assert not (tmp_path / "build").exists()
+
+
+def test_every_kernel_source_is_built_and_hashed_with_its_headers():
+    """build.SOURCES names every csrc/*.cu, and a library's name changes
+    with the shared headers its source includes."""
+    assert sorted(build.SOURCES) == sorted(
+        p.stem for p in build.CSRC.glob("*.cu"))
+    assert {"dot.cuh", "select.cuh"} <= {p.name for p in
+                                         build.CSRC.glob("*.cuh")}
+    for name in build.SOURCES:
+        text = (build.CSRC / f"{name}.cu").read_text()
+        assert '#include "dot.cuh"' in text and '#include "select.cuh"' in text
+    paths = {n: build.library_path(n) for n in build.SOURCES}
+    assert len(set(paths.values())) == len(paths)

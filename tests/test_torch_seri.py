@@ -169,8 +169,19 @@ def test_selection_helpers_match_reference(k):
 
 
 def test_cluster_router_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="Clustered stage 1"):
-        VectorIndex(8, 4, backend="numpy", router=object())
+    """The clustered router is ported; its sharded form is not yet on the
+    kernel backend (ROADMAP slice "Sharded stage 1")."""
+    from repro_torch.core.clustering import ClusterConfig, ClusterRouter
+
+    rng = np.random.default_rng(4)
+    cfg = ClusterConfig(n_clusters=4, nprobe=2, min_train=16, n_shards=2)
+    idx = VectorIndex(64, 8, backend="kernel", device="cpu",
+                      router=ClusterRouter(64, 8, cfg))
+    for i in range(32):
+        idx.add(i, _unit(rng.standard_normal(8)))
+    assert idx.router.ready
+    with pytest.raises(NotImplementedError, match="Sharded stage 1"):
+        idx.search_batch(_unit(rng.standard_normal((2, 8))), 4, 0.0)
 
 
 def test_unknown_backend_is_refused():
