@@ -23,6 +23,11 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            parity of the routed and the brute scan, and C=512 buckets x
            4096 slots x 768 (half valid, nprobe=64, B in 1/16; k=4 fp32,
            k=16 int8), with times.
+   kernel_sharded  ann_topk_ivf_sharded and ann_topk_ivf_quant_sharded
+           against their plain versions at S = 1, 2, 3, 8 and S > C, with
+           empty shards, disabled probes, B in 1/4/16 and duplicates inside
+           a bucket; merged, S=1 equals the unsharded scan bitwise and S=8
+           the S=1 values bitwise.
 4. stage1  a 2**20-entry ``CortexCache`` at D=768 on the kernel backend
            against the numpy backend on the same contents: candidate
            se_ids identical and in the same order, except that entries
@@ -37,14 +42,24 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    stage1_clustered  a C=512, nprobe=64 router trained once on the
            kernel index and carried to the numpy index: the routed scans
            agree within phase 4's near-tie allowance.
+   stage1_sharded  that router carried into 8 shards and trained once more
+           (the shards re-cut, rows migrate), on the hot and the warm
+           index: the sharded routed scans agree with numpy's at B=16
+           within the near-tie allowance, the shard layout adds only its
+           cut points on the card, kernel 5 holds against its plain
+           version and the unsharded kernels, with times at B in 1/16 and
+           the bytes the reference's padded shard stack would take.
 5. serve   ``run_once`` on the kernel backend (launch counts reset just
            before, read just after) equals ``backend="numpy"``, at the
            defaults, in an eviction-heavy run, and for (a) the repo's
            tiered config, (b) zipf with clustering, (c) tiered and
            clustered where both routers train: kernels 1, 2, 3 and all
-           four launch, no plain version runs; then every kernel against
-           its plain version on the run's own device layouts, and the new
-           kernels' times at run (c)'s shapes.
+           four launch; (d) the reference's shard-invariance config at 1,
+           2 and 8 shards (equal apart from the shard keys); (e) run (c) at
+           8 shards: both sharded kernels launch; (f) the max-over-shards
+           latency run; no plain version runs. Then every kernel against
+           its plain version on the run's own device layouts, and the
+           kernels' times at run (c)'s shapes, the sharded ones at (e)'s.
 6. main    ann_topk against its plain version at the main path's shape
            (8192 x 128, B = 1, 4 and 16), then its times there.
 7. the ``kernels`` line: per kernel, its launches on its serve run, max
@@ -86,6 +101,7 @@ N_INTENTS = 131072        # x 8 paraphrases fill the real-size cache
 # the routed scan at real size: the repo's own rule at N = 2**20
 # (benchmarks/figures.py:390-391), and buckets of 4096 slots, half valid
 REAL_C, REAL_CAP, REAL_NPROBE = 512, 4096, 64
+REAL_SHARDS = 8           # the sharded real-size index (DESIGN.md §13)
 
 
 def emit(**kw) -> None:
@@ -122,9 +138,28 @@ def timed_ms(fn, repeats: int = REPEATS) -> float:
     return times[len(times) // 2]
 
 
+def amortized_ms(fn, n: int = 50) -> float:
+    """Time per call over n calls launched back to back between two CUDA
+    events: the kernel's own time once it outlasts the host's launch
+    overhead (a second reading beside the profiler's)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
 def device_ms(fn, repeats: int = REPEATS):
     """Device time per call, summed over the CUDA kernels a call launches
-    (torch.profiler); None when the profiler records no device time."""
+    (torch.profiler); None when the profiler records no device time, or
+    when it lost records: every call launches the same kernels, so each
+    kernel's record count must be a multiple of the calls."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -133,7 +168,11 @@ def device_ms(fn, repeats: int = REPEATS):
         for _ in range(repeats):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages())
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    if any(e.count % repeats for e in device):
+        return None
+    total_us = sum(e.self_device_time_total for e in device)
     return total_us / repeats / 1e3 if total_us > 0 else None
 
 
@@ -480,33 +519,39 @@ def bound_quant(act: torch.Tensor, d: int, b: int, k: int
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def bound_ivf(sel, en, valid, d: int, k: int, quant: bool
-              ) -> tuple[float, str]:
+def bound_ivf(sel, en, valid, d: int, k: int, quant: bool,
+              n_shards: int | None = None) -> tuple[float, str]:
     """Least time for a routed scan on these inputs: for each distinct
     probed bucket its valid mask and its valid slots (payload, and the int8
     scale), the queries and the routing read once, the finalists written
     once; or 2*D operations per valid slot of every enabled probe, at the
     fp32 CUDA-core or int8 tensor-core peak. An invalid slot scores NEG
-    whatever it holds, so its payload is not counted."""
+    whatever it holds, so its payload is not counted. The sharded scan
+    (``n_shards``) also reads the cut points and each finalist's global
+    row, and writes the S-fold stack of finalists."""
     b, nprobe = sel.shape
     cap = valid.shape[1]
     probed = sel[en > 0].long()
     distinct = probed.unique()
     per_slot = d + 4 if quant else d * 4
+    out = b * nprobe * k * 8
+    if n_shards is not None:
+        out = n_shards * out + (n_shards + 1) * 4 + b * nprobe * k * 4
     nbytes = (distinct.numel() * cap + int(valid[distinct].sum()) * per_slot
-              + b * (d + 4 if quant else d * 4)
-              + b * nprobe * 8 + b * nprobe * k * 8)
+              + b * (d + 4 if quant else d * 4) + b * nprobe * 8 + out)
     ops = 2.0 * d * int(valid[probed].sum())
     t_bytes = nbytes / HBM_BPS * 1e3
     t_ops = ops / (INT8_OPS if quant else FP32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def timings(kernel, plain, library) -> dict:
+def timings(kernel, plain, library, plain_repeats: int = REPEATS) -> dict:
     """Event-timed and profiler device times of the kernel, its plain
     version and the library yardstick (None where there is none)."""
     out = {"ms": timed_ms(kernel), "device_ms": device_ms(kernel),
-           "plain_ms": timed_ms(plain), "plain_device_ms": device_ms(plain),
+           "amortized_ms": amortized_ms(kernel),
+           "plain_ms": timed_ms(plain, plain_repeats),
+           "plain_device_ms": device_ms(plain, plain_repeats),
            "library_ms": None, "library_device_ms": None}
     if library is not None:
         out["library_ms"] = timed_ms(library)
@@ -740,6 +785,207 @@ def phase_kernel_ivf(dev):
     return (max(errs3), max(errs4), len(errs3) + len(errs4), sizes3, sizes4)
 
 
+# ------------------------------------------------------ the sharded scans
+
+def random_bounds(g, c: int, s: int, dev) -> torch.Tensor:
+    """(S+1,) int32 cut points over C clusters: 0, S-1 sorted draws from
+    [0, C] (a repeated cut point is an empty shard), C."""
+    cuts = torch.randint(0, c + 1, (s - 1,), device=dev, generator=g)
+    cuts = cuts.sort().values
+    return torch.cat([cuts.new_zeros(1), cuts, cuts.new_full((1,), c)]).to(
+        torch.int32).contiguous()
+
+
+def sharded_args(sel, en, q, buckets, valid, rows, bounds, quant):
+    """The sharded wrappers' positional arguments, fp32 or, with ``quant =
+    (q_scales, bucket_scale)``, int8 (q and buckets then int8)."""
+    if quant is None:
+        return (sel, en, q, buckets, valid, rows, bounds)
+    qs, bscale = quant
+    return (sel, en, q, qs, buckets, bscale, valid, rows, bounds)
+
+
+def hold_sharded(sel, en, q, buckets, valid, rows, bounds, k, *, quant=None,
+                 exact_rows=False) -> float:
+    """Kernel 5 against its plain version on the same inputs: int8 stacks
+    bitwise (vals and rows everywhere), fp32 stacks as ``hold_ivf`` holds
+    the routed scan; every masked entry carries row -1."""
+    from repro_torch.kernels import ann_topk_sharded as sh
+    args = sharded_args(sel, en, q, buckets, valid, rows, bounds, quant)
+    if quant is None:
+        got = sh.ann_topk_ivf_sharded(*args, k)
+        want = sh.ann_topk_ivf_sharded_plain(*args, k + 1)
+        s, b, nprobe, _ = got[0].shape
+        err = compare_probes(
+            [t.reshape(s * b, nprobe, -1) for t in got],
+            [t.reshape(s * b, nprobe, -1) for t in want],
+            exact_rows=exact_rows)
+    else:
+        got = sh.ann_topk_ivf_quant_sharded(*args, k)
+        want = sh.ann_topk_ivf_quant_sharded_plain(*args, k)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              "int8 sharded stacks differ from the plain version")
+        err = 0.0
+    gv, gr = got
+    check(bool((gr[gv <= NEG / 2] == -1).all()), "a masked entry has a row")
+    return err
+
+
+def hold_sharded_merge(sel, en, q, buckets, valid, rows, bounds, k, *,
+                       quant=None) -> None:
+    """Merged (ops._merge_shards) at S=1 the sharded scan equals the
+    unsharded one merged (ops._merge_probes) bitwise; at ``bounds``' S the
+    merged vals equal S=1's bitwise and so do the rows, except inside runs
+    of exactly equal values, which merge shard-major."""
+    from repro_torch.kernels import ann_topk_ivf as ivf
+    from repro_torch.kernels import ann_topk_sharded as sh
+    from repro_torch.kernels.ops import _merge_probes, _merge_shards
+    one = torch.tensor([0, buckets.shape[0]], dtype=torch.int32,
+                       device=sel.device)
+    if quant is None:
+        unsharded = ivf.ann_topk_ivf(sel, en, q, buckets, valid, k)
+        scan = sh.ann_topk_ivf_sharded
+    else:
+        qs, bscale = quant
+        unsharded = ivf.ann_topk_ivf_quant(sel, en, q, qs, buckets, bscale,
+                                           valid, k)
+        scan = sh.ann_topk_ivf_quant_sharded
+    wv, wr = _merge_probes(*unsharded, sel, rows, k + 1)
+    s1 = _merge_shards(*scan(*sharded_args(sel, en, q, buckets, valid, rows,
+                                           one, quant), k), k + 1)
+    check(torch.equal(s1[0], wv) and torch.equal(s1[1], wr),
+          "S=1 merged differs from the unsharded scan")
+    sv, sr = _merge_shards(*scan(*sharded_args(sel, en, q, buckets, valid,
+                                               rows, bounds, quant), k), k + 1)
+    check(torch.equal(sv, wv), "sharded merged vals differ from S=1")
+    eq = wv[:, 1:] == wv[:, :-1]
+    tie = torch.zeros_like(wv, dtype=torch.bool)
+    tie[:, 1:] |= eq
+    tie[:, :-1] |= eq
+    cols = min(k, wv.shape[1])
+    sure = (~tie & (wv > NEG / 2))[:, :cols]
+    check(torch.equal(sr[:, :cols][sure], wr[:, :cols][sure]),
+          "sharded merged rows differ outside exact ties")
+
+
+def global_rows(g, valid: torch.Tensor) -> torch.Tensor:
+    """(C, cap) int32 bucket_rows: distinct global rows at the valid slots,
+    ascending within a bucket, -1 elsewhere."""
+    c, cap = valid.shape
+    rows = torch.randperm(4 * c * cap, device=valid.device, generator=g)
+    rows = rows[:c * cap].reshape(c, cap).sort(dim=1).values
+    return torch.where(valid, rows, -1).to(torch.int32).contiguous()
+
+
+def phase_kernel_sharded(dev):
+    """Kernel 5 (ann_topk_ivf_sharded, ann_topk_ivf_quant_sharded) against
+    its plain versions at S in {1, 2, 3, 8} and S > C, random cut points
+    (empty shards among them) and one set chosen with two empty shards,
+    disabled probes, B in {1, 4, 16}, widths the wide loads do not divide
+    and k above the bucket size; duplicates inside a bucket (tie order);
+    and the merges of ``hold_sharded_merge``."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    errs_f, errs_q = [], []
+    for c, cap, d, b, nprobe, k in [(8, 16, 32, 4, 3, 2),
+                                    (16, 64, 64, 16, 5, 4),
+                                    (4, 8, 16, 1, 4, 3),
+                                    (8, 32, 100, 4, 4, 16),
+                                    (8, 40, 48, 16, 6, 6)]:
+        buckets = torch.randn((c, cap, d), device=dev, generator=g)
+        valid = torch.rand((c, cap), device=dev, generator=g) > 0.3
+        rows = global_rows(g, valid)
+        q = torch.randn((b, d), device=dev, generator=g)
+        sel, en = random_probes(g, b, c, nprobe, dev, p_off=0.2)
+        bq, bs = quantize_dev(buckets.reshape(c * cap, d))
+        bq, bs = bq.reshape(c, cap, d), bs.reshape(c, cap)
+        qq, qs = quantize_dev(q)
+        cuts = [random_bounds(g, c, s, dev) for s in (1, 2, 3, 8, c + 3)]
+        cuts.append(torch.tensor([0, 0, c // 2, c // 2, c], dtype=torch.int32,
+                                 device=dev))
+        for bounds in cuts:
+            errs_f.append(hold_sharded(sel, en, q, buckets, valid, rows,
+                                       bounds, k))
+            errs_q.append(hold_sharded(sel, en, qq, bq, valid, rows, bounds,
+                                       k, quant=(qs, bs)))
+        hold_sharded_merge(sel, en, q, buckets, valid, rows, cuts[3], k)
+        hold_sharded_merge(sel, en, qq, bq, valid, rows, cuts[3], k,
+                           quant=(qs, bs))
+    # duplicates inside one bucket: every query is a row copied to three
+    # more slots of its own bucket, so its best score ties bitwise
+    c, cap, d, b, nprobe, k = 16, 64, 128, 6, 4, 4
+    buckets = unit_rows(g, c * cap, d, dev).reshape(c, cap, d)
+    valid = torch.ones((c, cap), dtype=torch.bool, device=dev)
+    rows = global_rows(g, valid)
+    sel, en = random_probes(g, b, c, nprobe, dev)
+    q = torch.empty((b, d), device=dev)
+    for i in range(b):
+        bk = int(sel[i, 0])
+        buckets[bk, [9, 30, 41, 60]] = buckets[bk, 17].clone()
+        q[i] = buckets[bk, 17]
+    for s in (1, 3, 8):
+        errs_f.append(hold_sharded(sel, en, q, buckets, valid, rows,
+                                   random_bounds(g, c, s, dev), k,
+                                   exact_rows=True))
+    return max(errs_f), max(errs_q), len(errs_f) + len(errs_q)
+
+
+def measure_sharded(sel, en, q, buckets, valid, rows, bounds, k, *,
+                    quant=None) -> dict:
+    """Times of kernel 5, fp32 or with ``quant = (q_scales, bucket_scale)``
+    int8, its plain version and the library yardstick: one batched matmul
+    over the gathered buckets, a stable sort, the finalists' global rows,
+    each probe's finalists placed at its owning shard. The plain version
+    scans every shard's slice for every probe, so it is timed 5 times.
+    Beside them, the unsharded kernel (3 or 4) on the same inputs."""
+    from repro_torch.kernels import ann_topk_ivf as ivf
+    from repro_torch.kernels import ann_topk_sharded as sh
+    b, nprobe = sel.shape
+    c, cap, d = buckets.shape
+    s = bounds.numel() - 1
+    args = sharded_args(sel, en, q, buckets, valid, rows, bounds, quant)
+    if quant is None:
+        kernel, plain = sh.ann_topk_ivf_sharded, sh.ann_topk_ivf_sharded_plain
+
+        def scan_unsharded():
+            return ivf.ann_topk_ivf(sel, en, q, buckets, valid, k)
+    else:
+        kernel = sh.ann_topk_ivf_quant_sharded
+        plain = sh.ann_topk_ivf_quant_sharded_plain
+
+        def scan_unsharded():
+            return ivf.ann_topk_ivf_quant(sel, en, q, quant[0], buckets,
+                                          quant[1], valid, k)
+    owner = torch.searchsorted(bounds, sel, right=True) - 1
+    shard = torch.arange(s, device=sel.device)[:, None, None, None]
+
+    def library():
+        sb = sel.long()
+        sc = torch.bmm(buckets[sb].reshape(b * nprobe, cap, d).float(),
+                       q.float().repeat_interleave(nprobe, 0)[:, :, None])
+        sc = sc.reshape(b, nprobe, cap)
+        if quant is not None:
+            sc = sc * quant[1][sb] * quant[0][:, None, None]
+        sc = torch.where(valid[sb] & (en > 0)[:, :, None], sc, NEG)
+        order = torch.sort(-sc, dim=2, stable=True).indices[..., :k]
+        v = sc.gather(2, order)
+        r = torch.where(v > NEG / 2, rows[sb[:, :, None], order], -1)
+        own = owner[None, :, :, None] == shard
+        return torch.where(own, v, NEG), torch.where(own, r, -1)
+
+    bound_ms, bound_by = bound_ivf(sel, en, valid, d, k, quant is not None,
+                                   n_shards=s)
+    return {"b": b, "nprobe": nprobe, "c": c, "cap": cap, "d": d, "k": k,
+            "shards": s,
+            **timings(lambda: kernel(*args, k), lambda: plain(*args, k),
+                      library, plain_repeats=5),
+            "library": "gathered buckets, torch.bmm + stable sort, rows "
+                       "gathered, placed at the owning shard",
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "unsharded": {"ms": timed_ms(scan_unsharded),
+                          "device_ms": device_ms(scan_unsharded),
+                          "amortized_ms": amortized_ms(scan_unsharded)}}
+
+
 # --------------------------------------------- real-size warm and clustered
 
 def held_queries(world, rng, n_intents: int, paras: int, b: int):
@@ -784,10 +1030,10 @@ def phase_stage1_warm(dev, world, caches):
             check(np.array_equal(sims_k, sims_n), "warm sims differ")
             found += len(ids_k)
     check(found > 0, "the warm index found nothing")
-    return {"rows": len(src), "dim": src.dim, "queries": 33,
-            "candidates": found, "build_s": t_build,
-            "host_s_kernel_backend": t_search["kernel"],
-            "host_s_numpy_backend": t_search["numpy"]}
+    return idx, {"rows": len(src), "dim": src.dim, "queries": 33,
+                 "candidates": found, "build_s": t_build,
+                 "host_s_kernel_backend": t_search["kernel"],
+                 "host_s_numpy_backend": t_search["numpy"]}
 
 
 def router_state(rt) -> dict:
@@ -795,7 +1041,9 @@ def router_state(rt) -> dict:
     return dict(centroids=rt.centroids, counts=rt.counts, assign=rt.assign,
                 members=rt._member_lists, rng_state=rt.rng.bit_generator.state,
                 muts=rt._muts, mb_counts=rt._mb_counts, trained=rt.trained,
-                refreshes=rt.refreshes)
+                refreshes=rt.refreshes, shard_bounds=rt.shard_bounds,
+                rebalances=rt.rebalances, migrated_rows=rt.migrated_rows,
+                migration_chunks=rt.migration_chunks)
 
 
 def phase_stage1_clustered(dev, world, caches):
@@ -857,13 +1105,130 @@ def phase_stage1_clustered(dev, world, caches):
             "host_s_numpy_backend": t_search["numpy"]}
 
 
+def phase_stage1_sharded(dev, world, caches, warm):
+    """Sharded stage 1 at real size: the phase-4 index and the warm index
+    with the same contents, under a C=512, nprobe=64 router of 8 shards.
+    The clustered phase's router is carried into an 8-shard router, which
+    trains once more (``refresh``) and so re-cuts the shards from the even
+    split (a rebalance that migrates rows); its state is carried to the
+    numpy hot index and to both warm indexes. Building the shard layout
+    adds only the cut points on the device. At B=16 the kernel backend's
+    sharded routed scans are held to the numpy sharded path with phase 4's
+    near-tie allowance, hot and warm; kernel 5 is held to its plain
+    version and to the unsharded kernels (``hold_sharded_merge``) on the
+    real layouts, then timed at B in 1 and 16."""
+    from repro_torch.convert import cluster_router_from_numpy
+    from repro_torch.core.clustering import ClusterConfig
+    from repro_torch.core.seri import probe_count
+    from repro_torch.kernels.ops import _route
+    from repro_torch.core.tiers import quantize_rows
+
+    t0 = time.perf_counter()
+    kidx, nidx = caches["kernel"].seri.index, caches["numpy"].seri.index
+    cfg = ClusterConfig(n_clusters=REAL_C, nprobe=REAL_NPROBE, seed=5,
+                        n_shards=REAL_SHARDS)
+    # the unsharded router's state, its one shard's bounds left behind
+    rt = kidx.router = cluster_router_from_numpy(
+        cfg, kidx.capacity, **dict(router_state(kidx.router),
+                                   shard_bounds=None))
+    rt.refresh(kidx)
+    check(rt.rebalances >= 1 and rt.migrated_rows > 0,
+          f"the 8-shard router did not rebalance: {rt.shard_bounds}")
+    for index in (nidx, *warm.values()):
+        index.router = cluster_router_from_numpy(cfg, index.capacity,
+                                                 **router_state(rt))
+    t_train = time.perf_counter() - t0
+    widx = warm["kernel"]
+    layouts = {}
+    for name, index, quant in (("fp32", kidx, False), ("int8", widx, True)):
+        index.router.kernel_layout(index, quant=quant)
+        before = torch.cuda.memory_allocated(dev)
+        layouts[name] = index.router.kernel_shard_buckets(index, quant=quant)
+        grown = torch.cuda.memory_allocated(dev) - before
+        check(grown <= 4096, f"the {name} shard layout took {grown} more "
+              f"bytes on the device than its unsharded layout")
+    sh = layouts["fp32"]
+    s_cnt, cmax, cap = sh.shard_rows.shape
+    rng = np.random.default_rng(9)
+    k = caches["numpy"].seri.top_k
+    cands = swaps = 0
+    t_search = {"kernel": 0.0, "numpy": 0.0}
+    scanned = {}
+    qe = held_queries(world, rng, N_INTENTS, 8, 16)
+    for tier, pair in (("hot", (kidx, nidx)), ("warm", tuple(warm.values()))):
+        out = {}
+        for backend, index in zip(("kernel", "numpy"), pair):
+            t = time.perf_counter()
+            out[backend] = index.search_batch(qe, k, tau_sim=-1.0)
+            t_search[backend] += time.perf_counter() - t
+            scanned[f"{tier}_{backend}"] = (index.last_scanned,
+                                            index.last_scanned_max_shard)
+        check(scanned[f"{tier}_kernel"] == scanned[f"{tier}_numpy"],
+              f"{tier}: rows scanned differ: {scanned}")
+        for (ik, sk), (i_n, sn) in zip(out["kernel"], out["numpy"]):
+            swaps += check_ranking(ik, sk, i_n, sn, NEG)
+            cands += len(ik)
+    check(cands > 0, "the sharded index found nothing")
+    check(scanned["hot_kernel"][1] < scanned["hot_kernel"][0],
+          f"no shard scanned less than the whole: {scanned}")
+    wl = layouts["int8"].layout
+    wbq, wbs = wl.payload
+    sizes_f, sizes_q, merges = [], [], 0
+    for b in (1, 16):
+        qb = qe[:b]
+        q = torch.from_numpy(qb).to(dev).contiguous()
+        qq, qs = (torch.from_numpy(x).to(dev).contiguous()
+                  for x in quantize_rows(qb))
+        lay = sh.layout
+        sel, en = _route(lay.centroids, lay.live, q, probe_count(rt.cfg))
+        args = (sel, en, q, lay.payload, lay.bucket_valid, lay.bucket_rows,
+                sh.bounds_dev, k)
+        hold_sharded(*args)
+        hold_sharded_merge(*args)
+        sizes_f.append(measure_sharded(*args))
+        sel, en = _route(wl.centroids, wl.live, q, probe_count(rt.cfg))
+        r = k * widx.rescore_mult
+        args = (sel, en, qq, wbq, wl.bucket_valid, wl.bucket_rows,
+                layouts["int8"].bounds_dev, r)
+        hold_sharded(*args, quant=(qs, wbs))
+        hold_sharded_merge(*args, quant=(qs, wbs))
+        sizes_q.append(measure_sharded(*args, quant=(qs, wbs)))
+        merges += 2
+    d = kidx.dim
+    return sizes_f, sizes_q, {
+        "rows": len(kidx), "dim": d, "n_clusters": REAL_C,
+        "nprobe": REAL_NPROBE, "shards": s_cnt, "cap": cap, "cmax": cmax,
+        "shard_bounds": sh.bounds.tolist(), "rebalances": rt.rebalances,
+        "migrated_rows": rt.migrated_rows,
+        "migration_chunks": rt.migration_chunks,
+        "reference_padded_stack_bytes": {
+            "fp32": s_cnt * cmax * cap * (d * 4 + 8),
+            "int8": s_cnt * cmax * cap * (d + 4 + 8)},
+        "port_device_bytes_beyond_the_unsharded_layout": (s_cnt + 1) * 4,
+        "port_host_shard_map_bytes": sh.shard_rows.nbytes
+        + sh.shard_valid.nbytes,
+        "queries": 16, "candidates": cands, "near_tie_swaps": swaps,
+        "rows_scanned_and_max_shard": scanned, "merge_checks": merges,
+        "train_s": t_train, "host_s_kernel_backend": t_search["kernel"],
+        "host_s_numpy_backend": t_search["numpy"]}
+
+
 # ------------------------------------------- serve: tiers and clustering
 
 # the run_once configurations on the card: the main path (zipf defaults)
 # and an eviction-heavy run; then (a) the repo's tiered config
 # (benchmarks/figures.py:281-288), brute force; (b) zipf defaults with
 # clustering (the hot router trains); (c) tiered and clustered at a size
-# where both routers train
+# where both routers train; (d) the reference's shard-invariance engine
+# config (tests/test_mesh_shard.py:286-288) at 1, 2 and 8 shards; (e) run
+# (c) at 8 shards, where both sharded kernels run; (f) the reference's
+# max-over-shards latency run (tests/test_mesh_shard.py:376-381)
+ENGINE_KW = dict(workload="zipf", n_requests=600, n_intents=300, dim=32,
+                 concurrency=4, seed=21, cache_ratio=0.9, cluster=True,
+                 n_clusters=8, nprobe=4)
+SHARD_KEYS = ("rows_scanned", "rows_per_lookup", "stage1_shards",
+              "rows_scanned_max_shard", "shard_rebalances",
+              "shard_migrated_rows", "shard_migration_chunks")
 SERVE_RUNS = {
     "defaults": {},
     "evict": dict(cache_ratio=0.05, eviction="lcfu", n_requests=300,
@@ -876,6 +1241,19 @@ SERVE_RUNS = {
                                n_requests=3000, tail_len=2800,
                                concurrency=16, cache_ratio=0.3,
                                warm_frac=0.5, cluster=True),
+    "d_shards1": dict(ENGINE_KW, shards=1),
+    "d_shards2": dict(ENGINE_KW, shards=2),
+    "d_shards8": dict(ENGINE_KW, shards=8),
+    "e_tiered_clustered_sharded": dict(workload="longtail", n_intents=3000,
+                                       n_requests=3000, tail_len=2800,
+                                       concurrency=16, cache_ratio=0.3,
+                                       warm_frac=0.5, cluster=True,
+                                       shards=8),
+    "f_max_over_shards": dict(workload="zipf", n_requests=800,
+                              n_intents=400, dim=32, concurrency=1, seed=21,
+                              cache_ratio=0.9, cluster=True, n_clusters=16,
+                              nprobe=4, t_cache_per_row=2e-5, shards=8,
+                              t_shard_merge=1e-4),
 }
 
 
@@ -884,9 +1262,13 @@ def kernel_wrappers() -> dict:
     from repro_torch.kernels.ann_topk_ivf import (ann_topk_ivf,
                                                   ann_topk_ivf_quant)
     from repro_torch.kernels.ann_topk_quant import ann_topk_quant
+    from repro_torch.kernels.ann_topk_sharded import (
+        ann_topk_ivf_quant_sharded, ann_topk_ivf_sharded)
     return {"ann_topk": ann_topk, "ann_topk_quant": ann_topk_quant,
             "ann_topk_ivf": ann_topk_ivf,
-            "ann_topk_ivf_quant": ann_topk_ivf_quant}
+            "ann_topk_ivf_quant": ann_topk_ivf_quant,
+            "ann_topk_ivf_sharded": ann_topk_ivf_sharded,
+            "ann_topk_ivf_quant_sharded": ann_topk_ivf_quant_sharded}
 
 
 def reset_counts(wrappers: dict) -> None:
@@ -905,8 +1287,9 @@ def live_pick(active: torch.Tensor, g, b: int) -> torch.Tensor:
 def hold_on_run(cache, g, errs: dict) -> dict:
     """Each kernel against its plain version on a finished run's own
     device layout: the hot mirror, the routing centroids and the hot
-    buckets, the warm mirror and the warm buckets, with queries near live
-    entries, one and 16 at a time. Returns the B=1 inputs for timing."""
+    buckets (and their shards), the warm mirror and the warm buckets (and
+    their shards), with queries near live entries, one and 16 at a time.
+    Returns the B=1 inputs for timing."""
     from repro_torch.core.seri import probe_count
     from repro_torch.kernels.ann_topk import ann_topk, ann_topk_plain
     from repro_torch.kernels.ops import _route
@@ -933,6 +1316,14 @@ def hold_on_run(cache, g, errs: dict) -> dict:
             if b == 1:
                 shapes["ann_topk_ivf"] = (sel, en, q, lay.payload,
                                           lay.bucket_valid, top_k)
+            if hot.router.n_shards > 1:
+                args = (sel, en, q, lay.payload, lay.bucket_valid,
+                        lay.bucket_rows,
+                        hot.router.kernel_shard_buckets(hot).bounds_dev,
+                        top_k)
+                keep("ann_topk_ivf_sharded", hold_sharded(*args))
+                if b == 1:
+                    shapes["ann_topk_ivf_sharded"] = args
         if warm is None:
             continue
         wi = warm.index
@@ -955,21 +1346,35 @@ def hold_on_run(cache, g, errs: dict) -> dict:
             if b == 1:
                 shapes["ann_topk_ivf_quant"] = (sel, en, qq, bq,
                                                 lay.bucket_valid, r, qs, bs)
+            if wi.router.n_shards > 1:
+                args = (sel, en, qq, bq, lay.bucket_valid, lay.bucket_rows,
+                        wi.router.kernel_shard_buckets(wi,
+                                                       quant=True).bounds_dev,
+                        r)
+                keep("ann_topk_ivf_quant_sharded",
+                     hold_sharded(*args, quant=(qs, bs)))
+                if b == 1:
+                    shapes["ann_topk_ivf_quant_sharded"] = (args, (qs, bs))
     return shapes
+
+
+def strip_shard_keys(summary: dict) -> dict:
+    return {k: v for k, v in summary.items() if k not in SHARD_KEYS}
 
 
 def phase_serve(dev):
     """run_once on the kernel backend for every configuration, each with
     every count set to 0 just before and read just after, held to the
     numpy backend key for key; then every kernel against its plain
-    version on the run's own layouts, and the new kernels' times at the
-    shapes of run (c)."""
+    version on the run's own layouts, and the kernels' times at the
+    shapes of run (c) and, for the sharded ones, run (e). The runs of (d)
+    must agree with each other apart from the shard keys."""
     from repro_torch.launch.serve import run_once
 
     wrappers = kernel_wrappers()
     g = torch.Generator(device=dev).manual_seed(7)
     errs = {name: 0.0 for name in wrappers}
-    runs, main = [], {}
+    runs, summaries, measured = [], {}, {}
     for name, kw in SERVE_RUNS.items():
         reset_counts(wrappers)
         t = time.perf_counter()
@@ -989,35 +1394,61 @@ def phase_serve(dev):
                   f"{name}: no ann_topk_quant launch")
             check(got["demotions"] > 0 and got["warm_hits"] > 0,
                   f"{name}: no demotion or no warm hit")
+        routed = ("ann_topk_ivf", "ann_topk_ivf_quant")
+        shard_routed = ("ann_topk_ivf_sharded", "ann_topk_ivf_quant_sharded")
+        if kw.get("shards", 1) > 1:
+            routed, shard_routed = shard_routed, routed
+        check(not any(launches[n] for n in shard_routed),
+              f"{name}: launched {shard_routed}: {launches}")
         if kw.get("cluster"):
             check(hot_rt.ready, f"{name}: the hot router never trained")
-            check(launches["ann_topk_ivf"] > 0,
-                  f"{name}: no ann_topk_ivf launch")
+            check(launches[routed[0]] > 0, f"{name}: no {routed[0]} launch")
         if warm_rt is not None:
             check(warm_rt.ready, f"{name}: the warm router never trained")
-            check(all(launches.values()),
-                  f"{name}: not every kernel launched: {launches}")
+            check(launches[routed[1]] > 0, f"{name}: no {routed[1]} launch")
         want = run_once(mode="cortex", backend="numpy", device="cpu", **kw)
         diff = {key: (got.get(key), want.get(key))
                 for key in set(got) | set(want) if got.get(key) != want.get(key)}
         check(not diff, f"{name}: summary differs from the numpy backend: "
               f"{diff}")
+        summaries[name] = got
         shapes = hold_on_run(cache, g, errs)
         runs.append({"run": name, "kwargs": kw, "launches": launches,
                      "wall_s": wall, "hit_rate": got["hit_rate"],
                      "evictions": got.get("evictions"),
                      "demotions": got.get("demotions"),
                      "warm_hits": got.get("warm_hits"),
+                     "rows_scanned": got.get("rows_scanned"),
+                     "rows_scanned_max_shard":
+                         got.get("rows_scanned_max_shard"),
                      "hot_router_ready": bool(hot_rt and hot_rt.ready),
                      "warm_router_ready": bool(warm_rt and warm_rt.ready)})
         if name == "c_tiered_clustered":
-            main = {"launches": launches, "sizes": {
+            measured[name] = {"launches": launches, "sizes": {
                 "ann_topk_quant": measure_quant(*shapes["ann_topk_quant"]),
                 "ann_topk_ivf": measure_ivf(*shapes["ann_topk_ivf"]),
                 "ann_topk_ivf_quant": measure_ivf(
                     *shapes["ann_topk_ivf_quant"][:6],
                     quant=shapes["ann_topk_ivf_quant"][6:])}}
-    return runs, errs, main
+        if name == "e_tiered_clustered_sharded":
+            args, quant = shapes["ann_topk_ivf_quant_sharded"]
+            measured[name] = {"launches": launches, "sizes": {
+                "ann_topk_ivf_sharded": measure_sharded(
+                    *shapes["ann_topk_ivf_sharded"]),
+                "ann_topk_ivf_quant_sharded": measure_sharded(
+                    *args, quant=quant)}}
+    base = strip_shard_keys(summaries["d_shards1"])
+    for name in ("d_shards2", "d_shards8"):
+        check(strip_shard_keys(summaries[name]) == base
+              and summaries[name]["rows_scanned"]
+              == summaries["d_shards1"]["rows_scanned"],
+              f"{name}: the summary moved with the shard count")
+    for name in ("d_shards8", "f_max_over_shards"):
+        check(summaries[name]["stage1_shards"] == 8
+              and summaries[name]["rows_scanned_max_shard"]
+              < summaries[name]["rows_scanned"],
+              f"{name}: no shard scanned less than the whole")
+    return runs, errs, measured
 
 
 def main() -> int:
@@ -1071,23 +1502,35 @@ def main() -> int:
          real_size_int8=ivfq_sizes, seconds=time.perf_counter() - t)
 
     t = time.perf_counter()
+    shard_err, shardq_err, shard_cases = phase_kernel_sharded(dev)
+    torch.cuda.synchronize()
+    emit(phase="kernel_sharded", cases=shard_cases,
+         max_abs_err_fp32=shard_err, max_abs_err_int8=shardq_err,
+         seconds=time.perf_counter() - t)
+
+    t = time.perf_counter()
     world, caches, stage1 = phase_stage1(dev)
     torch.cuda.synchronize()
     emit(phase="stage1", **stage1, seconds=time.perf_counter() - t)
 
     t = time.perf_counter()
-    emit(phase="stage1_warm", **phase_stage1_warm(dev, world, caches),
-         seconds=time.perf_counter() - t)
+    warm, line = phase_stage1_warm(dev, world, caches)
+    emit(phase="stage1_warm", **line, seconds=time.perf_counter() - t)
     t = time.perf_counter()
     emit(phase="stage1_clustered",
          **phase_stage1_clustered(dev, world, caches),
          seconds=time.perf_counter() - t)
-    del world, caches
+    t = time.perf_counter()
+    shard_sizes, shardq_sizes, line = phase_stage1_sharded(dev, world,
+                                                           caches, warm)
+    emit(phase="stage1_sharded", **line, real_size_fp32=shard_sizes,
+         real_size_int8=shardq_sizes, seconds=time.perf_counter() - t)
+    del world, caches, warm
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
     t = time.perf_counter()
-    runs, serve_errs, run_c = phase_serve(dev)
+    runs, serve_errs, measured = phase_serve(dev)
     emit(phase="serve", runs=runs, max_abs_err=serve_errs,
          seconds=time.perf_counter() - t)
 
@@ -1098,7 +1541,11 @@ def main() -> int:
             "ann_topk_quant": max(quant_err, serve_errs["ann_topk_quant"]),
             "ann_topk_ivf": max(ivf_err, serve_errs["ann_topk_ivf"]),
             "ann_topk_ivf_quant": max(ivfq_err,
-                                      serve_errs["ann_topk_ivf_quant"])}
+                                      serve_errs["ann_topk_ivf_quant"]),
+            "ann_topk_ivf_sharded": max(shard_err,
+                                        serve_errs["ann_topk_ivf_sharded"]),
+            "ann_topk_ivf_quant_sharded": max(
+                shardq_err, serve_errs["ann_topk_ivf_quant_sharded"])}
     launches_by_run = {name: {r["run"]: r["launches"][name] for r in runs}
                        for name in errs}
     kernels = [{
@@ -1114,19 +1561,27 @@ def main() -> int:
         "shape": {k: main[k] for k in ("n", "d", "b", "k")},
         "sizes": main_sizes + sizes,
     }]
+    # each later kernel at the shapes of the run that drives it: run (c)
+    # for kernels 2-4, run (e) for kernel 5
+    run_c, run_e = (measured[n] for n in ("c_tiered_clustered",
+                                          "e_tiered_clustered_sharded"))
     new = (("ann_topk_quant", "ann_topk_quant.cu", "ann_topk_quant.py:34",
-            quant_sizes),
+            quant_sizes, run_c),
            ("ann_topk_ivf", "ann_topk_ivf.cu", "ann_topk_ivf.py:47",
-            ivf_sizes),
+            ivf_sizes, run_c),
            ("ann_topk_ivf_quant", "ann_topk_ivf.cu", "ann_topk_ivf.py:70",
-            ivfq_sizes))
-    for name, source, replaces, real in new:
-        at = run_c["sizes"][name]
+            ivfq_sizes, run_c),
+           ("ann_topk_ivf_sharded", "ann_topk_ivf.cu",
+            "ann_topk_sharded.py:91", shard_sizes, run_e),
+           ("ann_topk_ivf_quant_sharded", "ann_topk_ivf.cu",
+            "ann_topk_sharded.py:122", shardq_sizes, run_e))
+    for name, source, replaces, real, run in new:
+        at = run["sizes"][name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": f"src/repro/kernels/{replaces}",
-            "launches": run_c["launches"][name],
+            "launches": run["launches"][name],
             "launches_by_run": launches_by_run[name],
             "max_abs_err": errs[name],
             **{key: at[key] for key in ("ms", "plain_ms", "bound_ms",

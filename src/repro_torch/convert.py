@@ -75,19 +75,20 @@ def quant_index_from_numpy(emb_q, scale, active, row_se, free, *,
 def cluster_router_from_numpy(cfg: ClusterConfig, capacity: int, *,
                               centroids, counts, assign, members, rng_state,
                               muts: int, mb_counts, trained: bool,
-                              refreshes: int = 0) -> ClusterRouter:
+                              refreshes: int = 0, shard_bounds=None,
+                              rebalances: int = 0, migrated_rows: int = 0,
+                              migration_chunks: int = 0) -> ClusterRouter:
     """A port ``ClusterRouter`` in the given state: the (C, D) centroids,
     per-cluster ``counts``, the row→cluster ``assign`` (-1 = none), the
     per-cluster ``members`` lists in their own order, the numpy
     generator's ``bit_generator.state``, the mutation count since the
     last refresh (``muts``), the mini-batch per-centroid counts and the
-    ``trained`` flag. The same mutations then give the same refreshes,
-    centroids and buckets as the router the state came from. Unsharded
-    only (``cfg.n_shards == 1``)."""
-    if cfg.n_shards != 1:
-        raise NotImplementedError(
-            "carrying a sharded router is not ported yet (ROADMAP slice "
-            "'Sharded stage 1')")
+    ``trained`` flag; for a sharded router (``cfg.n_shards > 1``) also the
+    (S+1,) ``shard_bounds`` (None: the initial even split) and the
+    rebalance counters. The cluster→shard map follows from the bounds, as
+    the router derives it. The same mutations then give the same
+    refreshes, centroids, buckets and shard cuts as the router the state
+    came from."""
     centroids = np.asarray(centroids, np.float32)
     rt = ClusterRouter(capacity, centroids.shape[1], cfg)
     rt.centroids[:] = centroids
@@ -99,4 +100,14 @@ def cluster_router_from_numpy(cfg: ClusterConfig, capacity: int, *,
     rt._mb_counts = np.asarray(mb_counts, np.int64).copy()
     rt.trained = bool(trained)
     rt.refreshes = int(refreshes)
+    if shard_bounds is not None:
+        bounds = np.asarray(shard_bounds, np.int64).copy()
+        if bounds.shape != rt.shard_bounds.shape:
+            raise ValueError(f"want {rt.n_shards + 1} shard bounds for "
+                             f"n_shards={rt.n_shards}, got {bounds.shape}")
+        rt.shard_bounds = bounds
+        rt.shard_of = rt._owners_from_bounds(bounds)
+    rt.rebalances = int(rebalances)
+    rt.migrated_rows = int(migrated_rows)
+    rt.migration_chunks = int(migration_chunks)
     return rt

@@ -33,12 +33,13 @@ Everything is seeded and counter-driven — same seed + same mutation
 sequence ⇒ same centroids, buckets, and retrieval results — so the
 benchmark suite's same-seed bit-identity gates extend to clustered runs.
 
-In the port everything but the kernel layout
-(:meth:`ClusterRouter.kernel_layout`) is the reference's numpy code,
-unchanged: the same mutation sequence gives
-bitwise the same centroids, assignments and member lists. The kernel
-layout is built on the index's device from its mirror, and the sharded
-layout is not ported yet (ROADMAP slice "Sharded stage 1").
+In the port everything but the kernel layouts
+(:meth:`ClusterRouter.kernel_layout` and
+:meth:`ClusterRouter.kernel_shard_buckets`) is the reference's numpy code,
+unchanged: the same mutation sequence gives bitwise the same centroids,
+assignments, member lists and shard bounds. The kernel layout is built on
+the index's device from its mirror, and the shard layout adds only its
+bounds to it.
 """
 from __future__ import annotations
 
@@ -85,6 +86,18 @@ class KernelLayout:
     bucket_valid: torch.Tensor   # (C, cap) bool
     centroids: torch.Tensor      # (C, D) fp32
     live: torch.Tensor           # (C,) bool: clusters with members
+
+
+@dataclasses.dataclass
+class ShardLayout:
+    """The shard-owned routed scans' inputs (see
+    :meth:`ClusterRouter.kernel_shard_buckets`)."""
+
+    layout: KernelLayout         # the unsharded layout, on the device
+    bounds_dev: torch.Tensor     # (S+1,) int32 cut points, on the device
+    shard_rows: np.ndarray       # (S, Cmax, cap) int32, -1 = empty slot
+    shard_valid: np.ndarray      # (S, Cmax, cap) int32
+    bounds: np.ndarray           # (S+1,) int64 cut points
 
 
 class ClusterRouter:
@@ -135,7 +148,7 @@ class ClusterRouter:
         self.rebalances = 0        # refreshes that moved ≥1 cluster
         self.migrated_rows = 0     # member rows that changed shards
         self.migration_chunks = 0  # ≤ _MIGRATE_CHUNK-row transfers
-        self._shard_cache = None   # kernel shard-layout arrays
+        self._shard_cache = None   # ShardLayout
 
     @property
     def ready(self) -> bool:
@@ -434,9 +447,38 @@ class ClusterRouter:
             live=torch.from_numpy(self.counts > 0).to(dev))
         return self._bucket_cache
 
-    def kernel_shard_buckets(self, index, quant: bool = False):
-        """The shard-major re-slice of the kernel layout for the
-        shard-parallel kernels: not ported yet."""
-        raise NotImplementedError(
-            "the sharded kernel layout is not ported yet (ROADMAP slice "
-            "'Sharded stage 1')")
+    def kernel_shard_buckets(self, index, quant: bool = False
+                             ) -> ShardLayout:
+        """The shard layout for the shard-owned routed scans
+        (``kernels/ann_topk_sharded``): shard s owns the cluster range
+        [bounds[s], bounds[s+1]) of :meth:`kernel_layout`.
+
+        ``shard_rows``/``shard_valid`` (S, Cmax, cap) and ``bounds``
+        (S+1,) are built on the host exactly as the reference's
+        ``kernel_shard_buckets`` builds them: shard s's slice holds its
+        owned cluster range, padded to the widest ownership span (empty
+        shards and S > C are legal). The reference also builds the
+        (S, Cmax, cap, D) payload from them, for a device mesh; the port
+        scans every shard on the index's one device, where each slice is a
+        contiguous range of the unsharded layout, so the device side is
+        that layout and the bounds, and no payload is copied. Cached
+        against the layout: a mutation or a rebalance invalidates it."""
+        base = self.kernel_layout(index, quant=quant)
+        if self._shard_cache is not None and self._shard_cache.layout is base:
+            return self._shard_cache
+        s, bounds = self.n_shards, self.shard_bounds
+        cmax = int(max(1, np.diff(bounds).max()))
+        bucket_rows = base.bucket_rows.cpu().numpy()
+        cap = bucket_rows.shape[1]
+        shard_rows = np.full((s, cmax, cap), -1, np.int32)
+        shard_valid = np.zeros((s, cmax, cap), np.int32)
+        for si in range(s):
+            lo, hi = int(bounds[si]), int(bounds[si + 1])
+            shard_rows[si, :hi - lo] = bucket_rows[lo:hi]
+            shard_valid[si, :hi - lo] = bucket_rows[lo:hi] >= 0
+        self._shard_cache = ShardLayout(
+            layout=base, bounds_dev=torch.from_numpy(
+                bounds.astype(np.int32)).to(base.bucket_rows.device),
+            shard_rows=shard_rows, shard_valid=shard_valid,
+            bounds=bounds.astype(np.int64))
+        return self._shard_cache

@@ -20,7 +20,9 @@ same code and produce identical results.
 With a :class:`~repro_torch.core.clustering.ClusterRouter` attached,
 stage 1 runs as a clustered (IVF) routed scan once the router has trained:
 the CUDA ``ann_topk_ivf`` kernel over a bucket layout gathered from the
-device mirror (kernel backend), or the reference's numpy routed scan.
+device mirror (kernel backend; ``ann_topk_ivf_sharded`` when the router
+partitions the clusters into shards), or the reference's numpy routed
+scan.
 """
 from __future__ import annotations
 
@@ -32,7 +34,8 @@ import torch
 
 from repro_torch.core.semantic_element import SemanticElement
 from repro_torch.device import resolve_device
-from repro_torch.kernels.ops import ann_topk_batch, ann_topk_ivf_batch
+from repro_torch.kernels.ops import (ann_topk_batch, ann_topk_ivf_batch,
+                                     ann_topk_ivf_sharded_batch)
 
 
 def probe_count(cfg) -> int:
@@ -119,25 +122,23 @@ class RowIndex:
         self.last_scanned_max_shard = self.last_scanned
         return (*brute_scan(), False)
 
-    def _kernel_probe(self, quant: bool):
-        """The router's device layout and probe count for a kernel routed
-        scan; raises for a sharded router (not ported yet)."""
-        rt = self.router
-        if rt.n_shards > 1:
-            raise NotImplementedError(
-                "a sharded routed scan on the kernel backend is not ported "
-                "yet (ROADMAP slice 'Sharded stage 1')")
-        return rt.kernel_layout(self, quant=quant), probe_count(rt.cfg)
-
     def _note_probed(self, sel: torch.Tensor, enabled: torch.Tensor) -> None:
         """Rows-scanned accounting from the kernel's own cluster selection:
-        the live centroids plus the members of every probed cluster."""
+        the live centroids plus the members of every probed cluster, and
+        under a sharded router the busiest shard's share of the probed
+        members (the engine charges max-over-shards)."""
         rt = self.router
         sel, enabled = sel.cpu().numpy(), enabled.cpu().numpy()
         probed = np.unique(sel[enabled > 0])
-        self.last_scanned = int((rt.counts > 0).sum()
-                                + rt.counts[probed].sum())
-        self.last_scanned_max_shard = self.last_scanned
+        n_cent = int((rt.counts > 0).sum())
+        self.last_scanned = n_cent + int(rt.counts[probed].sum())
+        if rt.n_shards > 1:
+            per_shard = np.bincount(
+                rt.shard_of[probed], weights=rt.counts[probed],
+                minlength=rt.n_shards)
+            self.last_scanned_max_shard = n_cent + int(per_shard.max())
+        else:
+            self.last_scanned_max_shard = self.last_scanned
 
     def remove_rows(self, rows) -> None:
         """Batched removal: one fancy-indexed store per field."""
@@ -386,10 +387,29 @@ class VectorIndex(RowIndex):
         (``ann_topk_ivf``) run on the device, so no host-side
         route()/gather happens at all — rows-scanned accounting derives
         from the kernel's own cluster selection."""
-        lay, nprobe = self._kernel_probe(quant=False)
+        rt = self.router
+        if rt.n_shards > 1:
+            return self._search_routed_kernel_sharded(q, k)
+        lay = rt.kernel_layout(self)
         sims, rows, sel, en = ann_topk_ivf_batch(
             lay.centroids, lay.live, lay.payload, lay.bucket_rows,
-            lay.bucket_valid, q, nprobe, k)
+            lay.bucket_valid, q, probe_count(rt.cfg), k)
+        self._note_probed(sel, en)
+        return rows.cpu().numpy(), sims.cpu().numpy()
+
+    def _search_routed_kernel_sharded(self, q: np.ndarray, k: int):
+        """Shard-parallel routed scan on the kernel backend (DESIGN.md
+        §13): routing stays global; each probed bucket is scanned by its
+        owning shard (``ann_topk_ivf_sharded``, every shard on the index's
+        device) and the S·nprobe·k finalists merge once. Scan accounting
+        splits the probed members by owner so the engine can charge
+        max-over-shards."""
+        rt = self.router
+        sh = rt.kernel_shard_buckets(self)
+        lay = sh.layout
+        sims, rows, sel, en = ann_topk_ivf_sharded_batch(
+            lay.centroids, lay.live, lay.payload, lay.bucket_rows,
+            lay.bucket_valid, sh.bounds_dev, q, probe_count(rt.cfg), k)
         self._note_probed(sel, en)
         return rows.cpu().numpy(), sims.cpu().numpy()
 

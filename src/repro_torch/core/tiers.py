@@ -46,10 +46,11 @@ from repro_torch.core.clustering import ClusterConfig, ClusterRouter
 from repro_torch.core.se_store import SEStore
 from repro_torch.core.semantic_element import SemanticElement
 from repro_torch.core.seri import (RowIndex, Seri, VectorIndex,
-                                   sharded_topk_merge, topk_desc,
-                                   topk_desc_stable)
+                                   probe_count, sharded_topk_merge,
+                                   topk_desc, topk_desc_stable)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import (ann_topk_ivf_quant_batch,
+                                     ann_topk_ivf_quant_sharded_batch,
                                      ann_topk_quant_batch)
 
 NEG = -3.0e38  # matches kernels/ann_topk_quant.NEG (masked-row sentinel)
@@ -208,11 +209,30 @@ class QuantIndex(RowIndex):
         scan (``ann_topk_ivf_quant``) run on the device, no host-side
         route()/gather; rows-scanned derives from the kernel's own
         cluster selection."""
-        lay, nprobe = self._kernel_probe(quant=True)
+        rt = self.router
+        if rt.n_shards > 1:
+            return self._coarse_routed_kernel_sharded(q, qq, qs, r)
+        lay = rt.kernel_layout(self, quant=True)
         bq, bscale = lay.payload
         vals, rows, sel, en = ann_topk_ivf_quant_batch(
             lay.centroids, lay.live, bq, bscale, lay.bucket_rows,
-            lay.bucket_valid, q, qq, qs, nprobe, r)
+            lay.bucket_valid, q, qq, qs, probe_count(rt.cfg), r)
+        self._note_probed(sel, en)
+        return rows.cpu().numpy(), vals.cpu().numpy()
+
+    def _coarse_routed_kernel_sharded(self, q, qq, qs, r: int):
+        """Shard-parallel quantized coarse scan, the int8 sibling of
+        ``VectorIndex._search_routed_kernel_sharded`` (DESIGN.md §13):
+        global routing, the shard-owned int8 scan
+        (``ann_topk_ivf_quant_sharded``), one cross-shard merge."""
+        rt = self.router
+        sh = rt.kernel_shard_buckets(self, quant=True)
+        lay = sh.layout
+        bq, bscale = lay.payload
+        vals, rows, sel, en = ann_topk_ivf_quant_sharded_batch(
+            lay.centroids, lay.live, bq, bscale, lay.bucket_rows,
+            lay.bucket_valid, sh.bounds_dev, q, qq, qs,
+            probe_count(rt.cfg), r)
         self._note_probed(sel, en)
         return rows.cpu().numpy(), vals.cpu().numpy()
 

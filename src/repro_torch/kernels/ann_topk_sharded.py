@@ -1,0 +1,173 @@
+"""Sharded clustered stage 1 (DESIGN.md §13): the shard-owned routed
+scans, as CUDA kernels for Hopper (``csrc/ann_topk_ivf.cu``'s sharded
+entry points) beside their plain PyTorch versions.
+
+Replaces ``repro/kernels/ann_topk_sharded.py::ann_topk_ivf_sharded`` and
+``::ann_topk_ivf_quant_sharded``, which run the Pallas routed-scan kernels
+once per shard. ``sel`` carries GLOBAL cluster ids from the shared router;
+shard s owns the contiguous cluster range ``[bounds[s], bounds[s+1])``
+(a repeated cut point is an empty shard). Output contract, the
+reference's: ``(vals, rows)`` stacks of shape (S, B, nprobe, k), where
+entry (s, b, j) holds probe (b, j)'s finalists if shard s owns
+``sel[b, j]`` and NEG otherwise, rows are GLOBAL index rows, -1 where
+``vals <= NEG / 2``. ``kernels/ops.py::_merge_shards`` merges the stacks.
+
+Input contract, one change from the reference: the reference takes a
+padded (S, Cmax, cap, D) copy of the buckets, laid out so that a device
+mesh can hold one shard's slice per device. On one device every shard's
+slice is the contiguous range ``[bounds[s], bounds[s+1])`` of the
+unsharded (C, cap, D) layout that ``ClusterRouter.kernel_layout`` already
+keeps on the device, so these functions take that layout, its
+``bucket_valid`` and ``bucket_rows`` (C, cap), and ``bounds`` (S+1,)
+int32, and no second copy of the payload exists.
+
+The CUDA kernel scans each probed bucket once, in the CTA of its probe,
+and writes the probe's whole (S, k) column of the stacks: the finalists
+with their global rows (read from ``bucket_rows``) at the owning shard,
+NEG / -1 at the others. It scores exactly as ``ann_topk_ivf`` /
+``ann_topk_ivf_quant`` do (the same device code), so at S = 1 the stacks
+equal the unsharded kernels' bitwise. Shapes it cannot take fail at
+launch, with the shape in the error.
+
+:func:`ann_topk_ivf_sharded` and :func:`ann_topk_ivf_quant_sharded` launch
+the kernels for CUDA tensors and raise if they cannot; they take the plain
+versions only for CPU tensors. Each counts ``launches`` and
+``plain_calls``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.ann_topk import NEG
+from repro_torch.kernels.ann_topk_ivf import (_check, _launch, _u8,
+                                              ann_topk_ivf_plain,
+                                              ann_topk_ivf_quant_plain)
+
+
+def _own_probes(sel: torch.Tensor, en: torch.Tensor, lo: int, hi: int):
+    """Mask ``sel`` down to one shard's owned cluster range and translate
+    to its local bucket ids. Non-owned probes come back disabled with a
+    clipped (in-range, never scanned) local id."""
+    own = (sel >= lo) & (sel < hi)
+    loc = (sel - lo).clamp(0, hi - lo - 1).to(torch.int32)
+    return loc, (en * own).to(torch.int32)
+
+
+def _sharded_plain(scan, sel, enabled, bucket_rows, bounds, k):
+    """The reference's per-shard loop: per shard, mask the probes to its
+    range, ``scan(loc, en_s, lo, hi)`` its slice of the buckets, then map
+    the winning slots to global rows. An empty shard scans nothing: all
+    its probes are disabled, so its entries are NEG / -1."""
+    b, nprobe = sel.shape
+    s, cap = bounds.numel() - 1, bucket_rows.shape[1]
+    vals = torch.full((s, b, nprobe, k), NEG, dtype=torch.float32,
+                      device=sel.device)
+    rows = torch.full((s, b, nprobe, k), -1, dtype=torch.int32,
+                      device=sel.device)
+    for si in range(s):
+        lo, hi = int(bounds[si]), int(bounds[si + 1])
+        if hi <= lo:
+            continue
+        loc, en_s = _own_probes(sel, enabled, lo, hi)
+        v, slots = scan(loc, en_s, lo, hi)
+        # a masked finalist's slot may lie past the bucket (k > cap)
+        r = bucket_rows[lo:hi][loc.long()[:, :, None],
+                               slots.long().clamp(0, cap - 1)]
+        vals[si] = v
+        rows[si] = torch.where(v > NEG / 2, r, -1)
+    return vals, rows
+
+
+def ann_topk_ivf_sharded_plain(sel, enabled, q, buckets, bucket_valid,
+                               bucket_rows, bounds, k: int = 4):
+    """Plain PyTorch version of the fp32 sharded scan: the plain
+    ``ann_topk_ivf`` over each shard's slice."""
+    return _sharded_plain(
+        lambda loc, en_s, lo, hi: ann_topk_ivf_plain(
+            loc, en_s, q, buckets[lo:hi], bucket_valid[lo:hi], k),
+        sel, enabled, bucket_rows, bounds, k)
+
+
+def ann_topk_ivf_quant_sharded_plain(sel, enabled, qq, q_scales, buckets_q,
+                                     bucket_scale, bucket_valid, bucket_rows,
+                                     bounds, k: int = 16):
+    """Plain PyTorch version of the int8 sharded scan: the plain
+    ``ann_topk_ivf_quant`` over each shard's slice."""
+    return _sharded_plain(
+        lambda loc, en_s, lo, hi: ann_topk_ivf_quant_plain(
+            loc, en_s, qq, q_scales, buckets_q[lo:hi], bucket_scale[lo:hi],
+            bucket_valid[lo:hi], k),
+        sel, enabled, bucket_rows, bounds, k)
+
+
+def _check_shards(c: int, cap: int, bucket_rows, bounds) -> int:
+    if bucket_rows.shape != (c, cap) or bucket_rows.dtype != torch.int32:
+        raise ValueError(f"want bucket_rows ({c}, {cap}) int32; got "
+                         f"{tuple(bucket_rows.shape)} {bucket_rows.dtype}")
+    if bounds.ndim != 1 or bounds.numel() < 2 or bounds.dtype != torch.int32:
+        raise ValueError(f"want bounds (S+1,) int32 with S >= 1; got "
+                         f"{tuple(bounds.shape)} {bounds.dtype}")
+    return bounds.numel() - 1
+
+
+def ann_topk_ivf_sharded(sel: torch.Tensor, enabled: torch.Tensor,
+                         q: torch.Tensor, buckets: torch.Tensor,
+                         bucket_valid: torch.Tensor,
+                         bucket_rows: torch.Tensor, bounds: torch.Tensor,
+                         k: int = 4) -> tuple[torch.Tensor, torch.Tensor]:
+    """fp32 shard-owned routed scan: (S, B, nprobe, k) stacks of vals and
+    global rows."""
+    shape = _check(sel, enabled, q, buckets, bucket_valid, k,
+                   q_dtype=torch.float32, bucket_dtype=torch.float32,
+                   extra=(bucket_rows, bounds))
+    s = _check_shards(shape[2], shape[3], bucket_rows, bounds)
+    if sel.device.type == "cpu":
+        ann_topk_ivf_sharded.plain_calls += 1
+        return ann_topk_ivf_sharded_plain(sel, enabled, q, buckets,
+                                          bucket_valid, bucket_rows, bounds,
+                                          k)
+    out = _launch("ann_topk_ivf_sharded", sel.device, shape,
+                  (sel, enabled, q, buckets, _u8(bucket_valid), bucket_rows,
+                   bounds), k, n_shards=s)
+    ann_topk_ivf_sharded.launches += 1
+    return out
+
+
+def ann_topk_ivf_quant_sharded(sel: torch.Tensor, enabled: torch.Tensor,
+                               qq: torch.Tensor, q_scales: torch.Tensor,
+                               buckets_q: torch.Tensor,
+                               bucket_scale: torch.Tensor,
+                               bucket_valid: torch.Tensor,
+                               bucket_rows: torch.Tensor,
+                               bounds: torch.Tensor, k: int = 16
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """int8 shard-owned routed coarse scan, the quantized sibling of
+    :func:`ann_topk_ivf_sharded`. Callers rescore the finalists in fp32."""
+    shape = _check(sel, enabled, qq, buckets_q, bucket_valid, k,
+                   q_dtype=torch.int8, bucket_dtype=torch.int8,
+                   extra=(q_scales, bucket_scale, bucket_rows, bounds))
+    b, _, c, cap, _ = shape
+    if q_scales.shape != (b,) or bucket_scale.shape != (c, cap) \
+            or q_scales.dtype != torch.float32 \
+            or bucket_scale.dtype != torch.float32:
+        raise ValueError(f"want q_scales ({b},) and bucket_scale ({c}, {cap}) "
+                         f"float32; got {tuple(q_scales.shape)} "
+                         f"{q_scales.dtype}, {tuple(bucket_scale.shape)} "
+                         f"{bucket_scale.dtype}")
+    s = _check_shards(c, cap, bucket_rows, bounds)
+    if sel.device.type == "cpu":
+        ann_topk_ivf_quant_sharded.plain_calls += 1
+        return ann_topk_ivf_quant_sharded_plain(
+            sel, enabled, qq, q_scales, buckets_q, bucket_scale,
+            bucket_valid, bucket_rows, bounds, k)
+    out = _launch("ann_topk_ivf_quant_sharded", sel.device, shape,
+                  (sel, enabled, qq, q_scales, buckets_q, bucket_scale,
+                   _u8(bucket_valid), bucket_rows, bounds), k, n_shards=s)
+    ann_topk_ivf_quant_sharded.launches += 1
+    return out
+
+
+ann_topk_ivf_sharded.launches = 0
+ann_topk_ivf_sharded.plain_calls = 0
+ann_topk_ivf_quant_sharded.launches = 0
+ann_topk_ivf_quant_sharded.plain_calls = 0

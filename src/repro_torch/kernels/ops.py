@@ -13,6 +13,8 @@ import torch
 from repro_torch.kernels.ann_topk import K_MAX, NEG, ann_topk
 from repro_torch.kernels.ann_topk_ivf import ann_topk_ivf, ann_topk_ivf_quant
 from repro_torch.kernels.ann_topk_quant import ann_topk_quant
+from repro_torch.kernels.ann_topk_sharded import (ann_topk_ivf_quant_sharded,
+                                                  ann_topk_ivf_sharded)
 
 
 def _on(x, device, dtype) -> torch.Tensor:
@@ -67,17 +69,23 @@ def _merge_probes(vals: torch.Tensor, slots: torch.Tensor, sel: torch.Tensor,
     """(B, nprobe, k) per-probe finalists -> (B, kk) global top-k. Mirrors
     ``repro.kernels.ops._merge_probes``: slots map to global rows through
     ``bucket_rows[sel]`` (-1 where ``vals <= NEG / 2``), then the top-kk of
-    the flat probe-major finalists, ties to the lowest flat position as
-    ``lax.top_k`` gives them (a stable sort; ``torch.topk``'s tie order is
-    unspecified). Exact ties between buckets therefore merge in probe
-    order, the reference's documented kernel-backend caveat."""
+    the flat probe-major finalists (``_top_flat``). Exact ties between
+    buckets therefore merge in probe order, the reference's documented
+    kernel-backend caveat."""
     b, nprobe, kin = vals.shape
     cap = bucket_rows.shape[1]
     rows = bucket_rows[sel.long()[:, :, None], slots.long().clamp(0, cap - 1)]
     rows = torch.where(vals > NEG / 2, rows, -1)
     flat_v = vals.reshape(b, nprobe * kin)
     flat_r = rows.reshape(b, nprobe * kin)
-    kk = min(k, nprobe * kin)
+    return _top_flat(flat_v, flat_r, k)
+
+
+def _top_flat(flat_v: torch.Tensor, flat_r: torch.Tensor, k: int):
+    """The top-min(k, m) of (B, m) finalists, ties to the lowest flat
+    position as ``lax.top_k`` gives them (a stable sort; ``torch.topk``'s
+    tie order is unspecified)."""
+    kk = min(k, flat_v.shape[1])
     pos = torch.sort(-flat_v, dim=1, stable=True).indices[:, :kk]
     return flat_v.gather(1, pos), flat_r.gather(1, pos)
 
@@ -117,4 +125,59 @@ def ann_topk_ivf_quant_batch(centroids: torch.Tensor, live: torch.Tensor,
         _on(q_scales, dev, torch.float32), buckets_q, bucket_scale,
         bucket_valid, k)
     top_v, top_r = _merge_probes(vals, slots, sel, bucket_rows, k)
+    return top_v, top_r, sel, enabled
+
+
+def _merge_shards(vals: torch.Tensor, rows: torch.Tensor, k: int):
+    """(S, B, nprobe, k) shard stacks -> (B, kk) finalists. Mirrors
+    ``repro.kernels.ops._merge_shards``: rows already carry GLOBAL index
+    ids (-1 where masked), so no translation here; one top-kk over the
+    shard-major flat (S·nprobe·k) finalists, exact-score ties across
+    shards in shard-major flat order (the reference's kernel-backend
+    caveat, as ``_merge_probes``'s between-bucket order)."""
+    b = vals.shape[1]
+    return _top_flat(vals.transpose(0, 1).reshape(b, -1),
+                     rows.transpose(0, 1).reshape(b, -1), k)
+
+
+def ann_topk_ivf_sharded_batch(centroids: torch.Tensor, live: torch.Tensor,
+                               buckets: torch.Tensor,
+                               bucket_rows: torch.Tensor,
+                               bucket_valid: torch.Tensor,
+                               bounds: torch.Tensor, q, nprobe: int,
+                               k: int = 4):
+    """Sharded clustered VectorIndex backend adapter (DESIGN.md §13),
+    mirroring ``repro.kernels.ops.ann_topk_ivf_sharded_jit``: routing
+    stays GLOBAL (the same ``_route`` as the unsharded adapter, so the
+    probed cluster set is shard-count invariant), each probed bucket is
+    scanned by its owning shard (``kernels/ann_topk_sharded``), and the
+    S·nprobe·k finalists merge once. Returns ``(vals, rows, sel,
+    enabled)`` like :func:`ann_topk_ivf_batch`."""
+    q = _on(q, buckets.device, torch.float32)
+    sel, enabled = _route(centroids, live, q, nprobe)
+    vals, rows = ann_topk_ivf_sharded(sel, enabled, q, buckets, bucket_valid,
+                                      bucket_rows, bounds, k)
+    top_v, top_r = _merge_shards(vals, rows, k)
+    return top_v, top_r, sel, enabled
+
+
+def ann_topk_ivf_quant_sharded_batch(centroids: torch.Tensor,
+                                     live: torch.Tensor,
+                                     buckets_q: torch.Tensor,
+                                     bucket_scale: torch.Tensor,
+                                     bucket_rows: torch.Tensor,
+                                     bucket_valid: torch.Tensor,
+                                     bounds: torch.Tensor, q, qq, q_scales,
+                                     nprobe: int, k: int = 16):
+    """Sharded clustered QuantIndex backend adapter (coarse phase only):
+    fp32 global routing, the int8 shard-owned scan, one cross-shard merge;
+    mirrors ``repro.kernels.ops.ann_topk_ivf_quant_sharded_jit``."""
+    dev = buckets_q.device
+    q = _on(q, dev, torch.float32)
+    sel, enabled = _route(centroids, live, q, nprobe)
+    vals, rows = ann_topk_ivf_quant_sharded(
+        sel, enabled, _on(qq, dev, torch.int8),
+        _on(q_scales, dev, torch.float32), buckets_q, bucket_scale,
+        bucket_valid, bucket_rows, bounds, k)
+    top_v, top_r = _merge_shards(vals, rows, k)
     return top_v, top_r, sel, enabled

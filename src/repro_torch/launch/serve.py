@@ -7,12 +7,17 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --workload longtail \
       --warm-frac 0.5 --cluster --backend kernel --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.serve --cluster --shards 8 \
+      --t-cache-per-row 2e-5 --t-shard-merge 1e-4 --backend kernel
 
 Stage 1 runs on the CUDA kernels by default (``backend="kernel"``,
 ``device="cuda"``): ``ann_topk`` for the brute scan and the routing,
-``ann_topk_ivf`` for the clustered scan (``--cluster``), and
+``ann_topk_ivf`` for the clustered scan (``--cluster``),
 ``ann_topk_quant``/``ann_topk_ivf_quant`` for the int8 warm tier
-(``--warm-frac``); ``device="cpu"`` runs the kernels' plain PyTorch
+(``--warm-frac``), and ``ann_topk_ivf_sharded``/
+``ann_topk_ivf_quant_sharded`` for the clustered scans partitioned into
+cluster-ownership shards (``--shards``, every shard on the one device);
+``device="cpu"`` runs the kernels' plain PyTorch
 versions, and ``backend="numpy"`` the host path.
 Options whose subsystems are not ported yet raise ``NotImplementedError``
 naming their ROADMAP slice.
@@ -34,7 +39,6 @@ from repro_torch.serving.engine import Engine, EngineConfig, ExactCache
 from repro_torch.serving.gpu import GPU, GPUConfig
 from repro_torch.serving.remote import RemoteDataService
 
-SHARDED = "Sharded stage 1"
 FRESHNESS = "Freshness, federation, robustness"
 TELEMETRY = "Observability export and telemetry"
 STAGE2 = "Real stage-2 compute"
@@ -121,7 +125,6 @@ def run_once(
     """One engine run; the summary dict equals the reference's
     ``repro.launch.serve.run_once`` for the same arguments."""
     for option, asked, roadmap_slice in (
-        ("shards > 1", shards > 1, SHARDED),
         ("churn_period", churn_period is not None, FRESHNESS),
         ("invalidation", invalidation, FRESHNESS),
         ("refresh_ahead", refresh_ahead, FRESHNESS),
@@ -158,10 +161,13 @@ def run_once(
         judge = JudgePipeline(oracle, judge_cfg=jcfg, max_len=judge_max_len,
                               band=band)
         # clustered (IVF) stage-1 routing, DESIGN.md §12; nprobe=None
-        # probes every cluster (the brute-force-parity mode)
+        # probes every cluster (the brute-force-parity mode). shards>1
+        # (the §13 cluster-ownership partition) requires the router, so
+        # it implies --cluster on its own.
         ccfg = ClusterConfig(
             n_clusters=n_clusters, nprobe=nprobe, seed=seed + 5,
-        ) if cluster else None
+            n_shards=max(1, shards),
+        ) if (cluster or shards > 1) else None
         if warm_frac:
             # tiered storage at EQUAL total bytes: the warm slice comes
             # OUT of the same budget, it is never additional capacity
@@ -265,6 +271,13 @@ def main(argv=None):
     ap.add_argument("--nprobe", type=int, default=8,
                     help="clusters probed per query; 0 = all (the "
                          "brute-force-parity mode)")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="partition the stage-1 index into this many "
+                         "cluster-ownership shards (DESIGN.md §13; "
+                         "implies --cluster)")
+    ap.add_argument("--t-shard-merge", type=float, default=0.0,
+                    help="cross-shard top-k merge cost per stage-1 pass "
+                         "(only charged when --shards > 1)")
     ap.add_argument("--trend-duration", type=float, default=None,
                     help="trend workload: compress the same requests "
                          "into this many virtual seconds (default 600)")
@@ -273,7 +286,6 @@ def main(argv=None):
                          "to a seeded reservoir of this size")
     # options of subsystems not ported yet: accepted so that asking for
     # them names the ROADMAP slice instead of failing to parse
-    ap.add_argument("--shards", type=int, default=1)
     ap.add_argument("--churn-period", type=float, default=None)
     ap.add_argument("--invalidation", action="store_true")
     ap.add_argument("--refresh-ahead", action="store_true")
@@ -315,6 +327,7 @@ def main(argv=None):
         nprobe=args.nprobe or None,
         t_cache_per_row=args.t_cache_per_row,
         shards=args.shards,
+        t_shard_merge=args.t_shard_merge,
         trace=args.trace,
         sample_interval=args.sample_interval,
         slo=args.slo,

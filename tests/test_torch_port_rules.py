@@ -1,6 +1,6 @@
 """Rules of the port: what it may import, how it picks its device, what it
-refuses until its ROADMAP slice lands, what it builds, and the config
-arithmetic the stage-2 judge prices itself with."""
+refuses until its ROADMAP slice lands (and runs once it has), what it
+builds, and the config arithmetic the stage-2 judge prices itself with."""
 import ast
 import dataclasses
 import os
@@ -95,7 +95,6 @@ def test_cuda_without_cuda_raises(monkeypatch):
 
 
 UNPORTED = {
-    "shards": ({"shards": 2}, "Sharded stage 1"),
     "churn_period": ({"churn_period": 20.0}, "Freshness"),
     "invalidation": ({"invalidation": True}, "Freshness"),
     "refresh_ahead": ({"refresh_ahead": True}, "Freshness"),
@@ -110,8 +109,24 @@ UNPORTED = {
 }
 
 
-@pytest.mark.parametrize("option", sorted(UNPORTED))
+# options whose ROADMAP slice has landed since they were refused here
+PORTED_SINCE = {"shards": {"shards": 2}}
+
+
+def _kernel_equals_numpy(**kwargs) -> dict:
+    got = run_once(n_requests=10, backend="kernel", device="cpu", **kwargs)
+    assert got == run_once(n_requests=10, backend="numpy", device="cpu",
+                           **kwargs)
+    return got
+
+
+@pytest.mark.parametrize("option", sorted({*UNPORTED, *PORTED_SINCE}))
 def test_unported_option_names_its_roadmap_slice(option):
+    """An option not ported yet raises, naming its ROADMAP slice; one
+    ported since runs, on the kernel backend as on the numpy one."""
+    if option in PORTED_SINCE:
+        _kernel_equals_numpy(**PORTED_SINCE[option])
+        return
     kwargs, roadmap_slice = UNPORTED[option]
     with pytest.raises(NotImplementedError, match=roadmap_slice):
         run_once(n_requests=10, backend="numpy", device="cpu", **kwargs)
@@ -119,14 +134,13 @@ def test_unported_option_names_its_roadmap_slice(option):
 
 @pytest.mark.parametrize("option", ["warm_frac", "cluster"])
 def test_tiers_and_clustering_no_longer_raise(option):
-    """The options of the ported slices run; shards > 1 still raises."""
+    """The options of the ported slices run, sharded too (shards > 1), the
+    kernel backend's summary equal to the numpy backend's."""
     kwargs = {"warm_frac": 0.5} if option == "warm_frac" else \
         {"cluster": True}
     out = run_once(n_requests=10, backend="numpy", device="cpu", **kwargs)
     assert out["hit_rate"] >= 0
-    with pytest.raises(NotImplementedError, match="Sharded stage 1"):
-        run_once(n_requests=10, backend="numpy", device="cpu", shards=2,
-                 **kwargs)
+    assert _kernel_equals_numpy(shards=2, **kwargs)["stage1_shards"] == 2
 
 
 def test_unported_entry_points_raise():
@@ -140,8 +154,9 @@ def test_unported_entry_points_raise():
     cache = make_cache(capacity_bytes=1000, dim=8, judge=OracleJudge(world),
                        backend="kernel", device="cpu",
                        cluster=ClusterConfig(n_shards=2))
-    with pytest.raises(NotImplementedError, match="Sharded stage 1"):
-        cache.seri.index.router.kernel_shard_buckets(cache.seri.index)
+    # the sharded kernel layout is ported: the even split of 64 clusters
+    sh = cache.seri.index.router.kernel_shard_buckets(cache.seri.index)
+    assert sh.bounds.tolist() == sh.bounds_dev.tolist() == [0, 32, 64]
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -169,19 +169,27 @@ def test_selection_helpers_match_reference(k):
 
 
 def test_cluster_router_is_not_ported_yet():
-    """The clustered router is ported; its sharded form is not yet on the
-    kernel backend (ROADMAP slice "Sharded stage 1")."""
+    """The clustered router is ported, and so is its sharded form on the
+    kernel backend: a sharded routed search runs there and equals the
+    numpy backend's (ids; sims within 2e-5), rows scanned included."""
     from repro_torch.core.clustering import ClusterConfig, ClusterRouter
 
     rng = np.random.default_rng(4)
-    cfg = ClusterConfig(n_clusters=4, nprobe=2, min_train=16, n_shards=2)
-    idx = VectorIndex(64, 8, backend="kernel", device="cpu",
-                      router=ClusterRouter(64, 8, cfg))
-    for i in range(32):
-        idx.add(i, _unit(rng.standard_normal(8)))
-    assert idx.router.ready
-    with pytest.raises(NotImplementedError, match="Sharded stage 1"):
-        idx.search_batch(_unit(rng.standard_normal((2, 8))), 4, 0.0)
+    embs = _unit(rng.standard_normal((32, 8)))
+    q = _unit(rng.standard_normal((2, 8)))
+    out = []
+    for backend in ("kernel", "numpy"):
+        cfg = ClusterConfig(n_clusters=4, nprobe=2, min_train=16, n_shards=2)
+        idx = VectorIndex(64, 8, backend=backend, device="cpu",
+                          router=ClusterRouter(64, 8, cfg))
+        for i in range(32):
+            idx.add(i, embs[i])
+        assert idx.router.ready
+        out.append((idx.search_batch(q, 4, 0.0), idx.last_scanned,
+                    idx.last_scanned_max_shard))
+    (got, *scan_k), (want, *scan_n) = out
+    _assert_same(got, want, exact=False)
+    assert scan_k == scan_n
 
 
 def test_unknown_backend_is_refused():
