@@ -1,12 +1,11 @@
 """Carry state from the reference package into the port.
 
-The port's main path runs no model, so its state is the stage-1 indexes
-and their cluster routers: the embedding matrices (fp32 hot, int8 warm),
-the active masks, the row→se_id maps, the free-lists, and each router's
-centroids, assignments, member lists and random state. Tests and
-``chip_smoke.py`` start both packages, or both backends, from one index
-state with these. ``ModelJudge`` parameters join this module with the
-ROADMAP slice "Real stage-2 compute".
+Two kinds of state: the stage-1 indexes and their cluster routers (the
+embedding matrices, fp32 hot and int8 warm, the active masks, the
+row→se_id maps, the free-lists, and each router's centroids,
+assignments, member lists and random state), and the language models'
+parameters (:func:`lm_params_from_numpy`). Tests and ``chip_smoke.py``
+start both packages, or both backends, from one state with these.
 """
 from __future__ import annotations
 
@@ -16,6 +15,9 @@ import torch
 from repro_torch.core.clustering import ClusterConfig, ClusterRouter
 from repro_torch.core.seri import VectorIndex
 from repro_torch.core.tiers import QuantIndex
+from repro_torch.device import resolve_device
+from repro_torch.nn.config import ModelConfig
+from repro_torch.nn.param import ParamSpec
 
 
 def _rows_into(index, active, row_se, free) -> None:
@@ -111,3 +113,57 @@ def cluster_router_from_numpy(cfg: ClusterConfig, capacity: int, *,
     rt.migrated_rows = int(migrated_rows)
     rt.migration_chunks = int(migration_chunks)
     return rt
+
+
+def _tensor(a) -> torch.Tensor:
+    """A host array as a tensor. A JAX bf16 leaf arrives as an
+    ``ml_dtypes`` bfloat16 array, which torch cannot read: its raw bits go
+    over as int16 and are viewed as ``torch.bfloat16``."""
+    a = np.array(a)  # a writable copy the tensor owns
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def lm_params_from_numpy(tree, cfg: ModelConfig, device="cuda") -> dict:
+    """The reference's LM parameter tree (``LM.param_specs`` of
+    ``repro.models.lm``, leaves as numpy arrays; each superblock position
+    ``blocks/l{i}`` stacked over ``n_repeat`` when ``n_repeat > 1``) as
+    the port's ``repro_torch.models.lm.LM`` parameters on ``device``: the
+    same leaves, the layers as a list in ``cfg.layer_iter()`` order. Each
+    leaf must have its spec's shape and dtype."""
+    from repro_torch.models.lm import LM
+
+    dev = resolve_device(device)
+    specs = LM(cfg).param_specs()
+    nb = len(cfg.blocks)
+
+    def stacked(r):
+        return lambda a: np.asarray(a)[r] if cfg.n_repeat > 1 else a
+
+    def pick(sub, fn):
+        if isinstance(sub, dict):
+            return {k: pick(v, fn) for k, v in sub.items()}
+        return fn(sub)
+
+    src = {k: tree[k] for k in ("embed", "final_norm", "head") if k in tree}
+    src["layers"] = [pick(tree["blocks"][f"l{i % nb}"], stacked(i // nb))
+                     for i in range(cfg.n_repeat * nb)]
+
+    def leaf(spec: ParamSpec, a) -> torch.Tensor:
+        t = _tensor(a)
+        if tuple(t.shape) != spec.shape or t.dtype != spec.dtype:
+            raise ValueError(f"leaf {tuple(t.shape)} {t.dtype} does not match "
+                             f"its spec {spec.shape} {spec.dtype}")
+        return t.to(dev)
+
+    def walk(spec, sub):
+        if isinstance(spec, ParamSpec):
+            return leaf(spec, sub)
+        if isinstance(spec, dict):
+            if set(spec) != set(sub):
+                raise ValueError(f"keys {sorted(sub)} != {sorted(spec)}")
+            return {k: walk(v, sub[k]) for k, v in spec.items()}
+        return [walk(v, s) for v, s in zip(spec, sub, strict=True)]
+
+    return walk(specs, src)

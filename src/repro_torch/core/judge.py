@@ -9,10 +9,11 @@ estimate (1–10) at admission time.
   decisions with configurable TPR/FPR noise. Its *scores* are drawn from
   two calibrated beta-like distributions so threshold recalibration
   (Algorithm 1) has a real precision curve to sweep.
-* ``ModelJudge`` — a real tiny cross-encoder (prefill-only, single score
-  token — the profile that makes co-location cheap, §4.4). Not ported
-  yet: it raises ``NotImplementedError`` until the ROADMAP slice "Real
-  stage-2 compute" lands.
+* ``ModelJudge`` — a real tiny cross-encoder on the port's model stack
+  (prefill-only, single score token — the profile that makes co-location
+  cheap, §4.4); its attention is the ``flash_attention_fwd`` kernel. With
+  random weights its decisions are meaningless; it exists to measure the
+  judge's true compute footprint and to drive the co-location scheduler.
 """
 from __future__ import annotations
 
@@ -20,6 +21,9 @@ import dataclasses
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -105,13 +109,52 @@ class OracleJudge:
 class ModelJudge:
     """Tiny cross-encoder: prefill-only classification (one score).
 
-    Not ported yet: the model stack it runs on arrives with the ROADMAP
-    slice "Real stage-2 compute"."""
+    The score of a pair is sigmoid(mean of the last position's hidden
+    state) of ``"{query} [SEP] {cached}"`` as byte tokens. ``params`` (the
+    port's LM parameters, e.g. from ``convert.lm_params_from_numpy``)
+    replaces the seeded init, which draws on ``device``."""
 
-    def __init__(self, cfg=None, max_len: int = 128, seed: int = 1):
-        raise NotImplementedError(
-            "ModelJudge is not ported yet (ROADMAP slice "
-            "'Real stage-2 compute')")
+    def __init__(self, cfg=None, max_len: int = 128, seed: int = 1,
+                 device="cuda", params=None):
+        from repro_torch.configs import get_config, shrink
+        from repro_torch.core.embedder import byte_tokens
+        from repro_torch.models.lm import LM
+        from repro_torch.nn.param import init_params
+
+        cfg = cfg or shrink(get_config("qwen3-0.6b"), d_model=128, vocab=512,
+                            n_repeat=2)
+        self.cfg = cfg
+        self.max_len = max_len
+        self.device = resolve_device(device)
+        self._byte_tokens = byte_tokens
+        self.lm = LM(cfg)
+        self.params = params if params is not None else init_params(
+            self.lm.param_specs(),
+            torch.Generator(device=self.device).manual_seed(seed),
+            self.device)
+
+    def score(self, tokens: torch.Tensor) -> torch.Tensor:
+        """(B, S) tokens on the judge's device -> (B,) fp32 scores."""
+        x = self.lm._embed(self.params, tokens)
+        x, _ = self.lm._run_stack(self.params, x, self.lm._positions(tokens))
+        # single-token classification readout (prefill-only profile)
+        return torch.sigmoid(torch.mean(x[:, -1, :].float(), dim=-1))
+
+    def score_pairs(self, queries, cached_keys) -> np.ndarray:
+        toks = np.stack([
+            self._byte_tokens(f"{q} [SEP] {c}", self.max_len)
+            for q, c in zip(queries, cached_keys)
+        ]) % self.cfg.vocab_size
+        with torch.inference_mode():
+            out = self.score(torch.from_numpy(toks).to(self.device))
+        return out.cpu().numpy().astype(np.float32)
+
+    def staticity(self, query: str) -> int:
+        # stable across processes (Python's hash() is salted per run,
+        # which made admission TTLs irreproducible)
+        import zlib
+
+        return 1 + (zlib.crc32(query.encode()) % 10)
 
 
 class HybridJudge:

@@ -1,5 +1,7 @@
-"""Adapters between the indexes and the kernels, mirroring
-``repro.kernels.ops``.
+"""The kernels' public wrappers and the adapters between the indexes and
+the stage-1 kernels, mirroring ``repro.kernels.ops``. The model stack
+calls the attention wrappers (``flash_attention_fwd``,
+``decode_attention``) as they are.
 
 The reference pads B to a multiple of 8 for the TPU's sublane tiling; the
 CUDA kernels take any B, so nothing here pads. Queries arrive as numpy
@@ -15,6 +17,15 @@ from repro_torch.kernels.ann_topk_ivf import ann_topk_ivf, ann_topk_ivf_quant
 from repro_torch.kernels.ann_topk_quant import ann_topk_quant
 from repro_torch.kernels.ann_topk_sharded import (ann_topk_ivf_quant_sharded,
                                                   ann_topk_ivf_sharded)
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention_fwd
+
+__all__ = ["ann_topk", "ann_topk_quant", "ann_topk_ivf", "ann_topk_ivf_quant",
+           "ann_topk_ivf_sharded", "ann_topk_ivf_quant_sharded",
+           "flash_attention_fwd", "decode_attention", "ann_topk_batch",
+           "ann_topk_quant_batch", "ann_topk_ivf_batch",
+           "ann_topk_ivf_quant_batch", "ann_topk_ivf_sharded_batch",
+           "ann_topk_ivf_quant_sharded_batch"]
 
 
 def _on(x, device, dtype) -> torch.Tensor:

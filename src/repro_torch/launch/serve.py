@@ -18,7 +18,13 @@ Stage 1 runs on the CUDA kernels by default (``backend="kernel"``,
 ``ann_topk_ivf_quant_sharded`` for the clustered scans partitioned into
 cluster-ownership shards (``--shards``, every shard on the one device);
 ``device="cpu"`` runs the kernels' plain PyTorch
-versions, and ``backend="numpy"`` the host path.
+versions, and ``backend="numpy"`` the host path. ``--judge-compute model``
+also pays the tiny-LM judge's prefill on ``device`` (its attention the
+``flash_attention_fwd`` kernel) for every judge micro-batch; decisions
+stay the oracle's, so the summary is the oracle run's.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --judge-compute model \
+      --device cpu
 Options whose subsystems are not ported yet raise ``NotImplementedError``
 naming their ROADMAP slice.
 """
@@ -41,7 +47,6 @@ from repro_torch.serving.remote import RemoteDataService
 
 FRESHNESS = "Freshness, federation, robustness"
 TELEMETRY = "Observability export and telemetry"
-STAGE2 = "Real stage-2 compute"
 
 
 def _unported(option: str, roadmap_slice: str) -> NotImplementedError:
@@ -134,7 +139,6 @@ def run_once(
         ("slo", bool(slo), TELEMETRY),
         ("timeseries", timeseries is not None, TELEMETRY),
         ("trace", trace is not None, TELEMETRY),
-        ("judge_compute='model'", judge_compute == "model", STAGE2),
     ):
         if asked:
             raise _unported(option, roadmap_slice)
@@ -155,11 +159,19 @@ def run_once(
         if judge_band is not None:
             band = AdmissionBand(width=judge_band,
                                  adaptive=judge_adaptive_band)
+        model = None
+        if judge_compute == "model":
+            # pay real tiny-LM prefill per judge micro-batch (the
+            # calibration shim: oracle decisions, model compute)
+            from repro_torch.core.judge import ModelJudge
+
+            model = ModelJudge(cfg=jcfg, max_len=judge_max_len,
+                               seed=seed + 6, device=device)
         # the ONE judge seam (DESIGN.md §14): admission band + model-
-        # derived token cost. judge_band=None is today's engine, event
-        # for event.
-        judge = JudgePipeline(oracle, judge_cfg=jcfg, max_len=judge_max_len,
-                              band=band)
+        # derived token cost + optional real compute. judge_band=None
+        # (and oracle compute) is today's engine, event for event.
+        judge = JudgePipeline(oracle, compute=model, judge_cfg=jcfg,
+                              max_len=judge_max_len, band=band)
         # clustered (IVF) stage-1 routing, DESIGN.md §12; nprobe=None
         # probes every cluster (the brute-force-parity mode). shards>1
         # (the §13 cluster-ownership partition) requires the router, so
@@ -228,9 +240,10 @@ def main(argv=None):
                     help="stage 1 on the ann_topk kernel, or on the host "
                          "numpy path")
     ap.add_argument("--device", default="cuda",
-                    help="device of the kernel backend's index: 'cuda' "
-                         "(default; an error without CUDA) or 'cpu' (the "
-                         "kernel's plain PyTorch version)")
+                    help="device of the kernel backend's index and of the "
+                         "model judge: 'cuda' (default; an error without "
+                         "CUDA) or 'cpu' (the kernels' plain PyTorch "
+                         "versions)")
     ap.add_argument("--n-requests", type=int, default=800)
     ap.add_argument("--cache-ratio", type=float, default=0.4)
     ap.add_argument("--eviction", default="lcfu",
@@ -251,7 +264,9 @@ def main(argv=None):
                          "(needs --recalibrate-every)")
     ap.add_argument("--judge-compute", default="oracle",
                     choices=["oracle", "model"],
-                    help="'model' (real tiny-LM prefill) is not ported yet")
+                    help="'model' pays real tiny-LM prefill per judge "
+                         "micro-batch on --device (decisions stay "
+                         "oracle-faithful)")
     ap.add_argument("--judge-d-model", type=int, default=128,
                     help="judge model width; sets the FLOPs-derived "
                          "judge token cost (16.0 token-eq at 128)")
