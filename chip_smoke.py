@@ -29,14 +29,20 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            a bucket; merged, S=1 equals the unsharded scan bitwise and S=8
            the S=1 values bitwise.
    kernel_attn  flash_attention_fwd (kernel 6) and decode_attention (kernel
-           7) against their plain versions: the reference's test shapes in
-           fp32 and bf16, causal on and off, windows, a ragged Sq > Sk, pos
-           0 / mid / S-1, each also from inputs off a 16-byte boundary (the
-           element-wise staging path); then full width in bf16: the judge's micro-batch
-           (B = 1 and 8 pairs x 128 tokens, KV 8, G 2, Dh 128), an agent
-           prefill (4096 tokens, KV 4, G 8), and the agent's decode (B in
-           1/4/8, S = 128 and 32768, pos = S-1), with times, the plain
-           version's, scaled_dot_product_attention's and the bound.
+           7) against their plain versions, each call on the design its
+           inputs take (bf16 rows on 16-byte boundaries: the tensor-core
+           kernels; fp32 and misaligned rows: the CUDA-core ones): the
+           reference's test shapes in fp32 and bf16, causal on and off,
+           windows, a ragged Sq > Sk, pos 0 / mid / S-1, each also from
+           inputs off a 16-byte boundary; bf16 edges of the tensor-core
+           designs at every Dh (Sq, Sk in 1/63/65/200, windows; decode G in
+           1/7/8/16, pos 0/63/64/65, chunk - 1, chunk and S - 1, so one
+           chunk and several); then full width in bf16, both designs: the
+           judge's micro-batch (B = 1 and 8 pairs x 128 tokens, KV 8, G 2,
+           Dh 128), an agent prefill (4096 tokens, KV 4, G 8), and the
+           agent's decode (B in 1/4/8, S = 128 and 32768, pos = S-1), with
+           times of both designs, the plain version's,
+           scaled_dot_product_attention's and the bound.
 4. stage1  a 2**20-entry ``CortexCache`` at D=768 on the kernel backend
            against the numpy backend on the same contents: candidate
            se_ids identical and in the same order, except that entries
@@ -70,8 +76,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            its plain version on the run's own device layouts, and the
            kernels' times at run (c)'s shapes, the sharded ones at (e)'s.
            (g) the defaults with ``judge_compute="model"``: kernel 6 runs
-           the tiny-LM judge on the card, and the summary is (a)'s oracle
-           run's.
+           the tiny-LM judge on the card (every launch on the tensor-core
+           design), and the summary is the defaults' oracle run's.
 6. main    ann_topk against its plain version at the main path's shape
            (8192 x 128, B = 1, 4 and 16), then its times there.
 7. lm      qwen3-0.6b (the judge) and search-r1-7b (the agent) at their
@@ -79,15 +85,19 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            token 64 against the prefill's cache (kernel 7) against the full
            forward (kernel 6), within 5% of the logits' scale; the judge's
            max |batched - solo| score over 8 pairs (reported, with which of
-           layer 0's q projection and kernel 6 depends on the batch); both
-           kernels against their plain versions on one layer's own q/k/v.
+           layer 0's q projection and kernel 6 depends on the batch; kernel
+           6's rows must not move); both kernels against their plain
+           versions on one layer's own q/k/v; every attention call of the
+           phase on the tensor-core design.
 8. colocated  the agent decodes 8 requests (prompts of 16-64 tokens, 16
            new tokens) in a ContinuousBatcher of 4 slots x 128 while the
            full-width judge scores 8 pairs between ticks: every request
-           finishes, kernels 6 and 7 launch, no plain version runs, and a
-           fresh batcher replays the same tokens; decode steps per second.
+           finishes, kernels 6 and 7 launch, every launch on the
+           tensor-core design, no plain version runs, and a fresh batcher
+           replays the same tokens; decode steps per second.
 9. the ``kernels`` line: per kernel, its launches on the run that drives
-   it (a serve run; the colocated run for kernels 6 and 7), max abs error
+   it (a serve run; the colocated run for kernels 6 and 7, with their
+   launches by design in colocated, lm and (g)), max abs error
    against the plain version over every phase, and its time, the plain
    version's, one library call's and the card's bound, at its main-path
    shape, with the other measured shapes under ``sizes``.
@@ -1298,9 +1308,17 @@ def kernel_wrappers() -> dict:
 
 
 def reset_counts(wrappers: dict) -> None:
+    """Every count of every wrapper to 0: launches, each design's launches
+    (kernels 6 and 7) and plain calls."""
     for w in wrappers.values():
-        w.launches = 0
-        w.plain_calls = 0
+        for name in list(vars(w)):
+            if name.startswith("launches") or name == "plain_calls":
+                setattr(w, name, 0)
+
+
+def design_counts(w) -> dict:
+    """A wrapper's launches by design (kernels 6 and 7)."""
+    return {d: getattr(w, f"launches_{d}") for d in ("tc", "simt")}
 
 
 def live_pick(active: torch.Tensor, g, b: int) -> torch.Tensor:
@@ -1477,8 +1495,10 @@ def phase_serve(dev):
           "g_model_judge: the CUDA path took a plain version")
     check(got == summaries["defaults"],
           "g_model_judge: the summary differs from the oracle run's")
+    by_design = check_all_tc(wrappers, "g_model_judge")
     runs.append({"run": "g_model_judge", "kwargs": {"judge_compute": "model"},
-                 "launches": launches, "wall_s": wall,
+                 "launches": launches, "launches_by_design": by_design,
+                 "wall_s": wall,
                  "hit_rate": got["hit_rate"],
                  "judge_calls": got.get("judge_calls")})
     base = strip_shard_keys(summaries["d_shards1"])
@@ -1515,6 +1535,18 @@ FLASH_CASES = [(2, 256, 256, 2, 2, 32, True, None),
 # pos 0, mid and S-1
 DECODE_CASES = [(2, 2, 4, 32, 256), (1, 4, 1, 64, 512), (4, 1, 8, 16, 128),
                 (1, 8, 16, 128, 1024)]
+# bf16 edges of the tensor-core designs, at every Dh: (Sq, Sk, causal,
+# window) off the 64-row tiles (1, 63, 65, 200), Sq > Sk, windows
+FLASH_EDGES = [(1, 1, True, None), (63, 63, True, None), (65, 65, True, None),
+               (200, 200, True, None), (1, 200, True, None),
+               (65, 63, True, None), (200, 65, True, None),
+               (63, 200, False, None), (200, 200, True, 70),
+               (65, 200, False, 33)]
+# decode: G off and on the 16-row tile, at every Dh, B=2 x KV 2 over a
+# 1024-row cache; pos at the tile edges (0, 63, 64, 65), the chunk edges
+# (chunk - 1: one chunk, one launch; chunk: two) and S - 1 (four chunks)
+DECODE_EDGE_G = (1, 7, 8, 16)
+DECODE_EDGE_S = 1024
 # full width: the judge's micro-batch (qwen3-0.6b, EngineConfig
 # .judge_batch_max pairs of 128 tokens) and an agent prefill (search-r1-7b)
 FLASH_FULL = [(1, 128, 8, 2), (8, 128, 8, 2), (1, 4096, 4, 8)]
@@ -1557,16 +1589,37 @@ def misaligned(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def hold_flash(q, k, v, *, causal=True, window=None) -> float:
+def expect_design(q, aligned: bool = True) -> str:
+    """The design a CUDA call on ``q``'s dtype must take: the tensor-core
+    kernels for bf16 rows on 16-byte boundaries, else the CUDA-core ones."""
+    return "tc" if q.dtype == torch.bfloat16 and aligned else "simt"
+
+
+def check_design(w, before: dict, want: str, what: str) -> None:
+    got = {d: n - before[d] for d, n in design_counts(w).items()}
+    check(got == {d: int(d == want) for d in got},
+          f"{what}: launches by design {got}, want one on {want!r}")
+
+
+def hold_flash(q, k, v, *, causal=True, window=None, design=None,
+               aligned=True) -> float:
     """Kernel 6 against its plain version on the same inputs; the max abs
-    error."""
-    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
-                                                     flash_attention_plain)
+    error. The call must take the design the dispatch gives these inputs
+    (``design`` launches that one instead, for the CUDA-core kernel on
+    inputs the dispatch sends to the tensor cores)."""
+    from repro_torch.kernels import flash_attention as fa
     scale = 1.0 / float(q.shape[-1]) ** 0.5
-    got = flash_attention_fwd(q, k, v, scale=scale, causal=causal,
-                              window=window)
+    before = design_counts(fa.flash_attention_fwd)
+    if design is None:
+        got = fa.flash_attention_fwd(q, k, v, scale=scale, causal=causal,
+                                     window=window)
+    else:
+        got = fa._launch(design, q, k, v, scale, causal, window)
     torch.cuda.synchronize()
-    want = flash_attention_plain(q, k, v, scale, causal, window)
+    check_design(fa.flash_attention_fwd, before,
+                 design or expect_design(q, aligned),
+                 f"flash_attention_fwd at {tuple(q.shape)}")
+    want = fa.flash_attention_plain(q, k, v, scale, causal, window)
     check(got.shape == want.shape and got.dtype == want.dtype,
           "flash_attention_fwd: shape or dtype differs")
     check(bool(torch.isfinite(got.float()).all()),
@@ -1578,14 +1631,21 @@ def hold_flash(q, k, v, *, causal=True, window=None) -> float:
     return err
 
 
-def hold_decode(q, kc, vc, pos: int) -> float:
-    """Kernel 7 against its plain version on the same inputs."""
-    from repro_torch.kernels.decode_attention import (decode_attention,
-                                                      decode_attention_plain)
+def hold_decode(q, kc, vc, pos: int, *, design=None, aligned=True) -> float:
+    """Kernel 7 against its plain version on the same inputs, on the
+    design the dispatch gives them (or ``design``, as in hold_flash)."""
+    from repro_torch.kernels import decode_attention as da
     scale = 1.0 / float(q.shape[-1]) ** 0.5
-    got = decode_attention(q, kc, vc, pos, scale=scale)
+    before = design_counts(da.decode_attention)
+    if design is None:
+        got = da.decode_attention(q, kc, vc, pos, scale=scale)
+    else:
+        got = da._launch(design, q, kc, vc, pos, scale)
     torch.cuda.synchronize()
-    want = decode_attention_plain(q, kc, vc, pos, scale)
+    check_design(da.decode_attention, before,
+                 design or expect_design(q, aligned),
+                 f"decode_attention at {tuple(kc.shape)} pos={pos}")
+    want = da.decode_attention_plain(q, kc, vc, pos, scale)
     check(bool(torch.isfinite(got.float()).all()),
           f"decode_attention: non-finite output at {tuple(kc.shape)}")
     err = float((got.float() - want.float()).abs().max())
@@ -1632,13 +1692,19 @@ def bound_decode(q, kc, pos: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def simt_timings(kernel) -> dict:
+    """The CUDA-core design's times on the same inputs (the kernel fp32 and
+    misaligned rows take), beside the tensor-core design's in the same
+    call."""
+    return {"simt_ms": timed_ms(kernel), "simt_device_ms": device_ms(kernel)}
+
+
 def measure_flash(q, k, v) -> dict:
     """Kernel 6's times (causal), its plain version's, and one
     scaled_dot_product_attention call's on the same inputs, with the
     bound."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
-                                                     flash_attention_plain)
+    from repro_torch.kernels import flash_attention as fa
     b, sq, kvh, g, dh = q.shape
     scale = 1.0 / float(dh) ** 0.5
     qh = q.reshape(b, sq, kvh * g, dh).transpose(1, 2)
@@ -1647,19 +1713,20 @@ def measure_flash(q, k, v) -> dict:
     out = {"b": b, "sq": sq, "kv": kvh, "g": g, "dh": dh,
            "dtype": str(q.dtype).removeprefix("torch.")}
     out.update(timings(
-        lambda: flash_attention_fwd(q, k, v, scale=scale),
-        lambda: flash_attention_plain(q, k, v, scale),
+        lambda: fa.flash_attention_fwd(q, k, v, scale=scale),
+        lambda: fa.flash_attention_plain(q, k, v, scale),
         lambda: F.scaled_dot_product_attention(
             qh, kh, vh, is_causal=True, scale=scale, enable_gqa=True),
         plain_repeats=5 if sq > 1024 else REPEATS))
+    out.update(simt_timings(
+        lambda: fa._launch("simt", q, k, v, scale, True, None)))
     out.update(bound_ms=bound_ms, bound_by=bound_by)
     return out
 
 
 def measure_decode(q, kc, vc, pos: int) -> dict:
     import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention import (decode_attention,
-                                                      decode_attention_plain)
+    from repro_torch.kernels import decode_attention as da
     b, kvh, g, dh = q.shape
     s = kc.shape[1]
     scale = 1.0 / float(dh) ** 0.5
@@ -1670,10 +1737,12 @@ def measure_decode(q, kc, vc, pos: int) -> dict:
     out = {"b": b, "kv": kvh, "g": g, "dh": dh, "s": s, "pos": pos,
            "dtype": str(q.dtype).removeprefix("torch.")}
     out.update(timings(
-        lambda: decode_attention(q, kc, vc, pos, scale=scale),
-        lambda: decode_attention_plain(q, kc, vc, pos, scale),
+        lambda: da.decode_attention(q, kc, vc, pos, scale=scale),
+        lambda: da.decode_attention_plain(q, kc, vc, pos, scale),
         lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale,
                                                enable_gqa=True)))
+    out.update(simt_timings(
+        lambda: da._launch("simt", q, kc, vc, pos, scale)))
     out.update(bound_ms=bound_ms, bound_by=bound_by)
     return out
 
@@ -1681,10 +1750,15 @@ def measure_decode(q, kc, vc, pos: int) -> dict:
 def phase_kernel_attn(dev):
     """Kernels 6 and 7 against their plain versions at the reference's
     test shapes (fp32 and bf16, causal on and off, windows, pos 0 / mid /
-    S-1), then at the full-width shapes, with times there."""
+    S-1; each also off a 16-byte boundary), at the bf16 edges of the
+    tensor-core designs, then at the full-width shapes, with times there.
+    Every call must take the design the dispatch gives its inputs."""
+    from repro_torch.kernels.decode_attention import split_rows
+
     g = torch.Generator(device=dev).manual_seed(11)
     errs = {"flash_attention_fwd": 0.0, "decode_attention": 0.0}
-    cases = 0
+    cases = {"reference": 0, "flash_edges": 0, "decode_edges": 0,
+             "full_width": 0}
     for b, sq, sk, kvh, gq, dh, causal, win in FLASH_CASES:
         for dt in (torch.float32, torch.bfloat16):
             q = randn(g, (b, sq, kvh, gq, dh), dt, dev)
@@ -1693,8 +1767,8 @@ def phase_kernel_attn(dev):
                 errs["flash_attention_fwd"],
                 hold_flash(q, k, v, causal=causal, window=win),
                 hold_flash(*map(misaligned, (q, k, v)), causal=causal,
-                           window=win))
-            cases += 2
+                           window=win, aligned=False))
+            cases["reference"] += 2
     for b, kvh, gq, dh, s in DECODE_CASES:
         for dt in (torch.float32, torch.bfloat16):
             q = randn(g, (b, kvh, gq, dh), dt, dev)
@@ -1702,28 +1776,54 @@ def phase_kernel_attn(dev):
             for pos in (0, s // 2 - 3, s - 1):
                 errs["decode_attention"] = max(
                     errs["decode_attention"], hold_decode(q, kc, vc, pos),
-                    hold_decode(q, misaligned(kc), misaligned(vc), pos))
-                cases += 2
+                    hold_decode(q, misaligned(kc), misaligned(vc), pos,
+                                aligned=False))
+                cases["reference"] += 2
+    bf = torch.bfloat16
+    for dh in (16, 32, 64, 128):
+        for sq, sk, causal, win in FLASH_EDGES:
+            q = randn(g, (2, sq, 2, 2, dh), bf, dev)
+            k, v = (randn(g, (2, sk, 2, dh), bf, dev) for _ in range(2))
+            errs["flash_attention_fwd"] = max(
+                errs["flash_attention_fwd"],
+                hold_flash(q, k, v, causal=causal, window=win))
+            cases["flash_edges"] += 1
+    s = DECODE_EDGE_S
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chunk = split_rows(s, 2 * 2, sms)
+    nsplits = set()
+    for gq in DECODE_EDGE_G:
+        for dh in (16, 32, 64, 128):
+            q = randn(g, (2, 2, gq, dh), bf, dev)
+            kc, vc = (randn(g, (2, s, 2, dh), bf, dev) for _ in range(2))
+            for pos in (0, 63, 64, 65, chunk - 1, chunk, s - 1):
+                errs["decode_attention"] = max(errs["decode_attention"],
+                                               hold_decode(q, kc, vc, pos))
+                nsplits.add(-(-(pos + 1) // split_rows(pos + 1, 4, sms)))
+                cases["decode_edges"] += 1
+    check(1 in nsplits and max(nsplits) > 1,
+          f"decode edges: chunk counts {sorted(nsplits)}, want 1 and more")
     flash_sizes, decode_sizes = [], []
     for b, sq, kvh, gq in FLASH_FULL:
-        q = randn(g, (b, sq, kvh, gq, 128), torch.bfloat16, dev)
-        k, v = (randn(g, (b, sq, kvh, 128), torch.bfloat16, dev)
-                for _ in range(2))
-        errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"],
-                                          hold_flash(q, k, v))
-        cases += 1
+        q = randn(g, (b, sq, kvh, gq, 128), bf, dev)
+        k, v = (randn(g, (b, sq, kvh, 128), bf, dev) for _ in range(2))
+        errs["flash_attention_fwd"] = max(
+            errs["flash_attention_fwd"], hold_flash(q, k, v),
+            hold_flash(q, k, v, design="simt"))
+        cases["full_width"] += 2
         flash_sizes.append(measure_flash(q, k, v))
     kvh, gq = 4, 8
     for b, s in DECODE_FULL:
-        q = randn(g, (b, kvh, gq, 128), torch.bfloat16, dev)
-        kc, vc = (randn(g, (b, s, kvh, 128), torch.bfloat16, dev)
-                  for _ in range(2))
-        errs["decode_attention"] = max(errs["decode_attention"],
-                                       hold_decode(q, kc, vc, s - 1))
-        cases += 1
+        q = randn(g, (b, kvh, gq, 128), bf, dev)
+        kc, vc = (randn(g, (b, s, kvh, 128), bf, dev) for _ in range(2))
+        errs["decode_attention"] = max(
+            errs["decode_attention"], hold_decode(q, kc, vc, s - 1),
+            hold_decode(q, kc, vc, s - 1, design="simt"))
+        cases["full_width"] += 2
         decode_sizes.append(measure_decode(q, kc, vc, s - 1))
         del q, kc, vc
-    return errs, cases, flash_sizes, decode_sizes
+    return errs, cases, {"decode_chunk_counts": sorted(nsplits)}, \
+        flash_sizes, decode_sizes
 
 
 def build_lm(role: str, dev, seed: int):
@@ -1828,7 +1928,26 @@ def judge_invariance(judge, lm, dev) -> dict:
         out["flash_batch_invariant"] = bool(torch.equal(
             flash_attention_fwd(q, k, v, scale=scale)[:1],
             flash_attention_fwd(q[:1], k[:1], v[:1], scale=scale)))
+    # kernel 6's rows depend only on their own CTA (grid and tiles do not
+    # depend on B), so a row is bitwise the same in any micro-batch
+    check(out["flash_batch_invariant"],
+          "judge: kernel 6's first row moved with the micro-batch")
     return out
+
+
+def check_all_tc(wrappers: dict, run: str) -> dict:
+    """Every call of kernels 6 and 7 in ``run`` (bf16 rows on 16-byte
+    boundaries, all of them) launched the tensor-core design: none took the
+    CUDA-core kernels or a plain version. Returns the counts by design."""
+    counts = {}
+    for name in attn_wrappers():
+        w = wrappers[name]
+        counts[name] = design_counts(w)
+        check(counts[name]["simt"] == 0 and w.plain_calls == 0
+              and counts[name]["tc"] == w.launches,
+              f"{run}: {name} launched {counts[name]}, "
+              f"{w.plain_calls} plain calls, {w.launches} in all")
+    return counts
 
 
 def phase_lm(dev):
@@ -1841,6 +1960,8 @@ def phase_lm(dev):
     g = torch.Generator(device=dev).manual_seed(13)
     models, line = {}, {}
     errs = {"flash_attention_fwd": 0.0, "decode_attention": 0.0}
+    wrappers = attn_wrappers()
+    reset_counts(wrappers)
     for role, seed in (("judge", 1), ("agent", 0)):
         lm, params, info = build_lm(role, dev, seed)
         info["decode_after_prefill"] = decode_after_prefill(lm, params, g,
@@ -1861,6 +1982,7 @@ def phase_lm(dev):
     lm, params = models["judge"]
     judge = ModelJudge(cfg=lm.cfg, max_len=128, device=dev, params=params)
     line["judge"]["batch_invariance"] = judge_invariance(judge, lm, dev)
+    line["launches_by_design"] = check_all_tc(wrappers, "lm")
     return models, judge, line, errs
 
 
@@ -1948,6 +2070,7 @@ def phase_colocated(dev, models, judge):
           f"colocated: an attention kernel never launched: {launches}")
     check(not plain, f"colocated: the CUDA path took a plain version: "
           f"{plain}")
+    by_design = check_all_tc(wrappers, "colocated")
     check(cb.judge_batches_run > 0, "colocated: the judge never ran")
     again, _, _ = serve(batcher(), range(COLO["n_req"]))
     check([r.out_tokens for r in again] == [r.out_tokens for r in reqs],
@@ -1955,14 +2078,14 @@ def phase_colocated(dev, models, judge):
     solo, _, _ = serve(batcher(), [0])
     prefill_steps = int(sum(lens))
     step_profile = profile_decode(lm, params, dev)
-    return launches, {
+    return launches, by_design, {
         "requests": len(reqs), "prompt_lens": lens, "ticks": ticks,
         "decode_steps": cb.decode_steps, "prefill_steps": prefill_steps,
         "judge_batches": cb.judge_batches_run, "wall_s": wall,
         "decode_steps_per_s": cb.decode_steps / wall,
         "forward_steps_per_s": (cb.decode_steps + prefill_steps) / wall,
         "launches": {n: launches[n] for n in attn_wrappers()},
-        "replay_equal": True,
+        "launches_by_design": by_design, "replay_equal": True,
         "solo_request0_equal": solo[0].out_tokens == reqs[0].out_tokens,
         "tokens_request0": reqs[0].out_tokens, "decode_step": step_profile}
 
@@ -2025,12 +2148,13 @@ def main() -> int:
          seconds=time.perf_counter() - t)
 
     t = time.perf_counter()
-    attn_errs, attn_cases, flash_sizes, decode_sizes = phase_kernel_attn(dev)
+    attn_errs, attn_cases, attn_edges, flash_sizes, decode_sizes = \
+        phase_kernel_attn(dev)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    emit(phase="kernel_attn", cases=attn_cases, max_abs_err=attn_errs,
-         flash_full_width=flash_sizes, decode_full_width=decode_sizes,
-         seconds=time.perf_counter() - t)
+    emit(phase="kernel_attn", cases=attn_cases, **attn_edges,
+         max_abs_err=attn_errs, flash_full_width=flash_sizes,
+         decode_full_width=decode_sizes, seconds=time.perf_counter() - t)
 
     t = time.perf_counter()
     world, caches, stage1 = phase_stage1(dev)
@@ -2066,7 +2190,8 @@ def main() -> int:
     emit(phase="lm", **lm_line, max_abs_err=lm_errs,
          seconds=time.perf_counter() - t)
     t = time.perf_counter()
-    colo_launches, colo_line = phase_colocated(dev, models, judge)
+    colo_launches, colo_designs, colo_line = phase_colocated(dev, models,
+                                                             judge)
     emit(phase="colocated", **colo_line, seconds=time.perf_counter() - t)
     del models, judge
     torch.cuda.empty_cache()
@@ -2146,6 +2271,10 @@ def main() -> int:
             "launches": colo_launches[name],
             "launches_by_run": {"colocated": colo_launches[name],
                                 "g_model_judge": g_run["launches"][name]},
+            "launches_by_design": {
+                "colocated": colo_designs[name],
+                "g_model_judge": g_run["launches_by_design"][name],
+                "lm": lm_line["launches_by_design"][name]},
             "max_abs_err": max(attn_errs[name], lm_errs[name]),
             **{key: at[key] for key in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms",

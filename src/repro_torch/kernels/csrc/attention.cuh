@@ -1,7 +1,11 @@
 // attention.cuh — what the attention kernels (flash_attention.cu,
-// decode_attention.cu) share: fp32 conversion of the input types, the
-// reference's masked score, and the staging of a block of rows (queries,
-// keys, values) in shared memory as fp32.
+// decode_attention.cu) share. Two designs each:
+//   * CUDA-core (fp32 and rows off a 16-byte boundary): fp32 conversion of
+//     the input types and the staging of a block of rows (queries, keys,
+//     values) in shared memory as fp32;
+//   * tensor-core (bf16 rows on 16-byte boundaries): rows copied to shared
+//     memory in bf16 with cp.async, read into mma fragments with ldmatrix,
+//     products with mma.sync m16n8k16 (bf16 in, fp32 accumulate).
 
 #pragma once
 
@@ -117,6 +121,208 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ base,
       stage_batch<T, DH, ROWS, THREADS, VEC, DST_STRIDE, BATCH>(
           base, stride, j0, jend, dst, c0);
   }
+}
+
+// ------------------------------------------------ the tensor-core design
+
+using bf16 = __nv_bfloat16;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// Shared-memory row stride of a bf16 tile with DH columns: 16 bytes of
+// padding per row, so that the 8 rows an ldmatrix phase reads (at one
+// 16-byte column) start (DH / 8 + 1) 16-byte units apart, an odd number:
+// 8 distinct bank groups, no conflict, at every DH.
+template <int DH>
+__host__ __device__ constexpr int ld_bf16() { return DH + 8; }
+
+// 16 bytes global -> shared without going through registers (cp.async.cg,
+// L2 only). bytes = 16 copies; bytes = 0 writes 16 zero bytes (a row past
+// the end: src is not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [r0, r0 + ROWS) of one head (row j at base + j * stride, DH
+// contiguous bf16) into dst (row r at dst + r * ld_bf16<DH>()), by NT
+// threads of which this is thread `t`; rows at or past `rend` are zero
+// (their products are 0, never NaN). The caller commits the group.
+template <int DH, int ROWS, int NT>
+__device__ __forceinline__ void cp_rows(bf16* dst, const bf16* base,
+                                        long long stride, int r0, int rend,
+                                        int t) {
+  constexpr int CPR = DH / 8;  // 16-byte chunks per row
+  constexpr int CHUNKS = ROWS * CPR;
+#pragma unroll
+  for (int i = 0; i < (CHUNKS + NT - 1) / NT; ++i) {
+    const int c = i * NT + t;
+    if (CHUNKS % NT == 0 || c < CHUNKS) {
+      const int r = c / CPR, x = c % CPR;
+      const bool ok = r0 + r < rend;
+      const bf16* src = ok ? base + (r0 + r) * stride + x * 8 : base;
+      cp_async16(dst + r * ld_bf16<DH>() + x * 8, src, ok ? 16 : 0);
+    }
+  }
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8. ldsm_x4: lane l receives (row l / 4, columns
+// 2 (l % 4), +1) of each matrix; ldsm_x4_trans the transpose's.
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s)
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4],
+                                              const bf16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s)
+      : "memory");
+}
+
+// c += a . b on the tensor cores: a the 16x16 bf16 A fragment (row-major),
+// b0/b1 the 16x8 B fragment (k rows 0-7 and 8-15), c the 16x8 fp32
+// accumulator. With g = lane / 4 and t = lane % 4, c holds (row g, columns
+// 2t, 2t+1) in c[0..1] and (row g + 8, the same columns) in c[2..3]; a
+// holds (row g, k 2t..2t+1), (row g + 8, k 2t..), (row g, k 2t+8..) and
+// (row g + 8, k 2t+8..).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two fp32 values rounded to one bf16 pair, lo in the low half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// The A fragments of a 16-row block of Q (rows at q, stride ld_bf16<DH>())
+// for every 16-column k-step of S = Q K^T, loaded once into registers.
+template <int DH>
+__device__ __forceinline__ void load_q_frags(unsigned (&qf)[DH / 16][4],
+                                             const bf16* q, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+    ldsm_x4(qf[kk], q + (lane % 8 + 8 * ((lane / 8) % 2)) * ld_bf16<DH>() +
+                        kk * 16 + 8 * (lane / 16));
+}
+
+// s[2 np .. 2 np + 1] += Q . K^T for keys 16 np .. 16 np + 15 of a tile
+// (rows at k, stride ld_bf16<DH>(); K's B fragments through ldmatrix),
+// NP = keys / 16.
+template <int DH, int NP>
+__device__ __forceinline__ void qk_tile(float (&s)[2 * NP][4],
+                                        const unsigned (&qf)[DH / 16][4],
+                                        const bf16* k, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+#pragma unroll
+    for (int np = 0; np < NP; ++np) {
+      unsigned b[4];
+      ldsm_x4(b, k + (np * 16 + lane % 8 + 8 * (lane / 16)) * ld_bf16<DH>() +
+                     kk * 16 + 8 * ((lane / 8) % 2));
+      mma_bf16(s[2 * np], qf[kk], b[0], b[1]);
+      mma_bf16(s[2 * np + 1], qf[kk], b[2], b[3]);
+    }
+}
+
+// acc += P . V over keys 0 .. 16 NP - 1 of a tile (rows at v). P is rounded
+// to bf16 in registers: the m16n8 accumulators of keys 16j.. and 16j + 8..
+// (p[2j], p[2j + 1]) are the m16k16 A fragment of keys 16j .. 16j + 15; V
+// comes through ldmatrix.trans.
+template <int DH, int NP>
+__device__ __forceinline__ void pv_tile(float (&acc)[DH / 8][4],
+                                        const float (&p)[2 * NP][4],
+                                        const bf16* v, int lane) {
+  constexpr int LD = ld_bf16<DH>();
+#pragma unroll
+  for (int j = 0; j < NP; ++j) {
+    const unsigned a[4] = {pack_bf16(p[2 * j][0], p[2 * j][1]),
+                           pack_bf16(p[2 * j][2], p[2 * j][3]),
+                           pack_bf16(p[2 * j + 1][0], p[2 * j + 1][1]),
+                           pack_bf16(p[2 * j + 1][2], p[2 * j + 1][3])};
+#pragma unroll
+    for (int np = 0; np < DH / 16; ++np) {
+      unsigned b[4];
+      ldsm_x4_trans(b, v + (j * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * LD +
+                           np * 16 + 8 * (lane / 16));
+      mma_bf16(acc[2 * np], a, b[0], b[1]);
+      mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// One tile's online softmax over the score fragments s of 16 rows (log2
+// domain: scores already times scale * log2 e), rows g (s[..][0..1]) and
+// g + 8 (s[..][2..3]). Updates the running max m, this thread's share of
+// the denominator l (the quad's shares are summed at the end), rescales
+// acc, and leaves p = exp2(s - m) in s, in fp32: l sums the fp32 p, as the
+// reference does; pv_tile rounds it to bf16.
+template <int NT, int DH>
+__device__ __forceinline__ void softmax_tile(float (&s)[NT][4], float (&m)[2],
+                                             float (&l)[2],
+                                             float (&acc)[DH / 8][4]) {
+  float mx[2] = {neg_inf(), neg_inf()};
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+  }
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    alpha[r] = exp2f(m[r] - m_new);
+    m[r] = m_new;
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = exp2f(s[j][e] - m[e / 2]);
+      rs[e / 2] += s[j][e];
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n) {
+    acc[n][0] *= alpha[0];
+    acc[n][1] *= alpha[0];
+    acc[n][2] *= alpha[1];
+    acc[n][3] *= alpha[1];
+  }
+}
+
+// The quad's shares of a row's denominator, summed.
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(FULL, x, 1);
+  return x + __shfl_xor_sync(FULL, x, 2);
 }
 
 }  // namespace attn

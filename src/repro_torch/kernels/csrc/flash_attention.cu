@@ -13,29 +13,55 @@
 // bytes), against 4 * Dh operations per (query row, key) pair that the
 // masks keep. The judge's micro-batch (8 x 128 tokens, KV 8, G 2, Dh 128,
 // bf16) is bound by its 12.6 MB (3.8 us); an agent prefill of 4096 tokens
-// by its operations.
+// by its operations (0.139 ms at the bf16 tensor-core peak).
 //
-// The simple design (wgmma, TMA and warp specialisation are later work):
-//   one CTA of 128 threads per (batch, KV head, group member g, block of
-//   BQ = 32 query rows). The reference flattens (B, KV, G) with moveaxis
-//   copies and repeats K/V G times; here the CTA reads q through its batch
-//   and sequence strides and its KV head kv = h / G in place. The TPU's
-//   sequential k-block grid axis becomes a loop over BK = 64-key tiles,
-//   each staged in shared memory as fp32 with 16-byte loads, several in
-//   flight per thread (attention.cuh; element loads when a stride does not
-//   keep rows 16-byte aligned). Thread (rg, cg)
-//   of the 8 x 16 grid holds scores of rows 4rg..4rg+3 against keys
-//   cg + 16j (j < 4), and the accumulator of the same rows at Dh columns
-//   cg + 16c. Row max and row sum reduce over the 16 threads of a row
-//   group with xor shuffles; p goes through shared memory to the P.V step.
-//   Products are fp32 FMAs on the CUDA cores (no TF32: the fp32 check is
-//   3e-5; bf16 is widened to fp32 on the way in).
-//   Key tiles wholly above the diagonal or before the window are skipped
-//   when Sq <= Sk: then every query row qi holds its own key kj = qi inside
-//   the loop's range, so the online softmax would wash a skipped, fully
-//   masked prefix out with alpha = exp(-1e30 - m) = 0 anyway. With
-//   Sq > Sk a row may have no valid key at all (the reference then
-//   averages every V), so no tile is skipped.
+// Two designs; the wrapper (kernels/flash_attention.py::pick_design)
+// chooses, and each has its own entry point:
+//
+// flash_fwd_tc — bf16 whose rows start on 16-byte boundaries (every call
+//   of the LM path). One CTA of 4 warps per (batch, KV head, group member,
+//   block of BQ = 64 query rows), each warp owning 16 rows; the grid runs
+//   the last query blocks (the longest under a causal mask) first. The CTA
+//   reads its KV head in place through strides (no moveaxis, no G-fold
+//   repeat of K/V). K and V stream in 64-key tiles kept in bf16 in a
+//   2-stage shared-memory ring filled by 16-byte cp.async: tiles 0 and 1
+//   load together, then each tile's copy overlaps the previous tile's
+//   compute; rows are padded by 16 bytes so that ldmatrix is free of bank
+//   conflicts; one barrier per tile releases the ring slot. Two CTAs share
+//   an SM (87 KB of shared memory and about 250 registers a thread each at
+//   Dh 128: 8 warps per SM). Q's fragments go into registers once
+//   (ldmatrix); S = Q K^T runs on
+//   mma.sync m16n8k16 (bf16 in, fp32 accumulate) with K through ldmatrix;
+//   mask and online softmax work on the accumulator fragments in registers
+//   (row max and sum over the quad with xor shuffles 1 and 2); P is
+//   rounded to bf16 in registers (as the Pallas kernel rounds p to v's
+//   type) and the two m16n8 score tiles of 16 keys are the m16k16 A
+//   fragment of acc += P V, with V through ldmatrix.trans: P never touches
+//   shared memory. The output goes out through the warp's own Q rows in
+//   shared memory as 16-byte rows. The grid and tiles do not depend on B,
+//   and each output row depends only on its own CTA, so the judge's scores
+//   are the same in any micro-batch (DESIGN.md section 8).
+//
+// flash_fwd — fp32 (whose 3e-5 check rules out TF32 and bf16 products),
+//   and bf16 rows off a 16-byte boundary (no 16-byte copies). One CTA of
+//   128 threads per (batch, KV head, group member g, block of BQ = 32 query
+//   rows), reading q through its batch and sequence strides and its KV
+//   head kv = h / G in place. The TPU's sequential k-block grid axis
+//   becomes a loop over BK = 64-key tiles, each staged in shared memory as
+//   fp32 with 16-byte loads, several in flight per thread (attention.cuh;
+//   element loads when a stride does not keep rows 16-byte aligned).
+//   Thread (rg, cg) of the 8 x 16 grid holds scores of rows 4rg..4rg+3
+//   against keys cg + 16j (j < 4), and the accumulator of the same rows at
+//   Dh columns cg + 16c. Row max and row sum reduce over the 16 threads of
+//   a row group with xor shuffles; p goes through shared memory to the P.V
+//   step. Products are fp32 FMAs on the CUDA cores.
+//
+// Both skip key tiles wholly above the diagonal or before the window when
+// Sq <= Sk: then every query row qi holds its own key kj = qi inside the
+// loop's range, so the online softmax would wash a skipped, fully masked
+// prefix out with alpha = exp(-1e30 - m) = 0 anyway. With Sq > Sk a row may
+// have no valid key at all (the reference then averages every V), so no
+// tile is skipped.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -254,6 +280,180 @@ cudaError_t launch_dh(int dh, const void* q, const void* k, const void* v,
   }
 }
 
+// ------------------------------------------------ tensor-core design
+
+namespace tc {
+
+constexpr int BQ = 64;        // query rows per CTA, 16 per warp
+constexpr int BK = 64;        // keys per tile
+constexpr int THREADS = 128;  // 4 warps
+constexpr int STAGES = 2;     // K/V ring depth
+
+template <int DH>
+constexpr size_t smem_bytes() {
+  return sizeof(attn::bf16) * attn::ld_bf16<DH>() * (BQ + STAGES * 2 * BK);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(THREADS, 2)
+flash_fwd_tc(const attn::bf16* __restrict__ q,
+             const attn::bf16* __restrict__ k,
+             const attn::bf16* __restrict__ v, attn::bf16* __restrict__ o,
+             int sq, int sk, int kvh, int g, int heads, long long q_sb,
+             long long q_ss, long long k_sb, long long k_ss, long long v_sb,
+             long long v_ss, float scale_log2, int causal, int window,
+             int skip) {
+  using attn::bf16;
+  constexpr int LD = attn::ld_bf16<DH>();
+  constexpr int NT = DH / 8;       // accumulator tiles of 8 columns
+  extern __shared__ uint4 smem_tc[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_tc);  // [BQ][LD]
+  bf16* ring = qs + BQ * LD;                    // [STAGES][K, V][BK][LD]
+
+  const int nqb = (sq + BQ - 1) / BQ;
+  const int qb = nqb - 1 - static_cast<int>(blockIdx.x) / heads;
+  const int head = blockIdx.x % heads;  // ((b * kvh) + kv) * g + gi
+  const int gi = head % g;
+  const int kv = (head / g) % kvh;
+  const int b = head / (g * kvh);
+  const int q0 = qb * BQ;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int row0 = q0 + warp * 16 + lane / 4;  // this thread's rows: row0,
+  const int row1 = row0 + 8;                   // row1
+  const int col = 2 * (lane % 4);              // and columns col, col + 1
+  const bf16* qbase = q + b * q_sb + static_cast<long long>(kv * g + gi) * DH;
+  const bf16* kbase = k + b * k_sb + static_cast<long long>(kv) * DH;
+  const bf16* vbase = v + b * v_sb + static_cast<long long>(kv) * DH;
+
+  int kbeg = 0, kend = sk;
+  if (skip) {
+    if (causal) kend = min(sk, q0 + BQ);
+    if (window > 0) kbeg = max(0, q0 - window + 1);
+    kbeg = (kbeg / BK) * BK;
+  }
+  const int ntiles = (kend - kbeg + BK - 1) / BK;
+  auto load_tile = [&](int t) {
+    bf16* kd = ring + (t % STAGES) * 2 * BK * LD;
+    const int k0 = kbeg + t * BK;
+    attn::cp_rows<DH, BK, THREADS>(kd, kbase, k_ss, k0, sk, tid);
+    attn::cp_rows<DH, BK, THREADS>(kd + BK * LD, vbase, v_ss, k0, sk, tid);
+  };
+  // q and tile 0, then tile 1: both stages fill at once
+  attn::cp_rows<DH, BQ, THREADS>(qs, qbase, q_ss, q0, sq, tid);
+  load_tile(0);
+  attn::cp_async_commit();
+  if (ntiles > 1) load_tile(1);
+  attn::cp_async_commit();
+
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {attn::NEG, attn::NEG}, l[2] = {0.f, 0.f};
+  bf16* qw = qs + warp * 16 * LD;  // this warp's query rows
+  unsigned qf[DH / 16][4];
+
+  for (int t = 0; t < ntiles; ++t) {
+    if (t == 0)
+      attn::cp_async_wait<1>();  // q and tile 0 landed (tile 1 may not) ...
+    else
+      attn::cp_async_wait<0>();  // tile t landed ...
+    __syncthreads();  // ... for every thread; and all are done with t - 1
+    if (t == 0)
+      attn::load_q_frags<DH>(qf, qw, lane);
+    else if (t + 1 < ntiles)
+      load_tile(t + 1);  // into the slot tile t - 1 left
+    attn::cp_async_commit();
+    const bf16* ks = ring + (t % STAGES) * 2 * BK * LD;
+    const int k0 = kbeg + t * BK;
+
+    float s[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    attn::qk_tile<DH, BK / 16>(s, qf, ks, lane);
+
+    // scale (into the log2 domain) and mask; only tiles on an edge test
+    const bool edge = k0 + BK > sk || (causal && k0 + BK - 1 > q0) ||
+                      (window > 0 && k0 <= q0 + BQ - 1 - window);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (edge) {
+          const int kj = k0 + j * 8 + col + (e & 1);
+          const int qi = e < 2 ? row0 : row1;
+          bool ok = !causal || kj <= qi;
+          if (window > 0) ok = ok && kj > qi - window;
+          x = kj >= sk ? attn::neg_inf() : ok ? x : attn::NEG;
+        }
+        s[j][e] = x;
+      }
+    attn::softmax_tile<BK / 8, DH>(s, m, l, acc);
+    attn::pv_tile<DH, BK / 16>(acc, s, ks + BK * LD, lane);
+  }
+
+  // o = acc / l in bf16, through this warp's own rows of qs (only it read
+  // them, into qf, at tile 0), then out in 16-byte rows
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float den = fmaxf(attn::quad_sum(l[r]), 1e-30f);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(qw + (lane / 4 + 8 * r) * LD +
+                                         n * 8 + col) =
+          __floats2bfloat162_rn(acc[n][2 * r] / den, acc[n][2 * r + 1] / den);
+  }
+  __syncwarp();
+  constexpr int CPR = DH / 8;  // 16-byte chunks per row
+#pragma unroll
+  for (int c = lane; c < 16 * CPR; c += 32) {
+    const int r = c / CPR, x = c % CPR;
+    const int qi = q0 + warp * 16 + r;
+    if (qi < sq)
+      *reinterpret_cast<uint4*>(
+          o + ((static_cast<long long>(b) * sq + qi) * kvh + kv) *
+                  static_cast<long long>(g) * DH +
+          static_cast<long long>(gi) * DH + x * 8) =
+          *reinterpret_cast<const uint4*>(qw + r * LD + x * 8);
+  }
+}
+
+template <int DH>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int b, int sq, int sk, int kvh, int g, long long q_sb,
+                   long long q_ss, long long k_sb, long long k_ss,
+                   long long v_sb, long long v_ss, float scale, int causal,
+                   int window, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<DH>();
+  static_assert(2 * smem <= attn::SMEM_MAX, "two CTAs per SM");
+  auto kern = flash_fwd_tc<DH>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const int heads = b * kvh * g;
+  const long long blocks =
+      static_cast<long long>(heads) * ((sq + BQ - 1) / BQ);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int skip = sq <= sk;
+  kern<<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
+      static_cast<const attn::bf16*>(q), static_cast<const attn::bf16*>(k),
+      static_cast<const attn::bf16*>(v), static_cast<attn::bf16*>(o), sq, sk,
+      kvh, g, heads, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+      scale * attn::LOG2E, causal, window, skip);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 // 16-byte loads need every row of q, k and v to start on a 16-byte
 // boundary: aligned base pointers and batch/sequence strides.
 bool rows_aligned(size_t elt, const void* q, const void* k, const void* v,
@@ -270,9 +470,9 @@ bool rows_aligned(size_t elt, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype: 0 = fp32, 1 = bf16. Strides in elements; the head and Dh dims of
-// q, k and v are dense. window <= 0: no window. Returns the cudaError_t
-// of the launch.
+// The CUDA-core design. dtype: 0 = fp32, 1 = bf16. Strides in elements
+// (0 for a dim of size 1); the head and Dh dims of q, k and v are dense.
+// window <= 0: no window. Returns the cudaError_t of the launch.
 int flash_attention_launch(int dtype, int dh, const void* q, const void* k,
                            const void* v, void* o, int b, int sq, int sk,
                            int kvh, int g, long long q_sb, long long q_ss,
@@ -301,6 +501,38 @@ int flash_attention_launch(int dtype, int dh, const void* q, const void* k,
                                        scale, causal, window, s);
   }
   return cudaErrorInvalidValue;
+}
+
+// The tensor-core design: bf16 only, every row of q, k and v on a 16-byte
+// boundary (the wrapper checks; a misaligned call is refused, never sent
+// elsewhere). Arguments as flash_attention_launch's, without dtype.
+int flash_attention_tc_launch(int dh, const void* q, const void* k,
+                              const void* v, void* o, int b, int sq, int sk,
+                              int kvh, int g, long long q_sb, long long q_ss,
+                              long long k_sb, long long k_ss, long long v_sb,
+                              long long v_ss, float scale, int causal,
+                              int window, void* stream) {
+  if (b < 1 || sq < 1 || sk < 1 || kvh < 1 || g < 1)
+    return cudaErrorInvalidValue;
+  if (!rows_aligned(2, q, k, v, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss))
+    return cudaErrorMisalignedAddress;
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (dh) {
+    case 16:
+      return tc::launch<16>(q, k, v, o, b, sq, sk, kvh, g, q_sb, q_ss, k_sb,
+                            k_ss, v_sb, v_ss, scale, causal, window, s);
+    case 32:
+      return tc::launch<32>(q, k, v, o, b, sq, sk, kvh, g, q_sb, q_ss, k_sb,
+                            k_ss, v_sb, v_ss, scale, causal, window, s);
+    case 64:
+      return tc::launch<64>(q, k, v, o, b, sq, sk, kvh, g, q_sb, q_ss, k_sb,
+                            k_ss, v_sb, v_ss, scale, causal, window, s);
+    case 128:
+      return tc::launch<128>(q, k, v, o, b, sq, sk, kvh, g, q_sb, q_ss, k_sb,
+                             k_ss, v_sb, v_ss, scale, causal, window, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 const char* flash_attention_error_string(int err) {

@@ -1,5 +1,5 @@
 """GQA attention forward with an online softmax (the prefill of the judge,
-the embedder and the agent), as a CUDA kernel for Hopper
+the embedder and the agent), as CUDA kernels for Hopper
 (``csrc/flash_attention.cu``) beside its plain PyTorch version.
 
 Replaces ``repro/kernels/flash_attention.py::_flash_kernel``, the Pallas
@@ -16,20 +16,32 @@ on the tensor cores in bf16 (989 TFLOP/s) or on the CUDA cores in fp32
 G 2, Dh 128, bf16) the bytes bound it (about 3.8 µs); an agent prefill of
 4096 tokens is bound by the operations.
 
-The simple design (``csrc/flash_attention.cu`` has the details): one CTA
-per (batch, KV head, group member, block of 32 query rows) reads its KV
-head through strides, so neither the reference's ``moveaxis`` copies nor
-its G-fold ``repeat`` of K/V exist; the TPU's sequential k-block grid axis
-is a loop inside the CTA over 64-key tiles staged in shared memory as
-fp32; products on the CUDA cores in fp32 (no TF32, no tensor cores yet);
-key tiles wholly above the diagonal or before the window are skipped when
-every query row has a key of its own (Sq <= Sk), which leaves the output
-as it is: a masked prefix is washed out by a zero rescale.
+Two designs (``csrc/flash_attention.cu`` has the details), chosen by
+:func:`pick_design` from the dtype and the rows' alignment:
 
-:func:`flash_attention_fwd` launches the kernel for CUDA tensors and
-raises if it cannot; it takes :func:`flash_attention_plain` only for CPU
-tensors. ``flash_attention_fwd.launches`` and ``.plain_calls`` count the
-two.
+* ``"tc"``: bf16 inputs whose rows start on 16-byte boundaries, which is
+  every call of the LM path. One CTA of 4 warps per (batch, KV head, group
+  member, 64 query rows); K/V tiles of 64 keys stay bf16 in a 2-stage
+  shared-memory ring filled by ``cp.async``; Q·Kᵀ and P·V on ``mma.sync``
+  bf16 tensor cores with fp32 accumulation; scores and probabilities in
+  registers, P rounded to bf16 before P·V as the Pallas kernel rounds it.
+* ``"simt"``: fp32 (its 3e-5 check rules out TF32 and bf16 products) and
+  rows off a 16-byte boundary (no 16-byte copies). One CTA per (batch, KV
+  head, group member, 32 query rows), 64-key tiles staged in shared memory
+  as fp32, products as fp32 FMAs on the CUDA cores.
+
+Both read the KV head through strides, so neither the reference's
+``moveaxis`` copies nor its G-fold ``repeat`` of K/V exist; the TPU's
+sequential k-block grid axis is a loop inside the CTA; key tiles wholly
+above the diagonal or before the window are skipped when every query row
+has a key of its own (Sq <= Sk), which leaves the output as it is: a
+masked prefix is washed out by a zero rescale.
+
+:func:`flash_attention_fwd` launches a kernel for CUDA tensors and raises
+if it cannot; it takes :func:`flash_attention_plain` only for CPU tensors.
+``flash_attention_fwd.launches`` counts every launch,
+``.launches_tc`` and ``.launches_simt`` each design's, and
+``.plain_calls`` the plain version's calls.
 """
 from __future__ import annotations
 
@@ -84,6 +96,30 @@ def _check(q, k, v, window) -> None:
                          f"{k.device}, {v.device}")
 
 
+def pick_design(dtype: torch.dtype, aligned: bool, dh: int) -> str:
+    """The kernel design of a CUDA call to kernel 6 or 7: ``"tc"`` (bf16
+    tensor cores) for bf16 inputs whose rows start on 16-byte boundaries,
+    else ``"simt"`` (fp32 FMAs on the CUDA cores)."""
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head dim {dh} not in {HEAD_DIMS}")
+    return "tc" if dtype == torch.bfloat16 and aligned else "simt"
+
+
+def _row_strides(x: torch.Tensor) -> tuple[int, int]:
+    """Batch and sequence strides in elements, 0 for a dim of size 1 (its
+    stride is never used, so it cannot misalign a row)."""
+    return tuple(x.stride(d) if x.shape[d] > 1 else 0 for d in (0, 1))
+
+
+def rows_aligned(*xs: torch.Tensor) -> bool:
+    """Every row (batch, sequence position) of each tensor starts on a
+    16-byte boundary: its base pointer and its row strides in bytes are
+    multiples of 16 (the head and Dh dims are dense, Dh * 2 bytes >= 32)."""
+    return all(x.data_ptr() % 16 == 0 and
+               all(st * x.element_size() % 16 == 0 for st in _row_strides(x))
+               for x in xs)
+
+
 def _lib():
     lib = build.load("flash_attention")
     if not getattr(lib, "_typed", False):
@@ -92,6 +128,10 @@ def _lib():
             i, i, p, p, p, p, i, i, i, i, i, ll, ll, ll, ll, ll, ll,
             ctypes.c_float, i, i, p]
         lib.flash_attention_launch.restype = i
+        lib.flash_attention_tc_launch.argtypes = [
+            i, p, p, p, p, i, i, i, i, i, ll, ll, ll, ll, ll, ll,
+            ctypes.c_float, i, i, p]
+        lib.flash_attention_tc_launch.restype = i
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -113,7 +153,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         window: int | None = None) -> torch.Tensor:
     """Causal (or full) GQA attention with an optional sliding window.
     Batch and sequence strides are free; the head and Dh dims must be
-    dense (as a reshape of a projection gives them)."""
+    dense (as a reshape of a projection gives them). CUDA tensors take
+    :func:`pick_design`'s kernel."""
     _check(q, k, v, window)
     if q.device.type == "cpu":
         flash_attention_fwd.plain_calls += 1
@@ -121,30 +162,47 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_fwd runs on cuda or cpu, not "
                          f"{q.device}")
-    b, sq, kvh, g, dh = q.shape
-    sk = k.shape[1]
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head dim {dh} not in {HEAD_DIMS}")
     if not (_inner_dense(q, 3) and _inner_dense(k, 2) and _inner_dense(v, 2)):
         raise ValueError("flash_attention_fwd needs dense head and Dh dims")
+    design = pick_design(q.dtype, rows_aligned(q, k, v), q.shape[-1])
+    return _launch(design, q, k, v, scale, causal, window)
+
+
+def _launch(design: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            scale: float, causal: bool, window: int | None) -> torch.Tensor:
+    """Launch ``design``'s kernel on checked CUDA inputs and count it
+    (chip_smoke.py also calls it to time the CUDA-core design on inputs
+    the dispatch sends to the tensor cores)."""
+    b, sq, kvh, g, dh = q.shape
     out = torch.empty((b, sq, kvh, g, dh), dtype=q.dtype, device=q.device)
     lib = _lib()
+    strides = (*_row_strides(q), *_row_strides(k), *_row_strides(v))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_launch(
-            _DTYPE_CODE[q.dtype], dh, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), b, sq, sk, kvh, g,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), float(scale), int(bool(causal)),
-            0 if window is None else int(window), stream)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+        rest = (b, sq, k.shape[1], kvh, g, *strides, float(scale),
+                int(bool(causal)), 0 if window is None else int(window),
+                stream)
+        if design == "tc":
+            err = lib.flash_attention_tc_launch(dh, *ptrs, *rest)
+        else:
+            err = lib.flash_attention_launch(_DTYPE_CODE[q.dtype], dh, *ptrs,
+                                             *rest)
     if err != 0:
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(
             f"flash_attention launch failed (cuda error {err}: {msg}) at "
-            f"q {tuple(q.shape)} k {tuple(k.shape)} dtype={q.dtype}")
+            f"q {tuple(q.shape)} k {tuple(k.shape)} dtype={q.dtype} "
+            f"design={design}")
     flash_attention_fwd.launches += 1
+    if design == "tc":
+        flash_attention_fwd.launches_tc += 1
+    else:
+        flash_attention_fwd.launches_simt += 1
     return out
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_tc = 0
+flash_attention_fwd.launches_simt = 0
 flash_attention_fwd.plain_calls = 0

@@ -1,0 +1,301 @@
+"""The two designs of kernels 6 and 7 (``flash_attention_fwd``,
+``decode_attention``): which inputs take the bf16 tensor-core kernels, the
+split of a cache into chunks and the scratch it needs, and a rehearsal of
+the tensor-core kernels' rounding points in torch on the CPU.
+
+The CUDA kernels run only on the card, where chip_smoke.py holds both
+designs to the plain versions. What can be shown here, before any card
+time, is that the tensor-core design's arithmetic fits the tolerance: the
+rehearsal below rounds where ``flash_fwd_tc`` and ``decode_tc`` round
+(bf16 Q/K/V; fp32 scores in the log2 domain; P rounded to bf16 before
+P.V; l summed from the fp32 p; the online rescale once per key tile, in
+the kernels' tile order: 64-key tiles per 64-row query block for kernel 6,
+16-row tiles dealt to 4 warps per chunk and merged at the end for kernel
+7), and is held to the Pallas kernels in interpret mode at
+tests/test_kernels.py:39-87's shapes and to the plain versions at the
+full-width shapes of chip_smoke.py, shrunk in length. Tolerance: 3e-2 in
+bf16 (chip_smoke.ATTN_TOL, tests/test_kernels.py's).
+"""
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.decode_attention import decode_attention as jax_decode
+from repro.kernels.flash_attention import flash_attention_fwd as jax_flash
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
+
+torch.set_num_threads(1)
+
+TOL_BF16 = 3e-2
+NEG = -1.0e30
+LOG2E = 1.4426950408889634
+SMS = 132          # H100 SXM
+
+
+def _bf16(rng, shape) -> torch.Tensor:
+    return torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16)
+
+
+def _tile_step(s2, m, l, acc, vt):
+    """One key tile of the online softmax on log2-domain scores ``s2``
+    (..., rows, keys): returns the new (m, l, acc); p rounded to bf16 only
+    for P.V."""
+    m_new = torch.maximum(m, s2.amax(-1))
+    alpha = torch.exp2(m - m_new)
+    p = torch.exp2(s2 - m_new[..., None])
+    l = l * alpha + p.sum(-1)
+    acc = acc * alpha[..., None] + p.to(torch.bfloat16).float() @ vt
+    return m_new, l, acc
+
+
+def flash_tc_rehearsal(q, k, v, scale, causal=True, window=None,
+                       bq=64, bk=64):
+    """``flash_fwd_tc``'s arithmetic: per 64-row query block, 64-key tiles
+    from the skip range (Sq <= Sk) with -1e30 masks and -inf past Sk."""
+    b, sq, kvh, g, dh = q.shape
+    sk = k.shape[1]
+    qf = q.float().permute(0, 2, 3, 1, 4)            # (B, KV, G, Sq, Dh)
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]   # (B, KV, 1, Sk, Dh)
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    out = torch.empty_like(qf)
+    skip = sq <= sk
+    for q0 in range(0, sq, bq):
+        rows = torch.arange(q0, min(q0 + bq, sq))
+        kbeg, kend = 0, sk
+        if skip:
+            if causal:
+                kend = min(sk, q0 + bq)
+            if window:
+                kbeg = max(0, q0 - window + 1) // bk * bk
+        m = torch.full((b, kvh, g, len(rows)), NEG)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, kvh, g, len(rows), dh))
+        for k0 in range(kbeg, kend, bk):
+            kj = torch.arange(k0, k0 + bk)
+            kt = torch.zeros((b, kvh, 1, bk, dh))
+            vt = torch.zeros_like(kt)
+            n = min(bk, sk - k0)
+            kt[..., :n, :], vt[..., :n, :] = kf[..., k0:k0 + n, :], \
+                vf[..., k0:k0 + n, :]
+            s2 = (qf[..., rows, :] @ kt.transpose(-1, -2)) * (scale * LOG2E)
+            ok = torch.ones((len(rows), bk), dtype=torch.bool)
+            if causal:
+                ok &= kj[None] <= rows[:, None]
+            if window:
+                ok &= kj[None] > rows[:, None] - window
+            s2 = torch.where(ok, s2, NEG)
+            s2 = torch.where(kj < sk, s2, -math.inf)
+            m, l, acc = _tile_step(s2, m, l, acc, vt)
+        out[..., rows, :] = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).to(torch.bfloat16)
+
+
+def decode_tc_rehearsal(q, kc, vc, pos, scale, sms=SMS, tr=16, warps=4):
+    """``decode_tc``'s arithmetic: chunks from ``split_rows``; in each, 4
+    warps take 16-row tiles in turn, each with its own (m, l, acc), merged
+    at the end; with several chunks, ``decode_combine``'s merge."""
+    b, kvh, g, dh = q.shape
+    rows = min(pos, kc.shape[1] - 1) + 1
+    chunk = da.split_rows(rows, b * kvh, sms)
+    qf = q.float()[..., None, :, :]                    # (B, KV, 1, G, Dh)
+    kf = kc.float().permute(0, 2, 1, 3)                # (B, KV, S, Dh)
+    vf = vc.float().permute(0, 2, 1, 3)
+    parts = []
+    for j0 in range(0, rows, chunk):
+        j1 = min(rows, j0 + chunk)
+        ms, ls, accs = [], [], []
+        for w in range(warps):
+            m = torch.full((b, kvh, 1, g), NEG)
+            l = torch.zeros_like(m)
+            acc = torch.zeros((b, kvh, 1, g, dh))
+            for r0 in range(j0 + w * tr, j1, warps * tr):
+                n = min(tr, j1 - r0)
+                kt = torch.zeros((b, kvh, 1, tr, dh))
+                vt = torch.zeros_like(kt)
+                kt[..., :n, :] = kf[:, :, None, r0:r0 + n]
+                vt[..., :n, :] = vf[:, :, None, r0:r0 + n]
+                s2 = (qf @ kt.transpose(-1, -2)) * (scale * LOG2E)
+                s2 = torch.where(torch.arange(tr) < n, s2, -math.inf)
+                m, l, acc = _tile_step(s2, m, l, acc, vt)
+            ms.append(m)
+            ls.append(l)
+            accs.append(acc)
+        m = torch.stack(ms)
+        mx = m.amax(0)
+        wt = torch.exp2(m - mx)
+        parts.append((mx, (torch.stack(ls) * wt).sum(0),
+                      (torch.stack(accs) * wt[..., None]).sum(0)))
+    if len(parts) == 1:
+        _, l, acc = parts[0]
+    else:  # decode_combine, on m in natural-log units
+        m = torch.stack([p[0] for p in parts]) / LOG2E
+        wt = torch.exp(m - m.amax(0))
+        l = (torch.stack([p[1] for p in parts]) * wt).sum(0)
+        acc = (torch.stack([p[2] for p in parts]) * wt[..., None]).sum(0)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out[:, :, 0].to(torch.bfloat16)
+
+
+# ----------------------------------------------------------- the dispatch
+
+@pytest.mark.parametrize("mod", [fa, da], ids=["flash", "decode"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+def test_pick_design(mod, dtype, aligned, dh):
+    want = "tc" if dtype == torch.bfloat16 and aligned else "simt"
+    assert mod.pick_design(dtype, aligned, dh) == want
+
+
+@pytest.mark.parametrize("mod", [fa, da], ids=["flash", "decode"])
+@pytest.mark.parametrize("dh", [8, 48, 256])
+def test_pick_design_refuses_other_head_dims(mod, dh):
+    with pytest.raises(ValueError, match="head dim"):
+        mod.pick_design(torch.bfloat16, True, dh)
+
+
+def _misaligned(x: torch.Tensor) -> torch.Tensor:
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def test_rows_aligned():
+    """The wrapper's alignment test: base pointers and row strides; a dim
+    of size 1 does not count (its stride is never used)."""
+    rng = np.random.default_rng(0)
+    q = _bf16(rng, (2, 40, 2, 2, 16))
+    k = _bf16(rng, (2, 40, 2, 16))
+    assert fa.rows_aligned(q, k, k) and da.rows_aligned(q, k, k)
+    assert not fa.rows_aligned(_misaligned(q), k, k)
+    assert not da.rows_aligned(q, _misaligned(k), k)
+    odd = torch.empty((2, 41, 2, 2, 16), dtype=torch.bfloat16)[:, 1:]
+    assert odd.data_ptr() % 16 == 0 and fa.rows_aligned(odd, k, k)
+    # sequence stride of 68 bf16 (136 bytes): rows off 16-byte boundaries
+    wide = torch.empty((2, 40, 68), dtype=torch.bfloat16)[..., :64]
+    assert not fa.rows_aligned(wide.unflatten(-1, (2, 2, 16)), k, k)
+    # a batch of 1 with a stride that is no multiple of 16 bytes
+    one = torch.empty((1, 40, 2, 2, 16), dtype=torch.bfloat16)
+    one = one.as_strided(one.shape, (7, *one.stride()[1:]))
+    assert fa._row_strides(one) == (0, one.stride(1))
+    assert fa.rows_aligned(one, k, k)
+
+
+# ------------------------------------------------- split and scratch plan
+
+@pytest.mark.parametrize("b,kvh,s,pos,nsplit", [
+    (4, 4, 128, 127, 1),          # the batcher: one chunk, one launch
+    (1, 4, 128, 0, 1),
+    (1, 2, 1024, 255, 1),         # pos = chunk - 1
+    (1, 2, 1024, 256, 2),         # pos = chunk: a second chunk
+    (1, 4, 32768, 32767, 64),
+    (8, 4, 32768, 32767, 8),
+])
+def test_split_and_scratch(b, kvh, s, pos, nsplit):
+    rows = min(pos, s - 1) + 1
+    chunk = da.split_rows(rows, b * kvh, SMS)
+    assert -(-rows // chunk) == nsplit
+    tc = da.partial_shape("tc", b * kvh, nsplit, 8, 128)
+    simt = da.partial_shape("simt", b * kvh, nsplit, 8, 128)
+    assert simt == (b * kvh, nsplit, 8, 130)
+    assert tc == (None if nsplit == 1 else simt)
+
+
+# ---------------------------------------------- the rounding rehearsal
+
+# tests/test_kernels.py:39-46's flash shapes, in bf16
+FLASH_REF = [
+    (2, 256, 256, 2, 2, 32, True, None, 64, 64),
+    (1, 128, 128, 4, 1, 64, True, 48, 64, 32),
+    (2, 128, 256, 2, 4, 16, False, None, 128, 128),
+    (1, 512, 512, 1, 8, 128, True, None, 256, 128),
+]
+# tests/test_kernels.py:71-78's decode shapes, in bf16
+DECODE_REF = [
+    (2, 2, 4, 32, 256, 100, 64),
+    (1, 4, 1, 64, 512, 511, 128),
+    (4, 1, 8, 16, 128, 0, 128),
+    (1, 8, 16, 128, 1024, 700, 256),
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,kv,g,dh,causal,win,bq,bk", FLASH_REF)
+def test_flash_rehearsal_matches_pallas(b, sq, sk, kv, g, dh, causal, win,
+                                        bq, bk):
+    rng = np.random.default_rng(2)
+    q, k, v = (_bf16(rng, sh) for sh in ((b, sq, kv, g, dh),
+                                          (b, sk, kv, dh), (b, sk, kv, dh)))
+    scale = 1 / math.sqrt(dh)
+    want = np.asarray(jax_flash(
+        *(jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q, k, v)),
+        scale=scale, causal=causal, window=win, bq=bq, bk=bk), np.float32)
+    got = flash_tc_rehearsal(q, k, v, scale, causal, win)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, atol=TOL_BF16)
+
+
+@pytest.mark.parametrize("b,kv,g,dh,s,pos,bs", DECODE_REF)
+def test_decode_rehearsal_matches_pallas(b, kv, g, dh, s, pos, bs):
+    rng = np.random.default_rng(3)
+    q, kc, vc = (_bf16(rng, sh) for sh in ((b, kv, g, dh), (b, s, kv, dh),
+                                            (b, s, kv, dh)))
+    scale = 1 / math.sqrt(dh)
+    want = np.asarray(jax_decode(
+        *(jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q, kc, vc)),
+        pos, scale=scale, bs=bs), np.float32)
+    got = decode_tc_rehearsal(q, kc, vc, pos, scale)
+    np.testing.assert_allclose(got.float().numpy(), want, atol=TOL_BF16)
+
+
+# chip_smoke.FLASH_FULL (B, Sq, KV, G) at Dh 128, the agent's 4096-token
+# prefill cut to 512 and the judge's micro-batch of 8 to 2; plus edges of
+# the 64-row tiles
+FLASH_FULL_SHRUNK = [(1, 128, 8, 2), (2, 128, 8, 2), (1, 512, 4, 8),
+                     (1, 65, 2, 2), (2, 63, 1, 1), (1, 1, 2, 2)]
+# chip_smoke.DECODE_FULL (B, S) at KV 4, G 8, Dh 128, pos = S - 1, with
+# 32768 cut to 2048 (8 chunks at B=1, so the combine runs)
+DECODE_FULL_SHRUNK = [(1, 128), (4, 128), (8, 128), (1, 2048), (4, 2048)]
+
+
+@pytest.mark.parametrize("b,s,kvh,g", FLASH_FULL_SHRUNK)
+def test_flash_rehearsal_within_tolerance_of_plain(b, s, kvh, g):
+    rng = np.random.default_rng(4)
+    q = _bf16(rng, (b, s, kvh, g, 128))
+    k, v = (_bf16(rng, (b, s, kvh, 128)) for _ in range(2))
+    scale = 1 / math.sqrt(128)
+    got = flash_tc_rehearsal(q, k, v, scale)
+    want = fa.flash_attention_plain(q, k, v, scale)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= TOL_BF16
+
+
+@pytest.mark.parametrize("b,s", DECODE_FULL_SHRUNK)
+def test_decode_rehearsal_within_tolerance_of_plain(b, s):
+    rng = np.random.default_rng(5)
+    q = _bf16(rng, (b, 4, 8, 128))
+    kc, vc = (_bf16(rng, (b, s, 4, 128)) for _ in range(2))
+    scale = 1 / math.sqrt(128)
+    got = decode_tc_rehearsal(q, kc, vc, s - 1, scale)
+    want = da.decode_attention_plain(q, kc, vc, s - 1, scale)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= TOL_BF16
+
+
+@pytest.mark.parametrize("g", [1, 7, 8, 16])
+@pytest.mark.parametrize("pos", [0, 63, 64, 65, 255, 256, 1023])
+def test_decode_rehearsal_edges(g, pos):
+    """chip_smoke's decode edges: G off the 16-row tile, pos at the tile
+    and chunk edges (a chunk is 256 rows here)."""
+    rng = np.random.default_rng(6)
+    q = _bf16(rng, (1, 2, g, 32))
+    kc, vc = (_bf16(rng, (1, 1024, 2, 32)) for _ in range(2))
+    scale = 1 / math.sqrt(32)
+    got = decode_tc_rehearsal(q, kc, vc, pos, scale)
+    want = da.decode_attention_plain(q, kc, vc, pos, scale)
+    assert float((got.float() - want.float()).abs().max()) <= TOL_BF16

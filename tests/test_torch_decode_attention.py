@@ -15,7 +15,8 @@ import torch
 from repro.kernels.decode_attention import decode_attention as jax_decode
 from repro.kernels.ref import decode_attention_ref
 from repro_torch.kernels import build, decode_attention as da_mod
-from repro_torch.kernels.decode_attention import (TILE, decode_attention,
+from repro_torch.kernels.decode_attention import (CTAS_PER_SM, MIN_CHUNK,
+                                                  TILE, decode_attention,
                                                   split_rows)
 from repro_torch.kernels.ops import decode_attention as ops_decode
 
@@ -81,16 +82,17 @@ def test_decode_attention_ignores_rows_past_pos():
 
 
 @pytest.mark.parametrize("rows,heads,sms,chunk", [
-    (128, 32, 132, 64),          # the batcher: two 64-row chunks
-    (1, 4, 132, 64),             # pos = 0: one tile
+    (128, 16, 132, 256),         # the batcher (4 slots x KV 4): one chunk
+    (1, 4, 132, 256),            # pos = 0: one chunk
     (32768, 4, 132, 512),        # agent B=1 at 32k: 64 chunks x 4 heads
-    (32768, 32, 132, 3648),      # agent B=8 at 32k: 9 chunks x 32
-    (100, 1, 132, 64),           # ragged: chunks stay tile multiples
+    (32768, 32, 132, 4096),      # agent B=8 at 32k: 8 chunks x 32
+    (100, 1, 132, 256),          # ragged: chunks stay tile multiples
 ])
 def test_split_rows(rows, heads, sms, chunk):
     got = split_rows(rows, heads, sms)
-    assert got == chunk and got % TILE == 0
-    assert heads * -(-rows // got) < 2 * sms + heads
+    assert got == chunk and got % TILE == 0 and got >= MIN_CHUNK
+    # one wave: every (b, kv, chunk) CTA resident at once
+    assert heads * -(-rows // got) <= CTAS_PER_SM * sms
 
 
 @pytest.mark.parametrize("bad", ["pos", "numpy_pos", "dtype", "shape"])
