@@ -8,15 +8,25 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 1. card    the GPU's name and power limit (nvidia-smi) and CUDA version.
 2. build   nvcc builds every kernel from ``src/repro_torch/kernels/csrc``,
            one process per source, all at once.
-3. kernel  ann_topk against its plain PyTorch version on the card, at
-           the reference's test shapes and two more (D=100, k=64), in
-           fp32 and bf16, a tie case, a fewer-than-k-active case, and the
-           real size (2**20 rows x 768, fp32, 20% inactive, k=4, B in
-           1/4/16/64); with times, below 16 queries also of the block of
-           16 the kernel would use without its smaller blocks.
-   kernel_quant  ann_topk_quant likewise: the tier test's shape (300 x 32,
-           B=16, k=16), D=48/50/100, k=64, ties, fewer than k active, and
-           2**20 x 768 int8 (20% inactive, k=16, B in 1/16), with times.
+3. kernel  ann_topk against its plain PyTorch version on the card, each
+           case on the design the dispatch gives it (fp32 rows on 16-byte
+           boundaries: the one-launch "fused"; bf16 and misaligned rows:
+           "twopass") and on "twopass" too where it takes "fused": the
+           reference's test shapes and two more (D=100, k=64), in fp32
+           and bf16, ties, fewer than k active, misaligned rows, fewer rows
+           than a tile; then with times the routing shapes (C=64 x 128,
+           nprobe 8, B=1; C=512 x 768, nprobe 64, B in 1/16) and the real
+           size (2**20 rows x 768, fp32, k=4, 20% inactive at B in
+           1/4/16/64, 95% inactive at B in 1/16). Times: both designs, the
+           block of 16 below 16 queries, the plain version, the library
+           call, the bound and the CUDA launches a call.
+   kernel_quant  ann_topk_quant likewise, bitwise, on "tc" (int8 tensor
+           cores, aligned rows with D % 32 == 0) and "dp4a": the tier
+           test's shape (300 x 32, B=16, k=16), D=48/50/96/100, k=64 over
+           fewer rows than k, misaligned rows, ties, fewer than k active;
+           then with times the engine's index shape (8192 x 128, k=16, B in
+           1/4/16), int8 twins of the routing shapes and 2**20 x 768 int8
+           (20% inactive, k=16, B in 1/16).
    kernel_ivf  ann_topk_ivf and ann_topk_ivf_quant likewise: the
            reference's kernel-test shapes, D=100/50, k above the bucket
            size, disabled probes, duplicates inside a bucket, bitwise
@@ -72,14 +82,17 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            four launch; (d) the reference's shard-invariance config at 1,
            2 and 8 shards (equal apart from the shard keys); (e) run (c) at
            8 shards: both sharded kernels launch; (f) the max-over-shards
-           latency run; no plain version runs. Then every kernel against
-           its plain version on the run's own device layouts, and the
-           kernels' times at run (c)'s shapes, the sharded ones at (e)'s.
+           latency run; no plain version runs, and every launch of
+           kernels 1 and 2 takes the one-launch design. Then every kernel
+           against its plain version on the run's own device layouts, and
+           the kernels' times at run (c)'s shapes, the sharded ones at
+           (e)'s.
            (g) the defaults with ``judge_compute="model"``: kernel 6 runs
            the tiny-LM judge on the card (every launch on the tensor-core
            design), and the summary is the defaults' oracle run's.
 6. main    ann_topk against its plain version at the main path's shape
-           (8192 x 128, B = 1, 4 and 16), then its times there.
+           (8192 x 128, B = 1, 4 and 16), then its times there: one CUDA
+           launch a call on "fused".
 7. lm      qwen3-0.6b (the judge) and search-r1-7b (the agent) at their
            published widths, bf16, parameters drawn on the card: decode of
            token 64 against the prefill's cache (kernel 7) against the full
@@ -97,10 +110,16 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            replays the same tokens; decode steps per second.
 9. the ``kernels`` line: per kernel, its launches on the run that drives
    it (a serve run; the colocated run for kernels 6 and 7, with their
-   launches by design in colocated, lm and (g)), max abs error
-   against the plain version over every phase, and its time, the plain
-   version's, one library call's and the card's bound, at its main-path
-   shape, with the other measured shapes under ``sizes``.
+   launches by design in colocated, lm and (g); kernels 1 and 2 with
+   theirs in every serve run, all on the one-launch designs, and their
+   CUDA launches a call), max abs error against the plain version over
+   every phase, and its time, the plain version's, one library call's
+   and the card's bound, at its main-path shape, with the other measured
+   shapes under ``sizes`` (kernels 1 and 2 with the first design's
+   device time beside the new one's). Device times come from
+   torch.profiler sessions that may drop records: a kernel's time is its
+   mean over the records kept, and a table's device time fails the run
+   where no session kept them.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
 without the port's sources beside this file, it prints no result and
@@ -189,26 +208,68 @@ def amortized_ms(fn, n: int = 50) -> float:
     return start.elapsed_time(end) / n
 
 
-def device_ms(fn, repeats: int = REPEATS):
-    """Device time per call, summed over the CUDA kernels a call launches
-    (torch.profiler); None when the profiler records no device time, or
-    when it lost records: every call launches the same kernels, so each
-    kernel's record count must be a multiple of the calls."""
+def kernel_records(fn, repeats: int = REPEATS) -> dict:
+    """{CUDA kernel name: (records, device us)} over ``repeats`` calls, from
+    the active step of a torch.profiler schedule whose warm-up step makes
+    the same calls first (a session can drop the first records it sees)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(repeats):
-            fn()
-        torch.cuda.synchronize()
-    device = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    if any(e.count % repeats for e in device):
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(repeats):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return {e.key: (e.count, e.self_device_time_total)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def per_call(fn, repeats: int = REPEATS, tries: int = 5):
+    """{CUDA kernel name: (launches per call, mean device us per launch)}
+    for ``fn``. A profiler session can drop records at random (runs on an
+    H100 lost from a few of 20 to all of them), so up to
+    ``tries`` sessions run until one keeps a whole number of records per
+    call for every kernel; otherwise a kernel's launches per call are the
+    most records any session kept, over the calls, rounded, and its time
+    the mean over every record kept. None if some kernel never kept half
+    its records (each loss is reported on stderr)."""
+    most, count, total = {}, {}, {}
+    for _ in range(tries):
+        rec = kernel_records(fn, repeats)
+        if rec and not any(c % repeats for c, _ in rec.values()):
+            return {n: (c // repeats, us / c) for n, (c, us) in rec.items()}
+        print(f"profiler dropped records ({repeats} calls): {rec}",
+              file=sys.stderr)
+        for n, (c, us) in rec.items():
+            most[n] = max(most.get(n, 0), c)
+            count[n] = count.get(n, 0) + c
+            total[n] = total.get(n, 0.0) + us
+    if not most or any(2 * c < repeats for c in most.values()):
         return None
-    total_us = sum(e.self_device_time_total for e in device)
-    return total_us / repeats / 1e3 if total_us > 0 else None
+    return {n: (round(most[n] / repeats), total[n] / count[n]) for n in most}
+
+
+def device_ms(fn, repeats: int = REPEATS, *, required: bool = False):
+    """Device time per call: over the CUDA kernels a call launches, each
+    one's launches per call times its mean time (``per_call``). None where
+    no profiler session was usable, a failure if ``required``."""
+    calls = per_call(fn, repeats)
+    total_us = sum(n * us for n, us in calls.values()) if calls else 0.0
+    check(not required or total_us > 0,
+          "no profiler session kept the records of a required device time")
+    return total_us / 1e3 if total_us > 0 else None
+
+
+def launches_per_call(fn, repeats: int = REPEATS) -> int:
+    """CUDA kernel launches per call of ``fn``."""
+    calls = per_call(fn, repeats)
+    check(calls is not None, "no profiler session kept the launch records")
+    return sum(n for n, _ in calls.values())
 
 
 def bound(act: torch.Tensor, d: int, b: int, k: int) -> tuple[float, str]:
@@ -246,15 +307,34 @@ def compare(got, want, *, exact_rows: bool = False) -> float:
     return err
 
 
+def expect_ann_design(emb: torch.Tensor) -> str:
+    """The design a CUDA call of kernel 1 must take: one launch ("fused")
+    for fp32 rows on 16-byte boundaries (D % 4 == 0), else "twopass"."""
+    aligned = emb.data_ptr() % 16 == 0 and emb.shape[1] % 4 == 0
+    return "fused" if emb.dtype == torch.float32 and aligned else "twopass"
+
+
 def hold(ann_topk, ann_topk_plain, emb, act, q, k, *,
          exact_rows: bool = False) -> float:
     """The kernel against its plain version on the same inputs (the plain
-    version with k+1 columns, see ``compare``); the max abs error. Below
-    16 queries the block of 16 is held too, as ``measure`` times it."""
+    version with k+1 columns, see ``compare``), on the design the dispatch
+    gives them (the wrapper's counts say which ran), and on "twopass" too
+    where the dispatch takes "fused"; below 16 queries the block of 16 is
+    held too, as ``measure`` times it. The max abs error."""
+    from repro_torch.kernels import ann_topk as k1
+
+    design = expect_ann_design(emb)
     want = ann_topk_plain(emb, act, q, k + 1)
+    before = design_counts(ann_topk)
     err = compare(ann_topk(emb, act, q, k), want, exact_rows=exact_rows)
+    check_design(ann_topk, before, design,
+                 f"ann_topk at {tuple(emb.shape)} b={q.shape[0]}")
+    others = ["twopass"] if design == "fused" else []
     if q.shape[0] < 16:
-        err = max(err, compare(ann_topk(emb, act, q, k, qb=16), want,
+        err = max(err, compare(k1._launch(design, emb, act, q, k, 16), want,
+                               exact_rows=exact_rows))
+    for other in others:
+        err = max(err, compare(k1._launch(other, emb, act, q, k), want,
                                exact_rows=exact_rows))
     return err
 
@@ -305,32 +385,62 @@ def phase_kernel(ann_topk, ann_topk_plain, dev):
         torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(dev),
         k)
     cases += 1
+    # fp32 rows off a 16-byte boundary ("twopass"), and fewer rows than
+    # a tile of "fused" with every row a duplicate of row 0 (ties)
+    n, d, b, k = 900, 128, 5, 6
+    emb = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    act = torch.from_numpy(rng.random(n) > 0.2).to(dev)
+    q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32))
+    run(misaligned(emb.to(dev)), act, q.to(dev), k)
+    emb = emb[:1].repeat(5, 1)
+    run(emb.to(dev), torch.ones(5, dtype=torch.bool, device=dev),
+        emb[:2].to(dev).contiguous(), 4, exact_rows=True)
+    cases += 2
 
-    # real size: 2**20 rows x 768 fp32, 20% inactive; queries near rows
-    n, d, k = REAL_N, 768, 4
+    sizes = []
+    # the routing calls (ops._route): run (c)'s C=64 centroids x 128,
+    # nprobe 8, and the real-size router, C=512 x 768, nprobe 64
     g = torch.Generator(device=dev).manual_seed(0)
+    for c, d, nprobe, bs in ((64, 128, 8, (1,)),
+                             (REAL_C, 768, REAL_NPROBE, (1, 16))):
+        cent = unit_rows(g, c, d, dev)
+        live = torch.rand(c, device=dev, generator=g) > 0.03
+        for b in bs:
+            q = near(cent[torch.randint(0, c, (b,), device=dev,
+                                        generator=g)], g, 0.3)
+            run(cent, live, q, nprobe)
+            cases += 1
+            sizes.append(dict(measure(ann_topk, ann_topk_plain, cent, live,
+                                      q, nprobe), role="routing"))
+
+    # real size: 2**20 rows x 768 fp32, 20% inactive; queries near rows;
+    # then the same rows with 95% inactive (groups with no active row
+    # skip their payload)
+    n, d, k = REAL_N, 768, 4
     emb = torch.randn((n, d), device=dev, generator=g)
     emb /= emb.norm(dim=1, keepdim=True)
-    act = torch.rand(n, device=dev, generator=g) > 0.2
-    sizes = []
-    for b in (1, 4, 16, 64):
-        pick = torch.randint(0, n, (b,), device=dev, generator=g)
-        q = emb[pick] + 0.1 * torch.randn((b, d), device=dev, generator=g)
-        q = (q / q.norm(dim=1, keepdim=True)).contiguous()
-        run(emb, act, q, k)
-        cases += 1
-        sizes.append(measure(ann_topk, ann_topk_plain, emb, act, q, k))
+    for p_live, bs in ((0.8, (1, 4, 16, 64)), (0.05, (1, 16))):
+        act = torch.rand(n, device=dev, generator=g) < p_live
+        for b in bs:
+            pick = live_pick(act, g, b)
+            q = emb[pick] + 0.1 * torch.randn((b, d), device=dev, generator=g)
+            q = (q / q.norm(dim=1, keepdim=True)).contiguous()
+            run(emb, act, q, k)
+            cases += 1
+            sizes.append(measure(ann_topk, ann_topk_plain, emb, act, q, k))
     return max_err, cases, sizes
 
 
 def measure(ann_topk, ann_topk_plain, emb, act, q, k) -> dict:
-    """Times of the kernel (with the query block it picks, and below 16
-    queries with the block of 16 too), the plain version and the library
-    call, and the card's bound."""
-    from repro_torch.kernels.ann_topk import query_block
+    """Times of the kernel on the design and query block it picks (and
+    below 16 queries with the block of 16 too), of "twopass" where it
+    picks "fused", of the plain version and of the library call, its CUDA
+    launches per call, and the card's bound."""
+    from repro_torch.kernels import ann_topk as k1
 
     n, d = emb.shape
     b = q.shape[0]
+    design = expect_ann_design(emb)
 
     def library():
         s = torch.where(act[None, :], q @ emb.T, NEG)
@@ -342,17 +452,31 @@ def measure(ann_topk, ann_topk_plain, emb, act, q, k) -> dict:
     def plain():
         return ann_topk_plain(emb, act, q, k)
 
-    def block16():
-        return ann_topk(emb, act, q, k, qb=16)
-
     bound_ms, bound_by = bound(act, d, b, k)
-    out = {"n": n, "d": d, "b": b, "k": k, "qb": query_block(b),
+    out = {"n": n, "d": d, "b": b, "k": k, "qb": k1.query_block(b),
+           "active_share": float(act.float().mean()), "design": design,
+           "launches_per_call": launches_per_call(kernel),
            "ms": timed_ms(kernel), "plain_ms": timed_ms(plain),
-           "library_ms": timed_ms(library), "device_ms": device_ms(kernel),
+           "library_ms": timed_ms(library),
+           "device_ms": device_ms(kernel, required=True),
            "plain_device_ms": device_ms(plain),
-           "library_device_ms": device_ms(library),
+           "library_device_ms": device_ms(library, required=True),
            "bound_ms": bound_ms, "bound_by": bound_by}
+    check(design != "fused" or out["launches_per_call"] == 1,
+          f"ann_topk at {tuple(emb.shape)}: {out['launches_per_call']} "
+          f"launches a call on 'fused'")
+    if design == "fused":
+        out["warp_rows"] = k1.fused_rows(out["qb"])
+        out["tile_n"], out["ntiles"], out["nqb"] = k1.tile_plan(
+            n, b, k, out["qb"], k1.sm_count(emb.device), out["warp_rows"])
+
+        def twopass():
+            return k1._launch("twopass", emb, act, q, k)
+        out["twopass_ms"] = timed_ms(twopass)
+        out["twopass_device_ms"] = device_ms(twopass, required=True)
     if b < 16:
+        def block16():
+            return k1._launch(design, emb, act, q, k, 16)
         out["qb16_ms"] = timed_ms(block16)
         out["qb16_device_ms"] = device_ms(block16)
     return out
@@ -580,25 +704,30 @@ def bound_ivf(sel, en, valid, d: int, k: int, quant: bool,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def timings(kernel, plain, library, plain_repeats: int = REPEATS) -> dict:
+def timings(kernel, plain, library, plain_repeats: int = REPEATS,
+            required: bool = False) -> dict:
     """Event-timed and profiler device times of the kernel, its plain
-    version and the library yardstick (None where there is none)."""
-    out = {"ms": timed_ms(kernel), "device_ms": device_ms(kernel),
+    version and the library yardstick (None where there is none); the
+    kernel's and the library's device times are ``required`` where a
+    table needs them."""
+    out = {"ms": timed_ms(kernel),
+           "device_ms": device_ms(kernel, required=required),
            "amortized_ms": amortized_ms(kernel),
            "plain_ms": timed_ms(plain, plain_repeats),
            "plain_device_ms": device_ms(plain, plain_repeats),
            "library_ms": None, "library_device_ms": None}
     if library is not None:
         out["library_ms"] = timed_ms(library)
-        out["library_device_ms"] = device_ms(library)
+        out["library_device_ms"] = device_ms(library, required=required)
     return out
 
 
 def measure_quant(emb_q, scales, act, qq, qs, k) -> dict:
-    from repro_torch.kernels.ann_topk_quant import (ann_topk_quant,
-                                                    ann_topk_quant_plain)
+    from repro_torch.kernels import ann_topk_quant as k2
     n, d = emb_q.shape
     b = qq.shape[0]
+    design = expect_quant_design(emb_q)
+    args = (emb_q, scales, act, qq, qs)
     # torch._int_mm's CUDA shape rules: more than 16 rows, D and the query
     # count multiples of 8; the query block is padded with zero rows to a
     # multiple of 8, and the scores of the padding are dropped
@@ -611,20 +740,36 @@ def measure_quant(emb_q, scales, act, qq, qs, k) -> dict:
         s = torch.where(act[None, :], s * qs[:, None], NEG)
         return torch.sort(-s, dim=1, stable=True).indices[:, :k]
 
+    def kernel():
+        return k2.ann_topk_quant(*args, k)
+
     has_lib = n > 16 and d % 8 == 0
-    out = {"n": n, "d": d, "b": b, "k": k,
-           **timings(lambda: ann_topk_quant(emb_q, scales, act, qq, qs, k),
-                     lambda: ann_topk_quant_plain(emb_q, scales, act, qq,
-                                                  qs, k),
-                     library if has_lib else None),
+    out = {"n": n, "d": d, "b": b, "k": k, "design": design,
+           "active_share": float(act.float().mean()),
+           "launches_per_call": launches_per_call(kernel),
+           **timings(kernel, lambda: k2.ann_topk_quant_plain(*args, k),
+                     library if has_lib else None, required=True),
            "library": ("torch._int_mm (queries padded to a multiple of 8) "
                        "+ rescale + stable sort" if has_lib
                        else "none: torch._int_mm needs D a multiple of 8")}
+    check(design != "tc" or out["launches_per_call"] == 1,
+          f"ann_topk_quant at {tuple(emb_q.shape)}: "
+          f"{out['launches_per_call']} launches a call on 'tc'")
+    if design == "tc":
+        out["qb"] = k2.tc_query_block(b)
+        out["tile_n"], out["ntiles"], out["nqb"] = k2.tile_plan(
+            n, b, k, out["qb"], k2.sm_count(emb_q.device), k2.TC_ROWS)
+
+        def dp4a():
+            return k2._launch("dp4a", *args, k)
+        out["dp4a_ms"] = timed_ms(dp4a)
+        out["dp4a_device_ms"] = device_ms(dp4a, required=True)
     out["bound_ms"], out["bound_by"] = bound_quant(act, d, b, k)
     return out
 
 
-def measure_ivf(sel, en, q, buckets, valid, k, *, quant=None) -> dict:
+def measure_ivf(sel, en, q, buckets, valid, k, *, quant=None,
+                required: bool = False) -> dict:
     """Times of the fp32 routed scan, or with ``quant = (q_scales,
     bucket_scale)`` of the int8 one (q then holds the int8 queries)."""
     from repro_torch.kernels import ann_topk_ivf as ivf
@@ -652,16 +797,36 @@ def measure_ivf(sel, en, q, buckets, valid, k, *, quant=None) -> dict:
 
     bound_ms, bound_by = bound_ivf(sel, en, valid, d, k, quant is not None)
     return {"b": b, "nprobe": nprobe, "c": c, "cap": cap, "d": d, "k": k,
-            **timings(lambda: kernel(*args), lambda: plain(*args), library),
+            **timings(lambda: kernel(*args), lambda: plain(*args), library,
+                      required=required),
             "library": "gathered buckets, torch.bmm + stable sort",
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def expect_quant_design(emb_q: torch.Tensor) -> str:
+    """The design a CUDA call of kernel 2 must take: the int8 tensor cores
+    ("tc") for rows on 16-byte boundaries with D % 32 == 0, else "dp4a"."""
+    aligned = emb_q.data_ptr() % 16 == 0
+    return "tc" if aligned and emb_q.shape[1] % 32 == 0 else "dp4a"
+
+
 def hold_quant(emb_q, scales, act, qq, qs, k) -> float:
-    from repro_torch.kernels.ann_topk_quant import (ann_topk_quant,
-                                                    ann_topk_quant_plain)
-    return compare_exact(ann_topk_quant(emb_q, scales, act, qq, qs, k),
-                         ann_topk_quant_plain(emb_q, scales, act, qq, qs, k))
+    """Kernel 2 against its plain version, bitwise, on the design the
+    dispatch gives the inputs, and on "dp4a" too where it gives "tc"
+    (with the block of 16 queries too below 9)."""
+    from repro_torch.kernels import ann_topk_quant as k2
+    args = (emb_q, scales, act, qq, qs)
+    want = k2.ann_topk_quant_plain(*args, k)
+    design = expect_quant_design(emb_q)
+    before = design_counts(k2.ann_topk_quant)
+    compare_exact(k2.ann_topk_quant(*args, k), want)
+    check_design(k2.ann_topk_quant, before, design,
+                 f"ann_topk_quant at {tuple(emb_q.shape)} b={qq.shape[0]}")
+    if design == "tc":
+        compare_exact(k2._launch("dp4a", *args, k), want)
+        if qq.shape[0] <= 8:
+            compare_exact(k2._launch("tc", *args, k, 16), want)
+    return 0.0
 
 
 def hold_ivf(sel, en, q, buckets, valid, k, *, exact_rows=False) -> float:
@@ -682,9 +847,13 @@ def hold_ivf_quant(sel, en, qq, qs, buckets_q, bscale, valid, k) -> float:
 
 
 def phase_kernel_quant(dev):
-    """ann_topk_quant against its plain version: the reference's tier-test
-    shape (tests/test_tiers.py:94), widths the 16-byte loads do not divide,
-    ties, fewer active rows than k, and the real size."""
+    """ann_topk_quant against its plain version, bitwise, each case on the
+    design it takes and on "dp4a" too where it takes "tc": the reference's
+    tier-test shape (tests/test_tiers.py:94), widths the 16-byte loads or
+    the 32-byte k-steps do not divide, a 32-byte tail, fewer rows than k,
+    rows off a 16-byte boundary, ties, fewer active rows than k; then with
+    times the engine's index shape, the routing shapes and the real
+    size."""
     g = torch.Generator(device=dev).manual_seed(3)
     cases = []
 
@@ -694,10 +863,18 @@ def phase_kernel_quant(dev):
         cases.append(hold_quant(eq, es, act, qq, qs, k))
 
     for n, d, b, k in [(300, 32, 16, 16), (700, 48, 3, 16), (700, 100, 5, 16),
-                       (1100, 50, 2, 8), (3000, 64, 20, 64)]:
+                       (1100, 50, 2, 8), (3000, 64, 20, 64),
+                       (500, 96, 9, 16), (40, 128, 3, 64)]:
         emb = unit_rows(g, n, d, dev)
         act = torch.rand(n, device=dev, generator=g) > 0.2
         run(emb, act, near(emb[:b], g), k)
+    # rows off a 16-byte boundary take "dp4a"
+    emb = unit_rows(g, 900, 128, dev)
+    eq, es = quantize_dev(emb)
+    qq, qs = quantize_dev(near(emb[:4], g))
+    cases.append(hold_quant(misaligned(eq), es,
+                            torch.rand(900, device=dev, generator=g) > 0.2,
+                            qq, qs, 16))
     # ties: exact-duplicate rows in other tiles, each query a duplicated row
     n, d, b = 3000, 128, 8
     emb = unit_rows(g, n, d, dev)
@@ -711,11 +888,25 @@ def phase_kernel_quant(dev):
     act[[5, 600, 999]] = True
     run(emb, act, unit_rows(g, 3, 64, dev), 16)
 
+    sizes = []
+    # the engine's index shape, 8192 x 128 (20% inactive), k = 16, B in
+    # 1/4/16; then kernel 1's routing shapes in int8 (C=64 x 128, k 8;
+    # C=512 x 768, k 64)
+    for n, d, k, bs in ((8192, 128, 16, (1, 4, 16)), (64, 128, 8, (1,)),
+                        (REAL_C, 768, REAL_NPROBE, (1, 16))):
+        emb_q, scales = quantize_dev(unit_rows(g, n, d, dev))
+        act = torch.rand(n, device=dev, generator=g) > 0.2
+        for b in bs:
+            pick = live_pick(act, g, b)
+            deq = emb_q[pick].float() * scales[pick][:, None]
+            qq, qs = quantize_dev(near(deq, g, 0.1))
+            cases.append(hold_quant(emb_q, scales, act, qq, qs, k))
+            sizes.append(measure_quant(emb_q, scales, act, qq, qs, k))
+
     # real size: 2**20 rows x 768 int8 (0.8 GB), 20% inactive, k = 16
     n, d, k = REAL_N, 768, 16
     emb_q, scales = quantize_dev(unit_rows(g, n, d, dev))
     act = torch.rand(n, device=dev, generator=g) > 0.2
-    sizes = []
     for b in (1, 16):
         pick = torch.randint(0, n, (b,), device=dev, generator=g)
         deq = emb_q[pick].float() * scales[pick][:, None]
@@ -735,11 +926,12 @@ def random_probes(g, b: int, c: int, nprobe: int, dev, p_off: float = 0.0):
 
 
 def hold_brute_routed_parity(g, dev) -> float:
-    """A row scores bitwise the same in the brute scan (ann_topk) and the
-    routed scan (ann_topk_ivf), the shared summation order of dot.cuh:
+    """A row scores bitwise the same in the brute scan (ann_topk, both
+    designs) and the routed scan (ann_topk_ivf), the shared summation
+    order of dot.cuh:
     N rows laid out as C buckets of consecutive rows, every bucket
     probed, the finalists merged; values and rows must be equal."""
-    from repro_torch.kernels.ann_topk import ann_topk
+    from repro_torch.kernels.ann_topk import _launch, ann_topk
     from repro_torch.kernels.ann_topk_ivf import ann_topk_ivf
     from repro_torch.kernels.ops import _merge_probes
 
@@ -753,6 +945,7 @@ def hold_brute_routed_parity(g, dev) -> float:
                                act.reshape(c, cap), k)
     rows = torch.arange(c * cap, dtype=torch.int32, device=dev)
     got = _merge_probes(vals, slots, sel, rows.reshape(c, cap), k)
+    compare_exact(got, _launch("twopass", emb, act, q, k))
     return compare_exact(got, ann_topk(emb, act, q, k))
 
 
@@ -965,7 +1158,7 @@ def phase_kernel_sharded(dev):
 
 
 def measure_sharded(sel, en, q, buckets, valid, rows, bounds, k, *,
-                    quant=None) -> dict:
+                    quant=None, required: bool = False) -> dict:
     """Times of kernel 5, fp32 or with ``quant = (q_scales, bucket_scale)``
     int8, its plain version and the library yardstick: one batched matmul
     over the gathered buckets, a stable sort, the finalists' global rows,
@@ -1012,7 +1205,7 @@ def measure_sharded(sel, en, q, buckets, valid, rows, bounds, k, *,
     return {"b": b, "nprobe": nprobe, "c": c, "cap": cap, "d": d, "k": k,
             "shards": s,
             **timings(lambda: kernel(*args, k), lambda: plain(*args, k),
-                      library, plain_repeats=5),
+                      library, plain_repeats=5, required=required),
             "library": "gathered buckets, torch.bmm + stable sort, rows "
                        "gathered, placed at the owning shard",
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1317,8 +1510,9 @@ def reset_counts(wrappers: dict) -> None:
 
 
 def design_counts(w) -> dict:
-    """A wrapper's launches by design (kernels 6 and 7)."""
-    return {d: getattr(w, f"launches_{d}") for d in ("tc", "simt")}
+    """A wrapper's launches by design (kernels 1, 2, 6 and 7)."""
+    return {name.removeprefix("launches_"): v for name, v in vars(w).items()
+            if name.startswith("launches_")}
 
 
 def live_pick(active: torch.Tensor, g, b: int) -> torch.Tensor:
@@ -1402,6 +1596,19 @@ def hold_on_run(cache, g, errs: dict) -> dict:
     return shapes
 
 
+def check_all_one_launch(wrappers: dict, run: str) -> dict:
+    """Every call of kernels 1 and 2 in ``run`` (the indexes' fp32 and int8
+    mirrors and layouts on 16-byte rows, D a multiple of 32) launched its
+    one-launch design ("fused", "tc"). Returns the counts by design."""
+    counts = {}
+    for name, new in (("ann_topk", "fused"), ("ann_topk_quant", "tc")):
+        w = wrappers[name]
+        counts[name] = design_counts(w)
+        check(counts[name][new] == w.launches,
+              f"{run}: {name} launched {counts[name]}, {w.launches} in all")
+    return counts
+
+
 def strip_shard_keys(summary: dict) -> dict:
     return {k: v for k, v in summary.items() if k not in SHARD_KEYS}
 
@@ -1426,6 +1633,7 @@ def phase_serve(dev):
                                        device=dev, **kw)
         wall = time.perf_counter() - t
         launches = {n: w.launches for n, w in wrappers.items()}
+        by_design = check_all_one_launch(wrappers, name)
         check(launches["ann_topk"] > 0, f"{name}: no ann_topk launch")
         check(not any(w.plain_calls for w in wrappers.values()),
               f"{name}: the CUDA path took a plain version")
@@ -1458,6 +1666,7 @@ def phase_serve(dev):
         summaries[name] = got
         shapes = hold_on_run(cache, g, errs)
         runs.append({"run": name, "kwargs": kw, "launches": launches,
+                     "launches_by_design": by_design,
                      "wall_s": wall, "hit_rate": got["hit_rate"],
                      "evictions": got.get("evictions"),
                      "demotions": got.get("demotions"),
@@ -1470,17 +1679,18 @@ def phase_serve(dev):
         if name == "c_tiered_clustered":
             measured[name] = {"launches": launches, "sizes": {
                 "ann_topk_quant": measure_quant(*shapes["ann_topk_quant"]),
-                "ann_topk_ivf": measure_ivf(*shapes["ann_topk_ivf"]),
+                "ann_topk_ivf": measure_ivf(*shapes["ann_topk_ivf"],
+                                            required=True),
                 "ann_topk_ivf_quant": measure_ivf(
                     *shapes["ann_topk_ivf_quant"][:6],
-                    quant=shapes["ann_topk_ivf_quant"][6:])}}
+                    quant=shapes["ann_topk_ivf_quant"][6:], required=True)}}
         if name == "e_tiered_clustered_sharded":
             args, quant = shapes["ann_topk_ivf_quant_sharded"]
             measured[name] = {"launches": launches, "sizes": {
                 "ann_topk_ivf_sharded": measure_sharded(
-                    *shapes["ann_topk_ivf_sharded"]),
+                    *shapes["ann_topk_ivf_sharded"], required=True),
                 "ann_topk_ivf_quant_sharded": measure_sharded(
-                    *args, quant=quant)}}
+                    *args, quant=quant, required=True)}}
     # (g) the defaults with the tiny-LM judge's prefill paid on the card:
     # kernel 6 launches, and the summary is the oracle run's
     reset_counts(wrappers)
@@ -1495,7 +1705,8 @@ def phase_serve(dev):
           "g_model_judge: the CUDA path took a plain version")
     check(got == summaries["defaults"],
           "g_model_judge: the summary differs from the oracle run's")
-    by_design = check_all_tc(wrappers, "g_model_judge")
+    by_design = {**check_all_one_launch(wrappers, "g_model_judge"),
+                 **check_all_tc(wrappers, "g_model_judge")}
     runs.append({"run": "g_model_judge", "kwargs": {"judge_compute": "model"},
                  "launches": launches, "launches_by_design": by_design,
                  "wall_s": wall,
@@ -2217,6 +2428,12 @@ def main() -> int:
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"], "device_ms": main["device_ms"],
+        "library_device_ms": main["library_device_ms"],
+        "design": main["design"],
+        "launches_per_call": main["launches_per_call"],
+        "twopass_device_ms": main["twopass_device_ms"],
+        "launches_by_design": {r["run"]: r["launches_by_design"]["ann_topk"]
+                               for r in runs},
         "shape": {k: main[k] for k in ("n", "d", "b", "k")},
         "sizes": main_sizes + sizes,
     }]
@@ -2236,6 +2453,14 @@ def main() -> int:
             "ann_topk_sharded.py:122", shardq_sizes, run_e))
     for name, source, replaces, real, run in new:
         at = run["sizes"][name]
+        extra = {}
+        if name == "ann_topk_quant":
+            extra = {"design": at["design"],
+                     "launches_per_call": at["launches_per_call"],
+                     "dp4a_device_ms": at.get("dp4a_device_ms"),
+                     "launches_by_design": {
+                         r["run"]: r["launches_by_design"][name]
+                         for r in runs}}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
@@ -2245,7 +2470,8 @@ def main() -> int:
             "max_abs_err": errs[name],
             **{key: at[key] for key in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms",
-                                        "device_ms")},
+                                        "device_ms", "library_device_ms")},
+            **extra,
             "shape": {key: v for key, v in at.items()
                       if isinstance(v, int)},
             "sizes": [at] + real,
@@ -2278,7 +2504,7 @@ def main() -> int:
             "max_abs_err": max(attn_errs[name], lm_errs[name]),
             **{key: at[key] for key in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms",
-                                        "device_ms")},
+                                        "device_ms", "library_device_ms")},
             "shape": {key: v for key, v in at.items()
                       if isinstance(v, int)},
             "sizes": sizes_of,

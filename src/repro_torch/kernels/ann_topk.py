@@ -11,19 +11,37 @@ the τ_sim gate).
 
 What bounds it on an H100: a scan must read the active mask (N bytes),
 the active rows (D·4 bytes each) and the queries, and do 2·D·B fp32
-operations per active row; the kernel reads every row, N·D·4 + N + B·D·4
-bytes. At D = 768 the bytes bound it below B ≈ 40
+operations per active row. At D = 768 the bytes bound it below B ≈ 40
 (3.35 TB/s against 67 TFLOP/s of fp32 CUDA-core rate) and the operations
-above; the engine's micro-batches sit well below. The simple design
-streams each 512-row tile once per block of 1, 4 or 16 queries (the
-smallest that holds B, see :func:`query_block`), with 16-byte loads and
-the partial sums of 4 rows × the block's queries in registers, and keeps
-one summation order for every row (no tensor cores: TF32 would break row
-parity with the host path). ``csrc/ann_topk.cu`` has the details.
+above. At the engine's shapes (8192 × 128 rows at B = 1, routing over 64
+or 512 centroids) a call is microseconds of work, and launches and CTA
+count decide its time. Every design keeps ``csrc/dot.cuh``'s one
+summation order, so a row scores bitwise the same here and in the routed
+scan, and no tensor cores (TF32 would break row parity with the host
+path).
 
-:func:`ann_topk` launches the kernel for CUDA tensors and raises if it
+Two designs (``csrc/ann_topk.cu`` has the details), chosen by
+:func:`pick_design` from the dtype, the alignment and D:
+
+* ``"fused"``: fp32 rows on 16-byte boundaries with D % 4 == 0, every
+  call of the engine and of the routing. One launch: :func:`tile_plan`
+  sizes the row tiles from N, B and the SM count so that the scan fills
+  the card; each warp scores :func:`fused_rows` rows × the query block at
+  once, skips row groups with no active row and combines the lanes' sums
+  scattered over the lanes; the CTA that finishes its query block last
+  (an atomic ticket, :func:`tickets`) merges the tiles' finalists.
+* ``"twopass"``: bf16, and fp32 rows off a 16-byte boundary or with
+  D % 4 != 0: the first design, 512-row tiles and a second launch that
+  merges the finalists.
+
+Both take a block of 1, 4 or 16 queries per CTA (the smallest that holds
+B, :func:`query_block`).
+
+:func:`ann_topk` launches a kernel for CUDA tensors and raises if it
 cannot; it takes :func:`ann_topk_plain` only for CPU tensors.
-``ann_topk.launches`` and ``ann_topk.plain_calls`` count the two.
+``ann_topk.launches`` counts every launch, ``.launches_fused`` and
+``.launches_twopass`` each design's, and ``.plain_calls`` the plain
+version's calls.
 """
 from __future__ import annotations
 
@@ -33,11 +51,13 @@ import torch
 
 from repro_torch.kernels import build
 
-TILE_N = 512   # rows per CTA tile in csrc/ann_topk.cu
+TILE_N = 512   # rows per CTA tile of "twopass", and the most "fused" takes
+CTAS_PER_SM = 2  # what tile_plan aims for
 K_MAX = 64
 NEG = -3.0e38  # the reference's inactive-row score
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 QUERY_BLOCKS = (1, 4, 16)  # queries per CTA the kernel is compiled for
+DESIGNS = ("fused", "twopass")
 
 
 def query_block(b: int) -> int:
@@ -45,6 +65,79 @@ def query_block(b: int) -> int:
     it, up to 16. Unused slots cost registers and shuffles; chip_smoke.py
     times each block at B = 1 and 4 against the block of 16."""
     return next((qb for qb in QUERY_BLOCKS if b <= qb), QUERY_BLOCKS[-1])
+
+
+def pick_design(dtype: torch.dtype, aligned: bool, d: int) -> str:
+    """The design of a CUDA call: ``"fused"`` for fp32 rows that start on
+    16-byte boundaries (``aligned``: emb's base on one, and D % 4 == 0 so
+    every row is), else ``"twopass"``."""
+    if dtype == torch.float32 and aligned and d % 4 == 0:
+        return "fused"
+    return "twopass"
+
+
+def fused_rows(qb: int) -> int:
+    """Rows a warp of "fused" scores at once for a block of ``qb``
+    queries, the step of its tiles (``csrc/ann_topk.cu::fused_rows``): 8,
+    so one shared-memory read of a query feeds 8 FMAs; 4 for a block of
+    16, where 8 x 16 sums take 254 registers and leave one CTA per SM,
+    which was slower at B = 16 and 64 on an H100 (PERF.md)."""
+    return 4 if qb == 16 else 8
+
+
+def tile_plan(n: int, b: int, k: int, qb: int, sms: int, step: int,
+              tile_max: int = TILE_N
+              ) -> tuple[int, int, int]:
+    """``(tile_n, ntiles, nqb)`` of a one-launch scan: ``nqb`` query blocks
+    of ``qb``, and row tiles of ``tile_n`` rows, the largest multiple of
+    ``step`` in [k, tile_max] that still gives ``CTAS_PER_SM`` CTAs per SM
+    over the ``ntiles * nqb`` (tile, query block) pairs; the smallest
+    tile, rounded up to k, where N is too small for that."""
+    nqb = -(-b // qb)
+    want = -(-CTAS_PER_SM * sms // nqb)          # tiles wanted
+    lo = -(-k // step) * step
+    tile_n = min(max(n // want // step * step, lo), tile_max)
+    return tile_n, -(-n // tile_n), nqb
+
+
+def scratch_shapes(b: int, ntiles: int, k: int) -> dict:
+    """The scratch a call allocates beside its (b, k) results, name ->
+    (shape, dtype): every tile's k finalists; a one-launch design also
+    takes ``nqb`` of the shared :func:`tickets`."""
+    return {"fv": ((b, ntiles, k), torch.float32),
+            "fr": ((b, ntiles, k), torch.int32)}
+
+
+def scratch(b: int, ntiles: int, k: int, dev: torch.device) -> dict:
+    """:func:`scratch_shapes`' tensors, uninitialised, on ``dev``."""
+    return {name: torch.empty(shape, dtype=dt, device=dev)
+            for name, (shape, dt) in scratch_shapes(b, ntiles, k).items()}
+
+
+_tickets: dict[torch.device, torch.Tensor] = {}
+
+
+def tickets(dev: torch.device, count: int) -> torch.Tensor:
+    """``count`` int32 tickets of the one-launch designs, one per query
+    block, all 0: a buffer kept per device and grown (zeroed) when a call
+    needs more. Each launch leaves the tickets it took at 0 again (the
+    last CTA of a block resets its own), so launches on one stream share
+    it; launches in flight on two streams at once must not."""
+    buf = _tickets.get(dev)
+    if buf is None or buf.numel() < count:
+        size = max(count, 2 * (0 if buf is None else buf.numel()), 64)
+        buf = _tickets[dev] = torch.zeros(size, dtype=torch.int32,
+                                          device=dev)
+    return buf
+
+
+_sms: dict[torch.device, int] = {}
+
+
+def sm_count(dev: torch.device) -> int:
+    if dev not in _sms:
+        _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _sms[dev]
 
 
 def ann_topk_plain(emb: torch.Tensor, active: torch.Tensor, q: torch.Tensor,
@@ -90,6 +183,9 @@ def _lib():
         lib.ann_topk_launch.argtypes = [i, i, p, p, p, i, i, i, i, p, p, p,
                                         p, p]
         lib.ann_topk_launch.restype = i
+        lib.ann_topk_fused_launch.argtypes = [i, i, p, p, p, i, i, i, i, p,
+                                              p, p, p, p, p]
+        lib.ann_topk_fused_launch.restype = i
         lib.ann_topk_error_string.argtypes = [i]
         lib.ann_topk_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -100,7 +196,8 @@ def ann_topk(emb: torch.Tensor, active: torch.Tensor, q: torch.Tensor,
              k: int = 4, *, qb: int | None = None
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k rows of ``emb`` by dot product with each query of ``q``.
-    ``qb`` overrides :func:`query_block` on CUDA (for timing it)."""
+    CUDA tensors take :func:`pick_design`'s kernel; ``qb`` overrides
+    :func:`query_block` there (for timing it)."""
     _check(emb, active, q, k)
     if qb is not None and qb not in QUERY_BLOCKS:
         raise ValueError(f"qb must be one of {QUERY_BLOCKS}, got {qb}")
@@ -112,31 +209,57 @@ def ann_topk(emb: torch.Tensor, active: torch.Tensor, q: torch.Tensor,
     if not (emb.is_contiguous() and active.is_contiguous()
             and q.is_contiguous()):
         raise ValueError("ann_topk needs contiguous emb, active and q")
+    design = pick_design(emb.dtype, emb.data_ptr() % 16 == 0, emb.shape[1])
+    return _launch(design, emb, active, q, k, qb)
+
+
+def _launch(design: str, emb: torch.Tensor, active: torch.Tensor,
+            q: torch.Tensor, k: int, qb: int | None = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``design``'s kernel on checked CUDA inputs and count it
+    (chip_smoke.py also calls it to hold and time "twopass" on inputs the
+    dispatch sends to "fused")."""
     n, d = emb.shape
     b = q.shape[0]
     qb = qb or query_block(b)
-    ntiles = -(-n // TILE_N)
     dev = emb.device
-    fv = torch.empty((b, ntiles, k), dtype=torch.float32, device=dev)
-    fr = torch.empty((b, ntiles, k), dtype=torch.int32, device=dev)
+    fused = design == "fused"
+    if fused:
+        tile_n, ntiles, nqb = tile_plan(n, b, k, qb, sm_count(dev),
+                                        fused_rows(qb))
+    else:
+        ntiles = -(-n // TILE_N)
+    buf = scratch(b, ntiles, k, dev)
     vals = torch.empty((b, k), dtype=torch.float32, device=dev)
     rows = torch.empty((b, k), dtype=torch.int32, device=dev)
     act = active.view(torch.uint8) if active.dtype == torch.bool else active
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ann_topk_launch(
-            _DTYPE_CODE[emb.dtype], qb, emb.data_ptr(), act.data_ptr(),
-            q.data_ptr(), n, d, b, k, fv.data_ptr(), fr.data_ptr(),
-            vals.data_ptr(), rows.data_ptr(), stream)
+        if fused:
+            err = lib.ann_topk_fused_launch(
+                qb, tile_n, emb.data_ptr(), act.data_ptr(), q.data_ptr(), n,
+                d, b, k, buf["fv"].data_ptr(), buf["fr"].data_ptr(),
+                tickets(dev, nqb).data_ptr(),
+                vals.data_ptr(), rows.data_ptr(), stream)
+        else:
+            err = lib.ann_topk_launch(
+                _DTYPE_CODE[emb.dtype], qb, emb.data_ptr(), act.data_ptr(),
+                q.data_ptr(), n, d, b, k, buf["fv"].data_ptr(),
+                buf["fr"].data_ptr(), vals.data_ptr(), rows.data_ptr(),
+                stream)
     if err != 0:
         msg = lib.ann_topk_error_string(err).decode()
         raise RuntimeError(f"ann_topk launch failed (cuda error {err}: {msg}) "
                            f"at n={n} d={d} b={b} k={k} qb={qb} "
-                           f"dtype={emb.dtype}")
+                           f"dtype={emb.dtype} design={design}")
     ann_topk.launches += 1
+    setattr(ann_topk, f"launches_{design}",
+            getattr(ann_topk, f"launches_{design}") + 1)
     return vals, rows
 
 
 ann_topk.launches = 0
+ann_topk.launches_fused = 0
+ann_topk.launches_twopass = 0
 ann_topk.plain_calls = 0

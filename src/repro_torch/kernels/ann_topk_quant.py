@@ -16,16 +16,27 @@ than fp32 ones). Callers rescore the finalists in fp32.
 What bounds it on an H100: a scan must read the active mask (N bytes),
 each active row's D int8 values and scale, and the queries, and do 2·D·B
 int8 operations per active row, so the bytes bound it up to B ≈ 300
-(3.35 TB/s against 1979 TOP/s of int8 tensor-core rate). The kernel reads
-every row: N·D + 5·N + B·D bytes. The simple design is
-``ann_topk.cu``'s: 512-row tiles per CTA, the int8 query block in shared
-memory, 16-byte row loads summed with ``__dp4a`` in int32 (exact in any
-order), then per-tile argmax passes and a merge pass.
+(3.35 TB/s against 1979 TOP/s of int8 tensor-core rate).
 
-:func:`ann_topk_quant` launches the kernel for CUDA tensors and raises if
+Two designs (``csrc/ann_topk_quant.cu`` has the details), chosen by
+:func:`pick_design` from the alignment and D; both sum exact int32 dots
+and rescale the same way, so their values are bitwise the same:
+
+* ``"tc"``: rows on 16-byte boundaries with D % 32 == 0 (D = 128 and 768,
+  every call of the warm tier). One launch on the int8 tensor cores
+  (``mma.sync`` m16n8k32): rows on M, a block of 8 or 16 queries on N
+  (:func:`tc_query_block`), row tiles sized by ``ann_topk.tile_plan`` in
+  steps of 16 rows, row groups with no active row skipped, and the merge
+  in the last CTA of each query block, as ``ann_topk``'s ``"fused"``.
+* ``"dp4a"``: other widths and alignments: the first design, 512-row
+  tiles summed with ``__dp4a`` on the CUDA cores, blocks of 1, 4 or 16
+  queries, and a second launch that merges the finalists.
+
+:func:`ann_topk_quant` launches a kernel for CUDA tensors and raises if
 it cannot; it takes :func:`ann_topk_quant_plain` only for CPU tensors.
-``ann_topk_quant.launches`` and ``ann_topk_quant.plain_calls`` count the
-two.
+``ann_topk_quant.launches`` counts every launch, ``.launches_tc`` and
+``.launches_dp4a`` each design's, and ``.plain_calls`` the plain
+version's calls.
 """
 from __future__ import annotations
 
@@ -34,9 +45,26 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ann_topk import K_MAX, NEG, QUERY_BLOCKS, query_block
+from repro_torch.kernels.ann_topk import (K_MAX, NEG, QUERY_BLOCKS, TILE_N,
+                                         query_block, scratch, sm_count,
+                                         tickets, tile_plan)
 
-TILE_N = 512   # rows per CTA tile in csrc/ann_topk_quant.cu
+TC_ROWS = 16            # rows of an m16 tile: the step of "tc"'s row tiles
+TC_QUERY_BLOCKS = (8, 16)  # queries per CTA of "tc" (N of one or two m16n8)
+DESIGNS = ("tc", "dp4a")
+
+
+def pick_design(aligned: bool, d: int) -> str:
+    """The design of a CUDA call: ``"tc"`` (int8 tensor cores) when
+    ``emb_q``'s base lies on a 16-byte boundary and D % 32 == 0 (so every
+    row does, and D is whole k-steps of 32 bytes), else ``"dp4a"``."""
+    return "tc" if aligned and d % 32 == 0 else "dp4a"
+
+
+def tc_query_block(b: int) -> int:
+    """Queries per CTA of ``"tc"`` for a batch of ``b``: one n8 tile up to
+    8 queries, two above."""
+    return TC_QUERY_BLOCKS[0] if b <= TC_QUERY_BLOCKS[0] else TC_QUERY_BLOCKS[1]
 
 
 def int8_scores(emb_q: torch.Tensor, scales: torch.Tensor,
@@ -105,6 +133,9 @@ def _lib():
         lib.ann_topk_quant_launch.argtypes = [i, p, p, p, p, p, i, i, i, i,
                                               p, p, p, p, p]
         lib.ann_topk_quant_launch.restype = i
+        lib.ann_topk_quant_tc_launch.argtypes = [i, i, p, p, p, p, p, i, i,
+                                                 i, i, p, p, p, p, p, p]
+        lib.ann_topk_quant_tc_launch.restype = i
         lib.ann_topk_quant_error_string.argtypes = [i]
         lib.ann_topk_quant_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -117,10 +148,13 @@ def ann_topk_quant(emb_q: torch.Tensor, scales: torch.Tensor,
                    qb: int | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k rows of ``emb_q`` by rescaled int8 score against each query
-    of ``qq``. ``qb`` overrides :func:`query_block` on CUDA."""
+    of ``qq``. CUDA tensors take :func:`pick_design`'s kernel; ``qb``
+    overrides its query block there (``TC_QUERY_BLOCKS`` for ``"tc"``,
+    ``QUERY_BLOCKS`` for ``"dp4a"``)."""
     _check(emb_q, scales, active, qq, q_scales, k)
-    if qb is not None and qb not in QUERY_BLOCKS:
-        raise ValueError(f"qb must be one of {QUERY_BLOCKS}, got {qb}")
+    if qb is not None and qb not in QUERY_BLOCKS + TC_QUERY_BLOCKS:
+        raise ValueError(f"qb must be one of {QUERY_BLOCKS} or "
+                         f"{TC_QUERY_BLOCKS}, got {qb}")
     if emb_q.device.type == "cpu":
         ann_topk_quant.plain_calls += 1
         return ann_topk_quant_plain(emb_q, scales, active, qq, q_scales, k)
@@ -130,30 +164,61 @@ def ann_topk_quant(emb_q: torch.Tensor, scales: torch.Tensor,
     if not all(t.is_contiguous() for t in (emb_q, scales, active, qq,
                                            q_scales)):
         raise ValueError("ann_topk_quant needs contiguous inputs")
+    design = pick_design(emb_q.data_ptr() % 16 == 0, emb_q.shape[1])
+    return _launch(design, emb_q, scales, active, qq, q_scales, k, qb)
+
+
+def _launch(design: str, emb_q: torch.Tensor, scales: torch.Tensor,
+            active: torch.Tensor, qq: torch.Tensor, q_scales: torch.Tensor,
+            k: int, qb: int | None = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``design``'s kernel on checked CUDA inputs and count it
+    (chip_smoke.py also calls it to hold and time ``"dp4a"`` on inputs the
+    dispatch sends to ``"tc"``)."""
     n, d = emb_q.shape
     b = qq.shape[0]
-    qb = qb or query_block(b)
-    ntiles = -(-n // TILE_N)
+    tc = design == "tc"
+    blocks = TC_QUERY_BLOCKS if tc else QUERY_BLOCKS
+    if qb is not None and qb not in blocks:
+        raise ValueError(f"design {design!r} takes qb in {blocks}, got {qb}")
+    qb = qb or (tc_query_block(b) if tc else query_block(b))
     dev = emb_q.device
-    fv = torch.empty((b, ntiles, k), dtype=torch.float32, device=dev)
-    fr = torch.empty((b, ntiles, k), dtype=torch.int32, device=dev)
+    if tc:
+        tile_n, ntiles, nqb = tile_plan(n, b, k, qb, sm_count(dev), TC_ROWS)
+    else:
+        ntiles = -(-n // TILE_N)
+    buf = scratch(b, ntiles, k, dev)
     vals = torch.empty((b, k), dtype=torch.float32, device=dev)
     rows = torch.empty((b, k), dtype=torch.int32, device=dev)
     act = active.view(torch.uint8) if active.dtype == torch.bool else active
     lib = _lib()
+    ptrs = (emb_q.data_ptr(), scales.data_ptr(), act.data_ptr(),
+            qq.data_ptr(), q_scales.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ann_topk_quant_launch(
-            qb, emb_q.data_ptr(), scales.data_ptr(), act.data_ptr(),
-            qq.data_ptr(), q_scales.data_ptr(), n, d, b, k, fv.data_ptr(),
-            fr.data_ptr(), vals.data_ptr(), rows.data_ptr(), stream)
+        if tc:
+            err = lib.ann_topk_quant_tc_launch(
+                qb, tile_n, *ptrs, n, d, b, k, buf["fv"].data_ptr(),
+                buf["fr"].data_ptr(), tickets(dev, nqb).data_ptr(),
+                vals.data_ptr(),
+                rows.data_ptr(), stream)
+        else:
+            err = lib.ann_topk_quant_launch(
+                qb, *ptrs, n, d, b, k, buf["fv"].data_ptr(),
+                buf["fr"].data_ptr(), vals.data_ptr(), rows.data_ptr(),
+                stream)
     if err != 0:
         msg = lib.ann_topk_quant_error_string(err).decode()
         raise RuntimeError(f"ann_topk_quant launch failed (cuda error {err}: "
-                           f"{msg}) at n={n} d={d} b={b} k={k} qb={qb}")
+                           f"{msg}) at n={n} d={d} b={b} k={k} qb={qb} "
+                           f"design={design}")
     ann_topk_quant.launches += 1
+    setattr(ann_topk_quant, f"launches_{design}",
+            getattr(ann_topk_quant, f"launches_{design}") + 1)
     return vals, rows
 
 
 ann_topk_quant.launches = 0
+ann_topk_quant.launches_tc = 0
+ann_topk_quant.launches_dp4a = 0
 ann_topk_quant.plain_calls = 0

@@ -14,34 +14,50 @@
 //
 // What bounds it on an H100: a scan must read the active mask (N bytes),
 // the active rows (D*4 bytes each) and the queries, and do 2*D*B fp32
-// operations per active row; this kernel reads every row, N*D*4 + N +
-// B*D*4 bytes. At D = 768 the
-// bytes bound it below B ~ 40 (3.35 TB/s against 67 TFLOP/s of fp32 CUDA-core
-// rate) and the operations above. The engine's micro-batches are B <= 16, so
-// the scan is a memory-bound stream.
+// operations per active row. At D = 768 the bytes bound it below B ~ 40
+// (3.35 TB/s against 67 TFLOP/s of fp32 CUDA-core rate) and the operations
+// above. At the engine's shapes (8192 x 128 rows, B = 1; routing over 64 or
+// 512 centroids) a scan is a few microseconds of work, so launches and
+// the latency of too few CTAs decide its time.
 //
-// The simple design (speed is later work):
-//   pass 1, ann_tile_topk: one CTA per (512-row tile, block of QB queries).
-//     QB is 1, 4 or 16, picked by the caller from B: a block of 16 at B = 1
-//     or 4 pays for the empty slots' registers and shuffles (chip_smoke.py
-//     times both; PERF.md). The query block sits in shared memory as fp32.
-//     Each warp scores ROWS rows at once in the summation order of
-//     dot.cuh (lanes stream D with 16-byte loads, hold the ROWS x QB
-//     partial sums in registers, so one shared-memory read of q feeds ROWS
-//     FMAs, and finish with a fixed xor butterfly): every row gets the same
-//     order, so exact-duplicate embeddings tie bitwise and the row-ascending
-//     rule decides, as the reference assumes, and a row scores the same
-//     here as in the routed scan (ann_topk_ivf.cu). No tensor cores: TF32
-//     would break row parity with the host path. Scores go to shared
-//     memory; then k warp-wide argmax passes per query (select.cuh, ties to
-//     the lowest row) write the tile's k finalists.
-//   pass 2, sel::merge_topk: one CTA per query takes the top k of its
-//     ntiles*k finalists with the same total order.
-// Neither pass allocates: the caller passes the finalist scratch buffers.
+// Every design scores a (row, query) pair in dot.cuh's one order (lanes
+// stream D in 16-byte chunks, a fixed xor tree combines their partial
+// sums), so exact-duplicate embeddings tie bitwise and the row-ascending
+// rule decides, as the reference assumes, and a row scores the same here
+// as in the routed scan (ann_topk_ivf.cu). No tensor cores: TF32 would
+// break row parity with the host path. Two designs, picked by the host
+// (kernels/ann_topk.py::pick_design):
+//
+// "fused", fp32 rows on 16-byte boundaries with D % 4 == 0 (every call of
+//   the engine and of the routing): one launch. One CTA per (tile of
+//   tile_n rows, block of QB = 1, 4 or 16 queries); the host sizes tile_n
+//   from N, B and the SM count so that the scan fills the card (two CTAs
+//   per SM where N allows, tile_n <= 512). The CTA stages its queries and
+//   its tile's active bytes in shared memory; each warp scores fused_rows
+//   rows at once (8, or 4 at QB = 16: the rows x QB partial sums sit in
+//   registers, so one shared-memory read of q feeds that many FMAs) and
+//   skips the payload of a group with no active row. The tree runs
+//   scattered (dot::warp_dot_scatter): each sum ends in one lane, M - 1
+//   shuffles a lane for M sums instead of 5 M, and the lanes write the
+//   scores in parallel. sel::finish_tile then picks each query's k
+//   finalists of the tile (a sorting network up to 64 rows, above it a
+//   threshold pass that sorts only scores at or above the k-th largest
+//   lane maximum), and the CTA that finishes its query block last (an
+//   atomic ticket it resets itself) merges the tiles' lists, a warp a
+//   query, sorting only the entries at or above a lower bound of the k-th
+//   best (select.cuh). Order is select.cuh's: value desc, row asc.
+// "twopass", bf16 rows and misaligned or odd-width fp32 rows: the first
+//   design. Pass 1, ann_tile_topk: one CTA per (512-row tile,
+//   block of QB queries), each warp 4 rows at once through dot::warp_dot,
+//   then the tile's k finalists; pass 2, sel::merge_topk: one CTA per
+//   query takes the top k of its ntiles*k finalists.
+// No design allocates: the caller passes the finalist scratch and the
+// tickets.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstddef>
 #include <cstdint>
 
@@ -50,10 +66,15 @@
 
 namespace {
 
-constexpr int TILE_N = 512;      // rows per CTA tile
+constexpr int TILE_N = 512;      // rows per CTA tile ("twopass"; the most
+                                 // "fused" takes)
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int ROWS = 4;          // rows a warp scores at once
+constexpr int ROWS = 4;          // rows a warp scores at once ("twopass")
+// and in "fused" (kernels/ann_topk.py::fused_rows): 8, so one shared-memory
+// read of a query feeds 8 FMAs, but 4 for a block of 16 queries, where
+// 8 x 16 sums take 254 registers and leave one CTA per SM
+constexpr int fused_rows(int qb) { return qb == 16 ? 4 : 8; }
 constexpr int K_MAX = 64;
 constexpr size_t SMEM_MAX = 232448;  // H100: 227 KB of dynamic shared memory
 
@@ -144,11 +165,141 @@ cudaError_t launch_qb(int qb, const void* emb, const uint8_t* active,
   }
 }
 
+// "fused": one CTA per (tile of tile_n rows, block of QB queries), the
+// merge in the last CTA of each query block (see the head of this file)
+template <int QB, int FROWS>
+__global__ void __launch_bounds__(THREADS)
+ann_fused(const float* __restrict__ emb, const uint8_t* __restrict__ active,
+          const float* __restrict__ q, int n, int d, int b, int k,
+          int tile_n, int ntiles, int nqb, int qvec, float* fv, int* fr,
+          int* tickets, float* vals, int* rows, int tbuf_at) {
+  using S = dot::Scatter<FROWS, QB>;
+  extern __shared__ __align__(16) float smem[];
+  float* sq = smem;                   // [QB][d] query block
+  float* sc = sq + QB * d;            // [QB][tile_n] tile scores
+  auto* sa = reinterpret_cast<uint8_t*>(sc + QB * tile_n);  // [tile_n]
+  const int qblk = blockIdx.x % nqb;
+  const int tile = blockIdx.x / nqb;
+  const int q0 = qblk * QB;
+  const int nq = min(QB, b - q0);
+  const int row0 = tile * tile_n;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+
+  const float* qb = q + static_cast<size_t>(q0) * d;
+  if (qvec) {
+    for (int i = threadIdx.x; i < nq * d / 4; i += THREADS)
+      reinterpret_cast<float4*>(sq)[i] = __ldg(reinterpret_cast<const float4*>(qb) + i);
+  } else {
+    for (int i = threadIdx.x; i < nq * d; i += THREADS) sq[i] = qb[i];
+  }
+  for (int i = threadIdx.x; i < tile_n; i += THREADS)
+    sa[i] = row0 + i < n ? active[row0 + i] : 0;
+  __syncthreads();
+
+  for (int r0 = warp * FROWS; r0 < tile_n; r0 += WARPS * FROWS) {
+    const unsigned live =
+        __ballot_sync(dot::FULL, lane < FROWS && sa[r0 + min(lane, FROWS - 1)]);
+    if (live == 0) {  // no active row: skip the payload
+      for (int i = lane; i < nq * FROWS; i += 32)
+        sc[(i / FROWS) * tile_n + r0 + i % FROWS] = sel::NEG;
+      continue;
+    }
+    const float* erow[FROWS];
+#pragma unroll
+    for (int r = 0; r < FROWS; ++r) {
+      const int row = min(row0 + r0 + r, n - 1);  // rows >= n are inactive
+      erow[r] = emb + static_cast<size_t>(row) * d;
+    }
+    float out[S::E];
+    dot::warp_dot_scatter<FROWS, QB>(erow, sq, d, nq, lane, out);
+    if (lane % S::SHARE == 0) {
+#pragma unroll
+      for (int i = 0; i < S::E; ++i) {
+        const int e = S::first(lane) + i;
+        const int r = e / QB, j = e % QB;
+        if (j < nq)
+          sc[j * tile_n + r0 + r] = (live >> r & 1u) ? out[i] : sel::NEG;
+      }
+    }
+  }
+  __syncthreads();
+  sel::finish_tile<THREADS>(sc, tile_n, nq, q0, k, tile, ntiles, row0, fv, fr,
+                            tickets + qblk, vals, rows,
+                            reinterpret_cast<unsigned char*>(smem),
+                            reinterpret_cast<unsigned char*>(smem) + tbuf_at);
+}
+
+template <int QB, int FROWS>
+cudaError_t launch_fused(const float* emb, const uint8_t* active,
+                         const float* q, int n, int d, int b, int k,
+                         int tile_n, int qvec, float* fv, int* fr,
+                         int* tickets, float* vals, int* rows,
+                         cudaStream_t stream) {
+  // the tile's queries, scores and active bytes (the last CTA's merge
+  // reuses them), then the tile's candidates
+  const size_t tbuf_at = (std::max(
+      static_cast<size_t>(QB) * (d + tile_n) * sizeof(float) + tile_n,
+      sel::merge_smem<THREADS>()) + 15) / 16 * 16;
+  const size_t smem = tbuf_at + sel::tile_smem<THREADS>();
+  if (smem > SMEM_MAX) return cudaErrorInvalidValue;
+  auto kern = ann_fused<QB, FROWS>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const int nqb = (b + QB - 1) / QB;
+  const int ntiles = (n + tile_n - 1) / tile_n;
+  kern<<<ntiles * nqb, THREADS, smem, stream>>>(
+      emb, active, q, n, d, b, k, tile_n, ntiles, nqb, qvec, fv, fr,
+      tickets, vals, rows, static_cast<int>(tbuf_at));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// fv/fr: (b, ceil(n / 512), k) fp32/int32 finalist scratch.
+// Design "fused": fp32 emb on a 16-byte boundary, d % 4 == 0. tile_n: rows
+// per CTA, a multiple of fused_rows(qb) in [k, 512]
+// (kernels/ann_topk.py::tile_plan).
+// fv/fr: (b, ceil(n / tile_n), k) fp32/int32 finalist scratch; tickets:
+// ceil(b / qb) int32, all 0, left 0. qb: queries per CTA, 1, 4 or 16.
+// One launch; returns its cudaError_t.
+int ann_topk_fused_launch(int qb, int tile_n, const void* emb,
+                          const void* active, const void* q, int n, int d,
+                          int b, int k, void* fv, void* fr,
+                          void* tickets, void* vals, void* rows,
+                          void* stream) {
+  if (n < 1 || d < 1 || b < 1 || k < 1 || k > K_MAX || d % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(emb) % 16 != 0 ||
+      tile_n % fused_rows(qb) != 0 || tile_n < k || tile_n > TILE_N)
+    return cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* e = static_cast<const float*>(emb);
+  const auto* act = static_cast<const uint8_t*>(active);
+  const auto* qp = static_cast<const float*>(q);
+  const int qvec = reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  auto* pv = static_cast<float*>(fv);
+  auto* pr = static_cast<int*>(fr);
+  auto* pt = static_cast<int*>(tickets);
+  auto* ov = static_cast<float*>(vals);
+  auto* orow = static_cast<int*>(rows);
+  switch (qb) {
+    case 1:
+      return launch_fused<1, fused_rows(1)>(e, act, qp, n, d, b, k, tile_n, qvec, pv, pr, pt, ov, orow, s);
+    case 4:
+      return launch_fused<4, fused_rows(4)>(e, act, qp, n, d, b, k, tile_n, qvec, pv, pr, pt, ov, orow, s);
+    case 16:
+      return launch_fused<16, fused_rows(16)>(e, act, qp, n, d, b, k, tile_n, qvec, pv, pr, pt, ov, orow, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Design "twopass": fv/fr: (b, ceil(n / 512), k) fp32/int32 finalist scratch.
 // dtype: 0 = fp32, 1 = bf16. qb: queries per CTA, 1, 4 or 16.
 // Returns the cudaError_t of the launches.
 int ann_topk_launch(int dtype, int qb, const void* emb, const void* active,

@@ -18,41 +18,59 @@
 //
 // What bounds it on an H100: a scan must read the active mask (N bytes),
 // each active row's D int8 values and scale, and the queries, and do
-// 2*D*B int8 operations per active row; this kernel reads every row, as
-// N*D + 5N + B*D bytes. Against 3.35 TB/s and 1979 TOP/s of int8
-// tensor-core rate the bytes bound it up to B ~ 300: the scan is a
-// memory-bound stream at every batch the engine sends.
+// 2*D*B int8 operations per active row. Against 3.35 TB/s and 1979 TOP/s
+// of int8 tensor-core rate the bytes bound it up to B ~ 300: at every
+// batch the engine sends the scan is a memory-bound stream, and at the
+// engine's own index (8192 x 128, mostly empty) a few microseconds of
+// work, where launches and too few CTAs decide its time.
 //
-// The simple design (speed is later work): the structure of ann_topk.cu.
-//   pass 1, annq_tile_topk: one CTA per (512-row tile, block of QB = 1, 4
-//     or 16 queries), the int8 query block in shared memory. Each warp
-//     scores ROWS rows at once (dot.cuh): lanes read 16-byte chunks of the
-//     rows and accumulate with __dp4a in int32, exact in any order; the
-//     rescale is two separate round-to-nearest multiplies in the
-//     reference's order. __dp4a runs on the CUDA cores, roughly 130 TOP/s
-//     on an H100 by our estimate (4 products an instruction), so it keeps
-//     up with the memory stream to B ~ 20, which covers the engine's
-//     micro-batches; int8 tensor cores pay only beyond. Scores go to shared
-//     memory; k warp-wide argmax passes per query (select.cuh, ties to the
-//     lowest row) write the tile's k finalists.
-//   pass 2, sel::merge_topk: one CTA per query takes the top k of its
-//     ntiles*k finalists with the same total order.
-// Neither pass allocates: the caller passes the finalist scratch buffers.
+// Two designs, picked by the host (kernels/ann_topk_quant.py::pick_design);
+// both sum exact int32 dots (any order gives the same integer) and rescale
+// with dot::rescale, so their values are bitwise the same:
+//
+// "tc", int8 rows on a 16-byte boundary with D % 32 == 0 (D = 128 and 768,
+//   every call of the warm tier): one launch on the int8 tensor cores
+//   (mma.sync m16n8k32, s8 x s8 -> s32). One CTA per (tile of tile_n rows,
+//   block of QB = 8 or 16 queries); the host sizes tile_n from N, B and the
+//   SM count so that the scan fills the card (two CTAs per SM where N
+//   allows). Rows are M, queries N (padded with zero queries to 8 or 16).
+//   A warp takes 16 rows at a time: lane (g, t) loads 16 bytes of rows g
+//   and g + 8 straight from device memory into registers (the four lanes
+//   of a row read 64 contiguous bytes) and 16 bytes of query g from the
+//   query block in shared memory (rows padded so these reads are free of
+//   bank conflicts); the bytes map to the fragments' k positions by one
+//   permutation on both sides, which leaves every int32 sum as it is. All
+//   32 lanes work at any D; a lane loads 4 chunks of both rows before it
+//   multiplies any. Groups of 16 rows with no active row skip their
+//   payload. The rescaled scores go to shared memory, and the tile's
+//   finalists and the merge in the last CTA of each query block are
+//   sel::finish_tile's, as in ann_topk.cu's "fused" design.
+// "dp4a", other widths or alignments: the first design. Pass 1,
+//   annq_tile_topk: one CTA per (512-row tile, block of QB = 1, 4 or 16
+//   queries), each warp 4 rows at once, lanes reading 16-byte chunks and
+//   summing with __dp4a on the CUDA cores (at D = 128 only 8 of 32 lanes
+//   hold a chunk); pass 2, sel::merge_topk: one CTA per query merges its
+//   ntiles*k finalists.
+// No design allocates: the caller passes the finalist scratch and the
+// tickets.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
 
 #include "dot.cuh"
 #include "select.cuh"
 
 namespace {
 
-constexpr int TILE_N = 512;      // rows per CTA tile
+constexpr int TILE_N = 512;      // rows per CTA tile ("dp4a"; the most
+                                 // "tc" takes)
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int ROWS = 4;          // rows a warp scores at once
+constexpr int ROWS = 4;          // rows a warp scores at once ("dp4a")
 constexpr int K_MAX = 64;
 constexpr size_t SMEM_MAX = 232448;  // H100: 227 KB of dynamic shared memory
 
@@ -146,9 +164,203 @@ cudaError_t launch_qb(int qb, const int8_t* emb, const float* scale,
   }
 }
 
+// "tc": one CTA per (tile of tile_n rows, block of 8 NT queries), the
+// int8 tensor cores, the merge in the last CTA of each query block (see
+// the head of this file). qstride: bytes per query row in shared memory.
+template <int NT>
+__global__ void __launch_bounds__(THREADS)
+annq_tc(const int8_t* __restrict__ emb, const float* __restrict__ scale,
+        const uint8_t* __restrict__ active, const int8_t* __restrict__ qq,
+        const float* __restrict__ qs, int n, int d, int b, int k, int tile_n,
+        int ntiles, int nqb, int qvec, int qstride, float* fv, int* fr,
+        int* tickets, float* vals, int* rows, int tbuf_at) {
+  constexpr int QB = 8 * NT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sc = reinterpret_cast<float*>(smem);               // [QB][tile_n]
+  int8_t* sq = reinterpret_cast<int8_t*>(sc + QB * tile_n);  // [QB][qstride]
+  uint8_t* sa = reinterpret_cast<uint8_t*>(sq + QB * qstride);  // [tile_n]
+  const int qblk = blockIdx.x % nqb;
+  const int tile = blockIdx.x / nqb;
+  const int q0 = qblk * QB;
+  const int nq = min(QB, b - q0);
+  const int row0 = tile * tile_n;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+
+  // the query block, zero past nq, in 16-byte words
+  const int words = d / 16;
+  for (int i = threadIdx.x; i < QB * words; i += THREADS) {
+    const int j = i / words, c = i % words;
+    int4 v = make_int4(0, 0, 0, 0);
+    if (j < nq) {
+      const int8_t* src = qq + static_cast<size_t>(q0 + j) * d + 16 * c;
+      if (qvec) {
+        v = __ldg(reinterpret_cast<const int4*>(src));
+      } else {
+        int8_t tmp[16];
+#pragma unroll
+        for (int x = 0; x < 16; ++x) tmp[x] = src[x];
+        memcpy(&v, tmp, 16);
+      }
+    }
+    *reinterpret_cast<int4*>(sq + j * qstride + 16 * c) = v;
+  }
+  for (int i = threadIdx.x; i < tile_n; i += THREADS)
+    sa[i] = row0 + i < n ? active[row0 + i] : 0;
+  __syncthreads();
+
+  const int nch = d / 64;  // 64-byte chunks; a 32-byte tail when d % 64
+  for (int m0 = warp * 16; m0 < tile_n; m0 += WARPS * 16) {
+    const unsigned live = __ballot_sync(dot::FULL, lane < 16 && sa[m0 + (lane & 15)]);
+    if (live == 0) {  // no active row: skip the payload
+      for (int i = lane; i < nq * 16; i += 32)
+        sc[(i / 16) * tile_n + m0 + i % 16] = sel::NEG;
+      continue;
+    }
+    const int ra = min(row0 + m0 + g, n - 1);  // rows >= n are inactive
+    const int rb = min(row0 + m0 + g + 8, n - 1);
+    const int8_t* pa = emb + static_cast<size_t>(ra) * d + 16 * t;
+    const int8_t* pb = emb + static_cast<size_t>(rb) * d + 16 * t;
+    const float sca = __ldg(scale + ra), scb = __ldg(scale + rb);
+    int acc[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] = 0;
+    // k positions 4t..4t+3 and 16+4t..16+4t+3 of a 32-byte step are bytes
+    // 16t..16t+7 (first step) or 16t+8..16t+15 (second) of a 64-byte chunk
+    // on both operands. BATCH chunks of both rows are loaded before any is
+    // used, so 2 BATCH 16-byte loads a lane are in flight.
+    constexpr int BATCH = 4;
+    for (int c0 = 0; c0 < nch; c0 += BATCH) {
+      int4 a[BATCH], a8[BATCH];
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u)
+        if (c0 + u < nch) {
+          a[u] = __ldg(reinterpret_cast<const int4*>(pa + 64 * (c0 + u)));
+          a8[u] = __ldg(reinterpret_cast<const int4*>(pb + 64 * (c0 + u)));
+        }
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u)
+        if (c0 + u < nch) {
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const int4 w = *reinterpret_cast<const int4*>(
+                sq + (nt * 8 + g) * qstride + 64 * (c0 + u) + 16 * t);
+            dot::mma_s8(acc[nt], a[u].x, a8[u].x, a[u].y, a8[u].y, w.x, w.y);
+            dot::mma_s8(acc[nt], a[u].z, a8[u].z, a[u].w, a8[u].w, w.z, w.w);
+          }
+        }
+    }
+    if (d & 32) {  // the tail: bytes 8t..8t+7 of the last 32
+      const int off = 64 * nch - 8 * t;  // pa already holds + 16t
+      const int2 a = __ldg(reinterpret_cast<const int2*>(pa + off));
+      const int2 a8 = __ldg(reinterpret_cast<const int2*>(pb + off));
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int2 u = *reinterpret_cast<const int2*>(
+            sq + (nt * 8 + g) * qstride + 64 * nch + 8 * t);
+        dot::mma_s8(acc[nt], a.x, a8.x, a.y, a8.y, u.x, u.y);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = g + (e >> 1) * 8;
+        const int j = nt * 8 + 2 * t + (e & 1);
+        if (j < nq)
+          sc[j * tile_n + m0 + r] =
+              (live >> r & 1u) ? dot::rescale(acc[nt][e], e < 2 ? sca : scb,
+                                              __ldg(qs + q0 + j))
+                               : sel::NEG;
+      }
+  }
+  __syncthreads();
+  sel::finish_tile<THREADS>(sc, tile_n, nq, q0, k, tile, ntiles, row0, fv, fr,
+                            tickets + qblk, vals, rows, smem,
+                            smem + tbuf_at);
+}
+
+// query rows in shared memory: d bytes padded to a stride of 16-byte words
+// that is 4 mod 8, so the 8 lanes of a quarter warp (two rows, four words
+// each) read eight distinct 16-byte bank groups
+inline int tc_qstride(int d) { return d + 16 * ((4 - d / 16) & 7); }
+
+template <int NT>
+cudaError_t launch_tc(const int8_t* emb, const float* scale,
+                      const uint8_t* active, const int8_t* qq,
+                      const float* qs, int n, int d, int b, int k, int tile_n,
+                      int qvec, float* fv, int* fr, int* tickets,
+                      float* vals, int* rows, cudaStream_t stream) {
+  constexpr int QB = 8 * NT;
+  const int qstride = tc_qstride(d);
+  // the tile's scores, queries and active bytes (the last CTA's merge
+  // reuses them), then the tile's candidates
+  const size_t tbuf_at = (std::max(
+      static_cast<size_t>(QB) * tile_n * sizeof(float) +
+          static_cast<size_t>(QB) * qstride + tile_n,
+      sel::merge_smem<THREADS>()) + 15) / 16 * 16;
+  const size_t smem = tbuf_at + sel::tile_smem<THREADS>();
+  if (smem > SMEM_MAX) return cudaErrorInvalidValue;
+  auto kern = annq_tc<NT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const int nqb = (b + QB - 1) / QB;
+  const int ntiles = (n + tile_n - 1) / tile_n;
+  kern<<<ntiles * nqb, THREADS, smem, stream>>>(
+      emb, scale, active, qq, qs, n, d, b, k, tile_n, ntiles, nqb, qvec,
+      qstride, fv, fr, tickets, vals, rows, static_cast<int>(tbuf_at));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
+
+// Design "tc": emb_q on a 16-byte boundary, d % 32 == 0. tile_n: rows per
+// CTA, a multiple of 16 in [k, 512] (kernels/ann_topk_quant.py's plan).
+// fv/fr: (b, ceil(n / tile_n), k) fp32/int32 finalist scratch; tickets:
+// ceil(b / qb) int32, all 0, left 0. qb: queries per CTA, 8 or 16. One
+// launch; returns its cudaError_t.
+int ann_topk_quant_tc_launch(int qb, int tile_n, const void* emb_q,
+                             const void* scales, const void* active,
+                             const void* qq, const void* q_scales, int n,
+                             int d, int b, int k, void* fv, void* fr,
+                             void* tickets, void* vals, void* rows,
+                             void* stream) {
+  if (n < 1 || d < 1 || b < 1 || k < 1 || k > K_MAX || d % 32 != 0 ||
+      reinterpret_cast<uintptr_t>(emb_q) % 16 != 0 || tile_n % 16 != 0 ||
+      tile_n < k || tile_n > TILE_N)
+    return cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* e = static_cast<const int8_t*>(emb_q);
+  const auto* sc = static_cast<const float*>(scales);
+  const auto* act = static_cast<const uint8_t*>(active);
+  const auto* q = static_cast<const int8_t*>(qq);
+  const auto* qsp = static_cast<const float*>(q_scales);
+  const int qvec = reinterpret_cast<uintptr_t>(qq) % 16 == 0;
+  auto* pv = static_cast<float*>(fv);
+  auto* pr = static_cast<int*>(fr);
+  auto* pt = static_cast<int*>(tickets);
+  auto* ov = static_cast<float*>(vals);
+  auto* orow = static_cast<int*>(rows);
+  switch (qb) {
+    case 8:
+      return launch_tc<1>(e, sc, act, q, qsp, n, d, b, k, tile_n, qvec, pv, pr, pt, ov, orow, s);
+    case 16:
+      return launch_tc<2>(e, sc, act, q, qsp, n, d, b, k, tile_n, qvec, pv, pr, pt, ov, orow, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Design "dp4a":
 
 // fv/fr: (b, ceil(n / 512), k) fp32/int32 finalist scratch.
 // qb: queries per CTA, 1, 4 or 16. Returns the cudaError_t of the launches.

@@ -8,8 +8,14 @@
 // kernel that scores it, so a row scores bitwise the same in the brute scan
 // (ann_topk.cu) and the routed scan (ann_topk_ivf.cu), and exact-duplicate
 // rows tie bitwise. fp32 rows sum with fmaf (no tensor cores: TF32 would
-// break row parity with the host path); int8 rows sum with __dp4a in int32,
-// exact in any order (|sum| <= D * 127^2 < 2^31).
+// break row parity with the host path); int8 rows sum in int32, exact in
+// any order (|sum| <= D * 127^2 < 2^31), with __dp4a or, in the one-launch
+// int8 scan (ann_topk_quant.cu, design "tc"), on the int8 tensor cores.
+//
+// warp_dot_scatter gives warp_dot's fp32 sums bitwise, combined by the same
+// xor tree, but leaves each sum in one lane instead of all 32: the
+// one-launch brute scan (ann_topk.cu, design "fused") takes it so that the
+// tree costs M - 1 shuffles a lane for M = ROWS * QB sums, not 5 M.
 
 #pragma once
 
@@ -76,13 +82,16 @@ __device__ __forceinline__ void load_q(const float* p, float (&o)[VEC]) {
   }
 }
 
-// fp32 scores of ROWS rows (erow, each d elements of T) against the first
-// nq of QB queries (sq, fp32, QB x d in shared memory). The host picks VEC
-// so that it divides d and the rows start on 16-byte boundaries.
+// Each lane's partial sums of ROWS rows (erow, each d elements of T)
+// against the first nq of QB queries (sq, fp32, QB x d in shared memory):
+// lane l sums the chunks c = l, l + 32, ... in chunk order, the VEC
+// elements of a chunk in element order, with fmaf. The host picks VEC so
+// that it divides d and the rows start on 16-byte boundaries.
 template <typename T, int VEC, int ROWS, int QB>
-__device__ __forceinline__ void warp_dot(const T* const (&erow)[ROWS],
-                                         const float* sq, int d, int nq,
-                                         int lane, float (&acc)[ROWS][QB]) {
+__device__ __forceinline__ void lane_partials(const T* const (&erow)[ROWS],
+                                              const float* sq, int d, int nq,
+                                              int lane,
+                                              float (&acc)[ROWS][QB]) {
 #pragma unroll
   for (int r = 0; r < ROWS; ++r)
 #pragma unroll
@@ -105,6 +114,16 @@ __device__ __forceinline__ void warp_dot(const T* const (&erow)[ROWS],
       }
     }
   }
+}
+
+// fp32 scores of ROWS rows against the first nq of QB queries: the lanes'
+// partial sums combined by a fixed xor butterfly; every lane ends with
+// every sum.
+template <typename T, int VEC, int ROWS, int QB>
+__device__ __forceinline__ void warp_dot(const T* const (&erow)[ROWS],
+                                         const float* sq, int d, int nq,
+                                         int lane, float (&acc)[ROWS][QB]) {
+  lane_partials<T, VEC, ROWS, QB>(erow, sq, d, nq, lane, acc);
   // xor butterfly: a fixed tree, and every lane ends with the same sum
 #pragma unroll
   for (int r = 0; r < ROWS; ++r)
@@ -113,6 +132,63 @@ __device__ __forceinline__ void warp_dot(const T* const (&erow)[ROWS],
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         acc[r][j] += __shfl_xor_sync(FULL, acc[r][j], off);
+}
+
+// One level OFF of the xor tree on the M values v[0..M) a lane holds (its
+// copies of M of the sums): a lane keeps the half its OFF bit names and adds
+// the partner's copy of that half, as the butterfly adds it (own + other);
+// with one value left it adds the partner's, as the butterfly does.
+template <int M, int OFF, int N>
+__device__ __forceinline__ void scatter_level(float (&v)[N], int lane) {
+  if constexpr (OFF > 0) {
+    if constexpr (M > 1) {
+      constexpr int H = M / 2;
+      const bool upper = (lane & OFF) != 0;
+#pragma unroll
+      for (int i = 0; i < H; ++i) {
+        const float mine = upper ? v[i + H] : v[i];
+        const float send = upper ? v[i] : v[i + H];
+        v[i] = mine + __shfl_xor_sync(FULL, send, OFF);
+      }
+      scatter_level<H, OFF / 2>(v, lane);
+    } else {
+      v[0] += __shfl_xor_sync(FULL, v[0], OFF);
+      scatter_level<1, OFF / 2>(v, lane);
+    }
+  }
+}
+
+// Where warp_dot_scatter leaves the sums: lane l holds E of the M =
+// ROWS * QB sums, flattened indices first(l) .. first(l) + E - 1 (index
+// r * QB + j); SHARE lanes hold the same ones.
+template <int ROWS, int QB>
+struct Scatter {
+  static constexpr int M = ROWS * QB;
+  static constexpr int E = M >= 32 ? M / 32 : 1;
+  static constexpr int SHARE = M >= 32 ? 1 : 32 / M;
+  static __device__ __forceinline__ int first(int lane) {
+    return lane / SHARE * E;
+  }
+};
+
+// warp_dot's fp32 scores (16-byte chunks), bitwise, scattered over the
+// lanes as Scatter says.
+template <int ROWS, int QB>
+__device__ __forceinline__ void warp_dot_scatter(
+    const float* const (&erow)[ROWS], const float* sq, int d, int nq,
+    int lane, float (&out)[Scatter<ROWS, QB>::E]) {
+  constexpr int M = ROWS * QB;
+  static_assert((M & (M - 1)) == 0, "ROWS * QB must be a power of two");
+  float acc[ROWS][QB];
+  lane_partials<float, 4, ROWS, QB>(erow, sq, d, nq, lane, acc);
+  float v[M];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+    for (int j = 0; j < QB; ++j) v[r * QB + j] = acc[r][j];
+  scatter_level<M, 16>(v, lane);
+#pragma unroll
+  for (int i = 0; i < Scatter<ROWS, QB>::E; ++i) out[i] = v[i];
 }
 
 // VEC int8 values of one row as int32 words: four packed bytes a word for
@@ -186,6 +262,18 @@ __device__ __forceinline__ void warp_dot_i8(const int8_t* const (&erow)[ROWS],
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         acc[r][j] += __shfl_xor_sync(FULL, acc[r][j], off);
+}
+
+// One m16n8k32 int8 tensor-core product accumulated in int32. a0..a3:
+// the 16 x 32 A fragment (rows lane / 4 and lane / 4 + 8), b0, b1: the
+// 32 x 8 B fragment (column lane / 4); c: rows lane / 4 (c[0], c[1]) and
+// lane / 4 + 8 (c[2], c[3]), columns 2 (lane % 4) and 2 (lane % 4) + 1.
+__device__ __forceinline__ void mma_s8(int (&c)[4], int a0, int a1, int a2,
+                                       int a3, int b0, int b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // the reference's int8 rescale: float(i32) * row_scale, then * query_scale,

@@ -140,4 +140,385 @@ merge_topk(float* fv, const int* fr, int m, int k, float* __restrict__ vals,
   }
 }
 
+// ------------------------------------------------- one-launch scans
+// The one-launch designs of ann_topk.cu ("fused") and ann_topk_quant.cu
+// ("tc") end every tile CTA with finish_tile: the tile's finalists go to
+// scratch, and the CTA that finishes last for its query block merges them.
+// Sorting networks order (value, row) pairs by ranks_before, a strict total
+// order where rows differ; pads (-inf, INT_MAX) rank last.
+
+constexpr int MERGE_CAP = 512;  // candidates a warp keeps in shared memory
+constexpr int MERGE_BATCH = 8;  // loads a lane has in flight in a merge
+
+__device__ __forceinline__ void order_pair(float& va, int& ra, float& vb,
+                                           int& rb, bool a_first) {
+  if (a_first ? ranks_before(vb, rb, va, ra) : ranks_before(va, ra, vb, rb)) {
+    const float tv = va;
+    const int tr = ra;
+    va = vb;
+    ra = rb;
+    vb = tv;
+    rb = tr;
+  }
+}
+
+// One warp sorts 32 E pairs held in registers (entry lane + 32 j in
+// v[j], r[j], E = 1 or 2) into ranks_before order: a bitonic network,
+// pairs across lanes through shuffles.
+template <int E>
+__device__ __forceinline__ void warp_sort_regs(float (&v)[E], int (&r)[E]) {
+  const int lane = threadIdx.x & 31;
+  for (int size = 2; size <= 32 * E; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      if (stride == 32) {  // E == 2: entries lane and lane + 32
+        if constexpr (E == 2) order_pair(v[0], r[0], v[1], r[1], true);
+        continue;
+      }
+#pragma unroll
+      for (int j = 0; j < E; ++j) {
+        const int e = lane + 32 * j;
+        const float ov = __shfl_xor_sync(FULL, v[j], stride);
+        const int orow = __shfl_xor_sync(FULL, r[j], stride);
+        // the lower entry of a pair takes the one that ranks first in
+        // blocks that end best first, the other takes the rest
+        const bool first = ((e & stride) == 0) == ((e & size) == 0);
+        const bool other_first = ranks_before(ov, orow, v[j], r[j]);
+        if (first == other_first) {
+          v[j] = ov;
+          r[j] = orow;
+        }
+      }
+    }
+  }
+}
+
+// One warp sorts c <= MERGE_CAP (value, row) pairs in shared memory into
+// ranks_before order: a bitonic network over the next power of two.
+__device__ __forceinline__ void warp_sort(float* cv, int* cr, int c) {
+  const int lane = threadIdx.x & 31;
+  int p2 = 1;
+  while (p2 < c) p2 <<= 1;
+  for (int i = c + lane; i < p2; i += 32) {
+    cv[i] = -INFINITY;
+    cr[i] = INT_MAX;
+  }
+  __syncwarp();
+  for (int size = 2; size <= p2; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = lane; i < p2 / 2; i += 32) {
+        const int lo = 2 * i - (i & (stride - 1));
+        order_pair(cv[lo], cr[lo], cv[lo + stride], cr[lo + stride],
+                   (lo & size) == 0);
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// One warp: the k best of m <= 64 (value, row) pairs, in ranks_before
+// order, into ov[0..k), oi[0..k), k <= m; get(i) gives pair i.
+template <typename Get>
+__device__ __forceinline__ void warp_best_of_few(int m, int k, Get get,
+                                                 float* ov, int* oi) {
+  const int lane = threadIdx.x & 31;
+  float v[2];
+  int r[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int i = lane + 32 * j;
+    if (i < m) {
+      get(i, v[j], r[j]);
+    } else {
+      v[j] = -INFINITY;
+      r[j] = INT_MAX;
+    }
+  }
+  if (m <= 32) {
+    float v1[1] = {v[0]};
+    int r1[1] = {r[0]};
+    warp_sort_regs<1>(v1, r1);
+    if (lane < k) {
+      ov[lane] = v1[0];
+      oi[lane] = r1[0];
+    }
+  } else {
+    warp_sort_regs<2>(v, r);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      if (lane + 32 * j < k) {
+        ov[lane + 32 * j] = v[j];
+        oi[lane + 32 * j] = r[j];
+      }
+  }
+}
+
+// One warp: the top k of one query's ntiles finalist lists (v, r: list t
+// at t * k, each in ranks_before order) into ov[0..k), oi[0..k), in that
+// order. Two lower bounds L of the k-th best value, each the value of an
+// entry with k entries at or above it: the best list's k-th entry, and for
+// k <= 16 the k-th largest of the lanes' two best list heads (lane l looks
+// at lists l, l + 32, ...). Only entries >= L are candidates, a prefix of
+// each list whose head is >= L: lanes walk their lists' prefixes into the
+// warp's MERGE_CAP slots of shared memory (cv, cr; *count counts them),
+// and a sorting network orders them. Where L is NEG (fewer than k real
+// scores in reach of the bounds) the candidates are the real scores, and
+// the NEG entries that follow them are the first in list order, which are
+// the lowest rows, as the order ranks them. Should the candidates
+// overflow, k argmax passes run over the lists themselves (v is scratch:
+// a taken entry is set to -inf). Other CTAs wrote the lists, so they are
+// read through L2 (ld.cg), MERGE_BATCH loads a lane at a time.
+__device__ __forceinline__ void warp_merge(float* v, const int* r, int ntiles,
+                                           int k, float* ov, int* oi,
+                                           float* cv, int* cr, int* count) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const int m = ntiles * k;
+  float lo = -INFINITY, h1 = -INFINITY, h2 = -INFINITY;
+  for (int t0 = 0; t0 < ntiles; t0 += 32 * MERGE_BATCH) {
+    float kth[MERGE_BATCH], head[MERGE_BATCH];
+#pragma unroll
+    for (int u = 0; u < MERGE_BATCH; ++u) {
+      const int t = t0 + 32 * u + lane;
+      const size_t at = static_cast<size_t>(t) * k;
+      kth[u] = t < ntiles ? __ldcg(v + at + k - 1) : -INFINITY;
+      head[u] = t < ntiles ? __ldcg(v + at) : -INFINITY;
+    }
+#pragma unroll
+    for (int u = 0; u < MERGE_BATCH; ++u) {
+      lo = fmaxf(lo, kth[u]);
+      if (head[u] > h1) {
+        h2 = h1;
+        h1 = head[u];
+      } else {
+        h2 = fmaxf(h2, head[u]);
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    lo = fmaxf(lo, __shfl_xor_sync(FULL, lo, off));
+  // the k-th largest of the 64 heads: k pops of the warp's best
+  for (int p = 0; p < k && k <= 16; ++p) {
+    float best = h1;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      best = fmaxf(best, __shfl_xor_sync(FULL, best, off));
+    if (p == k - 1) lo = fmaxf(lo, best);
+    const unsigned has = __ballot_sync(FULL, h1 == best);
+    if (lane == __ffs(has) - 1) {
+      h1 = h2;
+      h2 = -INFINITY;
+    }
+  }
+  const bool strict = lo <= NEG;
+  auto keep = [&](float x) { return strict ? x > NEG : x >= lo; };
+  if (lane == 0) *count = 0;
+  __syncwarp();
+  for (int t0 = 0; t0 < ntiles; t0 += 32 * MERGE_BATCH) {
+    float head[MERGE_BATCH];
+#pragma unroll
+    for (int u = 0; u < MERGE_BATCH; ++u) {
+      const int t = t0 + 32 * u + lane;
+      head[u] = t < ntiles ? __ldcg(v + static_cast<size_t>(t) * k)
+                           : -INFINITY;
+    }
+#pragma unroll
+    for (int u = 0; u < MERGE_BATCH; ++u) {
+      if (!keep(head[u])) continue;
+      const size_t list = static_cast<size_t>(t0 + 32 * u + lane) * k;
+      bool more = true;
+      for (int p0 = 0; p0 < k && more; p0 += MERGE_BATCH) {
+        float x[MERGE_BATCH];
+        int xr[MERGE_BATCH];
+#pragma unroll
+        for (int w = 0; w < MERGE_BATCH; ++w) {
+          const bool in = p0 + w < k;
+          x[w] = in ? __ldcg(v + list + p0 + w) : -INFINITY;
+          xr[w] = in ? __ldcg(r + list + p0 + w) : INT_MAX;
+        }
+        int n_keep = 0;
+#pragma unroll
+        for (int w = 0; w < MERGE_BATCH; ++w) {
+          more = more && keep(x[w]);
+          n_keep += more;
+        }
+        const int at = n_keep ? atomicAdd(count, n_keep) : 0;
+#pragma unroll
+        for (int w = 0; w < MERGE_BATCH; ++w)
+          if (w < n_keep && at + w < MERGE_CAP) {
+            cv[at + w] = x[w];
+            cr[at + w] = xr[w];
+          }
+      }
+    }
+  }
+  __syncwarp();
+  const int c = *count;
+  if (c <= MERGE_CAP) {
+    const int real = min(c, k);
+    if (c <= 64) {
+      warp_best_of_few(c, real, [&](int i, float& x, int& xr) {
+        x = cv[i];
+        xr = cr[i];
+      }, ov, oi);
+    } else {
+      warp_sort(cv, cr, c);
+      for (int p = lane; p < real; p += 32) {
+        ov[p] = cv[p];
+        oi[p] = cr[p];
+      }
+    }
+    // fewer real scores than k: the first NEG entries in list order
+    int taken = 0;
+    for (int base = 0; real + taken < k; base += 32) {
+      const int i = base + lane;
+      const bool neg = i < m && __ldcg(v + i) <= NEG;
+      const unsigned mask = __ballot_sync(FULL, neg);
+      const int at = real + taken + __popc(mask & below);
+      if (neg && at < k) {
+        ov[at] = NEG;
+        oi[at] = __ldcg(r + i);
+      }
+      taken += __popc(mask);
+    }
+    return;
+  }
+  for (int p = 0; p < k; ++p) {
+    float best = -INFINITY;
+    int br = INT_MAX, bp = -1;
+    for (int i = lane; i < m; i += 32) {
+      const float x = __ldcg(v + i);
+      const int xr = __ldcg(r + i);
+      if (ranks_before(x, xr, best, br)) {
+        best = x;
+        br = xr;
+        bp = i;
+      }
+    }
+    warp_best(best, br, bp);
+    if (lane == 0) {
+      ov[p] = best;
+      oi[p] = br;
+      v[bp] = -INFINITY;
+    }
+    __syncwarp();
+  }
+}
+
+constexpr int TILE_CAP = 64;  // candidates of a tile's threshold pass
+
+// One warp: the k best of s[0..m) (shared memory; entry i is row base + i)
+// in ranks_before order into ov[0..k), oi[0..k); 64 < m, k <= 32. The
+// k-th largest of the lanes' maxima (lane l looks at l, l + 32, ...) is a
+// lower bound L of the k-th best, so only entries >= L are candidates:
+// up to TILE_CAP of them go to buf (the warp's TILE_CAP pairs) and a
+// sorting network orders them; past TILE_CAP, k argmax passes
+// (warp_topk) run over s itself.
+__device__ __forceinline__ void warp_tile_topk(float* s, int m, int k,
+                                               float* ov, int* oi, int base,
+                                               float* bv, int* br) {
+  const int lane = threadIdx.x & 31;
+  float mx[1] = {-INFINITY};
+  int ml[1] = {lane};
+  for (int i = lane; i < m; i += 32) mx[0] = fmaxf(mx[0], s[i]);
+  warp_sort_regs<1>(mx, ml);
+  const float lo = __shfl_sync(FULL, mx[0], k - 1);
+  int c = 0;
+  for (int i0 = 0; i0 < m; i0 += 32) {
+    const int i = i0 + lane;
+    const float x = i < m ? s[i] : -INFINITY;
+    const bool keep = x >= lo;
+    const unsigned mask = __ballot_sync(FULL, keep);
+    const int at = c + __popc(mask & ((1u << lane) - 1u));
+    if (keep && at < TILE_CAP) {
+      bv[at] = x;
+      br[at] = base + i;
+    }
+    c += __popc(mask);
+  }
+  __syncwarp();
+  if (c > TILE_CAP) {
+    warp_topk(s, m, k, ov, oi, base);
+    return;
+  }
+  warp_best_of_few(c, k, [&](int i, float& x, int& xr) {
+    x = bv[i];
+    xr = br[i];
+  }, ov, oi);
+}
+
+// Bytes of dynamic shared memory the tiles' threshold passes take, beside
+// the kernel's own.
+template <int THREADS>
+constexpr size_t tile_smem() {
+  return static_cast<size_t>(THREADS / 32) * TILE_CAP *
+         (sizeof(float) + sizeof(int));
+}
+
+// Bytes of dynamic shared memory the last CTA's merge takes (the kernels
+// allocate at least this much and reuse it once the tile is done).
+template <int THREADS>
+constexpr size_t merge_smem() {
+  return static_cast<size_t>(THREADS / 32) * MERGE_CAP *
+         (sizeof(float) + sizeof(int));
+}
+
+// The end of a one-launch scan CTA (every thread calls it). sc: the tile's
+// scores, nq rows of tile_n in shared memory, position i being row row0 + i
+// (NEG for inactive rows and rows past N); tile_n >= k. smem: the CTA's
+// dynamic shared memory, at least merge_smem<THREADS>() bytes, 16-byte
+// aligned; tbuf: tile_smem<THREADS>() more bytes. Each query's k best (a
+// sorting network up to 64 rows, warp_tile_topk above, k argmax passes
+// for k > 32) go to its list in fv/fr ((B, ntiles, k) scratch). Then an
+// atomic ticket per query block counts the finished tiles: the CTA that
+// takes the last ticket resets it to 0 for the next launch and merges
+// every tile's lists into vals/rows ((B, k)), a warp a query (warp_merge),
+// reusing smem.
+template <int THREADS>
+__device__ __forceinline__ void finish_tile(float* sc, int tile_n, int nq,
+                                            int q0, int k, int tile,
+                                            int ntiles, int row0, float* fv,
+                                            int* fr, int* ticket,
+                                            float* vals, int* rows,
+                                            unsigned char* smem,
+                                            unsigned char* tbuf) {
+  constexpr int WARPS = THREADS / 32;
+  __shared__ int last;
+  __shared__ int count[WARPS];
+  const int warp = threadIdx.x >> 5;
+  float* bv = reinterpret_cast<float*>(tbuf) + warp * TILE_CAP;
+  int* br = reinterpret_cast<int*>(tbuf) + (WARPS + warp) * TILE_CAP;
+  for (int j = warp; j < nq; j += WARPS) {
+    const size_t out = ((q0 + j) * static_cast<size_t>(ntiles) + tile) * k;
+    float* s = sc + j * tile_n;
+    if (tile_n <= 64) {
+      warp_best_of_few(tile_n, k, [&](int i, float& x, int& xr) {
+        x = s[i];
+        xr = row0 + i;
+      }, fv + out, fr + out);
+    } else if (k <= 32) {
+      warp_tile_topk(s, tile_n, k, fv + out, fr + out, row0, bv, br);
+    } else {
+      warp_topk(s, tile_n, k, fv + out, fr + out, row0);
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(ticket, 1) == ntiles - 1;
+    if (last) atomicExch(ticket, 0);
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float* cv = reinterpret_cast<float*>(smem) + warp * MERGE_CAP;
+  int* cr = reinterpret_cast<int*>(smem) + (WARPS + warp) * MERGE_CAP;
+  for (int j = warp; j < nq; j += WARPS) {
+    const size_t q = q0 + j;
+    const size_t list = q * ntiles * k;
+    warp_merge(fv + list, fr + list, ntiles, k, vals + q * k, rows + q * k,
+               cv, cr, count + warp);
+  }
+}
+
 }  // namespace sel
