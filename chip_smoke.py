@@ -34,10 +34,16 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            4096 slots x 768 (half valid, nprobe=64, B in 1/16; k=4 fp32,
            k=16 int8), with times.
    kernel_sharded  ann_topk_ivf_sharded and ann_topk_ivf_quant_sharded
-           against their plain versions at S = 1, 2, 3, 8 and S > C, with
-           empty shards, disabled probes, B in 1/4/16 and duplicates inside
-           a bucket; merged, S=1 equals the unsharded scan bitwise and S=8
-           the S=1 values bitwise.
+           against their plain versions, each case on the design the
+           dispatch gives it (buckets of at most 64 slots: one warp per
+           probe, "warp"; larger: "block") and on "block" too: S = 1, 2,
+           3, 8 and S > C, with empty shards, disabled probes, B in 1/4/16
+           and duplicates inside a bucket, then the engine's shapes (C=64,
+           cap 8/16/32/64 with members a prefix, D=128, nprobe 8, S=8, B
+           in 1/4/16, k 4 fp32 and 16 int8) and runs (d)/(f)'s (C=16, cap
+           64, D=32, nprobe 4), timed at B=1 on both designs; merged, on
+           both designs, S=1 equals the unsharded scan bitwise and S=8 the
+           S=1 values bitwise.
    kernel_attn  flash_attention_fwd (kernel 6) and decode_attention (kernel
            7) against their plain versions, each call on the design its
            inputs take (bf16 rows on 16-byte boundaries: the tensor-core
@@ -82,8 +88,10 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            four launch; (d) the reference's shard-invariance config at 1,
            2 and 8 shards (equal apart from the shard keys); (e) run (c) at
            8 shards: both sharded kernels launch; (f) the max-over-shards
-           latency run; no plain version runs, and every launch of
-           kernels 1 and 2 takes the one-launch design. Then every kernel
+           latency run; no plain version runs, every launch of
+           kernels 1 and 2 takes the one-launch design, and every launch
+           of kernel 5 the design its bucket size gives ("warp" at the
+           engine's caps; counts by design and caps reported). Then every kernel
            against its plain version on the run's own device layouts, and
            the kernels' times at run (c)'s shapes, the sharded ones at
            (e)'s.
@@ -112,7 +120,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    it (a serve run; the colocated run for kernels 6 and 7, with their
    launches by design in colocated, lm and (g); kernels 1 and 2 with
    theirs in every serve run, all on the one-launch designs, and their
-   CUDA launches a call), max abs error against the plain version over
+   CUDA launches a call; kernel 5 with its launches by design in the
+   sharded runs and both designs' device times), max abs error against the plain version over
    every phase, and its time, the plain version's, one library call's
    and the card's bound, at its main-path shape, with the other measured
    shapes under ``sizes`` (kernels 1 and 2 with the first design's
@@ -131,6 +140,7 @@ real score. Attention kernels: within 3e-5 (fp32) or 3e-2 (bf16).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -156,6 +166,9 @@ N_INTENTS = 131072        # x 8 paraphrases fill the real-size cache
 # (benchmarks/figures.py:390-391), and buckets of 4096 slots, half valid
 REAL_C, REAL_CAP, REAL_NPROBE = 512, 4096, 64
 REAL_SHARDS = 8           # the sharded real-size index (DESIGN.md §13)
+# the bucket sizes the engine lays out (core/clustering.py: powers of two
+# of at least 8): kernel 5's "warp" design takes them all
+SHARD_ENGINE_CAPS = (8, 16, 32, 64)
 
 
 def emit(**kw) -> None:
@@ -1033,38 +1046,64 @@ def sharded_args(sel, en, q, buckets, valid, rows, bounds, quant):
     return (sel, en, q, qs, buckets, bscale, valid, rows, bounds)
 
 
+def expect_shard_design(cap: int) -> str:
+    """The design a CUDA call of kernel 5 must take: one warp per probe
+    ("warp") for buckets of at most 64 slots, else "block" (at every
+    width checked here, D <= 768, the warp design's queries fit)."""
+    return "warp" if cap <= 64 else "block"
+
+
+def shard_scans(quant):
+    """Kernel 5's wrapper and plain version, fp32 or (``quant``) int8."""
+    from repro_torch.kernels import ann_topk_sharded as sh
+    if quant is None:
+        return sh.ann_topk_ivf_sharded, sh.ann_topk_ivf_sharded_plain
+    return sh.ann_topk_ivf_quant_sharded, sh.ann_topk_ivf_quant_sharded_plain
+
+
 def hold_sharded(sel, en, q, buckets, valid, rows, bounds, k, *, quant=None,
                  exact_rows=False) -> float:
-    """Kernel 5 against its plain version on the same inputs: int8 stacks
-    bitwise (vals and rows everywhere), fp32 stacks as ``hold_ivf`` holds
-    the routed scan; every masked entry carries row -1."""
+    """Kernel 5 against its plain version on the same inputs, on the
+    design the dispatch gives them (the wrapper's counts say which ran)
+    and on "block" too where it gives "warp": int8 stacks bitwise (vals
+    and rows everywhere), fp32 stacks as ``hold_ivf`` holds the routed
+    scan; every masked entry carries row -1."""
     from repro_torch.kernels import ann_topk_sharded as sh
     args = sharded_args(sel, en, q, buckets, valid, rows, bounds, quant)
-    if quant is None:
-        got = sh.ann_topk_ivf_sharded(*args, k)
-        want = sh.ann_topk_ivf_sharded_plain(*args, k + 1)
-        s, b, nprobe, _ = got[0].shape
-        err = compare_probes(
-            [t.reshape(s * b, nprobe, -1) for t in got],
-            [t.reshape(s * b, nprobe, -1) for t in want],
-            exact_rows=exact_rows)
-    else:
-        got = sh.ann_topk_ivf_quant_sharded(*args, k)
-        want = sh.ann_topk_ivf_quant_sharded_plain(*args, k)
-        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-              "int8 sharded stacks differ from the plain version")
-        err = 0.0
-    gv, gr = got
-    check(bool((gr[gv <= NEG / 2] == -1).all()), "a masked entry has a row")
+    wrapper, plain = shard_scans(quant)
+    want = plain(*args, k + (quant is None))
+    design = expect_shard_design(buckets.shape[1])
+    before = design_counts(wrapper)
+    outs = [wrapper(*args, k)]
+    check_design(wrapper, before, design,
+                 f"{wrapper.__name__} at cap={buckets.shape[1]} k={k}")
+    if design != "block":
+        outs.append(sh._launch("block", wrapper, *args, k=k))
+    err = 0.0
+    for got in outs:
+        if quant is None:
+            s, b, nprobe, _ = got[0].shape
+            err = max(err, compare_probes(
+                [t.reshape(s * b, nprobe, -1) for t in got],
+                [t.reshape(s * b, nprobe, -1) for t in want],
+                exact_rows=exact_rows))
+        else:
+            check(torch.equal(got[0], want[0])
+                  and torch.equal(got[1], want[1]),
+                  "int8 sharded stacks differ from the plain version")
+        gv, gr = got
+        check(bool((gr[gv <= NEG / 2] == -1).all()),
+              "a masked entry has a row")
     return err
 
 
 def hold_sharded_merge(sel, en, q, buckets, valid, rows, bounds, k, *,
                        quant=None) -> None:
-    """Merged (ops._merge_shards) at S=1 the sharded scan equals the
-    unsharded one merged (ops._merge_probes) bitwise; at ``bounds``' S the
-    merged vals equal S=1's bitwise and so do the rows, except inside runs
-    of exactly equal values, which merge shard-major."""
+    """On the design the dispatch gives and on "block": merged
+    (ops._merge_shards) at S=1 the sharded scan equals the unsharded one
+    merged (ops._merge_probes) bitwise; at ``bounds``' S the merged vals
+    equal S=1's bitwise and so do the rows, except inside runs of exactly
+    equal values, which merge shard-major."""
     from repro_torch.kernels import ann_topk_ivf as ivf
     from repro_torch.kernels import ann_topk_sharded as sh
     from repro_torch.kernels.ops import _merge_probes, _merge_shards
@@ -1072,28 +1111,31 @@ def hold_sharded_merge(sel, en, q, buckets, valid, rows, bounds, k, *,
                        device=sel.device)
     if quant is None:
         unsharded = ivf.ann_topk_ivf(sel, en, q, buckets, valid, k)
-        scan = sh.ann_topk_ivf_sharded
     else:
         qs, bscale = quant
         unsharded = ivf.ann_topk_ivf_quant(sel, en, q, qs, buckets, bscale,
                                            valid, k)
-        scan = sh.ann_topk_ivf_quant_sharded
+    wrapper = shard_scans(quant)[0]
     wv, wr = _merge_probes(*unsharded, sel, rows, k + 1)
-    s1 = _merge_shards(*scan(*sharded_args(sel, en, q, buckets, valid, rows,
-                                           one, quant), k), k + 1)
-    check(torch.equal(s1[0], wv) and torch.equal(s1[1], wr),
-          "S=1 merged differs from the unsharded scan")
-    sv, sr = _merge_shards(*scan(*sharded_args(sel, en, q, buckets, valid,
-                                               rows, bounds, quant), k), k + 1)
-    check(torch.equal(sv, wv), "sharded merged vals differ from S=1")
     eq = wv[:, 1:] == wv[:, :-1]
     tie = torch.zeros_like(wv, dtype=torch.bool)
     tie[:, 1:] |= eq
     tie[:, :-1] |= eq
     cols = min(k, wv.shape[1])
     sure = (~tie & (wv > NEG / 2))[:, :cols]
-    check(torch.equal(sr[:, :cols][sure], wr[:, :cols][sure]),
-          "sharded merged rows differ outside exact ties")
+    for design in dict.fromkeys((expect_shard_design(buckets.shape[1]),
+                                 "block")):
+        def scan(cuts):
+            return sh._launch(design, wrapper, *sharded_args(
+                sel, en, q, buckets, valid, rows, cuts, quant), k=k)
+        s1 = _merge_shards(*scan(one), k + 1)
+        check(torch.equal(s1[0], wv) and torch.equal(s1[1], wr),
+              f"{design}: S=1 merged differs from the unsharded scan")
+        sv, sr = _merge_shards(*scan(bounds), k + 1)
+        check(torch.equal(sv, wv),
+              f"{design}: sharded merged vals differ from S=1")
+        check(torch.equal(sr[:, :cols][sure], wr[:, :cols][sure]),
+              f"{design}: sharded merged rows differ outside exact ties")
 
 
 def global_rows(g, valid: torch.Tensor) -> torch.Tensor:
@@ -1154,17 +1196,69 @@ def phase_kernel_sharded(dev):
         errs_f.append(hold_sharded(sel, en, q, buckets, valid, rows,
                                    random_bounds(g, c, s, dev), k,
                                    exact_rows=True))
-    return max(errs_f), max(errs_q), len(errs_f) + len(errs_q)
+    # the engine's shapes (run (e)'s C=64, D=128, nprobe 8, 8 shards, k 4
+    # fp32 and 16 int8) at every bucket size "warp" takes: each bucket's
+    # members a prefix of random length (empty and full buckets among
+    # them), queries near members; then both designs timed at B=1
+    sizes = []
+    c, d, nprobe, k_f, k_q = 64, 128, 8, 4, 16
+    for cap in SHARD_ENGINE_CAPS:
+        buckets = unit_rows(g, c * cap, d, dev).reshape(c, cap, d)
+        members = torch.randint(0, cap + 1, (c, 1), device=dev, generator=g)
+        members[:2] = torch.tensor([[0], [cap]], device=dev)
+        valid = torch.arange(cap, device=dev)[None, :] < members
+        buckets[~valid] = 0.0
+        rows = global_rows(g, valid)
+        bq, bs = quantize_dev(buckets.reshape(c * cap, d))
+        bq, bs = bq.reshape(c, cap, d), bs.reshape(c, cap)
+        bounds = random_bounds(g, c, 8, dev)
+        for b in (1, 4, 16):
+            sel, en = random_probes(g, b, c, nprobe, dev)
+            q = near(buckets[sel[:, 0].long(), 0], g, 0.1)
+            qq, qs = quantize_dev(q)
+            errs_f.append(hold_sharded(sel, en, q, buckets, valid, rows,
+                                       bounds, k_f))
+            errs_q.append(hold_sharded(sel, en, qq, bq, valid, rows, bounds,
+                                       k_q, quant=(qs, bs)))
+            if b == 4:
+                hold_sharded_merge(sel, en, q, buckets, valid, rows, bounds,
+                                   k_f)
+                hold_sharded_merge(sel, en, qq, bq, valid, rows, bounds, k_q,
+                                   quant=(qs, bs))
+            if b == 1:
+                sizes.append(measure_sharded(sel, en, q, buckets, valid,
+                                             rows, bounds, k_f,
+                                             required=True))
+                sizes.append(measure_sharded(sel, en, qq, bq, valid, rows,
+                                             bounds, k_q, quant=(qs, bs),
+                                             required=True))
+    # runs (d) and (f)'s fp32 shape at their largest bucket: C=16, cap 64,
+    # D=32, nprobe 4, k=4
+    c, cap, d, nprobe = 16, 64, 32, 4
+    buckets = unit_rows(g, c * cap, d, dev).reshape(c, cap, d)
+    members = torch.randint(cap // 2, cap + 1, (c, 1), device=dev, generator=g)
+    valid = torch.arange(cap, device=dev)[None, :] < members
+    buckets[~valid] = 0.0
+    rows = global_rows(g, valid)
+    bounds = random_bounds(g, c, 8, dev)
+    sel, en = random_probes(g, 1, c, nprobe, dev)
+    q = near(buckets[sel[:, 0].long(), 0], g, 0.1)
+    errs_f.append(hold_sharded(sel, en, q, buckets, valid, rows, bounds, k_f))
+    sizes.append(measure_sharded(sel, en, q, buckets, valid, rows, bounds,
+                                 k_f, required=True))
+    return max(errs_f), max(errs_q), len(errs_f) + len(errs_q), sizes
 
 
 def measure_sharded(sel, en, q, buckets, valid, rows, bounds, k, *,
                     quant=None, required: bool = False) -> dict:
     """Times of kernel 5, fp32 or with ``quant = (q_scales, bucket_scale)``
-    int8, its plain version and the library yardstick: one batched matmul
-    over the gathered buckets, a stable sort, the finalists' global rows,
-    each probe's finalists placed at its owning shard. The plain version
-    scans every shard's slice for every probe, so it is timed 5 times.
-    Beside them, the unsharded kernel (3 or 4) on the same inputs."""
+    int8, on the design the dispatch gives, its plain version and the
+    library yardstick: one batched matmul over the gathered buckets, a
+    stable sort, the finalists' global rows, each probe's finalists placed
+    at its owning shard. The plain version scans every shard's slice for
+    every probe, so it is timed 5 times. Beside them, the unsharded kernel
+    (3 or 4) on the same inputs, and "block" where the dispatch gives
+    "warp"."""
     from repro_torch.kernels import ann_topk_ivf as ivf
     from repro_torch.kernels import ann_topk_sharded as sh
     b, nprobe = sel.shape
@@ -1183,8 +1277,12 @@ def measure_sharded(sel, en, q, buckets, valid, rows, bounds, k, *,
         def scan_unsharded():
             return ivf.ann_topk_ivf_quant(sel, en, q, quant[0], buckets,
                                           quant[1], valid, k)
+    design = expect_shard_design(cap)
     owner = torch.searchsorted(bounds, sel, right=True) - 1
     shard = torch.arange(s, device=sel.device)[:, None, None, None]
+
+    def block():
+        return sh._launch("block", kernel, *args, k=k)
 
     def library():
         sb = sel.long()
@@ -1202,16 +1300,23 @@ def measure_sharded(sel, en, q, buckets, valid, rows, bounds, k, *,
 
     bound_ms, bound_by = bound_ivf(sel, en, valid, d, k, quant is not None,
                                    n_shards=s)
-    return {"b": b, "nprobe": nprobe, "c": c, "cap": cap, "d": d, "k": k,
-            "shards": s,
-            **timings(lambda: kernel(*args, k), lambda: plain(*args, k),
-                      library, plain_repeats=5, required=required),
+    out = {"b": b, "nprobe": nprobe, "c": c, "cap": cap, "d": d, "k": k,
+           "shards": s, "dtype": "fp32" if quant is None else "int8",
+           "design": design,
+           "valid_share": float(valid[sel.long()].float().mean()),
+           **timings(lambda: kernel(*args, k), lambda: plain(*args, k),
+                     library, plain_repeats=5, required=required),
             "library": "gathered buckets, torch.bmm + stable sort, rows "
                        "gathered, placed at the owning shard",
             "bound_ms": bound_ms, "bound_by": bound_by,
             "unsharded": {"ms": timed_ms(scan_unsharded),
                           "device_ms": device_ms(scan_unsharded),
                           "amortized_ms": amortized_ms(scan_unsharded)}}
+    if design != "block":
+        # the first design on the same inputs, timed beside it
+        out["block_ms"] = timed_ms(block)
+        out["block_device_ms"] = device_ms(block, required=required)
+    return out
 
 
 # --------------------------------------------- real-size warm and clustered
@@ -1596,6 +1701,45 @@ def hold_on_run(cache, g, errs: dict) -> dict:
     return shapes
 
 
+@contextlib.contextmanager
+def shard_launch_log():
+    """Within the block, every kernel 5 launch as (wrapper name, design,
+    cap, k), read where the wrappers hand the design to the launch."""
+    from repro_torch.kernels import ann_topk_sharded as sh
+    log, launch = [], sh._launch
+
+    def logged(design, wrapper, *args, k):
+        buckets = args[4 if wrapper is sh.ann_topk_ivf_quant_sharded else 3]
+        log.append((wrapper.__name__, design, buckets.shape[1], k))
+        return launch(design, wrapper, *args, k=k)
+
+    sh._launch = logged
+    try:
+        yield log
+    finally:
+        sh._launch = launch
+
+
+def check_shard_designs(wrappers: dict, log: list, run: str) -> dict:
+    """Every kernel 5 launch in ``run`` took the design its bucket size
+    gives (``expect_shard_design``: "warp" at every cap the engine lays
+    out), and the wrappers' counts by design agree with the log. Returns
+    the counts by design and the caps seen, per wrapper."""
+    out = {}
+    for name in ("ann_topk_ivf_sharded", "ann_topk_ivf_quant_sharded"):
+        mine = [(design, cap) for n, design, cap, _ in log if n == name]
+        wrong = [(d, cap) for d, cap in mine if d != expect_shard_design(cap)]
+        check(not wrong, f"{run}: {name} launched {len(wrong)} times on the "
+              f"wrong design: {sorted(set(wrong))}")
+        counts = design_counts(wrappers[name])
+        check(counts == {d: sum(x == d for x, _ in mine)
+                         for d in ("warp", "block")}
+              and wrappers[name].launches == len(mine),
+              f"{run}: {name} counts {counts} disagree with its launches")
+        out[name] = {**counts, "caps": sorted({cap for _, cap in mine})}
+    return out
+
+
 def check_all_one_launch(wrappers: dict, run: str) -> dict:
     """Every call of kernels 1 and 2 in ``run`` (the indexes' fp32 and int8
     mirrors and layouts on 16-byte rows, D a multiple of 32) launched its
@@ -1629,11 +1773,13 @@ def phase_serve(dev):
     for name, kw in SERVE_RUNS.items():
         reset_counts(wrappers)
         t = time.perf_counter()
-        got, cache = run_keeping_cache(mode="cortex", backend="kernel",
-                                       device=dev, **kw)
+        with shard_launch_log() as log:
+            got, cache = run_keeping_cache(mode="cortex", backend="kernel",
+                                           device=dev, **kw)
         wall = time.perf_counter() - t
         launches = {n: w.launches for n, w in wrappers.items()}
-        by_design = check_all_one_launch(wrappers, name)
+        by_design = {**check_all_one_launch(wrappers, name),
+                     **check_shard_designs(wrappers, log, name)}
         check(launches["ann_topk"] > 0, f"{name}: no ann_topk launch")
         check(not any(w.plain_calls for w in wrappers.values()),
               f"{name}: the CUDA path took a plain version")
@@ -2352,11 +2498,12 @@ def main() -> int:
          real_size_int8=ivfq_sizes, seconds=time.perf_counter() - t)
 
     t = time.perf_counter()
-    shard_err, shardq_err, shard_cases = phase_kernel_sharded(dev)
+    shard_err, shardq_err, shard_cases, shard_engine = \
+        phase_kernel_sharded(dev)
     torch.cuda.synchronize()
     emit(phase="kernel_sharded", cases=shard_cases,
          max_abs_err_fp32=shard_err, max_abs_err_int8=shardq_err,
-         seconds=time.perf_counter() - t)
+         engine_shapes=shard_engine, seconds=time.perf_counter() - t)
 
     t = time.perf_counter()
     attn_errs, attn_cases, attn_edges, flash_sizes, decode_sizes = \
@@ -2461,6 +2608,16 @@ def main() -> int:
                      "launches_by_design": {
                          r["run"]: r["launches_by_design"][name]
                          for r in runs}}
+        if name.endswith("_sharded"):
+            extra = {"design": at["design"],
+                     "block_device_ms": at.get("block_device_ms"),
+                     "launches_by_design": {
+                         r["run"]: r["launches_by_design"][name]
+                         for r in runs if r["launches"].get(name)},
+                     "engine_shapes": [
+                         x for x in shard_engine
+                         if x["dtype"] == ("int8" if "quant" in name
+                                           else "fp32")]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",

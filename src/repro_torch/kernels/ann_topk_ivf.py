@@ -146,11 +146,11 @@ def _lib():
         lib.ann_topk_ivf_quant_launch.argtypes = [p, p, p, p, p, p, p, i, i,
                                                   i, i, i, i, p, p, p]
         lib.ann_topk_ivf_quant_launch.restype = i
-        lib.ann_topk_ivf_sharded_launch.argtypes = [p] * 7 + [i] * 7 + \
+        lib.ann_topk_ivf_sharded_launch.argtypes = [p] * 7 + [i] * 8 + \
             [p, p, p]
         lib.ann_topk_ivf_sharded_launch.restype = i
         lib.ann_topk_ivf_quant_sharded_launch.argtypes = [p] * 9 + \
-            [i] * 7 + [p, p, p]
+            [i] * 8 + [p, p, p]
         lib.ann_topk_ivf_quant_sharded_launch.restype = i
         lib.ann_topk_ivf_error_string.argtypes = [i]
         lib.ann_topk_ivf_error_string.restype = ctypes.c_char_p
@@ -162,12 +162,15 @@ def _u8(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.uint8) if t.dtype == torch.bool else t
 
 
-def _launch(name: str, dev, shape, args, k, n_shards: int | None = None):
+def _launch(name: str, dev, shape, args, k, n_shards: int | None = None,
+            design: tuple[str, int] | None = None):
     """Launch ``<name>_launch`` on ``dev``'s current stream into fresh
     (B, nprobe, k) outputs, or (S, B, nprobe, k) stacks for the sharded
-    entry points (``n_shards``); raises with the shape if it fails."""
+    entry points (``n_shards``, and ``design``: its name and its code for
+    the C entry); raises with the shape and the design if it fails."""
     b, nprobe, c, cap, d = shape
     lead = () if n_shards is None else (n_shards,)
+    code = () if design is None else (design[1],)
     vals = torch.empty((*lead, b, nprobe, k), dtype=torch.float32, device=dev)
     idx = torch.empty((*lead, b, nprobe, k), dtype=torch.int32, device=dev)
     lib = _lib()
@@ -175,13 +178,14 @@ def _launch(name: str, dev, shape, args, k, n_shards: int | None = None):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, f"{name}_launch")(
             *[t.data_ptr() for t in args], *lead, b, nprobe, c, cap, d, k,
-            vals.data_ptr(), idx.data_ptr(), stream)
+            *code, vals.data_ptr(), idx.data_ptr(), stream)
     if err != 0:
         msg = lib.ann_topk_ivf_error_string(err).decode()
         where = "" if n_shards is None else f"s={n_shards} "
+        how = "" if design is None else f" design={design[0]}"
         raise RuntimeError(f"{name} launch failed (cuda error {err}: {msg}) "
                            f"at {where}b={b} nprobe={nprobe} c={c} cap={cap} "
-                           f"d={d} k={k}")
+                           f"d={d} k={k}{how}")
     return vals, idx
 
 

@@ -47,8 +47,9 @@
 // query that probes it. Sharded, the owner alone reads the bucket, so the
 // bytes are the unsharded scan's plus the S-fold stack of finalists.
 //
-// The simple design (speed is later work): one kernel for both payload
-// types over a scorer policy; one CTA per (query b, probe j), reading
+// Design "block" (every unsharded scan, and sharded buckets above
+// WARP_CAP slots): one kernel for both payload types over a scorer policy;
+// one CTA per (query b, probe j), reading
 // sel[b, j] and enabled[b, j] itself (the TPU's scalar prefetch) and
 // offsetting into the bucket. The query sits in shared memory; warps
 // score ROWS slots at once (dot.cuh) into a cap-long score array in
@@ -59,6 +60,26 @@
 // sharded CTA also reads the (S+1,) bounds to find the owner of its bucket
 // and writes the whole (S, k) column of the stack: its finalists, with
 // their rows read from bucket_rows, at the owner, NEG / -1 at the others.
+//
+// Design "warp" (sharded buckets of at most WARP_CAP = 64 slots, the
+// engine's): at B = 1, nprobe = 8 and cap 16 the block design keeps 4 of
+// its 8 warps idle and spends most of its time in block barriers: the
+// query's, the scores', and two in each of the k argmax passes. Here one
+// warp owns one (query, probe) and WARP_PROBES probes share a CTA, with no
+// block barrier at all. The warp issues every load that needs only its
+// bucket id at once (the valid bytes, slot rows and scales of its two
+// slots a lane, the cut points, the query), finds the owner with one
+// ballot, and scores only the row groups that hold a valid slot (the
+// engine keeps a bucket's members as a prefix, so the loads stop at the
+// member count), 8 or 16 rows at once through the same dot.cuh code as the
+// block design, so every score is bitwise the same. Each lane keeps the
+// scores of slots lane and lane + 32; one bitonic network over the first
+// max(valid prefix, k) entries (select.cuh::warp_best_of_few, later slots
+// scoring NEG at their own index, as a stable sort of the NEG-padded
+// scores orders them) gives all k finalists at once, and the lanes write
+// the (S, k) column. What is left is latency: three dependent trips to
+// memory (the probe's bucket id, the bucket's metadata, its rows) and, per
+// row group, a chain of dot products and shuffles (PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -76,6 +97,9 @@ constexpr int WARPS = THREADS / 32;
 constexpr int ROWS = 4;          // slots a warp scores at once
 constexpr int K_MAX = 64;
 constexpr size_t SMEM_MAX = 232448;  // H100: 227 KB of dynamic shared memory
+constexpr int WARP_PROBES = 4;  // "warp": probes (warps) a CTA
+constexpr int WARP_CAP = 64;    // "warp": the largest bucket, two slots a lane
+enum Design { BLOCK = 0, WARP = 1 };
 
 // shared memory layout: cap fp32 scores, then the query on a 16-byte
 // boundary
@@ -97,10 +121,11 @@ __device__ __forceinline__ void write_disabled(float* ov, int* oi, int k) {
 template <typename E, int VEC>
 struct Scorer {
   using Acc = float;
-  static __device__ __forceinline__ void rows(const E* const (&erow)[ROWS],
+  template <int R>
+  static __device__ __forceinline__ void rows(const E* const (&erow)[R],
                                               const E* sq, int d, int lane,
-                                              Acc (&acc)[ROWS][1]) {
-    dot::warp_dot<E, VEC, ROWS, 1>(erow, sq, d, 1, lane, acc);
+                                              Acc (&acc)[R][1]) {
+    dot::warp_dot<E, VEC, R, 1>(erow, sq, d, 1, lane, acc);
   }
   static __device__ __forceinline__ float finish(Acc acc, const float*,
                                                  float) {
@@ -111,10 +136,11 @@ struct Scorer {
 template <int VEC>
 struct Scorer<int8_t, VEC> {
   using Acc = int;
+  template <int R>
   static __device__ __forceinline__ void rows(
-      const int8_t* const (&erow)[ROWS], const int8_t* sq, int d, int lane,
-      Acc (&acc)[ROWS][1]) {
-    dot::warp_dot_i8<VEC, ROWS, 1>(erow, sq, d, 1, lane, acc);
+      const int8_t* const (&erow)[R], const int8_t* sq, int d, int lane,
+      Acc (&acc)[R][1]) {
+    dot::warp_dot_i8<VEC, R, 1>(erow, sq, d, 1, lane, acc);
   }
   static __device__ __forceinline__ float finish(Acc acc,
                                                  const float* slot_scale,
@@ -246,6 +272,177 @@ ivf_topk_sharded(const int* __restrict__ sel_, const int* __restrict__ en,
   }
 }
 
+// Bytes of a warp's query slice in the "warp" design's dynamic shared
+// memory (16-byte aligned, for the scorers' wide query reads).
+__host__ __device__ inline size_t warp_query_bytes(int d, size_t elem) {
+  return (static_cast<size_t>(d) * elem + 15) & ~static_cast<size_t>(15);
+}
+
+// One warp: the raw scores (before Scorer::finish) of the slots below hi
+// of a bucket, R slots at once, skipping the groups of R with no valid
+// slot (vmask); slot i lands in raw[i / 32] of lane i % 32.
+template <int R, typename E, int VEC, typename Acc>
+__device__ __forceinline__ void score_groups(const E* bucket, const E* sq,
+                                             int d, int cap, int hi,
+                                             unsigned long long vmask,
+                                             int lane, Acc (&raw)[2]) {
+  for (int r0 = 0; r0 < hi; r0 += R) {
+    if (((vmask >> r0) & ((1ull << R) - 1)) == 0) continue;
+    const E* erow[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      erow[r] = bucket + static_cast<size_t>(min(r0 + r, cap - 1)) * d;
+    Acc acc[R][1];
+    Scorer<E, VEC>::rows(erow, sq, d, lane, acc);
+    // slots r0 .. r0 + R - 1 sit in lanes r0 % 32 .. of half r0 / 32
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (lane == ((r0 + r) & 31)) {
+        if (r0 < 32) raw[0] = acc[r][0];
+        else raw[1] = acc[r][0];
+      }
+    }
+  }
+}
+
+// One warp per (query b, probe j), WARP_PROBES probes a CTA, cap <=
+// WARP_CAP; writes the (S, k) column of the stacks as ivf_topk_sharded
+// does, with the same scores and the same order.
+template <typename E, int VEC>
+__global__ void __launch_bounds__(WARP_PROBES * 32)
+ivf_warp_sharded(const int* __restrict__ sel_, const int* __restrict__ en,
+                 const E* __restrict__ q, const float* __restrict__ qs,
+                 const E* __restrict__ buckets,
+                 const float* __restrict__ bscale,
+                 const uint8_t* __restrict__ valid,
+                 const int* __restrict__ bucket_rows,
+                 const int* __restrict__ bounds, int n_shards, int n_probes,
+                 int nprobe, int c_count, int cap, int d, int k,
+                 float* __restrict__ vals, int* __restrict__ rows) {
+  using Acc = typename Scorer<E, VEC>::Acc;
+  constexpr bool kScaled = std::is_same_v<E, int8_t>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float top_v[WARP_PROBES][K_MAX];
+  __shared__ int top_i[WARP_PROBES][K_MAX];
+  __shared__ int slot_row[WARP_PROBES][WARP_CAP];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int bj = blockIdx.x * WARP_PROBES + warp;
+  if (bj >= n_probes) return;  // the whole warp; no block barrier follows
+  const int c = sel_[bj];
+  int owner = -1;
+  if (en[bj] != 0 && c >= 0 && c < c_count) {
+    // Every load that needs only c is issued before the first use of any
+    // of them (the bucket's valid bytes, slot rows and scales, the first
+    // 32 cut points, the query), so that they share one trip to memory.
+    const size_t base = static_cast<size_t>(c) * cap;
+    int vb[2] = {0, 0}, srow[2] = {-1, -1};  // this lane's slots lane, lane + 32
+    float scale[2] = {1.f, 1.f};
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int slot = lane + 32 * j;
+      if (slot < cap) {
+        vb[j] = valid[base + slot];
+        srow[j] = bucket_rows[base + slot];
+        if constexpr (kScaled) scale[j] = bscale[base + slot];
+      }
+    }
+    const int b_lo = bounds[min(lane, n_shards)];
+    const int b_hi = bounds[min(lane + 1, n_shards)];
+    const int bq = bj / nprobe;
+    const float q_scale = kScaled ? qs[bq] : 1.f;
+    // The dot products read each lane's own query chunks (dot.cuh: chunks
+    // lane, lane + 32, ... of VEC elements) in place where the query
+    // starts on a 16-byte boundary, else from the lane's own copy in the
+    // warp's slice of shared memory.
+    E* sq = reinterpret_cast<E*>(smem + warp * warp_query_bytes(d, sizeof(E)));
+    const E* qb = q + static_cast<size_t>(bq) * d;
+    const bool qaligned = reinterpret_cast<uintptr_t>(qb) % 16 == 0;
+    if (!qaligned) {
+#pragma unroll 2
+      for (int c0 = lane * VEC; c0 < d; c0 += 32 * VEC) {
+        E t[VEC];
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) t[v] = qb[c0 + v];
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) sq[c0 + v] = t[v];
+      }
+    }
+    const E* qsrc = qaligned ? qb : sq;
+    const bool ok[2] = {vb[0] != 0, vb[1] != 0};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      if (lane + 32 * j < cap) slot_row[warp][lane + 32 * j] = srow[j];
+    // the owner: the one shard whose range holds c
+    int s0 = 0;
+    unsigned own = __ballot_sync(sel::FULL,
+                                 lane < n_shards && b_lo <= c && c < b_hi);
+    while (own == 0 && (s0 += 32) < n_shards) {
+      const int sh = s0 + lane;
+      own = __ballot_sync(
+          sel::FULL, sh < n_shards && bounds[sh] <= c && c < bounds[sh + 1]);
+    }
+    if (own) owner = s0 + __ffs(own) - 1;
+    if (owner >= 0) {
+      const unsigned long long vmask =
+          __ballot_sync(sel::FULL, ok[0]) |
+          (static_cast<unsigned long long>(__ballot_sync(sel::FULL, ok[1]))
+           << 32);
+      const int hi = 64 - __clzll(vmask);  // past the last valid slot
+      __syncwarp();
+      // a group of 8 slots for the smallest buckets, of 16 above: one
+      // warp's dot products are a chain of dependent shuffles, so fewer
+      // and wider groups finish sooner once more than 8 slots are valid
+      Acc raw[2] = {Acc(0), Acc(0)};
+      const E* bucket = buckets + base * d;
+      if (hi <= 8) {
+        score_groups<8, E, VEC>(bucket, qsrc, d, cap, hi, vmask, lane, raw);
+      } else {
+        score_groups<16, E, VEC>(bucket, qsrc, d, cap, hi, vmask, lane, raw);
+      }
+      float score[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        // Scorer::finish's arithmetic, from the scale held in a register
+        float x;
+        if constexpr (kScaled) x = dot::rescale(raw[j], scale[j], q_scale);
+        else x = raw[j];
+        score[j] = ok[j] ? x : sel::NEG;
+      }
+      // slots past hi score NEG at their own index (invalid slots, and up
+      // to k the stable sort's pads past cap), below every real score and
+      // after every NEG of a lower slot: the k best of the first max(hi, k)
+      // are the k best of all; warp_best_of_few pads past them itself
+      sel::warp_best_of_few(max(hi, k), k, [&](int i, float& x, int& xr) {
+        x = i < 32 ? score[0] : score[1];
+        xr = i;
+      }, top_v[warp], top_i[warp], true);
+      __syncwarp();
+    }
+  }
+  // the (S, k) column, entry i = s * k + p: the finalists at the owner,
+  // NEG / -1 at every other shard ((s, p) stepped, not divided)
+  const size_t bn = static_cast<size_t>(n_probes);
+  int s = lane / k, p = lane % k;
+  for (int i = lane; i < n_shards * k; i += 32) {
+    float v = sel::NEG;
+    int r = -1;
+    if (s == owner) {
+      v = top_v[warp][p];
+      if (v > sel::NEG / 2) r = slot_row[warp][top_i[warp][p]];
+    }
+    const size_t o = (static_cast<size_t>(s) * bn + bj) * k + p;
+    vals[o] = v;
+    rows[o] = r;
+    s += 32 / k;
+    p += 32 % k;
+    if (p >= k) {
+      p -= k;
+      ++s;
+    }
+  }
+}
+
 // Every entry point's arguments; bounds == nullptr is the unsharded scan.
 struct Args {
   const int* sel;
@@ -258,6 +455,7 @@ struct Args {
   const int* bucket_rows;
   const int* bounds;
   int n_shards, b, nprobe, c, cap, d, k;
+  int design;  // Design; the unsharded scans are always BLOCK
   float* vals;
   int* idx;  // slots, or the sharded scan's global rows
 };
@@ -271,8 +469,31 @@ cudaError_t allow_smem(Kern kern, size_t smem) {
                               static_cast<int>(smem));
 }
 
+// static shared memory of ivf_warp_sharded: finalists and slot rows
+constexpr size_t WARP_STATIC_SMEM =
+    WARP_PROBES * (K_MAX * (sizeof(float) + sizeof(int)) +
+                   WARP_CAP * sizeof(int));
+template <typename E, int VEC>
+cudaError_t launch_warp(const Args& a, cudaStream_t s) {
+  const size_t smem = WARP_PROBES * warp_query_bytes(a.d, sizeof(E));
+  if (a.cap > WARP_CAP || smem + WARP_STATIC_SMEM > SMEM_MAX)
+    return cudaErrorInvalidValue;
+  auto kern = ivf_warp_sharded<E, VEC>;
+  cudaError_t err;
+  if ((err = allow_smem(kern, smem)) != cudaSuccess) return err;
+  const int n_probes = a.b * a.nprobe;
+  const int grid = (n_probes + WARP_PROBES - 1) / WARP_PROBES;
+  kern<<<grid, WARP_PROBES * 32, smem, s>>>(
+      a.sel, a.en, static_cast<const E*>(a.q), a.qs,
+      static_cast<const E*>(a.buckets), a.bscale, a.valid, a.bucket_rows,
+      a.bounds, a.n_shards, n_probes, a.nprobe, a.c, a.cap, a.d, a.k,
+      a.vals, a.idx);
+  return cudaGetLastError();
+}
+
 template <typename E, int VEC>
 cudaError_t launch(const Args& a, cudaStream_t s) {
+  if (a.bounds != nullptr && a.design == WARP) return launch_warp<E, VEC>(a, s);
   const size_t smem =
       query_offset(a.cap) + static_cast<size_t>(a.d) * sizeof(E);
   if (smem > SMEM_MAX) return cudaErrorInvalidValue;
@@ -299,7 +520,8 @@ cudaError_t launch(const Args& a, cudaStream_t s) {
 
 bool bad_shape(const Args& a) {
   return a.b < 1 || a.nprobe < 1 || a.c < 1 || a.cap < 1 || a.d < 1 ||
-         a.k < 1 || a.k > K_MAX || a.n_shards < 1;
+         a.k < 1 || a.k > K_MAX || a.n_shards < 1 ||
+         (a.design != BLOCK && a.design != WARP);
 }
 
 int launch_f32(const Args& a, void* stream) {
@@ -334,7 +556,7 @@ int ann_topk_ivf_launch(const void* sel_, const void* enabled, const void* q,
   return launch_f32(
       {static_cast<const int*>(sel_), static_cast<const int*>(enabled), q,
        nullptr, buckets, nullptr, static_cast<const uint8_t*>(bucket_valid),
-       nullptr, nullptr, 1, b, nprobe, c, cap, d, k,
+       nullptr, nullptr, 1, b, nprobe, c, cap, d, k, BLOCK,
        static_cast<float*>(vals), static_cast<int*>(slots)},
       stream);
 }
@@ -350,25 +572,25 @@ int ann_topk_ivf_quant_launch(const void* sel_, const void* enabled,
        static_cast<const float*>(q_scales), buckets_q,
        static_cast<const float*>(bucket_scale),
        static_cast<const uint8_t*>(bucket_valid), nullptr, nullptr, 1, b,
-       nprobe, c, cap, d, k, static_cast<float*>(vals),
+       nprobe, c, cap, d, k, BLOCK, static_cast<float*>(vals),
        static_cast<int*>(slots)},
       stream);
 }
 
-// bucket_rows (c, cap) int32, bounds (s + 1,) int32; vals/rows:
-// (s, b, nprobe, k) fp32/int32.
+// bucket_rows (c, cap) int32, bounds (s + 1,) int32; design 0 "block",
+// 1 "warp" (cap <= 64); vals/rows: (s, b, nprobe, k) fp32/int32.
 int ann_topk_ivf_sharded_launch(const void* sel_, const void* enabled,
                                 const void* q, const void* buckets,
                                 const void* bucket_valid,
                                 const void* bucket_rows, const void* bounds,
                                 int s, int b, int nprobe, int c, int cap,
-                                int d, int k, void* vals, void* rows,
-                                void* stream) {
+                                int d, int k, int design, void* vals,
+                                void* rows, void* stream) {
   return launch_f32(
       {static_cast<const int*>(sel_), static_cast<const int*>(enabled), q,
        nullptr, buckets, nullptr, static_cast<const uint8_t*>(bucket_valid),
        static_cast<const int*>(bucket_rows), static_cast<const int*>(bounds),
-       s, b, nprobe, c, cap, d, k, static_cast<float*>(vals),
+       s, b, nprobe, c, cap, d, k, design, static_cast<float*>(vals),
        static_cast<int*>(rows)},
       stream);
 }
@@ -377,15 +599,15 @@ int ann_topk_ivf_quant_sharded_launch(
     const void* sel_, const void* enabled, const void* qq,
     const void* q_scales, const void* buckets_q, const void* bucket_scale,
     const void* bucket_valid, const void* bucket_rows, const void* bounds,
-    int s, int b, int nprobe, int c, int cap, int d, int k, void* vals,
-    void* rows, void* stream) {
+    int s, int b, int nprobe, int c, int cap, int d, int k, int design,
+    void* vals, void* rows, void* stream) {
   return launch_i8(
       {static_cast<const int*>(sel_), static_cast<const int*>(enabled), qq,
        static_cast<const float*>(q_scales), buckets_q,
        static_cast<const float*>(bucket_scale),
        static_cast<const uint8_t*>(bucket_valid),
        static_cast<const int*>(bucket_rows), static_cast<const int*>(bounds),
-       s, b, nprobe, c, cap, d, k, static_cast<float*>(vals),
+       s, b, nprobe, c, cap, d, k, design, static_cast<float*>(vals),
        static_cast<int*>(rows)},
       stream);
 }

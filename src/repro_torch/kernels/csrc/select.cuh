@@ -164,11 +164,13 @@ __device__ __forceinline__ void order_pair(float& va, int& ra, float& vb,
 
 // One warp sorts 32 E pairs held in registers (entry lane + 32 j in
 // v[j], r[j], E = 1 or 2) into ranks_before order: a bitonic network,
-// pairs across lanes through shuffles.
-template <int E>
+// pairs across lanes through shuffles. With N < 32 E (a power of two) only
+// the network's first log2(N) merges run: entries 0 .. N - 1 come out in
+// ranks_before order, the others in blocks of N of no use to the caller.
+template <int E, int N = 32 * E>
 __device__ __forceinline__ void warp_sort_regs(float (&v)[E], int (&r)[E]) {
   const int lane = threadIdx.x & 31;
-  for (int size = 2; size <= 32 * E; size <<= 1) {
+  for (int size = 2; size <= N; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
       if (stride == 32) {  // E == 2: entries lane and lane + 32
         if constexpr (E == 2) order_pair(v[0], r[0], v[1], r[1], true);
@@ -216,10 +218,13 @@ __device__ __forceinline__ void warp_sort(float* cv, int* cr, int c) {
 }
 
 // One warp: the k best of m <= 64 (value, row) pairs, in ranks_before
-// order, into ov[0..k), oi[0..k), k <= m; get(i) gives pair i.
+// order, into ov[0..k), oi[0..k), k <= m; get(i) gives pair i. With
+// ``tight`` the network for m <= 16 spans 8 or 16 lanes instead of all
+// 32 (6 or 10 stages instead of 15).
 template <typename Get>
 __device__ __forceinline__ void warp_best_of_few(int m, int k, Get get,
-                                                 float* ov, int* oi) {
+                                                 float* ov, int* oi,
+                                                 bool tight = false) {
   const int lane = threadIdx.x & 31;
   float v[2];
   int r[2];
@@ -236,7 +241,13 @@ __device__ __forceinline__ void warp_best_of_few(int m, int k, Get get,
   if (m <= 32) {
     float v1[1] = {v[0]};
     int r1[1] = {r[0]};
-    warp_sort_regs<1>(v1, r1);
+    if (tight && m <= 8) {
+      warp_sort_regs<1, 8>(v1, r1);
+    } else if (tight && m <= 16) {
+      warp_sort_regs<1, 16>(v1, r1);
+    } else {
+      warp_sort_regs<1>(v1, r1);
+    }
     if (lane < k) {
       ov[lane] = v1[0];
       oi[lane] = r1[0];
