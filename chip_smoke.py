@@ -27,12 +27,19 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            then with times the engine's index shape (8192 x 128, k=16, B in
            1/4/16), int8 twins of the routing shapes and 2**20 x 768 int8
            (20% inactive, k=16, B in 1/16).
-   kernel_ivf  ann_topk_ivf and ann_topk_ivf_quant likewise: the
-           reference's kernel-test shapes, D=100/50, k above the bucket
-           size, disabled probes, duplicates inside a bucket, bitwise
-           parity of the routed and the brute scan, and C=512 buckets x
-           4096 slots x 768 (half valid, nprobe=64, B in 1/16; k=4 fp32,
-           k=16 int8), with times.
+   kernel_ivf  ann_topk_ivf and ann_topk_ivf_quant likewise, each case on
+           the design the dispatch gives it (buckets of at most 64 slots:
+           one warp per probe, "warp"; larger: "block") and on "block" too,
+           int8 bitwise, the slots of NEG entries as the plain version's
+           stable sort: the reference's kernel-test shapes, D=100/50, k
+           above the bucket size, disabled probes, duplicates inside a
+           bucket, bitwise parity of the routed scan (both designs) and the
+           brute scan; the engine's shapes (C=64, cap 8/16/32/64 with
+           members a prefix, D=128, nprobe 8, B in 1/4/16, k 4 fp32 and 16
+           int8), timed at B=1 with "warp", "block" and kernel 5's "warp"
+           at S=1 in one profiler session; and C=512 buckets x 4096 slots x
+           768 (half valid, nprobe=64, B in 1/16; k=4 fp32, k=16 int8), on
+           "block", with times.
    kernel_sharded  ann_topk_ivf_sharded and ann_topk_ivf_quant_sharded
            against their plain versions, each case on the design the
            dispatch gives it (buckets of at most 64 slots: one warp per
@@ -42,8 +49,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            cap 8/16/32/64 with members a prefix, D=128, nprobe 8, S=8, B
            in 1/4/16, k 4 fp32 and 16 int8) and runs (d)/(f)'s (C=16, cap
            64, D=32, nprobe 4), timed at B=1 on both designs; merged, on
-           both designs, S=1 equals the unsharded scan bitwise and S=8 the
-           S=1 values bitwise.
+           both designs, S=1 equals the unsharded scan on the other design
+           bitwise and S=8 the S=1 values bitwise.
    kernel_attn  flash_attention_fwd (kernel 6) and decode_attention (kernel
            7) against their plain versions, each call on the design its
            inputs take (bf16 rows on 16-byte boundaries: the tensor-core
@@ -90,7 +97,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            8 shards: both sharded kernels launch; (f) the max-over-shards
            latency run; no plain version runs, every launch of
            kernels 1 and 2 takes the one-launch design, and every launch
-           of kernel 5 the design its bucket size gives ("warp" at the
+           of kernels 3-5 the design its bucket size gives ("warp" at the
            engine's caps; counts by design and caps reported). Then every kernel
            against its plain version on the run's own device layouts, and
            the kernels' times at run (c)'s shapes, the sharded ones at
@@ -120,10 +127,12 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    it (a serve run; the colocated run for kernels 6 and 7, with their
    launches by design in colocated, lm and (g); kernels 1 and 2 with
    theirs in every serve run, all on the one-launch designs, and their
-   CUDA launches a call; kernel 5 with its launches by design in the
-   sharded runs and both designs' device times), max abs error against the plain version over
-   every phase, and its time, the plain version's, one library call's
-   and the card's bound, at its main-path shape, with the other measured
+   CUDA launches a call; kernels 3-5 with their launches by design in
+   the runs that launch them and both designs' device times, kernels 3
+   and 4 also with kernel 5's "warp" at S=1 on the same inputs), max abs
+   error against the plain version over every phase, and its time, the
+   plain version's, one library call's and the card's bound, at its
+   main-path shape, with the other measured
    shapes under ``sizes`` (kernels 1 and 2 with the first design's
    device time beside the new one's). Device times come from
    torch.profiler sessions that may drop records: a kernel's time is its
@@ -167,8 +176,8 @@ N_INTENTS = 131072        # x 8 paraphrases fill the real-size cache
 REAL_C, REAL_CAP, REAL_NPROBE = 512, 4096, 64
 REAL_SHARDS = 8           # the sharded real-size index (DESIGN.md §13)
 # the bucket sizes the engine lays out (core/clustering.py: powers of two
-# of at least 8): kernel 5's "warp" design takes them all
-SHARD_ENGINE_CAPS = (8, 16, 32, 64)
+# of at least 8): the routed scans' "warp" design (kernels 3-5) takes them
+ENGINE_CAPS = (8, 16, 32, 64)
 
 
 def emit(**kw) -> None:
@@ -276,6 +285,24 @@ def device_ms(fn, repeats: int = REPEATS, *, required: bool = False):
     check(not required or total_us > 0,
           "no profiler session kept the records of a required device time")
     return total_us / 1e3 if total_us > 0 else None
+
+
+def session_ms(fns: dict, repeats: int = REPEATS, *,
+               required: bool = False) -> dict:
+    """Device ms per call of each of ``fns`` ({name: (fn, marker)}), all
+    called in turn in the same torch.profiler sessions (``per_call`` of
+    one function that calls each once): a function's time is that of the
+    CUDA kernels whose names hold its ``marker``. None where no session
+    kept the records, a failure if ``required``."""
+    calls = per_call(lambda: [fn() for fn, _ in fns.values()], repeats)
+    out = {}
+    for name, (_, marker) in fns.items():
+        us = sum(n * t for key, (n, t) in (calls or {}).items()
+                 if marker in key)
+        check(not required or us > 0,
+              f"no profiler session kept the records of {name} ({marker})")
+        out[name] = us / 1e3 if us > 0 else None
+    return out
 
 
 def launches_per_call(fn, repeats: int = REPEATS) -> int:
@@ -784,16 +811,19 @@ def measure_quant(emb_q, scales, act, qq, qs, k) -> dict:
 def measure_ivf(sel, en, q, buckets, valid, k, *, quant=None,
                 required: bool = False) -> dict:
     """Times of the fp32 routed scan, or with ``quant = (q_scales,
-    bucket_scale)`` of the int8 one (q then holds the int8 queries)."""
+    bucket_scale)`` of the int8 one (q then holds the int8 queries), on
+    the design the dispatch gives, its plain version and the library
+    yardstick. Where the dispatch gives "warp", one profiler session also
+    times "block" and kernel 5's "warp" at S=1 on the same inputs."""
     from repro_torch.kernels import ann_topk_ivf as ivf
     b, nprobe = sel.shape
     c, cap, d = buckets.shape
     if quant is None:
-        args = (sel, en, q, buckets, valid, k)
+        args = (sel, en, q, buckets, valid)
         kernel, plain = ivf.ann_topk_ivf, ivf.ann_topk_ivf_plain
     else:
         qs, bscale = quant
-        args = (sel, en, q, qs, buckets, bscale, valid, k)
+        args = (sel, en, q, qs, buckets, bscale, valid)
         kernel, plain = ivf.ann_topk_ivf_quant, ivf.ann_topk_ivf_quant_plain
 
     def library():
@@ -808,12 +838,35 @@ def measure_ivf(sel, en, q, buckets, valid, k, *, quant=None,
         s = torch.where(valid[sb] & (en > 0)[:, :, None], s, NEG)
         return torch.sort(-s, dim=2, stable=True).indices[..., :k]
 
+    design = expect_routed_design(cap)
     bound_ms, bound_by = bound_ivf(sel, en, valid, d, k, quant is not None)
-    return {"b": b, "nprobe": nprobe, "c": c, "cap": cap, "d": d, "k": k,
-            **timings(lambda: kernel(*args), lambda: plain(*args), library,
-                      required=required),
-            "library": "gathered buckets, torch.bmm + stable sort",
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    out = {"b": b, "nprobe": nprobe, "c": c, "cap": cap, "d": d, "k": k,
+           "dtype": "fp32" if quant is None else "int8", "design": design,
+           "valid_share": float(valid[sel.long()].float().mean()),
+           **timings(lambda: kernel(*args, k), lambda: plain(*args, k),
+                     library, required=required),
+           "library": "gathered buckets, torch.bmm + stable sort",
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    if design == "warp":
+        # the same probes as kernel 5's one-shard scan (every slot its own
+        # row), timed with both unsharded designs in one session
+        rows = torch.arange(c * cap, dtype=torch.int32,
+                            device=sel.device).reshape(c, cap)
+        one = torch.tensor([0, c], dtype=torch.int32, device=sel.device)
+        wrapper5 = shard_scans(quant)[0]
+        args5 = sharded_args(sel, en, q, buckets, valid, rows, one, quant)
+        same = session_ms({
+            "warp": (lambda: ivf._launch("warp", kernel, *args, k=k),
+                     "ivf_warp<"),
+            "block": (lambda: ivf._launch("block", kernel, *args, k=k),
+                      "ivf_topk<"),
+            "sharded_warp_s1": (lambda: ivf._launch("warp", wrapper5,
+                                                    *args5, k=k),
+                                "ivf_warp_sharded<")}, required=required)
+        out.update({f"{name}_device_ms": v for name, v in same.items()})
+        out["block_ms"] = timed_ms(lambda: ivf._launch("block", kernel,
+                                                       *args, k=k))
+    return out
 
 
 def expect_quant_design(emb_q: torch.Tensor) -> str:
@@ -842,21 +895,61 @@ def hold_quant(emb_q, scales, act, qq, qs, k) -> float:
     return 0.0
 
 
+def routed_outs(wrapper, args, k) -> list:
+    """``wrapper(*args, k)`` (any routed scan of kernels 3-5) on the design
+    the dispatch gives its bucket size (the wrapper's counts say which
+    ran), then on "block" too where that is "warp"."""
+    from repro_torch.kernels import ann_topk_ivf as ivf
+    buckets = args[4 if args[2].dtype == torch.int8 else 3]
+    design = expect_routed_design(buckets.shape[1])
+    before = design_counts(wrapper)
+    outs = [wrapper(*args, k)]
+    check_design(wrapper, before, design,
+                 f"{wrapper.__name__} at cap={buckets.shape[1]} k={k}")
+    if design != "block":
+        outs.append(ivf._launch("block", wrapper, *args, k=k))
+    return outs
+
+
+def check_neg_slots(got, want) -> None:
+    """The slots of NEG entries equal the plain version's stable sort (the
+    invalid slots ascending, then the pads past cap; 0 .. k - 1 for a
+    disabled probe); ``want`` may carry more columns."""
+    k = got[0].shape[-1]
+    wv, ws = want[0][..., :k], want[1][..., :k]
+    neg = wv <= NEG / 2
+    check(torch.equal(got[0] <= NEG / 2, neg)
+          and torch.equal(got[1][neg], ws[neg]),
+          "the slots of NEG entries differ from the plain version's")
+
+
 def hold_ivf(sel, en, q, buckets, valid, k, *, exact_rows=False) -> float:
+    """Kernel 3 against its plain version on both designs where the
+    dispatch gives "warp" (``routed_outs``): vals within TOL, slots where
+    sure (``compare``), and the slots of NEG entries exactly."""
     from repro_torch.kernels.ann_topk_ivf import (ann_topk_ivf,
                                                   ann_topk_ivf_plain)
-    return compare_probes(
-        ann_topk_ivf(sel, en, q, buckets, valid, k),
-        ann_topk_ivf_plain(sel, en, q, buckets, valid, k + 1),
-        exact_rows=exact_rows)
+    args = (sel, en, q, buckets, valid)
+    want = ann_topk_ivf_plain(*args, k + 1)
+    err = 0.0
+    for got in routed_outs(ann_topk_ivf, args, k):
+        err = max(err, compare_probes(got, want, exact_rows=exact_rows))
+        check_neg_slots(got, want)
+    return err
 
 
 def hold_ivf_quant(sel, en, qq, qs, buckets_q, bscale, valid, k) -> float:
+    """Kernel 4 against its plain version on both designs where the
+    dispatch gives "warp": vals and slots bitwise everywhere."""
     from repro_torch.kernels.ann_topk_ivf import (ann_topk_ivf_quant,
                                                   ann_topk_ivf_quant_plain)
-    args = (sel, en, qq, qs, buckets_q, bscale, valid, k)
-    return compare_exact(ann_topk_ivf_quant(*args),
-                         ann_topk_ivf_quant_plain(*args))
+    args = (sel, en, qq, qs, buckets_q, bscale, valid)
+    want = ann_topk_ivf_quant_plain(*args, k)
+    for got in routed_outs(ann_topk_ivf_quant, args, k):
+        compare_exact(got, want)
+        check(torch.equal(got[1], want[1]),
+              "int8 routed slots differ from the plain version")
+    return 0.0
 
 
 def phase_kernel_quant(dev):
@@ -940,11 +1033,11 @@ def random_probes(g, b: int, c: int, nprobe: int, dev, p_off: float = 0.0):
 
 def hold_brute_routed_parity(g, dev) -> float:
     """A row scores bitwise the same in the brute scan (ann_topk, both
-    designs) and the routed scan (ann_topk_ivf), the shared summation
-    order of dot.cuh:
+    designs) and the routed scan (ann_topk_ivf, both designs: buckets of
+    64 slots take "warp"), the shared summation order of dot.cuh:
     N rows laid out as C buckets of consecutive rows, every bucket
     probed, the finalists merged; values and rows must be equal."""
-    from repro_torch.kernels.ann_topk import _launch, ann_topk
+    from repro_torch.kernels import ann_topk as k1
     from repro_torch.kernels.ann_topk_ivf import ann_topk_ivf
     from repro_torch.kernels.ops import _merge_probes
 
@@ -954,20 +1047,28 @@ def hold_brute_routed_parity(g, dev) -> float:
     q = near(emb[torch.randint(0, c * cap, (b,), device=dev, generator=g)], g)
     sel = torch.arange(c, dtype=torch.int32, device=dev).repeat(b, 1)
     en = torch.ones_like(sel)
-    vals, slots = ann_topk_ivf(sel, en, q, emb.reshape(c, cap, d),
-                               act.reshape(c, cap), k)
     rows = torch.arange(c * cap, dtype=torch.int32, device=dev)
-    got = _merge_probes(vals, slots, sel, rows.reshape(c, cap), k)
-    compare_exact(got, _launch("twopass", emb, act, q, k))
-    return compare_exact(got, ann_topk(emb, act, q, k))
+    brute = (k1._launch("twopass", emb, act, q, k), k1.ann_topk(emb, act, q, k))
+    outs = routed_outs(ann_topk_ivf, (sel, en, q, emb.reshape(c, cap, d),
+                                      act.reshape(c, cap)), k)
+    check(len(outs) == 2, "the parity shape did not take \"warp\"")
+    for vals, slots in outs:
+        got = _merge_probes(vals, slots, sel, rows.reshape(c, cap), k)
+        for want in brute:
+            compare_exact(got, want)
+    return 0.0
 
 
 def phase_kernel_ivf(dev):
-    """ann_topk_ivf and ann_topk_ivf_quant against their plain versions:
-    the reference's kernel-test shapes (tests/test_kernels.py:90-92 and
-    :130), widths the wide loads do not divide, k above the bucket size,
-    disabled probes, duplicate rows inside one bucket, bitwise parity with
-    the brute scan, and the real size."""
+    """ann_topk_ivf and ann_topk_ivf_quant against their plain versions,
+    each case on the design the dispatch gives it and on "block" too where
+    it gives "warp": the reference's kernel-test shapes
+    (tests/test_kernels.py:90-92 and :130), widths the wide loads do not
+    divide, k above the bucket size, disabled probes, duplicate rows
+    inside one bucket, bitwise parity with the brute scan; the engine's
+    shapes (C=64, cap 8/16/32/64 with members a prefix, D=128, nprobe 8, B
+    in 1/4/16, k 4 fp32 and 16 int8), both designs timed at B=1; and the
+    real size (on "block")."""
     g = torch.Generator(device=dev).manual_seed(4)
     errs3, errs4 = [], []
 
@@ -1003,6 +1104,32 @@ def phase_kernel_ivf(dev):
     run(sel, en, buckets, valid, q, k, exact_rows=True)
     errs3.append(hold_brute_routed_parity(g, dev))
 
+    # the engine's shapes (run (c)'s C=64, D=128, nprobe 8; k 4 fp32 and
+    # 16 int8) at every bucket size "warp" takes: each bucket's members a
+    # prefix of random length (empty and full buckets among them), queries
+    # near members; both designs timed at B=1
+    engine = []
+    c, d, nprobe = 64, 128, 8
+    for cap in ENGINE_CAPS:
+        buckets = unit_rows(g, c * cap, d, dev).reshape(c, cap, d)
+        members = torch.randint(0, cap + 1, (c, 1), device=dev, generator=g)
+        members[:2] = torch.tensor([[0], [cap]], device=dev)
+        valid = torch.arange(cap, device=dev)[None, :] < members
+        buckets[~valid] = 0.0
+        bq, bs = quantize_dev(buckets.reshape(c * cap, d))
+        bq, bs = bq.reshape(c, cap, d), bs.reshape(c, cap)
+        for b in (1, 4, 16):
+            sel, en = random_probes(g, b, c, nprobe, dev)
+            q = near(buckets[sel[:, 0].long(), 0], g, 0.1)
+            qq, qs = quantize_dev(q)
+            errs3.append(hold_ivf(sel, en, q, buckets, valid, 4))
+            errs4.append(hold_ivf_quant(sel, en, qq, qs, bq, bs, valid, 16))
+            if b == 1:
+                engine.append(measure_ivf(sel, en, q, buckets, valid, 4,
+                                          required=True))
+                engine.append(measure_ivf(sel, en, qq, bq, valid, 16,
+                                          quant=(qs, bs), required=True))
+
     # real size: C=512 buckets x 4096 slots x 768, half the slots valid,
     # 64 probes a query; k=4 fp32 (6.4 GB), k=16 int8 (1.6 GB)
     c, cap, d, nprobe = REAL_C, REAL_CAP, 768, REAL_NPROBE
@@ -1023,7 +1150,8 @@ def phase_kernel_ivf(dev):
         qq, qs = quantize_dev(queries[b])
         errs4.append(hold_ivf_quant(sel, en, qq, qs, bq, bs, valid, 16))
         sizes4.append(measure_ivf(sel, en, qq, bq, valid, 16, quant=(qs, bs)))
-    return (max(errs3), max(errs4), len(errs3) + len(errs4), sizes3, sizes4)
+    return (max(errs3), max(errs4), len(errs3) + len(errs4), sizes3, sizes4,
+            engine)
 
 
 # ------------------------------------------------------ the sharded scans
@@ -1046,8 +1174,8 @@ def sharded_args(sel, en, q, buckets, valid, rows, bounds, quant):
     return (sel, en, q, qs, buckets, bscale, valid, rows, bounds)
 
 
-def expect_shard_design(cap: int) -> str:
-    """The design a CUDA call of kernel 5 must take: one warp per probe
+def expect_routed_design(cap: int) -> str:
+    """The design a CUDA call of kernels 3-5 must take: one warp per probe
     ("warp") for buckets of at most 64 slots, else "block" (at every
     width checked here, D <= 768, the warp design's queries fit)."""
     return "warp" if cap <= 64 else "block"
@@ -1068,19 +1196,11 @@ def hold_sharded(sel, en, q, buckets, valid, rows, bounds, k, *, quant=None,
     and on "block" too where it gives "warp": int8 stacks bitwise (vals
     and rows everywhere), fp32 stacks as ``hold_ivf`` holds the routed
     scan; every masked entry carries row -1."""
-    from repro_torch.kernels import ann_topk_sharded as sh
     args = sharded_args(sel, en, q, buckets, valid, rows, bounds, quant)
     wrapper, plain = shard_scans(quant)
     want = plain(*args, k + (quant is None))
-    design = expect_shard_design(buckets.shape[1])
-    before = design_counts(wrapper)
-    outs = [wrapper(*args, k)]
-    check_design(wrapper, before, design,
-                 f"{wrapper.__name__} at cap={buckets.shape[1]} k={k}")
-    if design != "block":
-        outs.append(sh._launch("block", wrapper, *args, k=k))
     err = 0.0
-    for got in outs:
+    for got in routed_outs(wrapper, args, k):
         if quant is None:
             s, b, nprobe, _ = got[0].shape
             err = max(err, compare_probes(
@@ -1099,38 +1219,48 @@ def hold_sharded(sel, en, q, buckets, valid, rows, bounds, k, *, quant=None,
 
 def hold_sharded_merge(sel, en, q, buckets, valid, rows, bounds, k, *,
                        quant=None) -> None:
-    """On the design the dispatch gives and on "block": merged
-    (ops._merge_shards) at S=1 the sharded scan equals the unsharded one
-    merged (ops._merge_probes) bitwise; at ``bounds``' S the merged vals
-    equal S=1's bitwise and so do the rows, except inside runs of exactly
-    equal values, which merge shard-major."""
+    """On the design the dispatch gives and on "block", for kernel 3 (or
+    4) and kernel 5 alike: the unsharded scan's two designs agree bitwise
+    (slots of NEG entries too); merged (ops._merge_shards) at S=1 the
+    sharded scan equals the unsharded one merged (ops._merge_probes)
+    bitwise on the other design (kernel 5's "warp" against kernel 3's
+    "block", and the reverse); at ``bounds``' S the merged vals equal
+    S=1's bitwise and so do the rows, except inside runs of exactly equal
+    values, which merge shard-major."""
     from repro_torch.kernels import ann_topk_ivf as ivf
-    from repro_torch.kernels import ann_topk_sharded as sh
     from repro_torch.kernels.ops import _merge_probes, _merge_shards
     one = torch.tensor([0, buckets.shape[0]], dtype=torch.int32,
                        device=sel.device)
     if quant is None:
-        unsharded = ivf.ann_topk_ivf(sel, en, q, buckets, valid, k)
+        scan3, args3 = ivf.ann_topk_ivf, (sel, en, q, buckets, valid)
     else:
         qs, bscale = quant
-        unsharded = ivf.ann_topk_ivf_quant(sel, en, q, qs, buckets, bscale,
-                                           valid, k)
+        scan3 = ivf.ann_topk_ivf_quant
+        args3 = (sel, en, q, qs, buckets, bscale, valid)
     wrapper = shard_scans(quant)[0]
-    wv, wr = _merge_probes(*unsharded, sel, rows, k + 1)
-    eq = wv[:, 1:] == wv[:, :-1]
-    tie = torch.zeros_like(wv, dtype=torch.bool)
-    tie[:, 1:] |= eq
-    tie[:, :-1] |= eq
-    cols = min(k, wv.shape[1])
-    sure = (~tie & (wv > NEG / 2))[:, :cols]
-    for design in dict.fromkeys((expect_shard_design(buckets.shape[1]),
-                                 "block")):
+    designs = tuple(dict.fromkeys((expect_routed_design(buckets.shape[1]),
+                                   "block")))
+    unsharded = {d: ivf._launch(d, scan3, *args3, k=k) for d in designs}
+    first = unsharded[designs[0]]
+    for d in designs[1:]:
+        check(all(torch.equal(x, y) for x, y in zip(unsharded[d], first)),
+              f"{scan3.__name__}: {d} differs from {designs[0]}")
+    for design, other in zip(designs, reversed(designs)):
+        wv, wr = _merge_probes(*unsharded[other], sel, rows, k + 1)
+        eq = wv[:, 1:] == wv[:, :-1]
+        tie = torch.zeros_like(wv, dtype=torch.bool)
+        tie[:, 1:] |= eq
+        tie[:, :-1] |= eq
+        cols = min(k, wv.shape[1])
+        sure = (~tie & (wv > NEG / 2))[:, :cols]
+
         def scan(cuts):
-            return sh._launch(design, wrapper, *sharded_args(
+            return ivf._launch(design, wrapper, *sharded_args(
                 sel, en, q, buckets, valid, rows, cuts, quant), k=k)
         s1 = _merge_shards(*scan(one), k + 1)
         check(torch.equal(s1[0], wv) and torch.equal(s1[1], wr),
-              f"{design}: S=1 merged differs from the unsharded scan")
+              f"{design}: S=1 merged differs from the unsharded scan on "
+              f"{other}")
         sv, sr = _merge_shards(*scan(bounds), k + 1)
         check(torch.equal(sv, wv),
               f"{design}: sharded merged vals differ from S=1")
@@ -1202,7 +1332,7 @@ def phase_kernel_sharded(dev):
     # them), queries near members; then both designs timed at B=1
     sizes = []
     c, d, nprobe, k_f, k_q = 64, 128, 8, 4, 16
-    for cap in SHARD_ENGINE_CAPS:
+    for cap in ENGINE_CAPS:
         buckets = unit_rows(g, c * cap, d, dev).reshape(c, cap, d)
         members = torch.randint(0, cap + 1, (c, 1), device=dev, generator=g)
         members[:2] = torch.tensor([[0], [cap]], device=dev)
@@ -1277,7 +1407,7 @@ def measure_sharded(sel, en, q, buckets, valid, rows, bounds, k, *,
         def scan_unsharded():
             return ivf.ann_topk_ivf_quant(sel, en, q, quant[0], buckets,
                                           quant[1], valid, k)
-    design = expect_shard_design(cap)
+    design = expect_routed_design(cap)
     owner = torch.searchsorted(bounds, sel, right=True) - 1
     shard = torch.arange(s, device=sel.device)[:, None, None, None]
 
@@ -1615,7 +1745,7 @@ def reset_counts(wrappers: dict) -> None:
 
 
 def design_counts(w) -> dict:
-    """A wrapper's launches by design (kernels 1, 2, 6 and 7)."""
+    """A wrapper's launches by design (kernels 1-7)."""
     return {name.removeprefix("launches_"): v for name, v in vars(w).items()
             if name.startswith("launches_")}
 
@@ -1701,34 +1831,41 @@ def hold_on_run(cache, g, errs: dict) -> dict:
     return shapes
 
 
+ROUTED = ("ann_topk_ivf", "ann_topk_ivf_quant", "ann_topk_ivf_sharded",
+          "ann_topk_ivf_quant_sharded")
+
+
 @contextlib.contextmanager
-def shard_launch_log():
-    """Within the block, every kernel 5 launch as (wrapper name, design,
-    cap, k), read where the wrappers hand the design to the launch."""
+def routed_launch_log():
+    """Within the block, every launch of kernels 3-5 as (wrapper name,
+    design, cap, k), read where the wrappers hand the design to the
+    launch (each module's ``_launch``)."""
+    from repro_torch.kernels import ann_topk_ivf as ivf
     from repro_torch.kernels import ann_topk_sharded as sh
-    log, launch = [], sh._launch
+    log, launch = [], ivf._launch
 
     def logged(design, wrapper, *args, k):
-        buckets = args[4 if wrapper is sh.ann_topk_ivf_quant_sharded else 3]
+        buckets = args[4 if args[2].dtype == torch.int8 else 3]
         log.append((wrapper.__name__, design, buckets.shape[1], k))
         return launch(design, wrapper, *args, k=k)
 
-    sh._launch = logged
+    ivf._launch = sh._launch = logged
     try:
         yield log
     finally:
-        sh._launch = launch
+        ivf._launch = sh._launch = launch
 
 
-def check_shard_designs(wrappers: dict, log: list, run: str) -> dict:
-    """Every kernel 5 launch in ``run`` took the design its bucket size
-    gives (``expect_shard_design``: "warp" at every cap the engine lays
-    out), and the wrappers' counts by design agree with the log. Returns
-    the counts by design and the caps seen, per wrapper."""
+def check_routed_designs(wrappers: dict, log: list, run: str) -> dict:
+    """Every launch of kernels 3-5 in ``run`` took the design its bucket
+    size gives (``expect_routed_design``: "warp" at every cap the engine
+    lays out), and the wrappers' counts by design agree with the log.
+    Returns the counts by design and the caps seen, per wrapper."""
     out = {}
-    for name in ("ann_topk_ivf_sharded", "ann_topk_ivf_quant_sharded"):
+    for name in ROUTED:
         mine = [(design, cap) for n, design, cap, _ in log if n == name]
-        wrong = [(d, cap) for d, cap in mine if d != expect_shard_design(cap)]
+        wrong = [(d, cap) for d, cap in mine
+                 if d != expect_routed_design(cap)]
         check(not wrong, f"{run}: {name} launched {len(wrong)} times on the "
               f"wrong design: {sorted(set(wrong))}")
         counts = design_counts(wrappers[name])
@@ -1773,13 +1910,13 @@ def phase_serve(dev):
     for name, kw in SERVE_RUNS.items():
         reset_counts(wrappers)
         t = time.perf_counter()
-        with shard_launch_log() as log:
+        with routed_launch_log() as log:
             got, cache = run_keeping_cache(mode="cortex", backend="kernel",
                                            device=dev, **kw)
         wall = time.perf_counter() - t
         launches = {n: w.launches for n, w in wrappers.items()}
         by_design = {**check_all_one_launch(wrappers, name),
-                     **check_shard_designs(wrappers, log, name)}
+                     **check_routed_designs(wrappers, log, name)}
         check(launches["ann_topk"] > 0, f"{name}: no ann_topk launch")
         check(not any(w.plain_calls for w in wrappers.values()),
               f"{name}: the CUDA path took a plain version")
@@ -2490,12 +2627,14 @@ def main() -> int:
          real_size=quant_sizes, seconds=time.perf_counter() - t)
 
     t = time.perf_counter()
-    ivf_err, ivfq_err, ivf_cases, ivf_sizes, ivfq_sizes = phase_kernel_ivf(dev)
+    ivf_err, ivfq_err, ivf_cases, ivf_sizes, ivfq_sizes, ivf_engine = \
+        phase_kernel_ivf(dev)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     emit(phase="kernel_ivf", cases=ivf_cases, max_abs_err_fp32=ivf_err,
-         max_abs_err_int8=ivfq_err, real_size_fp32=ivf_sizes,
-         real_size_int8=ivfq_sizes, seconds=time.perf_counter() - t)
+         max_abs_err_int8=ivfq_err, engine_shapes=ivf_engine,
+         real_size_fp32=ivf_sizes, real_size_int8=ivfq_sizes,
+         seconds=time.perf_counter() - t)
 
     t = time.perf_counter()
     shard_err, shardq_err, shard_cases, shard_engine = \
@@ -2608,16 +2747,21 @@ def main() -> int:
                      "launches_by_design": {
                          r["run"]: r["launches_by_design"][name]
                          for r in runs}}
-        if name.endswith("_sharded"):
+        if name in ROUTED:
+            engine = shard_engine if name.endswith("_sharded") else ivf_engine
             extra = {"design": at["design"],
                      "block_device_ms": at.get("block_device_ms"),
                      "launches_by_design": {
                          r["run"]: r["launches_by_design"][name]
                          for r in runs if r["launches"].get(name)},
                      "engine_shapes": [
-                         x for x in shard_engine
+                         x for x in engine
                          if x["dtype"] == ("int8" if "quant" in name
                                            else "fp32")]}
+            if not name.endswith("_sharded"):
+                extra["warp_device_ms"] = at.get("warp_device_ms")
+                extra["sharded_warp_s1_device_ms"] = at.get(
+                    "sharded_warp_s1_device_ms")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",

@@ -22,15 +22,29 @@ What bounds them on an H100: a scan must read, for each distinct probed
 bucket, its cap-byte valid mask and its valid slots, D·4 (fp32) or D + 4
 (int8 and the slot's scale) bytes each, and do 2·D operations per valid
 slot of each enabled probe; at the sizes the router builds the bytes bound
-them. The simple design (one kernel for both payload types) gives each
-(query, probe) one CTA that reads its own ``sel``/``enabled`` entry (the
-TPU's scalar prefetch), scores every slot of the bucket into shared memory
-and runs k block-wide argmax passes. A bucket too large for shared memory
-fails at launch, with the shape in the error.
+them. The routed scans of this module and the shard-owned ones of
+``ann_topk_sharded`` (kernels 3–5) share one dispatch, :func:`pick_design`
+(``csrc/ann_topk_ivf.cu`` has the details):
+
+* ``"warp"``: buckets of at most ``WARP_CAP`` = 64 slots (every bucket the
+  engine lays out at its sizes). One warp per (query, probe),
+  ``WARP_PROBES`` probes a CTA and no block barrier: the warp scores only
+  the row groups that hold a valid slot, keeps two scores a lane, sorts
+  them with one bitonic network and writes the probe's k finalists.
+* ``"block"``: larger buckets (the real-size router's): one CTA of 256
+  threads per (query, probe) that reads its own ``sel``/``enabled`` entry
+  (the TPU's scalar prefetch), scores every slot of the bucket into shared
+  memory and runs k block-wide argmax passes. A bucket too large for
+  shared memory fails at launch.
+
+Both designs give the same finalists bitwise, the slots of NEG entries
+included. A shape a design cannot take fails at launch, with the shape and
+the design in the error; there is no fall back to the other design.
 
 :func:`ann_topk_ivf` and :func:`ann_topk_ivf_quant` launch the kernels for
 CUDA tensors and raise if they cannot; they take the plain versions only
-for CPU tensors. Each counts ``launches`` and ``plain_calls``.
+for CPU tensors. Each counts ``launches``, each design's launches
+(``launches_warp``, ``launches_block``) and ``plain_calls``.
 """
 from __future__ import annotations
 
@@ -41,6 +55,36 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ann_topk import K_MAX, NEG
 from repro_torch.kernels.ann_topk_quant import int8_scores
+
+
+DESIGNS = ("warp", "block")
+_DESIGN_CODE = {"block": 0, "warp": 1}   # csrc/ann_topk_ivf.cu::Design
+WARP_CAP = 64      # the largest bucket "warp" takes: two slots a lane
+WARP_PROBES = 4    # probes (warps) in a CTA of "warp"
+SMEM_MAX = 232448  # H100: shared memory a CTA can take
+
+
+def warp_smem(d: int, quant: bool, sharded: bool = True) -> int:
+    """Bytes of shared memory a CTA of "warp" takes at width ``d``: each
+    warp's query, 16-byte aligned, and for the sharded writer its
+    finalists and slot rows (the unsharded writer stores its finalists
+    from registers)."""
+    query = -(-d * (1 if quant else 4) // 16) * 16
+    return WARP_PROBES * (query + (K_MAX * 8 + WARP_CAP * 4 if sharded
+                                   else 0))
+
+
+def pick_design(cap: int, k: int, d: int, quant: bool,
+                sharded: bool = True) -> str:
+    """The design of a CUDA call of kernels 3–5: ``"warp"`` for buckets of
+    at most ``WARP_CAP`` slots (any k up to ``K_MAX``: its network sorts
+    max(cap, k) <= 64 entries) whose queries fit its shared memory, else
+    ``"block"``. ``sharded`` names the writer (kernel 5's, or kernels 3
+    and 4's)."""
+    if cap <= WARP_CAP and k <= K_MAX \
+            and warp_smem(d, quant, sharded) <= SMEM_MAX:
+        return "warp"
+    return "block"
 
 
 def _stable_topk(s: torch.Tensor, k: int):
@@ -140,11 +184,10 @@ def _lib():
     lib = build.load("ann_topk_ivf")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ann_topk_ivf_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
-                                            p, p, p]
+        lib.ann_topk_ivf_launch.argtypes = [p] * 5 + [i] * 7 + [p, p, p]
         lib.ann_topk_ivf_launch.restype = i
-        lib.ann_topk_ivf_quant_launch.argtypes = [p, p, p, p, p, p, p, i, i,
-                                                  i, i, i, i, p, p, p]
+        lib.ann_topk_ivf_quant_launch.argtypes = [p] * 7 + [i] * 7 + \
+            [p, p, p]
         lib.ann_topk_ivf_quant_launch.restype = i
         lib.ann_topk_ivf_sharded_launch.argtypes = [p] * 7 + [i] * 8 + \
             [p, p, p]
@@ -162,30 +205,44 @@ def _u8(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.uint8) if t.dtype == torch.bool else t
 
 
-def _launch(name: str, dev, shape, args, k, n_shards: int | None = None,
-            design: tuple[str, int] | None = None):
-    """Launch ``<name>_launch`` on ``dev``'s current stream into fresh
-    (B, nprobe, k) outputs, or (S, B, nprobe, k) stacks for the sharded
-    entry points (``n_shards``, and ``design``: its name and its code for
-    the C entry); raises with the shape and the design if it fails."""
-    b, nprobe, c, cap, d = shape
-    lead = () if n_shards is None else (n_shards,)
-    code = () if design is None else (design[1],)
+def _launch(design: str, wrapper, *args, k: int):
+    """Launch ``design``'s kernel for ``wrapper`` (any of the routed scans
+    of kernels 3–5) on its checked CUDA inputs, in the wrapper's argument
+    order, on the inputs' current stream, into fresh (B, nprobe, k)
+    outputs, or (S, B, nprobe, k) stacks for the shard-owned scans, and
+    count it; raises with the shape and the design if it fails.
+    chip_smoke.py also calls it to hold and time "block" on inputs the
+    dispatch sends to "warp"."""
+    if design not in DESIGNS:
+        raise ValueError(f"design must be one of {DESIGNS}, got {design!r}")
+    # the int8 scans carry the queries' scales after the queries, and the
+    # shard-owned scans bucket_rows and bounds after bucket_valid
+    quant = args[2].dtype == torch.int8
+    at = 6 if quant else 4                      # bucket_valid
+    sel, buckets = args[0], args[4 if quant else 3]
+    b, nprobe = sel.shape
+    c, cap, d = buckets.shape
+    lead = (args[-1].numel() - 1,) if len(args) > at + 1 else ()
+    dev = sel.device
     vals = torch.empty((*lead, b, nprobe, k), dtype=torch.float32, device=dev)
     idx = torch.empty((*lead, b, nprobe, k), dtype=torch.int32, device=dev)
+    ptrs = [t.data_ptr() for t in (*args[:at], _u8(args[at]), *args[at + 1:])]
+    name = wrapper.__name__
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, f"{name}_launch")(
-            *[t.data_ptr() for t in args], *lead, b, nprobe, c, cap, d, k,
-            *code, vals.data_ptr(), idx.data_ptr(), stream)
+            *ptrs, *lead, b, nprobe, c, cap, d, k, _DESIGN_CODE[design],
+            vals.data_ptr(), idx.data_ptr(), stream)
     if err != 0:
         msg = lib.ann_topk_ivf_error_string(err).decode()
-        where = "" if n_shards is None else f"s={n_shards} "
-        how = "" if design is None else f" design={design[0]}"
+        where = f"s={lead[0]} " if lead else ""
         raise RuntimeError(f"{name} launch failed (cuda error {err}: {msg}) "
                            f"at {where}b={b} nprobe={nprobe} c={c} cap={cap} "
-                           f"d={d} k={k}{how}")
+                           f"d={d} k={k} design={design}")
+    wrapper.launches += 1
+    setattr(wrapper, f"launches_{design}",
+            getattr(wrapper, f"launches_{design}") + 1)
     return vals, idx
 
 
@@ -198,10 +255,9 @@ def ann_topk_ivf(sel: torch.Tensor, enabled: torch.Tensor, q: torch.Tensor,
     if sel.device.type == "cpu":
         ann_topk_ivf.plain_calls += 1
         return ann_topk_ivf_plain(sel, enabled, q, buckets, bucket_valid, k)
-    out = _launch("ann_topk_ivf", sel.device, shape,
-                  (sel, enabled, q, buckets, _u8(bucket_valid)), k)
-    ann_topk_ivf.launches += 1
-    return out
+    design = pick_design(shape[3], k, shape[4], quant=False, sharded=False)
+    return _launch(design, ann_topk_ivf, sel, enabled, q, buckets,
+                   bucket_valid, k=k)
 
 
 def ann_topk_ivf_quant(sel: torch.Tensor, enabled: torch.Tensor,
@@ -226,14 +282,13 @@ def ann_topk_ivf_quant(sel: torch.Tensor, enabled: torch.Tensor,
         ann_topk_ivf_quant.plain_calls += 1
         return ann_topk_ivf_quant_plain(sel, enabled, qq, q_scales, buckets_q,
                                         bucket_scale, bucket_valid, k)
-    out = _launch("ann_topk_ivf_quant", sel.device, shape,
-                  (sel, enabled, qq, q_scales, buckets_q, bucket_scale,
-                   _u8(bucket_valid)), k)
-    ann_topk_ivf_quant.launches += 1
-    return out
+    design = pick_design(cap, k, shape[4], quant=True, sharded=False)
+    return _launch(design, ann_topk_ivf_quant, sel, enabled, qq, q_scales,
+                   buckets_q, bucket_scale, bucket_valid, k=k)
 
 
-ann_topk_ivf.launches = 0
-ann_topk_ivf.plain_calls = 0
-ann_topk_ivf_quant.launches = 0
-ann_topk_ivf_quant.plain_calls = 0
+for _w in (ann_topk_ivf, ann_topk_ivf_quant):
+    _w.launches = 0
+    _w.launches_warp = 0
+    _w.launches_block = 0
+    _w.plain_calls = 0

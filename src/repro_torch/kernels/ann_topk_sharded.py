@@ -26,20 +26,11 @@ the probe's whole (S, k) column of the stacks: the finalists with their
 global rows (read from ``bucket_rows``) at the owning shard, NEG / -1 at
 the others. They score exactly as ``ann_topk_ivf`` /
 ``ann_topk_ivf_quant`` do (the same device code), so at S = 1 the stacks
-equal the unsharded kernels' bitwise. Two designs, chosen by
-:func:`pick_design` (``csrc/ann_topk_ivf.cu`` has the details):
-
-* ``"warp"``: buckets of at most ``WARP_CAP`` = 64 slots (every bucket
-  the engine lays out at its sizes). One warp per (query, probe),
-  ``WARP_PROBES`` probes a CTA and no block barrier: the warp scores only
-  the row groups that hold a valid slot, keeps two scores a lane and sorts
-  them with one bitonic network.
-* ``"block"``: larger buckets (the real-size router's): one CTA of 256
-  threads per (query, probe), scores in shared memory, k block-wide argmax
-  passes, the unsharded kernels' design.
-
-Shapes a design cannot take fail at launch, with the shape and the design
-in the error; there is no fall back to the other design.
+equal the unsharded kernels' bitwise. They share the unsharded scans'
+dispatch (``ann_topk_ivf.pick_design``, ``"warp"`` for buckets of at most
+64 slots, ``"block"`` above) and launcher; ``csrc/ann_topk_ivf.cu`` has
+the details. Shapes a design cannot take fail at launch, with the shape
+and the design in the error; there is no fall back to the other design.
 
 :func:`ann_topk_ivf_sharded` and :func:`ann_topk_ivf_quant_sharded` launch
 the kernels for CUDA tensors and raise if they cannot; they take the plain
@@ -50,34 +41,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ann_topk_ivf as ivf
-from repro_torch.kernels.ann_topk import K_MAX, NEG
-from repro_torch.kernels.ann_topk_ivf import (_check, _u8,
-                                              ann_topk_ivf_plain,
-                                              ann_topk_ivf_quant_plain)
-
-DESIGNS = ("warp", "block")
-_DESIGN_CODE = {"block": 0, "warp": 1}   # csrc/ann_topk_ivf.cu::Design
-WARP_CAP = 64      # the largest bucket "warp" takes: two slots a lane
-WARP_PROBES = 4    # probes (warps) in a CTA of "warp"
-SMEM_MAX = 232448  # H100: shared memory a CTA can take
-
-
-def warp_smem(d: int, quant: bool) -> int:
-    """Bytes of shared memory a CTA of "warp" takes at width ``d``: each
-    warp's query, 16-byte aligned, and its finalists and slot rows."""
-    query = -(-d * (1 if quant else 4) // 16) * 16
-    return WARP_PROBES * (query + K_MAX * 8 + WARP_CAP * 4)
-
-
-def pick_design(cap: int, k: int, d: int, quant: bool) -> str:
-    """The design of a CUDA call: ``"warp"`` for buckets of at most
-    ``WARP_CAP`` slots (any k up to ``K_MAX``: its network sorts
-    max(cap, k) <= 64 entries) whose queries fit its shared memory, else
-    ``"block"``."""
-    if cap <= WARP_CAP and k <= K_MAX and warp_smem(d, quant) <= SMEM_MAX:
-        return "warp"
-    return "block"
+from repro_torch.kernels.ann_topk import NEG
+from repro_torch.kernels.ann_topk_ivf import (  # noqa: F401 (kernel 5's names)
+    DESIGNS, SMEM_MAX, WARP_CAP, WARP_PROBES, _check, _launch,
+    ann_topk_ivf_plain, ann_topk_ivf_quant_plain, pick_design, warp_smem)
 
 
 def _own_probes(sel: torch.Tensor, en: torch.Tensor, lo: int, hi: int):
@@ -161,7 +128,7 @@ def ann_topk_ivf_sharded(sel: torch.Tensor, enabled: torch.Tensor,
         return ann_topk_ivf_sharded_plain(sel, enabled, q, buckets,
                                           bucket_valid, bucket_rows, bounds,
                                           k)
-    design = pick_design(shape[3], k, shape[4], quant=False)
+    design = pick_design(shape[3], k, shape[4], quant=False, sharded=True)
     return _launch(design, ann_topk_ivf_sharded, sel, enabled, q, buckets,
                    bucket_valid, bucket_rows, bounds, k=k)
 
@@ -193,31 +160,10 @@ def ann_topk_ivf_quant_sharded(sel: torch.Tensor, enabled: torch.Tensor,
         return ann_topk_ivf_quant_sharded_plain(
             sel, enabled, qq, q_scales, buckets_q, bucket_scale,
             bucket_valid, bucket_rows, bounds, k)
-    design = pick_design(cap, k, shape[4], quant=True)
+    design = pick_design(cap, k, shape[4], quant=True, sharded=True)
     return _launch(design, ann_topk_ivf_quant_sharded, sel, enabled, qq,
                    q_scales, buckets_q, bucket_scale, bucket_valid,
                    bucket_rows, bounds, k=k)
-
-
-def _launch(design: str, wrapper, *args, k: int):
-    """Launch ``design``'s kernel for ``wrapper`` (either sharded scan) on
-    its checked CUDA inputs, in the wrapper's argument order, and count it
-    (chip_smoke.py also calls it to hold and time "block" on inputs the
-    dispatch sends to "warp")."""
-    if design not in DESIGNS:
-        raise ValueError(f"design must be one of {DESIGNS}, got {design!r}")
-    *head, valid, bucket_rows, bounds = args
-    sel, buckets = head[0], head[4 if wrapper is ann_topk_ivf_quant_sharded
-                                 else 3]
-    out = ivf._launch(wrapper.__name__, sel.device,
-                      (*sel.shape, *buckets.shape),
-                      (*head, _u8(valid), bucket_rows, bounds), k,
-                      n_shards=bounds.numel() - 1,
-                      design=(design, _DESIGN_CODE[design]))
-    wrapper.launches += 1
-    setattr(wrapper, f"launches_{design}",
-            getattr(wrapper, f"launches_{design}") + 1)
-    return out
 
 
 for _w in (ann_topk_ivf_sharded, ann_topk_ivf_quant_sharded):

@@ -21,7 +21,13 @@
 //   are in (value desc, slot asc) order. Where fewer than k slots remain,
 //   or the probe is disabled, pass p writes NEG and slot p, as a stable
 //   sort of the NEG-padded scores would. A sel outside [0, C) scores as a
-//   disabled probe (no read outside the buckets).
+//   disabled probe (no read outside the buckets). A NEG entry's slot is
+//   the same on both designs: after the real scores come the invalid
+//   slots in ascending order, then the pads cap, cap + 1, ...; a probe
+//   that scans nothing writes slots 0 .. k - 1 ("block": the argmax passes
+//   take NEG entries lowest slot first, then write slot p once the cap
+//   entries are taken; "warp": the network ranks NEG at slot i after NEG
+//   at every lower slot, and write_disabled writes slot p).
 //   fp32 scores use ann_topk.cu's summation order (dot.cuh), so a row
 //   scores bitwise the same in the brute and the routed scan, and
 //   duplicates in one bucket tie bitwise; int8 scores are exact int32 dots
@@ -43,13 +49,18 @@
 // slot of each enabled probe. At B = 16 and nprobe = 64 over C = 512
 // buckets the union is most of the buckets, so the bytes bound it (fp32:
 // 3.35 TB/s against 67 TFLOP/s of CUDA-core rate; int8: against 1979 TOP/s).
-// This kernel reads every slot of a probed bucket, valid or not, once per
-// query that probes it. Sharded, the owner alone reads the bucket, so the
-// bytes are the unsharded scan's plus the S-fold stack of finalists.
+// "block" reads every slot of a probed bucket, valid or not, "warp" every
+// row group that holds a valid slot, once per query that probes it.
+// Sharded, the owner alone reads the bucket, so the bytes are the
+// unsharded scan's plus the S-fold stack of finalists.
 //
-// Design "block" (every unsharded scan, and sharded buckets above
-// WARP_CAP slots): one kernel for both payload types over a scorer policy;
-// one CTA per (query b, probe j), reading
+// Two designs for every scan, fp32 and int8, unsharded (kernels 3 and 4)
+// and sharded (kernel 5); the wrappers' one pick_design sends buckets of
+// at most WARP_CAP = 64 slots (every bucket the engine lays out) to "warp"
+// and larger ones (the real-size router's) to "block".
+//
+// Design "block" (ivf_topk, ivf_topk_sharded): one kernel for both payload
+// types over a scorer policy; one CTA per (query b, probe j), reading
 // sel[b, j] and enabled[b, j] itself (the TPU's scalar prefetch) and
 // offsetting into the bucket. The query sits in shared memory; warps
 // score ROWS slots at once (dot.cuh) into a cap-long score array in
@@ -61,25 +72,28 @@
 // and writes the whole (S, k) column of the stack: its finalists, with
 // their rows read from bucket_rows, at the owner, NEG / -1 at the others.
 //
-// Design "warp" (sharded buckets of at most WARP_CAP = 64 slots, the
-// engine's): at B = 1, nprobe = 8 and cap 16 the block design keeps 4 of
-// its 8 warps idle and spends most of its time in block barriers: the
-// query's, the scores', and two in each of the k argmax passes. Here one
-// warp owns one (query, probe) and WARP_PROBES probes share a CTA, with no
-// block barrier at all. The warp issues every load that needs only its
-// bucket id at once (the valid bytes, slot rows and scales of its two
-// slots a lane, the cut points, the query), finds the owner with one
-// ballot, and scores only the row groups that hold a valid slot (the
-// engine keeps a bucket's members as a prefix, so the loads stop at the
-// member count), 8 or 16 rows at once through the same dot.cuh code as the
-// block design, so every score is bitwise the same. Each lane keeps the
-// scores of slots lane and lane + 32; one bitonic network over the first
-// max(valid prefix, k) entries (select.cuh::warp_best_of_few, later slots
-// scoring NEG at their own index, as a stable sort of the NEG-padded
-// scores orders them) gives all k finalists at once, and the lanes write
-// the (S, k) column. What is left is latency: three dependent trips to
-// memory (the probe's bucket id, the bucket's metadata, its rows) and, per
-// row group, a chain of dot products and shuffles (PERF.md).
+// Design "warp" (ivf_warp, ivf_warp_sharded; buckets of at most 64
+// slots): at B = 1, nprobe = 8 and cap 16 the block design keeps 4 of its
+// 8 warps idle and spends most of its time in block barriers: the query's,
+// the scores', and two in each of the k argmax passes. Here one warp owns
+// one (query, probe) and WARP_PROBES probes share a CTA, with no block
+// barrier at all. Both writers run one probe body (warp_probe): the warp
+// issues every load that needs only its bucket id at once (the valid bytes
+// and scales of its two slots a lane and the query; sharded, also the
+// slots' rows and the cut points, and one ballot finds the owner), and
+// scores only the row groups that hold a valid slot (the engine keeps a
+// bucket's members as a prefix, so the loads stop at the member count), 8
+// or 16 rows at once through the same dot.cuh code as the block design,
+// so every score is bitwise the same. Each lane keeps the scores of slots
+// lane and lane + 32; one bitonic network over the first max(valid
+// prefix, k) entries (select.cuh::warp_best_of_few, later slots scoring
+// NEG at their own index, as a stable sort of the NEG-padded scores orders
+// them) gives all k finalists at once. The unsharded writer's lanes store
+// them straight to the probe's (k,) row of vals/slots; the sharded one
+// stages them in shared memory and writes the (S, k) column with rows. What
+// is left is latency: three dependent trips to memory (the probe's bucket
+// id, the bucket's metadata, its rows) and, per row group, a chain of dot
+// products and shuffles (PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -107,9 +121,11 @@ __host__ __device__ inline size_t query_offset(int cap) {
   return (static_cast<size_t>(cap) * sizeof(float) + 15) & ~static_cast<size_t>(15);
 }
 
-// a disabled (or out-of-range) probe: NEG and slot p at pass p
-__device__ __forceinline__ void write_disabled(float* ov, int* oi, int k) {
-  for (int p = threadIdx.x; p < k; p += THREADS) {
+// a probe no design scanned (disabled, or out of range): NEG and slot p
+// at pass p, threads from, from + step, ... writing
+__device__ __forceinline__ void write_disabled(float* ov, int* oi, int k,
+                                               int from, int step) {
+  for (int p = from; p < k; p += step) {
     ov[p] = sel::NEG;
     oi[p] = p;
   }
@@ -214,7 +230,7 @@ ivf_topk(const int* __restrict__ sel_, const int* __restrict__ en,
   int* oi = slots + static_cast<size_t>(bj) * k;
   const int c = sel_[bj];
   if (en[bj] == 0 || c < 0 || c >= c_count) {
-    write_disabled(ov, oi, k);
+    write_disabled(ov, oi, k, threadIdx.x, THREADS);
     return;
   }
   scan_bucket<E, VEC>(c, bj / nprobe, q, qs, buckets, bscale, valid, cap, d,
@@ -305,30 +321,31 @@ __device__ __forceinline__ void score_groups(const E* bucket, const E* sq,
   }
 }
 
-// One warp per (query b, probe j), WARP_PROBES probes a CTA, cap <=
-// WARP_CAP; writes the (S, k) column of the stacks as ivf_topk_sharded
-// does, with the same scores and the same order.
-template <typename E, int VEC>
-__global__ void __launch_bounds__(WARP_PROBES * 32)
-ivf_warp_sharded(const int* __restrict__ sel_, const int* __restrict__ en,
-                 const E* __restrict__ q, const float* __restrict__ qs,
-                 const E* __restrict__ buckets,
-                 const float* __restrict__ bscale,
-                 const uint8_t* __restrict__ valid,
-                 const int* __restrict__ bucket_rows,
-                 const int* __restrict__ bounds, int n_shards, int n_probes,
-                 int nprobe, int c_count, int cap, int d, int k,
-                 float* __restrict__ vals, int* __restrict__ rows) {
+// One warp scans probe bj = (query bq, probe j), cap <= WARP_CAP: the body
+// both writers of the "warp" design share. The lanes' finalists go to
+// ov[0..k), oi[0..k) (slots) in ranks_before order. Sharded (kSharded),
+// the warp also finds the shard that owns the probe's bucket, with one
+// ballot over the cut points, and stages the bucket's global rows in
+// slot_row; it scans only an owned bucket. Returns the owner (0 unsharded)
+// if the warp scanned the probe, else -1 (disabled, out of range or not
+// owned), and then writes nothing. A query off a 16-byte boundary is
+// copied to the warp's slice of dynamic shared memory (smem). The body
+// stays one guarded block with the query slice found inside it: with
+// early returns and the slice found first, ptxas gave the int8 instances
+// fewer registers, a spill and a slower scan (PERF.md).
+template <typename E, int VEC, bool kSharded>
+__device__ __forceinline__ int warp_probe(
+    int bj, const int* __restrict__ sel_, const int* __restrict__ en,
+    const E* __restrict__ q, const float* __restrict__ qs,
+    const E* __restrict__ buckets, const float* __restrict__ bscale,
+    const uint8_t* __restrict__ valid, const int* __restrict__ bucket_rows,
+    const int* __restrict__ bounds, int n_shards, int nprobe, int c_count,
+    int cap, int d, int k, unsigned char* smem, float* ov, int* oi,
+    int* slot_row) {
   using Acc = typename Scorer<E, VEC>::Acc;
   constexpr bool kScaled = std::is_same_v<E, int8_t>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float top_v[WARP_PROBES][K_MAX];
-  __shared__ int top_i[WARP_PROBES][K_MAX];
-  __shared__ int slot_row[WARP_PROBES][WARP_CAP];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int bj = blockIdx.x * WARP_PROBES + warp;
-  if (bj >= n_probes) return;  // the whole warp; no block barrier follows
   const int c = sel_[bj];
   int owner = -1;
   if (en[bj] != 0 && c >= 0 && c < c_count) {
@@ -343,12 +360,15 @@ ivf_warp_sharded(const int* __restrict__ sel_, const int* __restrict__ en,
       const int slot = lane + 32 * j;
       if (slot < cap) {
         vb[j] = valid[base + slot];
-        srow[j] = bucket_rows[base + slot];
+        if constexpr (kSharded) srow[j] = bucket_rows[base + slot];
         if constexpr (kScaled) scale[j] = bscale[base + slot];
       }
     }
-    const int b_lo = bounds[min(lane, n_shards)];
-    const int b_hi = bounds[min(lane + 1, n_shards)];
+    int b_lo = 0, b_hi = 0;
+    if constexpr (kSharded) {
+      b_lo = bounds[min(lane, n_shards)];
+      b_hi = bounds[min(lane + 1, n_shards)];
+    }
     const int bq = bj / nprobe;
     const float q_scale = kScaled ? qs[bq] : 1.f;
     // The dot products read each lane's own query chunks (dot.cuh: chunks
@@ -370,19 +390,23 @@ ivf_warp_sharded(const int* __restrict__ sel_, const int* __restrict__ en,
     }
     const E* qsrc = qaligned ? qb : sq;
     const bool ok[2] = {vb[0] != 0, vb[1] != 0};
+    if constexpr (kSharded) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      if (lane + 32 * j < cap) slot_row[warp][lane + 32 * j] = srow[j];
-    // the owner: the one shard whose range holds c
-    int s0 = 0;
-    unsigned own = __ballot_sync(sel::FULL,
-                                 lane < n_shards && b_lo <= c && c < b_hi);
-    while (own == 0 && (s0 += 32) < n_shards) {
-      const int sh = s0 + lane;
-      own = __ballot_sync(
-          sel::FULL, sh < n_shards && bounds[sh] <= c && c < bounds[sh + 1]);
+      for (int j = 0; j < 2; ++j)
+        if (lane + 32 * j < cap) slot_row[lane + 32 * j] = srow[j];
+      // the owner: the one shard whose range holds c
+      int s0 = 0;
+      unsigned own = __ballot_sync(sel::FULL,
+                                   lane < n_shards && b_lo <= c && c < b_hi);
+      while (own == 0 && (s0 += 32) < n_shards) {
+        const int sh = s0 + lane;
+        own = __ballot_sync(
+            sel::FULL, sh < n_shards && bounds[sh] <= c && c < bounds[sh + 1]);
+      }
+      if (own) owner = s0 + __ffs(own) - 1;
+    } else {
+      owner = 0;
     }
-    if (own) owner = s0 + __ffs(own) - 1;
     if (owner >= 0) {
       const unsigned long long vmask =
           __ballot_sync(sel::FULL, ok[0]) |
@@ -416,10 +440,64 @@ ivf_warp_sharded(const int* __restrict__ sel_, const int* __restrict__ en,
       sel::warp_best_of_few(max(hi, k), k, [&](int i, float& x, int& xr) {
         x = i < 32 ? score[0] : score[1];
         xr = i;
-      }, top_v[warp], top_i[warp], true);
-      __syncwarp();
+      }, ov, oi, true);
+      if constexpr (kSharded) __syncwarp();  // the writer reads ov, oi
     }
   }
+  return owner;
+}
+
+// One warp per (query b, probe j), WARP_PROBES probes a CTA, cap <=
+// WARP_CAP: the unsharded writer. The lanes write the probe's k finalists
+// (value, slot) straight to (b, j)'s row of vals/slots; a probe the warp
+// did not scan gets NEG and slot p, as ivf_topk writes it.
+template <typename E, int VEC>
+__global__ void __launch_bounds__(WARP_PROBES * 32)
+ivf_warp(const int* __restrict__ sel_, const int* __restrict__ en,
+         const E* __restrict__ q, const float* __restrict__ qs,
+         const E* __restrict__ buckets, const float* __restrict__ bscale,
+         const uint8_t* __restrict__ valid, int n_probes, int nprobe,
+         int c_count, int cap, int d, int k, float* __restrict__ vals,
+         int* __restrict__ slots) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int bj = blockIdx.x * WARP_PROBES + warp;
+  if (bj >= n_probes) return;  // the whole warp; no block barrier follows
+  float* ov = vals + static_cast<size_t>(bj) * k;
+  int* oi = slots + static_cast<size_t>(bj) * k;
+  if (warp_probe<E, VEC, false>(bj, sel_, en, q, qs, buckets, bscale, valid,
+                                nullptr, nullptr, 1, nprobe, c_count, cap, d,
+                                k, smem, ov, oi, nullptr) < 0)
+    write_disabled(ov, oi, k, lane, 32);
+}
+
+// One warp per (query b, probe j), WARP_PROBES probes a CTA, cap <=
+// WARP_CAP: the sharded writer. It writes the (S, k) column of the stacks
+// as ivf_topk_sharded does, with the same scores and the same order.
+template <typename E, int VEC>
+__global__ void __launch_bounds__(WARP_PROBES * 32)
+ivf_warp_sharded(const int* __restrict__ sel_, const int* __restrict__ en,
+                 const E* __restrict__ q, const float* __restrict__ qs,
+                 const E* __restrict__ buckets,
+                 const float* __restrict__ bscale,
+                 const uint8_t* __restrict__ valid,
+                 const int* __restrict__ bucket_rows,
+                 const int* __restrict__ bounds, int n_shards, int n_probes,
+                 int nprobe, int c_count, int cap, int d, int k,
+                 float* __restrict__ vals, int* __restrict__ rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float top_v[WARP_PROBES][K_MAX];
+  __shared__ int top_i[WARP_PROBES][K_MAX];
+  __shared__ int slot_row[WARP_PROBES][WARP_CAP];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int bj = blockIdx.x * WARP_PROBES + warp;
+  if (bj >= n_probes) return;  // the whole warp; no block barrier follows
+  const int owner = warp_probe<E, VEC, true>(
+      bj, sel_, en, q, qs, buckets, bscale, valid, bucket_rows, bounds,
+      n_shards, nprobe, c_count, cap, d, k, smem, top_v[warp], top_i[warp],
+      slot_row[warp]);
   // the (S, k) column, entry i = s * k + p: the finalists at the owner,
   // NEG / -1 at every other shard ((s, p) stepped, not divided)
   const size_t bn = static_cast<size_t>(n_probes);
@@ -455,7 +533,7 @@ struct Args {
   const int* bucket_rows;
   const int* bounds;
   int n_shards, b, nprobe, c, cap, d, k;
-  int design;  // Design; the unsharded scans are always BLOCK
+  int design;  // Design
   float* vals;
   int* idx;  // slots, or the sharded scan's global rows
 };
@@ -469,31 +547,43 @@ cudaError_t allow_smem(Kern kern, size_t smem) {
                               static_cast<int>(smem));
 }
 
-// static shared memory of ivf_warp_sharded: finalists and slot rows
-constexpr size_t WARP_STATIC_SMEM =
+// static shared memory of ivf_warp_sharded (finalists and slot rows);
+// ivf_warp has none
+constexpr size_t WARP_SHARDED_STATIC_SMEM =
     WARP_PROBES * (K_MAX * (sizeof(float) + sizeof(int)) +
                    WARP_CAP * sizeof(int));
+// "warp": ivf_warp_sharded with bounds, else ivf_warp
 template <typename E, int VEC>
 cudaError_t launch_warp(const Args& a, cudaStream_t s) {
+  const bool sharded = a.bounds != nullptr;
   const size_t smem = WARP_PROBES * warp_query_bytes(a.d, sizeof(E));
-  if (a.cap > WARP_CAP || smem + WARP_STATIC_SMEM > SMEM_MAX)
+  const size_t fixed = sharded ? WARP_SHARDED_STATIC_SMEM : 0;
+  if (a.cap > WARP_CAP || smem + fixed > SMEM_MAX)
     return cudaErrorInvalidValue;
-  auto kern = ivf_warp_sharded<E, VEC>;
-  cudaError_t err;
-  if ((err = allow_smem(kern, smem)) != cudaSuccess) return err;
   const int n_probes = a.b * a.nprobe;
   const int grid = (n_probes + WARP_PROBES - 1) / WARP_PROBES;
-  kern<<<grid, WARP_PROBES * 32, smem, s>>>(
-      a.sel, a.en, static_cast<const E*>(a.q), a.qs,
-      static_cast<const E*>(a.buckets), a.bscale, a.valid, a.bucket_rows,
-      a.bounds, a.n_shards, n_probes, a.nprobe, a.c, a.cap, a.d, a.k,
-      a.vals, a.idx);
+  const auto* q = static_cast<const E*>(a.q);
+  const auto* bk = static_cast<const E*>(a.buckets);
+  cudaError_t err;
+  if (sharded) {
+    auto kern = ivf_warp_sharded<E, VEC>;
+    if ((err = allow_smem(kern, smem)) != cudaSuccess) return err;
+    kern<<<grid, WARP_PROBES * 32, smem, s>>>(
+        a.sel, a.en, q, a.qs, bk, a.bscale, a.valid, a.bucket_rows, a.bounds,
+        a.n_shards, n_probes, a.nprobe, a.c, a.cap, a.d, a.k, a.vals, a.idx);
+  } else {
+    auto kern = ivf_warp<E, VEC>;
+    if ((err = allow_smem(kern, smem)) != cudaSuccess) return err;
+    kern<<<grid, WARP_PROBES * 32, smem, s>>>(
+        a.sel, a.en, q, a.qs, bk, a.bscale, a.valid, n_probes, a.nprobe, a.c,
+        a.cap, a.d, a.k, a.vals, a.idx);
+  }
   return cudaGetLastError();
 }
 
 template <typename E, int VEC>
 cudaError_t launch(const Args& a, cudaStream_t s) {
-  if (a.bounds != nullptr && a.design == WARP) return launch_warp<E, VEC>(a, s);
+  if (a.design == WARP) return launch_warp<E, VEC>(a, s);
   const size_t smem =
       query_offset(a.cap) + static_cast<size_t>(a.d) * sizeof(E);
   if (smem > SMEM_MAX) return cudaErrorInvalidValue;
@@ -547,16 +637,16 @@ int launch_i8(const Args& a, void* stream) {
 
 extern "C" {
 
-// vals/slots: (b, nprobe, k) fp32/int32. Each returns the cudaError_t of
-// the launch.
+// design 0 "block", 1 "warp" (cap <= 64); vals/slots: (b, nprobe, k)
+// fp32/int32. Each entry point returns the cudaError_t of the launch.
 int ann_topk_ivf_launch(const void* sel_, const void* enabled, const void* q,
                         const void* buckets, const void* bucket_valid, int b,
-                        int nprobe, int c, int cap, int d, int k, void* vals,
-                        void* slots, void* stream) {
+                        int nprobe, int c, int cap, int d, int k, int design,
+                        void* vals, void* slots, void* stream) {
   return launch_f32(
       {static_cast<const int*>(sel_), static_cast<const int*>(enabled), q,
        nullptr, buckets, nullptr, static_cast<const uint8_t*>(bucket_valid),
-       nullptr, nullptr, 1, b, nprobe, c, cap, d, k, BLOCK,
+       nullptr, nullptr, 1, b, nprobe, c, cap, d, k, design,
        static_cast<float*>(vals), static_cast<int*>(slots)},
       stream);
 }
@@ -565,20 +655,20 @@ int ann_topk_ivf_quant_launch(const void* sel_, const void* enabled,
                               const void* qq, const void* q_scales,
                               const void* buckets_q, const void* bucket_scale,
                               const void* bucket_valid, int b, int nprobe,
-                              int c, int cap, int d, int k, void* vals,
-                              void* slots, void* stream) {
+                              int c, int cap, int d, int k, int design,
+                              void* vals, void* slots, void* stream) {
   return launch_i8(
       {static_cast<const int*>(sel_), static_cast<const int*>(enabled), qq,
        static_cast<const float*>(q_scales), buckets_q,
        static_cast<const float*>(bucket_scale),
        static_cast<const uint8_t*>(bucket_valid), nullptr, nullptr, 1, b,
-       nprobe, c, cap, d, k, BLOCK, static_cast<float*>(vals),
+       nprobe, c, cap, d, k, design, static_cast<float*>(vals),
        static_cast<int*>(slots)},
       stream);
 }
 
-// bucket_rows (c, cap) int32, bounds (s + 1,) int32; design 0 "block",
-// 1 "warp" (cap <= 64); vals/rows: (s, b, nprobe, k) fp32/int32.
+// bucket_rows (c, cap) int32, bounds (s + 1,) int32; design as above;
+// vals/rows: (s, b, nprobe, k) fp32/int32.
 int ann_topk_ivf_sharded_launch(const void* sel_, const void* enabled,
                                 const void* q, const void* buckets,
                                 const void* bucket_valid,
