@@ -105,6 +105,20 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            (g) the defaults with ``judge_compute="model"``: kernel 6 runs
            the tiny-LM judge on the card (every launch on the tensor-core
            design), and the summary is the defaults' oracle run's.
+   serve_fresh  the freshness, robustness, telemetry and federation
+           options the same way, each held to the numpy backend: the churn
+           workload with invalidation and refresh-ahead, alone and on run
+           (c)'s tiered, clustered world (both routers train, rows leave
+           both mirrors, kernels 3 and 4 launch after the first removal);
+           the brownout with the overload controller, an SLO, the span
+           trace and the time series (the four files byte for byte, 0
+           conservation violations); a 3-region outage (0 hung peeks) and
+           3 regions with both tiers clustered under invalidation (every
+           region's routers train, kernels 1-4 launch on every region's
+           mirrors). Per run: wall seconds, launches by design, rows
+           removed and device-mirror bytes per cache (one cache a region);
+           then every kernel against its plain version on each cache's
+           final layouts.
 6. main    ann_topk against its plain version at the main path's shape
            (8192 x 128, B = 1, 4 and 16), then its times there: one CUDA
            launch a call on "fused".
@@ -124,7 +138,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            tensor-core design, no plain version runs, and a fresh batcher
            replays the same tokens; decode steps per second.
 9. the ``kernels`` line: per kernel, its launches on the run that drives
-   it (a serve run; the colocated run for kernels 6 and 7, with their
+   it and on every serve run, serve_fresh's too (a serve run; the
+   colocated run for kernels 6 and 7, with their
    launches by design in colocated, lm and (g); kernels 1 and 2 with
    theirs in every serve run, all on the one-launch designs, and their
    CUDA launches a call; kernels 3-5 with their launches by design in
@@ -621,25 +636,10 @@ def phase_stage1(dev):
 
 def run_keeping_cache(**kw):
     """``run_once(**kw)`` and the cache it built, for checks after it."""
-    from repro_torch.launch import serve
+    from repro_torch.launch.serve import run_once
 
-    made = []
-    factories = {name: getattr(serve, name)
-                 for name in ("make_cache", "make_tiered_cache")}
-
-    def keeping(factory):
-        def keep(*args, **kwargs):
-            made.append(factory(*args, **kwargs))
-            return made[-1]
-        return keep
-
-    for name, factory in factories.items():
-        setattr(serve, name, keeping(factory))
-    try:
-        summary = serve.run_once(**kw)
-    finally:
-        for name, factory in factories.items():
-            setattr(serve, name, factory)
+    with keeping_caches() as made:
+        summary = run_once(**kw)
     return summary, made[0]
 
 
@@ -1751,8 +1751,13 @@ def design_counts(w) -> dict:
 
 
 def live_pick(active: torch.Tensor, g, b: int) -> torch.Tensor:
+    """``b`` distinct live rows, or ``b`` drawn with repeats from fewer
+    (an index that invalidation keeps small)."""
     live = torch.nonzero(active).flatten()
-    check(live.numel() >= b, f"fewer than {b} live rows")
+    check(live.numel() > 0, "no live rows")
+    if live.numel() < b:
+        return live[torch.randint(live.numel(), (b,), device=active.device,
+                                  generator=g)]
     return live[torch.randperm(live.numel(), device=active.device,
                                generator=g)[:b]]
 
@@ -2007,6 +2012,302 @@ def phase_serve(dev):
               < summaries[name]["rows_scanned"],
               f"{name}: no shard scanned less than the whole")
     return runs, errs, measured
+
+
+# ------------------ freshness, robustness, telemetry and federation (5b)
+
+TRACE_DIR = ROOT / "build" / "chip_smoke"
+FRESH = dict(workload="churn", churn_period=20.0, invalidation=True,
+             refresh_ahead=True)
+# (h) run (c) with the freshness options: at (g)'s own size the hot index
+# never holds the 256 rows a router trains on and the hot tier never
+# fills, so the warm tier stays empty. (c)'s longtail world at a budget
+# of 0.15 fills both tiers; class-10 intents update every 3600 s
+# (MutableWorld's default ceiling) so that invalidation, which drops most
+# class-1 entries within a minute, leaves both routers enough rows.
+TIERED_FRESH = dict(workload="longtail", n_intents=3000, n_requests=3000,
+                    tail_len=2800, concurrency=16, cache_ratio=0.15,
+                    warm_frac=0.5, cluster=True, churn_period=20.0,
+                    churn_max_period=3600.0, invalidation=True,
+                    refresh_ahead=True)
+BROWNOUT = dict(workload="trend", trend_duration=12.0, sample_interval=5.0,
+                slo=["p99:window.latency_p99:<=:5.0"], overload="on",
+                faults=["origin_brownout:50:150:error_rate=0.6,throttle=0.2"])
+FED_OUTAGE = dict(n_regions=3, topology="peered", peek_timeout=0.25,
+                  faults=["region_outage:20:45:region=1"], n_intents=1000,
+                  dim=128, n_requests=900)
+# fed_tiered_clustered: three peered regions with both tiers clustered and
+# invalidation on. Each region's hot tier (a tenth of the world's bytes,
+# half of it hot) holds ~150 rows and its warm tier ~2.5x that, so the
+# routers train from 128 rows (2 x 64 clusters) instead of 256; 1000
+# requests per region keep every tier full on a 3000-intent world.
+FED_TC = dict(n_intents=3000, dim=128, churn_min_period=20.0,
+              churn_max_period=3600.0, n_per_region=1000, n_regions=3,
+              overlap=0.5, cache_ratio=0.1, warm_frac=0.5, n_clusters=64,
+              nprobe=8, min_train=128)
+PATH_KEYS = ("trace_jsonl", "trace_chrome", "timeseries_path", "alerts_path")
+
+
+@contextlib.contextmanager
+def keeping_caches():
+    """Within the block, every ``CortexCache`` built (tiered ones too),
+    in the order built: a run's cache, or a federation's per region."""
+    from repro_torch.core.cache import CortexCache
+
+    made, init = [], CortexCache.__init__
+
+    def keep(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        made.append(self)
+
+    CortexCache.__init__ = keep
+    try:
+        yield made
+    finally:
+        CortexCache.__init__ = init
+
+
+@contextlib.contextmanager
+def mirror_log(wrappers: dict):
+    """Within the block, in order: every removal of live rows from an
+    index (``RowIndex.remove_rows``, which clears the device mirror's rows
+    and tells the router) as ("remove", index, rows), and every stage-1
+    search of an index that launched a kernel as ("search", index,
+    {kernel: launches}); peer peeks are searches of the peer's index."""
+    from repro_torch.core.seri import RowIndex, VectorIndex
+    from repro_torch.core.tiers import QuantIndex
+
+    log = []
+    remove = RowIndex.remove_rows
+    searches = {cls: cls.search_batch for cls in (VectorIndex, QuantIndex)}
+
+    def removing(self, rows):
+        n = int(sum(bool(self.active[r]) for r in rows))
+        remove(self, rows)
+        if n:
+            log.append(("remove", self, n))
+
+    def searching(search):
+        def run(self, *args, **kwargs):
+            before = {n: w.launches for n, w in wrappers.items()}
+            out = search(self, *args, **kwargs)
+            moved = {n: w.launches - before[n] for n, w in wrappers.items()
+                     if w.launches != before[n]}
+            if moved:
+                log.append(("search", self, moved))
+            return out
+        return run
+
+    RowIndex.remove_rows = removing
+    for cls, search in searches.items():
+        cls.search_batch = searching(search)
+    try:
+        yield log
+    finally:
+        RowIndex.remove_rows = remove
+        for cls, search in searches.items():
+            cls.search_batch = search
+
+
+def mirror_bytes(index) -> int:
+    """Bytes of the index's device mirror: its rows (fp32, or int8 and
+    their scales) and the live mask."""
+    return sum(t.numel() * t.element_size() for t in vars(index).values()
+               if isinstance(t, torch.Tensor) and t.is_cuda)
+
+
+def mirror_report(caches: list, log: list, run: str, *,
+                  want_routed: bool) -> list:
+    """Per cache (per region in a federation): rows removed from each
+    mirror, launches per kernel on each mirror, its device bytes and its
+    routers' state. With ``want_routed``, both routers must have trained,
+    kernels 1-4 must have launched on the cache's mirrors, and kernels 3
+    and 4 after the first removal from the mirror they scan."""
+    out = []
+    for i, cache in enumerate(caches):
+        tiers = {"hot": cache.seri.index}
+        if getattr(cache, "warm", None) is not None:
+            tiers["warm"] = cache.warm.index
+        line = {"cache": i}
+        for tier, index in tiers.items():
+            mine = [(kind, x) for kind, idx, x in log if idx is index]
+            removed = sum(x for kind, x in mine if kind == "remove")
+            first = next((j for j, (kind, _) in enumerate(mine)
+                          if kind == "remove"), len(mine))
+            launches, after = {}, {}
+            for j, (kind, x) in enumerate(mine):
+                if kind != "search":
+                    continue
+                for name, n in x.items():
+                    launches[name] = launches.get(name, 0) + n
+                    if j > first:
+                        after[name] = after.get(name, 0) + n
+            routed = "ann_topk_ivf" if tier == "hot" else "ann_topk_ivf_quant"
+            ready = bool(index.router is not None and index.router.ready)
+            line[tier] = {"rows_removed": removed, "launches": launches,
+                          f"{routed}_after_removal": after.get(routed, 0),
+                          "router_ready": ready,
+                          "device_bytes": mirror_bytes(index)}
+            if want_routed:
+                scan = "ann_topk" if tier == "hot" else "ann_topk_quant"
+                check(ready, f"{run}: cache {i}'s {tier} router never "
+                      "trained")
+                check(removed > 0, f"{run}: no row left cache {i}'s "
+                      f"{tier} mirror")
+                check(launches.get(scan, 0) > 0, f"{run}: no {scan} launch "
+                      f"on cache {i}'s {tier} mirror")
+                check(after.get(routed, 0) > 0, f"{run}: no {routed} "
+                      f"launch on cache {i}'s {tier} mirror after a removal")
+        line["device_bytes"] = sum(line[t]["device_bytes"] for t in tiers)
+        out.append(line)
+    return out
+
+
+def same_files(a: str, b: str, what: str) -> int:
+    got, want = Path(a).read_bytes(), Path(b).read_bytes()
+    check(got == want, f"{what}: {a} differs from {b}")
+    return len(got)
+
+
+def fed_tiered_clustered(backend: str, dev) -> dict:
+    from repro_torch.core.clustering import ClusterConfig
+    from repro_torch.core.freshness import FreshnessConfig
+    from repro_torch.data.workloads import region_workloads
+    from repro_torch.data.world import MutableWorld
+    from repro_torch.serving.federation import FederationRunner, RegionConfig
+
+    c = FED_TC
+    world = MutableWorld(n_intents=c["n_intents"], dim=c["dim"], seed=0,
+                         churn_min_period=c["churn_min_period"],
+                         churn_max_period=c["churn_max_period"])
+    streams = region_workloads(world, c["n_per_region"], c["n_regions"],
+                               overlap=c["overlap"], seed=1)
+    return FederationRunner(
+        world=world, region_requests=streams, topology="peered",
+        region_cfgs=[RegionConfig(name=f"r{i}", cache_ratio=c["cache_ratio"])
+                     for i in range(c["n_regions"])],
+        warm_frac=c["warm_frac"],
+        cluster=ClusterConfig(n_clusters=c["n_clusters"], nprobe=c["nprobe"],
+                              min_train=c["min_train"]),
+        freshness=FreshnessConfig(invalidation=True), backend=backend,
+        device=dev, seed=0).run()
+
+
+def phase_serve_fresh(dev):
+    """The freshness, robustness, telemetry-export and federation options
+    on the kernel backend, each run with every count set to 0 just before
+    and read just after, held to the numpy backend: (g) the churn
+    workload with invalidation and refresh-ahead, (h) run (c) with them,
+    (i) the brownout with the overload controller, an SLO, the span trace
+    and the time series (both files byte for byte), and two federations
+    of three peered regions, one cache and so one set of mirrors per
+    region: a region outage, and both tiers clustered under invalidation.
+    Then every kernel against its plain version on each cache's final
+    layouts."""
+    from repro_torch.launch.serve import run_federated, run_once
+
+    wrappers = kernel_wrappers()
+    g = torch.Generator(device=dev).manual_seed(11)
+    errs = {name: 0.0 for name in wrappers}
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    traced = {b: dict(trace=str(TRACE_DIR / f"i_{b}"),
+                      timeseries=str(TRACE_DIR / f"ts_{b}"))
+              for b in ("kernel", "numpy")}
+    runs_def = {
+        "g_churn": (lambda backend, device: run_once(
+            backend=backend, device=device, **FRESH), FRESH),
+        "h_churn_tiered_clustered": (lambda backend, device: run_once(
+            backend=backend, device=device, **TIERED_FRESH), TIERED_FRESH),
+        "i_brownout_overload_traced": (lambda backend, device: run_once(
+            backend=backend, device=device, **BROWNOUT, **traced[backend]),
+            BROWNOUT),
+        "fed_outage": (lambda backend, device: run_federated(
+            backend=backend, device=device, **FED_OUTAGE), FED_OUTAGE),
+        "fed_tiered_clustered": (fed_tiered_clustered, FED_TC),
+    }
+    runs = []
+    for name, (drive, kw) in runs_def.items():
+        reset_counts(wrappers)
+        t = time.perf_counter()
+        with routed_launch_log() as routed_log, mirror_log(wrappers) as log, \
+                keeping_caches() as caches:
+            got = drive("kernel", dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = {n: w.launches for n, w in wrappers.items()}
+        by_design = {**check_all_one_launch(wrappers, name),
+                     **check_routed_designs(wrappers, routed_log, name)}
+        check(launches["ann_topk"] > 0, f"{name}: no ann_topk launch")
+        check(not any(w.plain_calls for w in wrappers.values()),
+              f"{name}: the CUDA path took a plain version")
+        check(not any(launches[n] for n in ("ann_topk_ivf_sharded",
+                                            "ann_topk_ivf_quant_sharded")),
+              f"{name}: a sharded scan launched: {launches}")
+        fed = name.startswith("fed_")
+        check(len(caches) == (3 if fed else 1),
+              f"{name}: built {len(caches)} caches")
+        check(all(c.seri.index.active_dev is not None
+                  and c.seri.index.active_dev.is_cuda for c in caches),
+              f"{name}: a cache's index is not mirrored on the card")
+        per_cache = mirror_report(
+            caches, log, name,
+            want_routed=name in ("h_churn_tiered_clustered",
+                                 "fed_tiered_clustered"))
+        t_numpy = time.perf_counter()
+        want = drive("numpy", "cpu")
+        t_numpy = time.perf_counter() - t_numpy
+        files = {}
+        if name == "i_brownout_overload_traced":
+            check(got["trace_conservation_violations"] == 0,
+                  f"{name}: span conservation violated")
+            for key in PATH_KEYS:
+                check(key in got and key in want, f"{name}: no {key}")
+                files[key] = same_files(got[key], want[key], name)
+            got = {k: v for k, v in got.items() if k not in PATH_KEYS}
+            want = {k: v for k, v in want.items() if k not in PATH_KEYS}
+        if fed:
+            blocks = {"aggregate": (got["aggregate"], want["aggregate"]),
+                      **{r: (got["regions"][r], want["regions"].get(r))
+                         for r in got["regions"]}}
+        else:
+            blocks = {"summary": (got, want)}
+        check(set(got) == set(want) and (not fed or set(got["regions"])
+                                         == set(want["regions"])),
+              f"{name}: keys differ")
+        for block, (a, b) in blocks.items():
+            diff = {key: (a.get(key), (b or {}).get(key))
+                    for key in set(a) | set(b or {})
+                    if a.get(key) != (b or {}).get(key)}
+            check(not diff, f"{name} {block}: differs from the numpy "
+                  f"backend: {diff}")
+        summary = got["aggregate"] if fed else got
+        if name in ("g_churn", "h_churn_tiered_clustered"):
+            check(summary["invalidations"] > 0 and summary["refreshes"] > 0,
+                  f"{name}: no invalidation or no refresh")
+        if name == "h_churn_tiered_clustered":
+            check(summary["demotions"] > 0, f"{name}: nothing demoted")
+        if name == "fed_outage":
+            check(summary["hung_peeks"] == 0, f"{name}: hung peeks")
+            check(summary["peek_timeouts"] > 0, f"{name}: no peek timed out")
+        if name == "fed_tiered_clustered":
+            check(summary["invalidations"] > 0, f"{name}: no invalidation")
+        for cache in caches:
+            hold_on_run(cache, g, errs)
+        runs.append({
+            "run": name, "kwargs": kw, "launches": launches,
+            "launches_by_design": by_design, "wall_s": wall,
+            "numpy_wall_s": t_numpy, "per_cache": per_cache,
+            "rows_removed": sum(c[t]["rows_removed"] for c in per_cache
+                                for t in ("hot", "warm") if t in c),
+            "device_bytes_per_cache": [c["device_bytes"] for c in per_cache],
+            "files_equal_bytes": files,
+            **{k: summary.get(k) for k in (
+                "n", "hit_rate", "invalidations", "refreshes", "stale_hits",
+                "demotions", "warm_hits", "fetch_failed", "peek_timeouts",
+                "hung_peeks", "peer_transfers", "warm_leases",
+                "trace_spans", "timeseries_samples", "slo_breaches")
+               if k in summary}})
+    return runs, errs
 
 
 # ---------------------------------- the attention kernels and the LM stack
@@ -2678,6 +2979,15 @@ def main() -> int:
     runs, serve_errs, measured = phase_serve(dev)
     emit(phase="serve", runs=runs, max_abs_err=serve_errs,
          seconds=time.perf_counter() - t)
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    fresh_runs, fresh_errs = phase_serve_fresh(dev)
+    emit(phase="serve_fresh", runs=fresh_runs, max_abs_err=fresh_errs,
+         seconds=time.perf_counter() - t)
+    runs += fresh_runs
+    serve_errs = {n: max(e, fresh_errs[n]) for n, e in serve_errs.items()}
+    torch.cuda.empty_cache()
 
     main_sizes, main_err = phase_main_shape(ann_topk, ann_topk_plain, dev)
     emit(phase="main", max_abs_err=main_err)

@@ -25,8 +25,21 @@ stay the oracle's, so the summary is the oracle run's.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --judge-compute model \
       --device cpu
-Options whose subsystems are not ported yet raise ``NotImplementedError``
-naming their ROADMAP slice.
+
+Freshness (``--churn-period``, ``--invalidation``, ``--refresh-ahead``)
+drops and rewrites rows of the device mirrors mid-run; ``--regions N``
+runs a federation with one cache, and so one set of mirrors, per region:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload churn \
+      --churn-period 20 --invalidation --refresh-ahead
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload trend \
+      --trend-duration 12 --sample-interval 5 --overload on \
+      --slo p99:window.latency_p99:<=:5.0 \
+      --faults origin_brownout:50:150:error_rate=0.6,throttle=0.2 \
+      --trace build/tr --timeseries build/ts
+  PYTHONPATH=src python -m repro_torch.launch.serve --regions 3 \
+      --topology peered --peek-timeout 0.25 \
+      --faults region_outage:20:45:region=1
 """
 from __future__ import annotations
 
@@ -35,24 +48,18 @@ import json
 
 from repro_torch.core.cache import make_cache
 from repro_torch.core.clustering import ClusterConfig
+from repro_torch.core.freshness import (ChangeFeed, FreshnessConfig,
+                                        FreshnessManager)
 from repro_torch.core.judge import OracleJudge
 from repro_torch.core.tiers import make_tiered_cache
-from repro_torch.data.workloads import (longtail_workload, swe_workload,
-                                        trend_workload, zipf_workload)
-from repro_torch.data.world import SemanticWorld
+from repro_torch.data.workloads import (churn_workload, longtail_workload,
+                                        swe_workload, trend_workload,
+                                        zipf_workload)
+from repro_torch.data.world import MutableWorld, SemanticWorld
 from repro_torch.serving.clock import VirtualClock
 from repro_torch.serving.engine import Engine, EngineConfig, ExactCache
 from repro_torch.serving.gpu import GPU, GPUConfig
 from repro_torch.serving.remote import RemoteDataService
-
-FRESHNESS = "Freshness, federation, robustness"
-TELEMETRY = "Observability export and telemetry"
-
-
-def _unported(option: str, roadmap_slice: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{option} is not ported yet (ROADMAP slice '{roadmap_slice}')")
-
 
 def build_workload(world, name: str, n: int, seed: int, zipf_s: float = 0.99,
                    tail_len: int | None = None,
@@ -72,7 +79,7 @@ def build_workload(world, name: str, n: int, seed: int, zipf_s: float = 0.99,
     if name == "longtail":
         return longtail_workload(world, n, seed=seed, tail_len=tail_len)
     if name == "churn":
-        raise _unported("workload 'churn'", FRESHNESS)
+        return churn_workload(world, n, seed=seed, zipf_s=zipf_s)
     raise ValueError(name)
 
 
@@ -107,8 +114,12 @@ def run_once(
     warm_access_latency: float = 0.01,
     tail_len: int | None = None,
     churn_period: float | None = None,
+    churn_max_period: float | None = None,
+    churn_frac: float = 1.0,
     invalidation: bool = False,
     refresh_ahead: bool = False,
+    feed_delay: float = 0.15,
+    refresh_min_freq: int = 1,
     cluster: bool = False,
     n_clusters: int = 64,
     nprobe: int | None = 8,
@@ -129,20 +140,18 @@ def run_once(
 ) -> dict:
     """One engine run; the summary dict equals the reference's
     ``repro.launch.serve.run_once`` for the same arguments."""
-    for option, asked, roadmap_slice in (
-        ("churn_period", churn_period is not None, FRESHNESS),
-        ("invalidation", invalidation, FRESHNESS),
-        ("refresh_ahead", refresh_ahead, FRESHNESS),
-        ("faults", bool(faults), FRESHNESS),
-        ("overload", overload is not None, FRESHNESS),
-        ("sample_interval", sample_interval is not None, TELEMETRY),
-        ("slo", bool(slo), TELEMETRY),
-        ("timeseries", timeseries is not None, TELEMETRY),
-        ("trace", trace is not None, TELEMETRY),
-    ):
-        if asked:
-            raise _unported(option, roadmap_slice)
-    world = SemanticWorld(n_intents=n_intents, dim=dim, seed=seed)
+    # churn_period switches the ground truth to a MutableWorld whose
+    # low-staticity intents update every churn_period seconds (DESIGN.md
+    # §11); None keeps the immutable world, and stale_hits stays 0.
+    if churn_period is not None:
+        world = MutableWorld(
+            n_intents=n_intents, dim=dim, seed=seed,
+            churn_min_period=churn_period,
+            churn_max_period=churn_max_period or churn_period * 8.0,
+            churn_frac=churn_frac,
+        )
+    else:
+        world = SemanticWorld(n_intents=n_intents, dim=dim, seed=seed)
     reqs = build_workload(world, workload, n_requests, seed + 1,
                           zipf_s=zipf_s, tail_len=tail_len,
                           trend_duration=trend_duration)
@@ -201,7 +210,60 @@ def run_once(
     elif mode == "exact":
         exact = ExactCache(cap, max_ttl=max_ttl)
     clock = VirtualClock()
-    remote = RemoteDataService(qpm=qpm, seed=seed + 3)
+    # §17 fault injection: parse --faults specs into a FaultSchedule
+    # (brownouts live in the remote service, judge slowdown in the
+    # engine); None = today's fault-free run, byte-identical
+    fault_sched = None
+    if faults:
+        from repro_torch.serving.faults import FaultSchedule
+
+        fault_sched = (faults if hasattr(faults, "region_down")
+                       else FaultSchedule.parse(faults))
+    remote = RemoteDataService(qpm=qpm, seed=seed + 3, faults=fault_sched)
+    freshness = None
+    if cache is not None and (invalidation or refresh_ahead):
+        # invalidation drops rows of the index mirrors, refresh-ahead
+        # rewrites a live entry in place
+        feed = ChangeFeed(world, clock) if invalidation else None
+        freshness = FreshnessManager(
+            cache=cache, remote=remote, world=world, clock=clock,
+            cfg=FreshnessConfig(
+                invalidation=invalidation, refresh_ahead=refresh_ahead,
+                feed_delay=feed_delay, refresh_min_freq=refresh_min_freq,
+            ),
+            feed=feed,
+        )
+    tracer = None
+    if trace is not None:
+        from repro_torch.obs.trace import Tracer
+
+        tracer = Tracer()
+    # §16 monitor is created BEFORE the engine so the §17 overload
+    # controller can read its breach state; the sampler that feeds it
+    # starts right after construction (ordering only — no behavior
+    # change for telemetry-only runs)
+    sampler = monitor = None
+    if slo and sample_interval is None:
+        raise ValueError("slo requires sample_interval")
+    if timeseries is not None and sample_interval is None:
+        raise ValueError("timeseries requires sample_interval")
+    if sample_interval is not None and slo:
+        from repro_torch.obs.slo import SLOMonitor
+
+        monitor = SLOMonitor(slo, tracer=tracer)
+    ctrl = None
+    if overload is not None:
+        if overload not in ("on", "off"):
+            raise ValueError(f"overload must be 'on'/'off', got {overload!r}")
+        from repro_torch.serving.overload import (OverloadConfig,
+                                                  OverloadController)
+
+        ctrl = OverloadController(
+            OverloadConfig(enabled=(overload == "on")),
+            monitor=monitor, tracer=tracer,
+        )
+        if freshness is not None:
+            freshness.overload = ctrl
     eng = Engine(
         world=world,
         requests=reqs,
@@ -226,8 +288,109 @@ def run_once(
             seed=seed + 4,
         ),
         clock=clock,
+        freshness=freshness,
+        tracer=tracer,
+        overload=ctrl,
+        faults=fault_sched,
     )
-    return eng.run()
+    # §16 continuous telemetry: interval sampling of the registry +
+    # optional SLO monitoring (monitor built above). Strictly
+    # observational — with these off the engine sees the exact same
+    # event stream (gated byte-identical).
+    if sample_interval is not None:
+        from repro_torch.obs.sampler import TimeSeriesSampler
+
+        sampler = TimeSeriesSampler(clock, sample_interval, [eng],
+                                    monitor=monitor)
+        sampler.start()
+    out = eng.run()
+    if sampler is not None:
+        sampler.finalize()
+        # telemetry-enabled runs get extra keys ONLY — with
+        # sample_interval=None the summary is byte-identical
+        out["timeseries_samples"] = len(sampler.samples)
+        if monitor is not None:
+            out["slo_breaches"] = monitor.breaches
+            out["slo_recoveries"] = monitor.recoveries
+        if timeseries is not None:
+            from repro_torch.obs.export import export_timeseries
+
+            paths = export_timeseries(sampler, monitor, timeseries)
+            out["timeseries_path"] = paths["timeseries"]
+            if "alerts" in paths:
+                out["alerts_path"] = paths["alerts"]
+    if tracer is not None:
+        from repro_torch.obs.analyze import check_conservation
+        from repro_torch.obs.export import export_trace
+
+        paths = export_trace(tracer, trace)
+        violations = check_conservation(tracer, eng.records)
+        # traced runs get extra keys ONLY — with trace=None the summary
+        # is byte-identical to the untraced engine's
+        out["trace_jsonl"] = paths["jsonl"]
+        out["trace_chrome"] = paths["chrome"]
+        out["trace_spans"] = len(tracer.spans)
+        out["trace_conservation_violations"] = len(violations)
+        if violations:
+            raise AssertionError(
+                "span conservation violated:\n" + "\n".join(violations[:20])
+            )
+    return out
+
+
+def run_federated(
+    *,
+    n_regions: int = 3,
+    topology: str = "peered",
+    n_requests: int = 300,
+    n_intents: int = 300,
+    dim: int = 64,
+    overlap: float = 0.5,
+    rtt: float = 0.08,
+    faults: list | None = None,
+    peek_timeout: float | None = None,
+    overload: str | None = None,
+    sample_interval: float | None = None,
+    slo: list | None = None,
+    trace: str | None = None,
+    backend: str = "kernel",
+    device="cuda",
+    seed: int = 0,
+) -> dict:
+    """Multi-region entry point (--regions > 1): region-skewed request
+    streams through a FederationRunner, with the §17 robustness knobs
+    (--faults / --peek-timeout / --overload) on the federation path.
+    Every region's stage 1 runs on ``backend`` over its own index mirror
+    on ``device``. Returns the runner's {aggregate, regions} summary,
+    equal to the reference's ``repro.launch.serve.run_federated``."""
+    from repro_torch.data.workloads import region_workloads
+    from repro_torch.serving.federation import FederationRunner
+
+    world = SemanticWorld(n_intents=n_intents, dim=dim, seed=seed)
+    streams = region_workloads(
+        world, max(n_requests // n_regions, 1), n_regions,
+        overlap=overlap, seed=seed + 1,
+    )
+    tracer = None
+    if trace is not None:
+        from repro_torch.obs.trace import Tracer
+
+        tracer = Tracer()
+    runner = FederationRunner(
+        world=world, region_requests=streams, topology=topology,
+        rtt=rtt, faults=faults or None, peek_timeout=peek_timeout,
+        overload=overload, tracer=tracer,
+        sample_interval=sample_interval, slos=slo, backend=backend,
+        device=device, seed=seed,
+    )
+    out = runner.run()
+    if tracer is not None:
+        from repro_torch.obs.export import export_trace
+
+        paths = export_trace(tracer, trace)
+        out["aggregate"]["trace_jsonl"] = paths["jsonl"]
+        out["aggregate"]["trace_spans"] = len(tracer.spans)
+    return out
 
 
 def main(argv=None):
@@ -299,23 +462,74 @@ def main(argv=None):
     ap.add_argument("--stale-age-reservoir", type=int, default=None,
                     help="bound the stale-age histogram's raw samples "
                          "to a seeded reservoir of this size")
-    # options of subsystems not ported yet: accepted so that asking for
-    # them names the ROADMAP slice instead of failing to parse
-    ap.add_argument("--churn-period", type=float, default=None)
-    ap.add_argument("--invalidation", action="store_true")
-    ap.add_argument("--refresh-ahead", action="store_true")
-    ap.add_argument("--faults", action="append", default=None)
-    ap.add_argument("--overload", default=None, choices=["on", "off"])
-    ap.add_argument("--sample-interval", type=float, default=None)
-    ap.add_argument("--slo", action="append", default=None)
-    ap.add_argument("--timeseries", default=None)
-    ap.add_argument("--trace", default=None)
-    ap.add_argument("--regions", type=int, default=1)
+    ap.add_argument("--churn-period", type=float, default=None,
+                    help="mutable world: class-1 intents update every this"
+                         " many seconds (DESIGN.md §11)")
+    ap.add_argument("--invalidation", action="store_true",
+                    help="subscribe the cache to the origin change feed")
+    ap.add_argument("--refresh-ahead", action="store_true",
+                    help="revalidate hot entries instead of dropping them")
+    ap.add_argument("--trace", default=None, metavar="PREFIX",
+                    help="record a request-lifecycle trace (DESIGN.md "
+                         "§15): writes PREFIX.jsonl + PREFIX.chrome.json "
+                         "(Perfetto-loadable) and verifies the span "
+                         "conservation law")
+    ap.add_argument("--sample-interval", type=float, default=None,
+                    metavar="SECONDS",
+                    help="continuous telemetry (DESIGN.md §16): sample "
+                         "the metrics registry every this many VIRTUAL "
+                         "seconds; strictly observational")
+    ap.add_argument("--slo", action="append", default=None, metavar="SPEC",
+                    help="declarative SLO (repeatable; needs "
+                         "--sample-interval): "
+                         "name:metric:op:bound[:breach_after[:recover_"
+                         "after]], e.g. p99:window.latency_p99:<=:3.0:2:2")
+    ap.add_argument("--timeseries", default=None, metavar="PREFIX",
+                    help="write PREFIX.timeseries.jsonl (+ PREFIX.alerts"
+                         ".jsonl when --slo is set); needs "
+                         "--sample-interval")
+    ap.add_argument("--faults", action="append", default=None,
+                    metavar="SPEC",
+                    help="inject a deterministic fault window (DESIGN.md "
+                         "§17; repeatable): kind:start:end[:k=v,...], "
+                         "kinds region_outage / wan_degrade / "
+                         "origin_brownout / judge_slowdown")
+    ap.add_argument("--overload", default=None, choices=["on", "off"],
+                    help="arm the §17 OverloadController ('off' = armed "
+                         "but every policy disabled)")
+    ap.add_argument("--peek-timeout", type=float, default=None,
+                    help="federation peek deadline in seconds (§17, "
+                         "needs --regions > 1): a silent peer counts as "
+                         "a NAK, with a per-peer circuit breaker")
+    ap.add_argument("--regions", type=int, default=1,
+                    help="run a multi-region federation of this many "
+                         "regions, one cache (one set of index mirrors on "
+                         "--device) per region, instead of the solo "
+                         "engine")
+    ap.add_argument("--topology", default="peered",
+                    choices=["local", "peered", "global"],
+                    help="federation topology for --regions > 1")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
     if args.regions > 1:
-        raise _unported("regions > 1", FRESHNESS)
+        s = run_federated(
+            n_regions=args.regions,
+            topology=args.topology,
+            n_requests=args.n_requests,
+            faults=args.faults,
+            peek_timeout=args.peek_timeout,
+            overload=args.overload,
+            sample_interval=args.sample_interval,
+            slo=args.slo,
+            trace=args.trace,
+            backend=args.backend,
+            device=args.device,
+            seed=args.seed,
+        )
+        print(json.dumps(s, indent=2, default=float))
+        return s
+
     s = run_once(
         workload=args.workload,
         mode=args.mode,

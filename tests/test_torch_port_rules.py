@@ -1,6 +1,7 @@
-"""Rules of the port: what it may import, how it picks its device, what it
-refuses until its ROADMAP slice lands (and runs once it has), what it
-builds, and the config arithmetic the stage-2 judge prices itself with."""
+"""Rules of the port: what it may import, how it picks its device, the
+options it once refused until their ROADMAP slice landed (each runs now),
+what it builds, and the config arithmetic the stage-2 judge prices itself
+with."""
 import ast
 import dataclasses
 import os
@@ -109,43 +110,61 @@ def test_cuda_without_cuda_raises(monkeypatch):
         run_once(n_requests=10, backend="numpy", judge_compute="model")
 
 
-UNPORTED = {
-    "churn_period": ({"churn_period": 20.0}, "Freshness"),
-    "invalidation": ({"invalidation": True}, "Freshness"),
-    "refresh_ahead": ({"refresh_ahead": True}, "Freshness"),
-    "faults": ({"faults": ["origin_brownout:20:80"]}, "Freshness"),
-    "overload": ({"overload": "on"}, "Freshness"),
-    "churn_workload": ({"workload": "churn"}, "Freshness"),
-    "sample_interval": ({"sample_interval": 5.0}, "telemetry"),
-    "slo": ({"slo": ["p99:window.latency_p99:<=:3.0"]}, "telemetry"),
-    "timeseries": ({"timeseries": "ts"}, "telemetry"),
-    "trace": ({"trace": "tr"}, "telemetry"),
+# options once refused here, each ported since its ROADMAP slice landed;
+# "trace"/"timeseries" prefixes go under the test's tmp_path
+PORTED_SINCE = {
+    "shards": {"shards": 2},
+    "judge_compute": {"judge_compute": "model", "judge_d_model": 64},
+    "churn_period": {"churn_period": 20.0},
+    "invalidation": {"invalidation": True},
+    "refresh_ahead": {"refresh_ahead": True},
+    "faults": {"faults": ["origin_brownout:20:80"]},
+    "overload": {"overload": "on"},
+    "churn_workload": {"workload": "churn"},
+    "sample_interval": {"sample_interval": 5.0},
+    "slo": {"slo": ["p99:window.latency_p99:<=:3.0"],
+            "sample_interval": 5.0},
+    "timeseries": {"timeseries": "ts", "sample_interval": 5.0},
+    "trace": {"trace": "tr"},
 }
+# the keys that carry a run's output paths (they name the backend's files)
+PATH_KEYS = ("trace_jsonl", "trace_chrome", "timeseries_path", "alerts_path")
 
 
-# options whose ROADMAP slice has landed since they were refused here
-PORTED_SINCE = {"shards": {"shards": 2},
-                "judge_compute": {"judge_compute": "model",
-                                  "judge_d_model": 64}}
-
-
-def _kernel_equals_numpy(**kwargs) -> dict:
-    got = run_once(n_requests=10, backend="kernel", device="cpu", **kwargs)
-    assert got == run_once(n_requests=10, backend="numpy", device="cpu",
-                           **kwargs)
+def _kernel_equals_numpy(tmp_path=None, **kwargs) -> dict:
+    runs = {}
+    for backend in ("kernel", "numpy"):
+        kw = {k: (str(tmp_path / f"{v}_{backend}")
+                  if k in ("trace", "timeseries") else v)
+              for k, v in kwargs.items()}
+        runs[backend] = run_once(n_requests=10, backend=backend,
+                                 device="cpu", **kw)
+    got, want = runs["kernel"], runs["numpy"]
+    for key in PATH_KEYS:
+        if key in got:
+            with open(got.pop(key), "rb") as a, open(want.pop(key), "rb") as b:
+                assert a.read() == b.read(), key
+    assert got == want
     return got
 
 
-@pytest.mark.parametrize("option", sorted({*UNPORTED, *PORTED_SINCE}))
-def test_unported_option_names_its_roadmap_slice(option):
-    """An option not ported yet raises, naming its ROADMAP slice; one
-    ported since runs, on the kernel backend as on the numpy one."""
-    if option in PORTED_SINCE:
-        _kernel_equals_numpy(**PORTED_SINCE[option])
+@pytest.mark.parametrize("option", sorted(PORTED_SINCE))
+def test_unported_option_names_its_roadmap_slice(option, tmp_path):
+    """Every option once refused here, naming its ROADMAP slice, runs
+    now, on the kernel backend as on the numpy one (their output files
+    byte for byte equal), and but for the model judge equal to the
+    reference's ``run_once``."""
+    got = _kernel_equals_numpy(tmp_path, **PORTED_SINCE[option])
+    if option in ("shards", "judge_compute"):
         return
-    kwargs, roadmap_slice = UNPORTED[option]
-    with pytest.raises(NotImplementedError, match=roadmap_slice):
-        run_once(n_requests=10, backend="numpy", device="cpu", **kwargs)
+    from repro.launch.serve import run_once as ref_run_once
+
+    kw = {k: (str(tmp_path / f"{v}_ref") if k in ("trace", "timeseries")
+              else v) for k, v in PORTED_SINCE[option].items()}
+    want = ref_run_once(n_requests=10, **kw)
+    for key in PATH_KEYS:
+        want.pop(key, None)
+    assert got == want
 
 
 @pytest.mark.parametrize("option", ["warm_frac", "cluster"])
@@ -159,11 +178,18 @@ def test_tiers_and_clustering_no_longer_raise(option):
     assert _kernel_equals_numpy(shards=2, **kwargs)["stage1_shards"] == 2
 
 
-def test_unported_entry_points_raise():
+def test_unported_entry_points_raise(capsys):
+    """Every entry point once refused here runs: ``main --regions 3``
+    (the federation) on the CPU gives the reference's summary; the model
+    judge and the sharded kernel layout build on the CPU."""
+    from repro.launch.serve import main as ref_main
     from repro_torch.core.clustering import ClusterConfig
 
-    with pytest.raises(NotImplementedError, match="Freshness"):
-        serve_main(["--regions", "3", "--device", "cpu"])
+    args = ["--regions", "3", "--n-requests", "60"]
+    fed = serve_main(args + ["--device", "cpu"])
+    assert fed == ref_main(args)
+    assert fed["aggregate"]["n"] == 60 and len(fed["regions"]) == 3
+    capsys.readouterr()
     # the model judge is ported: it builds and scores on the CPU
     judge = ModelJudge(max_len=16, device="cpu")
     scores = judge.score_pairs(["a query", "b"], ["a cached key", "c"])
@@ -175,6 +201,57 @@ def test_unported_entry_points_raise():
     # the sharded kernel layout is ported: the even split of 64 clusters
     sh = cache.seri.index.router.kernel_shard_buckets(cache.seri.index)
     assert sh.bounds.tolist() == sh.bounds_dev.tolist() == [0, 32, 64]
+
+
+@pytest.mark.parametrize("name", ["run_once", "run_federated"])
+def test_entry_points_take_every_reference_argument(name):
+    """The port's serving entry points take every argument of the
+    reference's, with the same defaults, plus ``backend`` and ``device``
+    (defaulting to the CUDA kernels)."""
+    import inspect
+
+    from repro.launch import serve as ref_serve
+    from repro_torch.launch import serve as port_serve
+
+    ref = inspect.signature(getattr(ref_serve, name)).parameters
+    port = inspect.signature(getattr(port_serve, name)).parameters
+    assert {k: p.default for k, p in ref.items()} == \
+        {k: p.default for k, p in port.items()
+         if k not in ("backend", "device")}
+    assert (port["backend"].default, port["device"].default) == \
+        ("kernel", "cuda")
+
+
+# the reference modules this slice ported, of which the port keeps its
+# own copies
+PORTED_MODULES = ("obs.export", "obs.analyze", "obs.slo", "core.freshness",
+                  "serving.faults", "serving.overload", "serving.federation")
+
+
+def test_port_keeps_its_own_copies_of_the_ported_modules():
+    """Importing the port's copy of every module of the freshness,
+    robustness, telemetry-export and federation slice loads none of
+    ``repro.obs.*``, ``repro.core.freshness`` or
+    ``repro.serving.{faults,overload,federation}`` (nor JAX)."""
+    for mod in PORTED_MODULES:
+        assert (ROOT / "src" / "repro_torch" / (mod.replace(".", "/")
+                                                + ".py")).is_file(), mod
+    code = ("import sys, importlib; "
+            f"[importlib.import_module('repro_torch.' + m) for m in "
+            f"{PORTED_MODULES!r}]; "
+            "import repro_torch.launch.serve; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro', 'ml_dtypes')]; print(bad); "
+            "sys.exit(bool(bad))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    for path in PORT_FILES:
+        bad = [m for m in _imports(path) if m and any(
+            m == f"repro.{p}" or m.startswith(f"repro.{p}.")
+            for p in ("obs", *PORTED_MODULES))]
+        assert not bad, f"{path} imports {bad}"
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
