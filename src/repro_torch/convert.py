@@ -127,11 +127,14 @@ def _tensor(a) -> torch.Tensor:
 
 def lm_params_from_numpy(tree, cfg: ModelConfig, device="cuda") -> dict:
     """The reference's LM parameter tree (``LM.param_specs`` of
-    ``repro.models.lm``, leaves as numpy arrays; each superblock position
-    ``blocks/l{i}`` stacked over ``n_repeat`` when ``n_repeat > 1``) as
-    the port's ``repro_torch.models.lm.LM`` parameters on ``device``: the
-    same leaves, the layers as a list in ``cfg.layer_iter()`` order. Each
-    leaf must have its spec's shape and dtype."""
+    ``repro.models.lm``, leaves as numpy arrays; the ``prefix`` layers as
+    a list, each superblock position ``blocks/l{i}`` stacked over
+    ``n_repeat`` when ``n_repeat > 1``) as the port's
+    ``repro_torch.models.lm.LM`` parameters on ``device``: the same
+    leaves (MLA's, the MoE's with its fp32 router and bias, the shared
+    experts', ``frontend_proj`` and the ``mtp`` block too), the layers as
+    a list in ``cfg.layer_iter()`` order, prefix first. Each leaf must
+    have its spec's shape and dtype."""
     from repro_torch.models.lm import LM
 
     dev = resolve_device(device)
@@ -146,9 +149,11 @@ def lm_params_from_numpy(tree, cfg: ModelConfig, device="cuda") -> dict:
             return {k: pick(v, fn) for k, v in sub.items()}
         return fn(sub)
 
-    src = {k: tree[k] for k in ("embed", "final_norm", "head") if k in tree}
-    src["layers"] = [pick(tree["blocks"][f"l{i % nb}"], stacked(i // nb))
-                     for i in range(cfg.n_repeat * nb)]
+    src = {k: tree[k] for k in ("embed", "final_norm", "head",
+                                 "frontend_proj", "mtp") if k in tree}
+    src["layers"] = list(tree.get("prefix", [])) + [
+        pick(tree["blocks"][f"l{i % nb}"], stacked(i // nb))
+        for i in range(cfg.n_repeat * nb)]
 
     def leaf(spec: ParamSpec, a) -> torch.Tensor:
         t = _tensor(a)

@@ -107,7 +107,9 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ base,
                                            int jend, float* dst) {
   constexpr int CHUNKS = ROWS * (DH / VEC);
   constexpr int PER = (CHUNKS + THREADS - 1) / THREADS;  // chunks a thread
-  constexpr int BATCH = PER < 4 ? PER : 4;
+  // up to 4 in flight, in batches that divide PER (6 at Dh 192 in bf16)
+  constexpr int BATCH = PER % 4 == 0 ? 4 : PER % 3 == 0 ? 3
+                        : PER % 2 == 0 ? 2 : 1;
   static_assert(DH % VEC == 0, "row width is a whole number of chunks");
   static_assert(PER % BATCH == 0, "whole batches");
   if constexpr (VEC == 1) {
@@ -135,6 +137,18 @@ constexpr float LN2 = 0.6931471805599453f;
 // 8 distinct bank groups, no conflict, at every DH.
 template <int DH>
 __host__ __device__ constexpr int ld_bf16() { return DH + 8; }
+
+// Wide heads (Dh 192 and 256: MLA's folded q/k and gemma3): the fp32
+// accumulator alone takes Dh / 2 registers a thread, so the tensor-core
+// kernels read Q's fragments from shared memory at each k-step instead of
+// keeping Dh / 4 more registers of them (qk_tile_smem), and their tiles
+// fit one CTA per SM, not two.
+template <int DH>
+__host__ __device__ constexpr bool wide_head() { return DH > 128; }
+template <int DH>
+__host__ __device__ constexpr int ctas_per_sm() {
+  return wide_head<DH>() ? 1 : 2;
+}
 
 // 16 bytes global -> shared without going through registers (cp.async.cg,
 // L2 only). bytes = 16 copies; bytes = 0 writes 16 zero bytes (a row past
@@ -247,6 +261,29 @@ __device__ __forceinline__ void qk_tile(float (&s)[2 * NP][4],
       mma_bf16(s[2 * np], qf[kk], b[0], b[1]);
       mma_bf16(s[2 * np + 1], qf[kk], b[2], b[3]);
     }
+}
+
+// qk_tile with Q's A fragments read from shared memory (rows at q, stride
+// ld_bf16<DH>()) at each 16-column k-step: one more ldmatrix per k-step
+// and NP key blocks, and no registers held for Q across the tiles.
+template <int DH, int NP>
+__device__ __forceinline__ void qk_tile_smem(float (&s)[2 * NP][4],
+                                             const bf16* q, const bf16* k,
+                                             int lane) {
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    unsigned a[4];
+    ldsm_x4(a, q + (lane % 8 + 8 * ((lane / 8) % 2)) * ld_bf16<DH>() +
+                   kk * 16 + 8 * (lane / 16));
+#pragma unroll
+    for (int np = 0; np < NP; ++np) {
+      unsigned b[4];
+      ldsm_x4(b, k + (np * 16 + lane % 8 + 8 * (lane / 16)) * ld_bf16<DH>() +
+                     kk * 16 + 8 * ((lane / 8) % 2));
+      mma_bf16(s[2 * np], a, b[0], b[1]);
+      mma_bf16(s[2 * np + 1], a, b[2], b[3]);
+    }
+  }
 }
 
 // acc += P . V over keys 0 .. 16 NP - 1 of a tile (rows at v). P is rounded

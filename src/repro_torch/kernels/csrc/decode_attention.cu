@@ -4,8 +4,8 @@
 // Replaces repro/kernels/decode_attention.py::_decode_kernel (the Pallas
 // TPU kernel) with its contract:
 //   q (B, KV, G, Dh), caches (B, S, KV, Dh) contiguous, fp32 or bf16, Dh in
-//   {16, 32, 64, 128}, G <= 16, a position pos -> o (B, KV, G, Dh) in q's
-//   type. The G query rows of one KV head attend over cache rows 0..pos
+//   {16, 32, 64, 128, 256}, G <= 16, a position pos -> o (B, KV, G, Dh) in
+//   q's type. The G query rows of one KV head attend over cache rows 0..pos
 //   (rows past pos are the reference's masked -1e30 scores, whose weights
 //   exp(-1e30 - m) are exactly 0 next to any real score); scores, max,
 //   denominator and accumulator in fp32; o = acc / max(l, 1e-30).
@@ -40,7 +40,11 @@
 //   registers as in flash_fwd_tc. The warps merge once, through shared
 //   memory, at the end: with one chunk the CTA writes o itself (one
 //   launch, no scratch); with more it writes its (m, l, acc) per query row
-//   and decode_combine merges the chunks.
+//   and decode_combine merges the chunks. At Dh 256 (gemma3) the 3-stage
+//   rings take 211 KB, so one CTA has the SM (ctas_per_sm), and Q's
+//   fragments are read from shared memory at each k-step (attention.cuh,
+//   wide_head): its 64 registers would come on top of the accumulator's
+//   128.
 //
 // decode_partial — fp32 (its 3e-5 check rules out bf16 products) and bf16
 //   caches off a 16-byte boundary. One CTA of 128 threads per (b, kv,
@@ -48,10 +52,12 @@
 //   when aligned, several in flight per thread; attention.cuh), scores
 //   (g, row) pairs with fp32 FMAs, runs the online softmax per query row
 //   with one warp per row, and accumulates P.V with a thread per (Dh
-//   column, query rows). It writes its (m, l, acc) per query row to an
-//   fp32 scratch the caller owns, and decode_combine, one CTA per (b, kv,
-//   query row), rescales the chunks' partials to their common max and
-//   divides (a single chunk passes through with weight exp(0) = 1).
+//   column, query rows), or per (two Dh columns, every row) at Dh 256
+//   (152 KB of shared memory: one CTA per SM). It writes its (m, l, acc)
+//   per query row to an fp32 scratch the caller owns, and decode_combine,
+//   one CTA per (b, kv, query row), rescales the chunks' partials to their
+//   common max and divides (a single chunk passes through with weight
+//   exp(0) = 1).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,7 +94,12 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ kc,
   float* ms = ss + G_MAX * BK;          // [G_MAX] running max
   float* ls = ms + G_MAX;               // [G_MAX] running denominator
   float* as = ls + G_MAX;               // [G_MAX] this tile's rescale
-  constexpr int TPD = THREADS / DH;     // threads per Dh column
+  // P.V: thread (column d, query rows g0 + TPD r) holds Dh columns d + DW c;
+  // up to Dh 128 one column and G_MAX / (THREADS / Dh) rows a thread, at
+  // Dh 256 two columns and every row
+  constexpr int CPT = DH > THREADS ? DH / THREADS : 1;  // columns a thread
+  constexpr int DW = DH / CPT;          // threads across a row's columns
+  constexpr int TPD = THREADS / DW;     // threads per Dh column
   constexpr int GR = G_MAX / TPD;       // query rows per thread in P.V
 
   const int split = blockIdx.x % nsplit;
@@ -111,11 +122,13 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ kc,
     ms[tid] = attn::NEG;
     ls[tid] = 0.f;
   }
-  const int d = tid % DH;
-  const int g0 = tid / DH;
-  float acc[GR];
+  const int d = tid % DW;
+  const int g0 = tid / DW;
+  float acc[GR][CPT];
 #pragma unroll
-  for (int r = 0; r < GR; ++r) acc[r] = 0.f;
+  for (int r = 0; r < GR; ++r)
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) acc[r][c] = 0.f;
 
   for (int t0 = j0; t0 < j1; t0 += BK) {
     __syncthreads();  // the last tile's readers are done (and q is staged)
@@ -170,17 +183,24 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ kc,
     }
     __syncthreads();
 
-    // acc += P . V: thread (Dh column d, query rows g0 + TPD r)
+    // acc += P . V: thread (Dh columns d + DW c, query rows g0 + TPD r)
 #pragma unroll
     for (int r = 0; r < GR; ++r)
-      if (g0 + TPD * r < g) acc[r] *= as[g0 + TPD * r];
+      if (g0 + TPD * r < g)
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) acc[r][c] *= as[g0 + TPD * r];
 #pragma unroll 4
     for (int j = 0; j < BK; ++j) {
-      const float vx = vs[j * DH + d];
+      float vx[CPT];
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) vx[c] = vs[j * DH + d + DW * c];
 #pragma unroll
       for (int r = 0; r < GR; ++r) {
         const int gi = g0 + TPD * r;
-        if (gi < g) acc[r] = fmaf(ss[gi * BK + j], vx, acc[r]);
+        if (gi < g)
+#pragma unroll
+          for (int c = 0; c < CPT; ++c)
+            acc[r][c] = fmaf(ss[gi * BK + j], vx[c], acc[r][c]);
       }
     }
   }
@@ -191,7 +211,10 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
   for (int r = 0; r < GR; ++r) {
     const int gi = g0 + TPD * r;
-    if (gi < g) out[gi * (DH + 2) + 2 + d] = acc[r];
+    if (gi < g)
+#pragma unroll
+      for (int c = 0; c < CPT; ++c)
+        out[gi * (DH + 2) + 2 + d + DW * c] = acc[r][c];
   }
   if (tid < g) {
     out[tid * (DH + 2)] = ms[tid];
@@ -281,7 +304,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* part, int b, int s_cache, int kvh, int g, int rows,
                    int chunk, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
-  static_assert(smem <= attn::SMEM_MAX, "tiles exceed shared memory");
+  static_assert(attn::ctas_per_sm<DH>() * smem <= attn::SMEM_MAX,
+                "CTAs per SM (decode_attention_ctas_per_sm)");
   // contiguous caches: every row starts on a 16-byte boundary when the
   // base pointers do (DH * sizeof(T) is a multiple of 16)
   const bool aligned = reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
@@ -357,6 +381,7 @@ decode_tc(const attn::bf16* __restrict__ q, const attn::bf16* __restrict__ kc,
   const bf16* kbase = kc + head0;
   const bf16* vbase = vc + head0;
   bf16* ring = qs + QROWS * LD + warp * STAGES * SLOT;  // this warp's ring
+  constexpr bool QREG = !attn::wide_head<DH>();  // Q's fragments in registers
 
   const int ntiles = (j1 - j0 + TR - 1) / TR;
   const int mine = ntiles > warp ? (ntiles - warp + WARPS - 1) / WARPS : 0;
@@ -376,8 +401,8 @@ decode_tc(const attn::bf16* __restrict__ q, const attn::bf16* __restrict__ kc,
   }
   attn::cp_async_wait<STAGES - 1>();  // q, the oldest group, landed
   __syncthreads();                     // for every thread
-  unsigned qf[DH / 16][4];
-  attn::load_q_frags<DH>(qf, qs, lane);
+  unsigned qf[QREG ? DH / 16 : 1][4];
+  if constexpr (QREG) attn::load_q_frags<DH>(qf, qs, lane);
 
   float acc[NT][4];
 #pragma unroll
@@ -401,7 +426,10 @@ decode_tc(const attn::bf16* __restrict__ q, const attn::bf16* __restrict__ kc,
     for (int j = 0; j < TR / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-    attn::qk_tile<DH, TR / 16>(s, qf, ks, lane);
+    if constexpr (QREG)
+      attn::qk_tile<DH, TR / 16>(s, qf, ks, lane);
+    else
+      attn::qk_tile_smem<DH, TR / 16>(s, qs, ks, lane);
 #pragma unroll
     for (int j = 0; j < TR / 8; ++j)
 #pragma unroll
@@ -467,7 +495,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* part, int b, int s_cache, int kvh, int g, int rows,
                    int chunk, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
-  static_assert(2 * smem <= attn::SMEM_MAX, "two CTAs per SM");
+  static_assert(attn::ctas_per_sm<DH>() * smem <= attn::SMEM_MAX,
+                "CTAs per SM (decode_attention_ctas_per_sm)");
   auto kern = decode_tc<DH>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -508,6 +537,9 @@ cudaError_t launch_dh(int dh, const void* q, const void* k, const void* v,
                            scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, part, b, s_cache, kvh, g, rows,
+                            chunk, scale, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, o, part, b, s_cache, kvh, g, rows,
                             chunk, scale, stream);
     default:
       return cudaErrorInvalidValue;
@@ -569,8 +601,31 @@ int decode_attention_tc_launch(int dh, const void* q, const void* k,
     case 128:
       return tc::launch<128>(q, k, v, o, part, b, s_cache, kvh, g, rows,
                              chunk, scale, s);
+    case 256:
+      return tc::launch<256>(q, k, v, o, part, b, s_cache, kvh, g, rows,
+                             chunk, scale, s);
     default:
       return cudaErrorInvalidValue;
+  }
+}
+
+// CTAs of either design that share an SM at head dim dh (shared memory):
+// the wrapper's split_rows aims at one wave of them. 0 for a head dim with
+// no instance.
+int decode_attention_ctas_per_sm(int dh) {
+  switch (dh) {
+    case 16:
+      return attn::ctas_per_sm<16>();
+    case 32:
+      return attn::ctas_per_sm<32>();
+    case 64:
+      return attn::ctas_per_sm<64>();
+    case 128:
+      return attn::ctas_per_sm<128>();
+    case 256:
+      return attn::ctas_per_sm<256>();
+    default:
+      return 0;
   }
 }
 

@@ -4,7 +4,9 @@
 // Replaces repro/kernels/flash_attention.py::_flash_kernel (the Pallas TPU
 // kernel) with its public layout and contract:
 //   q (B, Sq, KV, G, Dh), k/v (B, Sk, KV, Dh), fp32 or bf16, Dh in
-//   {16, 32, 64, 128} -> o (B, Sq, KV, G, Dh) contiguous, in q's type.
+//   {16, 32, 64, 128, 192, 256} -> o (B, Sq, KV, G, Dh) contiguous, in q's
+//   type. Dh 192 is MLA's prefill (the 128 + 64 nope and rope dims, v
+//   zero-padded to 192), Dh 256 gemma3's heads.
 //   Scores, running max m, denominator l and accumulator in fp32; masked
 //   scores are -1e30 (causal kj <= qi; window kj > qi - window); the
 //   output is acc / max(l, 1e-30).
@@ -30,7 +32,12 @@
 //   conflicts; one barrier per tile releases the ring slot. Two CTAs share
 //   an SM (87 KB of shared memory and about 250 registers a thread each at
 //   Dh 128: 8 warps per SM). Q's fragments go into registers once
-//   (ldmatrix); S = Q K^T runs on
+//   (ldmatrix). Wide heads (Dh 192, 256) would not fit that: at Dh 256
+//   the fp32 accumulator alone is 128 registers a thread, Q's fragments 64
+//   more, and 64-key tiles 165 KB of shared memory. So there the tiles
+//   are 32 keys (101 KB at Dh 256, two CTAs still share an SM) and Q's
+//   fragments are read from shared memory at every k-step (one ldmatrix
+//   per 16 columns and tile). S = Q K^T runs on
 //   mma.sync m16n8k16 (bf16 in, fp32 accumulate) with K through ldmatrix;
 //   mask and online softmax work on the accumulator fragments in registers
 //   (row max and sum over the quad with xor shuffles 1 and 2); P is
@@ -50,6 +57,7 @@
 //   becomes a loop over BK = 64-key tiles, each staged in shared memory as
 //   fp32 with 16-byte loads, several in flight per thread (attention.cuh;
 //   element loads when a stride does not keep rows 16-byte aligned).
+//   Wide heads take 173 KB of shared memory at Dh 256 (one CTA per SM).
 //   Thread (rg, cg) of the 8 x 16 grid holds scores of rows 4rg..4rg+3
 //   against keys cg + 16j (j < 4), and the accumulator of the same rows at
 //   Dh columns cg + 16c. Row max and row sum reduce over the 16 threads of
@@ -275,6 +283,14 @@ cudaError_t launch_dh(int dh, const void* q, const void* k, const void* v,
       return launch<T, 128, VEC>(q, k, v, o, b, sq, sk, kvh, g, q_sb, q_ss,
                                  k_sb, k_ss, v_sb, v_ss, scale, causal,
                                  window, stream);
+    case 192:
+      return launch<T, 192, VEC>(q, k, v, o, b, sq, sk, kvh, g, q_sb, q_ss,
+                                 k_sb, k_ss, v_sb, v_ss, scale, causal,
+                                 window, stream);
+    case 256:
+      return launch<T, 256, VEC>(q, k, v, o, b, sq, sk, kvh, g, q_sb, q_ss,
+                                 k_sb, k_ss, v_sb, v_ss, scale, causal,
+                                 window, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -285,13 +301,21 @@ cudaError_t launch_dh(int dh, const void* q, const void* k, const void* v,
 namespace tc {
 
 constexpr int BQ = 64;        // query rows per CTA, 16 per warp
-constexpr int BK = 64;        // keys per tile
 constexpr int THREADS = 128;  // 4 warps
 constexpr int STAGES = 2;     // K/V ring depth
 
+// keys per tile: 64, and 32 for wide heads, whose Q block and ring then
+// take 101 KB at Dh 256 (not 165 KB), so that two CTAs still share an SM
+// and a thread holds 16 score registers beside its 128 of accumulator
+template <int DH>
+__host__ __device__ constexpr int bk() {
+  return attn::wide_head<DH>() ? 32 : 64;
+}
+
 template <int DH>
 constexpr size_t smem_bytes() {
-  return sizeof(attn::bf16) * attn::ld_bf16<DH>() * (BQ + STAGES * 2 * BK);
+  return sizeof(attn::bf16) * attn::ld_bf16<DH>() *
+         (BQ + STAGES * 2 * bk<DH>());
 }
 
 template <int DH>
@@ -306,6 +330,8 @@ flash_fwd_tc(const attn::bf16* __restrict__ q,
   using attn::bf16;
   constexpr int LD = attn::ld_bf16<DH>();
   constexpr int NT = DH / 8;       // accumulator tiles of 8 columns
+  constexpr int BK = bk<DH>();
+  constexpr bool QREG = !attn::wide_head<DH>();  // Q's fragments in registers
   extern __shared__ uint4 smem_tc[];
   bf16* qs = reinterpret_cast<bf16*>(smem_tc);  // [BQ][LD]
   bf16* ring = qs + BQ * LD;                    // [STAGES][K, V][BK][LD]
@@ -353,7 +379,7 @@ flash_fwd_tc(const attn::bf16* __restrict__ q,
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
   float m[2] = {attn::NEG, attn::NEG}, l[2] = {0.f, 0.f};
   bf16* qw = qs + warp * 16 * LD;  // this warp's query rows
-  unsigned qf[DH / 16][4];
+  unsigned qf[QREG ? DH / 16 : 1][4];
 
   for (int t = 0; t < ntiles; ++t) {
     if (t == 0)
@@ -361,9 +387,10 @@ flash_fwd_tc(const attn::bf16* __restrict__ q,
     else
       attn::cp_async_wait<0>();  // tile t landed ...
     __syncthreads();  // ... for every thread; and all are done with t - 1
-    if (t == 0)
-      attn::load_q_frags<DH>(qf, qw, lane);
-    else if (t + 1 < ntiles)
+    if constexpr (QREG) {
+      if (t == 0) attn::load_q_frags<DH>(qf, qw, lane);
+    }
+    if (t > 0 && t + 1 < ntiles)
       load_tile(t + 1);  // into the slot tile t - 1 left
     attn::cp_async_commit();
     const bf16* ks = ring + (t % STAGES) * 2 * BK * LD;
@@ -374,7 +401,10 @@ flash_fwd_tc(const attn::bf16* __restrict__ q,
     for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-    attn::qk_tile<DH, BK / 16>(s, qf, ks, lane);
+    if constexpr (QREG)
+      attn::qk_tile<DH, BK / 16>(s, qf, ks, lane);
+    else
+      attn::qk_tile_smem<DH, BK / 16>(s, qw, ks, lane);
 
     // scale (into the log2 domain) and mask; only tiles on an edge test
     const bool edge = k0 + BK > sk || (causal && k0 + BK - 1 > q0) ||
@@ -398,7 +428,8 @@ flash_fwd_tc(const attn::bf16* __restrict__ q,
   }
 
   // o = acc / l in bf16, through this warp's own rows of qs (only it read
-  // them, into qf, at tile 0), then out in 16-byte rows
+  // them: into qf at tile 0, or at every tile for wide heads), then out in
+  // 16-byte rows
   __syncwarp();
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -529,6 +560,12 @@ int flash_attention_tc_launch(int dh, const void* q, const void* k,
                             k_ss, v_sb, v_ss, scale, causal, window, s);
     case 128:
       return tc::launch<128>(q, k, v, o, b, sq, sk, kvh, g, q_sb, q_ss, k_sb,
+                             k_ss, v_sb, v_ss, scale, causal, window, s);
+    case 192:
+      return tc::launch<192>(q, k, v, o, b, sq, sk, kvh, g, q_sb, q_ss, k_sb,
+                             k_ss, v_sb, v_ss, scale, causal, window, s);
+    case 256:
+      return tc::launch<256>(q, k, v, o, b, sq, sk, kvh, g, q_sb, q_ss, k_sb,
                              k_ss, v_sb, v_ss, scale, causal, window, s);
     default:
       return cudaErrorInvalidValue;

@@ -46,16 +46,35 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-# one dispatch rule for both attention kernels
-from repro_torch.kernels.flash_attention import pick_design
+from repro_torch.kernels import flash_attention
 
 NEG = -1.0e30
+HEAD_DIMS = (16, 32, 64, 128, 256)   # not kernel 6's 192: MLA decodes
+                                     # over its latent, with no kernel
 G_MAX = 16
 TILE = 64          # chunks are multiples of 64 cache rows (one simt tile,
                    # one 16-row tile for each of a tc CTA's 4 warps)
 MIN_CHUNK = 256    # no split below 4 tiles per tc warp
-CTAS_PER_SM = 2    # both designs fit two CTAs per SM (shared memory)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def pick_design(dtype: torch.dtype, aligned: bool, dh: int) -> str:
+    """Kernel 6's dispatch rule (``flash_attention.dtype_design``) for
+    this kernel's head dims."""
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head dim {dh} not in {HEAD_DIMS}")
+    return flash_attention.dtype_design(dtype, aligned)
+
+
+@functools.lru_cache(maxsize=None)
+def ctas_per_sm(dh: int) -> int:
+    """CTAs of either design that share an SM at head dim ``dh``, from the
+    built library (``attention.cuh::ctas_per_sm``: two up to Dh 128, one
+    above)."""
+    n = _lib().decode_attention_ctas_per_sm(dh)
+    if n < 1:
+        raise ValueError(f"head dim {dh} has no decode_attention instance")
+    return n
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -71,15 +90,15 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     return torch.einsum("bkgs,bskd->bkgd", p, v_cache.float()).to(q.dtype)
 
 
-def split_rows(rows: int, heads: int, sms: int) -> int:
+def split_rows(rows: int, heads: int, sms: int, ctas: int) -> int:
     """Cache rows per CTA for ``rows`` rows over ``heads`` (b, KV head)
     pairs on ``sms`` SMs: as many chunks per pair as fit the card in one
-    wave of CTAS_PER_SM CTAs per SM (a second, partial wave would double
-    the time), each a multiple of TILE rows, and no chunk below MIN_CHUNK
-    rows: a shorter one fills no warp's ring and costs the combine pass
-    more than it saves, so a short cache (the batcher's 128 rows) is one
-    chunk and one launch."""
-    want = max(1, CTAS_PER_SM * sms // heads)
+    wave of ``ctas`` CTAs per SM (:func:`ctas_per_sm`; a second,
+    partial wave would double the time), each a multiple of TILE rows, and
+    no chunk below MIN_CHUNK rows: a shorter one fills no warp's ring and
+    costs the combine pass more than it saves, so a short cache (the
+    batcher's 128 rows) is one chunk and one launch."""
+    want = max(1, ctas * sms // heads)
     chunk = -(-rows // want)
     return max(MIN_CHUNK, -(-chunk // TILE) * TILE)
 
@@ -135,6 +154,8 @@ def _lib():
         lib.decode_attention_tc_launch.argtypes = [
             i, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
         lib.decode_attention_tc_launch.restype = i
+        lib.decode_attention_ctas_per_sm.argtypes = [i]
+        lib.decode_attention_ctas_per_sm.restype = i
         lib.decode_attention_error_string.argtypes = [i]
         lib.decode_attention_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -172,7 +193,8 @@ def _launch(design: str, q: torch.Tensor, k_cache: torch.Tensor,
     b, kvh, g, dh = q.shape
     s_cache = k_cache.shape[1]
     rows = min(pos, s_cache - 1) + 1
-    chunk = split_rows(rows, b * kvh, _sm_count(q.device.index))
+    chunk = split_rows(rows, b * kvh, _sm_count(q.device.index),
+                       ctas_per_sm(dh))
     shape = partial_shape(design, b * kvh, -(-rows // chunk), g, dh)
     part = None if shape is None else torch.empty(
         shape, dtype=torch.float32, device=q.device)

@@ -21,10 +21,12 @@ Two designs (``csrc/flash_attention.cu`` has the details), chosen by
 
 * ``"tc"``: bf16 inputs whose rows start on 16-byte boundaries, which is
   every call of the LM path. One CTA of 4 warps per (batch, KV head, group
-  member, 64 query rows); K/V tiles of 64 keys stay bf16 in a 2-stage
-  shared-memory ring filled by ``cp.async``; Q·Kᵀ and P·V on ``mma.sync``
-  bf16 tensor cores with fp32 accumulation; scores and probabilities in
-  registers, P rounded to bf16 before P·V as the Pallas kernel rounds it.
+  member, 64 query rows); K/V tiles of 64 keys (32 at Dh 192 and 256,
+  whose Q fragments are then read from shared memory at each k-step) stay
+  bf16 in a 2-stage shared-memory ring filled by ``cp.async``; Q·Kᵀ and
+  P·V on ``mma.sync`` bf16 tensor cores with fp32 accumulation; scores
+  and probabilities in registers, P rounded to bf16 before P·V as the
+  Pallas kernel rounds it.
 * ``"simt"``: fp32 (its 3e-5 check rules out TF32 and bf16 products) and
   rows off a 16-byte boundary (no 16-byte copies). One CTA per (batch, KV
   head, group member, 32 query rows), 64-key tiles staged in shared memory
@@ -52,7 +54,7 @@ import torch
 from repro_torch.kernels import build
 
 NEG = -1.0e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 192, 256)   # 192: MLA's folded prefill
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -96,13 +98,18 @@ def _check(q, k, v, window) -> None:
                          f"{k.device}, {v.device}")
 
 
-def pick_design(dtype: torch.dtype, aligned: bool, dh: int) -> str:
+def dtype_design(dtype: torch.dtype, aligned: bool) -> str:
     """The kernel design of a CUDA call to kernel 6 or 7: ``"tc"`` (bf16
     tensor cores) for bf16 inputs whose rows start on 16-byte boundaries,
     else ``"simt"`` (fp32 FMAs on the CUDA cores)."""
+    return "tc" if dtype == torch.bfloat16 and aligned else "simt"
+
+
+def pick_design(dtype: torch.dtype, aligned: bool, dh: int) -> str:
+    """:func:`dtype_design` for this kernel's head dims."""
     if dh not in HEAD_DIMS:
         raise ValueError(f"head dim {dh} not in {HEAD_DIMS}")
-    return "tc" if dtype == torch.bfloat16 and aligned else "simt"
+    return dtype_design(dtype, aligned)
 
 
 def _row_strides(x: torch.Tensor) -> tuple[int, int]:

@@ -1,18 +1,24 @@
-"""Dense decoder-only language model, mirroring the reference's
-``models/lm.py`` for ``kind="attn"`` GQA layers with a dense FFN.
+"""Decoder-only language model, mirroring the reference's ``models/lm.py``
+for attention layers: GQA (full or sliding-window, M-RoPE, QKV bias) or
+MLA, each with a dense FFN or an MoE channel mixer, dense prefix layers,
+the vision-frontend stub and the MTP block's parameters.
 
 Parameters are a dict ``{"embed": {"table"}, "final_norm": {"scale"},
-["head": {"table"}], "layers": [per-layer dict, ...]}``: the layers are a
-Python list in ``cfg.layer_iter()`` order where the reference stacks each
-superblock position over ``n_repeat`` for ``lax.scan``
-(``convert.lm_params_from_numpy`` maps one onto the other). The stack is a
-Python loop; a decode step updates each layer's cache in place.
+["head": {"table"}], ["frontend_proj": {"w"}], ["mtp": {...}], "layers":
+[per-layer dict, ...]}``: the layers are a Python list in
+``cfg.layer_iter()`` order (the prefix layers first) where the reference
+keeps ``prefix`` apart and stacks each superblock position over
+``n_repeat`` for ``lax.scan`` (``convert.lm_params_from_numpy`` maps one
+onto the other). The stack is a Python loop; a decode step updates each
+layer's cache in place.
 
 Steps: :meth:`LM.prefill` (logits of the last position and the caches),
-:meth:`LM.decode` (one token against the caches). MoE, SSM, xLSTM and MLA
-layers, prefix layers, encoder-decoder models, modality frontends, MTP
-and the training loss come with the rest of the model stack: an
-:class:`LM` of such a config raises ``NotImplementedError``.
+:meth:`LM.decode` (one token against the caches). Mamba, mLSTM and sLSTM
+layers, encoder-decoder models with their cross-attention and
+bidirectional encoder, and the audio frontend come with a later slice;
+the training loss (MTP's included) with the training slice: an
+:class:`LM` of such a config, or ``loss_and_aux``, raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -22,31 +28,36 @@ import torch
 
 from repro_torch.nn import attention as att
 from repro_torch.nn import basic
-from repro_torch.nn.basic import MODEL_STACK
+from repro_torch.nn import moe as moe_mod
 from repro_torch.nn.config import LayerSpec, ModelConfig
 from repro_torch.nn.param import ParamSpec
 
+MODEL_STACK = "ROADMAP slice 11a′: Mamba, xLSTM and encoder-decoder models"
+TRAINING = "ROADMAP slice 11b 'Training'"
 
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet ({MODEL_STACK})")
+
+def _unported(what: str, slice_: str = MODEL_STACK) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet ({slice_})")
 
 
 def _check_layer(spec: LayerSpec) -> None:
     if spec.kind != "attn":
-        raise _unported(f"layer kind {spec.kind!r} (SSM / xLSTM)")
-    if spec.attn.kind != "gqa":
-        raise _unported(f"attention kind {spec.attn.kind!r}")
-    if spec.moe is not None:
-        raise _unported("the MoE channel mixer")
+        raise _unported(f"layer kind {spec.kind!r} (Mamba / xLSTM)")
     if spec.cross_attn:
         raise _unported("cross-attention")
 
 
 def layer_specs(spec: LayerSpec, d_model: int, dtype) -> dict:
     _check_layer(spec)
-    p: dict[str, Any] = {"norm1": basic.rmsnorm_specs(d_model),
-                         "mixer": att.gqa_specs(spec.attn, d_model, dtype)}
-    if spec.d_ff:
+    p: dict[str, Any] = {"norm1": basic.rmsnorm_specs(d_model)}
+    if spec.attn.kind == "mla":
+        p["mixer"] = att.mla_specs(spec.attn, d_model, dtype)
+    else:
+        p["mixer"] = att.gqa_specs(spec.attn, d_model, dtype)
+    if spec.moe is not None:
+        p["norm2"] = basic.rmsnorm_specs(d_model)
+        p["moe"] = moe_mod.moe_specs(spec.moe, d_model, dtype)
+    elif spec.d_ff:
         p["norm2"] = basic.rmsnorm_specs(d_model)
         p["ffn"] = basic.ffn_specs(d_model, spec.d_ff, dtype, spec.ffn_act)
     return p
@@ -55,6 +66,9 @@ def layer_specs(spec: LayerSpec, d_model: int, dtype) -> dict:
 def layer_cache_specs(spec: LayerSpec, batch: int, s_cache: int, dtype,
                       kv_quant: bool = False) -> dict:
     _check_layer(spec)
+    if spec.attn.kind == "mla":
+        return {"mixer": att.mla_cache_specs(spec.attn, batch, s_cache,
+                                             dtype)}
     return {"mixer": att.gqa_cache_specs(spec.attn, batch, s_cache, dtype,
                                          quant=kv_quant)}
 
@@ -62,13 +76,23 @@ def layer_cache_specs(spec: LayerSpec, batch: int, s_cache: int, dtype,
 def apply_layer(spec: LayerSpec, p, x: torch.Tensor, positions: torch.Tensor,
                 *, cache=None, cache_pos=None, norm_eps: float = 1e-6):
     """Returns ``(x, cache)``: the layer's output and its (new or updated)
-    cache ``{"mixer": {...}}``."""
+    cache ``{"mixer": {...}}``. An MoE layer's load-balance loss is not
+    returned: serving ignores it, as the reference's prefill and decode
+    do."""
     h = basic.rmsnorm(p["norm1"], x, norm_eps)
-    y, mix = att.gqa_apply(p["mixer"], spec.attn, h, positions,
-                           cache=cache["mixer"] if cache else None,
-                           cache_pos=cache_pos)
+    mix_cache = cache["mixer"] if cache else None
+    if spec.attn.kind == "mla":
+        y, mix = att.mla_apply(p["mixer"], spec.attn, h, positions,
+                               cache=mix_cache, cache_pos=cache_pos,
+                               eps=norm_eps)
+    else:
+        y, mix = att.gqa_apply(p["mixer"], spec.attn, h, positions,
+                               cache=mix_cache, cache_pos=cache_pos)
     x = x + y
-    if spec.d_ff:
+    if spec.moe is not None:
+        h2 = basic.rmsnorm(p["norm2"], x, norm_eps)
+        x = x + moe_mod.moe_apply(p["moe"], spec.moe, h2)[0]
+    elif spec.d_ff:
         h2 = basic.rmsnorm(p["norm2"], x, norm_eps)
         x = x + basic.ffn(p["ffn"], h2, spec.ffn_act)
     return x, {"mixer": mix}
@@ -76,13 +100,11 @@ def apply_layer(spec: LayerSpec, p, x: torch.Tensor, positions: torch.Tensor,
 
 class LM:
     def __init__(self, cfg: ModelConfig):
-        for what, asked in (("prefix layers", bool(cfg.prefix)),
-                            ("encoder-decoder models", cfg.enc_dec),
-                            ("modality frontends", bool(cfg.frontend)),
-                            ("multi-token prediction", cfg.mtp)):
-            if asked:
-                raise _unported(what)
-        for spec in cfg.blocks:
+        if cfg.enc_dec:
+            raise _unported("encoder-decoder models")
+        if cfg.frontend not in (None, "vision"):
+            raise _unported(f"the {cfg.frontend!r} frontend")
+        for spec in cfg.layer_iter():
             _check_layer(spec)
         self.cfg = cfg
         self.layers = cfg.layer_iter()
@@ -101,6 +123,18 @@ class LM:
                                                dt, scale=0.02)}
         tree["layers"] = [layer_specs(sp, cfg.d_model, dt)
                           for sp in self.layers]
+        if cfg.frontend:
+            tree["frontend_proj"] = {
+                "w": ParamSpec((cfg.d_model, cfg.d_model), dt)}
+        if cfg.mtp:
+            # DeepSeek-V3's multi-token-prediction block: carried with the
+            # parameters, used only by the training loss
+            tree["mtp"] = {
+                "norm_h": basic.rmsnorm_specs(cfg.d_model),
+                "norm_e": basic.rmsnorm_specs(cfg.d_model),
+                "proj": ParamSpec((2 * cfg.d_model, cfg.d_model), dt),
+                "block": layer_specs(cfg.blocks[-1], cfg.d_model, dt),
+            }
         return tree
 
     # ---------------- forward pieces
@@ -125,12 +159,27 @@ class LM:
                                     device=tokens.device)
         return pos[None, :].expand(b, s)
 
+    def _inputs(self, params, tokens: torch.Tensor, frontend_emb=None,
+                frontend_mask=None, positions=None):
+        """The stack's input embeddings and rope positions: the vision
+        frontend's projected embeddings where ``frontend_mask`` is set
+        (reference ``prefill``), and ``positions`` (B, S), or (3, B, S)
+        for M-RoPE, defaulting to 0..S-1."""
+        x = self._embed(params, tokens)
+        if self.cfg.frontend == "vision" and frontend_emb is not None:
+            fe = frontend_emb @ params["frontend_proj"]["w"]
+            x = torch.where(frontend_mask[..., None], fe, x)
+        if positions is None:
+            positions = self._positions(tokens)
+        return x, positions
+
     def _run_stack(self, params, x: torch.Tensor, positions: torch.Tensor, *,
                    caches: Optional[dict] = None, cache_pos=None,
                    want_cache: bool = False):
         """The layers in order. With ``caches`` (decode) each layer's cache
         is updated in place; otherwise ``want_cache`` collects the
-        prefill's K/V. Returns ``(x, caches or None)``."""
+        prefill's K/V (latent and rope key for MLA). Returns ``(x, caches
+        or None)``."""
         new_layers = []
         for i, spec in enumerate(self.layers):
             c_i = caches["layers"][i] if caches is not None else None
@@ -145,14 +194,20 @@ class LM:
     # ---------------- public steps
 
     def loss_and_aux(self, params, batch):
-        raise _unported("the training loss")
+        raise _unported("the training loss", TRAINING)
 
-    def prefill(self, params, tokens: torch.Tensor):
+    def prefill(self, params, tokens: torch.Tensor, *,
+                frontend_emb: Optional[torch.Tensor] = None,
+                frontend_mask: Optional[torch.Tensor] = None,
+                positions: Optional[torch.Tensor] = None):
         """tokens (B, S) -> logits of the last position (B, 1, V) and the
-        caches ``{"layers": [{"mixer": {"k", "v"}}, ...]}`` of length S."""
-        x = self._embed(params, tokens)
-        x, caches = self._run_stack(params, x, self._positions(tokens),
-                                    want_cache=True)
+        caches ``{"layers": [{"mixer": {...}}, ...]}`` of length S. A
+        vision config takes ``frontend_emb`` (B, S, D) and
+        ``frontend_mask`` (B, S) bool; ``positions`` (B, S), or (3, B, S)
+        for M-RoPE, replaces 0..S-1."""
+        x, positions = self._inputs(params, tokens, frontend_emb,
+                                    frontend_mask, positions)
+        x, caches = self._run_stack(params, x, positions, want_cache=True)
         return self._logits(params, x[:, -1:, :]), caches
 
     def prefill_flops(self, tokens: int) -> float:

@@ -1,6 +1,7 @@
-"""Grouped-query attention (full and sliding-window), mirroring the GQA
-part of the reference's ``nn/attention.py``, with the two attention
-kernels as its attention on every path:
+"""Grouped-query attention (full and sliding-window) and DeepSeek's
+multi-head latent attention (MLA), mirroring the reference's
+``nn/attention.py``, with the two attention kernels as GQA's attention on
+every path:
 
 * cache-less (train/prefill): ``kernels/flash_attention.flash_attention_fwd``
   (causal, the layer's window) at every length, where the reference takes
@@ -19,8 +20,17 @@ the kernel. Unlike the reference, which returns a new cache, decode
 updates the cache tensors in place (the batcher keeps one cache for its
 whole life, so no copy of it is made per step) and returns the same dict.
 
-MLA, cross-attention and precomputed-KV attention come with the rest of
-the model stack (``models/lm.LM`` raises for such layers).
+MLA (:func:`mla_apply`) keeps the reference's two forms. Prefill expands
+per-head keys and values from the latent, folds the shared rope key into
+a (nope + rope)-wide q/k, pads v to that width with zeros and runs kernel
+6 at that head dim (192 for DeepSeek-V2/V3) at every length; the reference
+takes this path above 512 tokens and explicit scores below. Decode is the
+weight-absorbed form over the latent cache ``{"latent": (B, S, kv_lora),
+"k_rope": (B, S, qk_rope)}``, in plain einsums as in the reference (which
+has no kernel there either), written in place like the GQA cache.
+
+Cross-attention and precomputed-KV attention come with the
+encoder-decoder models (``models/lm.LM`` raises for such layers).
 """
 from __future__ import annotations
 
@@ -31,9 +41,11 @@ import torch
 
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention_fwd
-from repro_torch.nn.basic import apply_rope
+from repro_torch.nn.basic import apply_rope, rmsnorm, rmsnorm_specs
 from repro_torch.nn.config import AttnConfig
 from repro_torch.nn.param import ParamSpec
+
+NEG = -1.0e30   # the reference's masked score
 
 
 def gqa_specs(cfg: AttnConfig, d_model: int, dtype) -> dict:
@@ -146,3 +158,121 @@ def gqa_cache_specs(cfg: AttnConfig, batch: int, s_cache: int, dtype,
                 "v_scale": ParamSpec(shp[:-1], torch.float16, init="zeros")}
     return {"k": ParamSpec(shp, dtype, init="zeros"),
             "v": ParamSpec(shp, dtype, init="zeros")}
+
+
+# =================================================================== MLA
+
+
+def mla_specs(cfg: AttnConfig, d_model: int, dtype) -> dict:
+    h = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    lq, lkv = cfg.q_lora_rank, cfg.kv_lora_rank
+    out = {}
+    if lq:
+        out["wq_a"] = ParamSpec((d_model, lq), dtype)
+        out["q_norm"] = rmsnorm_specs(lq)
+        out["wq_b"] = ParamSpec((lq, h * (dn + dr)), dtype)
+    else:
+        out["wq"] = ParamSpec((d_model, h * (dn + dr)), dtype)
+    out["wkv_a"] = ParamSpec((d_model, lkv + dr), dtype)
+    out["kv_norm"] = rmsnorm_specs(lkv)
+    # up-projections: per-head K (nope) and V from the latent
+    out["w_uk"] = ParamSpec((h, dn, lkv), dtype)
+    out["w_uv"] = ParamSpec((h, lkv, dv), dtype)
+    out["wo"] = ParamSpec((h * dv, d_model), dtype)
+    return out
+
+
+def _mla_q(p, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor,
+           eps: float):
+    """(q_nope (B, S, H, nope), q_rope (B, S, H, rope), rope applied)."""
+    h, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    b, s, _ = x.shape
+    if cfg.q_lora_rank:
+        q = rmsnorm(p["q_norm"], x @ p["wq_a"], eps) @ p["wq_b"]
+    else:
+        q = x @ p["wq"]
+    q = q.reshape(b, s, h, dn + dr)
+    return q[..., :dn], apply_rope(cfg, q[..., dn:], positions)
+
+
+def _mla_latent(p, cfg: AttnConfig, x: torch.Tensor,
+                positions: torch.Tensor, eps: float):
+    """(q_nope, q_rope, latent (B, S, kv_lora), k_rope (B, S, rope): the
+    rope key every head shares)."""
+    lkv = cfg.kv_lora_rank
+    q_nope, q_rope = _mla_q(p, cfg, x, positions, eps)
+    kv = x @ p["wkv_a"]
+    latent = rmsnorm(p["kv_norm"], kv[..., :lkv], eps)
+    k_rope = apply_rope(cfg, kv[..., lkv:][:, :, None, :],
+                        positions)[:, :, 0, :]
+    return q_nope, q_rope, latent, k_rope
+
+
+def mla_prefill_qkv(p, cfg: AttnConfig, x: torch.Tensor,
+                    positions: torch.Tensor, eps: float = 1e-6):
+    """The inputs of kernel 6 in MLA's prefill: q (B, S, H, 1, nope +
+    rope), k and v (B, S, H, nope + rope). Per-head keys and values are
+    expanded from the latent; the shared rope key is folded into every
+    head's key and V padded with zeros, so that one (q.k, p.v) pipeline
+    runs at Dh = nope + rope. Also returns the cache ``{"latent",
+    "k_rope"}``."""
+    h = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    b, sq, _ = x.shape
+    q_nope, q_rope, latent, k_rope = _mla_latent(p, cfg, x, positions, eps)
+    k_nope = torch.einsum("bsl,hdl->bshd", latent, p["w_uk"])
+    v = torch.einsum("bsl,hlv->bshv", latent, p["w_uv"])
+    q = torch.cat([q_nope, q_rope], dim=-1).view(b, sq, h, 1, dn + dr)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, sq, h, dr)],
+                  dim=-1)
+    if dn + dr > dv:
+        v = torch.cat([v, v.new_zeros((b, sq, h, dn + dr - dv))], dim=-1)
+    return q, k, v, {"latent": latent, "k_rope": k_rope}
+
+
+def mla_apply(p, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor,
+              cache: Optional[dict] = None, cache_pos: Optional[int] = None,
+              eps: float = 1e-6):
+    """Returns ``(out, cache)``, as :func:`gqa_apply`: prefill (``cache``
+    None) returns this call's ``{"latent", "k_rope"}``; decode writes the
+    token's latent and rope key at ``cache_pos`` in place and returns the
+    same dict."""
+    h = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    b, sq, _ = x.shape
+    scale = 1.0 / math.sqrt(dn + dr)
+
+    if cache is None:
+        q, k, v, new_cache = mla_prefill_qkv(p, cfg, x, positions, eps)
+        out = flash_attention_fwd(q, k, v, scale=scale, causal=True)
+        out = out.view(b, sq, h, dn + dr)[..., :dv]
+    else:
+        if sq != 1:
+            raise ValueError(f"decode takes one token per row, got {sq}")
+        q_nope, q_rope, latent, k_rope = _mla_latent(p, cfg, x, positions,
+                                                     eps)
+        _dyn_write(cache["latent"], latent, cache_pos)
+        _dyn_write(cache["k_rope"], k_rope, cache_pos)
+        cl, cr = cache["latent"], cache["k_rope"]
+        # absorbed: q' = q_nope . w_uk scores against the latent directly
+        q_abs = torch.einsum("bqhd,hdl->bqhl", q_nope, p["w_uk"])
+        scores = (torch.einsum("bqhl,bsl->bhqs", q_abs, cl)
+                  + torch.einsum("bqhd,bsd->bhqs", q_rope, cr)).float()
+        scores = scores * scale
+        valid = torch.arange(cl.shape[1], device=x.device) <= cache_pos
+        scores = torch.where(valid, scores, NEG)
+        probs = torch.softmax(scores, dim=-1).to(cl.dtype)
+        ctx_lat = torch.einsum("bhqs,bsl->bqhl", probs, cl)
+        out = torch.einsum("bqhl,hlv->bqhv", ctx_lat, p["w_uv"])
+        new_cache = cache
+    y = out.reshape(b, sq, h * dv) @ p["wo"]
+    return y, new_cache
+
+
+def mla_cache_specs(cfg: AttnConfig, batch: int, s_cache: int,
+                    dtype) -> dict:
+    return {"latent": ParamSpec((batch, s_cache, cfg.kv_lora_rank), dtype,
+                                init="zeros"),
+            "k_rope": ParamSpec((batch, s_cache, cfg.qk_rope_dim), dtype,
+                                init="zeros")}

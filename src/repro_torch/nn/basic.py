@@ -2,9 +2,6 @@
 reference's ``nn/basic.py`` without its sharding constraints (the port is
 mesh-free). Tensors keep the reference's layouts: activations (B, S, D),
 heads (B, S, H, Dh), weight matrices (in, out).
-
-M-RoPE (Qwen2-VL's three position streams) comes with the rest of the
-model stack (``apply_rope`` raises for it).
 """
 from __future__ import annotations
 
@@ -13,8 +10,6 @@ import torch.nn.functional as F
 
 from repro_torch.nn.config import AttnConfig
 from repro_torch.nn.param import ParamSpec
-
-MODEL_STACK = "ROADMAP slice 11 'Rest of the model stack'"
 
 # ---------------------------------------------------------------- norms
 
@@ -76,12 +71,22 @@ def _rotate(x: torch.Tensor, sin: torch.Tensor,
 def apply_rope(cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor,
                rot_dim: int | None = None) -> torch.Tensor:
     """x: (B, S, H, Dh), rope on the first ``rot_dim`` dims; positions:
-    (B, S) integers."""
-    if cfg.rope_kind == "mrope":
-        raise NotImplementedError(f"M-RoPE is not ported yet ({MODEL_STACK})")
+    (B, S) integers, or (3, B, S) for M-RoPE."""
     rot = rot_dim or x.shape[-1]
     inv = rope_freqs(cfg, rot, x.device)                    # (rot/2,)
-    ang = positions[..., None].float() * inv                # (B, S, rot/2)
+    if cfg.rope_kind == "mrope":
+        # positions (3, B, S): temporal / height / width streams; the
+        # frequency bands are split between the three streams (Qwen2-VL
+        # §3). Text-only steps may pass (B, S): all three coincide.
+        if positions.ndim == 2:
+            positions = positions[None].expand(3, *positions.shape)
+        ang = positions[..., None].float() * inv            # (3, B, S, rot/2)
+        band = torch.cat([torch.full((n,), i, dtype=torch.long)
+                          for i, n in enumerate(cfg.mrope_sections)])
+        band = band[:rot // 2].to(x.device)                 # stream of band f
+        ang = torch.gather(ang, 0, band.expand(1, *ang.shape[1:-1], -1))[0]
+    else:
+        ang = positions[..., None].float() * inv            # (B, S, rot/2)
     sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
     cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
     if rot == x.shape[-1]:

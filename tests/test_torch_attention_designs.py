@@ -34,6 +34,9 @@ TOL_BF16 = 3e-2
 NEG = -1.0e30
 LOG2E = 1.4426950408889634
 SMS = 132          # H100 SXM
+# CTAs per SM of kernel 7 at each head dim, as the built library gives them
+# (decode_attention_ctas_per_sm, attention.cuh::ctas_per_sm): one at Dh 256
+CTAS_PER_SM = {16: 2, 32: 2, 64: 2, 128: 2, 256: 1}
 
 
 def _bf16(rng, shape) -> torch.Tensor:
@@ -101,7 +104,7 @@ def decode_tc_rehearsal(q, kc, vc, pos, scale, sms=SMS, tr=16, warps=4):
     at the end; with several chunks, ``decode_combine``'s merge."""
     b, kvh, g, dh = q.shape
     rows = min(pos, kc.shape[1] - 1) + 1
-    chunk = da.split_rows(rows, b * kvh, sms)
+    chunk = da.split_rows(rows, b * kvh, sms, CTAS_PER_SM[dh])
     qf = q.float()[..., None, :, :]                    # (B, KV, 1, G, Dh)
     kf = kc.float().permute(0, 2, 1, 3)                # (B, KV, S, Dh)
     vf = vc.float().permute(0, 2, 1, 3)
@@ -152,11 +155,41 @@ def test_pick_design(mod, dtype, aligned, dh):
     assert mod.pick_design(dtype, aligned, dh) == want
 
 
-@pytest.mark.parametrize("mod", [fa, da], ids=["flash", "decode"])
-@pytest.mark.parametrize("dh", [8, 48, 256])
+@pytest.mark.parametrize("mod,dh", [
+    (fa, 8), (fa, 48), (fa, 512), (da, 8), (da, 48), (da, 512),
+    (da, 192)], ids=["flash-8", "flash-48", "flash-512", "decode-8",
+                     "decode-48", "decode-512", "decode-192"])
 def test_pick_design_refuses_other_head_dims(mod, dh):
+    """Head dims with no kernel instance stay refused; 192 is kernel 6's
+    only (MLA's folded prefill: its decode runs over the latent, with no
+    kernel)."""
     with pytest.raises(ValueError, match="head dim"):
         mod.pick_design(torch.bfloat16, True, dh)
+
+
+@pytest.mark.parametrize("mod,dh", [(fa, 192), (fa, 256), (da, 256)],
+                         ids=["flash-192", "flash-256", "decode-256"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_pick_design_takes_wide_heads(mod, dh, dtype, aligned):
+    """The wide heads of gemma3 (256) and MLA's prefill (192) take the same
+    rule as the others: bf16 rows on 16-byte boundaries to the tensor
+    cores, the rest to the CUDA cores."""
+    want = "tc" if dtype == torch.bfloat16 and aligned else "simt"
+    assert mod.pick_design(dtype, aligned, dh) == want
+
+
+@pytest.mark.parametrize("s,chunks_128,chunks_256", [
+    (1024, 4, 4), (8192, 8, 4), (32768, 8, 4)])
+def test_split_at_dh_256_fills_one_wave_of_one_cta_per_sm(s, chunks_128,
+                                                           chunks_256):
+    """gemma3's decode (B 4 x KV 8 = 32 heads): at Dh 256 one CTA of either
+    design has the SM (shared memory), so the split aims at one CTA per
+    SM, half the chunks of Dh 128 once the cache is long."""
+    for dh, want in ((128, chunks_128), (256, chunks_256)):
+        chunk = da.split_rows(s, 32, SMS, CTAS_PER_SM[dh])
+        assert -(-s // chunk) == want
+        assert 32 * want <= CTAS_PER_SM[dh] * SMS
 
 
 def _misaligned(x: torch.Tensor) -> torch.Tensor:
@@ -199,7 +232,7 @@ def test_rows_aligned():
 ])
 def test_split_and_scratch(b, kvh, s, pos, nsplit):
     rows = min(pos, s - 1) + 1
-    chunk = da.split_rows(rows, b * kvh, SMS)
+    chunk = da.split_rows(rows, b * kvh, SMS, CTAS_PER_SM[128])
     assert -(-rows // chunk) == nsplit
     tc = da.partial_shape("tc", b * kvh, nsplit, 8, 128)
     simt = da.partial_shape("simt", b * kvh, nsplit, 8, 128)
@@ -298,4 +331,31 @@ def test_decode_rehearsal_edges(g, pos):
     scale = 1 / math.sqrt(32)
     got = decode_tc_rehearsal(q, kc, vc, pos, scale)
     want = da.decode_attention_plain(q, kc, vc, pos, scale)
+    assert float((got.float() - want.float()).abs().max()) <= TOL_BF16
+
+
+@pytest.mark.parametrize("dh", [192, 256])
+@pytest.mark.parametrize("window", [None, 40])
+def test_flash_rehearsal_at_wide_heads_within_tolerance_of_plain(dh, window):
+    """``flash_fwd_tc`` at Dh 192 and 256 takes 32-key tiles (and reads
+    Q's fragments from shared memory, which rounds nothing): the
+    rehearsal with bk = 32 against the plain version."""
+    rng = np.random.default_rng(7)
+    q = _bf16(rng, (1, 96, 2, 2, dh))
+    k, v = (_bf16(rng, (1, 96, 2, dh)) for _ in range(2))
+    scale = 1 / math.sqrt(dh)
+    got = flash_tc_rehearsal(q, k, v, scale, True, window, bk=32)
+    want = fa.flash_attention_plain(q, k, v, scale, True, window)
+    assert float((got.float() - want.float()).abs().max()) <= TOL_BF16
+
+
+@pytest.mark.parametrize("s,pos", [(128, 127), (1024, 700), (2048, 2047)])
+def test_decode_rehearsal_at_dh_256_within_tolerance_of_plain(s, pos):
+    """gemma3's decode (KV 8, G 2, Dh 256) at one chunk and several: the
+    chunks from ``split_rows`` at Dh 256 (one CTA per SM)."""
+    rng = np.random.default_rng(8)
+    q = _bf16(rng, (4, 8, 2, 256))
+    kc, vc = (_bf16(rng, (4, s, 8, 256)) for _ in range(2))
+    got = decode_tc_rehearsal(q, kc, vc, pos, 1 / 16)
+    want = da.decode_attention_plain(q, kc, vc, pos, 1 / 16)
     assert float((got.float() - want.float()).abs().max()) <= TOL_BF16

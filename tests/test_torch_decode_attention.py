@@ -15,12 +15,13 @@ import torch
 from repro.kernels.decode_attention import decode_attention as jax_decode
 from repro.kernels.ref import decode_attention_ref
 from repro_torch.kernels import build, decode_attention as da_mod
-from repro_torch.kernels.decode_attention import (CTAS_PER_SM, MIN_CHUNK,
-                                                  TILE, decode_attention,
+from repro_torch.kernels.decode_attention import (MIN_CHUNK, TILE,
+                                                  decode_attention,
                                                   split_rows)
 from repro_torch.kernels.ops import decode_attention as ops_decode
 
 torch.set_num_threads(1)
+CTAS_AT_DH_128 = 2
 
 # tests/test_kernels.py:71-78, then pos = S-1 and pos past the cache
 SHAPES = [
@@ -89,10 +90,11 @@ def test_decode_attention_ignores_rows_past_pos():
     (100, 1, 132, 256),          # ragged: chunks stay tile multiples
 ])
 def test_split_rows(rows, heads, sms, chunk):
-    got = split_rows(rows, heads, sms)
+    # Dh 128: two CTAs per SM (the library's decode_attention_ctas_per_sm)
+    got = split_rows(rows, heads, sms, CTAS_AT_DH_128)
     assert got == chunk and got % TILE == 0 and got >= MIN_CHUNK
     # one wave: every (b, kv, chunk) CTA resident at once
-    assert heads * -(-rows // got) <= CTAS_PER_SM * sms
+    assert heads * -(-rows // got) <= CTAS_AT_DH_128 * sms
 
 
 @pytest.mark.parametrize("bad", ["pos", "numpy_pos", "dtype", "shape"])
