@@ -1,8 +1,6 @@
 """Architecture registry: the 10 assigned architectures + the paper's own
 models. ``get_config(name)`` / ``list_archs()`` are the public API;
-``ASSIGNED`` lists the assigned rows. Seven of them build an ``LM`` in the
-port; jamba-1.5-large-398b, xlstm-350m and seamless-m4t-large-v2 need
-layers of a later slice (``models.lm.LM`` raises for them)."""
+``ASSIGNED`` lists the assigned rows; each builds a ``models.lm.LM``."""
 from repro_torch.configs import (  # noqa: F401  (import for registration)
     deepseek_v2_236b,
     deepseek_v3_671b,

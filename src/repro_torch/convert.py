@@ -132,28 +132,38 @@ def lm_params_from_numpy(tree, cfg: ModelConfig, device="cuda") -> dict:
     ``n_repeat`` when ``n_repeat > 1``) as the port's
     ``repro_torch.models.lm.LM`` parameters on ``device``: the same
     leaves (MLA's, the MoE's with its fp32 router and bias, the shared
-    experts', ``frontend_proj`` and the ``mtp`` block too), the layers as
-    a list in ``cfg.layer_iter()`` order, prefix first. Each leaf must
-    have its spec's shape and dtype."""
+    experts', Mamba's, mLSTM's and sLSTM's, cross-attention's,
+    ``frontend_proj``, ``enc_norm`` and the ``mtp`` block too), the layers
+    as a list in ``cfg.layer_iter()`` order, prefix first, and an
+    encoder's ``enc_blocks`` (stacked over ``enc_repeat`` when it is above
+    1) as the list ``enc_layers``. Each leaf must have its spec's shape
+    and dtype."""
     from repro_torch.models.lm import LM
 
     dev = resolve_device(device)
     specs = LM(cfg).param_specs()
-    nb = len(cfg.blocks)
-
-    def stacked(r):
-        return lambda a: np.asarray(a)[r] if cfg.n_repeat > 1 else a
 
     def pick(sub, fn):
         if isinstance(sub, dict):
             return {k: pick(v, fn) for k, v in sub.items()}
         return fn(sub)
 
+    def unstack(blocks, n_blocks: int, repeat: int) -> list:
+        """A superblock tree, each position stacked over ``repeat`` when
+        it is above 1, as the list of its ``repeat * n_blocks`` layers."""
+        def at(r):
+            return lambda a: np.asarray(a)[r] if repeat > 1 else a
+        return [pick(blocks[f"l{i % n_blocks}"], at(i // n_blocks))
+                for i in range(repeat * n_blocks)]
+
     src = {k: tree[k] for k in ("embed", "final_norm", "head",
-                                 "frontend_proj", "mtp") if k in tree}
-    src["layers"] = list(tree.get("prefix", [])) + [
-        pick(tree["blocks"][f"l{i % nb}"], stacked(i // nb))
-        for i in range(cfg.n_repeat * nb)]
+                                 "frontend_proj", "mtp", "enc_norm")
+           if k in tree}
+    src["layers"] = list(tree.get("prefix", [])) + unstack(
+        tree["blocks"], len(cfg.blocks), cfg.n_repeat)
+    if cfg.enc_dec:
+        src["enc_layers"] = unstack(tree["enc_blocks"], len(cfg.enc_blocks),
+                                    cfg.enc_repeat)
 
     def leaf(spec: ParamSpec, a) -> torch.Tensor:
         t = _tensor(a)

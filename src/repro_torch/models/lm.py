@@ -1,59 +1,69 @@
-"""Decoder-only language model, mirroring the reference's ``models/lm.py``
-for attention layers: GQA (full or sliding-window, M-RoPE, QKV bias) or
-MLA, each with a dense FFN or an MoE channel mixer, dense prefix layers,
-the vision-frontend stub and the MTP block's parameters.
+"""Language-model assembly, mirroring the reference's ``models/lm.py``:
+layers of attention (GQA, full or sliding-window, M-RoPE, QKV bias; or
+MLA), Mamba, mLSTM or sLSTM, each with a dense FFN or an MoE channel
+mixer (or none); dense prefix layers; an encoder stack for
+encoder-decoder models, whose decoder layers add cross-attention; the
+vision and audio frontend stubs and the MTP block's parameters.
 
 Parameters are a dict ``{"embed": {"table"}, "final_norm": {"scale"},
 ["head": {"table"}], ["frontend_proj": {"w"}], ["mtp": {...}], "layers":
-[per-layer dict, ...]}``: the layers are a Python list in
-``cfg.layer_iter()`` order (the prefix layers first) where the reference
-keeps ``prefix`` apart and stacks each superblock position over
-``n_repeat`` for ``lax.scan`` (``convert.lm_params_from_numpy`` maps one
-onto the other). The stack is a Python loop; a decode step updates each
-layer's cache in place.
+[per-layer dict, ...], ["enc_layers": [...], "enc_norm": {"scale"}]}``:
+the layers are a Python list in ``cfg.layer_iter()`` order (the prefix
+layers first), the encoder's in ``enc_blocks`` order repeated
+``enc_repeat`` times, where the reference keeps ``prefix`` apart and
+stacks each superblock position over ``n_repeat`` (``enc_repeat``) for
+``lax.scan`` (``convert.lm_params_from_numpy`` maps one onto the other).
+The stack is a Python loop; a decode step updates each layer's cache
+(K/V rows, or a recurrent layer's states) in place.
 
 Steps: :meth:`LM.prefill` (logits of the last position and the caches),
-:meth:`LM.decode` (one token against the caches). Mamba, mLSTM and sLSTM
-layers, encoder-decoder models with their cross-attention and
-bidirectional encoder, and the audio frontend come with a later slice;
-the training loss (MTP's included) with the training slice: an
-:class:`LM` of such a config, or ``loss_and_aux``, raises
+:meth:`LM.decode` (one token against the caches). The training loss
+(MTP's included) comes with the training slice: ``loss_and_aux`` raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import Any, Optional
 
 import torch
 
+from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.nn import attention as att
 from repro_torch.nn import basic
 from repro_torch.nn import moe as moe_mod
+from repro_torch.nn import ssm
+from repro_torch.nn import xlstm as xl
 from repro_torch.nn.config import LayerSpec, ModelConfig
 from repro_torch.nn.param import ParamSpec
 
-MODEL_STACK = "ROADMAP slice 11a′: Mamba, xLSTM and encoder-decoder models"
 TRAINING = "ROADMAP slice 11b 'Training'"
 
 
-def _unported(what: str, slice_: str = MODEL_STACK) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet ({slice_})")
-
-
-def _check_layer(spec: LayerSpec) -> None:
-    if spec.kind != "attn":
-        raise _unported(f"layer kind {spec.kind!r} (Mamba / xLSTM)")
-    if spec.cross_attn:
-        raise _unported("cross-attention")
+def _cross_cfg(spec: LayerSpec):
+    """A decoder layer's cross-attention: its attention config, no rope."""
+    return dataclasses.replace(spec.attn, rope_kind="none")
 
 
 def layer_specs(spec: LayerSpec, d_model: int, dtype) -> dict:
-    _check_layer(spec)
     p: dict[str, Any] = {"norm1": basic.rmsnorm_specs(d_model)}
-    if spec.attn.kind == "mla":
-        p["mixer"] = att.mla_specs(spec.attn, d_model, dtype)
+    if spec.kind == "attn":
+        if spec.attn.kind == "mla":
+            p["mixer"] = att.mla_specs(spec.attn, d_model, dtype)
+        else:
+            p["mixer"] = att.gqa_specs(spec.attn, d_model, dtype)
+    elif spec.kind == "mamba":
+        p["mixer"] = ssm.mamba_specs(spec.mamba, d_model, dtype)
+    elif spec.kind == "mlstm":
+        p["mixer"] = xl.mlstm_specs(spec.xlstm, d_model, dtype)
+    elif spec.kind == "slstm":
+        p["mixer"] = xl.slstm_specs(spec.xlstm, d_model, dtype)
     else:
-        p["mixer"] = att.gqa_specs(spec.attn, d_model, dtype)
+        raise ValueError(spec.kind)
+    if spec.cross_attn:
+        p["cross_norm"] = basic.rmsnorm_specs(d_model)
+        p["cross"] = att.gqa_specs(_cross_cfg(spec), d_model, dtype)
     if spec.moe is not None:
         p["norm2"] = basic.rmsnorm_specs(d_model)
         p["moe"] = moe_mod.moe_specs(spec.moe, d_model, dtype)
@@ -63,51 +73,108 @@ def layer_specs(spec: LayerSpec, d_model: int, dtype) -> dict:
     return p
 
 
-def layer_cache_specs(spec: LayerSpec, batch: int, s_cache: int, dtype,
+def layer_cache_specs(spec: LayerSpec, d_model: int, batch: int,
+                      s_cache: int, dtype, enc_len: int = 0,
                       kv_quant: bool = False) -> dict:
-    _check_layer(spec)
-    if spec.attn.kind == "mla":
-        return {"mixer": att.mla_cache_specs(spec.attn, batch, s_cache,
-                                             dtype)}
-    return {"mixer": att.gqa_cache_specs(spec.attn, batch, s_cache, dtype,
-                                         quant=kv_quant)}
+    out: dict[str, Any] = {}
+    if spec.kind == "attn":
+        if spec.attn.kind == "mla":
+            out["mixer"] = att.mla_cache_specs(spec.attn, batch, s_cache,
+                                               dtype)
+        else:
+            out["mixer"] = att.gqa_cache_specs(spec.attn, batch, s_cache,
+                                               dtype, quant=kv_quant)
+    elif spec.kind == "mamba":
+        out["mixer"] = ssm.mamba_cache_specs(spec.mamba, d_model, batch,
+                                             dtype)
+    elif spec.kind == "mlstm":
+        out["mixer"] = xl.mlstm_cache_specs(spec.xlstm, d_model, batch)
+    elif spec.kind == "slstm":
+        out["mixer"] = xl.slstm_cache_specs(spec.xlstm, d_model, batch)
+    else:
+        raise ValueError(spec.kind)
+    if spec.cross_attn:
+        shp = (batch, enc_len, spec.attn.n_kv_heads, spec.attn.head_dim)
+        out["cross_kv"] = {"k": ParamSpec(shp, dtype, init="zeros"),
+                           "v": ParamSpec(shp, dtype, init="zeros")}
+    return out
 
 
 def apply_layer(spec: LayerSpec, p, x: torch.Tensor, positions: torch.Tensor,
-                *, cache=None, cache_pos=None, norm_eps: float = 1e-6):
+                *, cache=None, cache_pos=None, causal: bool = True,
+                enc_out: Optional[torch.Tensor] = None,
+                norm_eps: float = 1e-6):
     """Returns ``(x, cache)``: the layer's output and its (new or updated)
-    cache ``{"mixer": {...}}``. An MoE layer's load-balance loss is not
-    returned: serving ignores it, as the reference's prefill and decode
-    do."""
+    cache ``{"mixer": {...}, ["cross_kv": {"k", "v"}]}`` (no ``mixer``
+    for an encoder layer). ``causal=False`` without a cache is an encoder
+    layer's bidirectional self-attention. A cross-attention layer takes
+    its K/V from the cache where it has them (decode), else from
+    ``enc_out``. An MoE layer's load-balance loss is not returned: serving
+    ignores it, as the reference's prefill and decode do."""
     h = basic.rmsnorm(p["norm1"], x, norm_eps)
-    mix_cache = cache["mixer"] if cache else None
-    if spec.attn.kind == "mla":
-        y, mix = att.mla_apply(p["mixer"], spec.attn, h, positions,
-                               cache=mix_cache, cache_pos=cache_pos,
-                               eps=norm_eps)
+    mix_cache = cache.get("mixer") if cache else None
+    if spec.kind == "attn":
+        if spec.attn.kind == "mla":
+            y, mix = att.mla_apply(p["mixer"], spec.attn, h, positions,
+                                   cache=mix_cache, cache_pos=cache_pos,
+                                   eps=norm_eps)
+        elif not causal and mix_cache is None:
+            y, mix = _bidir_attn(p["mixer"], spec.attn, h, positions), None
+        else:
+            y, mix = att.gqa_apply(p["mixer"], spec.attn, h, positions,
+                                   cache=mix_cache, cache_pos=cache_pos)
+    elif spec.kind == "mamba":
+        y, mix = ssm.mamba_apply(p["mixer"], spec.mamba, h, cache=mix_cache)
+    elif spec.kind == "mlstm":
+        y, mix = xl.mlstm_apply(p["mixer"], spec.xlstm, h, cache=mix_cache)
+    elif spec.kind == "slstm":
+        y, mix = xl.slstm_apply(p["mixer"], spec.xlstm, h, cache=mix_cache)
     else:
-        y, mix = att.gqa_apply(p["mixer"], spec.attn, h, positions,
-                               cache=mix_cache, cache_pos=cache_pos)
+        raise ValueError(spec.kind)
     x = x + y
+    new_cache: dict[str, Any] = {"mixer": mix} if mix is not None else {}
+    if spec.cross_attn:
+        hc = basic.rmsnorm(p["cross_norm"], x, norm_eps)
+        if cache is not None and "cross_kv" in cache:
+            kvp = (cache["cross_kv"]["k"], cache["cross_kv"]["v"])
+        else:
+            kvp = att.cross_kv(p["cross"], spec.attn, enc_out)
+        yc, _ = att.gqa_apply(p["cross"], _cross_cfg(spec), hc, positions,
+                              cache_pos=cache_pos, kv_override=kvp)
+        x = x + yc
+        new_cache["cross_kv"] = {"k": kvp[0], "v": kvp[1]}
     if spec.moe is not None:
         h2 = basic.rmsnorm(p["norm2"], x, norm_eps)
         x = x + moe_mod.moe_apply(p["moe"], spec.moe, h2)[0]
     elif spec.d_ff:
         h2 = basic.rmsnorm(p["norm2"], x, norm_eps)
         x = x + basic.ffn(p["ffn"], h2, spec.ffn_act)
-    return x, {"mixer": mix}
+    return x, new_cache
+
+
+def _bidir_attn(p, cfg, x: torch.Tensor, positions: torch.Tensor):
+    """An encoder layer's self-attention: q and k roped, no mask (kernel 6
+    without the causal mask, where the reference takes ``_sdpa`` or
+    ``sdpa_flash``). Like the reference's, it adds no QKV bias."""
+    b, s, _ = x.shape
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = att._split_heads(x @ p["wq"], h, dh)
+    k = att._split_heads(x @ p["wk"], kv, dh)
+    v = att._split_heads(x @ p["wv"], kv, dh)
+    if cfg.rope_kind != "none":
+        q = basic.apply_rope(cfg, q, positions)
+        k = basic.apply_rope(cfg, k, positions)
+    out = flash_attention_fwd(q.view(b, s, kv, h // kv, dh), k, v,
+                              scale=1.0 / math.sqrt(dh), causal=False)
+    return out.reshape(b, s, h * dh) @ p["wo"]
 
 
 class LM:
     def __init__(self, cfg: ModelConfig):
-        if cfg.enc_dec:
-            raise _unported("encoder-decoder models")
-        if cfg.frontend not in (None, "vision"):
-            raise _unported(f"the {cfg.frontend!r} frontend")
-        for spec in cfg.layer_iter():
-            _check_layer(spec)
         self.cfg = cfg
         self.layers = cfg.layer_iter()
+        self.enc_layers = list(cfg.enc_blocks) * cfg.enc_repeat \
+            if cfg.enc_dec else []
 
     # ---------------- parameter tree
 
@@ -123,7 +190,14 @@ class LM:
                                                dt, scale=0.02)}
         tree["layers"] = [layer_specs(sp, cfg.d_model, dt)
                           for sp in self.layers]
+        if cfg.enc_dec:
+            tree["enc_layers"] = [layer_specs(sp, cfg.d_model, dt)
+                                  for sp in self.enc_layers]
+            tree["enc_norm"] = basic.rmsnorm_specs(cfg.d_model)
         if cfg.frontend:
+            # the vision stub projects its embeddings (_inputs); the audio
+            # stub's projection is made but, as in the reference, unused:
+            # the encoder takes enc_emb as it is
             tree["frontend_proj"] = {
                 "w": ParamSpec((cfg.d_model, cfg.d_model), dt)}
         if cfg.mtp:
@@ -175,39 +249,63 @@ class LM:
 
     def _run_stack(self, params, x: torch.Tensor, positions: torch.Tensor, *,
                    caches: Optional[dict] = None, cache_pos=None,
-                   want_cache: bool = False):
-        """The layers in order. With ``caches`` (decode) each layer's cache
-        is updated in place; otherwise ``want_cache`` collects the
-        prefill's K/V (latent and rope key for MLA). Returns ``(x, caches
-        or None)``."""
+                   want_cache: bool = False,
+                   enc_out: Optional[torch.Tensor] = None):
+        """The decoder's layers in order. With ``caches`` (decode) each
+        layer's cache is updated in place; otherwise ``want_cache``
+        collects the prefill's K/V (latent and rope key for MLA), final
+        recurrent states and cross K/V. ``enc_out`` is the encoder's
+        output, for cross-attention without cached K/V. Returns ``(x,
+        caches or None)``."""
         new_layers = []
         for i, spec in enumerate(self.layers):
             c_i = caches["layers"][i] if caches is not None else None
             x, nc = apply_layer(spec, params["layers"][i], x, positions,
                                 cache=c_i, cache_pos=cache_pos,
-                                norm_eps=self.cfg.norm_eps)
+                                enc_out=enc_out, norm_eps=self.cfg.norm_eps)
             new_layers.append(nc)
         if caches is None and not want_cache:
             return x, None
         return x, {"layers": new_layers}
 
+    def _encode(self, params, enc_emb: torch.Tensor) -> torch.Tensor:
+        """The encoder stack over precomputed frontend embeddings (B,
+        S_enc, D) at positions 0..S_enc-1, then ``enc_norm``."""
+        x = enc_emb
+        positions = self._positions(enc_emb[..., 0])
+        for spec, p in zip(self.enc_layers, params["enc_layers"]):
+            x, _ = apply_layer(spec, p, x, positions, causal=False,
+                               norm_eps=self.cfg.norm_eps)
+        return basic.rmsnorm(params["enc_norm"], x, self.cfg.norm_eps)
+
     # ---------------- public steps
 
     def loss_and_aux(self, params, batch):
-        raise _unported("the training loss", TRAINING)
+        raise NotImplementedError(
+            f"the training loss is not ported yet ({TRAINING})")
 
     def prefill(self, params, tokens: torch.Tensor, *,
                 frontend_emb: Optional[torch.Tensor] = None,
                 frontend_mask: Optional[torch.Tensor] = None,
-                positions: Optional[torch.Tensor] = None):
+                positions: Optional[torch.Tensor] = None,
+                enc_emb: Optional[torch.Tensor] = None):
         """tokens (B, S) -> logits of the last position (B, 1, V) and the
-        caches ``{"layers": [{"mixer": {...}}, ...]}`` of length S. A
-        vision config takes ``frontend_emb`` (B, S, D) and
-        ``frontend_mask`` (B, S) bool; ``positions`` (B, S), or (3, B, S)
-        for M-RoPE, replaces 0..S-1."""
+        caches ``{"layers": [{"mixer": {...}, ["cross_kv": {...}]}, ...]}``:
+        K/V of length S, a recurrent layer's final states, and for an
+        encoder-decoder model the cross K/V of the encoder's output over
+        ``enc_emb`` (B, S_enc, D). A vision config takes ``frontend_emb``
+        (B, S, D) and ``frontend_mask`` (B, S) bool; ``positions`` (B, S),
+        or (3, B, S) for M-RoPE, replaces 0..S-1."""
         x, positions = self._inputs(params, tokens, frontend_emb,
                                     frontend_mask, positions)
-        x, caches = self._run_stack(params, x, positions, want_cache=True)
+        enc_out = None
+        if self.cfg.enc_dec:
+            if enc_emb is None:
+                raise ValueError(f"{self.cfg.name} is an encoder-decoder "
+                                 f"model: prefill needs enc_emb")
+            enc_out = self._encode(params, enc_emb)
+        x, caches = self._run_stack(params, x, positions, want_cache=True,
+                                    enc_out=enc_out)
         return self._logits(params, x[:, -1:, :]), caches
 
     def prefill_flops(self, tokens: int) -> float:
@@ -221,7 +319,9 @@ class LM:
                positions: Optional[torch.Tensor] = None):
         """tokens (B, 1); ``caches`` from :meth:`cache_specs` (or a
         prefill), updated in place; ``pos`` the host-int write index;
-        ``positions`` (B, 1) per-row rope positions (default ``pos``)."""
+        ``positions`` (B, 1) per-row rope positions (default ``pos``).
+        Cross-attention reads the cross K/V in the caches, as the
+        reference's decode does."""
         x = self._embed(params, tokens)
         if positions is None:
             positions = torch.full((tokens.shape[0], 1), int(pos),
@@ -232,8 +332,11 @@ class LM:
 
     # ---------------- cache tree
 
-    def cache_specs(self, batch: int, s_cache: int,
+    def cache_specs(self, batch: int, s_cache: int, enc_len: int = 0,
                     kv_quant: bool = False) -> dict:
-        dt = self.cfg.pdt
-        return {"layers": [layer_cache_specs(sp, batch, s_cache, dt, kv_quant)
-                           for sp in self.layers]}
+        """Zeroed decode caches for ``batch`` rows: ``s_cache`` K/V rows a
+        layer, ``enc_len`` cross K/V rows a cross-attention layer."""
+        cfg = self.cfg
+        return {"layers": [
+            layer_cache_specs(sp, cfg.d_model, batch, s_cache, cfg.pdt,
+                              enc_len, kv_quant) for sp in self.layers]}

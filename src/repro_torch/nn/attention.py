@@ -29,8 +29,13 @@ weight-absorbed form over the latent cache ``{"latent": (B, S, kv_lora),
 "k_rope": (B, S, qk_rope)}``, in plain einsums as in the reference (which
 has no kernel there either), written in place like the GQA cache.
 
-Cross-attention and precomputed-KV attention come with the
-encoder-decoder models (``models/lm.LM`` raises for such layers).
+Cross-attention (an encoder-decoder's decoder layers) is
+:func:`gqa_apply` with ``kv_override``, the encoder's K/V from
+:func:`cross_kv`, and q without rope (the layer's config has
+``rope_kind="none"``), every query row over every encoder row as in the
+reference's all-true mask: kernel 6 without the causal mask in a prefill
+(Sq decoder tokens, Sk encoder rows), kernel 7 at ``pos = Sk - 1`` over
+the cached cross K/V in a decode step.
 """
 from __future__ import annotations
 
@@ -85,17 +90,50 @@ def project_qkv(p, cfg: AttnConfig, x: torch.Tensor,
     return q, k, v
 
 
+def _cross_attention(p, cfg: AttnConfig, x: torch.Tensor,
+                     positions: torch.Tensor, kv_override, decode: bool):
+    """Attention of x's queries over precomputed K/V (B, Sk, KV, Dh), every
+    row over all of them (the reference's ``kv_override`` branch)."""
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    b, sq, _ = x.shape
+    k, v = kv_override
+    q = x @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(q.dtype)
+    q = _split_heads(q, h, dh)
+    if cfg.rope_kind != "none":
+        q = apply_rope(cfg, q, positions)
+    scale = 1.0 / math.sqrt(dh)
+    if decode:
+        if sq != 1:
+            raise ValueError(f"decode takes one token per row, got {sq}")
+        if k.shape[1] < 1:
+            raise ValueError("cross-attention over an empty encoder cache")
+        return decode_attention(q.reshape(b, kv, h // kv, dh), k, v,
+                                k.shape[1] - 1, scale=scale)
+    return flash_attention_fwd(q.view(b, sq, kv, h // kv, dh), k, v,
+                               scale=scale, causal=False)
+
+
 def gqa_apply(p, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor,
-              cache: Optional[dict] = None, cache_pos: Optional[int] = None):
+              cache: Optional[dict] = None, cache_pos: Optional[int] = None,
+              kv_override=None):
     """Returns ``(out, cache)``.
 
     * train / prefill: ``cache`` None -> causal self-attention over x; the
       returned cache is this call's ``{"k", "v"}``.
     * decode: ``cache`` given, x is (B, 1, D), ``cache_pos`` (a host int)
       the write index; the cache is updated in place and returned.
+    * cross-attention: ``kv_override=(k, v)`` precomputed from the
+      encoder (:func:`cross_kv`); a decode step when ``cache_pos`` is
+      given. Returns ``cache`` as it came.
     """
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     b, sq, _ = x.shape
+    if kv_override is not None:
+        out = _cross_attention(p, cfg, x, positions, kv_override,
+                               cache_pos is not None)
+        return out.reshape(b, sq, h * dh) @ p["wo"], cache
     scale = 1.0 / math.sqrt(dh)
     q, k, v = project_qkv(p, cfg, x, positions)
     if cache is None:
@@ -276,3 +314,20 @@ def mla_cache_specs(cfg: AttnConfig, batch: int, s_cache: int,
                                 init="zeros"),
             "k_rope": ParamSpec((batch, s_cache, cfg.qk_rope_dim), dtype,
                                 init="zeros")}
+
+
+# ============================================================ cross-attn
+
+
+def cross_kv_specs(cfg: AttnConfig, d_model: int, dtype) -> dict:
+    kv, dh = cfg.n_kv_heads, cfg.head_dim
+    return {"wk": ParamSpec((d_model, kv * dh), dtype),
+            "wv": ParamSpec((d_model, kv * dh), dtype)}
+
+
+def cross_kv(p, cfg: AttnConfig, enc_out: torch.Tensor):
+    """The encoder output's K and V (B, S_enc, KV, Dh) for a decoder
+    layer's cross-attention (``p`` holds its ``wk``, ``wv``)."""
+    k = _split_heads(enc_out @ p["wk"], cfg.n_kv_heads, cfg.head_dim)
+    v = _split_heads(enc_out @ p["wv"], cfg.n_kv_heads, cfg.head_dim)
+    return k, v

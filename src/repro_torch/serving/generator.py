@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.lm import LM
-from repro_torch.nn.param import init_params
+from repro_torch.nn.param import init_params, map_specs
 
 
 @dataclasses.dataclass
@@ -37,14 +37,24 @@ class GenRequest:
 
 
 class ContinuousBatcher:
-    """Slot-based continuous batching for a decoder-only LM. ``params``
-    (the port's LM parameters) replaces the seeded init, which draws on
-    ``device``."""
+    """Slot-based continuous batching for a decoder-only LM (attention,
+    Mamba or xLSTM layers). ``params`` (the port's LM parameters) replaces
+    the seeded init, which draws on ``device``. As in the reference, every
+    decode call steps every slot, so a recurrent layer's state in one slot
+    moves with its neighbours' steps and is not cleared on admit (ROADMAP
+    section 3)."""
 
     def __init__(self, cfg, params=None, *, slots: int = 4,
                  max_len: int = 128, seed: int = 0,
                  judge: Optional[Callable[[], None]] = None,
                  device="cuda"):
+        if cfg.enc_dec:
+            # the reference's batcher passes no encoder output and its
+            # caches hold no cross K/V rows (enc_len 0)
+            raise ValueError(
+                f"ContinuousBatcher serves decoder-only models; "
+                f"{cfg.name} is an encoder-decoder model: run LM.prefill "
+                f"with enc_emb, then LM.decode")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.lm = LM(cfg)
@@ -55,8 +65,13 @@ class ContinuousBatcher:
             self.lm.param_specs(),
             torch.Generator(device=self.device).manual_seed(seed),
             self.device)
-        self.caches = init_params(self.lm.cache_specs(slots, max_len), None,
-                                  self.device)
+        # every leaf zeroed, as the reference's batcher does
+        # (``jax.tree.map(jnp.zeros_like, ...)``): sLSTM's normaliser too,
+        # which its cache spec starts at ones
+        self.caches = map_specs(
+            lambda sp: torch.zeros(sp.shape, dtype=sp.dtype,
+                                   device=self.device),
+            self.lm.cache_specs(slots, max_len))
         self.pos = np.zeros(slots, np.int32)          # next write index
         self.active: list[Optional[GenRequest]] = [None] * slots
         self.queue: list[GenRequest] = []

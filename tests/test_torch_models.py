@@ -1,7 +1,8 @@
-"""The seven decoder-only assigned architectures in the port (``models/lm``
-with MoE, MLA, M-RoPE, prefix layers, the vision stub and the MTP block's
-parameters; ``serving/generator``) against the JAX package's, shrunk, in
-fp32, on the reference's parameters (``init_tree``, carried over with
+"""The ten assigned architectures in the port (``models/lm`` with MoE, MLA,
+M-RoPE, prefix layers, Mamba, mLSTM and sLSTM, the encoder-decoder, the
+vision and audio stubs and the MTP block's parameters;
+``serving/generator``) against the JAX package's, shrunk, in fp32, on the
+reference's parameters (``init_tree``, carried over with
 ``convert.lm_params_from_numpy``) and seeded numpy inputs; and kernels 6
 and 7's plain versions at the head dims these models add (192: MLA's
 folded prefill; 256: gemma3) against the Pallas kernels in interpret mode.
@@ -39,14 +40,14 @@ torch.set_num_threads(1)
 CTX = ShardCtx(None)
 TOL = 2e-4
 VOCAB = 128
-DECODER_ONLY = ["yi-34b", "granite-3-8b", "qwen1.5-110b", "gemma3-12b",
-                "qwen2-vl-7b", "deepseek-v2-236b", "deepseek-v3-671b"]
-LATER = {"jamba-1.5-large-398b": "mamba", "xlstm-350m": "mlstm",
-         "seamless-m4t-large-v2": "encoder-decoder"}
+RECURRENT = ["jamba-1.5-large-398b", "xlstm-350m"]
+SLICE_11A = [*RECURRENT, "seamless-m4t-large-v2"]
+ENC_LEN = 5       # seamless: encoder frames of the prefill and the caches
+CHUNK = 4         # Mamba's and mLSTM's time chunk in the shrunk configs
 
 
 def _cfgs(name: str, n_repeat: int = 1):
-    size = dict(d_model=64, vocab=VOCAB, n_repeat=n_repeat)
+    size = dict(d_model=64, vocab=VOCAB, n_repeat=n_repeat, seq_chunk=CHUNK)
     fp32 = dict(param_dtype="float32", compute_dtype="float32")
     return (dataclasses.replace(ref_shrink(ref_get_config(name), **size),
                                 **fp32),
@@ -86,25 +87,35 @@ def _vision_inputs(b: int, s: int, n_img: int = 6, seed: int = 2):
     return {"frontend_emb": emb, "frontend_mask": mask, "positions": pos}
 
 
-@pytest.mark.parametrize("name", DECODER_ONLY)
+def _enc_emb(b: int, s: int = ENC_LEN, seed: int = 3) -> np.ndarray:
+    return np.random.default_rng(seed).standard_normal((b, s, 64)) \
+        .astype(np.float32)
+
+
+@pytest.mark.parametrize("name", ASSIGNED)
 def test_assigned_prefill_and_decode_match_reference(name):
-    """Last-position prefill logits (qwen2-vl with its frontend inputs and
-    M-RoPE positions) and three decode steps from empty caches."""
+    """Last-position prefill logits over 12 tokens (three Mamba / mLSTM
+    chunks; qwen2-vl with its frontend inputs and M-RoPE positions,
+    seamless over ENC_LEN encoder frames) and three decode steps from
+    empty caches (seamless's cross rows zero)."""
     ref, params, lm, pp = _models(name)
     toks = _tokens(2, 12)
     batch = {"tokens": toks}
     if lm.cfg.frontend == "vision":
         batch.update(_vision_inputs(2, 12))
+    if lm.cfg.enc_dec:
+        batch["enc_emb"] = _enc_emb(2)
     want, _ = ref.prefill(CTX, params,
                           {k: jnp.asarray(v) for k, v in batch.items()})
     got, caches = lm.prefill(pp, torch.from_numpy(toks), **{
         k: torch.from_numpy(v) for k, v in batch.items() if k != "tokens"})
     assert got.shape == (2, 1, VOCAB)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL)
-    assert len(caches["layers"]) == lm.cfg.n_layers
-    ref_c = jax.tree.map(jnp.zeros_like, init_tree(
-        jax.random.PRNGKey(1), ref.cache_specs(2, 6)))
-    cc = init_params(lm.cache_specs(2, 6), None, "cpu")
+    assert len(caches["layers"]) == len(lm.cfg.layer_iter())
+    enc_len = ENC_LEN if lm.cfg.enc_dec else 0
+    ref_c = init_tree(jax.random.PRNGKey(1),
+                      ref.cache_specs(2, 6, enc_len=enc_len))
+    cc = init_params(lm.cache_specs(2, 6, enc_len=enc_len), None, "cpu")
     for t in range(3):
         want, ref_c = ref.decode(CTX, params, jnp.asarray(toks[:, t:t + 1]),
                                  ref_c, jnp.int32(t))
@@ -218,11 +229,15 @@ def _requests(cls, n=5, seed=1, max_new=6):
 
 
 @pytest.mark.parametrize("name,max_len", [("deepseek-v3-671b", 32),
-                                          ("gemma3-12b", 24)])
+                                          ("gemma3-12b", 24),
+                                          ("jamba-1.5-large-398b", 32),
+                                          ("xlstm-350m", 32)])
 def test_batcher_tokens_equal_reference(name, max_len):
     """The same requests through both packages' ContinuousBatcher: the
     same tokens (MoE dispatch at the batcher's slots, MLA latent decode,
-    and gemma3's window-8 rings wrapping)."""
+    gemma3's window-8 rings wrapping; jamba's and xlstm's recurrent states,
+    which every step advances in every slot, idle ones on token 0, and
+    which admit never clears, as in the reference: ROADMAP section 3)."""
     ref_cfg, cfg = _cfgs(name)
     params = init_tree(jax.random.PRNGKey(4), RefLM(ref_cfg).param_specs())
     ref = RefBatcher(ref_cfg, params=params, slots=3, max_len=max_len)
@@ -261,12 +276,83 @@ def test_params_carry_prefix_moe_mla_and_mtp():
         lm.loss_and_aux(pp, {})
 
 
-@pytest.mark.parametrize("name", sorted(LATER))
-def test_later_configs_raise_naming_their_slice(name):
-    assert name in ASSIGNED
-    with pytest.raises(NotImplementedError,
-                       match=f"(?i){LATER[name]}.*slice 11a′"):
-        LM(get_config(name))
+def _grow(lm, caches, rows: int):
+    """A prefill's caches made ready for ``rows`` more decode steps: each
+    attention layer's K/V grown by ``rows`` empty rows; recurrent states
+    and cross K/V as they are."""
+    for spec, layer in zip(lm.layers, caches["layers"]):
+        if spec.kind == "attn":
+            layer["mixer"] = {k: torch.cat([b, b.new_zeros(
+                (b.shape[0], rows, *b.shape[2:]))], 1)
+                for k, b in layer["mixer"].items()}
+    return caches
+
+
+@pytest.mark.parametrize("name", SLICE_11A)
+def test_prefill_over_chunks_equals_prefill_then_decode(name):
+    """A 12-token prefill (three chunks of the shrunk Mamba and mLSTM
+    layers) against a 4-token prefill (one chunk) and eight decode steps
+    through the caches it returned (recurrent states, K/V, seamless's
+    cross K/V): the last logits agree, with each other and with the
+    reference's 12-token prefill."""
+    ref, params, lm, pp = _models(name, seed=5)
+    toks = _tokens(1, 12, seed=6)
+    extra = {"enc_emb": _enc_emb(1)} if lm.cfg.enc_dec else {}
+    want, _ = ref.prefill(CTX, params, {
+        "tokens": jnp.asarray(toks),
+        **{k: jnp.asarray(v) for k, v in extra.items()}})
+    extra = {k: torch.from_numpy(v) for k, v in extra.items()}
+    full, _ = lm.prefill(pp, torch.from_numpy(toks), **extra)
+    _, caches = lm.prefill(pp, torch.from_numpy(toks[:, :4]), **extra)
+    caches = _grow(lm, caches, 8)
+    for t in range(4, 12):
+        got, caches = lm.decode(pp, torch.from_numpy(toks[:, t:t + 1]),
+                                caches, t)
+    logits = got.numpy()
+    np.testing.assert_allclose(logits, full.numpy(), atol=TOL)
+    np.testing.assert_allclose(logits, np.asarray(want), atol=TOL)
+
+
+def test_recurrent_decode_matches_reference_on_prefill_states():
+    """jamba's and xlstm's decode from a prefill's states (Mamba's conv and
+    SSM states, mLSTM's closed-form final state, sLSTM's scan state, the
+    attention layer's K/V) equals the reference's decode on the same
+    caches, step for step."""
+    for name in RECURRENT:
+        ref, params, lm, pp = _models(name, seed=7)
+        toks = _tokens(2, 11, seed=8)
+        _, caches = lm.prefill(pp, torch.from_numpy(toks[:, :8]))
+        caches = _grow(lm, caches, 3)
+        ref_c = _ref_tree(ref.cfg, caches)
+        for t in range(8, 11):
+            want, ref_c = ref.decode(CTX, params,
+                                     jnp.asarray(toks[:, t:t + 1]), ref_c,
+                                     jnp.int32(t))
+            got, caches = lm.decode(pp, torch.from_numpy(toks[:, t:t + 1]),
+                                    caches, t)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       atol=TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("name", ASSIGNED)
+def test_every_assigned_config_builds_at_published_width(name):
+    """``LM(get_config(name))`` for all ten: the parameter tree holds the
+    reference's parameter count and bytes (the encoder, Mamba, xLSTM and
+    cross-attention leaves included)."""
+    from repro_torch.nn.param import param_bytes, param_count
+
+    specs = LM(get_config(name)).param_specs()
+    ref = jax.tree.leaves(RefLM(ref_get_config(name)).param_specs(),
+                          is_leaf=lambda x: hasattr(x, "shape"))
+    assert param_count(specs) == sum(int(np.prod(s.shape)) for s in ref)
+    assert param_bytes(specs) == sum(
+        int(np.prod(s.shape)) * jnp.dtype(s.dtype).itemsize for s in ref)
+
+
+@pytest.mark.parametrize("name", SLICE_11A)
+def test_loss_and_aux_still_raises_naming_slice_11b(name):
+    with pytest.raises(NotImplementedError, match="slice 11b"):
+        LM(get_config(name)).loss_and_aux({}, {})
 
 
 def _arr(shape, seed):

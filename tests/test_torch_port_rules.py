@@ -231,15 +231,17 @@ ASSIGNED_CONFIGS = ("deepseek_v2_236b", "deepseek_v3_671b", "gemma3_12b",
                     "yi_34b")
 PORTED_MODULES = ("obs.export", "obs.analyze", "obs.slo", "core.freshness",
                   "serving.faults", "serving.overload", "serving.federation",
-                  "nn.moe", *(f"configs.{c}" for c in ASSIGNED_CONFIGS))
+                  "nn.moe", "nn.ssm", "nn.xlstm",
+                  *(f"configs.{c}" for c in ASSIGNED_CONFIGS))
 
 
 def test_port_keeps_its_own_copies_of_the_ported_modules():
     """Importing the port's copy of every module of the freshness,
-    robustness, telemetry-export and federation slice, of the MoE mixer
-    and of the assigned configs loads none of ``repro.obs.*``,
-    ``repro.core.freshness``, ``repro.serving.{faults,overload,
-    federation}``, ``repro.nn.moe`` or ``repro.configs.*`` (nor JAX)."""
+    robustness, telemetry-export and federation slice, of the MoE, Mamba
+    and xLSTM mixers and of the assigned configs loads none of
+    ``repro.obs.*``, ``repro.core.freshness``, ``repro.serving.{faults,
+    overload,federation}``, ``repro.nn.{moe,ssm,xlstm}`` or
+    ``repro.configs.*`` (nor JAX)."""
     for mod in PORTED_MODULES:
         assert (ROOT / "src" / "repro_torch" / (mod.replace(".", "/")
                                                 + ".py")).is_file(), mod
@@ -294,34 +296,3 @@ def test_every_kernel_source_is_built_and_hashed_with_its_headers():
             assert f'#include "{header}"' in text, (name, header)
     paths = {n: build.library_path(n) for n in build.SOURCES}
     assert len(set(paths.values())) == len(paths)
-
-
-def _left_out_kind(kind: str):
-    from repro_torch.nn.config import (AttnConfig, LayerSpec, MambaConfig,
-                                       ModelConfig, XLSTMConfig)
-
-    attn = AttnConfig(n_heads=2, n_kv_heads=2, head_dim=16)
-    layer = {
-        "slstm": LayerSpec(kind="slstm", xlstm=XLSTMConfig(kind="slstm")),
-        "audio": LayerSpec(kind="attn", attn=attn, d_ff=64),
-        "ssm": LayerSpec(kind="mamba", mamba=MambaConfig()),
-        "xlstm": LayerSpec(kind="mlstm", xlstm=XLSTMConfig()),
-        "enc_dec": LayerSpec(kind="attn", attn=attn, d_ff=64),
-    }[kind]
-    return ModelConfig("t", "dense", 32, 64, blocks=(layer,),
-                       enc_dec=kind == "enc_dec",
-                       enc_blocks=(layer,) if kind == "enc_dec" else (),
-                       enc_repeat=int(kind == "enc_dec"),
-                       frontend="audio" if kind == "audio" else None)
-
-
-@pytest.mark.parametrize("kind", ["slstm", "audio", "ssm", "xlstm",
-                                  "enc_dec"])
-def test_left_out_model_kinds_name_slice_11(kind):
-    """The LM port takes decoder-only attention models (GQA or MLA, dense
-    FFN or MoE); every other model kind raises, naming the ROADMAP slice
-    that brings it."""
-    from repro_torch.models.lm import LM
-
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        LM(_left_out_kind(kind))
