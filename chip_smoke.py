@@ -192,12 +192,40 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            greedy LM.decode; counts exact; a fresh run replays the tokens
            exactly; forward steps per second, a smoke reading of 4 short
            requests, not a throughput measurement.
+   train   the training slice on granite-3-8b: (a) kernel 6's per-row
+           log-sum-exp (``return_lse``) against its plain version on both
+           designs at kernel_attn's reference cases and bf16 edges and at
+           the training shape (B 1, S 4096, KV 8, G 4, Dh 128, causal),
+           fp32 within 3e-5 and bf16 within two bf16 steps, the output
+           held by attn_err; its device ms with and without it at the
+           training shape and the judge's micro-batch; (b) nn/flash's
+           attention gradient (kernel 6 and the torch backward) against
+           autograd through the plain version in fp32 at the training
+           shape, per element (attn_err's limit plus 2^-10 of the tensor's
+           rms), with two planted faults (lse shifted by 2^-4, delta
+           dropped) that must fail it, and its times beside
+           scaled_dot_product_attention's forward and backward; (c) one
+           step at 2 layers, published width, 1 x 4096 tokens, bf16
+           against fp32 (kernel 6's CUDA-core design): the loss within 1%,
+           every gradient leaf within 5% in norm; (d)
+           launch.train.main at published width, batch 2 x 4096 in 2
+           microbatches, fp32 AdamW state, remat none, at the most layers
+           whose 16 bytes a parameter and measured activation peak fit the
+           card: 10 steps on one repeated batch (kernel 6 launched layers
+           x microbatches times a step, all tensor-core; the loss finite
+           and ending below 0.9 x its first), a remat "dots" step with the
+           same loss, then bigram steps, one under torch.profiler (busy
+           share, top device operations); layers, peak memory, step ms,
+           tokens/s and MFU; (e) the Supervisor with an injected failure
+           on the shrunk config on cuda: losses equal to an uninterrupted
+           run's.
 9. the ``kernels`` line: per kernel, its launches on the run that drives
    it and on every serve run, serve_fresh's too (a serve run; the
    colocated run for kernels 6 and 7, with their
    launches by design in colocated, lm, (g), lm_assigned and
    serve_assigned, their wide-head sizes and the hybrid and
-   encoder-decoder sizes; kernels 1 and 2 with
+   encoder-decoder sizes, and kernel 6's at the training shape with its
+   lse and the attention backward's times; kernels 1 and 2 with
    theirs in every serve run, all on the one-launch designs, and their
    CUDA launches a call; kernels 3-5 with their launches by design in
    the runs that launch them and both designs' device times, kernels 3
@@ -2997,7 +3025,7 @@ def decode_after_prefill(lm, params, g, dev, prompt: int = LM_PREFIX,
         x, positions = lm._inputs(params, toks, **fe)
         enc_out = None if enc_emb is None else lm._encode(params, enc_emb)
         with moe_choices() as forward_experts:
-            h, _ = lm._run_stack(params, x, positions, enc_out=enc_out)
+            h, _, _ = lm._run_stack(params, x, positions, enc_out=enc_out)
         full = lm._logits(params, h[:, -1:]).float()
         _, caches = lm.prefill(params, toks[:, :prompt], **head, **enc)
         fold_for_decode(lm, caches, prompt)
@@ -3696,6 +3724,544 @@ def phase_serve_assigned(dev):
     return line
 
 
+# ------------------------------------------------------------------ train
+
+# the training slice (ROADMAP slice 11b): granite-3-8b, the reference
+# trainer's default --arch, at its published widths and the dry run's
+# train_4k length (4096 tokens a sequence): batch 2 in 2 microbatches of
+# 1 x 4096, fp32 AdamW state, remat none, at the most layers up to its 40
+# whose 16 bytes a parameter (bf16 weights and gradients, fp32 m, v and
+# gradient accumulator) and measured activation peak fit FIT_HEADROOM
+TRAIN_ARCH = "granite-3-8b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 2, 4096, 2
+TRAIN_STEPS = 10          # on one repeated batch: the loss must fall ...
+TRAIN_FALL = 0.9          # ... below 0.9 x its first value
+TRAIN_BIGRAM_STEPS = 4    # then bigram steps, reported; step 2 profiled
+TRAIN_MAX_LAYERS = 40
+TRAIN_STATE_BYTES = 16    # a parameter's bytes in the step (above)
+# kernel 6 at one microbatch of granite's attention: (B, S, KV, G, Dh)
+TRAIN_ATTN = (1, 4096, 8, 4, 128)
+# lse holds: fp32 within 3e-5 (sums in another order); bf16 inputs
+# within two bf16 steps of the value, 2^-6 x max(1, |lse|)
+LSE_TOL = {torch.float32: 3e-5}
+LSE_BF16_REL = 2.0 ** -6
+# the attention gradient is held to autograd through the plain version
+# in fp32 (grad_limits): attn_err's bf16 limit, plus what the backward's
+# two bf16 rounding points of the reference's _flash_bwd carry, each
+# bounded by one bf16 step (2^-8) of its value: O, an input of delta =
+# rowsum(dO * O), and ds before ds @ K
+GRAD_STEP = 2.0 ** -8
+LSE_FAULT = 2.0 ** -4     # planted: lse shifted, so p off by 6%
+# bf16 against fp32 at 2 layers: one step's loss and gradients
+BF16_LOSS_REL, BF16_GRAD_REL = 0.01, 0.05
+# restart exactness on the shrunk granite: a checkpoint every 4 steps, a
+# failure at step 9, replayed from the checkpoint at step 8
+RESTART = dict(steps=12, save_every=4, fail_at=9, batch=4, seq=64)
+
+
+def hold_lse(q, k, v, *, causal=True, window=None, design=None,
+             aligned=True) -> tuple[float, float]:
+    """Kernel 6 with ``return_lse`` against its plain version on the same
+    inputs, on the design the dispatch gives them (or ``design``): the
+    output by attn_err, the lse by LSE_TOL (fp32) or LSE_BF16_REL (bf16).
+    Returns both max abs errors."""
+    from repro_torch.kernels import flash_attention as fa
+    scale = 1.0 / float(q.shape[-1]) ** 0.5
+    before = design_counts(fa.flash_attention_fwd)
+    if design is None:
+        got, lse = fa.flash_attention_fwd(q, k, v, scale=scale,
+                                          causal=causal, window=window,
+                                          return_lse=True)
+    else:
+        got, lse = fa._launch(design, q, k, v, scale, causal, window, True)
+    torch.cuda.synchronize()
+    check_design(fa.flash_attention_fwd, before,
+                 design or expect_design(q, aligned),
+                 f"flash_attention_fwd(return_lse) at {tuple(q.shape)}")
+    want, want_lse = fa.flash_attention_plain(q, k, v, scale, causal, window,
+                                              True)
+    err, share = attn_err(got, want)
+    TOL_SHARE["flash_attention_fwd"] = max(TOL_SHARE["flash_attention_fwd"],
+                                           share)
+    check(share <= 1.0, f"flash_attention_fwd(return_lse) out differs by "
+          f"{err} ({share} of the tolerance) at {tuple(q.shape)}")
+    check(lse.shape == want_lse.shape and lse.dtype == torch.float32,
+          f"lse {tuple(lse.shape)} {lse.dtype}, want {tuple(want_lse.shape)}")
+    d = (lse - want_lse).abs()
+    lim = LSE_TOL[torch.float32] if q.dtype == torch.float32 else \
+        LSE_BF16_REL * want_lse.abs().clamp_min(1.0)
+    check(bool((d <= lim).all()),
+          f"lse differs by {float(d.max())} at q {tuple(q.shape)} k "
+          f"{tuple(k.shape)} causal={causal} window={window} {q.dtype}")
+    return err, float(d.max())
+
+
+def grad_limits(q, k, v, do, scale: float) -> tuple:
+    """The rounding the bf16 backward carries beyond its outputs' own,
+    per element of dq and dk (dv has none), causal: O in bf16 moves
+    delta_i by up to r_i = GRAD_STEP sum_d |dO_id O_id|, so ds_ij by
+    p_ij r_i scale, so dq_i by scale r_i (P |K|)_i and dk_j by scale
+    (P^T (r |Q|))_j; ds rounded to bf16 before ds @ K moves dq_i by up
+    to GRAD_STEP (|dS| |K|)_i. In fp32 from the plain version's P."""
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    sq, sk = q.shape[1], k.shape[1]
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * scale
+    keep = torch.ones((sq, sk), dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(torch.where(keep, s, NEG), dim=-1)
+    del s
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, vf)
+    r = GRAD_STEP * (dof.abs() * o.abs()).sum(-1)           # (B, S, KV, G)
+    delta = (dof * o).sum(-1).permute(0, 2, 3, 1)[..., None]
+    ds = torch.einsum("bqkgd,bskd->bkgqs", dof, vf).sub_(delta).mul_(p)
+    ds = ds.abs_().mul_(scale)
+    ka = kf.abs()
+    lim_q = scale * r[..., None] * torch.einsum("bkgqs,bskd->bqkgd", p, ka) \
+        + GRAD_STEP * torch.einsum("bkgqs,bskd->bqkgd", ds, ka)
+    del ds
+    lim_k = scale * torch.einsum("bkgqs,bqkgd->bskd", p,
+                                 r[..., None] * qf.abs())
+    return lim_q, lim_k, torch.zeros_like(vf)
+
+
+def attn_grad_err(got: torch.Tensor, want: torch.Tensor, extra):
+    """max |got - want| of a bf16 attention gradient against its fp32
+    reference, and the largest share of its per-element limit used:
+    BF16_RTOL |want| + BF16_RMS_TOL rms(want's row) + ``extra``
+    (grad_limits)."""
+    d = (got.float() - want).abs()
+    lim = (BF16_RTOL * want.abs()
+           + BF16_RMS_TOL * want.square().mean(dim=-1, keepdim=True).sqrt()
+           + extra)
+    return float(d.max()), float((d / lim.clamp_min(
+        torch.finfo(torch.float32).tiny)).max())
+
+
+def bound_flash_bwd(q, k) -> tuple[float, str]:
+    """Least time on the card for the attention backward: q, k, v, o, dO
+    and lse read once, dq, dk, dv written once; or its five products, 10
+    Dh operations per kept (row, key) pair and head, at the inputs' bf16
+    peak."""
+    b, sq, kvh, g, dh = q.shape
+    nbytes = (5 * q.numel() + 2 * k.numel()) * q.element_size() \
+        + 4 * b * kvh * g * sq
+    ops = 10.0 * dh * kept_pairs(sq, k.shape[1], True, None) * b * kvh * g
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / peak_flops(q.dtype) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def hold_attention_grad(q, k, v, do) -> dict:
+    """nn/flash.flash_attention's (dq, dk, dv), kernel 6 and the torch
+    backward, against autograd through flash_attention_plain in fp32 on
+    the same bf16 inputs (attn_grad_err with grad_limits); two planted
+    faults, lse shifted by LSE_FAULT and delta dropped, must fail the
+    hold (a share of it above 1). Then the times of
+    the backward and of forward + backward beside
+    scaled_dot_product_attention's."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.nn import flash as nf
+    scale = 1.0 / float(q.shape[-1]) ** 0.5
+    xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    before = design_counts(fa.flash_attention_fwd)
+    got = torch.autograd.grad(nf.flash_attention(*xs, scale), xs, do)
+    torch.cuda.synchronize()
+    check_design(fa.flash_attention_fwd, before, "tc",
+                 "nn/flash.flash_attention at the training shape")
+    xf = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(fa.flash_attention_plain(*xf, scale), xf,
+                               do.float())
+    del xf
+    extra = grad_limits(q, k, v, do, scale)
+    out = {}
+    for name, a, w, x in zip(("dq", "dk", "dv"), got, want, extra):
+        check(a.shape == w.shape and a.dtype == q.dtype,
+              f"{name}: {tuple(a.shape)} {a.dtype}")
+        check(bool(torch.isfinite(a.float()).all()), f"{name} not finite")
+        err, share = attn_grad_err(a, w, x)
+        check(share <= 1.0, f"attention {name} differs by {err} ({share} "
+              f"of the tolerance) at {tuple(q.shape)}")
+        out[name] = {"max_abs_err": err, "tol_share": share}
+    with torch.no_grad():
+        o, lse = fa.flash_attention_fwd(q, k, v, scale=scale,
+                                        return_lse=True)
+        planted = {
+            "lse_shifted": nf.flash_bwd(q, k, v, o, lse + LSE_FAULT, do,
+                                        scale, True, None),
+            "delta_dropped": nf.bwd_chunks(q, k, v, lse,
+                                           torch.zeros_like(lse), do, scale,
+                                           True, None)}
+    for what, grads in planted.items():
+        share = max(attn_grad_err(a, w, x)[1]
+                    for a, w, x in zip(grads, want, extra))
+        check(share > 1.0, f"an attention backward with {what} passes the "
+              f"gradient hold: {share} of the tolerance")
+        out[f"planted_{what}_tol_share"] = share
+    del planted, want, extra
+
+    def bwd():
+        with torch.no_grad():
+            nf.flash_bwd(q, k, v, o, lse, do, scale, True, None)
+
+    def fwd_bwd():
+        torch.autograd.grad(nf.flash_attention(*xs, scale), xs, do)
+
+    b, s, kvh, g, dh = q.shape
+    qh = q.reshape(b, s, kvh * g, dh).transpose(1, 2).detach() \
+        .requires_grad_()
+    kh, vh = (x.transpose(1, 2).detach().requires_grad_() for x in (k, v))
+    doh = do.reshape(b, s, kvh * g, dh).transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        y = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                           scale=scale, enable_gqa=True)
+        torch.autograd.grad(y, (qh, kh, vh), doh)
+
+    bound_ms, bound_by = bound_flash_bwd(q, k)
+    out.update(bwd_ms=timed_ms(bwd, 5), bwd_device_ms=device_ms(bwd, 3),
+               bwd_bound_ms=bound_ms, bwd_bound_by=bound_by,
+               fwd_bwd_ms=timed_ms(fwd_bwd, 5),
+               library_fwd_bwd_ms=timed_ms(sdpa_fwd_bwd, 5),
+               library_fwd_bwd_device_ms=device_ms(sdpa_fwd_bwd, 3))
+    return out
+
+
+def release(dev) -> None:
+    """Free what the last run left: tensors in reference cycles (torch's
+    selective checkpointing leaves some: its pytree helpers recurse
+    through closures) and the allocator's cached blocks, so that the next
+    full-width state fits."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def train_args(layers: int, *extra) -> list:
+    return ["--arch", TRAIN_ARCH, "--device", "cuda", "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--microbatches",
+            str(TRAIN_MICRO), "--n-repeat", str(layers), "--save-every",
+            "0", *extra]
+
+
+def train_batch(cfg, b: int, seed: int) -> dict:
+    """Tokens and labels drawn below granite's published vocab (its table
+    pads 49155 to 49280; labels never reach a pad id)."""
+    from repro_torch.configs.granite_3_8b import PAPER_VOCAB
+
+    rng = np.random.default_rng(seed)
+    vocab = min(PAPER_VOCAB, cfg.vocab_size)
+    return {k: rng.integers(0, vocab, (b, TRAIN_SEQ)).astype(np.int32)
+            for k in ("tokens", "labels")}
+
+
+def activation_peaks(cfg, params, mb, dev) -> tuple[dict, tuple]:
+    """The activation peak of one microbatch's loss and gradients at 1 and
+    2 layers: the peak above the parameters, less the gradients' bytes.
+    Returns ``({layers: bytes}, (loss, grads) at 2 layers)``."""
+    import dataclasses
+
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.lm import LM
+    from repro_torch.nn.param import param_bytes
+
+    peaks, last = {}, None
+    for n in (1, 2):
+        c = dataclasses.replace(cfg, n_repeat=n)
+        p = {**params, "layers": params["layers"][:n]}
+        last = None
+        release(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        last = value_and_grad(LM(c), p, mb)
+        torch.cuda.synchronize()
+        peaks[n] = (torch.cuda.max_memory_allocated(dev) - base
+                    - param_bytes(LM(c).param_specs()))
+    return peaks, last
+
+
+def train_depth(cfg, peaks: dict, dev) -> dict:
+    """The most layers up to TRAIN_MAX_LAYERS whose TRAIN_STATE_BYTES a
+    parameter and activation peak (``activation_peaks``, linear in the
+    depth) fit the card with FIT_HEADROOM to spare. (A whole step's peak
+    at 1 and 2 layers would not do: there it sits in the optimizer, where
+    no activation is live.)"""
+    import dataclasses
+
+    from repro_torch.models.lm import LM
+    from repro_torch.nn.param import param_count
+
+    per_layer = peaks[2] - peaks[1]
+    fixed = peaks[1] - per_layer
+    room = torch.cuda.get_device_properties(dev).total_memory - FIT_HEADROOM
+
+    def need(n):
+        c = dataclasses.replace(cfg, n_repeat=n)
+        return TRAIN_STATE_BYTES * param_count(LM(c).param_specs()) + \
+            fixed + n * per_layer
+
+    fits = [n for n in range(1, TRAIN_MAX_LAYERS + 1) if need(n) <= room]
+    check(bool(fits), f"not one layer of {TRAIN_ARCH} trains on the card")
+    n = fits[-1]
+    return {"layers": n, "need_bytes": need(n), "room_bytes": room,
+            "act_bytes_per_layer": per_layer, "act_bytes_fixed": fixed}
+
+
+def op_kind(name: str) -> str:
+    """A device operation's kind, from its kernel name: kernel 6, an fp32
+    GEMM on the CUDA cores (the attention backward's and the chunked
+    xent's products), another GEMM (the model's bf16 products), an
+    elementwise or reduction kernel, or other."""
+    if "flash_fwd" in name:
+        return "kernel6"
+    if "f32f32_f32f32" in name or "sgemm" in name:
+        return "gemm_fp32"
+    if "gemm" in name or "nvjet" in name or "cutlass" in name:
+        return "gemm_other"
+    if "elementwise" in name or "reduce" in name:
+        return "elementwise_reduce"
+    return "other"
+
+
+def profiled_main(main, argv, data, dev) -> dict:
+    """``main(argv, data)`` under torch.profiler, whose schedule's one
+    active step is step 2 (the data hook marks the steps): that step's
+    device time (the profiler's own ProfilerStep range left out) by kind
+    (op_kind), its share of the step's host clock, and the top device
+    operations."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    stamps = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        def hook(step):
+            if step:
+                prof.step()
+            stamps.append(time.perf_counter())
+            return data(step)
+
+        res = main(argv, data=hook)
+    wall = (stamps[3] - stamps[2]) * 1e3
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and not e.key.startswith("ProfilerStep")]
+    busy = sum(e.self_device_time_total for e in device) / 1e3
+    kinds = {}
+    for e in device:
+        kind = op_kind(e.key)
+        kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e3
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:10]
+    return {"losses": res.losses, "profiled_step_wall_ms": wall,
+            "device_ms": busy, "device_ms_by_kind": kinds,
+            "device_busy_share": busy / wall if wall else None,
+            "top_device_ops": [{"name": e.key[:90], "calls": e.count,
+                                "ms": e.self_device_time_total / 1e3}
+                               for e in top]}
+
+
+def phase_train(dev):
+    """The training slice on the card: (a) kernel 6's lse against its plain
+    version on both designs, at kernel_attn's cases and the training
+    shape, with times with and without it; (b) the attention gradient at
+    the training shape, with two planted faults; (c) a bf16 step against
+    an fp32 one at 2 layers; (d) launch.train.main at full width (the depth
+    that fits), 10 steps on one repeated batch, kernel 6 launched layers x
+    microbatches times a step, all tensor-core, then remat "dots" on one
+    step and bigram steps, one profiled; (e) restart exactness."""
+    import contextlib
+    import dataclasses
+    import tempfile
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.roofline import model_flops
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models.lm import LM
+    from repro_torch.nn.param import init_params
+    from repro_torch.train import tree as tr
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    bf, f32 = torch.bfloat16, torch.float32
+    errs = {"out": 0.0, "lse": 0.0}
+    n_cases = 0
+    # (a) lse: the reference's shapes in fp32 and bf16, aligned (the
+    # dispatch's design) and not (the CUDA-core design); the bf16 edges at
+    # every Dh on both designs; the training shape on both
+    for b, sq, sk, kvh, gq, dh, causal, win in FLASH_CASES:
+        for dt in (f32, bf):
+            q = randn(g, (b, sq, kvh, gq, dh), dt, dev)
+            k, v = (randn(g, (b, sk, kvh, dh), dt, dev) for _ in range(2))
+            for aligned in (True, False):
+                xs = (q, k, v) if aligned else tuple(map(misaligned,
+                                                         (q, k, v)))
+                e = hold_lse(*xs, causal=causal, window=win, aligned=aligned)
+                errs = {"out": max(errs["out"], e[0]),
+                        "lse": max(errs["lse"], e[1])}
+                n_cases += 1
+    for dh in FLASH_EDGE_DH:
+        for sq, sk, causal, win in FLASH_EDGES:
+            q = randn(g, (2, sq, 2, 2, dh), bf, dev)
+            k, v = (randn(g, (2, sk, 2, dh), bf, dev) for _ in range(2))
+            for design in ("tc", "simt"):
+                e = hold_lse(q, k, v, causal=causal, window=win,
+                             design=design)
+                errs = {"out": max(errs["out"], e[0]),
+                        "lse": max(errs["lse"], e[1])}
+                n_cases += 1
+    b, s, kvh, gq, dh = TRAIN_ATTN
+    q = randn(g, (b, s, kvh, gq, dh), bf, dev)
+    k, v = (randn(g, (b, s, kvh, dh), bf, dev) for _ in range(2))
+    for design in ("tc", "simt"):
+        e = hold_lse(q, k, v, design=design)
+        errs = {"out": max(errs["out"], e[0]), "lse": max(errs["lse"], e[1])}
+        n_cases += 1
+    scale = 1.0 / float(dh) ** 0.5
+    attn = measure_flash(q, k, v)
+    attn["lse_device_ms"] = device_ms(lambda: fa.flash_attention_fwd(
+        q, k, v, scale=scale, return_lse=True))
+    jb, js, jkv, jg = next(c for c in FLASH_FULL if c[0] == COLO["pairs"])
+    qj = randn(g, (jb, js, jkv, jg, 128), bf, dev)
+    kj, vj = (randn(g, (jb, js, jkv, 128), bf, dev) for _ in range(2))
+    judge = {"shape": [jb, js, jkv, jg, 128],
+             "no_lse_device_ms": device_ms(lambda: fa.flash_attention_fwd(
+                 qj, kj, vj, scale=0.088)),
+             "lse_device_ms": device_ms(lambda: fa.flash_attention_fwd(
+                 qj, kj, vj, scale=0.088, return_lse=True))}
+    del qj, kj, vj
+    # (b) the attention gradient at the training shape
+    grad = hold_attention_grad(q, k, v, randn(g, q.shape, bf, dev))
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # (c) bf16 against fp32 at 2 layers
+    cfg = lm_config(TRAIN_ARCH)
+    cfg2 = dataclasses.replace(cfg, n_repeat=2)
+    lm2 = LM(cfg2)
+    params = init_params(lm2.param_specs(),
+                         torch.Generator(device=dev).manual_seed(29), dev)
+    mb = {k: torch.from_numpy(x).to(dev)
+          for k, x in train_batch(cfg, 1, 30).items()}
+    peaks, (loss_b, grads_b) = activation_peaks(cfg2, params, mb, dev)
+    params_f = tr.tree_map(lambda x: x.float(), params)
+    del params
+    w = fa.flash_attention_fwd
+    before = design_counts(w)
+    loss_f, grads_f = value_and_grad(lm2, params_f, mb)
+    torch.cuda.synchronize()
+    fp32_designs = {d: n - before[d] for d, n in design_counts(w).items()}
+    check(fp32_designs == {"tc": 0, "simt": 2},
+          f"fp32 step: kernel 6 launches by design {fp32_designs}, want "
+          f"2 on the CUDA-core design")
+    rel = abs(float(loss_b) - float(loss_f)) / abs(float(loss_f))
+    check(rel <= BF16_LOSS_REL, f"bf16 loss {float(loss_b)} is {rel} from "
+          f"fp32's {float(loss_f)}")
+    leaf_rel = []
+    for a, bb in zip(tr.leaves(grads_b), tr.leaves(grads_f)):
+        n = float(torch.linalg.vector_norm(bb))
+        leaf_rel.append(float(torch.linalg.vector_norm(a.float() - bb)) / n
+                        if n else 0.0)
+    check(max(leaf_rel) <= BF16_GRAD_REL,
+          f"bf16 gradients part from fp32's by up to {max(leaf_rel)}")
+    bf16_fp32 = {"layers": 2, "tokens": TRAIN_SEQ, "loss_bf16":
+                 float(loss_b), "loss_fp32": float(loss_f),
+                 "loss_rel": rel, "grad_rel_max": max(leaf_rel),
+                 "grad_rel_median": float(np.median(leaf_rel)),
+                 "leaves": len(leaf_rel)}
+    del params_f, grads_b, grads_f, loss_b, loss_f, mb
+    release(dev)
+
+    # (d) full width through launch.train.main
+    depth = train_depth(cfg, peaks, dev)
+    print(json.dumps({"train_depth": depth}), file=sys.stderr, flush=True)
+    layers = depth["layers"]
+    cfg_l = dataclasses.replace(cfg, n_repeat=layers)
+    fixed = train_batch(cfg, TRAIN_BATCH, 31)
+    stamps = []
+
+    def repeated(step):
+        stamps.append(time.perf_counter())
+        return fixed
+
+    wrappers = attn_wrappers()
+    reset_counts(wrappers)
+    release(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with contextlib.redirect_stdout(sys.stderr):
+        res = train_main(train_args(layers, "--steps", str(TRAIN_STEPS)),
+                         data=repeated)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = {n: wr.launches for n, wr in wrappers.items()}
+    by_design = design_counts(wrappers["flash_attention_fwd"])
+    want = TRAIN_STEPS * layers * TRAIN_MICRO
+    check(launches == {"flash_attention_fwd": want, "decode_attention": 0}
+          and by_design == {"tc": want, "simt": 0},
+          f"train: kernel launches {launches} by design {by_design}, want "
+          f"{want} (steps x layers x microbatches) on the tensor cores")
+    losses = res.losses
+    check(len(losses) == TRAIN_STEPS and np.isfinite(losses).all(),
+          f"train: losses {losses}")
+    check(losses[-1] < TRAIN_FALL * losses[0],
+          f"train: the loss on one repeated batch went {losses[0]} -> "
+          f"{losses[-1]}, not below {TRAIN_FALL} x its first value")
+    step_s = float(np.median(np.diff(stamps)[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = model_flops(cfg_l, "train", tokens)
+    full = {**depth, "published_layers": cfg.n_layers, "steps": TRAIN_STEPS,
+            "losses": losses, "peak_bytes": peak,
+            "step_ms": step_s * 1e3, "first_step_ms":
+            (stamps[1] - stamps[0]) * 1e3, "tokens_per_s": tokens / step_s,
+            "model_flops": flops, "mfu": flops / step_s / BF16_FLOPS,
+            "launches": launches["flash_attention_fwd"],
+            "launches_per_step": launches["flash_attention_fwd"]
+            // TRAIN_STEPS, "launches_by_design": by_design}
+    release(dev)
+    with contextlib.redirect_stdout(sys.stderr):
+        remat = train_main(train_args(layers, "--steps", "1", "--remat",
+                                      "dots"), data=lambda step: fixed)
+    d_remat = abs(remat.losses[0] - losses[0])
+    check(d_remat <= 1e-6 * abs(losses[0]),
+          f"remat dots: first loss {remat.losses[0]}, remat none "
+          f"{losses[0]}")
+    full["remat_dots_first_loss"] = remat.losses[0]
+    release(dev)
+    from repro_torch.train.data import BigramStream
+    stream = BigramStream(cfg.vocab_size, seed=0)
+    with contextlib.redirect_stdout(sys.stderr):
+        bigram = profiled_main(
+            train_main, train_args(layers, "--steps",
+                                   str(TRAIN_BIGRAM_STEPS)),
+            lambda step: stream.batch(step, TRAIN_BATCH, TRAIN_SEQ), dev)
+    # the profiler slows the host side of its step: its device time over
+    # an unprofiled step's host clock too
+    bigram["device_share_of_step_ms"] = bigram["device_ms"] / full["step_ms"]
+    release(dev)
+
+    # (e) restart exactness on the shrunk config
+    r = RESTART
+    argv = ["--arch", TRAIN_ARCH, "--smoke", "--device", "cuda", "--steps",
+            str(r["steps"]), "--batch", str(r["batch"]), "--seq",
+            str(r["seq"]), "--save-every", str(r["save_every"])]
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=TRACE_DIR) as d, \
+            contextlib.redirect_stdout(sys.stderr):
+        clean = train_main(argv + ["--ckpt-dir", f"{d}/clean"])
+        faulty = train_main(argv + ["--ckpt-dir", f"{d}/faulty",
+                                    "--fail-at", str(r["fail_at"])])
+    back = r["fail_at"] // r["save_every"] * r["save_every"]
+    check(faulty.restarts == 1 and faulty.losses ==
+          clean.losses[:r["fail_at"]] + clean.losses[back:],
+          f"restart: losses {faulty.losses} against {clean.losses}")
+    restart = {**r, "restarts": faulty.restarts, "replayed_from": back,
+               "final_loss": faulty.losses[-1], "deterministic_mode": False}
+    return {"lse_cases": n_cases, "max_abs_err": errs,
+            "train_attention": attn, "judge_micro_batch": judge,
+            "attention_grad": grad, "bf16_vs_fp32": bf16_fp32,
+            "full_width": full, "bigram": bigram, "restart": restart}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: no port sources under {SRC}", file=sys.stderr)
@@ -3823,6 +4389,10 @@ def main() -> int:
     t = time.perf_counter()
     served = phase_serve_assigned(dev)
     emit(phase="serve_assigned", **served, seconds=time.perf_counter() - t)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    trained = phase_train(dev)
+    emit(phase="train", **trained, seconds=time.perf_counter() - t)
     main = main_sizes[0]
     errs = {"ann_topk": max(max_err, main_err, serve_errs["ann_topk"]),
             "ann_topk_quant": max(quant_err, serve_errs["ann_topk_quant"]),
@@ -3929,6 +4499,8 @@ def main() -> int:
             "launches": colo_launches[name],
             "launches_by_run": {
                 "colocated": colo_launches[name],
+                "train": (trained["full_width"]["launches"]
+                          if name == "flash_attention_fwd" else 0),
                 "g_model_judge": g_run["launches"][name],
                 "lm_assigned": assigned_line["launches"][name],
                 **{f"lm_assigned {m}": sum(
@@ -3943,9 +4515,13 @@ def main() -> int:
                 "lm_assigned": assigned_line["launches_by_design"][name],
                 **{f"serve_assigned {m}":
                    served[m]["launches_by_design"][name]
-                   for m in served}},
+                   for m in served},
+                "train": (trained["full_width"]["launches_by_design"]
+                          if name == "flash_attention_fwd" else {})},
             "max_abs_err": max(attn_errs[name], lm_errs[name],
-                               assigned_errs[name]),
+                               assigned_errs[name],
+                               trained["max_abs_err"]["out"]
+                               if name == "flash_attention_fwd" else 0.0),
             "tol_share": TOL_SHARE[name],
             **{key: at[key] for key in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms",
@@ -3955,6 +4531,12 @@ def main() -> int:
             "sizes": sizes_of,
             "wide_head_sizes": wide_sizes,
             "hybrid_encdec_sizes": sizes_11a,
+            **({"train_size": trained["train_attention"],
+                "lse_max_abs_err": trained["max_abs_err"]["lse"],
+                "backward": {k: v for k, v in
+                             trained["attention_grad"].items()
+                             if k.endswith(("_ms", "_by"))}}
+               if name == "flash_attention_fwd" else {}),
         })
     print(card, flush=True)
     emit(kernels=kernels)

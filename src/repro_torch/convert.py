@@ -4,8 +4,9 @@ Two kinds of state: the stage-1 indexes and their cluster routers (the
 embedding matrices, fp32 hot and int8 warm, the active masks, the
 row→se_id maps, the free-lists, and each router's centroids,
 assignments, member lists and random state), and the language models'
-parameters (:func:`lm_params_from_numpy`). Tests and ``chip_smoke.py``
-start both packages, or both backends, from one state with these.
+parameters and AdamW state (:func:`lm_params_from_numpy`,
+:func:`opt_state_from_numpy`). Tests and ``chip_smoke.py`` start both
+packages, or both backends, from one state with these.
 """
 from __future__ import annotations
 
@@ -138,6 +139,24 @@ def lm_params_from_numpy(tree, cfg: ModelConfig, device="cuda") -> dict:
     encoder's ``enc_blocks`` (stacked over ``enc_repeat`` when it is above
     1) as the list ``enc_layers``. Each leaf must have its spec's shape
     and dtype."""
+    return _lm_tree_from_numpy(tree, cfg, device)
+
+
+def opt_state_from_numpy(state, cfg: ModelConfig, device="cuda") -> dict:
+    """The reference's AdamW state ``{"step", "m", "v"}`` of an LM
+    (``train/optim.init_state`` over its parameter tree, leaves as numpy
+    arrays) as the port's (``repro_torch.train.optim``): ``step`` an int32
+    0-d tensor, ``m`` and ``v`` laid out as :func:`lm_params_from_numpy`
+    lays out the parameters, each leaf in the state's own dtype."""
+    dev = resolve_device(device)
+    sdt = _tensor(np.asarray(state["m"]["final_norm"]["scale"])).dtype
+    return {"step": _tensor(np.asarray(state["step"], np.int32)).to(dev),
+            "m": _lm_tree_from_numpy(state["m"], cfg, device, sdt),
+            "v": _lm_tree_from_numpy(state["v"], cfg, device, sdt)}
+
+
+def _lm_tree_from_numpy(tree, cfg: ModelConfig, device, dtype=None) -> dict:
+    """:func:`lm_params_from_numpy`, every leaf in ``dtype`` if given."""
     from repro_torch.models.lm import LM
 
     dev = resolve_device(device)
@@ -167,7 +186,7 @@ def lm_params_from_numpy(tree, cfg: ModelConfig, device="cuda") -> dict:
 
     def leaf(spec: ParamSpec, a) -> torch.Tensor:
         t = _tensor(a)
-        if tuple(t.shape) != spec.shape or t.dtype != spec.dtype:
+        if tuple(t.shape) != spec.shape or t.dtype != (dtype or spec.dtype):
             raise ValueError(f"leaf {tuple(t.shape)} {t.dtype} does not match "
                              f"its spec {spec.shape} {spec.dtype}")
         return t.to(dev)

@@ -63,7 +63,8 @@ class ModelEmbedder:
     def encode(self, tokens: torch.Tensor) -> torch.Tensor:
         """(B, S) tokens (0 = pad) -> (B, d_model) unit fp32 rows."""
         x = self.lm._embed(self.params, tokens)
-        x, _ = self.lm._run_stack(self.params, x, self.lm._positions(tokens))
+        x, _, _ = self.lm._run_stack(self.params, x,
+                                     self.lm._positions(tokens))
         mask = (tokens > 0).float()[..., None]
         pooled = torch.sum(x.float() * mask, dim=1) / torch.clamp(
             torch.sum(mask, dim=1), min=1.0)

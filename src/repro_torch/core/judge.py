@@ -136,7 +136,8 @@ class ModelJudge:
     def score(self, tokens: torch.Tensor) -> torch.Tensor:
         """(B, S) tokens on the judge's device -> (B,) fp32 scores."""
         x = self.lm._embed(self.params, tokens)
-        x, _ = self.lm._run_stack(self.params, x, self.lm._positions(tokens))
+        x, _, _ = self.lm._run_stack(self.params, x,
+                                     self.lm._positions(tokens))
         # single-token classification readout (prefill-only profile)
         return torch.sigmoid(torch.mean(x[:, -1, :].float(), dim=-1))
 

@@ -10,6 +10,11 @@
 //   Scores, running max m, denominator l and accumulator in fp32; masked
 //   scores are -1e30 (causal kj <= qi; window kj > qi - window); the
 //   output is acc / max(l, 1e-30).
+//   Given a non-null lse pointer, each query row's log-sum-exp
+//   m + log(max(l, 1e-30)) in natural-log units, (B, KV, G, Sq) fp32: the
+//   residual of the reference's nn/flash.py::_flash_fwd that the training
+//   backward (repro_torch/nn/flash.py) consumes. A row with no valid key
+//   keeps m = -1e30, as the reference's does. A null pointer writes none.
 //
 // What bounds it on an H100: q, k, v read once and o written once (the
 // bytes), against 4 * Dh operations per (query row, key) pair that the
@@ -96,10 +101,11 @@ constexpr size_t smem_bytes() {
 template <typename T, int DH, int VEC>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
-          int kvh, int g, long long q_sb, long long q_ss, long long k_sb,
-          long long k_ss, long long v_sb, long long v_ss, float scale,
-          int causal, int window, int skip) {
+          const T* __restrict__ v, T* __restrict__ o,
+          float* __restrict__ lse, int sq, int sk, int kvh, int g,
+          long long q_sb, long long q_ss, long long k_sb, long long k_ss,
+          long long v_sb, long long v_ss, float scale, int causal,
+          int window, int skip) {
   extern __shared__ float smem[];
   float* qs = smem;                     // [BQ][DH + 1] query block
   float* ks = qs + BQ * (DH + 1);       // [BK][DH + 1] key tile
@@ -224,6 +230,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + RG * rg + i;
     if (qi >= sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && cg == 0)
+      lse[static_cast<long long>(head) * sq + qi] = m[i] + logf(den);
     T* orow = o + ((static_cast<long long>(b) * sq + qi) * kvh + kv) *
                       static_cast<long long>(g) * DH +
               static_cast<long long>(gi) * DH;
@@ -235,10 +243,10 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DH, int VEC>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int b, int sq, int sk, int kvh, int g, long long q_sb,
-                   long long q_ss, long long k_sb, long long k_ss,
-                   long long v_sb, long long v_ss, float scale, int causal,
-                   int window, cudaStream_t stream) {
+                   float* lse, int b, int sq, int sk, int kvh, int g,
+                   long long q_sb, long long q_ss, long long k_sb,
+                   long long k_ss, long long v_sb, long long v_ss,
+                   float scale, int causal, int window, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
   static_assert(smem <= attn::SMEM_MAX, "tiles exceed shared memory");
   auto kern = flash_fwd<T, DH, VEC>;
@@ -254,43 +262,43 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const int skip = sq <= sk;
   kern<<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, kvh, g, q_sb,
-      q_ss, k_sb, k_ss, v_sb, v_ss, scale, causal, window, skip);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, kvh, g,
+      q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale, causal, window, skip);
   return cudaGetLastError();
 }
 
 template <typename T, int VEC>
 cudaError_t launch_dh(int dh, const void* q, const void* k, const void* v,
-                      void* o, int b, int sq, int sk, int kvh, int g,
-                      long long q_sb, long long q_ss, long long k_sb,
+                      void* o, float* lse, int b, int sq, int sk, int kvh,
+                      int g, long long q_sb, long long q_ss, long long k_sb,
                       long long k_ss, long long v_sb, long long v_ss,
                       float scale, int causal, int window,
                       cudaStream_t stream) {
   switch (dh) {
     case 16:
-      return launch<T, 16, VEC>(q, k, v, o, b, sq, sk, kvh, g, q_sb, q_ss,
-                                k_sb, k_ss, v_sb, v_ss, scale, causal, window,
-                                stream);
+      return launch<T, 16, VEC>(q, k, v, o, lse, b, sq, sk, kvh, g,
+                                q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale,
+                                causal, window, stream);
     case 32:
-      return launch<T, 32, VEC>(q, k, v, o, b, sq, sk, kvh, g, q_sb, q_ss,
-                                k_sb, k_ss, v_sb, v_ss, scale, causal, window,
-                                stream);
+      return launch<T, 32, VEC>(q, k, v, o, lse, b, sq, sk, kvh, g,
+                                q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale,
+                                causal, window, stream);
     case 64:
-      return launch<T, 64, VEC>(q, k, v, o, b, sq, sk, kvh, g, q_sb, q_ss,
-                                k_sb, k_ss, v_sb, v_ss, scale, causal, window,
-                                stream);
+      return launch<T, 64, VEC>(q, k, v, o, lse, b, sq, sk, kvh, g,
+                                q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale,
+                                causal, window, stream);
     case 128:
-      return launch<T, 128, VEC>(q, k, v, o, b, sq, sk, kvh, g, q_sb, q_ss,
-                                 k_sb, k_ss, v_sb, v_ss, scale, causal,
-                                 window, stream);
+      return launch<T, 128, VEC>(q, k, v, o, lse, b, sq, sk, kvh, g,
+                                 q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale,
+                                 causal, window, stream);
     case 192:
-      return launch<T, 192, VEC>(q, k, v, o, b, sq, sk, kvh, g, q_sb, q_ss,
-                                 k_sb, k_ss, v_sb, v_ss, scale, causal,
-                                 window, stream);
+      return launch<T, 192, VEC>(q, k, v, o, lse, b, sq, sk, kvh, g,
+                                 q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale,
+                                 causal, window, stream);
     case 256:
-      return launch<T, 256, VEC>(q, k, v, o, b, sq, sk, kvh, g, q_sb, q_ss,
-                                 k_sb, k_ss, v_sb, v_ss, scale, causal,
-                                 window, stream);
+      return launch<T, 256, VEC>(q, k, v, o, lse, b, sq, sk, kvh, g,
+                                 q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale,
+                                 causal, window, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -323,10 +331,10 @@ __global__ void __launch_bounds__(THREADS, 2)
 flash_fwd_tc(const attn::bf16* __restrict__ q,
              const attn::bf16* __restrict__ k,
              const attn::bf16* __restrict__ v, attn::bf16* __restrict__ o,
-             int sq, int sk, int kvh, int g, int heads, long long q_sb,
-             long long q_ss, long long k_sb, long long k_ss, long long v_sb,
-             long long v_ss, float scale_log2, int causal, int window,
-             int skip) {
+             float* __restrict__ lse, int sq, int sk, int kvh, int g,
+             int heads, long long q_sb, long long q_ss, long long k_sb,
+             long long k_ss, long long v_sb, long long v_ss,
+             float scale_log2, int causal, int window, int skip) {
   using attn::bf16;
   constexpr int LD = attn::ld_bf16<DH>();
   constexpr int NT = DH / 8;       // accumulator tiles of 8 columns
@@ -434,6 +442,11 @@ flash_fwd_tc(const attn::bf16* __restrict__ q,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float den = fmaxf(attn::quad_sum(l[r]), 1e-30f);
+    const int qi = r ? row1 : row0;
+    if (lse != nullptr && lane % 4 == 0 && qi < sq)
+      // m is in the log2 domain; a row with no valid key keeps -1e30
+      lse[static_cast<long long>(head) * sq + qi] =
+          (m[r] <= attn::NEG ? attn::NEG : m[r] * attn::LN2) + logf(den);
 #pragma unroll
     for (int n = 0; n < NT; ++n)
       *reinterpret_cast<__nv_bfloat162*>(qw + (lane / 4 + 8 * r) * LD +
@@ -457,10 +470,10 @@ flash_fwd_tc(const attn::bf16* __restrict__ q,
 
 template <int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int b, int sq, int sk, int kvh, int g, long long q_sb,
-                   long long q_ss, long long k_sb, long long k_ss,
-                   long long v_sb, long long v_ss, float scale, int causal,
-                   int window, cudaStream_t stream) {
+                   float* lse, int b, int sq, int sk, int kvh, int g,
+                   long long q_sb, long long q_ss, long long k_sb,
+                   long long k_ss, long long v_sb, long long v_ss,
+                   float scale, int causal, int window, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
   static_assert(2 * smem <= attn::SMEM_MAX, "two CTAs per SM");
   auto kern = flash_fwd_tc<DH>;
@@ -477,8 +490,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const int skip = sq <= sk;
   kern<<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
       static_cast<const attn::bf16*>(q), static_cast<const attn::bf16*>(k),
-      static_cast<const attn::bf16*>(v), static_cast<attn::bf16*>(o), sq, sk,
-      kvh, g, heads, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+      static_cast<const attn::bf16*>(v), static_cast<attn::bf16*>(o), lse,
+      sq, sk, kvh, g, heads, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
       scale * attn::LOG2E, causal, window, skip);
   return cudaGetLastError();
 }
@@ -503,31 +516,34 @@ extern "C" {
 
 // The CUDA-core design. dtype: 0 = fp32, 1 = bf16. Strides in elements
 // (0 for a dim of size 1); the head and Dh dims of q, k and v are dense.
-// window <= 0: no window. Returns the cudaError_t of the launch.
+// window <= 0: no window. lse: null, or (B, KV, G, Sq) fp32 that receives
+// each query row's log-sum-exp of its scaled, masked scores (the training
+// backward's residual). Returns the cudaError_t of the launch.
 int flash_attention_launch(int dtype, int dh, const void* q, const void* k,
-                           const void* v, void* o, int b, int sq, int sk,
-                           int kvh, int g, long long q_sb, long long q_ss,
-                           long long k_sb, long long k_ss, long long v_sb,
-                           long long v_ss, float scale, int causal,
-                           int window, void* stream) {
+                           const void* v, void* o, float* lse, int b, int sq,
+                           int sk, int kvh, int g, long long q_sb,
+                           long long q_ss, long long k_sb, long long k_ss,
+                           long long v_sb, long long v_ss, float scale,
+                           int causal, int window, void* stream) {
   if (b < 1 || sq < 1 || sk < 1 || kvh < 1 || g < 1)
     return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     if (rows_aligned(4, q, k, v, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss))
-      return launch_dh<float, 4>(dh, q, k, v, o, b, sq, sk, kvh, g, q_sb,
-                                 q_ss, k_sb, k_ss, v_sb, v_ss, scale, causal,
-                                 window, s);
-    return launch_dh<float, 1>(dh, q, k, v, o, b, sq, sk, kvh, g, q_sb, q_ss,
-                               k_sb, k_ss, v_sb, v_ss, scale, causal, window,
-                               s);
+      return launch_dh<float, 4>(dh, q, k, v, o, lse, b, sq, sk, kvh, g,
+                                 q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale,
+                                 causal, window, s);
+    return launch_dh<float, 1>(dh, q, k, v, o, lse, b, sq, sk, kvh, g, q_sb,
+                               q_ss, k_sb, k_ss, v_sb, v_ss, scale, causal,
+                               window, s);
   }
   if (dtype == 1) {
     if (rows_aligned(2, q, k, v, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss))
-      return launch_dh<__nv_bfloat16, 8>(dh, q, k, v, o, b, sq, sk, kvh, g,
-                                         q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
-                                         scale, causal, window, s);
-    return launch_dh<__nv_bfloat16, 1>(dh, q, k, v, o, b, sq, sk, kvh, g,
+      return launch_dh<__nv_bfloat16, 8>(dh, q, k, v, o, lse, b, sq, sk,
+                                         kvh, g, q_sb, q_ss, k_sb, k_ss,
+                                         v_sb, v_ss, scale, causal, window,
+                                         s);
+    return launch_dh<__nv_bfloat16, 1>(dh, q, k, v, o, lse, b, sq, sk, kvh, g,
                                        q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
                                        scale, causal, window, s);
   }
@@ -538,11 +554,12 @@ int flash_attention_launch(int dtype, int dh, const void* q, const void* k,
 // boundary (the wrapper checks; a misaligned call is refused, never sent
 // elsewhere). Arguments as flash_attention_launch's, without dtype.
 int flash_attention_tc_launch(int dh, const void* q, const void* k,
-                              const void* v, void* o, int b, int sq, int sk,
-                              int kvh, int g, long long q_sb, long long q_ss,
-                              long long k_sb, long long k_ss, long long v_sb,
-                              long long v_ss, float scale, int causal,
-                              int window, void* stream) {
+                              const void* v, void* o, float* lse, int b,
+                              int sq, int sk, int kvh, int g,
+                              long long q_sb, long long q_ss, long long k_sb,
+                              long long k_ss, long long v_sb, long long v_ss,
+                              float scale, int causal, int window,
+                              void* stream) {
   if (b < 1 || sq < 1 || sk < 1 || kvh < 1 || g < 1)
     return cudaErrorInvalidValue;
   if (!rows_aligned(2, q, k, v, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss))
@@ -550,23 +567,29 @@ int flash_attention_tc_launch(int dh, const void* q, const void* k,
   const auto s = static_cast<cudaStream_t>(stream);
   switch (dh) {
     case 16:
-      return tc::launch<16>(q, k, v, o, b, sq, sk, kvh, g, q_sb, q_ss, k_sb,
-                            k_ss, v_sb, v_ss, scale, causal, window, s);
+      return tc::launch<16>(q, k, v, o, lse, b, sq, sk, kvh, g, q_sb,
+                            q_ss, k_sb, k_ss, v_sb, v_ss, scale, causal,
+                            window, s);
     case 32:
-      return tc::launch<32>(q, k, v, o, b, sq, sk, kvh, g, q_sb, q_ss, k_sb,
-                            k_ss, v_sb, v_ss, scale, causal, window, s);
+      return tc::launch<32>(q, k, v, o, lse, b, sq, sk, kvh, g, q_sb,
+                            q_ss, k_sb, k_ss, v_sb, v_ss, scale, causal,
+                            window, s);
     case 64:
-      return tc::launch<64>(q, k, v, o, b, sq, sk, kvh, g, q_sb, q_ss, k_sb,
-                            k_ss, v_sb, v_ss, scale, causal, window, s);
+      return tc::launch<64>(q, k, v, o, lse, b, sq, sk, kvh, g, q_sb,
+                            q_ss, k_sb, k_ss, v_sb, v_ss, scale, causal,
+                            window, s);
     case 128:
-      return tc::launch<128>(q, k, v, o, b, sq, sk, kvh, g, q_sb, q_ss, k_sb,
-                             k_ss, v_sb, v_ss, scale, causal, window, s);
+      return tc::launch<128>(q, k, v, o, lse, b, sq, sk, kvh, g, q_sb,
+                             q_ss, k_sb, k_ss, v_sb, v_ss, scale, causal,
+                             window, s);
     case 192:
-      return tc::launch<192>(q, k, v, o, b, sq, sk, kvh, g, q_sb, q_ss, k_sb,
-                             k_ss, v_sb, v_ss, scale, causal, window, s);
+      return tc::launch<192>(q, k, v, o, lse, b, sq, sk, kvh, g, q_sb,
+                             q_ss, k_sb, k_ss, v_sb, v_ss, scale, causal,
+                             window, s);
     case 256:
-      return tc::launch<256>(q, k, v, o, b, sq, sk, kvh, g, q_sb, q_ss, k_sb,
-                             k_ss, v_sb, v_ss, scale, causal, window, s);
+      return tc::launch<256>(q, k, v, o, lse, b, sq, sk, kvh, g, q_sb,
+                             q_ss, k_sb, k_ss, v_sb, v_ss, scale, causal,
+                             window, s);
     default:
       return cudaErrorInvalidValue;
   }

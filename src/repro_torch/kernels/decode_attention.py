@@ -167,8 +167,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      scale: float) -> torch.Tensor:
     """Attention of one token's G query rows per KV head over cache rows
     ``0..pos`` (all rows when ``pos >= S``). CUDA tensors take
-    :func:`pick_design`'s kernels."""
+    :func:`pick_design`'s kernels. Inputs that require grad are refused
+    while grad mode is on (``flash_attention.refuse_grad``)."""
     _check(q, k_cache, v_cache, pos)
+    flash_attention.refuse_grad("decode_attention", q, k_cache, v_cache)
     if q.device.type == "cpu":
         decode_attention.plain_calls += 1
         return decode_attention_plain(q, k_cache, v_cache, pos, scale)

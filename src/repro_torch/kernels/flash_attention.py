@@ -41,6 +41,12 @@ masked prefix is washed out by a zero rescale.
 
 :func:`flash_attention_fwd` launches a kernel for CUDA tensors and raises
 if it cannot; it takes :func:`flash_attention_plain` only for CPU tensors.
+With ``return_lse=True`` it also returns each query row's log-sum-exp
+(B, KV, G, Sq) in fp32, the reference's ``m + log(max(l, 1e-30))`` of
+``nn/flash.py::_flash_fwd``, which the training backward consumes (both
+designs write it; without it nothing changes). The kernels' output has no
+``grad_fn``, so the wrapper refuses inputs that require grad while grad
+mode is on: training reaches it through ``nn/flash.flash_attention``.
 ``flash_attention_fwd.launches`` counts every launch,
 ``.launches_tc`` and ``.launches_simt`` each design's, and
 ``.plain_calls`` the plain version's calls.
@@ -60,9 +66,11 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: float, causal: bool = True,
-                          window: int | None = None) -> torch.Tensor:
+                          window: int | None = None,
+                          return_lse: bool = False):
     """Plain PyTorch version (the reference's ``flash_attention_ref``):
-    the fp32 softmax over the whole (Sq, Sk) score matrix."""
+    the fp32 softmax over the whole (Sq, Sk) score matrix; with
+    ``return_lse`` also its rows' log-sum-exp (B, KV, G, Sq)."""
     sq, sk = q.shape[1], k.shape[1]
     s = torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float()) * scale
     qi = torch.arange(sq, device=q.device)[:, None]
@@ -74,7 +82,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = m & (kj > qi - window)
     s = torch.where(m, s, NEG)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bkgqs,bskd->bqkgd", p, v.float()).to(q.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float()).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1)
+    return out
 
 
 def _check(q, k, v, window) -> None:
@@ -131,12 +142,13 @@ def _lib():
     lib = build.load("flash_attention")
     if not getattr(lib, "_typed", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        # q, k, v, o, then lse (None: a null pointer, no lse written)
         lib.flash_attention_launch.argtypes = [
-            i, i, p, p, p, p, i, i, i, i, i, ll, ll, ll, ll, ll, ll,
+            i, i, p, p, p, p, p, i, i, i, i, i, ll, ll, ll, ll, ll, ll,
             ctypes.c_float, i, i, p]
         lib.flash_attention_launch.restype = i
         lib.flash_attention_tc_launch.argtypes = [
-            i, p, p, p, p, i, i, i, i, i, ll, ll, ll, ll, ll, ll,
+            i, p, p, p, p, p, i, i, i, i, i, ll, ll, ll, ll, ll, ll,
             ctypes.c_float, i, i, p]
         lib.flash_attention_tc_launch.restype = i
         lib.flash_attention_error_string.argtypes = [i]
@@ -155,38 +167,57 @@ def _inner_dense(x: torch.Tensor, n: int) -> bool:
     return True
 
 
+def refuse_grad(name: str, *xs: torch.Tensor) -> None:
+    """Raise if autograd would record a call to a kernel wrapper: its
+    CUDA output has no ``grad_fn``, so the gradient would be lost on the
+    card where the CPU's plain version keeps it."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        raise RuntimeError(
+            f"{name} takes no inputs that require grad (the kernel's output "
+            f"has no grad_fn); a training step reaches kernel 6 through "
+            f"nn/flash.flash_attention, whose backward ports the "
+            f"reference's _flash_bwd")
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, scale: float, causal: bool = True,
-                        window: int | None = None) -> torch.Tensor:
+                        window: int | None = None, return_lse: bool = False):
     """Causal (or full) GQA attention with an optional sliding window.
     Batch and sequence strides are free; the head and Dh dims must be
     dense (as a reshape of a projection gives them). CUDA tensors take
-    :func:`pick_design`'s kernel."""
+    :func:`pick_design`'s kernel. Returns ``out``, or ``(out, lse)`` with
+    ``return_lse``."""
     _check(q, k, v, window)
+    refuse_grad("flash_attention_fwd", q, k, v)
     if q.device.type == "cpu":
         flash_attention_fwd.plain_calls += 1
-        return flash_attention_plain(q, k, v, scale, causal, window)
+        return flash_attention_plain(q, k, v, scale, causal, window,
+                                     return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_fwd runs on cuda or cpu, not "
                          f"{q.device}")
     if not (_inner_dense(q, 3) and _inner_dense(k, 2) and _inner_dense(v, 2)):
         raise ValueError("flash_attention_fwd needs dense head and Dh dims")
     design = pick_design(q.dtype, rows_aligned(q, k, v), q.shape[-1])
-    return _launch(design, q, k, v, scale, causal, window)
+    return _launch(design, q, k, v, scale, causal, window, return_lse)
 
 
 def _launch(design: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            scale: float, causal: bool, window: int | None) -> torch.Tensor:
+            scale: float, causal: bool, window: int | None,
+            return_lse: bool = False):
     """Launch ``design``'s kernel on checked CUDA inputs and count it
     (chip_smoke.py also calls it to time the CUDA-core design on inputs
     the dispatch sends to the tensor cores)."""
     b, sq, kvh, g, dh = q.shape
     out = torch.empty((b, sq, kvh, g, dh), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, kvh, g, sq), dtype=torch.float32,
+                      device=q.device) if return_lse else None
     lib = _lib()
     strides = (*_row_strides(q), *_row_strides(k), *_row_strides(v))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr())
         rest = (b, sq, k.shape[1], kvh, g, *strides, float(scale),
                 int(bool(causal)), 0 if window is None else int(window),
                 stream)
@@ -206,7 +237,7 @@ def _launch(design: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         flash_attention_fwd.launches_tc += 1
     else:
         flash_attention_fwd.launches_simt += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention_fwd.launches = 0

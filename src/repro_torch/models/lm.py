@@ -16,29 +16,36 @@ stacks each superblock position over ``n_repeat`` (``enc_repeat``) for
 The stack is a Python loop; a decode step updates each layer's cache
 (K/V rows, or a recurrent layer's states) in place.
 
-Steps: :meth:`LM.prefill` (logits of the last position and the caches),
-:meth:`LM.decode` (one token against the caches). The training loss
-(MTP's included) comes with the training slice: ``loss_and_aux`` raises
-``NotImplementedError``.
+Steps: :meth:`LM.loss_and_aux` (the training loss: the chunked-vocab
+cross-entropy of ``nn/xent``, MTP's loss for DeepSeek-V3 and the MoE
+load-balance loss, each layer optionally recomputed in the backward),
+:meth:`LM.prefill` (logits of the last position and the caches),
+:meth:`LM.decode` (one token against the caches).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
-from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.nn import attention as att
 from repro_torch.nn import basic
 from repro_torch.nn import moe as moe_mod
 from repro_torch.nn import ssm
 from repro_torch.nn import xlstm as xl
 from repro_torch.nn.config import LayerSpec, ModelConfig
+from repro_torch.nn.flash import flash_attention
 from repro_torch.nn.param import ParamSpec
+from repro_torch.nn.xent import chunked_xent
 
-TRAINING = "ROADMAP slice 11b 'Training'"
+REMAT = ("none", "dots", "save_outs")
+# what remat="dots" keeps for the backward, as the reference's
+# dots_with_no_batch_dims_saveable policy: products without a batch dim
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 def _cross_cfg(spec: LayerSpec):
@@ -104,13 +111,25 @@ def apply_layer(spec: LayerSpec, p, x: torch.Tensor, positions: torch.Tensor,
                 *, cache=None, cache_pos=None, causal: bool = True,
                 enc_out: Optional[torch.Tensor] = None,
                 norm_eps: float = 1e-6):
-    """Returns ``(x, cache)``: the layer's output and its (new or updated)
-    cache ``{"mixer": {...}, ["cross_kv": {"k", "v"}]}`` (no ``mixer``
-    for an encoder layer). ``causal=False`` without a cache is an encoder
-    layer's bidirectional self-attention. A cross-attention layer takes
-    its K/V from the cache where it has them (decode), else from
-    ``enc_out``. An MoE layer's load-balance loss is not returned: serving
-    ignores it, as the reference's prefill and decode do."""
+    """Returns ``(x, cache, aux)``: the layer's output, its (new or
+    updated) cache ``{"mixer": {...}, ["cross_kv": {"k", "v"}]}`` (no
+    ``mixer`` for an encoder layer) and an MoE layer's load-balance loss
+    (0 elsewhere; serving ignores it, as the reference's prefill and
+    decode do). ``causal=False`` without a cache is an encoder layer's
+    bidirectional self-attention. A cross-attention layer takes its K/V
+    from the cache where it has them (decode), else from ``enc_out``."""
+    x, new_cache = _mix(spec, p, x, positions, cache=cache,
+                        cache_pos=cache_pos, causal=causal, enc_out=enc_out,
+                        norm_eps=norm_eps)
+    x, aux = _channel(spec, p, x, norm_eps)
+    return x, new_cache, aux
+
+
+def _mix(spec: LayerSpec, p, x: torch.Tensor, positions: torch.Tensor, *,
+         cache=None, cache_pos=None, causal: bool = True, enc_out=None,
+         norm_eps: float = 1e-6):
+    """The token mixer and cross-attention of :func:`apply_layer`:
+    ``(x, cache)``."""
     h = basic.rmsnorm(p["norm1"], x, norm_eps)
     mix_cache = cache.get("mixer") if cache else None
     if spec.kind == "attn":
@@ -143,13 +162,51 @@ def apply_layer(spec: LayerSpec, p, x: torch.Tensor, positions: torch.Tensor,
                               cache_pos=cache_pos, kv_override=kvp)
         x = x + yc
         new_cache["cross_kv"] = {"k": kvp[0], "v": kvp[1]}
+    return x, new_cache
+
+
+def _channel(spec: LayerSpec, p, x: torch.Tensor, norm_eps: float = 1e-6):
+    """The channel mixer of :func:`apply_layer` (MoE, dense FFN or
+    none): ``(x, aux)``."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.moe is not None:
         h2 = basic.rmsnorm(p["norm2"], x, norm_eps)
-        x = x + moe_mod.moe_apply(p["moe"], spec.moe, h2)[0]
+        y2, aux = moe_mod.moe_apply(p["moe"], spec.moe, h2)
+        x = x + y2
     elif spec.d_ff:
         h2 = basic.rmsnorm(p["norm2"], x, norm_eps)
         x = x + basic.ffn(p["ffn"], h2, spec.ffn_act)
-    return x, new_cache
+    return x, aux
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_layer(remat: str, spec: LayerSpec, p, x: torch.Tensor,
+                 positions: torch.Tensor, enc_out, norm_eps: float):
+    """A cache-less layer whose activations the backward recomputes
+    (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` of
+    the scan body: ``"dots"`` keeps the products without a batch dim
+    (``dots_with_no_batch_dims_saveable``), ``"save_outs"`` the outputs of
+    the two halves (the reference saves its ``mixer_out`` and ``ffn_out``
+    names). Returns ``(x, aux)``; the values are ``apply_layer``'s."""
+    mix = functools.partial(_mix, spec, p, positions=positions,
+                            enc_out=enc_out, norm_eps=norm_eps)
+    if remat == "dots":
+        def layer(x):
+            x, _, aux = apply_layer(spec, p, x, positions, enc_out=enc_out,
+                                    norm_eps=norm_eps)
+            return x, aux
+        return ckpt.checkpoint(
+            layer, x, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    x = ckpt.checkpoint(lambda x: mix(x)[0], x, use_reentrant=False)
+    return ckpt.checkpoint(functools.partial(_channel, spec, p,
+                                             norm_eps=norm_eps),
+                           x, use_reentrant=False)
 
 
 def _bidir_attn(p, cfg, x: torch.Tensor, positions: torch.Tensor):
@@ -164,8 +221,8 @@ def _bidir_attn(p, cfg, x: torch.Tensor, positions: torch.Tensor):
     if cfg.rope_kind != "none":
         q = basic.apply_rope(cfg, q, positions)
         k = basic.apply_rope(cfg, k, positions)
-    out = flash_attention_fwd(q.view(b, s, kv, h // kv, dh), k, v,
-                              scale=1.0 / math.sqrt(dh), causal=False)
+    out = flash_attention(q.view(b, s, kv, h // kv, dh), k, v,
+                          1.0 / math.sqrt(dh), causal=False)
     return out.reshape(b, s, h * dh) @ p["wo"]
 
 
@@ -250,23 +307,35 @@ class LM:
     def _run_stack(self, params, x: torch.Tensor, positions: torch.Tensor, *,
                    caches: Optional[dict] = None, cache_pos=None,
                    want_cache: bool = False,
-                   enc_out: Optional[torch.Tensor] = None):
+                   enc_out: Optional[torch.Tensor] = None,
+                   remat: str = "none"):
         """The decoder's layers in order. With ``caches`` (decode) each
         layer's cache is updated in place; otherwise ``want_cache``
         collects the prefill's K/V (latent and rope key for MLA), final
         recurrent states and cross K/V. ``enc_out`` is the encoder's
-        output, for cross-attention without cached K/V. Returns ``(x,
-        caches or None)``."""
+        output, for cross-attention without cached K/V. ``remat`` (one of
+        :data:`REMAT`) recomputes each layer in the backward, on the
+        cache-less training pass. Returns ``(x, caches or None, aux)``,
+        ``aux`` the sum of the MoE layers' load-balance losses."""
+        if remat not in REMAT:
+            raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         new_layers = []
         for i, spec in enumerate(self.layers):
-            c_i = caches["layers"][i] if caches is not None else None
-            x, nc = apply_layer(spec, params["layers"][i], x, positions,
-                                cache=c_i, cache_pos=cache_pos,
-                                enc_out=enc_out, norm_eps=self.cfg.norm_eps)
-            new_layers.append(nc)
+            p_i = params["layers"][i]
+            if remat != "none" and caches is None and not want_cache:
+                x, a = _remat_layer(remat, spec, p_i, x, positions, enc_out,
+                                    self.cfg.norm_eps)
+            else:
+                c_i = caches["layers"][i] if caches is not None else None
+                x, nc, a = apply_layer(spec, p_i, x, positions, cache=c_i,
+                                       cache_pos=cache_pos, enc_out=enc_out,
+                                       norm_eps=self.cfg.norm_eps)
+                new_layers.append(nc)
+            aux = aux + a
         if caches is None and not want_cache:
-            return x, None
-        return x, {"layers": new_layers}
+            return x, None, aux
+        return x, {"layers": new_layers}, aux
 
     def _encode(self, params, enc_emb: torch.Tensor) -> torch.Tensor:
         """The encoder stack over precomputed frontend embeddings (B,
@@ -274,15 +343,62 @@ class LM:
         x = enc_emb
         positions = self._positions(enc_emb[..., 0])
         for spec, p in zip(self.enc_layers, params["enc_layers"]):
-            x, _ = apply_layer(spec, p, x, positions, causal=False,
-                               norm_eps=self.cfg.norm_eps)
+            x, _, _ = apply_layer(spec, p, x, positions, causal=False,
+                                  norm_eps=self.cfg.norm_eps)
         return basic.rmsnorm(params["enc_norm"], x, self.cfg.norm_eps)
 
     # ---------------- public steps
 
-    def loss_and_aux(self, params, batch):
-        raise NotImplementedError(
-            f"the training loss is not ported yet ({TRAINING})")
+    def loss_and_aux(self, params, batch: dict, remat: str = "none"):
+        """The training loss of ``batch``: ``tokens`` and ``labels`` (B,
+        S), and as the config needs them ``frontend_emb``,
+        ``frontend_mask``, ``positions`` ((B, S), or (3, B, S) for
+        M-RoPE) and ``enc_emb``. Returns ``(loss + aux, {"aux": aux})``
+        as the reference does: the mean cross-entropy, plus 0.3 x MTP's
+        for DeepSeek-V3, plus the MoE load-balance losses."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x, positions = self._inputs(params, tokens,
+                                    batch.get("frontend_emb"),
+                                    batch.get("frontend_mask"),
+                                    batch.get("positions"))
+        enc_out = None
+        if cfg.enc_dec:
+            enc_out = self._encode(params, batch["enc_emb"])
+        x, _, aux = self._run_stack(params, x, positions, enc_out=enc_out,
+                                    remat=remat)
+        loss = self._loss_from_hidden(params, x, batch["labels"])
+        if cfg.mtp:
+            loss = loss + 0.3 * self._mtp_loss(params, x, tokens, batch)
+        return loss + aux, {"aux": aux}
+
+    def _loss_from_hidden(self, params, x: torch.Tensor,
+                          labels: torch.Tensor) -> torch.Tensor:
+        """Cross-entropy of the final hidden states through the fused
+        chunked-vocab loss (the reference's path without tensor
+        parallelism): no (tokens x vocab) logits are kept."""
+        cfg = self.cfg
+        table = (params["embed"]["table"] if cfg.tie_embeddings
+                 else params["head"]["table"])
+        xn = basic.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        t = xn.shape[0] * xn.shape[1]
+        return chunked_xent(xn.reshape(t, cfg.d_model), table,
+                            labels.reshape(t), 16384, cfg.logit_softcap)
+
+    def _mtp_loss(self, params, h: torch.Tensor, tokens: torch.Tensor,
+                  batch: dict) -> torch.Tensor:
+        """DeepSeek-V3's multi-token prediction: token t+2 from (h_t,
+        the embedding of token t+1) through the MTP block."""
+        cfg = self.cfg
+        p = params["mtp"]
+        emb_next = self._embed(params, torch.roll(tokens, -1, dims=1))
+        z = torch.cat([basic.rmsnorm(p["norm_h"], h, cfg.norm_eps),
+                       basic.rmsnorm(p["norm_e"], emb_next, cfg.norm_eps)],
+                      dim=-1) @ p["proj"]
+        z, _, _ = apply_layer(cfg.blocks[-1], p["block"], z,
+                              self._positions(tokens), norm_eps=cfg.norm_eps)
+        labels2 = torch.roll(batch["labels"], -1, dims=1)
+        return self._loss_from_hidden(params, z, labels2)
 
     def prefill(self, params, tokens: torch.Tensor, *,
                 frontend_emb: Optional[torch.Tensor] = None,
@@ -304,8 +420,8 @@ class LM:
                 raise ValueError(f"{self.cfg.name} is an encoder-decoder "
                                  f"model: prefill needs enc_emb")
             enc_out = self._encode(params, enc_emb)
-        x, caches = self._run_stack(params, x, positions, want_cache=True,
-                                    enc_out=enc_out)
+        x, caches, _ = self._run_stack(params, x, positions,
+                                       want_cache=True, enc_out=enc_out)
         return self._logits(params, x[:, -1:, :]), caches
 
     def prefill_flops(self, tokens: int) -> float:
@@ -326,8 +442,8 @@ class LM:
         if positions is None:
             positions = torch.full((tokens.shape[0], 1), int(pos),
                                    dtype=torch.int32, device=tokens.device)
-        x, caches = self._run_stack(params, x, positions, caches=caches,
-                                    cache_pos=pos)
+        x, caches, _ = self._run_stack(params, x, positions, caches=caches,
+                                       cache_pos=pos)
         return self._logits(params, x), caches
 
     # ---------------- cache tree

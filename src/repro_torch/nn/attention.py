@@ -3,9 +3,11 @@ multi-head latent attention (MLA), mirroring the reference's
 ``nn/attention.py``, with the two attention kernels as GQA's attention on
 every path:
 
-* cache-less (train/prefill): ``kernels/flash_attention.flash_attention_fwd``
+* cache-less (train/prefill): kernel 6 through ``nn/flash.flash_attention``
   (causal, the layer's window) at every length, where the reference takes
   its masked ``_sdpa`` up to 512 tokens and ``nn/flash.sdpa_flash`` above;
+  with grad mode on it is differentiable (its backward is the reference's
+  ``_flash_bwd``), without it is ``flash_attention_fwd`` itself;
 * decode: the new token's K/V are written into the cache in place at
   ``cache_pos`` (``cache_pos % S`` in a sliding-window layer's ring
   buffer), then ``kernels/decode_attention.decode_attention`` attends over
@@ -45,9 +47,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.nn.basic import apply_rope, rmsnorm, rmsnorm_specs
 from repro_torch.nn.config import AttnConfig
+from repro_torch.nn.flash import flash_attention
 from repro_torch.nn.param import ParamSpec
 
 NEG = -1.0e30   # the reference's masked score
@@ -111,8 +113,8 @@ def _cross_attention(p, cfg: AttnConfig, x: torch.Tensor,
             raise ValueError("cross-attention over an empty encoder cache")
         return decode_attention(q.reshape(b, kv, h // kv, dh), k, v,
                                 k.shape[1] - 1, scale=scale)
-    return flash_attention_fwd(q.view(b, sq, kv, h // kv, dh), k, v,
-                               scale=scale, causal=False)
+    return flash_attention(q.view(b, sq, kv, h // kv, dh), k, v, scale,
+                           causal=False)
 
 
 def gqa_apply(p, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor,
@@ -137,9 +139,8 @@ def gqa_apply(p, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor,
     scale = 1.0 / math.sqrt(dh)
     q, k, v = project_qkv(p, cfg, x, positions)
     if cache is None:
-        out = flash_attention_fwd(q.view(b, sq, kv, h // kv, dh), k, v,
-                                  scale=scale, causal=True,
-                                  window=cfg.window)
+        out = flash_attention(q.view(b, sq, kv, h // kv, dh), k, v, scale,
+                              causal=True, window=cfg.window)
         new_cache = {"k": k, "v": v}
     else:
         if sq != 1:
@@ -283,7 +284,8 @@ def mla_apply(p, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor,
 
     if cache is None:
         q, k, v, new_cache = mla_prefill_qkv(p, cfg, x, positions, eps)
-        out = flash_attention_fwd(q, k, v, scale=scale, causal=True)
+        # the zero padding of v takes a gradient that the slice drops
+        out = flash_attention(q, k, v, scale, causal=True)
         out = out.view(b, sq, h, dn + dr)[..., :dv]
     else:
         if sq != 1:

@@ -1,0 +1,123 @@
+"""Atomic checkpoints of a tree of tensors, the port of the reference's
+``train/checkpoint.py``, with its on-disk layout: one directory per step,
+
+    step_00000120.tmp/          (written, then renamed)
+      manifest.json             step, leaf count, tree, shapes, dtypes,
+                                the caller's ``extra``
+      arr_00000.npy ...         one .npy per leaf, in the tree's leaf order
+    step_00000120/
+
+* atomic publish: a crash while writing never corrupts the latest
+  checkpoint (tmp directory, then a rename);
+* async save: the device-to-host copy is synchronous, the file writes
+  run on a thread, whose handle :func:`save` returns;
+* retention: the last ``keep_last`` checkpoints are kept.
+
+Leaves are stored as whole host arrays; bf16, which ``.npy`` cannot hold,
+as its raw bits in uint16 (the manifest keeps ``"bfloat16"``), read back
+through a torch uint16 view. The leaf order is ``train.tree``'s (JAX's),
+so a tree's manifest lists the shapes and dtypes the reference's lists.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.train import tree as tr
+
+MANIFEST = "manifest.json"
+
+
+def _host(x: torch.Tensor) -> tuple[np.ndarray, str]:
+    """A leaf as a host array and its dtype's name."""
+    x = x.detach().cpu()
+    if x.dtype == torch.bfloat16:
+        return x.view(torch.uint16).numpy(), "bfloat16"
+    a = x.numpy()
+    return a, str(a.dtype)
+
+
+def save(ckpt_dir: str, step: int, tree, *, extra: dict | None = None,
+         async_write: bool = True,
+         keep_last: int = 3) -> threading.Thread | None:
+    """Copy ``tree`` to the host and write checkpoint ``step``; with
+    ``async_write`` the writes run on the returned (started) thread."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    leaves, treedef = tr.flatten(tree)
+    host = [_host(x) for x in leaves]
+
+    def write():
+        name = f"step_{step:08d}"
+        tmp = os.path.join(ckpt_dir, name + ".tmp")
+        final = os.path.join(ckpt_dir, name)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        manifest = {
+            "step": step,
+            "n_leaves": len(host),
+            "treedef": repr(treedef),
+            "shapes": [list(a.shape) for a, _ in host],
+            "dtypes": [dt for _, dt in host],
+            "extra": extra or {},
+        }
+        for i, (a, _) in enumerate(host):
+            np.save(os.path.join(tmp, f"arr_{i:05d}.npy"), a)
+        with open(os.path.join(tmp, MANIFEST), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)  # atomic publish
+        _gc(ckpt_dir, keep_last)
+
+    if async_write:
+        th = threading.Thread(target=write, daemon=True)
+        th.start()
+        return th
+    write()
+    return None
+
+
+def _gc(ckpt_dir: str, keep_last: int) -> None:
+    steps = sorted(d for d in os.listdir(ckpt_dir)
+                   if d.startswith("step_") and not d.endswith(".tmp"))
+    for d in steps[:-keep_last]:
+        shutil.rmtree(os.path.join(ckpt_dir, d), ignore_errors=True)
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = [int(d.split("_")[1]) for d in os.listdir(ckpt_dir)
+             if d.startswith("step_") and not d.endswith(".tmp")
+             and os.path.exists(os.path.join(ckpt_dir, d, MANIFEST))]
+    return max(steps) if steps else None
+
+
+def restore(ckpt_dir: str, step: int, like_tree) -> tuple[Any, dict]:
+    """Checkpoint ``step`` in the structure of ``like_tree``, whose leaves
+    (tensors) give each leaf's dtype and device; returns ``(tree,
+    extra)``."""
+    name = os.path.join(ckpt_dir, f"step_{step:08d}")
+    with open(os.path.join(name, MANIFEST)) as f:
+        manifest = json.load(f)
+    leaves, treedef = tr.flatten(like_tree)
+    if len(leaves) != manifest["n_leaves"]:
+        raise ValueError(f"checkpoint has {manifest['n_leaves']} leaves, "
+                         f"restore target has {len(leaves)}")
+    out = []
+    for i, ref in enumerate(leaves):
+        t = torch.from_numpy(np.load(os.path.join(name, f"arr_{i:05d}.npy")))
+        if manifest["dtypes"][i] == "bfloat16":
+            t = t.view(torch.bfloat16)
+        if tuple(t.shape) != tuple(ref.shape):
+            raise ValueError(f"leaf {i}: checkpoint shape {tuple(t.shape)} "
+                             f"!= target {tuple(ref.shape)}")
+        out.append(t.to(device=ref.device, dtype=ref.dtype))
+    return tr.unflatten(treedef, out), manifest["extra"]

@@ -359,3 +359,88 @@ def test_decode_rehearsal_at_dh_256_within_tolerance_of_plain(s, pos):
     got = decode_tc_rehearsal(q, kc, vc, pos, 1 / 16)
     want = da.decode_attention_plain(q, kc, vc, pos, 1 / 16)
     assert float((got.float() - want.float()).abs().max()) <= TOL_BF16
+
+
+# ------------------------------------------------- the C entry points
+
+def _c_signatures(mod) -> dict:
+    """Each extern "C" function of the module's CUDA source: its
+    parameters as ctypes types."""
+    import ctypes
+    import re
+    from pathlib import Path
+
+    kind = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+            "float": ctypes.c_float}
+    src = (Path(mod.__file__).parent / "csrc" /
+           f"{mod.__name__.rsplit('.', 1)[1]}.cu").read_text()
+    body = src[src.index('extern "C" {'):]
+    out = {}
+    for m in re.finditer(r"^(?:int|const char\*) (\w+)\(([^)]*)\)", body,
+                         re.M):
+        params = [" ".join(x.split()) for x in m.group(2).split(",")]
+        out[m.group(1)] = [ctypes.c_void_p if "*" in x else
+                           kind[x.rsplit(" ", 1)[0]] for x in params]
+    return out
+
+
+class _Entry:
+    def __init__(self):
+        self.calls, self.argtypes, self.restype = [], None, None
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("mod", [fa, da], ids=["flash", "decode"])
+def test_ctypes_signatures_match_the_c_entry_points(monkeypatch, mod):
+    """``_lib`` types every entry point as the source declares it (kernel
+    6's two launchers take the lse pointer after the output)."""
+    import types
+
+    sigs = _c_signatures(mod)
+    lib = types.SimpleNamespace(**{n: _Entry() for n in sigs})
+    monkeypatch.setattr(mod.build, "load", lambda name: lib)
+    assert mod._lib() is lib
+    for name, params in sigs.items():
+        assert getattr(lib, name).argtypes == params, name
+    if mod is fa:
+        for name in ("flash_attention_launch", "flash_attention_tc_launch"):
+            n = 7 if name == "flash_attention_launch" else 6
+            assert len(sigs[name]) == n + 15   # ... q, k, v, o, lse, b, ...
+
+
+@pytest.mark.parametrize("design", ["tc", "simt"])
+@pytest.mark.parametrize("return_lse", [False, True])
+def test_flash_launch_passes_lse_or_null(monkeypatch, design, return_lse):
+    """``_launch`` hands the kernel a fresh (B, KV, G, Sq) fp32 lse after
+    the output with ``return_lse``, else a null pointer (None)."""
+    import contextlib
+    import types
+
+    lib = types.SimpleNamespace(**{n: _Entry() for n in _c_signatures(fa)})
+    monkeypatch.setattr(fa.build, "load", lambda name: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=5))
+    for name in ("launches", "launches_tc", "launches_simt"):
+        monkeypatch.setattr(fa.flash_attention_fwd, name, 0)
+    q = torch.zeros((2, 33, 2, 3, 16), dtype=torch.bfloat16)
+    k = v = torch.zeros((2, 40, 2, 16), dtype=torch.bfloat16)
+    got = fa._launch(design, q, k, v, 0.25, True, None, return_lse)
+    entry = lib.flash_attention_tc_launch if design == "tc" else \
+        lib.flash_attention_launch
+    (call,) = entry.calls
+    at = 4 if design == "tc" else 5           # after dh (and dtype), q, k, v
+    out, lse = got if return_lse else (got, None)
+    assert call[at] == out.data_ptr()
+    if return_lse:
+        assert lse.shape == (2, 2, 3, 33) and lse.dtype == torch.float32
+        assert call[at + 1] == lse.data_ptr()
+    else:
+        assert call[at + 1] is None
+    assert call[at + 2:at + 7] == (2, 33, 40, 2, 3) and call[-1] == 5
+    assert (fa.flash_attention_fwd.launches,
+            getattr(fa.flash_attention_fwd, f"launches_{design}")) == (1, 1)

@@ -219,7 +219,7 @@ def test_lm_logits_match_reference(name, dt):
     h, _, _ = ref._run_stack(CTX, params, x, ref._positions(jnp.asarray(toks)))
     want = _np(ref._logits(CTX, params, h))
     t = torch.from_numpy(toks)
-    hh, _ = lm._run_stack(pp, lm._embed(pp, t), lm._positions(t))
+    hh, _, _ = lm._run_stack(pp, lm._embed(pp, t), lm._positions(t))
     got = lm._logits(pp, hh)
     assert got.dtype == TDT[dt] and got.shape == (2, 24, 128)
     np.testing.assert_allclose(got.float().numpy(), want, atol=TOL[dt])
@@ -251,7 +251,8 @@ def test_prefill_decode_consistency():
                          "cpu")
     s = 16
     toks = torch.from_numpy(_tokens(1, s + 1, 97))
-    h, _ = lm._run_stack(params, lm._embed(params, toks), lm._positions(toks))
+    h, _, _ = lm._run_stack(params, lm._embed(params, toks),
+                            lm._positions(toks))
     full = lm._logits(params, h)
     _, caches = lm.prefill(params, toks[:, :s])
     for layer in caches["layers"]:
@@ -273,7 +274,8 @@ def test_sliding_window_ring_decode_matches_full():
                          "cpu")
     s = 24
     toks = torch.from_numpy(_tokens(1, s + 1, 97))
-    h, _ = lm._run_stack(params, lm._embed(params, toks), lm._positions(toks))
+    h, _, _ = lm._run_stack(params, lm._embed(params, toks),
+                            lm._positions(toks))
     full = lm._logits(params, h)
     caches = init_params(lm.cache_specs(1, s + 1), None, "cpu")
     assert caches["layers"][0]["mixer"]["k"].shape[1] == 8

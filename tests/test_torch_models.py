@@ -171,7 +171,7 @@ def test_gemma3_decode_past_the_window_on_a_ring():
     assert [sp.attn.window for sp in lm.layers] == [8] * 5 + [None]
     toks = _tokens(1, 21, seed=7)
     t = torch.from_numpy(toks)
-    h, _ = lm._run_stack(pp, lm._embed(pp, t), lm._positions(t))
+    h, _, _ = lm._run_stack(pp, lm._embed(pp, t), lm._positions(t))
     full = lm._logits(pp, h)[:, -1:]
     _, caches = lm.prefill(pp, t[:, :20])
     caches = _fold_ring(lm, caches, 20)
@@ -214,7 +214,7 @@ def test_moe_capacity_drops_through_the_model():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL)
     for factor, agree in ((1.0, False), (2.0, True)):
         m = LM(_with_capacity(lm.cfg, factor))
-        h, _ = m._run_stack(pp, m._embed(pp, t), m._positions(t))
+        h, _, _ = m._run_stack(pp, m._embed(pp, t), m._positions(t))
         full = m._logits(pp, h)[:, -1:]
         _, caches = m.prefill(pp, t[:, :20])
         caches = _fold_ring(m, caches, 20)
@@ -272,8 +272,6 @@ def test_params_carry_prefix_moe_mla_and_mtp():
     np.testing.assert_array_equal(
         pp["mtp"]["block"]["moe"]["w_down"].numpy(),
         np.asarray(params["mtp"]["block"]["moe"]["w_down"]))
-    with pytest.raises(NotImplementedError, match="slice 11b"):
-        lm.loss_and_aux(pp, {})
 
 
 def _grow(lm, caches, rows: int):
@@ -347,12 +345,6 @@ def test_every_assigned_config_builds_at_published_width(name):
     assert param_count(specs) == sum(int(np.prod(s.shape)) for s in ref)
     assert param_bytes(specs) == sum(
         int(np.prod(s.shape)) * jnp.dtype(s.dtype).itemsize for s in ref)
-
-
-@pytest.mark.parametrize("name", SLICE_11A)
-def test_loss_and_aux_still_raises_naming_slice_11b(name):
-    with pytest.raises(NotImplementedError, match="slice 11b"):
-        LM(get_config(name)).loss_and_aux({}, {})
 
 
 def _arr(shape, seed):

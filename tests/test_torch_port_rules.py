@@ -296,3 +296,71 @@ def test_every_kernel_source_is_built_and_hashed_with_its_headers():
             assert f'#include "{header}"' in text, (name, header)
     paths = {n: build.library_path(n) for n in build.SOURCES}
     assert len(set(paths.values())) == len(paths)
+
+
+def test_kernel_wrappers_refuse_inputs_that_require_grad():
+    """Kernels 6 and 7 return tensors without a grad_fn on the card, so
+    with grad mode on both wrappers refuse inputs that require grad,
+    naming the differentiable path (``nn/flash.flash_attention``); under
+    no_grad they run."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn((1, 8, 1, 2, 16), generator=g).requires_grad_()
+    k, v = (torch.randn((1, 8, 1, 16), generator=g) for _ in range(2))
+    with pytest.raises(RuntimeError, match="nn/flash.flash_attention"):
+        flash_attention_fwd(q, k, v, scale=0.25)
+    with pytest.raises(RuntimeError, match="nn/flash.flash_attention"):
+        decode_attention(q[:, 0], k, v, 7, scale=0.25)
+    with torch.no_grad():
+        flash_attention_fwd(q, k, v, scale=0.25)
+        decode_attention(q[:, 0], k, v, 7, scale=0.25)
+
+
+def _flags(main, capsys) -> set:
+    import re
+
+    with pytest.raises(SystemExit):
+        main(["--help"])
+    return set(re.findall(r"(--[a-z][a-z-]*)", capsys.readouterr().out))
+
+
+def test_train_main_takes_every_reference_flag(capsys):
+    """``launch.train.main`` takes every flag of the reference's, plus
+    ``--device`` (defaulting to cuda)."""
+    from repro.launch.train import main as ref_main
+    from repro_torch.launch.train import main, parse_args
+
+    ref, port = _flags(ref_main, capsys), _flags(main, capsys)
+    assert "--fail-at" in ref and ref <= port
+    assert port - ref == {"--device"}
+    assert parse_args([]).device == "cuda"
+    monkey = pytest.MonkeyPatch()
+    monkey.setattr(torch.cuda, "is_available", lambda: False)
+    try:
+        with pytest.raises(RuntimeError, match="is_available"):
+            main(["--smoke", "--steps", "1"])
+    finally:
+        monkey.undo()
+
+
+TRAIN_MODULES = ("nn.flash", "nn.xent", "train.tree", "train.optim",
+                 "train.compression", "train.quant_opt", "train.data",
+                 "train.checkpoint", "train.supervisor", "launch.steps",
+                 "launch.train")
+
+
+def test_training_modules_load_no_jax():
+    """The training slice's modules import neither JAX, ml_dtypes nor the
+    reference (bf16 checkpoints read back through a torch uint16 view)."""
+    code = ("import sys, importlib; "
+            f"[importlib.import_module('repro_torch.' + m) for m in "
+            f"{TRAIN_MODULES!r}]; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro', 'ml_dtypes')]; print(bad); "
+            "sys.exit(bool(bad))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
