@@ -219,6 +219,28 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            tokens/s and MFU; (e) the Supervisor with an injected failure
            on the shrunk config on cuda: losses equal to an uninterrupted
            run's.
+   sharded the model as a DTensor program (``nn/sharding.ShardCtx``):
+           (a0) kernel 7's per-row log-sum-exp (``return_lse``, what the
+           mesh's decode over a cache split across ranks merges by)
+           against its plain version at kernel_attn's decode cases and
+           bf16 edges on both designs, and a cache split in two at the
+           edges, merged by the lse as nn/attention merges it, held by
+           attn_err against the whole cache;
+           (a) on a one-rank NCCL process group and a (1, 1) (data,
+           model) mesh on the card, granite-3-8b at lm_assigned's depth
+           and deepseek-v2 at FIXED_REPEATS: a 64-token prefill, 8 greedy
+           decode steps and one 1 x 4096 training step's loss and
+           gradients, each bitwise equal to the same calls without a mesh,
+           kernels 6 and 7 launched exactly once per attention mixer a
+           pass, all tensor-core; (b) the dry run (launch/dryrun.py) of
+           granite-3-8b x {train_4k, prefill_32k, decode_32k} on the
+           (32, 8) mesh and train_4k on (2, 32, 8), on a fake process
+           group in subprocesses on the host (no card memory), a record
+           each; (c) the dry run of train (d)'s own cell (its layers, 2 x
+           4096 tokens in 2 microbatches, remat none) on a (1, 1) mesh:
+           its per-device memory within 15% of (d)'s measured peak, its
+           FLOPs within 15% of model_flops, its roofline step time beside
+           (d)'s measured step time.
 9. the ``kernels`` line: per kernel, its launches on the run that drives
    it and on every serve run, serve_fresh's too (a serve run; the
    colocated run for kernels 6 and 7, with their
@@ -238,6 +260,15 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    torch.profiler sessions that may drop records: a kernel's time is its
    mean over the records kept, and a table's device time fails the run
    where no session kept them.
+
+``python3 chip_smoke.py --mesh`` runs one phase on four cards of one
+host instead: granite-3-8b (2 layers) and jamba-1.5-large-398b (its
+attention and Mamba + MoE layers) at published width as one DTensor
+program over a (2, 2) (data, model) mesh, 4 sequences of a 64-token
+prompt and 8 decode steps, the logits on every rank within LM_REL_TOL of
+the same model without a mesh and kernels 6 and 7 launched once per
+attention mixer a pass on every rank (kernel 7 on each rank's half of
+the cache rows, merged by its lse), all on the tensor-core design.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
 without the port's sources beside this file, it prints no result and
@@ -4262,6 +4293,595 @@ def phase_train(dev):
             "full_width": full, "bigram": bigram, "restart": restart}
 
 
+SHARDED_MODELS = ("granite-3-8b", "deepseek-v2-236b")
+SHARDED_PROMPT = 64       # prefill tokens, then greedy decode steps
+SHARDED_DECODE = 8
+SHARDED_TRAIN = (1, 4096)
+# (b): the production mesh's cells of granite, and train_4k on two pods
+DRYRUN_CELLS = (("train_4k", False), ("prefill_32k", False),
+                ("decode_32k", False), ("train_4k", True))
+DRYRUN_HOLD = 0.15        # (c): the dry run's memory and FLOPs
+DRYRUN_S = 600            # a dry-run subprocess's time limit
+DRYRUN_CHILD = """
+import json, sys
+sys.path.insert(0, {src!r})
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun
+from repro_torch.nn.config import ShapeCell
+arch, shape, multi, cut = json.loads({args!r})
+kw = {{}}
+if cut:
+    kw = dict(mesh_shape=(1, 1), cell=ShapeCell(shape, *cut["cell"], "train"),
+              cfg=dryrun._with_repeat(get_config(arch), cut["layers"]),
+              microbatches=cut["microbatches"], remat=cut["remat"])
+rec = dryrun.run_cell(arch, shape, multi, verbose=False, **kw)
+print(json.dumps(rec))
+"""
+
+
+def start_dryruns(train_cell: dict) -> list:
+    """(b)'s cells and (c)'s, each a subprocess on the host (no card: its
+    CUDA_VISIBLE_DEVICES is empty), all started at once."""
+    import os
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(SRC))
+    jobs = [(TRAIN_ARCH, shape, multi, None) for shape, multi in DRYRUN_CELLS]
+    jobs.append((TRAIN_ARCH, "train_4k", False, train_cell))
+    procs = []
+    for job in jobs:
+        code = DRYRUN_CHILD.format(src=str(SRC), args=json.dumps(job))
+        procs.append((job, subprocess.Popen(
+            [sys.executable, "-c", code], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    return procs
+
+
+def finish_dryruns(procs: list) -> list:
+    """Each subprocess's record; one that fails or outlives DRYRUN_S fails
+    the phase (every subprocess is stopped first)."""
+    recs, t0 = [], time.perf_counter()
+    try:
+        for job, proc in procs:
+            left = max(1.0, DRYRUN_S - (time.perf_counter() - t0))
+            out, err = proc.communicate(timeout=left)
+            check(proc.returncode == 0,
+                  f"dry run {job}: exit {proc.returncode}\n{err[-3000:]}")
+            recs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return recs
+
+
+def mesh_tree(mesh, specs, tree):
+    """A tree of the card's tensors as DTensors on ``mesh`` placed by
+    ``param_pspec``, without a copy (on a (1, 1) mesh every rank's shard
+    is the whole tensor)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.nn.sharding import param_pspec, placements
+
+    if isinstance(tree, dict):
+        return {k: mesh_tree(mesh, specs[k], v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [mesh_tree(mesh, sp, v) for sp, v in zip(specs, tree)]
+    return DTensor.from_local(
+        tree, mesh, placements(mesh, param_pspec(mesh, specs)),
+        run_check=False)
+
+
+def local_of(x):
+    return x.to_local() if hasattr(x, "to_local") else x
+
+
+def grow_caches(lm, caches, rows: int):
+    """A prefill's caches with ``rows`` empty rows after its own along the
+    sequence axis (each attention layer's K/V, or MLA's latent and rope
+    key), for decode steps to follow it."""
+    for spec, layer in zip(lm.layers, caches["layers"]):
+        if spec.kind == "attn":
+            layer["mixer"] = {k: torch.cat([b, b.new_zeros(
+                (b.shape[0], rows, *b.shape[2:]))], 1)
+                for k, b in layer["mixer"].items()}
+    return caches
+
+
+def serve_passes(lm, params, prompt, wrap) -> dict:
+    """A prefill of ``prompt`` and SHARDED_DECODE greedy decode steps
+    after it: the logits of each, the tokens, and the launches of kernels
+    6 and 7 in the prefill and over the decode steps."""
+    wrappers = attn_wrappers()
+    p = prompt.shape[1]
+    out = {"launches": {}}
+    with torch.no_grad():
+        reset_counts(wrappers)
+        logits, caches = lm.prefill(params, wrap(prompt))
+        torch.cuda.synchronize()
+        out["launches"]["prefill"] = {n: w.launches
+                                      for n, w in wrappers.items()}
+        out["designs_prefill"] = check_all_tc(wrappers, "sharded prefill")
+        caches = grow_caches(lm, caches, SHARDED_DECODE)
+        out["prefill"] = local_of(logits)
+        tok = out["prefill"][:, -1].argmax(-1, keepdim=True)
+        toks, steps = [], []
+        reset_counts(wrappers)
+        for t in range(SHARDED_DECODE):
+            lg, caches = lm.decode(params, wrap(tok), caches, p + t)
+            lg = local_of(lg)
+            steps.append(lg)
+            tok = lg[:, -1].argmax(-1, keepdim=True)
+            toks.append(int(tok[0, 0]))
+        torch.cuda.synchronize()
+        out["launches"]["decode"] = {n: w.launches
+                                     for n, w in wrappers.items()}
+        out["designs"] = check_all_tc(wrappers, "sharded decode")
+    out["decode"], out["tokens"] = steps, toks
+    return out
+
+
+def hold_decode_lse(q, kc, vc, pos: int, *, design=None,
+                    aligned=True) -> tuple[float, float]:
+    """Kernel 7 with ``return_lse`` against its plain version on the same
+    inputs, on the design the dispatch gives them (or ``design``): the
+    output by attn_err, the lse by LSE_TOL (fp32) or LSE_BF16_REL (bf16).
+    Returns both max abs errors."""
+    from repro_torch.kernels import decode_attention as da
+    scale = 1.0 / float(q.shape[-1]) ** 0.5
+    before = design_counts(da.decode_attention)
+    if design is None:
+        got, lse = da.decode_attention(q, kc, vc, pos, scale=scale,
+                                       return_lse=True)
+    else:
+        got, lse = da._launch(design, q, kc, vc, pos, scale, True)
+    torch.cuda.synchronize()
+    check_design(da.decode_attention, before,
+                 design or expect_design(q, aligned),
+                 f"decode_attention(return_lse) at {tuple(kc.shape)} "
+                 f"pos={pos}")
+    want, want_lse = da.decode_attention_plain(q, kc, vc, pos, scale, True)
+    err, share = attn_err(got, want)
+    TOL_SHARE["decode_attention"] = max(TOL_SHARE["decode_attention"], share)
+    check(share <= 1.0, f"decode_attention(return_lse) out differs by {err} "
+          f"({share} of the tolerance) at {tuple(kc.shape)} pos={pos}")
+    check(lse.shape == want_lse.shape and lse.dtype == torch.float32,
+          f"lse {tuple(lse.shape)} {lse.dtype}, want {tuple(want_lse.shape)}")
+    d = (lse - want_lse).abs()
+    lim = LSE_TOL[torch.float32] if q.dtype == torch.float32 else \
+        LSE_BF16_REL * want_lse.abs().clamp_min(1.0)
+    check(bool((d <= lim).all()),
+          f"decode lse differs by {float(d.max())} at q {tuple(q.shape)} "
+          f"cache {tuple(kc.shape)} pos={pos} {q.dtype}")
+    return err, float(d.max())
+
+
+def hold_decode_split(q, kc, vc, pos: int, cut: int) -> float:
+    """A cache split at row ``cut`` as two ranks hold it: kernel 7 with its
+    lse on each part's rows (the second part's bound ``pos - cut``), the
+    parts merged as ``nn/attention.decode_attend`` merges them across the
+    ranks (max of the lse, then the sums of the rescaled outputs and
+    weights; here over a stacked dim), held by attn_err against the plain
+    version over the whole cache."""
+    from repro_torch.kernels import decode_attention as da
+    scale = 1.0 / float(q.shape[-1]) ** 0.5
+    parts = [da.decode_attention(q, kc[:, :cut].contiguous(),
+                                 vc[:, :cut].contiguous(), min(pos, cut - 1),
+                                 scale=scale, return_lse=True),
+             da.decode_attention(q, kc[:, cut:].contiguous(),
+                                 vc[:, cut:].contiguous(), pos - cut,
+                                 scale=scale, return_lse=True)]
+    out = torch.stack([o.float() for o, _ in parts])
+    lse = torch.stack([l for _, l in parts])
+    wt = torch.exp(lse - lse.amax(0))
+    got = (out * wt[..., None]).sum(0) / wt.sum(0)[..., None]   # fp32
+    want = da.decode_attention_plain(q, kc, vc, pos, scale)
+    err, share = attn_err(got, want)
+    check(share <= 1.0, f"kernel 7 over a split cache, merged by lse, "
+          f"differs by {err} ({share} of the tolerance) at "
+          f"{tuple(kc.shape)} pos={pos} cut={cut} {q.dtype}")
+    return err
+
+
+def phase_decode_lse(dev) -> dict:
+    """(a0) of ``sharded``: kernel 7's per-row lse against its plain
+    version at kernel_attn's reference cases (fp32 and bf16, aligned and
+    not) and bf16 edges on both designs, one chunk and several; and a
+    cache split in two at every edge, merged by the lse, against the
+    whole cache."""
+    g = torch.Generator(device=dev).manual_seed(24)
+    bf, f32 = torch.bfloat16, torch.float32
+    errs = {"out": 0.0, "lse": 0.0, "split": 0.0}
+    n = 0
+
+    def keep(e):
+        errs["out"], errs["lse"] = max(errs["out"], e[0]), max(errs["lse"],
+                                                               e[1])
+
+    for b, kvh, gq, dh, s in DECODE_CASES:
+        for dt in (f32, bf):
+            q = randn(g, (b, kvh, gq, dh), dt, dev)
+            kc, vc = (randn(g, (b, s, kvh, dh), dt, dev) for _ in range(2))
+            for pos in (0, s // 2 - 3, s - 1):
+                keep(hold_decode_lse(q, kc, vc, pos))
+                keep(hold_decode_lse(q, misaligned(kc), misaligned(vc), pos,
+                                     aligned=False))
+                n += 2
+    s = DECODE_EDGE_S
+    for gq in DECODE_EDGE_G:
+        for dh in DECODE_EDGE_DH:
+            q = randn(g, (2, 2, gq, dh), bf, dev)
+            kc, vc = (randn(g, (2, s, 2, dh), bf, dev) for _ in range(2))
+            for pos in (63, 300, s - 1):
+                for design in ("tc", "simt"):
+                    keep(hold_decode_lse(q, kc, vc, pos, design=design))
+                    n += 1
+                for cut in (64, s // 2):
+                    if cut <= pos:
+                        errs["split"] = max(errs["split"], hold_decode_split(
+                            q, kc, vc, pos, cut))
+                        n += 1
+    return {"cases": n, "max_abs_err": errs}
+
+
+def sharded_model(name: str, mesh, dev) -> dict:
+    """(a) for one model: the passes and the training step's loss and
+    gradients without a mesh and through ShardCtx on ``mesh``, held
+    bitwise, with the kernel launches of the mesh's passes."""
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.lm import LM
+    from repro_torch.nn.sharding import ShardCtx
+    from repro_torch.train import tree as tr
+
+    lm, params, info = build_assigned(name, dev, seed=13)
+    lmd = LM(lm.cfg, ShardCtx(mesh))
+    pd = mesh_tree(mesh, lm.param_specs(), params)
+    rng = np.random.default_rng(17)
+    vocab = min(lm.cfg.vocab_size, 32000)
+    prompt = torch.from_numpy(rng.integers(
+        0, vocab, (1, SHARDED_PROMPT)).astype(np.int32)).to(dev)
+    b, s = SHARDED_TRAIN
+    batch = {k: torch.from_numpy(rng.integers(0, vocab, (b, s))
+                                 .astype(np.int32)).to(dev)
+             for k in ("tokens", "labels")}
+
+    def wrap(x):
+        from torch.distributed.tensor import DTensor, Replicate
+        return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
+
+    k6, k7 = attn_mixers(lm)
+    wrappers = attn_wrappers()
+    one = serve_passes(lm, params, prompt, lambda x: x)
+    got = serve_passes(lmd, pd, prompt, wrap)
+    want_l = {"prefill": {"flash_attention_fwd": k6, "decode_attention": 0},
+              "decode": {"flash_attention_fwd": 0,
+                         "decode_attention": SHARDED_DECODE * k7}}
+    check(got["launches"] == want_l == one["launches"],
+          f"sharded {name}: launches {got['launches']} (without a mesh "
+          f"{one['launches']}), want {want_l}")
+    check(torch.equal(got["prefill"], one["prefill"]),
+          f"sharded {name}: prefill logits differ from the mesh-free "
+          f"model's by {float((got['prefill'] - one['prefill']).abs().max())}")
+    check(all(torch.equal(a, c) for a, c in zip(got["decode"],
+                                                 one["decode"]))
+          and got["tokens"] == one["tokens"],
+          f"sharded {name}: decode tokens {got['tokens']} against "
+          f"{one['tokens']}")
+    del one, got
+    release(dev)
+
+    # scatter-adds (the MoE's gathers' backward) in a fixed order, so that
+    # two runs of one step can be bitwise equal
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    loss, grads = value_and_grad(lm, params, batch)
+    host = [g.cpu() for g in tr.leaves(grads)]
+    loss = float(loss)
+    del grads
+    release(dev)
+    reset_counts(wrappers)
+    t = time.perf_counter()
+    loss_d, grads_d = value_and_grad(
+        lmd, pd, {k: wrap(v) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    torch.use_deterministic_algorithms(False)
+    train_s = time.perf_counter() - t
+    train_l = {n: w.launches for n, w in wrappers.items()}
+    designs = check_all_tc(wrappers, f"sharded {name} train")
+    check(train_l == {"flash_attention_fwd": k6, "decode_attention": 0},
+          f"sharded {name} train: launches {train_l}, want kernel 6 x {k6}")
+    same = [torch.equal(local_of(g).cpu(), h)
+            for g, h in zip(tr.leaves(grads_d), host)]
+    loss_d = float(local_of(loss_d))
+    check(loss_d == loss and all(same),
+          f"sharded {name} train: loss {loss_d} against {loss}; "
+          f"{same.count(False)} of {len(same)} gradient leaves differ")
+    del grads_d, host, pd, params
+    release(dev)
+    return {**info, "prompt": SHARDED_PROMPT, "decode_steps": SHARDED_DECODE,
+            "tokens_equal": True, "logits_bitwise": True, "loss": loss,
+            "grad_leaves_bitwise": len(same), "train_tokens": b * s,
+            "train_step_s": train_s, "launches": {**want_l,
+                                                  "train": train_l},
+            "launches_by_design": designs}
+
+
+def phase_sharded(dev, trained: dict) -> dict:
+    """(a), (b) and (c) of the docstring's ``sharded``; (b) and (c) run on
+    the host while (a) runs on the card."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.nn.sharding import make_test_mesh
+
+    full = trained["full_width"]
+    cell = {"layers": full["layers"], "cell": [TRAIN_SEQ, TRAIN_BATCH],
+            "microbatches": TRAIN_MICRO, "remat": "none"}
+    procs = start_dryruns(cell)
+    try:
+        decode_lse = phase_decode_lse(dev)
+        with socket.socket() as sk:
+            sk.bind(("localhost", 0))
+            port = sk.getsockname()[1]
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev.index or 0)
+        dist.init_process_group(backend, rank=0, world_size=1,
+                                init_method=f"tcp://localhost:{port}")
+        try:
+            mesh = make_test_mesh(dev.type)
+            one_card = {name: sharded_model(name, mesh, dev)
+                        for name in SHARDED_MODELS}
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        for _, proc in procs:
+            proc.kill()
+            proc.wait()
+        raise
+    recs = finish_dryruns(procs)
+    for rec in recs[:-1]:
+        check(rec["status"] == "OK", f"dry run: {rec}")
+        print(json.dumps({"dryrun": rec}), flush=True)
+    c = recs[-1]
+    flops = full["model_flops"]
+    hbm_rel = c["hbm_per_device"] / full["peak_bytes"] - 1
+    flops_rel = c["flops_per_device"] / flops - 1
+    step_ms = max(c["t_compute"], c["t_memory"], c["t_collective"]) * 1e3
+    check(abs(hbm_rel) <= DRYRUN_HOLD,
+          f"dry run of train (d)'s cell: {c['hbm_per_device']} bytes a "
+          f"device against the {full['peak_bytes']} measured ({hbm_rel:+.3f})")
+    check(abs(flops_rel) <= DRYRUN_HOLD,
+          f"dry run of train (d)'s cell: {c['flops_per_device']} FLOPs "
+          f"against model_flops {flops} ({flops_rel:+.3f})")
+    check_cell = {"layers": full["layers"], "tokens": TRAIN_BATCH * TRAIN_SEQ,
+                  "microbatches": TRAIN_MICRO, "remat": "none",
+                  "hbm_per_device": c["hbm_per_device"],
+                  "measured_peak_bytes": full["peak_bytes"],
+                  "hbm_rel": hbm_rel, "flops_per_device":
+                  c["flops_per_device"], "model_flops": flops,
+                  "flops_rel": flops_rel, "roofline_step_ms": step_ms,
+                  "bottleneck": c["bottleneck"],
+                  "t_compute_ms": c["t_compute"] * 1e3,
+                  "t_memory_ms": c["t_memory"] * 1e3,
+                  "measured_step_ms": full["step_ms"],
+                  "fake_run_s": c["t_compile_s"]}
+    return {"decode_lse": decode_lse, "one_card": one_card,
+            "dryrun": [{k: r[k] for k in ("arch", "shape", "mesh", "status",
+                                          "hbm_per_device", "fits_hbm",
+                                          "t_compute", "t_memory",
+                                          "t_collective", "bottleneck",
+                                          "mfu", "t_compile_s")}
+                       for r in recs[:-1]],
+            "check_cell": check_cell}
+
+
+# --mesh: the model as one DTensor program over four cards of one host
+MESH_SHAPE = (2, 2)       # (data, model)
+MESH_BATCH = 4            # two rows a data rank; each cache's rows over model
+MESH_PROMPT, MESH_DECODE = 64, 8
+
+
+def mesh_configs() -> dict:
+    """granite-3-8b at published width, 2 layers (GQA: kernel 6 on each
+    rank's 16 of 32 query heads and 4 of 8 KV heads, kernel 7 on each
+    rank's half of the cache rows, merged by its lse); jamba-1.5-large-398b
+    at published width, the in-block layers 4 and 5 (its attention layer,
+    then a Mamba layer on each rank's 8192 of 16384 channels with the MoE
+    on each rank's 8 of 16 experts), at an unbounded capacity (no choice
+    drops, so that a rounding cannot move a drop)."""
+    import dataclasses
+
+    granite = dataclasses.replace(lm_config("granite-3-8b"), n_repeat=2)
+    jamba = lm_config("jamba-1.5-large-398b")
+    jamba = dataclasses.replace(jamba, blocks=jamba.blocks[4:6], n_repeat=1)
+    return {"granite-3-8b": unbounded_capacity(granite),
+            "jamba-1.5-large-398b": unbounded_capacity(jamba)}
+
+
+def mesh_model(cfg, mesh, dev) -> dict:
+    """One rank's readings of ``cfg`` on ``mesh``: its prefill logits and
+    MESH_DECODE decode steps (teacher-forced with the mesh-free model's
+    greedy tokens) against the same model without a mesh on this card,
+    as shares of the logits' scale, and the mesh passes' launches of
+    kernels 6 and 7 by design on this rank."""
+    from repro_torch.models.lm import LM
+    from repro_torch.nn.param import init_params
+    from repro_torch.nn.sharding import (ShardCtx, distribute,
+                                         distribute_tree, resolve_pspec)
+    from repro_torch.train import tree as tr
+
+    lm, lmd = LM(cfg), LM(cfg, ShardCtx(mesh))
+    params = init_params(lm.param_specs(),
+                         torch.Generator(device=dev).manual_seed(13), dev)
+    pd = distribute_tree(mesh, lm.param_specs(), params)
+    rng = np.random.default_rng(17)
+    prompt = torch.from_numpy(rng.integers(
+        0, min(cfg.vocab_size, 32000), (MESH_BATCH, MESH_PROMPT))
+        .astype(np.int32)).to(dev)
+
+    def rows(t):
+        axes = ("dp",) + (None,) * (t.ndim - 1)
+        return distribute(mesh, t, resolve_pspec(mesh, axes, t.shape))
+
+    def rel(got, want) -> float:
+        return float((got.float() - want.float()).abs().max()
+                     / want.float().abs().max())
+
+    def sync(dev):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    wrappers = attn_wrappers()
+    out = {"layers": cfg.n_layers}
+    with torch.no_grad():
+        logits, caches = lm.prefill(params, prompt)
+        caches = grow_caches(lm, caches, MESH_DECODE)
+        caches_d = distribute_tree(
+            mesh, lm.cache_specs(MESH_BATCH, MESH_PROMPT + MESH_DECODE),
+            tr.tree_map(torch.clone, caches))
+        toks, want = [], []
+        tok = logits[:, -1:].argmax(-1)
+        for t in range(MESH_DECODE):
+            lg, caches = lm.decode(params, tok, caches, MESH_PROMPT + t)
+            toks.append(tok)
+            want.append(lg)
+            tok = lg[:, -1:].argmax(-1)
+        sync(dev)
+        reset_counts(wrappers)
+        got, _ = lmd.prefill(pd, rows(prompt))
+        out["prefill_rel"] = rel(got.full_tensor(), logits)
+        sync(dev)
+        out["prefill_launches"] = {n: design_counts(w) | {
+            "plain": w.plain_calls} for n, w in wrappers.items()}
+        reset_counts(wrappers)
+        rels = []
+        for t in range(MESH_DECODE):
+            lg, caches_d = lmd.decode(pd, rows(toks[t]), caches_d,
+                                      MESH_PROMPT + t)
+            rels.append(rel(lg.full_tensor(), want[t]))
+        sync(dev)
+        out["decode_rel"] = rels
+        out["decode_launches"] = {n: design_counts(w) | {
+            "plain": w.plain_calls} for n, w in wrappers.items()}
+    out["attn_mixers"] = attn_mixers(lm)
+    return out
+
+
+def mesh_worker(rank: int, world: int, port: int, cfgs: dict,
+                path: str) -> None:
+    """One of the ``--mesh`` ranks: card ``rank``, an NCCL group of
+    ``world`` (gloo and the CPU where there is no card), the (data,
+    model) mesh, every model of ``cfgs``; rank 0 writes every rank's
+    readings to ``path``."""
+    sys.path.insert(0, str(SRC))
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    cuda = torch.cuda.is_available()
+    dev = torch.device("cuda", rank) if cuda else torch.device("cpu")
+    if cuda:
+        torch.cuda.set_device(dev)
+    dist.init_process_group("nccl" if cuda else "gloo", rank=rank,
+                            world_size=world,
+                            init_method=f"tcp://localhost:{port}")
+    try:
+        mesh = init_device_mesh(dev.type, MESH_SHAPE,
+                                mesh_dim_names=("data", "model"))
+        res = {}
+        for name, cfg in cfgs.items():
+            t = time.perf_counter()
+            res[name] = mesh_model(cfg, mesh, dev)
+            res[name]["seconds"] = time.perf_counter() - t
+            if cuda:
+                release(dev)
+        every = [None] * world
+        dist.all_gather_object(every, res)
+        if rank == 0:
+            Path(path).write_text(json.dumps(every))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh(cfgs: dict) -> dict:
+    """The ``--mesh`` run: MESH_SHAPE's ranks spawned at once, each
+    model's logits within LM_REL_TOL of the mesh-free model's on every
+    rank, kernel 6 once per attention mixer in the prefill and kernel 7
+    once per GQA mixer a decode step on every rank (the cache's rows split
+    over the model axis: each rank's call returns its lse), all on the
+    tensor-core design."""
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    world = MESH_SHAPE[0] * MESH_SHAPE[1]
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    with tempfile.TemporaryDirectory() as d:
+        path = str(Path(d) / "mesh.json")
+        mp.spawn(mesh_worker, args=(world, port, cfgs, path), nprocs=world,
+                 join=True)
+        every = json.loads(Path(path).read_text())
+    line = {}
+    for name in cfgs:
+        ranks = [r[name] for r in every]
+        k6, k7 = ranks[0]["attn_mixers"]
+        for i, r in enumerate(ranks):
+            worst = max([r["prefill_rel"]] + r["decode_rel"])
+            check(worst <= LM_REL_TOL,
+                  f"mesh {name} rank {i}: logits {worst} of their scale "
+                  f"from the mesh-free model's")
+            for what, want in (("prefill", (k6, 0)),
+                               ("decode", (0, k7 * MESH_DECODE))):
+                got = r[f"{what}_launches"]
+                for (kname, c), n in zip(got.items(), want):
+                    check(c == {"tc": n, "simt": 0, "plain": 0},
+                          f"mesh {name} rank {i} {what}: {kname} {c}, want "
+                          f"{n} on tc")
+        line[name] = {"layers": ranks[0]["layers"],
+                      "ranks": [{k: r[k] for k in ("prefill_rel",
+                                                   "decode_rel", "seconds")}
+                                for r in ranks],
+                      "launches_per_rank": {
+                          "prefill": ranks[0]["prefill_launches"],
+                          "decode": ranks[0]["decode_launches"]}}
+    return line
+
+
+def main_mesh() -> int:
+    """``python3 chip_smoke.py --mesh``: phase_mesh on four cards of one
+    host, after building kernels 6 and 7."""
+    if not (SRC / "repro_torch").is_dir():
+        print(f"chip_smoke: no port sources under {SRC}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import build
+
+    world = MESH_SHAPE[0] * MESH_SHAPE[1]
+    check(torch.cuda.device_count() >= world,
+          f"--mesh needs {world} cards, found {torch.cuda.device_count()}")
+    card = card_line()
+    print(card, flush=True)
+    t = time.perf_counter()
+    build.build_all(("flash_attention", "decode_attention"))
+    emit(phase="build", seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    emit(phase="mesh", mesh=list(MESH_SHAPE), batch=MESH_BATCH,
+         prompt=MESH_PROMPT, decode_steps=MESH_DECODE,
+         models=phase_mesh(mesh_configs()), seconds=time.perf_counter() - t)
+    print(card, flush=True)
+    emit(ok=True, device={"platform": "gpu",
+                          "kind": torch.cuda.get_device_name(0),
+                          "count": torch.cuda.device_count()})
+    return 0
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: no port sources under {SRC}", file=sys.stderr)
@@ -4393,6 +5013,14 @@ def main() -> int:
     t = time.perf_counter()
     trained = phase_train(dev)
     emit(phase="train", **trained, seconds=time.perf_counter() - t)
+    release(dev)
+    t = time.perf_counter()
+    sharded = phase_sharded(dev, trained)
+    emit(phase="sharded", **sharded, seconds=time.perf_counter() - t)
+    sharded_l = {n: sum(m["launches"][k][n]
+                        for m in sharded["one_card"].values()
+                        for k in ("prefill", "decode", "train"))
+                 for n in ("flash_attention_fwd", "decode_attention")}
     main = main_sizes[0]
     errs = {"ann_topk": max(max_err, main_err, serve_errs["ann_topk"]),
             "ann_topk_quant": max(quant_err, serve_errs["ann_topk_quant"]),
@@ -4501,6 +5129,7 @@ def main() -> int:
                 "colocated": colo_launches[name],
                 "train": (trained["full_width"]["launches"]
                           if name == "flash_attention_fwd" else 0),
+                "sharded": sharded_l[name],
                 "g_model_judge": g_run["launches"][name],
                 "lm_assigned": assigned_line["launches"][name],
                 **{f"lm_assigned {m}": sum(
@@ -4521,7 +5150,8 @@ def main() -> int:
             "max_abs_err": max(attn_errs[name], lm_errs[name],
                                assigned_errs[name],
                                trained["max_abs_err"]["out"]
-                               if name == "flash_attention_fwd" else 0.0),
+                               if name == "flash_attention_fwd" else
+                               sharded["decode_lse"]["max_abs_err"]["out"]),
             "tol_share": TOL_SHARE[name],
             **{key: at[key] for key in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms",
@@ -4536,7 +5166,10 @@ def main() -> int:
                 "backward": {k: v for k, v in
                              trained["attention_grad"].items()
                              if k.endswith(("_ms", "_by"))}}
-               if name == "flash_attention_fwd" else {}),
+               if name == "flash_attention_fwd" else
+               {"lse_max_abs_err": sharded["decode_lse"]["max_abs_err"]
+                ["lse"], "split_max_abs_err": sharded["decode_lse"]
+                ["max_abs_err"]["split"]}),
         })
     print(card, flush=True)
     emit(kernels=kernels)
@@ -4547,4 +5180,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main_mesh() if sys.argv[1:] == ["--mesh"] else main())

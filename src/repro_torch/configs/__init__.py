@@ -14,7 +14,8 @@ from repro_torch.configs import (  # noqa: F401  (import for registration)
     xlstm_350m,
     yi_34b,
 )
-from repro_torch.configs.common import get_config, list_archs, shrink
+from repro_torch.configs.common import (get_config, input_layout,
+                                       input_specs, list_archs, shrink)
 
 ASSIGNED = [
     "jamba-1.5-large-398b",
@@ -31,4 +32,5 @@ ASSIGNED = [
 
 PAPER_MODELS = ["search-r1-7b", "qwen3-8b-code", "qwen3-0.6b"]
 
-__all__ = ["ASSIGNED", "PAPER_MODELS", "get_config", "list_archs", "shrink"]
+__all__ = ["ASSIGNED", "PAPER_MODELS", "get_config", "input_layout",
+           "input_specs", "list_archs", "shrink"]

@@ -1,19 +1,63 @@
-"""Shared helpers for architecture configs: reduced smoke-config shrinking
-and the arch registry.
-
-``input_specs`` (per-workload input stand-ins for a sharded dry run) is
-not ported yet: it belongs to the launch and dry-run layer (ROADMAP).
-"""
+"""Shared helpers for architecture configs: input stand-ins per workload
+shape, reduced smoke-config shrinking, and the arch registry."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
 
-from repro_torch.nn.config import AttnConfig, LayerSpec, ModelConfig
+import torch
+
+from repro_torch.nn.config import AttnConfig, LayerSpec, ModelConfig, ShapeCell
+from repro_torch.nn.sharding import meta_dtensor, resolve_pspec
 
 
 def pad_to_multiple(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+# --------------------------------------------------------------- inputs
+
+
+def input_layout(cfg: ModelConfig, cell: ShapeCell, mesh=None) -> dict:
+    """``{name: (shape, dtype, pspec)}`` of every model input of one
+    workload cell, each batch dim over "dp" (pspec () without a mesh).
+
+    train/prefill: {tokens, labels?, (positions | frontend_* | enc_emb)}
+    decode: {tokens (B, 1)}; the caches and pos come from the dry run."""
+    b = cell.global_batch
+    s = cell.seq_len
+
+    def one(shape, dtype, *axes):
+        return (shape, dtype,
+                resolve_pspec(mesh, axes, shape) if mesh is not None else ())
+
+    out = {}
+    if cell.kind == "decode":
+        out["tokens"] = one((b, 1), torch.int32, "dp", None)
+    else:
+        out["tokens"] = one((b, s), torch.int32, "dp", None)
+        if cell.kind == "train":
+            out["labels"] = one((b, s), torch.int32, "dp", None)
+    if cfg.frontend == "vision" and cell.kind != "decode":
+        out["frontend_emb"] = one((b, s, cfg.d_model), cfg.pdt, "dp", None,
+                                  None)
+        out["frontend_mask"] = one((b, s), torch.bool, "dp", None)
+        out["positions"] = one((3, b, s), torch.int32, None, "dp", None)
+    if cfg.enc_dec and cell.kind != "decode":
+        out["enc_emb"] = one((b, s, cfg.d_model), cfg.pdt, "dp", None, None)
+    return out
+
+
+def input_specs(cfg: ModelConfig, cell: ShapeCell, mesh=None) -> dict:
+    """Stand-ins for every model input of one workload cell that allocate
+    nothing (the reference's ``ShapeDtypeStruct``s): ``meta`` tensors, or
+    on a mesh DTensors with ``meta`` shards placed by
+    :func:`input_layout`'s pspecs."""
+    out = {}
+    for name, (shape, dtype, ps) in input_layout(cfg, cell, mesh).items():
+        out[name] = (meta_dtensor(mesh, shape, dtype, ps) if mesh is not None
+                     else torch.empty(shape, dtype=dtype, device="meta"))
+    return out
 
 
 # --------------------------------------------------------------- shrink

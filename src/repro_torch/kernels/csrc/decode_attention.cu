@@ -9,6 +9,11 @@
 //   (rows past pos are the reference's masked -1e30 scores, whose weights
 //   exp(-1e30 - m) are exactly 0 next to any real score); scores, max,
 //   denominator and accumulator in fp32; o = acc / max(l, 1e-30).
+//   Given a non-null lse pointer, each query row's log-sum-exp
+//   m + log(max(l, 1e-30)) in natural-log units, (B, KV, G) fp32: what a
+//   caller needs to merge this output with another over other cache rows
+//   (a decode over a cache whose rows are split across ranks). A null
+//   pointer writes none.
 //
 // What bounds it on an H100: the bytes of rows 0..pos of K and V (the
 // Pallas kernel streams the whole cache; this one reads only those rows),
@@ -251,8 +256,8 @@ __device__ __forceinline__ float cta_reduce(float x, float* red) {
 // walking every chunk.
 template <typename T, int DH>
 __global__ void __launch_bounds__(CTHREADS)
-decode_combine(const float* __restrict__ part, T* __restrict__ o, int g,
-               int nsplit) {
+decode_combine(const float* __restrict__ part, T* __restrict__ o,
+               float* __restrict__ lse, int g, int nsplit) {
   extern __shared__ float csm[];
   float* wt = csm;               // [nsplit] each chunk's weight
   float* red = wt + nsplit;      // [CTHREADS] reduction scratch
@@ -284,25 +289,26 @@ decode_combine(const float* __restrict__ part, T* __restrict__ o, int g,
     for (int j = 1; j < GROUPS; ++j) a += red[j * DH + d];
     o[static_cast<long long>(row) * DH + d] =
         attn::from_f32<T>(a / fmaxf(l, 1e-30f));
+    if (lse != nullptr && d == 0) lse[row] = mx + logf(fmaxf(l, 1e-30f));
   }
 }
 
 // decode_combine over b * kvh * g query rows; its shared memory holds one
 // weight per chunk.
 template <typename T, int DH>
-cudaError_t launch_combine(const float* part, T* o, int b, int kvh, int g,
-                           int nsplit, cudaStream_t stream) {
+cudaError_t launch_combine(const float* part, T* o, float* lse, int b,
+                           int kvh, int g, int nsplit, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (nsplit + CTHREADS);
   if (smem > 48 * 1024) return cudaErrorInvalidValue;
-  decode_combine<T, DH><<<b * kvh * g, CTHREADS, smem, stream>>>(part, o, g,
-                                                                 nsplit);
+  decode_combine<T, DH><<<b * kvh * g, CTHREADS, smem, stream>>>(
+      part, o, lse, g, nsplit);
   return cudaGetLastError();
 }
 
 template <typename T, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* part, int b, int s_cache, int kvh, int g, int rows,
-                   int chunk, float scale, cudaStream_t stream) {
+                   float* lse, void* part, int b, int s_cache, int kvh, int g,
+                   int rows, int chunk, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
   static_assert(attn::ctas_per_sm<DH>() * smem <= attn::SMEM_MAX,
                 "CTAs per SM (decode_attention_ctas_per_sm)");
@@ -329,8 +335,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_combine<T, DH>(pp, static_cast<T*>(o), b, kvh, g, nsplit,
-                               stream);
+  return launch_combine<T, DH>(pp, static_cast<T*>(o), lse, b, kvh, g,
+                               nsplit, stream);
 }
 
 // ------------------------------------------------ tensor-core design
@@ -357,7 +363,8 @@ template <int DH>
 __global__ void __launch_bounds__(THREADS, 2)
 decode_tc(const attn::bf16* __restrict__ q, const attn::bf16* __restrict__ kc,
           const attn::bf16* __restrict__ vc, attn::bf16* __restrict__ o,
-          float* __restrict__ part, int s_cache, int kvh, int g, int rows,
+          float* __restrict__ lse, float* __restrict__ part, int s_cache,
+          int kvh, int g, int rows,
           int chunk, int nsplit, float scale_log2) {
   using attn::bf16;
   constexpr int LD = attn::ld_bf16<DH>();
@@ -478,6 +485,9 @@ decode_tc(const attn::bf16* __restrict__ q, const attn::bf16* __restrict__ kc,
     if (nsplit == 1) {
       o[static_cast<long long>(bh) * g * DH + i] =
           __float2bfloat16(a / fmaxf(den, 1e-30f));
+      if (lse != nullptr && d == 0)  // mx is in the log2 domain
+        lse[static_cast<long long>(bh) * g + gi] =
+            mx * attn::LN2 + logf(fmaxf(den, 1e-30f));
     } else {  // decode_combine's layout, m back in natural-log units
       float* out = part + ((static_cast<long long>(bh) * nsplit + split) * g +
                            gi) * (DH + 2);
@@ -492,8 +502,8 @@ decode_tc(const attn::bf16* __restrict__ q, const attn::bf16* __restrict__ kc,
 
 template <int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* part, int b, int s_cache, int kvh, int g, int rows,
-                   int chunk, float scale, cudaStream_t stream) {
+                   float* lse, void* part, int b, int s_cache, int kvh, int g,
+                   int rows, int chunk, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
   static_assert(attn::ctas_per_sm<DH>() * smem <= attn::SMEM_MAX,
                 "CTAs per SM (decode_attention_ctas_per_sm)");
@@ -511,36 +521,37 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   auto* pp = static_cast<float*>(part);
   kern<<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
       static_cast<const attn::bf16*>(q), static_cast<const attn::bf16*>(k),
-      static_cast<const attn::bf16*>(v), static_cast<attn::bf16*>(o), pp,
-      s_cache, kvh, g, rows, chunk, nsplit, scale * attn::LOG2E);
+      static_cast<const attn::bf16*>(v), static_cast<attn::bf16*>(o), lse,
+      pp, s_cache, kvh, g, rows, chunk, nsplit, scale * attn::LOG2E);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return err;
-  return launch_combine<attn::bf16, DH>(pp, static_cast<attn::bf16*>(o), b,
-                                        kvh, g, nsplit, stream);
+  return launch_combine<attn::bf16, DH>(pp, static_cast<attn::bf16*>(o), lse,
+                                        b, kvh, g, nsplit, stream);
 }
 
 }  // namespace tc
 
 template <typename T>
 cudaError_t launch_dh(int dh, const void* q, const void* k, const void* v,
-                      void* o, void* part, int b, int s_cache, int kvh, int g,
-                      int rows, int chunk, float scale, cudaStream_t stream) {
+                      void* o, float* lse, void* part, int b, int s_cache,
+                      int kvh, int g, int rows, int chunk, float scale,
+                      cudaStream_t stream) {
   switch (dh) {
     case 16:
-      return launch<T, 16>(q, k, v, o, part, b, s_cache, kvh, g, rows, chunk,
-                           scale, stream);
+      return launch<T, 16>(q, k, v, o, lse, part, b, s_cache, kvh,
+                           g, rows, chunk, scale, stream);
     case 32:
-      return launch<T, 32>(q, k, v, o, part, b, s_cache, kvh, g, rows, chunk,
-                           scale, stream);
+      return launch<T, 32>(q, k, v, o, lse, part, b, s_cache, kvh,
+                           g, rows, chunk, scale, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, part, b, s_cache, kvh, g, rows, chunk,
-                           scale, stream);
+      return launch<T, 64>(q, k, v, o, lse, part, b, s_cache, kvh,
+                           g, rows, chunk, scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, part, b, s_cache, kvh, g, rows,
-                            chunk, scale, stream);
+      return launch<T, 128>(q, k, v, o, lse, part, b, s_cache, kvh,
+                           g, rows, chunk, scale, stream);
     case 256:
-      return launch<T, 256>(q, k, v, o, part, b, s_cache, kvh, g, rows,
-                            chunk, scale, stream);
+      return launch<T, 256>(q, k, v, o, lse, part, b, s_cache, kvh,
+                           g, rows, chunk, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -552,22 +563,23 @@ extern "C" {
 
 // The CUDA-core design. dtype: 0 = fp32, 1 = bf16. rows = min(pos, S - 1)
 // + 1 cache rows are read, in chunks of `chunk` rows (a multiple of 64);
-// part is fp32 scratch of b * kvh * ceil(rows / chunk) * g * (dh + 2)
-// floats. Returns the cudaError_t of the launches.
+// lse: null, or (B, KV, G) fp32 that receives each query row's
+// log-sum-exp; part is fp32 scratch of b * kvh * ceil(rows / chunk) * g *
+// (dh + 2) floats. Returns the cudaError_t of the launches.
 int decode_attention_launch(int dtype, int dh, const void* q, const void* k,
-                            const void* v, void* o, void* part, int b,
-                            int s_cache, int kvh, int g, int rows, int chunk,
-                            float scale, void* stream) {
+                            const void* v, void* o, float* lse, void* part,
+                            int b, int s_cache, int kvh, int g, int rows,
+                            int chunk, float scale, void* stream) {
   if (b < 1 || s_cache < 1 || kvh < 1 || g < 1 || g > G_MAX || rows < 1 ||
       rows > s_cache || chunk < 1 || chunk % BK != 0)
     return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_dh<float>(dh, q, k, v, o, part, b, s_cache, kvh, g, rows,
-                            chunk, scale, s);
+    return launch_dh<float>(dh, q, k, v, o, lse, part, b, s_cache, kvh, g,
+                            rows, chunk, scale, s);
   if (dtype == 1)
-    return launch_dh<__nv_bfloat16>(dh, q, k, v, o, part, b, s_cache, kvh,
-                                    g, rows, chunk, scale, s);
+    return launch_dh<__nv_bfloat16>(dh, q, k, v, o, lse, part, b, s_cache,
+                                    kvh, g, rows, chunk, scale, s);
   return cudaErrorInvalidValue;
 }
 
@@ -576,10 +588,10 @@ int decode_attention_launch(int dtype, int dh, const void* q, const void* k,
 // elsewhere). With one chunk (rows <= chunk) a single launch writes o and
 // part may be null; otherwise part is the scratch decode_attention_launch
 // describes, and decode_combine runs after. Returns the cudaError_t of the
-// launches.
+// launches. lse as decode_attention_launch's.
 int decode_attention_tc_launch(int dh, const void* q, const void* k,
-                               const void* v, void* o, void* part, int b,
-                               int s_cache, int kvh, int g, int rows,
+                               const void* v, void* o, float* lse, void* part,
+                               int b, int s_cache, int kvh, int g, int rows,
                                int chunk, float scale, void* stream) {
   if (b < 1 || s_cache < 1 || kvh < 1 || g < 1 || g > G_MAX || rows < 1 ||
       rows > s_cache || chunk < 1 || chunk % BK != 0)
@@ -590,20 +602,20 @@ int decode_attention_tc_launch(int dh, const void* q, const void* k,
   const auto s = static_cast<cudaStream_t>(stream);
   switch (dh) {
     case 16:
-      return tc::launch<16>(q, k, v, o, part, b, s_cache, kvh, g, rows,
-                            chunk, scale, s);
+      return tc::launch<16>(q, k, v, o, lse, part, b, s_cache,
+                             kvh, g, rows, chunk, scale, s);
     case 32:
-      return tc::launch<32>(q, k, v, o, part, b, s_cache, kvh, g, rows,
-                            chunk, scale, s);
+      return tc::launch<32>(q, k, v, o, lse, part, b, s_cache,
+                             kvh, g, rows, chunk, scale, s);
     case 64:
-      return tc::launch<64>(q, k, v, o, part, b, s_cache, kvh, g, rows,
-                            chunk, scale, s);
+      return tc::launch<64>(q, k, v, o, lse, part, b, s_cache,
+                             kvh, g, rows, chunk, scale, s);
     case 128:
-      return tc::launch<128>(q, k, v, o, part, b, s_cache, kvh, g, rows,
-                             chunk, scale, s);
+      return tc::launch<128>(q, k, v, o, lse, part, b, s_cache,
+                             kvh, g, rows, chunk, scale, s);
     case 256:
-      return tc::launch<256>(q, k, v, o, part, b, s_cache, kvh, g, rows,
-                             chunk, scale, s);
+      return tc::launch<256>(q, k, v, o, lse, part, b, s_cache,
+                             kvh, g, rows, chunk, scale, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -34,6 +34,15 @@ alignment (``csrc/decode_attention.cu`` has the details):
 
 :func:`decode_attention` launches the kernels for CUDA tensors and raises
 if it cannot; it takes :func:`decode_attention_plain` only for CPU tensors.
+With ``return_lse=True`` it also returns each query row's log-sum-exp
+(B, KV, G) fp32, ``m + log(max(l, 1e-30))``: with it a caller merges
+outputs over disjoint row ranges of one cache (a cache whose rows are
+split across ranks: ``nn/attention.decode_attend``). Both designs write
+it; without it nothing changes. The wrapper's body is the op
+``torch.ops.repro_torch.decode_attention``, so that the device picks the
+version (CPU: plain, CUDA: the kernels), a ``meta`` or fake tensor gets
+the outputs' shapes alone (the dry run), and ``torch.utils.flop_counter``
+counts its products over rows ``0..pos``.
 ``decode_attention.launches`` counts every call that launched,
 ``.launches_tc`` and ``.launches_simt`` each design's, and ``.plain_calls``
 the plain version's calls.
@@ -44,6 +53,7 @@ import ctypes
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention
@@ -78,16 +88,22 @@ def ctas_per_sm(dh: int) -> int:
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
-                           v_cache: torch.Tensor, pos: int,
-                           scale: float) -> torch.Tensor:
+                           v_cache: torch.Tensor, pos: int, scale: float,
+                           return_lse: bool = False):
     """Plain PyTorch version (the reference's ``decode_attention_ref``):
-    the fp32 softmax over the whole cache with rows past ``pos`` masked."""
+    the fp32 softmax over the whole cache with rows past ``pos`` masked;
+    with ``return_lse`` also its rows' log-sum-exp (B, KV, G)."""
     s_cache = k_cache.shape[1]
-    s = torch.einsum("bkgd,bskd->bkgs", q.float(), k_cache.float()) * scale
+    s = torch.einsum("bkgd,bskd->bkgs", flash_attention.wide(q),
+                     flash_attention.wide(k_cache)) * scale
     valid = torch.arange(s_cache, device=q.device) <= pos
     s = torch.where(valid, s, NEG)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bkgs,bskd->bkgd", p, v_cache.float()).to(q.dtype)
+    out = torch.einsum("bkgs,bskd->bkgd", p,
+                       flash_attention.wide(v_cache)).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1)
+    return out
 
 
 def split_rows(rows: int, heads: int, sms: int, ctas: int) -> int:
@@ -133,10 +149,11 @@ def _check(q, k_cache, v_cache, pos) -> None:
             (b, kvh, dh) or k_cache.shape[1] < 1:
         raise ValueError(f"q {tuple(q.shape)} and cache "
                          f"{tuple(k_cache.shape)} disagree on B, KV or Dh")
-    if q.dtype not in _DTYPE_CODE or k_cache.dtype != q.dtype or \
+    if not flash_attention.dtype_ok(q) or k_cache.dtype != q.dtype or \
             v_cache.dtype != q.dtype:
-        raise TypeError(f"q and the caches must all be float32 or bfloat16; "
-                        f"got {q.dtype}, {k_cache.dtype}, {v_cache.dtype}")
+        raise TypeError(f"q and the caches must all be float32 or bfloat16 "
+                        f"(or float64 on the CPU); got {q.dtype}, "
+                        f"{k_cache.dtype}, {v_cache.dtype}")
     if not isinstance(pos, int) or pos < 0:
         raise ValueError(f"pos must be a host int >= 0, got {pos!r}")
     if not (q.device == k_cache.device == v_cache.device):
@@ -148,11 +165,12 @@ def _lib():
     lib = build.load("decode_attention")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
+        # q, k, v, o, lse (None: a null pointer, no lse written), scratch
         lib.decode_attention_launch.argtypes = [
-            i, i, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
+            i, i, p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
         lib.decode_attention_launch.restype = i
         lib.decode_attention_tc_launch.argtypes = [
-            i, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
+            i, p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
         lib.decode_attention_tc_launch.restype = i
         lib.decode_attention_ctas_per_sm.argtypes = [i]
         lib.decode_attention_ctas_per_sm.restype = i
@@ -163,20 +181,27 @@ def _lib():
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, pos: int, *,
-                     scale: float) -> torch.Tensor:
+                     v_cache: torch.Tensor, pos: int, *, scale: float,
+                     return_lse: bool = False):
     """Attention of one token's G query rows per KV head over cache rows
     ``0..pos`` (all rows when ``pos >= S``). CUDA tensors take
     :func:`pick_design`'s kernels. Inputs that require grad are refused
-    while grad mode is on (``flash_attention.refuse_grad``)."""
+    while grad mode is on (``flash_attention.refuse_grad``). Returns
+    ``out``, or ``(out, lse)`` with ``return_lse``."""
     _check(q, k_cache, v_cache, pos)
     flash_attention.refuse_grad("decode_attention", q, k_cache, v_cache)
-    if q.device.type == "cpu":
-        decode_attention.plain_calls += 1
-        return decode_attention_plain(q, k_cache, v_cache, pos, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attention runs on cuda or cpu, not "
-                         f"{q.device}")
+    out, lse = torch.ops.repro_torch.decode_attention(
+        q, k_cache, v_cache, pos, float(scale), return_lse)
+    return (out, lse) if return_lse else out
+
+
+def _on_cpu(q, k_cache, v_cache, pos: int, scale: float, return_lse: bool):
+    decode_attention.plain_calls += 1
+    return flash_attention._lse_or_none(decode_attention_plain(
+        q, k_cache, v_cache, pos, scale, return_lse), return_lse)
+
+
+def _on_cuda(q, k_cache, v_cache, pos: int, scale: float, return_lse: bool):
     if q.shape[2] > G_MAX:
         raise ValueError(f"G={q.shape[2]} above {G_MAX}")
     if not (q.is_contiguous() and k_cache.is_contiguous()
@@ -184,14 +209,41 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError("decode_attention needs contiguous q and caches")
     design = pick_design(q.dtype, rows_aligned(q, k_cache, v_cache),
                          q.shape[-1])
-    return _launch(design, q, k_cache, v_cache, pos, scale)
+    return flash_attention._lse_or_none(_launch(
+        design, q, k_cache, v_cache, pos, scale, return_lse), return_lse)
+
+
+def _shapes_only(q, k_cache, v_cache, pos: int, scale: float,
+                 return_lse: bool):
+    """The outputs of a call on ``meta`` or fake tensors, nothing run."""
+    shape = q.shape[:3] if return_lse else (0,)
+    return torch.empty_like(q), q.new_empty(shape, dtype=torch.float32)
+
+
+_OPS = torch.library.Library("repro_torch", "FRAGMENT")
+_OPS.define("decode_attention(Tensor q, Tensor k_cache, Tensor v_cache, "
+            "int pos, float scale, bool return_lse) -> (Tensor, Tensor)")
+_OPS.impl("decode_attention", _on_cpu, "CPU")
+_OPS.impl("decode_attention", _on_cuda, "CUDA")
+torch.library.register_fake("repro_torch::decode_attention", _shapes_only,
+                            lib=_OPS)
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_attention)
+def _flops(q_shape, k_shape, v_shape, pos: int, *args, **kwargs) -> int:
+    """Its two products over rows ``0..pos``: 4 Dh per (query row,
+    row)."""
+    b, kvh, g, dh = q_shape
+    return 4 * b * kvh * g * (min(pos, k_shape[1] - 1) + 1) * dh
 
 
 def _launch(design: str, q: torch.Tensor, k_cache: torch.Tensor,
-            v_cache: torch.Tensor, pos: int, scale: float) -> torch.Tensor:
+            v_cache: torch.Tensor, pos: int, scale: float,
+            return_lse: bool = False):
     """Launch ``design``'s kernels on checked CUDA inputs and count the
     call (chip_smoke.py also calls it to time the CUDA-core design on
-    inputs the dispatch sends to the tensor cores)."""
+    inputs the dispatch sends to the tensor cores). Returns ``out``, or
+    ``(out, lse)`` with ``return_lse``."""
     b, kvh, g, dh = q.shape
     s_cache = k_cache.shape[1]
     rows = min(pos, s_cache - 1) + 1
@@ -201,12 +253,15 @@ def _launch(design: str, q: torch.Tensor, k_cache: torch.Tensor,
     part = None if shape is None else torch.empty(
         shape, dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
+    lse = torch.empty((b, kvh, g), dtype=torch.float32,
+                      device=q.device) if return_lse else None
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         args = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                out.data_ptr(), None if part is None else part.data_ptr(), b,
-                s_cache, kvh, g, rows, chunk, float(scale), stream)
+                out.data_ptr(), None if lse is None else lse.data_ptr(),
+                None if part is None else part.data_ptr(), b, s_cache, kvh,
+                g, rows, chunk, float(scale), stream)
         if design == "tc":
             err = lib.decode_attention_tc_launch(dh, *args)
         else:
@@ -222,7 +277,7 @@ def _launch(design: str, q: torch.Tensor, k_cache: torch.Tensor,
         decode_attention.launches_tc += 1
     else:
         decode_attention.launches_simt += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 decode_attention.launches = 0

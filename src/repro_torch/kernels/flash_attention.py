@@ -47,6 +47,11 @@ With ``return_lse=True`` it also returns each query row's log-sum-exp
 designs write it; without it nothing changes). The kernels' output has no
 ``grad_fn``, so the wrapper refuses inputs that require grad while grad
 mode is on: training reaches it through ``nn/flash.flash_attention``.
+The wrapper's body is the op ``torch.ops.repro_torch.flash_attention_fwd``,
+so that the device picks the version (CPU: plain, CUDA: the kernels), a
+``meta`` or fake tensor gets the outputs' shapes alone (the dry run), and
+``torch.utils.flop_counter`` counts its products over the (query, key)
+pairs the masks keep (:func:`kept_pairs`).
 ``flash_attention_fwd.launches`` counts every launch,
 ``.launches_tc`` and ``.launches_simt`` each design's, and
 ``.plain_calls`` the plain version's calls.
@@ -56,12 +61,26 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 
 NEG = -1.0e30
 HEAD_DIMS = (16, 32, 64, 128, 192, 256)   # 192: MLA's folded prefill
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in fp32 for the plain versions' softmax, or float64 as it
+    is (the CPU's plain versions also take float64, for exact checks of
+    a float64 model)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def dtype_ok(x: torch.Tensor) -> bool:
+    """A dtype the kernels take, or float64 on the CPU (plain)."""
+    return x.dtype in _DTYPE_CODE or (x.dtype == torch.float64
+                                      and x.device.type == "cpu")
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -72,7 +91,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the fp32 softmax over the whole (Sq, Sk) score matrix; with
     ``return_lse`` also its rows' log-sum-exp (B, KV, G, Sq)."""
     sq, sk = q.shape[1], k.shape[1]
-    s = torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float()) * scale
+    s = torch.einsum("bqkgd,bskd->bkgqs", wide(q), wide(k)) * scale
     qi = torch.arange(sq, device=q.device)[:, None]
     kj = torch.arange(sk, device=q.device)[None, :]
     m = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
@@ -82,7 +101,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = m & (kj > qi - window)
     s = torch.where(m, s, NEG)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float()).to(q.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, wide(v)).to(q.dtype)
     if return_lse:
         return out, torch.logsumexp(s, dim=-1)
     return out
@@ -98,10 +117,10 @@ def _check(q, k, v, window) -> None:
             min(q.shape) < 1 or k.shape[1] < 1:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} "
                          f"disagree on B, KV or Dh")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or \
-            v.dtype != q.dtype:
-        raise TypeError(f"q, k and v must all be float32 or bfloat16; got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if not dtype_ok(q) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k and v must all be float32 or bfloat16 (or "
+                        f"float64 on the CPU); got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
     if not (q.device == k.device == v.device):
@@ -189,17 +208,70 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``return_lse``."""
     _check(q, k, v, window)
     refuse_grad("flash_attention_fwd", q, k, v)
-    if q.device.type == "cpu":
-        flash_attention_fwd.plain_calls += 1
-        return flash_attention_plain(q, k, v, scale, causal, window,
-                                     return_lse)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_fwd runs on cuda or cpu, not "
-                         f"{q.device}")
+    out, lse = torch.ops.repro_torch.flash_attention_fwd(
+        q, k, v, float(scale), bool(causal), window, return_lse)
+    return (out, lse) if return_lse else out
+
+
+def _lse_or_none(got, return_lse: bool):
+    """The op's two outputs from ``out`` or ``(out, lse)``: an op
+    returns tensors, so no lse is an empty one."""
+    if return_lse:
+        return got
+    return got, got.new_empty((0,), dtype=torch.float32)
+
+
+def _on_cpu(q, k, v, scale: float, causal: bool, window, return_lse: bool):
+    flash_attention_fwd.plain_calls += 1
+    return _lse_or_none(flash_attention_plain(q, k, v, scale, causal, window,
+                                              return_lse), return_lse)
+
+
+def _on_cuda(q, k, v, scale: float, causal: bool, window, return_lse: bool):
     if not (_inner_dense(q, 3) and _inner_dense(k, 2) and _inner_dense(v, 2)):
         raise ValueError("flash_attention_fwd needs dense head and Dh dims")
     design = pick_design(q.dtype, rows_aligned(q, k, v), q.shape[-1])
-    return _launch(design, q, k, v, scale, causal, window, return_lse)
+    return _lse_or_none(_launch(design, q, k, v, scale, causal, window,
+                                return_lse), return_lse)
+
+
+def _shapes_only(q, k, v, scale: float, causal: bool, window,
+                 return_lse: bool):
+    """The outputs of a call on ``meta`` or fake tensors, nothing run."""
+    b, sq, kvh, g, _ = q.shape
+    shape = (b, kvh, g, sq) if return_lse else (0,)
+    return torch.empty_like(q), q.new_empty(shape, dtype=torch.float32)
+
+
+_OPS = torch.library.Library("repro_torch", "FRAGMENT")
+_OPS.define("flash_attention_fwd(Tensor q, Tensor k, Tensor v, float scale, "
+            "bool causal, int? window, bool return_lse) -> (Tensor, Tensor)")
+_OPS.impl("flash_attention_fwd", _on_cpu, "CPU")
+_OPS.impl("flash_attention_fwd", _on_cuda, "CUDA")
+torch.library.register_fake("repro_torch::flash_attention_fwd", _shapes_only,
+                            lib=_OPS)
+
+
+def kept_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """(query, key) pairs the masks keep: query i over keys ``j <= i``
+    (causal) and ``j > i - window``."""
+    if not causal and window is None:
+        return sq * sk
+    total = 0
+    for i in range(sq):
+        hi = min(i, sk - 1) if causal else sk - 1
+        lo = max(0, i - window + 1) if window is not None else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _flops(q_shape, k_shape, v_shape, scale, causal, window, *args,
+           **kwargs) -> int:
+    """Its two products over the kept pairs: 4 Dh per pair and query
+    head."""
+    b, sq, kvh, g, dh = q_shape
+    return 4 * b * kvh * g * kept_pairs(sq, k_shape[1], causal, window) * dh
 
 
 def _launch(design: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -11,7 +11,9 @@ On one GPU (the default device) a published config trains at its widths;
 ``--n-repeat`` cuts its depth to the superblock repeats that fit the card
 (with ``--smoke`` it is the shrunk config's depth, 2 by default, as in the
 reference). ``--mesh single|multi`` (the reference's production meshes)
-raises: training over several GPUs is not ported.
+raises: training over several GPUs waits for the multi-GPU work (ROADMAP
+'Open items', item 6); ``launch/dryrun.py`` runs the sharded step on a
+fake process group.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ from repro_torch.train.data import BigramStream
 from repro_torch.train.optim import AdamWConfig, init_state
 from repro_torch.train.supervisor import FaultInjector, Supervisor
 
-MULTI_GPU = "ROADMAP 'Open items': work over several GPUs"
+MULTI_GPU = "ROADMAP 'Open items', item 6: work over several GPUs"
 
 
 def build(args):
@@ -41,8 +43,9 @@ def build(args):
     trainer donates them to its jitted step."""
     if args.mesh != "none":
         raise NotImplementedError(
-            f"--mesh {args.mesh}: training over a device mesh is not "
-            f"ported; it waits for a multi-GPU cell ({MULTI_GPU})")
+            f"--mesh {args.mesh}: training over a device mesh needs several "
+            f"GPUs ({MULTI_GPU}); the dry run (launch/dryrun.py) runs the "
+            f"sharded step on a fake process group")
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = shrink(cfg, d_model=args.d_model, vocab=args.vocab,

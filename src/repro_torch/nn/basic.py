@@ -1,7 +1,8 @@
 """Norms, embeddings, rotary embeddings and dense FFNs, mirroring the
-reference's ``nn/basic.py`` without its sharding constraints (the port is
-mesh-free). Tensors keep the reference's layouts: activations (B, S, D),
-heads (B, S, H, Dh), weight matrices (in, out).
+reference's ``nn/basic.py`` with its sharding constraints (``ctx``, a
+``nn.sharding.ShardCtx``; none without a mesh). Tensors keep the
+reference's layouts: activations (B, S, D), heads (B, S, H, Dh), weight
+matrices (in, out).
 """
 from __future__ import annotations
 
@@ -10,27 +11,48 @@ import torch.nn.functional as F
 
 from repro_torch.nn.config import AttnConfig
 from repro_torch.nn.param import ParamSpec
+from repro_torch.nn.sharding import NO_MESH
+
+# the logical axes of a column-parallel (in, out) weight and of the
+# row-parallel one after it (Megatron's pair)
+COL = ("fsdp", "model")
+ROW = ("model", "fsdp")
 
 # ---------------------------------------------------------------- norms
 
 
+def f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in fp32, where the reference computes in fp32, or as it is if
+    it is float64: a float64 model (the tests' exact comparisons) keeps
+    float64 throughout."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
+def f32_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype :func:`f32` gives a tensor of ``dtype``."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def rmsnorm_specs(d: int) -> dict:
-    return {"scale": ParamSpec((d,), torch.float32, init="ones")}
+    return {"scale": ParamSpec((d,), torch.float32, init="ones",
+                               axes=(None,))}
 
 
 def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
+    xf = f32(x)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * p["scale"]).to(x.dtype)
 
 
 def layernorm_specs(d: int) -> dict:
-    return {"scale": ParamSpec((d,), torch.float32, init="ones"),
-            "bias": ParamSpec((d,), torch.float32, init="zeros")}
+    return {"scale": ParamSpec((d,), torch.float32, init="ones",
+                               axes=(None,)),
+            "bias": ParamSpec((d,), torch.float32, init="zeros",
+                              axes=(None,))}
 
 
 def layernorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
+    xf = f32(x)
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
     out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
@@ -41,15 +63,17 @@ def layernorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 def embedding_specs(vocab: int, d: int, dtype) -> dict:
-    return {"table": ParamSpec((vocab, d), dtype, scale=0.02)}
+    return {"table": ParamSpec((vocab, d), dtype, scale=0.02,
+                               axes=("model", "fsdp"))}
 
 
-def embed(p, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens.long(), p["table"])
+def embed(p, tokens: torch.Tensor, ctx=NO_MESH) -> torch.Tensor:
+    out = F.embedding(tokens.long(), p["table"])
+    return ctx.constrain(out, "dp", None, None)
 
 
-def unembed(p, x: torch.Tensor) -> torch.Tensor:
-    return x @ p["table"].T
+def unembed(p, x: torch.Tensor, ctx=NO_MESH) -> torch.Tensor:
+    return ctx.constrain(x @ p["table"].T, "dp", None, "model")
 
 
 # ---------------------------------------------------------------- RoPE
@@ -99,21 +123,27 @@ def apply_rope(cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor,
 
 def ffn_specs(d: int, d_ff: int, dtype, act: str = "swiglu") -> dict:
     if act == "swiglu":
-        return {"w_gate": ParamSpec((d, d_ff), dtype),
-                "w_up": ParamSpec((d, d_ff), dtype),
-                "w_down": ParamSpec((d_ff, d), dtype)}
-    return {"w_up": ParamSpec((d, d_ff), dtype),
-            "b_up": ParamSpec((d_ff,), torch.float32, init="zeros"),
-            "w_down": ParamSpec((d_ff, d), dtype),
-            "b_down": ParamSpec((d,), torch.float32, init="zeros")}
+        return {"w_gate": ParamSpec((d, d_ff), dtype, axes=COL),
+                "w_up": ParamSpec((d, d_ff), dtype, axes=COL),
+                "w_down": ParamSpec((d_ff, d), dtype, axes=ROW)}
+    return {"w_up": ParamSpec((d, d_ff), dtype, axes=COL),
+            "b_up": ParamSpec((d_ff,), torch.float32, init="zeros",
+                              axes=("model",)),
+            "w_down": ParamSpec((d_ff, d), dtype, axes=ROW),
+            "b_down": ParamSpec((d,), torch.float32, init="zeros",
+                                axes=(None,))}
 
 
-def ffn(p, x: torch.Tensor, act: str = "swiglu") -> torch.Tensor:
+def ffn(p, x: torch.Tensor, act: str = "swiglu",
+        ctx=NO_MESH) -> torch.Tensor:
     if act == "swiglu":
         h = x @ p["w_gate"]
         u = x @ p["w_up"]
-        h = F.silu(h.float()).to(x.dtype) * u
-        return h @ p["w_down"]
+        h = F.silu(f32(h)).to(x.dtype) * u
+        h = ctx.constrain(h, "dp", None, "model")
+        return ctx.constrain(h @ p["w_down"], "dp", None, None)
     h = x @ p["w_up"] + p["b_up"].to(x.dtype)
-    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-    return h @ p["w_down"] + p["b_down"].to(x.dtype)
+    h = F.gelu(f32(h), approximate="tanh").to(x.dtype)
+    h = ctx.constrain(h, "dp", None, "model")
+    return ctx.constrain(h @ p["w_down"] + p["b_down"].to(x.dtype),
+                         "dp", None, None)

@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.flash_attention import NEG, flash_attention_fwd
+from repro_torch.nn.basic import f32, f32_dtype
 
 
 def flash_chunk(sq: int) -> int:
@@ -43,7 +44,7 @@ def flash_bwd(q, k, v, o, lse, dout, scale: float, causal: bool,
     """(dq, dk, dv) of the reference's ``_flash_bwd`` from the forward's
     residuals: q (B, Sq, KV, G, Dh), k/v (B, Sk, KV, Dh), o like q, lse
     (B, KV, G, Sq) fp32, dout like o."""
-    delta = (dout.float() * o.float()).sum(-1).permute(0, 2, 3, 1)
+    delta = (f32(dout) * f32(o)).sum(-1).permute(0, 2, 3, 1)
     return bwd_chunks(q, k, v, lse, delta, dout, scale, causal, window,
                       chunk)
 
@@ -72,20 +73,21 @@ def bwd_chunks(q, k, v, lse, delta, dout, scale: float, causal: bool,
     dof = dout.permute(0, 2, 3, 1, 4)
     kf = k.permute(0, 2, 1, 3)               # (B, KV, Sk, Dh)
     vf = v.permute(0, 2, 1, 3)
-    dq = torch.zeros((b, kvh, g, sq, dh), dtype=torch.float32, device=dev)
-    dk = torch.zeros((b, kvh, sk, dh), dtype=torch.float32, device=dev)
+    acc = dict(dtype=f32_dtype(q.dtype), device=dev)
+    dq = torch.zeros((b, kvh, g, sq, dh), **acc)
+    dk = torch.zeros((b, kvh, sk, dh), **acc)
     dv = torch.zeros_like(dk)
     for k0 in range(0, sk, ck):
         k1 = min(sk, k0 + ck)
-        kc, vc = kf[:, :, k0:k1].float(), vf[:, :, k0:k1].float()
+        kc, vc = f32(kf[:, :, k0:k1]), f32(vf[:, :, k0:k1])
         kpos = torch.arange(k0, k1, device=dev)
         for q0 in range(0, sq, cq):
             q1 = min(sq, q0 + cq)
             if _masked(sq, sk, q0, q1, k0, k1, causal, window):
                 continue
             m = q1 - q0
-            qc = qf[:, :, :, q0:q1].float().reshape(b, kvh, g * m, dh)
-            doc = dof[:, :, :, q0:q1].float().reshape(b, kvh, g * m, dh)
+            qc = f32(qf[:, :, :, q0:q1]).reshape(b, kvh, g * m, dh)
+            doc = f32(dof[:, :, :, q0:q1]).reshape(b, kvh, g * m, dh)
             s = (qc @ kc.transpose(-1, -2)).view(b, kvh, g, m, k1 - k0)
             s = s * scale
             qpos = torch.arange(q0, q1, device=dev)[:, None]
@@ -102,7 +104,7 @@ def bwd_chunks(q, k, v, lse, delta, dout, scale: float, causal: bool,
             ds = ds.reshape(b, kvh, g * m, k1 - k0)
             dv[:, :, k0:k1] += p.transpose(-1, -2) @ doc
             dk[:, :, k0:k1] += ds.transpose(-1, -2) @ qc
-            dq[:, :, :, q0:q1] += (ds.to(q.dtype).float() @ kc).view(
+            dq[:, :, :, q0:q1] += (f32(ds.to(q.dtype)) @ kc).view(
                 b, kvh, g, m, dh)
     return (dq.permute(0, 3, 1, 2, 4).to(q.dtype),
             dk.permute(0, 2, 1, 3).to(k.dtype),

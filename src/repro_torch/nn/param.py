@@ -1,4 +1,4 @@
-"""Declarative parameter system, mesh-free.
+"""Declarative parameter system.
 
 Every module describes its parameters as a tree (dicts and lists) of
 :class:`ParamSpec`; :func:`init_params` materialises one on a device from a
@@ -7,9 +7,11 @@ normal with std ``scale`` or 1/sqrt(fan_in), zeros, ones, or uniform in
 ±``scale``. A layer stack is a Python list of per-layer trees, not a
 scan-stacked leading axis.
 
-The reference also derives ``jax.ShapeDtypeStruct`` and ``PartitionSpec``
-trees from a spec tree for the sharded dry run; those belong to the launch
-and dry-run layer (:func:`struct_tree` raises).
+Each spec also carries the reference's *logical* sharding axes, one entry
+per dim ("model", "fsdp", "dp", ...), which ``nn/sharding`` resolves
+against a device mesh. :func:`struct_tree` turns a spec tree into
+stand-ins that never allocate: ``meta`` tensors, or on a mesh DTensors
+whose local shards are ``meta`` tensors (the sharded dry run's inputs).
 """
 from __future__ import annotations
 
@@ -19,9 +21,6 @@ from typing import Any, Callable
 
 import torch
 
-DRYRUN = "ROADMAP slice 12 'Launch and dry-run layer'"
-
-
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     """Declarative description of one parameter tensor."""
@@ -30,6 +29,14 @@ class ParamSpec:
     dtype: torch.dtype = torch.bfloat16
     init: str = "normal"  # normal | zeros | ones | scaled | uniform
     scale: float | None = None  # stddev override for "normal"/"scaled"
+    # logical sharding axes, one entry per dim: an axis name, a tuple of
+    # names, or None (replicated); () for a spec with no plan
+    axes: tuple[Any, ...] = ()
+
+    def __post_init__(self):
+        if self.axes and len(self.axes) != len(self.shape):
+            raise ValueError(
+                f"axes {self.axes} rank mismatch with shape {self.shape}")
 
     @property
     def size(self) -> int:
@@ -99,6 +106,16 @@ def init_params(specs, generator: torch.Generator, device):
     return map_specs(lambda s: init_leaf(s, generator, device), specs)
 
 
-def struct_tree(*args, **kwargs):
-    raise NotImplementedError(
-        f"shape/sharding stand-in trees are not ported yet ({DRYRUN})")
+def struct_tree(tree, mesh=None, resolve=None):
+    """A tree of stand-ins for a spec tree that allocates nothing: without
+    a mesh ``meta`` tensors of each spec's shape and dtype; with one,
+    DTensors over ``mesh`` placed by ``resolve(spec)`` (a pspec, e.g.
+    ``nn.sharding.param_pspec``; replicated without it), each holding its
+    per-device shard as a ``meta`` tensor."""
+    if mesh is None:
+        return map_specs(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                               device="meta"), tree)
+    from repro_torch.nn.sharding import meta_dtensor
+
+    return map_specs(lambda s: meta_dtensor(
+        mesh, s.shape, s.dtype, resolve(s) if resolve else ()), tree)

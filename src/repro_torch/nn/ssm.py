@@ -25,7 +25,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.nn.config import MambaConfig
+from repro_torch.nn.basic import COL, ROW, f32
 from repro_torch.nn.param import ParamSpec
+from repro_torch.nn.sharding import (NO_MESH, batch_map, psum_split,
+                                     write_states)
 
 
 def _dims(cfg: MambaConfig, d_model: int):
@@ -37,18 +40,20 @@ def _dims(cfg: MambaConfig, d_model: int):
 def mamba_specs(cfg: MambaConfig, d_model: int, dtype) -> dict:
     d_inner, dt_rank = _dims(cfg, d_model)
     n = cfg.d_state
-    f32 = torch.float32
+    fp32 = torch.float32
     return {
-        "w_in": ParamSpec((d_model, 2 * d_inner), dtype),
-        "conv_w": ParamSpec((cfg.d_conv, d_inner), f32),
-        "conv_b": ParamSpec((d_inner,), f32, init="zeros"),
-        "w_x": ParamSpec((d_inner, dt_rank + 2 * n), dtype),
-        "w_dt": ParamSpec((dt_rank, d_inner), f32),
-        "b_dt": ParamSpec((d_inner,), f32, init="ones"),
+        "w_in": ParamSpec((d_model, 2 * d_inner), dtype, axes=COL),
+        "conv_w": ParamSpec((cfg.d_conv, d_inner), fp32, axes=(None, "model")),
+        "conv_b": ParamSpec((d_inner,), fp32, init="zeros", axes=("model",)),
+        "w_x": ParamSpec((d_inner, dt_rank + 2 * n), dtype,
+                         axes=("model", None)),
+        "w_dt": ParamSpec((dt_rank, d_inner), fp32, axes=COL),
+        "b_dt": ParamSpec((d_inner,), fp32, init="ones", axes=("model",)),
         # A stored as log(-A)
-        "a_log": ParamSpec((d_inner, n), f32, init="ones"),
-        "d_skip": ParamSpec((d_inner,), f32, init="ones"),
-        "w_out": ParamSpec((d_inner, d_model), dtype),
+        "a_log": ParamSpec((d_inner, n), fp32, init="ones",
+                           axes=("model", None)),
+        "d_skip": ParamSpec((d_inner,), fp32, init="ones", axes=("model",)),
+        "w_out": ParamSpec((d_inner, d_model), dtype, axes=ROW),
     }
 
 
@@ -68,41 +73,114 @@ def _scan_chunk(h0: torch.Tensor, decay: torch.Tensor, inp: torch.Tensor):
     return dec * h0[:, None] + acc
 
 
+_CHANNEL_PARAMS = (("conv_w", 1), ("conv_b", 0), ("w_x", 0), ("w_dt", 1),
+                   ("b_dt", 0), ("a_log", 0), ("d_skip", 0))   # d_inner dim
+
+
 def mamba_apply(p, cfg: MambaConfig, x: torch.Tensor,
-                cache: Optional[dict] = None):
+                cache: Optional[dict] = None, ctx=NO_MESH):
     """x (B, S, D) -> ``(y, cache)``. Without ``cache`` (prefill) the
     returned cache is this call's final states; with one (decode, S 1)
-    the states are updated in place."""
-    b, s, d_model = x.shape
-    d_inner, dt_rank = _dims(cfg, d_model)
-    n = cfg.d_state
+    the states are updated in place. On a mesh the block runs between the
+    reference's two constraints on each rank's batch shard and its
+    d_inner / tp channels (:func:`_mamba_mesh`); where the model axis does
+    not divide d_inner, on every channel (``batch_map``, replicated over
+    the model axis)."""
+    xz = ctx.constrain(x @ p["w_in"], "dp", None, "model")
+    names = [n for n, _ in _CHANNEL_PARAMS]
+    states = (cache["conv"], cache["ssm"]) if cache is not None else ()
+    tp = ctx.tp_size()
+    if ctx.mesh is not None and tp > 1 and (xz.shape[-1] // 2) % tp == 0:
+        y, new_conv, h = _mamba_mesh(ctx, cfg, x.dtype, xz, p, states)
+    else:
+        def core(xz, *rest):
+            return _mamba_core(cfg, x.dtype, *torch.chunk(xz, 2, dim=-1),
+                               *rest)
 
-    xi, z = torch.chunk(x @ p["w_in"], 2, dim=-1)   # (B, S, d_inner) each
+        y, new_conv, h = batch_map(
+            ctx, core, (xz, *(p[n] for n in names), *states),
+            (0,) + (None,) * len(names) + (0,) * len(states), (0, 0, 0))
+    y = ctx.constrain(y, "dp", None, "model")
+    out = ctx.constrain(y @ p["w_out"], "dp", None, None)
+    return out, write_states(ctx, cache, {"conv": new_conv, "ssm": h})
+
+
+def _mamba_mesh(ctx, cfg: MambaConfig, dtype, xz, p, states):
+    """The block as a ``local_map`` body on this rank's batch shard and
+    its channels ``c0..c0 + d_inner / tp`` of x and z (xz gathered whole
+    over the model axis, each rank slicing its two ranges, as the
+    reference's split of the model-sharded xz moves them): the depthwise
+    conv, dt, the scan and the gate are per channel, so the only
+    collective is the sum of x_proj's (dt, B, C) over the model axis
+    (``psum_split``). The parameters and the decode states are the
+    rank's channels as they lie; y leaves sharded over the model axis."""
+    from torch.distributed.tensor import Partial, Shard
+
+    model = ctx.axes_of("model")
+    d_inner = xz.shape[-1] // 2
+    w = d_inner // ctx.tp_size()
+    c0 = ctx.coord(model[0]) * w
+    groups = ctx.groups(model)
+    bp = ctx.placements(("dp",), (xz.shape[0],))
+    dp_part = tuple(Partial() if isinstance(pl, Shard) else pl for pl in bp)
+    rep = ctx.rep()
+
+    def at(base, dim):
+        return ctx.with_dims(base, model, Shard(dim))
+
+    def body(xz_l, *rest):
+        xi = xz_l[..., c0:c0 + w]
+        z = xz_l[..., d_inner + c0:d_inner + c0 + w]
+        return _mamba_core(cfg, dtype, xi, z, *rest,
+                           reduce=lambda t: psum_split(t, groups))
+
+    par_pl = tuple(at(rep, d) for _, d in _CHANNEL_PARAMS)
+    par_grad = tuple(at(dp_part, d) for _, d in _CHANNEL_PARAMS)
+    xz_grad = ctx.with_dims(bp, model, Partial())
+    st_pl = tuple(t.placements for t in states)
+    out_pl = (at(bp, 2), at(bp, 2), at(bp, 1))
+    return ctx.region(body, out_pl, (bp, *par_pl, *st_pl),
+                      (xz_grad, *par_grad, *st_pl), xz,
+                      *(p[n] for n, _ in _CHANNEL_PARAMS), *states)
+
+
+def _mamba_core(cfg: MambaConfig, dtype, xi, z, conv_w, conv_b, w_x, w_dt,
+                b_dt, a_log, d_skip, conv_state=None, ssm_state=None,
+                reduce=lambda t: t):
+    """The block between the in- and out-projections on x and z (B, S,
+    channels): ``(y (B, S, channels), conv state, ssm state)``; a decode
+    (states given) writes them in place. ``reduce`` completes x_proj's
+    product when the channels are a shard of d_inner."""
+    b, s, _ = xi.shape
+    n = cfg.d_state
+    d_inner = xi.shape[-1]
+    dt_rank = w_dt.shape[0]
 
     # causal depthwise conv as a sum of shifted slices (d_conv is 4)
-    if cache is None:
+    if conv_state is None:
         pad = xi.new_zeros((b, cfg.d_conv - 1, d_inner))
         xc_in = torch.cat([pad, xi], dim=1)
     else:
-        xc_in = torch.cat([cache["conv"].to(xi.dtype), xi], dim=1)
+        xc_in = torch.cat([conv_state.to(xi.dtype), xi], dim=1)
     new_conv = xc_in[:, -(cfg.d_conv - 1):] if cfg.d_conv > 1 else None
-    xc = sum(xc_in[:, i:i + s] * p["conv_w"][i].to(xi.dtype)
-             for i in range(cfg.d_conv)) + p["conv_b"].to(xi.dtype)
-    xc = F.silu(xc.float()).to(xi.dtype)
+    xc = sum(xc_in[:, i:i + s] * conv_w[i].to(xi.dtype)
+             for i in range(cfg.d_conv)) + conv_b.to(xi.dtype)
+    xc = F.silu(f32(xc)).to(xi.dtype)
 
     # input-dependent SSM parameters
-    dt_in, b_in, c_in = torch.split(xc @ p["w_x"], [dt_rank, n, n], dim=-1)
-    dt = dt_in.float() @ p["w_dt"] + p["b_dt"]
+    dt_in, b_in, c_in = torch.split(reduce(xc @ w_x), [dt_rank, n, n],
+                                    dim=-1)
+    dt = f32(dt_in) @ w_dt + b_dt
     dt = torch.logaddexp(dt, torch.zeros_like(dt))   # jax.nn.softplus
-    a = -torch.exp(p["a_log"])                       # (d_inner, N)
-    b_in, c_in = b_in.float(), c_in.float()
-    xcf = xc.float()
+    a = -torch.exp(a_log)                            # (d_inner, N)
+    b_in, c_in = f32(b_in), f32(c_in)
+    xcf = f32(xc)
 
-    if cache is None and s > 1:
+    if ssm_state is None and s > 1:
         q = min(cfg.chunk, s)
         if s % q:
             raise ValueError(f"seq {s} must be divisible by chunk {q}")
-        h = x.new_zeros((b, d_inner, n), dtype=torch.float32)
+        h = xi.new_zeros((b, d_inner, n), dtype=xcf.dtype)
         ys = []
         for lo in range(0, s, q):
             dt_c = dt[:, lo:lo + q]
@@ -117,21 +195,19 @@ def mamba_apply(p, cfg: MambaConfig, x: torch.Tensor,
         y = torch.cat(ys, dim=1)
     else:
         # one step: decode, or a one-token prefill
-        h_prev = cache["ssm"] if cache is not None else \
-            x.new_zeros((b, d_inner, n), dtype=torch.float32)
+        h_prev = ssm_state if ssm_state is not None else \
+            xi.new_zeros((b, d_inner, n), dtype=xcf.dtype)
         decay = torch.exp(dt[:, 0, :, None] * a)                # (B,d,N)
         inp = (dt[:, 0] * xcf[:, 0])[..., None] * b_in[:, 0, None, :]
         h = decay * h_prev + inp
         y = torch.einsum("bdn,bn->bd", h, c_in[:, 0])[:, None, :]
 
-    y = y + xcf * p["d_skip"]
-    y = (y * F.silu(z.float())).to(x.dtype)
-    out = y @ p["w_out"]
-    if cache is None:
-        return out, {"conv": new_conv, "ssm": h}
-    cache["conv"].copy_(new_conv)
-    cache["ssm"].copy_(h)
-    return out, cache
+    y = y + xcf * d_skip
+    y = (y * F.silu(f32(z))).to(dtype)
+    if ssm_state is not None:
+        conv_state.copy_(new_conv)
+        ssm_state.copy_(h)
+    return y, new_conv, h
 
 
 def mamba_cache_specs(cfg: MambaConfig, d_model: int, batch: int,
@@ -144,6 +220,6 @@ def mamba_cache_specs(cfg: MambaConfig, d_model: int, batch: int,
     published config is bf16 (ROADMAP section 3)."""
     d_inner, _ = _dims(cfg, d_model)
     return {"conv": ParamSpec((batch, cfg.d_conv - 1, d_inner), dtype,
-                              init="zeros"),
+                              init="zeros", axes=("dp", None, "model")),
             "ssm": ParamSpec((batch, d_inner, cfg.d_state), torch.float32,
-                             init="zeros")}
+                             init="zeros", axes=("dp", "model", None))}

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.nn.basic import f32, f32_dtype
+
 
 def _nchunks(v: int, chunk_req: int) -> int:
     """Smallest chunk count k >= v / chunk_req with v % k == 0 (chunks
@@ -27,7 +29,7 @@ def _nchunks(v: int, chunk_req: int) -> int:
 
 
 def _logits_chunk(xf: torch.Tensor, w_c: torch.Tensor, softcap: float):
-    lg = xf @ w_c.float().T
+    lg = xf @ f32(w_c).T
     if softcap:
         lg = torch.tanh(lg / softcap) * softcap
     return lg
@@ -39,10 +41,11 @@ class _ChunkedXent(torch.autograd.Function):
         t = x.shape[0]
         v = table.shape[0]
         chunk = v // _nchunks(v, chunk)
-        m = torch.full((t,), -1e30, dtype=torch.float32, device=x.device)
-        l = torch.zeros((t,), dtype=torch.float32, device=x.device)
+        acc = dict(dtype=f32_dtype(x.dtype), device=x.device)
+        m = torch.full((t,), -1e30, **acc)
+        l = torch.zeros((t,), **acc)
         picked = torch.zeros_like(l)
-        xf = x.float()
+        xf = f32(x)
         for c0 in range(0, v, chunk):
             lg = _logits_chunk(xf, table[c0:c0 + chunk], softcap)  # (T, C)
             m_new = torch.maximum(m, lg.amax(dim=1))
@@ -65,20 +68,20 @@ class _ChunkedXent(torch.autograd.Function):
         t = x.shape[0]
         v = table.shape[0]
         scale = ct / t
-        dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        dx = torch.zeros(x.shape, dtype=f32_dtype(x.dtype), device=x.device)
         dw = torch.empty(table.shape, dtype=table.dtype, device=x.device)
-        xf = x.float()
+        xf = f32(x)
         for c0 in range(0, v, chunk):
             w_c = table[c0:c0 + chunk]
             lg = _logits_chunk(xf, w_c, softcap)
             vid = torch.arange(c0, c0 + chunk, device=x.device)
             g = torch.exp(lg - lse[:, None])            # the softmax chunk
-            g = (g - (labels[:, None] == vid[None]).float()) * scale
+            g = (g - (labels[:, None] == vid[None]).to(g.dtype)) * scale
             if softcap:
                 # d tanh(z/c) * c = sech^2 = 1 - (lg/c)^2 on the capped value
                 g = g * (1.0 - (lg / softcap) ** 2)
-            dx += g.to(w_c.dtype).float() @ w_c.float()
-            dw[c0:c0 + chunk] = (g.to(x.dtype).float().T @ xf).to(
+            dx += f32(g.to(w_c.dtype)) @ f32(w_c)
+            dw[c0:c0 + chunk] = (f32(g.to(x.dtype)).T @ xf).to(
                 table.dtype)
         return dx.to(x.dtype), dw, None, None, None
 

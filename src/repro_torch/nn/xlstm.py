@@ -15,6 +15,7 @@ kernel here: both are plain tensor ops in both packages.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -22,7 +23,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.nn.config import XLSTMConfig
+from repro_torch.nn.basic import COL, ROW, f32, f32_dtype
 from repro_torch.nn.param import ParamSpec
+from repro_torch.nn.sharding import NO_MESH, batch_map, write_states
 
 # ================================================================= mLSTM
 
@@ -35,16 +38,16 @@ def _mlstm_dims(cfg: XLSTMConfig, d_model: int):
 def mlstm_specs(cfg: XLSTMConfig, d_model: int, dtype) -> dict:
     h = cfg.n_heads
     d_in, _ = _mlstm_dims(cfg, d_model)
-    f32 = torch.float32
+    fp32 = torch.float32
     return {
-        "w_up": ParamSpec((d_model, 2 * d_in), dtype),
-        "w_q": ParamSpec((d_in, d_in), dtype),
-        "w_k": ParamSpec((d_in, d_in), dtype),
-        "w_v": ParamSpec((d_in, d_in), dtype),
-        "w_if": ParamSpec((d_in, 2 * h), f32, scale=0.02),
-        "b_if": ParamSpec((2 * h,), f32, init="zeros"),
-        "gn_scale": ParamSpec((d_in,), f32, init="ones"),
-        "w_down": ParamSpec((d_in, d_model), dtype),
+        "w_up": ParamSpec((d_model, 2 * d_in), dtype, axes=COL),
+        "w_q": ParamSpec((d_in, d_in), dtype, axes=COL),
+        "w_k": ParamSpec((d_in, d_in), dtype, axes=COL),
+        "w_v": ParamSpec((d_in, d_in), dtype, axes=COL),
+        "w_if": ParamSpec((d_in, 2 * h), fp32, scale=0.02, axes=(None, None)),
+        "b_if": ParamSpec((2 * h,), fp32, init="zeros", axes=(None,)),
+        "gn_scale": ParamSpec((d_in,), fp32, init="ones", axes=("model",)),
+        "w_down": ParamSpec((d_in, d_model), dtype, axes=ROW),
     }
 
 
@@ -52,7 +55,7 @@ def _headwise_norm(x: torch.Tensor, scale: torch.Tensor,
                    eps: float = 1e-6) -> torch.Tensor:
     """GroupNorm per head of x (B, S, H, Dh), in fp32: the population
     variance, as ``jnp.var``."""
-    xf = x.float()
+    xf = f32(x)
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.var(xf, dim=-1, keepdim=True, correction=0)
     out = (xf - mu) * torch.rsqrt(var + eps)
@@ -61,55 +64,69 @@ def _headwise_norm(x: torch.Tensor, scale: torch.Tensor,
 
 
 def mlstm_apply(p, cfg: XLSTMConfig, x: torch.Tensor,
-                cache: Optional[dict] = None):
+                cache: Optional[dict] = None, ctx=NO_MESH):
     """x (B, S, D) -> ``(y, cache)``; cache ``{c (B, H, dk, dv), n (B, H,
     dk), m (B, H)}``, returned new by a prefill, updated in place by a
-    decode."""
-    b, s, d_model = x.shape
-    h = cfg.n_heads
-    d_in, dh = _mlstm_dims(cfg, d_model)
+    decode. On a mesh the cell runs on each rank's batch shard, replicated
+    over the model axis (``batch_map``)."""
+    up = ctx.constrain(x @ p["w_up"], "dp", None, "model")
+    names = ("w_q", "w_k", "w_v", "w_if", "b_if", "gn_scale")
+    states = tuple(cache[k] for k in ("c", "n", "m")) if cache else ()
+    y, c, n, m = batch_map(
+        ctx, functools.partial(_mlstm_core, cfg, x.dtype),
+        (up, *(p[k] for k in names), *states),
+        (0,) + (None,) * len(names) + (0,) * len(states), (0, 0, 0, 0))
+    out = ctx.constrain(y @ p["w_down"], "dp", None, None)
+    return out, write_states(ctx, cache, {"c": c, "n": n, "m": m})
 
-    xi, z = torch.chunk(x @ p["w_up"], 2, dim=-1)
-    q = (xi @ p["w_q"]).reshape(b, s, h, dh)
-    k = (xi @ p["w_k"]).reshape(b, s, h, dh)
-    v = (xi @ p["w_v"]).reshape(b, s, h, dh)
+
+def _mlstm_core(cfg: XLSTMConfig, dtype, up, w_q, w_k, w_v, w_if, b_if,
+                gn_scale, c_prev=None, n_prev=None, m_prev=None):
+    """The cell between the up- and down-projections: ``(y (B, S, d_in),
+    c, n, m)``; a decode (states given) writes the states in place."""
+    b, s, _ = up.shape
+    h = cfg.n_heads
+    xi, z = torch.chunk(up, 2, dim=-1)
+    d_in = xi.shape[-1]
+    dh = d_in // h
+    q = (xi @ w_q).reshape(b, s, h, dh)
+    k = (xi @ w_k).reshape(b, s, h, dh)
+    v = (xi @ w_v).reshape(b, s, h, dh)
     k = k / torch.tensor(math.sqrt(dh), dtype=torch.float32).to(k.dtype)
-    gates = xi.float() @ p["w_if"] + p["b_if"]             # (B, S, 2H)
+    gates = f32(xi) @ w_if + b_if                       # (B, S, 2H)
     i_pre, f_pre = gates[..., :h], gates[..., h:]          # log-space gates
     logf = F.logsigmoid(f_pre)
 
-    if cache is None and s > 1:
+    if c_prev is None and s > 1:
         y = _mlstm_chunked(cfg, q, k, v, i_pre, logf)
-        new_cache = _mlstm_final_state(k, v, i_pre, logf)
+        new = _mlstm_final_state(k, v, i_pre, logf)
     else:
-        if cache is not None:
-            c_prev, n_prev, m_prev = cache["c"], cache["n"], cache["m"]
-        else:
-            f32 = dict(dtype=torch.float32, device=x.device)
-            c_prev = torch.zeros((b, h, dh, dh), **f32)
-            n_prev = torch.zeros((b, h, dh), **f32)
-            m_prev = torch.full((b, h), -1e30, **f32)
+        cache = c_prev is not None
+        if not cache:
+            wide = dict(dtype=f32_dtype(up.dtype), device=up.device)
+            c_prev = torch.zeros((b, h, dh, dh), **wide)
+            n_prev = torch.zeros((b, h, dh), **wide)
+            m_prev = torch.full((b, h), -1e30, **wide)
         i1, f1 = i_pre[:, 0], logf[:, 0]                  # (B, H)
         m = torch.maximum(f1 + m_prev, i1)
         fi = torch.exp(f1 + m_prev - m)
         ii = torch.exp(i1 - m)
-        kf, vf, qf = k[:, 0].float(), v[:, 0].float(), q[:, 0].float()
+        kf, vf, qf = f32(k[:, 0]), f32(v[:, 0]), f32(q[:, 0])
         c = fi[..., None, None] * c_prev + ii[..., None, None] * (
             kf[..., :, None] * vf[..., None, :])
         n = fi[..., None] * n_prev + ii[..., None] * kf
         num = torch.einsum("bhd,bhdv->bhv", qf, c)
         den = torch.abs(torch.einsum("bhd,bhd->bh", qf, n))
         yt = num / torch.maximum(den, torch.exp(-m))[..., None]
-        y = yt[:, None].to(x.dtype).reshape(b, 1, h, dh)
-        new_cache = {"c": c, "n": n, "m": m}
-        if cache is not None:
-            for name, t in new_cache.items():
-                cache[name].copy_(t)
-            new_cache = cache
+        y = yt[:, None].to(dtype).reshape(b, 1, h, dh)
+        new = {"c": c, "n": n, "m": m}
+        if cache:
+            for old, t in zip((c_prev, n_prev, m_prev), (c, n, m)):
+                old.copy_(t)
 
-    y = _headwise_norm(y, p["gn_scale"]).to(x.dtype).reshape(b, s, d_in)
-    y = y * F.silu(z.float()).to(x.dtype)
-    return y @ p["w_down"], new_cache
+    y = _headwise_norm(y, gn_scale).to(dtype).reshape(b, s, d_in)
+    y = y * F.silu(f32(z)).to(dtype)
+    return y, new["c"], new["n"], new["m"]
 
 
 def _mlstm_chunked(cfg: XLSTMConfig, q, k, v, i_pre, logf) -> torch.Tensor:
@@ -119,15 +136,15 @@ def _mlstm_chunked(cfg: XLSTMConfig, q, k, v, i_pre, logf) -> torch.Tensor:
     cs = min(cfg.chunk, s)
     if s % cs:
         raise ValueError(f"seq {s} must divide chunk {cs}")
-    f32 = dict(dtype=torch.float32, device=q.device)
-    c_prev = torch.zeros((b, h, dh, dh), **f32)
-    n_prev = torch.zeros((b, h, dh), **f32)
-    m_prev = torch.zeros((b, h), **f32)
+    wide = dict(dtype=f32_dtype(q.dtype), device=q.device)
+    c_prev = torch.zeros((b, h, dh, dh), **wide)
+    n_prev = torch.zeros((b, h, dh), **wide)
+    m_prev = torch.zeros((b, h), **wide)
     tri = torch.tril(torch.ones((cs, cs), dtype=torch.bool, device=q.device))
     ys = []
     for lo in range(0, s, cs):
         sl = slice(lo, lo + cs)
-        qf, kf, vf = q[:, sl].float(), k[:, sl].float(), v[:, sl].float()
+        qf, kf, vf = f32(q[:, sl]), f32(k[:, sl]), f32(v[:, sl])
         ib, fb = i_pre[:, sl], logf[:, sl]
         fcum = torch.cumsum(fb, dim=1)               # (B, cs, H) inclusive
         ftot = fcum[:, -1]                           # (B, H)
@@ -169,7 +186,7 @@ def _mlstm_final_state(k, v, i_pre, logf) -> dict:
     w_log = i_pre + (ftot[:, None] - fcum)                  # (B, S, H)
     m = torch.amax(w_log, dim=1)                            # (B, H)
     wi = torch.exp(w_log - m[:, None])
-    kf, vf = k.float(), v.float()
+    kf, vf = f32(k), f32(v)
     c = torch.einsum("bshd,bsh,bshv->bhdv", kf, wi, vf)
     n = torch.einsum("bshd,bsh->bhd", kf, wi)
     return {"c": c, "n": n, "m": m}
@@ -178,10 +195,12 @@ def _mlstm_final_state(k, v, i_pre, logf) -> dict:
 def mlstm_cache_specs(cfg: XLSTMConfig, d_model: int, batch: int) -> dict:
     h = cfg.n_heads
     _, dh = _mlstm_dims(cfg, d_model)
-    f32 = torch.float32
-    return {"c": ParamSpec((batch, h, dh, dh), f32, init="zeros"),
-            "n": ParamSpec((batch, h, dh), f32, init="zeros"),
-            "m": ParamSpec((batch, h), f32, init="zeros")}
+    fp32 = torch.float32
+    dp = lambda n: ("dp",) + (None,) * (n - 1)
+    return {"c": ParamSpec((batch, h, dh, dh), fp32, init="zeros",
+                           axes=dp(4)),
+            "n": ParamSpec((batch, h, dh), fp32, init="zeros", axes=dp(3)),
+            "m": ParamSpec((batch, h), fp32, init="zeros", axes=dp(2))}
 
 
 # ================================================================= sLSTM
@@ -190,36 +209,51 @@ def mlstm_cache_specs(cfg: XLSTMConfig, d_model: int, batch: int) -> dict:
 def slstm_specs(cfg: XLSTMConfig, d_model: int, dtype) -> dict:
     h = cfg.n_heads
     dh = d_model // h
-    f32 = torch.float32
+    fp32 = torch.float32
     # 4 gates (i, f, z, o): input weights, and recurrent weights
     # block-diagonal per head
     return {
-        "w_gates": ParamSpec((d_model, 4 * d_model), dtype),
-        "r_gates": ParamSpec((h, dh, 4 * dh), f32),
-        "b_gates": ParamSpec((4 * d_model,), f32, init="zeros"),
-        "gn_scale": ParamSpec((d_model,), f32, init="ones"),
-        "w_down": ParamSpec((d_model, d_model), dtype),
+        "w_gates": ParamSpec((d_model, 4 * d_model), dtype, axes=COL),
+        "r_gates": ParamSpec((h, dh, 4 * dh), fp32, axes=(None, None, None)),
+        "b_gates": ParamSpec((4 * d_model,), fp32, init="zeros",
+                             axes=("model",)),
+        "gn_scale": ParamSpec((d_model,), fp32, init="ones", axes=("model",)),
+        "w_down": ParamSpec((d_model, d_model), dtype, axes=ROW),
     }
 
 
 def slstm_apply(p, cfg: XLSTMConfig, x: torch.Tensor,
-                cache: Optional[dict] = None):
+                cache: Optional[dict] = None, ctx=NO_MESH):
     """x (B, S, D) -> ``(y, cache)``; cache ``{h, c, n, m}``, each (B, H,
     Dh) fp32: a sequential scan over S from the cache's states (a
-    prefill's from h = c = m = 0, n = 1)."""
+    prefill's from h = c = m = 0, n = 1). On a mesh the scan runs on each
+    rank's batch shard, replicated over the model axis (``batch_map``)."""
+    names = ("w_gates", "b_gates", "r_gates", "gn_scale")
+    states = tuple(cache[k] for k in ("h", "c", "n", "m")) if cache else ()
+    y, hs, c, n, m = batch_map(
+        ctx, functools.partial(_slstm_core, cfg, x.dtype),
+        (x, *(p[k] for k in names), *states),
+        (0,) + (None,) * len(names) + (0,) * len(states), (0,) * 5)
+    out = ctx.constrain(y @ p["w_down"], "dp", None, None)
+    return out, write_states(ctx, cache, {"h": hs, "c": c, "n": n, "m": m})
+
+
+def _slstm_core(cfg: XLSTMConfig, dtype, x, w_gates, b_gates, r, gn_scale,
+                h0=None, c0=None, n0=None, m0=None):
+    """The scan before the down-projection: ``(y (B, S, D), h, c, n,
+    m)``; a decode (states given) writes the states in place."""
     b, s, d_model = x.shape
     nh = cfg.n_heads
     dh = d_model // nh
 
-    wx = x.float() @ p["w_gates"].float() + p["b_gates"]
+    wx = f32(x) @ f32(w_gates) + b_gates
     wx = wx.reshape(b, s, nh, 4 * dh)
-    if cache is not None:
-        hs, c, n, m = cache["h"], cache["c"], cache["n"], cache["m"]
+    if h0 is not None:
+        hs, c, n, m = h0, c0, n0, m0
     else:
-        f32 = dict(dtype=torch.float32, device=x.device)
-        hs, c, m = (torch.zeros((b, nh, dh), **f32) for _ in range(3))
-        n = torch.ones((b, nh, dh), **f32)
-    r = p["r_gates"]                                        # (H, Dh, 4Dh)
+        wide = dict(dtype=f32_dtype(x.dtype), device=x.device)
+        hs, c, m = (torch.zeros((b, nh, dh), **wide) for _ in range(3))
+        n = torch.ones((b, nh, dh), **wide)
     ys = []
     for t in range(s):
         g = wx[:, t] + torch.einsum("bhd,hdg->bhg", hs, r)
@@ -233,20 +267,19 @@ def slstm_apply(p, cfg: XLSTMConfig, x: torch.Tensor,
         m = m_t
         ys.append(hs)
     y = torch.stack(ys, dim=1)                              # (B, S, H, Dh)
-    y = _headwise_norm(y, p["gn_scale"]).to(x.dtype).reshape(b, s, d_model)
-    new_cache = {"h": hs, "c": c, "n": n, "m": m}
-    if cache is not None:
-        for name, t in new_cache.items():
-            cache[name].copy_(t)
-        new_cache = cache
-    return y @ p["w_down"], new_cache
+    y = _headwise_norm(y, gn_scale).to(dtype).reshape(b, s, d_model)
+    if h0 is not None:
+        for old, t in zip((h0, c0, n0, m0), (hs, c, n, m)):
+            old.copy_(t)
+    return y, hs, c, n, m
 
 
 def slstm_cache_specs(cfg: XLSTMConfig, d_model: int, batch: int) -> dict:
     nh = cfg.n_heads
     shape = (batch, nh, d_model // nh)
-    f32 = torch.float32
-    return {"h": ParamSpec(shape, f32, init="zeros"),
-            "c": ParamSpec(shape, f32, init="zeros"),
-            "n": ParamSpec(shape, f32, init="ones"),
-            "m": ParamSpec(shape, f32, init="zeros")}
+    fp32 = torch.float32
+    axes = ("dp", None, None)
+    return {"h": ParamSpec(shape, fp32, init="zeros", axes=axes),
+            "c": ParamSpec(shape, fp32, init="zeros", axes=axes),
+            "n": ParamSpec(shape, fp32, init="ones", axes=axes),
+            "m": ParamSpec(shape, fp32, init="zeros", axes=axes)}

@@ -71,6 +71,20 @@ def init_state(cfg: AdamWConfig, params) -> dict:
             "v": tr.tree_map(zeros, params)}
 
 
+def state_specs(cfg: AdamWConfig, param_specs):
+    """Spec tree of the optimizer state (m and v mirror the parameters'
+    shapes and sharding axes, in ``cfg.state_dtype``)."""
+    import dataclasses as dc
+
+    from repro_torch.nn.param import ParamSpec, map_specs
+
+    sdt = DTYPES[cfg.state_dtype]
+    mk = lambda s: dc.replace(s, dtype=sdt, init="zeros")
+    return {"step": ParamSpec((), torch.int32, init="zeros", axes=()),
+            "m": map_specs(mk, param_specs),
+            "v": map_specs(mk, param_specs)}
+
+
 def global_norm(grads) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(g.float()))
                           for g in tr.leaves(grads)))

@@ -409,6 +409,10 @@ def test_ctypes_signatures_match_the_c_entry_points(monkeypatch, mod):
         for name in ("flash_attention_launch", "flash_attention_tc_launch"):
             n = 7 if name == "flash_attention_launch" else 6
             assert len(sigs[name]) == n + 15   # ... q, k, v, o, lse, b, ...
+    else:
+        for name in ("decode_attention_launch", "decode_attention_tc_launch"):
+            n = 8 if name == "decode_attention_launch" else 7
+            assert len(sigs[name]) == n + 8    # ... o, lse, part, b, ...
 
 
 @pytest.mark.parametrize("design", ["tc", "simt"])
@@ -444,3 +448,76 @@ def test_flash_launch_passes_lse_or_null(monkeypatch, design, return_lse):
     assert call[at + 2:at + 7] == (2, 33, 40, 2, 3) and call[-1] == 5
     assert (fa.flash_attention_fwd.launches,
             getattr(fa.flash_attention_fwd, f"launches_{design}")) == (1, 1)
+
+
+@pytest.mark.parametrize("design", ["tc", "simt"])
+@pytest.mark.parametrize("return_lse", [False, True])
+@pytest.mark.parametrize("pos", [100, 3000])
+def test_decode_launch_passes_lse_or_null(monkeypatch, design, return_lse,
+                                          pos):
+    """``_launch`` hands kernel 7 a fresh (B, KV, G) fp32 lse after the
+    output with ``return_lse``, else a null pointer (None), then the
+    scratch (None only for the tensor-core design's one chunk)."""
+    import contextlib
+    import types
+
+    lib = types.SimpleNamespace(**{n: _Entry() for n in _c_signatures(da)})
+    monkeypatch.setattr(da.build, "load", lambda name: lib)
+    monkeypatch.setattr(da, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(da, "ctas_per_sm", lambda dh: 2)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=5))
+    for name in ("launches", "launches_tc", "launches_simt"):
+        monkeypatch.setattr(da.decode_attention, name, 0)
+    q = torch.zeros((2, 2, 3, 16), dtype=torch.bfloat16)
+    kc = vc = torch.zeros((2, 4096, 2, 16), dtype=torch.bfloat16)
+    got = da._launch(design, q, kc, vc, pos, 0.25, return_lse)
+    entry = lib.decode_attention_tc_launch if design == "tc" else \
+        lib.decode_attention_launch
+    (call,) = entry.calls
+    at = 4 if design == "tc" else 5           # after dh (and dtype), q, k, v
+    out, lse = got if return_lse else (got, None)
+    assert call[at] == out.data_ptr()
+    if return_lse:
+        assert lse.shape == (2, 2, 3) and lse.dtype == torch.float32
+        assert call[at + 1] == lse.data_ptr()
+    else:
+        assert call[at + 1] is None
+    one_chunk = design == "tc" and pos < da.MIN_CHUNK
+    assert (call[at + 2] is None) == one_chunk
+    assert call[at + 3:at + 8] == (2, 4096, 2, 3, pos + 1) and call[-1] == 5
+    assert (da.decode_attention.launches,
+            getattr(da.decode_attention, f"launches_{design}")) == (1, 1)
+
+
+@pytest.mark.parametrize("cut", [1, 37, 64, 99])
+def test_decode_lse_merges_split_rows(cut):
+    """The plain version's lse is the masked scores' log-sum-exp, and two
+    calls over rows ``0..cut-1`` and ``cut..pos`` merged by it (the mesh's
+    combine in ``nn/attention.decode_attend``) give the call over all."""
+    rng = np.random.default_rng(9)
+    q = torch.from_numpy(rng.standard_normal((2, 2, 3, 16)).astype(np.float32))
+    kc, vc = (torch.from_numpy(rng.standard_normal((2, 128, 2, 16))
+                               .astype(np.float32)) for _ in range(2))
+    pos, scale = 99, 0.25
+    whole, lse = da.decode_attention(q, kc, vc, pos, scale=scale,
+                                     return_lse=True)
+    s = np.einsum("bkgd,bskd->bkgs", q.numpy().astype(np.float64),
+                  kc.numpy()[:, :pos + 1].astype(np.float64)) * scale
+    mx = s.max(-1)
+    want = mx + np.log(np.exp(s - mx[..., None]).sum(-1))
+    np.testing.assert_allclose(lse.numpy(), want, rtol=0, atol=1e-5)
+    parts = [da.decode_attention(q, kc[:, :cut].contiguous(),
+                                 vc[:, :cut].contiguous(), cut - 1,
+                                 scale=scale, return_lse=True),
+             da.decode_attention(q, kc[:, cut:].contiguous(),
+                                 vc[:, cut:].contiguous(), pos - cut,
+                                 scale=scale, return_lse=True)]
+    m = torch.maximum(parts[0][1], parts[1][1])
+    wts = [torch.exp(l - m) for _, l in parts]
+    merged = sum(o * w[..., None] for (o, _), w in zip(parts, wts)) \
+        / sum(wts)[..., None]
+    np.testing.assert_allclose(merged.numpy(), whole.numpy(), rtol=0,
+                               atol=1e-5)

@@ -113,10 +113,11 @@ def test_decode_attention_cuda_request_without_library_raises(monkeypatch,
                                                               tmp_path):
     q, kc, vc = (torch.from_numpy(x).to("meta")
                  for x in _inputs(1, 1, 1, 16, 8))
-    plain = decode_attention.plain_calls
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        decode_attention(q, kc, vc, 3, scale=0.25)
-    assert decode_attention.plain_calls == plain
+    plain = (decode_attention.plain_calls, decode_attention.launches)
+    out, lse = decode_attention(q, kc, vc, 3, scale=0.25, return_lse=True)
+    assert out.device.type == "meta" and out.shape == q.shape
+    assert lse.shape == q.shape[:3] and lse.dtype == torch.float32
+    assert (decode_attention.plain_calls, decode_attention.launches) == plain
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")

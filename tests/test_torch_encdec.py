@@ -179,7 +179,7 @@ def test_encode_matches_reference():
 def _enc_tree(ref_cfg, port_caches):
     """The port's per-layer cache list as the reference's tree (each
     superblock position stacked over n_repeat when n_repeat > 1)."""
-    layers = [jax.tree.map(lambda t: jnp.asarray(t.numpy()), c)
+    layers = [jax.tree.map(lambda t: jnp.array(t.numpy()), c)
               for c in port_caches["layers"]]
     if ref_cfg.n_repeat == 1:
         return {"blocks": {"l0": layers[0]}}

@@ -107,15 +107,17 @@ def test_flash_attention_rejects_bad_inputs(bad):
 
 def test_flash_attention_cuda_request_without_library_raises(monkeypatch,
                                                              tmp_path):
-    """A tensor on neither CPU nor CUDA is refused, not sent to the plain
-    version; the CUDA path needs its library, and without a toolkit its
-    build raises (there is no fall back)."""
+    """A ``meta`` tensor gets the outputs' shapes alone, neither the plain
+    version nor a launch; the CUDA path needs its library, and without a
+    toolkit its build raises (there is no fall back)."""
     q, k, v = (torch.from_numpy(x).to("meta")
                for x in _inputs(1, 8, 8, 1, 1, 16))
-    plain = flash_attention_fwd.plain_calls
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        flash_attention_fwd(q, k, v, scale=0.25)
-    assert flash_attention_fwd.plain_calls == plain
+    plain = (flash_attention_fwd.plain_calls, flash_attention_fwd.launches)
+    out, lse = flash_attention_fwd(q, k, v, scale=0.25, return_lse=True)
+    assert out.device.type == "meta" and out.shape == q.shape
+    assert lse.shape == (1, 1, 1, 8) and lse.dtype == torch.float32
+    assert (flash_attention_fwd.plain_calls,
+            flash_attention_fwd.launches) == plain
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")

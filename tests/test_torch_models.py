@@ -147,7 +147,7 @@ def _fold_ring(lm, caches, prompt: int):
 def _ref_tree(ref_cfg, port_caches):
     """The port's per-layer cache list as the reference's tree (prefix list,
     superblock positions stacked over n_repeat when n_repeat > 1)."""
-    layers = [jax.tree.map(lambda t: jnp.asarray(t.numpy()), c)
+    layers = [jax.tree.map(lambda t: jnp.array(t.numpy()), c)
               for c in port_caches["layers"]]
     npre, nb = len(ref_cfg.prefix), len(ref_cfg.blocks)
     rest = layers[npre:]

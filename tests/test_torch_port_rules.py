@@ -364,3 +364,34 @@ def test_training_modules_load_no_jax():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+# the launch and dry-run layer (ROADMAP slice 12) and the sharding under it
+SHARDING_MODULES = ("nn.sharding", "launch.mesh", "launch.costs",
+                    "launch.roofline", "launch.dryrun", "launch.report",
+                    "launch.steps")
+
+
+def test_sharding_and_dryrun_modules_load_no_jax():
+    """The port's copies of the reference's sharding, mesh, roofline,
+    dry-run and report modules (and the cost counter that replaces XLA's
+    analyses) load neither JAX nor the reference, and importing them
+    touches no process group; ``resolve_device`` still refuses ``meta``,
+    which only the dry run, outside it, uses."""
+    for mod in SHARDING_MODULES:
+        assert (ROOT / "src" / "repro_torch" / (mod.replace(".", "/")
+                                                + ".py")).is_file(), mod
+    code = ("import sys, importlib; "
+            f"[importlib.import_module('repro_torch.' + m) for m in "
+            f"{SHARDING_MODULES!r}]; "
+            "import torch.distributed as dist; "
+            "assert not dist.is_initialized(); "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro', 'ml_dtypes')]; print(bad); "
+            "sys.exit(bool(bad))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    with pytest.raises(ValueError):
+        resolve_device("meta")

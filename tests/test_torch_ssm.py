@@ -105,7 +105,9 @@ def test_mamba_decode_matches_reference(start):
     if start == "zeros":
         cache = init_params(ssm.mamba_cache_specs(cfg, D, 2, torch.float32),
                             None, "cpu")
-        ref_cache = {k: jnp.asarray(v.numpy()) for k, v in cache.items()}
+        # a copy: jnp.asarray would alias the port's buffers, which its
+        # decode then writes in place while JAX may still be reading them
+        ref_cache = {k: jnp.array(v.numpy()) for k, v in cache.items()}
         lo = 0
     else:
         _, cache = ssm.mamba_apply(pt, cfg, torch.from_numpy(x[:, :16]))

@@ -7,7 +7,9 @@ batches.
 Tolerances: the loss within rtol 1e-5 (sums in another order); each
 gradient leaf within 1e-4 of its largest element (jamba's Mamba scan and
 deepseek-v3's MoE and MTP sum over more terms; the worst leaf reads about
-1.2e-5); one AdamW step's parameters and moments within 1e-6 (values near
+1.2e-5), xlstm's within 5e-4 (at these weights its gradients move by about
+1e-3 of their scale when the weights are rounded by one fp32 ulp; the
+worst leaf reads about 1.1e-4); one AdamW step's parameters and moments within 1e-6 (values near
 1) at ``eps=1e-3``, so that each update is a continuous function of its
 gradient (at the default 1e-8 a gradient element near 0 takes an update
 of +-lr from its sign, which rounding can flip), and without weight
@@ -49,9 +51,10 @@ CTX = ShardCtx(None)
 VOCAB, D = 128, 64
 GRAD_RTOL = 1e-4
 # the gradient cases: dense GQA, sliding windows, MLA + MoE aux + MTP,
-# Mamba + MoE
+# Mamba + MoE, mLSTM + sLSTM, the encoder-decoder
 GRAD_MODELS = ["granite-3-8b", "gemma3-12b", "deepseek-v3-671b",
-               "jamba-1.5-large-398b"]
+               "jamba-1.5-large-398b", "xlstm-350m", "seamless-m4t-large-v2"]
+GRAD_RTOL_OF = {"xlstm-350m": 5e-4}
 
 
 def _models(name: str, n_repeat: int = 1, seed: int = 0):
@@ -133,7 +136,7 @@ def test_gradients_match_jax_grad(name):
     want = lm_params_from_numpy(jax.tree.map(np.asarray, g_ref), lm.cfg,
                                 "cpu")
     loss, got = value_and_grad(lm, pp, _torch(batch))
-    _close_leaves(got, want, GRAD_RTOL, name)
+    _close_leaves(got, want, GRAD_RTOL_OF.get(name, GRAD_RTOL), name)
 
 
 @pytest.mark.parametrize("micro,remat", [(1, "none"), (2, "none"),

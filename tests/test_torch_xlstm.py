@@ -90,7 +90,9 @@ def test_decode_matches_reference(kind, start):
     x = _x(2, 20, seed=3)
     if start == "zeros":
         cache = init_params(KINDS[kind][5](cfg, D, 2), None, "cpu")
-        ref_cache = {k: jnp.asarray(v.numpy()) for k, v in cache.items()}
+        # a copy: jnp.asarray would alias the port's buffers, which its
+        # decode then writes in place while JAX may still be reading them
+        ref_cache = {k: jnp.array(v.numpy()) for k, v in cache.items()}
         lo = 0
     else:
         _, cache = apply(pt, cfg, torch.from_numpy(x[:, :16]))
