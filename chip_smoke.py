@@ -283,6 +283,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1793,6 +1794,104 @@ def phase_stage1_sharded(dev, world, caches, warm):
         "host_s_numpy_backend": t_search["numpy"]}
 
 
+def device_parts(index, quant: bool, devs: list):
+    """The per-device shard layout (``ShardLayout.parts``) with shard s
+    on ``devs[s]``, built from the router's layout as the dispatch builds
+    it for S cards."""
+    from repro_torch.core.clustering import shard_part
+
+    sh = index.router.kernel_shard_buckets(index, quant=quant)
+    cut = [int(x) for x in sh.bounds]
+    return [shard_part(index, sh.layout, quant, d, cut[si], cut[si + 1])
+            for si, d in enumerate(devs)]
+
+
+def hold_parts(one, per, parts, k: int, what: str,
+               timed: bool = False) -> dict:
+    """Kernel 5 once per non-empty shard on its device (``per()``, the
+    ``*_parts`` scan) against one launch over the whole layout
+    (``one()``): the stacks bitwise equal, one launch a non-empty shard
+    on the design its cap gives, the launches by device; with ``timed``
+    both between CUDA events."""
+    want = one()
+    wrapper = shard_scans(None if what == "fp32" else True)[0]
+    before = wrapper.launches
+    with routed_launch_log() as log:
+        got = per()
+    live = [p for p in parts if p is not None]
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          f"per-device kernel 5 ({what}): stacks differ from one launch's")
+    check(wrapper.launches - before == len(live) == len(log),
+          f"per-device kernel 5 ({what}): {wrapper.launches - before} "
+          f"launches for {len(live)} non-empty shards")
+    wrong = [(d, cap) for _, d, cap, *_ in log
+             if d != expect_routed_design(cap)]
+    check(not wrong, f"per-device kernel 5 ({what}): designs {wrong}")
+    by_device: dict = {}
+    for *_, dev_name in log:
+        by_device[dev_name] = by_device.get(dev_name, 0) + 1
+    out = {"shards": len(parts), "launches": len(log),
+           "launches_by_device": by_device,
+           "designs": sorted({d for _, d, *_ in log}),
+           "caps": sorted({cap for _, _, cap, *_ in log})}
+    if timed:
+        out["ms"] = timed_ms(per)
+        out["one_launch_ms"] = timed_ms(one)
+    return out
+
+
+def index_parts_hold(index, quant: bool, q: torch.Tensor, k: int,
+                     devs: list, timed: bool = False) -> dict:
+    """hold_parts on a finished index's own layout: routing as the index
+    routes, its shards on ``devs``."""
+    from repro_torch.core.seri import probe_count
+    from repro_torch.kernels import ann_topk_sharded as aks
+    from repro_torch.kernels.ops import _route
+
+    rt = index.router
+    sh = rt.kernel_shard_buckets(index, quant=quant)
+    parts = device_parts(index, quant, devs)
+    lay = sh.layout
+    sel, en = _route(lay.centroids, lay.live, q, probe_count(rt.cfg))
+    if quant:
+        qq, qs = quantize_dev(q)
+        bq, bsc = lay.payload
+        one = lambda: aks.ann_topk_ivf_quant_sharded(
+            sel, en, qq, qs, bq, bsc, lay.bucket_valid, lay.bucket_rows,
+            sh.bounds_dev, k)
+        per = lambda: aks.ann_topk_ivf_quant_sharded_parts(
+            sel, en, qq, qs, parts, sh.bounds_dev, k)
+    else:
+        one = lambda: aks.ann_topk_ivf_sharded(
+            sel, en, q, lay.payload, lay.bucket_valid, lay.bucket_rows,
+            sh.bounds_dev, k)
+        per = lambda: aks.ann_topk_ivf_sharded_parts(sel, en, q, parts,
+                                                     sh.bounds_dev, k)
+    out = hold_parts(one, per, parts, k, "int8" if quant else "fp32", timed)
+    del parts
+    return {"b": q.shape[0], **out}
+
+
+def phase_stage1_devices(dev, world, caches, warm) -> dict:
+    """(i) Stage 1 with one shard's bucket range per device, every device
+    this card (``cuda:0`` REAL_SHARDS times): the real-size sharded hot
+    and warm indexes of ``phase_stage1_sharded``, at B in 1 and 16,
+    held to the one-launch path bitwise and timed beside it."""
+    kidx, widx = caches["kernel"].seri.index, warm["kernel"]
+    k = caches["numpy"].seri.top_k
+    rng = np.random.default_rng(11)
+    qe = torch.from_numpy(held_queries(world, rng, N_INTENTS, 8, 16)).to(dev)
+    devs = [dev] * REAL_SHARDS
+    out = {"devices": [str(d) for d in devs]}
+    for name, index, quant, kk in (("fp32", kidx, False, k),
+                                   ("int8", widx, True,
+                                    k * widx.rescore_mult)):
+        out[name] = [index_parts_hold(index, quant, qe[:b].contiguous(), kk,
+                                      devs, timed=True) for b in (1, 16)]
+        release(dev)
+    return out
+
+
 # ------------------------------------------- serve: tiers and clustering
 
 # the run_once configurations on the card: the main path (zipf defaults)
@@ -1969,15 +2068,16 @@ ROUTED = ("ann_topk_ivf", "ann_topk_ivf_quant", "ann_topk_ivf_sharded",
 @contextlib.contextmanager
 def routed_launch_log():
     """Within the block, every launch of kernels 3-5 as (wrapper name,
-    design, cap, k), read where the wrappers hand the design to the
-    launch (each module's ``_launch``)."""
+    design, cap, k, device), read where the wrappers hand the design to
+    the launch (each module's ``_launch``)."""
     from repro_torch.kernels import ann_topk_ivf as ivf
     from repro_torch.kernels import ann_topk_sharded as sh
     log, launch = [], ivf._launch
 
     def logged(design, wrapper, *args, k):
         buckets = args[4 if args[2].dtype == torch.int8 else 3]
-        log.append((wrapper.__name__, design, buckets.shape[1], k))
+        log.append((wrapper.__name__, design, buckets.shape[1], k,
+                    str(args[0].device)))
         return launch(design, wrapper, *args, k=k)
 
     ivf._launch = sh._launch = logged
@@ -1994,7 +2094,7 @@ def check_routed_designs(wrappers: dict, log: list, run: str) -> dict:
     Returns the counts by design and the caps seen, per wrapper."""
     out = {}
     for name in ROUTED:
-        mine = [(design, cap) for n, design, cap, _ in log if n == name]
+        mine = [(design, cap) for n, design, cap, *_ in log if n == name]
         wrong = [(d, cap) for d, cap in mine
                  if d != expect_routed_design(cap)]
         check(not wrong, f"{run}: {name} launched {len(wrong)} times on the "
@@ -2046,6 +2146,10 @@ def phase_serve(dev):
                                            device=dev, **kw)
         wall = time.perf_counter() - t
         launches = {n: w.launches for n, w in wrappers.items()}
+        by_device = {}
+        for n, *_, dev_name in log:
+            by_device.setdefault(n, {}).setdefault(dev_name, 0)
+            by_device[n][dev_name] += 1
         by_design = {**check_all_one_launch(wrappers, name),
                      **check_routed_designs(wrappers, log, name)}
         check(launches["ann_topk"] > 0, f"{name}: no ann_topk launch")
@@ -2089,6 +2193,7 @@ def phase_serve(dev):
         shapes = hold_on_run(cache, g, errs)
         runs.append({"run": name, "kwargs": kw, "launches": launches,
                      "launches_by_design": by_design,
+                     "routed_launches_by_device": by_device,
                      "wall_s": wall, "hit_rate": got["hit_rate"],
                      "evictions": got.get("evictions"),
                      "demotions": got.get("demotions"),
@@ -2108,6 +2213,21 @@ def phase_serve(dev):
                     *shapes["ann_topk_ivf_quant"][:6],
                     quant=shapes["ann_topk_ivf_quant"][6:], required=True)}}
         if name == "e_tiered_clustered_sharded":
+            # (i) the run's own layouts with each shard on "its" device,
+            # every device this card, timed beside one launch (the host's
+            # work a shard, at the engine's bucket size)
+            devs = [dev] * kw["shards"]
+            hot, wi = cache.seri.index, cache.warm.index
+            q = near(hot.emb_dev[live_pick(hot.active_dev, g, 16)], g)
+            pick = live_pick(wi.active_dev, g, 16)
+            qw = near(wi.emb_q_dev[pick].float()
+                      * wi.scale_dev[pick][:, None], g)
+            runs[-1]["per_device"] = {
+                "fp32": index_parts_hold(hot, False, q, cache.seri.top_k,
+                                         devs, timed=True),
+                "int8": index_parts_hold(wi, True, qw, cache.seri.top_k
+                                         * wi.rescore_mult, devs,
+                                         timed=True)}
             args, quant = shapes["ann_topk_ivf_quant_sharded"]
             measured[name] = {"launches": launches, "sizes": {
                 "ann_topk_ivf_sharded": measure_sharded(
@@ -4606,6 +4726,135 @@ def sharded_model(name: str, mesh, dev) -> dict:
             "launches_by_design": designs}
 
 
+PIPE_LAYERS, PIPE_M, PIPE_SEQ = 4, 4, 1024   # (ii): 4 microbatches of 1 x 1024
+MESH_TRAIN = dict(steps=6, save_every=3, fail_at=4, batch=4, seq=64)  # (iii)
+
+
+def pipe_model(dev, layers: int):
+    """granite-3-8b at published width cut to ``layers`` layers: its layer
+    parameters from a seed, PIPE_M microbatches of 1 x PIPE_SEQ hidden
+    states, and the stage function over a list of layers."""
+    import dataclasses
+
+    from repro_torch.models.lm import LM, apply_layer
+    from repro_torch.nn.param import init_params
+
+    cfg = dataclasses.replace(lm_config(TRAIN_ARCH), n_repeat=layers)
+    lm = LM(cfg)
+    g = torch.Generator(device=dev).manual_seed(29)
+    params = init_params(lm.param_specs()["layers"], g, dev)
+    x = torch.randn((PIPE_M, 1, PIPE_SEQ, cfg.d_model), device=dev,
+                    generator=g).to(torch.bfloat16)
+    pos = torch.arange(PIPE_SEQ, dtype=torch.int32, device=dev)[None, :]
+
+    def stage(ps, h):
+        for spec, p in zip(lm.layers, ps):
+            h = apply_layer(spec, p, h, pos, norm_eps=cfg.norm_eps)[0]
+        return h
+
+    return params, x, stage
+
+
+def pipe_loss(y: torch.Tensor) -> torch.Tensor:
+    return (y.float() ** 2).mean()
+
+
+def pipeline_one_card(dev) -> dict:
+    """(ii) ``nn/pipeline.pipeline_apply`` on the one-rank group's (1,)
+    mesh: granite at published width, PIPE_LAYERS layers in the one
+    stage, PIPE_M microbatches; the output and every gradient leaf
+    bitwise the layers run in sequence (deterministic mode), kernel 6
+    exactly layers x M times in the pipeline's forward, all tensor-core.
+    At one rank ``pipeline_apply`` is the stacked layers, so the bitwise
+    hold guards that branch only and the count is what this checks; the
+    ring runs on cards in ``--mesh``'s ``phase_mesh_train``."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.nn.pipeline import pipeline_apply
+    from repro_torch.train import tree as tr
+
+    mesh = init_device_mesh(dev.type, (1,), mesh_dim_names=("pod",))
+    layers, x, stage = pipe_model(dev, PIPE_LAYERS)
+    leaves = [a.requires_grad_() for a in tr.leaves(layers)]
+    wrappers = attn_wrappers()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        reset_counts(wrappers)
+        t = time.perf_counter()
+        y = pipeline_apply(mesh, "pod", stage, layers, x)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t
+        launches = {n: w.launches for n, w in wrappers.items()}
+        designs = check_all_tc(wrappers, "pipeline one card")
+        grads = torch.autograd.grad(pipe_loss(y), leaves)
+        want = torch.stack([stage(layers, x[t]) for t in range(PIPE_M)])
+        want_g = torch.autograd.grad(pipe_loss(want), leaves)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(launches == {"flash_attention_fwd": PIPE_LAYERS * PIPE_M,
+                       "decode_attention": 0},
+          f"pipeline one card: launches {launches}, want kernel 6 x "
+          f"{PIPE_LAYERS * PIPE_M}")
+    same = [torch.equal(a, b) for a, b in zip(grads, want_g)]
+    check(torch.equal(y, want) and all(same),
+          f"pipeline one card: output bitwise {torch.equal(y, want)}, "
+          f"{same.count(False)} of {len(same)} gradient leaves differ")
+    out = {"layers": PIPE_LAYERS, "microbatches": PIPE_M, "seq": PIPE_SEQ,
+           "output_bitwise": True, "grad_leaves_bitwise": len(same),
+           "launches": launches, "launches_by_design": designs,
+           "forward_s": fwd_s}
+    del y, want, grads, want_g, layers, leaves
+    release(dev)
+    return out
+
+
+def train_mesh_one_card(mesh, dev) -> dict:
+    """(iii) ``launch.train.main`` on the (1, 1) mesh: the shrunk config,
+    MESH_TRAIN's steps, a clean run and one that fails and restarts from
+    its checkpoint; the losses bitwise the mesh-free trainer's, the
+    replay exact, kernel 6 once a layer and step on the mesh."""
+    import tempfile
+
+    from repro_torch.launch.train import main as train_main
+
+    r = MESH_TRAIN
+    argv = ["--arch", TRAIN_ARCH, "--smoke", "--device", "cuda", "--steps",
+            str(r["steps"]), "--batch", str(r["batch"]), "--seq",
+            str(r["seq"]), "--save-every", str(r["save_every"])]
+    wrappers = attn_wrappers()
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with tempfile.TemporaryDirectory(dir=TRACE_DIR) as d, \
+                contextlib.redirect_stdout(sys.stderr):
+            free = train_main(argv + ["--ckpt-dir", f"{d}/free"])
+            reset_counts(wrappers)
+            meshed = train_main(argv + ["--ckpt-dir", f"{d}/mesh"],
+                                mesh=mesh)
+            launches = {n: w.launches for n, w in wrappers.items()}
+            designs = check_all_tc(wrappers, "train on the (1, 1) mesh")
+            faulty = train_main(argv + ["--ckpt-dir", f"{d}/faulty",
+                                        "--fail-at", str(r["fail_at"])],
+                                mesh=mesh)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    layers = 2        # --smoke's depth
+    check(launches == {"flash_attention_fwd": layers * r["steps"],
+                       "decode_attention": 0},
+          f"train on the (1, 1) mesh: launches {launches}")
+    check(meshed.losses == free.losses,
+          f"train on the (1, 1) mesh: losses {meshed.losses} against the "
+          f"mesh-free trainer's {free.losses}")
+    back = r["fail_at"] // r["save_every"] * r["save_every"]
+    check(faulty.restarts == 1 and faulty.losses
+          == meshed.losses[:r["fail_at"]] + meshed.losses[back:],
+          f"train on the (1, 1) mesh: the restart gave {faulty.losses}")
+    release(dev)
+    return {**r, "losses": meshed.losses, "losses_bitwise": True,
+            "replay_exact": True, "launches": launches,
+            "launches_by_design": designs}
+
+
 def phase_sharded(dev, trained: dict) -> dict:
     """(a), (b) and (c) of the docstring's ``sharded``; (b) and (c) run on
     the host while (a) runs on the card."""
@@ -4633,6 +4882,12 @@ def phase_sharded(dev, trained: dict) -> dict:
             mesh = make_test_mesh(dev.type)
             one_card = {name: sharded_model(name, mesh, dev)
                         for name in SHARDED_MODELS}
+            t = time.perf_counter()
+            pipeline = {**pipeline_one_card(dev),
+                        "seconds": time.perf_counter() - t}
+            t = time.perf_counter()
+            mesh_train = {**train_mesh_one_card(mesh, dev),
+                          "seconds": time.perf_counter() - t}
         finally:
             dist.destroy_process_group()
     except BaseException:
@@ -4668,6 +4923,7 @@ def phase_sharded(dev, trained: dict) -> dict:
                   "measured_step_ms": full["step_ms"],
                   "fake_run_s": c["t_compile_s"]}
     return {"decode_lse": decode_lse, "one_card": one_card,
+            "pipeline": pipeline, "mesh_train": mesh_train,
             "dryrun": [{k: r[k] for k in ("arch", "shape", "mesh", "status",
                                           "hbm_per_device", "fits_hbm",
                                           "t_compute", "t_memory",
@@ -4851,6 +5107,334 @@ def phase_mesh(cfgs: dict) -> dict:
     return line
 
 
+MESH_SHARDS = 4           # stage 1: one shard's bucket range a card
+MESH_TRAIN_FULL = dict(layers=2, steps=4, batch=2, seq=1024, save_every=2,
+                       fail_at=3)
+MESH_TRAIN_TOL = 0.01     # mesh losses against the mesh-free trainer's
+
+
+def synthetic_layout(g, dev, c: int, n: int, d: int):
+    """A clustered layout at real size on ``dev``: ``n`` unit rows over
+    ``c`` buckets (about n / c each), fp32 and its int8 version, global
+    rows, and the buckets' normalised means as centroids."""
+    counts = (n // c) + torch.randint(-(n // c) // 4, (n // c) // 4 + 1, (c,),
+                                      device=dev, generator=g)
+    cap = 1 << int(np.ceil(np.log2(int(counts.max()))))
+    valid = (torch.arange(cap, device=dev)[None, :] < counts[:, None])
+    payload = unit_rows(g, c * cap, d, dev).reshape(c, cap, d)
+    payload *= valid[..., None]
+    bq, bsc = quantize_dev(payload.reshape(c * cap, d))
+    cents = payload.sum(1)
+    cents = (cents / cents.norm(dim=1, keepdim=True)).contiguous()
+    return {"payload": payload, "int8": (bq.reshape(c, cap, d),
+                                         bsc.reshape(c, cap)),
+            "valid": valid, "rows": global_rows(g, valid),
+            "centroids": cents, "live": torch.ones(c, dtype=torch.bool,
+                                                   device=dev),
+            "cap": cap, "rows_total": int(counts.sum())}
+
+
+def phase_stage1_mesh() -> dict:
+    """Stage 1 at S = MESH_SHARDS over cuda:0..S-1, in this one process
+    (the reference's single controller): a real-size layout (2**20 x 768,
+    fp32 and int8) with shard s's buckets on card s, at B in 1 and 16,
+    bitwise one card's one-launch stacks, timed beside them; then engine
+    run (d) at 2 and 4 shards, where the dispatch puts each shard on its
+    own card, held to the numpy backend key for key."""
+    from repro_torch.kernels import ann_topk_sharded as aks
+    from repro_torch.kernels.ops import _route
+    from repro_torch.launch.mesh import make_shard_mesh
+    from repro_torch.launch.serve import run_once
+
+    devs = make_shard_mesh(MESH_SHARDS)
+    dev = devs[0]
+    g = torch.Generator(device=dev).manual_seed(41)
+    lay = synthetic_layout(g, dev, REAL_C, REAL_N, 768)
+    c = REAL_C
+    bounds = (torch.arange(MESH_SHARDS + 1, device=dev) * c
+              // MESH_SHARDS).to(torch.int32)
+    cut = [int(x) for x in bounds]
+
+    def parts_of(payload, extra=None):
+        out = []
+        for si, d in enumerate(devs):
+            lo, hi = cut[si], cut[si + 1]
+            pl = payload[lo:hi].to(d) if extra is None else \
+                (payload[lo:hi].to(d), extra[lo:hi].to(d))
+            out.append(aks.ShardPart(
+                device=d, lo=lo, hi=hi, payload=pl,
+                bucket_valid=lay["valid"][lo:hi].to(d),
+                bucket_rows=lay["rows"][lo:hi].to(d),
+                bounds=torch.tensor([0, hi - lo], dtype=torch.int32,
+                                    device=d)))
+        return out
+
+    out = {"devices": [str(d) for d in devs], "n_clusters": c,
+           "cap": lay["cap"], "rows": lay["rows_total"], "dim": 768,
+           "nprobe": REAL_NPROBE, "bounds": cut}
+    k = 4
+    for name in ("fp32", "int8"):
+        quant = name == "int8"
+        parts = parts_of(*lay["int8"]) if quant else parts_of(lay["payload"])
+        rec = []
+        for b in (1, 16):
+            q = unit_rows(g, b, 768, dev)
+            sel, en = _route(lay["centroids"], lay["live"], q, REAL_NPROBE)
+            if quant:
+                qq, qs = quantize_dev(q)
+                bq, bsc = lay["int8"]
+                one = lambda: aks.ann_topk_ivf_quant_sharded(
+                    sel, en, qq, qs, bq, bsc, lay["valid"], lay["rows"],
+                    bounds, 4 * k)
+                per = lambda: aks.ann_topk_ivf_quant_sharded_parts(
+                    sel, en, qq, qs, parts, bounds, 4 * k)
+            else:
+                one = lambda: aks.ann_topk_ivf_sharded(
+                    sel, en, q, lay["payload"], lay["valid"], lay["rows"],
+                    bounds, k)
+                per = lambda: aks.ann_topk_ivf_sharded_parts(
+                    sel, en, q, parts, bounds, k)
+            rec.append({"b": b, **hold_parts(one, per, parts, k, name,
+                                             timed=True)})
+            check(set(rec[-1]["launches_by_device"])
+                  == {str(d) for d in devs},
+                  f"stage 1 over {MESH_SHARDS} cards ({name}): launches "
+                  f"{rec[-1]['launches_by_device']}")
+        out[name] = rec
+        del parts
+    del lay
+    for d in devs:
+        with torch.cuda.device(d):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+    wrappers = kernel_wrappers()
+    engine = {}
+    for shards in (2, 4):
+        kw = dict(ENGINE_KW, shards=shards)
+        reset_counts(wrappers)
+        t = time.perf_counter()
+        with routed_launch_log() as log:
+            got = run_once(mode="cortex", backend="kernel", device=dev, **kw)
+        wall = time.perf_counter() - t
+        want = run_once(mode="cortex", backend="numpy", device="cpu", **kw)
+        diff = {key: (got.get(key), want.get(key))
+                for key in set(got) | set(want)
+                if got.get(key) != want.get(key)}
+        check(not diff, f"d_shards{shards} over {shards} cards: the "
+              f"summary differs from the numpy backend: {diff}")
+        by_device = {}
+        for n, *_, dev_name in log:
+            if n == "ann_topk_ivf_sharded":
+                by_device[dev_name] = by_device.get(dev_name, 0) + 1
+        check(set(by_device) == {str(d) for d in devs[:shards]}
+              and not any(w.plain_calls for w in wrappers.values()),
+              f"d_shards{shards}: kernel 5 launched on {by_device}")
+        engine[f"d_shards{shards}"] = {
+            "launches_by_device": by_device, "wall_s": wall,
+            "rows_scanned": got["rows_scanned"],
+            "rows_scanned_max_shard": got["rows_scanned_max_shard"],
+            "hit_rate": got["hit_rate"]}
+    out["engine"] = engine
+    return out
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / (want.float().abs().max() or 1.0))
+
+
+def mesh_train_worker(rank: int, world: int, port: int, port_env: int,
+                      path: str, ckpt: str) -> None:
+    """One of the --mesh ranks for the pipeline and the trainer: card
+    ``rank``, an NCCL group of ``world`` (gloo and the CPU where there is
+    no card), the checkpoints under ``ckpt`` (one directory for every
+    rank: rank 0 writes, all read); then ``--mesh single`` from the
+    environment on ``port_env``; rank 0 writes every rank's readings to
+    ``path``."""
+    sys.path.insert(0, str(SRC))
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.nn.pipeline import pipeline_apply
+    from repro_torch.train import tree as tr
+
+    cuda = torch.cuda.is_available()
+    dev = torch.device("cuda", rank) if cuda else torch.device("cpu")
+    if cuda:
+        torch.cuda.set_device(dev)
+    dist.init_process_group("nccl" if cuda else "gloo", rank=rank,
+                            world_size=world,
+                            init_method=f"tcp://localhost:{port}")
+    try:
+        res = {}
+        # the pipeline: one granite layer a card, MESH_PIPE microbatches
+        wrappers = attn_wrappers()
+        mesh = init_device_mesh(dev.type, (world,), mesh_dim_names=("pod",))
+        layers, x, stage = pipe_model(dev, world)
+        mine = [layers[rank]]
+        leaves = [a.requires_grad_() for a in tr.leaves(mine)]
+        reset_counts(wrappers)
+        t = time.perf_counter()
+        y = pipeline_apply(mesh, "pod", stage, mine, x)
+        if cuda:
+            torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t
+        launches = {n: w.launches for n, w in wrappers.items()}
+        designs = {n: design_counts(w) for n, w in wrappers.items()}
+        grads = torch.autograd.grad(pipe_loss(y), leaves)
+        bwd_s = time.perf_counter() - t - fwd_s
+        # the layers in sequence on this card, the same parameters
+        want = torch.stack([stage(layers, x[i]) for i in range(PIPE_M)])
+        want_g = torch.autograd.grad(pipe_loss(want), leaves)
+        res["pipeline"] = {
+            "stage": rank, "out_rel": rel_err(y, want),
+            "out_bitwise": torch.equal(y, want),
+            "grad_rel": max(rel_err(a, b) for a, b in zip(grads, want_g)),
+            "grads_bitwise": all(torch.equal(a, b)
+                                 for a, b in zip(grads, want_g)),
+            "launches": launches, "launches_by_design": designs,
+            "forward_s": fwd_s, "backward_s": bwd_s}
+        del y, want, grads, want_g, layers, mine, leaves
+        if cuda:
+            release(dev)
+        # the trainer on the (2, 2) mesh against the mesh-free one on card 0
+        r = MESH_TRAIN_FULL
+        argv = ["--arch", TRAIN_ARCH, "--device", dev.type, "--n-repeat",
+                str(r["layers"]), "--steps", str(r["steps"]), "--batch",
+                str(r["batch"]), "--seq", str(r["seq"])]
+        from repro_torch.configs.granite_3_8b import PAPER_VOCAB
+
+        def data(step):
+            t = np.random.default_rng(500 + step).integers(
+                0, PAPER_VOCAB, (r["batch"], r["seq"] + 1)).astype(np.int32)
+            return {"tokens": t[:, :-1].copy(), "labels": t[:, 1:].copy()}
+
+        mesh2 = init_device_mesh(dev.type, MESH_SHAPE,
+                                 mesh_dim_names=("data", "model"))
+        d = ckpt
+        with contextlib.redirect_stdout(sys.stderr):
+            reset_counts(wrappers)
+            t = time.perf_counter()
+            clean = train_main(argv + ["--save-every", "0", "--ckpt-dir",
+                                       f"{d}/clean"], data=data, mesh=mesh2)
+            clean_s = time.perf_counter() - t
+            launches = {n: w.launches for n, w in wrappers.items()}
+            t = time.perf_counter()
+            faulty = train_main(argv + ["--save-every", str(r["save_every"]),
+                                        "--fail-at", str(r["fail_at"]),
+                                        "--ckpt-dir", f"{d}/faulty"],
+                                data=data, mesh=mesh2)
+            faulty_s = time.perf_counter() - t
+            dist.barrier()
+            free = None
+            if rank == 0:
+                if cuda:
+                    release(dev)
+                free = train_main(argv + ["--save-every", "0", "--ckpt-dir",
+                                          f"{d}/free"], data=data).losses
+            dist.barrier()
+        res["train"] = {"losses": clean.losses, "faulty": faulty.losses,
+                        "restarts": faulty.restarts, "free": free,
+                        "launches": launches, "clean_s": clean_s,
+                        "faulty_s": faulty_s}
+        # --mesh single as a launcher starts it (the single mesh patched
+        # to MESH_SHAPE): no group yet, every rank on card 0 until the
+        # trainer takes card LOCAL_RANK
+        dist.barrier()
+        dist.destroy_process_group()
+        from repro_torch.launch import mesh as mesh_mod
+
+        mesh_mod.SINGLE = (MESH_SHAPE, ("data", "model"))
+        os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port_env),
+                          WORLD_SIZE=str(world), RANK=str(rank),
+                          LOCAL_RANK=str(rank))
+        if cuda:
+            torch.cuda.set_device(0)
+        with contextlib.redirect_stdout(sys.stderr):
+            env = train_main(argv + ["--mesh", "single", "--save-every", "0",
+                                     "--ckpt-dir", f"{d}/env"], data=data)
+        res["train"]["env"] = env.losses
+        res["train"]["env_card"] = torch.cuda.current_device() if cuda \
+            else rank
+        every = [None] * world
+        dist.all_gather_object(every, res)
+        if rank == 0:
+            Path(path).write_text(json.dumps(every))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh_train() -> dict:
+    """The pipeline over four cards (one granite layer each, published
+    width, PIPE_M microbatches of 1 x PIPE_SEQ): the output and every
+    stage's gradients within LM_REL_TOL of the layers in sequence on one
+    card, kernel 6 PIPE_M times on every card, all tensor-core; the
+    trainer on the (2, 2) mesh (granite at published width, 2 layers, 4
+    steps of 2 x 1024): losses within MESH_TRAIN_TOL of the mesh-free
+    trainer's on one card, and a restart from the checkpoint replays the
+    clean run bitwise on every rank; ``--mesh single`` started from a
+    launcher's environment takes card LOCAL_RANK on every rank and trains
+    within MESH_TRAIN_TOL too."""
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    world = MESH_SHAPE[0] * MESH_SHAPE[1]
+    ports = []
+    for _ in range(2):
+        with socket.socket() as sk:
+            sk.bind(("localhost", 0))
+            ports.append(sk.getsockname()[1])
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=TRACE_DIR) as d:
+        path = str(Path(d) / "mesh_train.json")
+        mp.spawn(mesh_train_worker, args=(world, *ports, path, d),
+                 nprocs=world, join=True)
+        every = json.loads(Path(path).read_text())
+    r = MESH_TRAIN_FULL
+    free = every[0]["train"]["free"]
+    back = r["fail_at"] // r["save_every"] * r["save_every"]
+    for i, res in enumerate(every):
+        p = res["pipeline"]
+        check(p["out_rel"] <= LM_REL_TOL and p["grad_rel"] <= LM_REL_TOL,
+              f"pipeline rank {i}: output {p['out_rel']}, gradients "
+              f"{p['grad_rel']} of their scale from the sequence's")
+        check(p["launches"] == {"flash_attention_fwd": PIPE_M,
+                                "decode_attention": 0}
+              and p["launches_by_design"]["flash_attention_fwd"].get(
+                  "tc") == PIPE_M,
+              f"pipeline rank {i}: launches {p['launches']} "
+              f"{p['launches_by_design']}")
+        tr_ = res["train"]
+        worst = max(abs(a - b) / abs(b) for a, b in zip(tr_["losses"], free))
+        tr_["rel_to_free"] = worst
+        check(worst <= MESH_TRAIN_TOL,
+              f"mesh train rank {i}: losses {tr_['losses']} against the "
+              f"mesh-free {free} ({worst} relative)")
+        check(tr_["restarts"] == 1 and tr_["faulty"]
+              == tr_["losses"][:r["fail_at"]] + tr_["losses"][back:],
+              f"mesh train rank {i}: the restart gave {tr_['faulty']} "
+              f"against {tr_['losses']}")
+        check(tr_["launches"]["flash_attention_fwd"]
+              == r["layers"] * r["steps"],
+              f"mesh train rank {i}: launches {tr_['launches']}")
+        env_worst = max(abs(a - b) / abs(b)
+                        for a, b in zip(tr_["env"], free))
+        tr_["env_rel_to_free"] = env_worst
+        tr_["env_bitwise"] = tr_["env"] == tr_["losses"]
+        check(tr_["env_card"] == i and env_worst <= MESH_TRAIN_TOL,
+              f"mesh train rank {i} from the environment: card "
+              f"{tr_['env_card']}, losses {tr_['env']} against the "
+              f"mesh-free {free} ({env_worst} relative)")
+    return {"pipeline": {"layers_per_card": 1, "cards": world,
+                         "microbatches": PIPE_M, "seq": PIPE_SEQ,
+                         "ranks": [e["pipeline"] for e in every]},
+            "train": {**r, "mesh": list(MESH_SHAPE), "free_losses": free,
+                      "ranks": [e["train"] for e in every]}}
+
+
 def main_mesh() -> int:
     """``python3 chip_smoke.py --mesh``: phase_mesh on four cards of one
     host, after building kernels 6 and 7."""
@@ -4869,12 +5453,18 @@ def main_mesh() -> int:
     card = card_line()
     print(card, flush=True)
     t = time.perf_counter()
-    build.build_all(("flash_attention", "decode_attention"))
+    build.build_all()
     emit(phase="build", seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    emit(phase="stage1_mesh", **phase_stage1_mesh(),
+         seconds=time.perf_counter() - t)
     t = time.perf_counter()
     emit(phase="mesh", mesh=list(MESH_SHAPE), batch=MESH_BATCH,
          prompt=MESH_PROMPT, decode_steps=MESH_DECODE,
          models=phase_mesh(mesh_configs()), seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    emit(phase="mesh_train", **phase_mesh_train(),
+         seconds=time.perf_counter() - t)
     print(card, flush=True)
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
@@ -4970,6 +5560,10 @@ def main() -> int:
                                                            caches, warm)
     emit(phase="stage1_sharded", **line, real_size_fp32=shard_sizes,
          real_size_int8=shardq_sizes, seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    stage1_devices = phase_stage1_devices(dev, world, caches, warm)
+    emit(phase="stage1_devices", **stage1_devices,
+         seconds=time.perf_counter() - t)
     del world, caches, warm
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -5087,6 +5681,19 @@ def main() -> int:
                          x for x in engine
                          if x["dtype"] == ("int8" if "quant" in name
                                            else "fp32")]}
+            if name.endswith("_sharded"):
+                # on one card every launch is on cuda:0; (i) launches once
+                # per shard on "its" device, each here this card
+                dt = "int8" if "quant" in name else "fp32"
+                run_e = next(r for r in runs
+                             if r["run"] == "e_tiered_clustered_sharded")
+                extra["launches_by_device"] = {
+                    r["run"]: r["routed_launches_by_device"][name]
+                    for r in runs
+                    if r.get("routed_launches_by_device", {}).get(name)}
+                extra["per_device"] = {
+                    "e_tiered_clustered_sharded": run_e["per_device"][dt],
+                    "real_size": stage1_devices[dt]}
             if not name.endswith("_sharded"):
                 extra["warp_device_ms"] = at.get("warp_device_ms")
                 extra["sharded_warp_s1_device_ms"] = at.get(
@@ -5130,6 +5737,8 @@ def main() -> int:
                 "train": (trained["full_width"]["launches"]
                           if name == "flash_attention_fwd" else 0),
                 "sharded": sharded_l[name],
+                "pipeline": sharded["pipeline"]["launches"][name],
+                "mesh_train": sharded["mesh_train"]["launches"][name],
                 "g_model_judge": g_run["launches"][name],
                 "lm_assigned": assigned_line["launches"][name],
                 **{f"lm_assigned {m}": sum(

@@ -39,7 +39,9 @@ In the port everything but the kernel layouts
 unchanged: the same mutation sequence gives bitwise the same centroids,
 assignments, member lists and shard bounds. The kernel layout is built on
 the index's device from its mirror, and the shard layout adds only its
-bounds to it.
+bounds to it; with one device per shard (the reference's ``shard_map``
+mode, ``kernels/ann_topk_sharded.shard_devices``) each device keeps only
+its own shard's slice instead.
 """
 from __future__ import annotations
 
@@ -48,6 +50,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.kernels.ann_topk_sharded import ShardPart, shard_devices
 
 NEG = -3.0e38  # masked-score sentinel shared with the ANN kernels
 
@@ -98,6 +102,9 @@ class ShardLayout:
     shard_rows: np.ndarray       # (S, Cmax, cap) int32, -1 = empty slot
     shard_valid: np.ndarray      # (S, Cmax, cap) int32
     bounds: np.ndarray           # (S+1,) int64 cut points
+    # one device per shard: each shard's slice on its device (None for an
+    # empty shard), and ``layout`` without its payload; else None
+    parts: Optional[list] = None
 
 
 class ClusterRouter:
@@ -401,7 +408,8 @@ class ClusterRouter:
 
     # ----------------------------------------------------- kernel layout
 
-    def kernel_layout(self, index, quant: bool = False) -> KernelLayout:
+    def kernel_layout(self, index, quant: bool = False,
+                      payload: bool = True) -> KernelLayout:
         """Everything the routed-scan kernels (``kernels/ann_topk_ivf``)
         read, on the index's device: the cluster-major buckets and the
         routing inputs. Rebuilt lazily after a mutation, where the
@@ -419,9 +427,11 @@ class ClusterRouter:
         row map goes up, where the reference builds the (C, cap, D) array
         on the host and copies it on every search. The centroids and the
         live-cluster mask change only where the buckets do, so they are
-        uploaded with them."""
-        if self._bucket_cache is not None:
-            return self._bucket_cache
+        uploaded with them. ``payload=False`` leaves the payload out (one
+        device per shard: each keeps its own slice)."""
+        lay = self._bucket_cache
+        if lay is not None and (lay.payload is not None or not payload):
+            return lay
         members = self.members()
         c = self.cfg.n_clusters
         top = int(max((len(m) for m in members), default=1))
@@ -432,17 +442,9 @@ class ClusterRouter:
                 bucket_rows[ci, :len(mem)] = np.sort(mem)
         dev = index.active_dev.device
         rows = torch.from_numpy(bucket_rows).to(dev)
-        valid = rows >= 0
-        gather = rows.clamp(min=0).long()
-        if quant:
-            payload = (index.emb_q_dev[gather], index.scale_dev[gather])
-            payload[0][~valid] = 0
-            payload[1][~valid] = 0.0
-        else:
-            payload = index.emb_dev[gather]
-            payload[~valid] = 0.0
         self._bucket_cache = KernelLayout(
-            payload=payload, bucket_rows=rows, bucket_valid=valid,
+            payload=_gather(index, rows, quant) if payload else None,
+            bucket_rows=rows, bucket_valid=rows >= 0,
             centroids=torch.from_numpy(self.centroids).to(dev),
             live=torch.from_numpy(self.counts > 0).to(dev))
         return self._bucket_cache
@@ -462,8 +464,15 @@ class ClusterRouter:
         scans every shard on the index's one device, where each slice is a
         contiguous range of the unsharded layout, so the device side is
         that layout and the bounds, and no payload is copied. Cached
-        against the layout: a mutation or a rebalance invalidates it."""
-        base = self.kernel_layout(index, quant=quant)
+        against the layout: a mutation or a rebalance invalidates it.
+
+        With one device per shard (the dispatch rule of
+        ``kernels/ann_topk_sharded.shard_devices``) the layout keeps no
+        payload, and ``parts[s]`` holds shard s's payload, ``bucket_rows``
+        and ``bucket_valid`` on device s, gathered from the mirror a shard
+        at a time and rebuilt only with the layout."""
+        devs = shard_devices(self.n_shards, index.active_dev.device)
+        base = self.kernel_layout(index, quant=quant, payload=devs is None)
         if self._shard_cache is not None and self._shard_cache.layout is base:
             return self._shard_cache
         s, bounds = self.n_shards, self.shard_bounds
@@ -476,9 +485,47 @@ class ClusterRouter:
             lo, hi = int(bounds[si]), int(bounds[si + 1])
             shard_rows[si, :hi - lo] = bucket_rows[lo:hi]
             shard_valid[si, :hi - lo] = bucket_rows[lo:hi] >= 0
+        parts = None
+        if devs is not None:
+            parts = [shard_part(index, base, quant, devs[si],
+                                int(bounds[si]), int(bounds[si + 1]))
+                     for si in range(s)]
         self._shard_cache = ShardLayout(
             layout=base, bounds_dev=torch.from_numpy(
                 bounds.astype(np.int32)).to(base.bucket_rows.device),
             shard_rows=shard_rows, shard_valid=shard_valid,
-            bounds=bounds.astype(np.int64))
+            bounds=bounds.astype(np.int64), parts=parts)
         return self._shard_cache
+
+
+def _gather(index, rows: torch.Tensor, quant: bool):
+    """The payload of a (n, cap) row map, gathered on the device from the
+    index's mirror, zero in the empty slots."""
+    valid = rows >= 0
+    gather = rows.clamp(min=0).long()
+    if quant:
+        payload = (index.emb_q_dev[gather], index.scale_dev[gather])
+        payload[0][~valid] = 0
+        payload[1][~valid] = 0.0
+    else:
+        payload = index.emb_dev[gather]
+        payload[~valid] = 0.0
+    return payload
+
+
+def shard_part(index, base: KernelLayout, quant: bool, dev, lo: int,
+               hi: int) -> Optional[ShardPart]:
+    """Shard ``[lo, hi)``'s slice of ``base`` on ``dev`` (None if empty):
+    gathered on the mirror's device, then moved."""
+    if hi <= lo:
+        return None
+    rows = base.bucket_rows[lo:hi]
+    payload = _gather(index, rows, quant)
+    payload = tuple(x.to(dev) for x in payload) if quant \
+        else payload.to(dev)
+    rows = rows.to(dev, copy=True)
+    return ShardPart(device=torch.device(dev), lo=lo, hi=hi,
+                     payload=payload, bucket_valid=rows >= 0,
+                     bucket_rows=rows,
+                     bounds=torch.tensor([0, hi - lo], dtype=torch.int32,
+                                         device=dev))

@@ -400,16 +400,18 @@ class VectorIndex(RowIndex):
     def _search_routed_kernel_sharded(self, q: np.ndarray, k: int):
         """Shard-parallel routed scan on the kernel backend (DESIGN.md
         §13): routing stays global; each probed bucket is scanned by its
-        owning shard (``ann_topk_ivf_sharded``, every shard on the index's
-        device) and the S·nprobe·k finalists merge once. Scan accounting
-        splits the probed members by owner so the engine can charge
+        owning shard (``ann_topk_ivf_sharded``: every shard on the index's
+        device, or each on its own, ``ShardLayout.parts``) and the
+        S·nprobe·k finalists merge once on the index's device. Scan
+        accounting splits the probed members by owner so the engine can charge
         max-over-shards."""
         rt = self.router
         sh = rt.kernel_shard_buckets(self)
         lay = sh.layout
         sims, rows, sel, en = ann_topk_ivf_sharded_batch(
             lay.centroids, lay.live, lay.payload, lay.bucket_rows,
-            lay.bucket_valid, sh.bounds_dev, q, probe_count(rt.cfg), k)
+            lay.bucket_valid, sh.bounds_dev, q, probe_count(rt.cfg), k,
+            parts=sh.parts)
         self._note_probed(sel, en)
         return rows.cpu().numpy(), sims.cpu().numpy()
 

@@ -224,15 +224,16 @@ class QuantIndex(RowIndex):
         """Shard-parallel quantized coarse scan, the int8 sibling of
         ``VectorIndex._search_routed_kernel_sharded`` (DESIGN.md §13):
         global routing, the shard-owned int8 scan
-        (``ann_topk_ivf_quant_sharded``), one cross-shard merge."""
+        (``ann_topk_ivf_quant_sharded``, per device with
+        ``ShardLayout.parts``), one cross-shard merge."""
         rt = self.router
         sh = rt.kernel_shard_buckets(self, quant=True)
         lay = sh.layout
-        bq, bscale = lay.payload
+        bq, bscale = lay.payload or (None, None)
         vals, rows, sel, en = ann_topk_ivf_quant_sharded_batch(
             lay.centroids, lay.live, bq, bscale, lay.bucket_rows,
             lay.bucket_valid, sh.bounds_dev, q, qq, qs,
-            probe_count(rt.cfg), r)
+            probe_count(rt.cfg), r, parts=sh.parts)
         self._note_probed(sel, en)
         return rows.cpu().numpy(), vals.cpu().numpy()
 

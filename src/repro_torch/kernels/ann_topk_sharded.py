@@ -36,8 +36,23 @@ and the design in the error; there is no fall back to the other design.
 the kernels for CUDA tensors and raise if they cannot; they take the plain
 versions only for CPU tensors. Each counts ``launches``, each design's
 launches (``launches_warp``, ``launches_block``) and ``plain_calls``.
+
+The reference's ``shard_map`` mode, one shard's bucket range per device,
+is :func:`ann_topk_ivf_sharded_parts` /
+:func:`ann_topk_ivf_quant_sharded_parts`: the same wrappers launched once
+per shard, each on its own device with a one-shard ``bounds``, over that
+device's :class:`ShardPart` (kept by
+``ClusterRouter.kernel_shard_buckets``). Its dispatch rule is the
+reference's: one device per shard when S > 1, the index is on CUDA and
+:func:`mesh_available`; otherwise the one-device path above. Each shard
+costs the host a copy up, a launch and a copy down, so where the scan is
+short (one query, engine-sized buckets) S cards take longer than one card
+(PERF.md section 5).
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
 
 import torch
 
@@ -45,6 +60,39 @@ from repro_torch.kernels.ann_topk import NEG
 from repro_torch.kernels.ann_topk_ivf import (  # noqa: F401 (kernel 5's names)
     DESIGNS, SMEM_MAX, WARP_CAP, WARP_PROBES, _check, _launch,
     ann_topk_ivf_plain, ann_topk_ivf_quant_plain, pick_design, warp_smem)
+
+
+def mesh_available(n_shards: int) -> bool:
+    """True when the host can lay one cache shard per CUDA device."""
+    return torch.cuda.device_count() >= n_shards
+
+
+def shard_devices(n_shards: int, device: torch.device
+                  ) -> Optional[list[torch.device]]:
+    """The reference's dispatch rule: the devices of
+    ``launch/mesh.make_shard_mesh(n_shards)`` when S > 1, the index is on
+    CUDA and the host has S CUDA devices; else None (every shard on the
+    index's device)."""
+    if n_shards > 1 and device.type == "cuda" and mesh_available(n_shards):
+        from repro_torch.launch.mesh import make_shard_mesh
+
+        return make_shard_mesh(n_shards)
+    return None
+
+
+@dataclasses.dataclass
+class ShardPart:
+    """One shard's owned bucket range ``[lo, hi)`` of the clustered layout,
+    on its own device: the payload, ``bucket_valid`` and ``bucket_rows``
+    of those buckets and the one-shard cut points ``[0, hi - lo]``."""
+
+    device: torch.device
+    lo: int
+    hi: int
+    payload: Any                 # (n, cap, D) fp32, or int8 and (n, cap) f32
+    bucket_valid: torch.Tensor   # (n, cap) bool
+    bucket_rows: torch.Tensor    # (n, cap) int32 global rows, -1 = empty
+    bounds: torch.Tensor         # (2,) int32: [0, n]
 
 
 def _own_probes(sel: torch.Tensor, en: torch.Tensor, lo: int, hi: int):
@@ -164,6 +212,94 @@ def ann_topk_ivf_quant_sharded(sel: torch.Tensor, enabled: torch.Tensor,
     return _launch(design, ann_topk_ivf_quant_sharded, sel, enabled, qq,
                    q_scales, buckets_q, bucket_scale, bucket_valid,
                    bucket_rows, bounds, k=k)
+
+
+def _packed_probes(sel, enabled, queries, bounds):
+    """Every shard's probes and the queries as one byte row a shard, on
+    ``sel``'s device, and the views that unpack a row: (offset, nbytes,
+    dtype, shape) for the probes (2, B, nprobe) int32, local bucket ids
+    then enables, and for each query tensor. Shard s's probes are masked
+    to its range ``[bounds[s], bounds[s+1])`` and translated to local
+    ids, all shards at once; a probe it does not own is disabled, at
+    local bucket 0 (never scanned). Each piece starts 16-byte aligned."""
+    lo, hi = bounds[:-1, None, None], bounds[1:, None, None]
+    own = (sel >= lo) & (sel < hi)
+    probes = torch.stack([(sel - lo) * own, enabled * own], 1)
+    pieces = [probes.to(torch.int32)] + [x[None] for x in queries]
+    views, at = [], 0
+    for x in pieces:
+        n = x[0].numel() * x.element_size()
+        views.append((at, n, x.dtype, tuple(x.shape[1:])))
+        at += -(-n // 16) * 16
+    rows = torch.empty((bounds.numel() - 1, at), dtype=torch.uint8,
+                       device=sel.device)
+    for x, (o, n, _, _) in zip(pieces, views):
+        rows[:, o:o + n].copy_(x.reshape(x.shape[0], -1).view(torch.uint8))
+    return rows, views
+
+
+def _parts(scan, sel, enabled, queries, parts: list[Optional[ShardPart]],
+           bounds: torch.Tensor, k: int):
+    """Run ``scan(loc, en_s, queries_s, part)`` -> (1, B, nprobe, k) stacks
+    once per non-empty shard on its own device, and gather the stacks on
+    ``sel``'s device into the (S, B, nprobe, k) stacks; an empty shard's
+    entries are NEG / -1. A shard costs the host one copy up (its row of
+    :func:`_packed_probes`), the launch, one stack of vals and rows and
+    one copy down. Every copy up is issued before any launch (a copy runs
+    on the sending device's stream, so one queued behind that device's
+    own scan would hold the next device back), and every launch before
+    any copy down, so the devices scan at the same time."""
+    b, nprobe = sel.shape
+    rows, views = _packed_probes(sel, enabled, queries, bounds)
+    ups = [(si, part, rows[si].to(part.device))
+           for si, part in enumerate(parts) if part is not None]
+    out = []
+    for si, part, row in ups:
+        (probes, *qs) = [row[o:o + n].view(dt).view(shape)
+                         for o, n, dt, shape in views]
+        v, r = scan(probes[0], probes[1], qs, part)
+        out.append((si, torch.stack([v[0].view(torch.int32), r[0]])))
+    stacks = torch.empty((len(parts), 2, b, nprobe, k), dtype=torch.int32,
+                         device=sel.device)
+    for si, part in enumerate(parts):
+        if part is None:
+            stacks[si, 0].view(torch.float32).fill_(NEG)
+            stacks[si, 1].fill_(-1)
+    for si, x in out:
+        stacks[si].copy_(x)
+    return stacks[:, 0].view(torch.float32), stacks[:, 1]
+
+
+def ann_topk_ivf_sharded_parts(sel: torch.Tensor, enabled: torch.Tensor,
+                               q: torch.Tensor,
+                               parts: list[Optional[ShardPart]],
+                               bounds: torch.Tensor, k: int = 4
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """fp32 shard-owned routed scan with shard s's buckets on
+    ``parts[s].device`` (None: an empty shard) and its range
+    ``[bounds[s], bounds[s+1])`` (``bounds`` on ``sel``'s device): kernel
+    5 once per non-empty shard on its device; the stacks on ``sel``'s
+    device, equal to :func:`ann_topk_ivf_sharded`'s over the whole
+    layout."""
+    return _parts(
+        lambda loc, en_s, qs, p: ann_topk_ivf_sharded(
+            loc, en_s, qs[0], p.payload, p.bucket_valid, p.bucket_rows,
+            p.bounds, k),
+        sel, enabled, [q], parts, bounds, k)
+
+
+def ann_topk_ivf_quant_sharded_parts(sel: torch.Tensor, enabled: torch.Tensor,
+                                     qq: torch.Tensor,
+                                     q_scales: torch.Tensor,
+                                     parts: list[Optional[ShardPart]],
+                                     bounds: torch.Tensor, k: int = 16
+                                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The int8 sibling of :func:`ann_topk_ivf_sharded_parts`."""
+    return _parts(
+        lambda loc, en_s, qs, p: ann_topk_ivf_quant_sharded(
+            loc, en_s, qs[0], qs[1], p.payload[0], p.payload[1],
+            p.bucket_valid, p.bucket_rows, p.bounds, k),
+        sel, enabled, [qq, q_scales], parts, bounds, k)
 
 
 for _w in (ann_topk_ivf_sharded, ann_topk_ivf_quant_sharded):

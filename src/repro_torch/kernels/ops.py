@@ -15,8 +15,9 @@ import torch
 from repro_torch.kernels.ann_topk import K_MAX, NEG, ann_topk
 from repro_torch.kernels.ann_topk_ivf import ann_topk_ivf, ann_topk_ivf_quant
 from repro_torch.kernels.ann_topk_quant import ann_topk_quant
-from repro_torch.kernels.ann_topk_sharded import (ann_topk_ivf_quant_sharded,
-                                                  ann_topk_ivf_sharded)
+from repro_torch.kernels.ann_topk_sharded import (
+    ann_topk_ivf_quant_sharded, ann_topk_ivf_quant_sharded_parts,
+    ann_topk_ivf_sharded, ann_topk_ivf_sharded_parts)
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 
@@ -156,18 +157,26 @@ def ann_topk_ivf_sharded_batch(centroids: torch.Tensor, live: torch.Tensor,
                                bucket_rows: torch.Tensor,
                                bucket_valid: torch.Tensor,
                                bounds: torch.Tensor, q, nprobe: int,
-                               k: int = 4):
+                               k: int = 4, parts=None):
     """Sharded clustered VectorIndex backend adapter (DESIGN.md §13),
     mirroring ``repro.kernels.ops.ann_topk_ivf_sharded_jit``: routing
     stays GLOBAL (the same ``_route`` as the unsharded adapter, so the
     probed cluster set is shard-count invariant), each probed bucket is
     scanned by its owning shard (``kernels/ann_topk_sharded``), and the
-    S·nprobe·k finalists merge once. Returns ``(vals, rows, sel,
+    S·nprobe·k finalists merge once. With ``parts`` (one
+    ``ShardPart`` per shard, on its own device; ``buckets`` is then
+    unused) each shard scans on its device and the stacks come to the
+    centroids' device for the merge. Returns ``(vals, rows, sel,
     enabled)`` like :func:`ann_topk_ivf_batch`."""
-    q = _on(q, buckets.device, torch.float32)
+    q = _on(q, centroids.device, torch.float32)
     sel, enabled = _route(centroids, live, q, nprobe)
-    vals, rows = ann_topk_ivf_sharded(sel, enabled, q, buckets, bucket_valid,
-                                      bucket_rows, bounds, k)
+    if parts is not None:
+        vals, rows = ann_topk_ivf_sharded_parts(sel, enabled, q, parts,
+                                                bounds, k)
+    else:
+        vals, rows = ann_topk_ivf_sharded(sel, enabled, q, buckets,
+                                          bucket_valid, bucket_rows, bounds,
+                                          k)
     top_v, top_r = _merge_shards(vals, rows, k)
     return top_v, top_r, sel, enabled
 
@@ -179,16 +188,22 @@ def ann_topk_ivf_quant_sharded_batch(centroids: torch.Tensor,
                                      bucket_rows: torch.Tensor,
                                      bucket_valid: torch.Tensor,
                                      bounds: torch.Tensor, q, qq, q_scales,
-                                     nprobe: int, k: int = 16):
+                                     nprobe: int, k: int = 16, parts=None):
     """Sharded clustered QuantIndex backend adapter (coarse phase only):
-    fp32 global routing, the int8 shard-owned scan, one cross-shard merge;
-    mirrors ``repro.kernels.ops.ann_topk_ivf_quant_sharded_jit``."""
-    dev = buckets_q.device
+    fp32 global routing, the int8 shard-owned scan (per device with
+    ``parts``, as :func:`ann_topk_ivf_sharded_batch`), one cross-shard
+    merge; mirrors ``repro.kernels.ops.ann_topk_ivf_quant_sharded_jit``."""
+    dev = centroids.device
     q = _on(q, dev, torch.float32)
     sel, enabled = _route(centroids, live, q, nprobe)
-    vals, rows = ann_topk_ivf_quant_sharded(
-        sel, enabled, _on(qq, dev, torch.int8),
-        _on(q_scales, dev, torch.float32), buckets_q, bucket_scale,
-        bucket_valid, bucket_rows, bounds, k)
+    qq, q_scales = _on(qq, dev, torch.int8), _on(q_scales, dev, torch.float32)
+    if parts is not None:
+        vals, rows = ann_topk_ivf_quant_sharded_parts(sel, enabled, qq,
+                                                      q_scales, parts, bounds,
+                                                      k)
+    else:
+        vals, rows = ann_topk_ivf_quant_sharded(
+            sel, enabled, qq, q_scales, buckets_q, bucket_scale,
+            bucket_valid, bucket_rows, bounds, k)
     top_v, top_r = _merge_shards(vals, rows, k)
     return top_v, top_r, sel, enabled

@@ -14,8 +14,10 @@ Unless a process group is already initialised, the mesh sits on a *fake*
 one (``torch.testing``'s ``FakeStore``, one process standing for every
 rank): collectives on it move nothing, which is what the dry run needs.
 
-The reference's ``make_shard_mesh`` (the 1-D mesh of the sharded stage-1
-cache) stays with the multi-GPU work (ROADMAP queue 1, item 7).
+``make_shard_mesh`` is the 1-D mesh of the sharded stage-1 cache: the
+first S local CUDA devices, one shard's bucket range on each
+(``kernels/ann_topk_sharded.py``). One process drives them all, as the
+reference's single controller does, with no process group.
 """
 from __future__ import annotations
 
@@ -46,6 +48,18 @@ MULTI = ((2, 32, 8), ("pod", "data", "model"))
 
 def mesh_name(shape) -> str:
     return "x".join(str(n) for n in shape)
+
+
+def make_shard_mesh(n_shards: int):
+    """The first ``n_shards`` local CUDA devices, in order, the stage-1
+    cache partition axis (DESIGN.md §13): shard s's bucket range lives on
+    device s. Raises, as the reference does, when the host has fewer."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < n_shards:
+        raise ValueError(f"mesh needs {n_shards} devices, host has {n}")
+    return [torch.device("cuda", i) for i in range(n_shards)]
 
 
 def make_production_mesh(*, multi_pod: bool = False, shape=None,

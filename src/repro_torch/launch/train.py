@@ -10,10 +10,16 @@ CPU example (a few minutes):
 On one GPU (the default device) a published config trains at its widths;
 ``--n-repeat`` cuts its depth to the superblock repeats that fit the card
 (with ``--smoke`` it is the shrunk config's depth, 2 by default, as in the
-reference). ``--mesh single|multi`` (the reference's production meshes)
-raises: training over several GPUs waits for the multi-GPU work (ROADMAP
-'Open items', item 6); ``launch/dryrun.py`` runs the sharded step on a
-fake process group.
+reference). ``--mesh single|multi`` trains on the reference's production
+mesh, re-expressed for H100 nodes (``launch/mesh.py``: (32, 8), or (2, 32,
+8) with ``multi``) as a DTensor program over the launched process group,
+one rank a GPU: parameters and AdamW state initialised from the seed as
+without a mesh, then placed by ``param_pspec``; each batch placed by its
+input pspecs; checkpoints in the reference's layout (one ``.npy`` per
+whole leaf, written by rank 0). The process group comes from the caller,
+or from ``torchrun``'s environment; its size must be the mesh's.
+``build``/``main`` also take a ``mesh=`` (any ``DeviceMesh`` with the
+reference's axis names), which is how the tests reach a small mesh.
 """
 from __future__ import annotations
 
@@ -24,28 +30,54 @@ import tempfile
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, shrink
+from repro_torch.configs.common import input_layout
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.lm import LM
-from repro_torch.nn.param import init_params
+from repro_torch.nn.config import ShapeCell
+from repro_torch.nn.param import init_leaf, map_specs
+from repro_torch.nn.sharding import distribute, param_pspec
 from repro_torch.train.data import BigramStream
 from repro_torch.train.optim import AdamWConfig, init_state
 from repro_torch.train.supervisor import FaultInjector, Supervisor
 
-MULTI_GPU = "ROADMAP 'Open items', item 6: work over several GPUs"
+
+def production_mesh(kind: str, device_type: str):
+    """The reference's ``--mesh single|multi`` over the launched process
+    group (from ``torchrun``'s environment if none is up: on CUDA each
+    rank first takes card ``LOCAL_RANK``); raises with the sizes when the
+    group's is not the mesh's, as ``jax.make_mesh`` does."""
+    import math
+
+    from repro_torch.launch.mesh import MULTI, SINGLE, make_production_mesh
+
+    shape = (MULTI if kind == "multi" else SINGLE)[0]
+    if device_type == "cuda" and "LOCAL_RANK" in os.environ:
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    if not dist.is_initialized():
+        if "WORLD_SIZE" not in os.environ:
+            raise RuntimeError(f"--mesh {kind}: no process group; launch "
+                               f"{math.prod(shape)} ranks (e.g. torchrun)")
+        dist.init_process_group("nccl" if device_type == "cuda" else "gloo")
+    if dist.get_world_size() != math.prod(shape):
+        raise ValueError(f"--mesh {kind}: mesh {shape} needs "
+                         f"{math.prod(shape)} ranks, the process group has "
+                         f"{dist.get_world_size()}")
+    return make_production_mesh(multi_pod=kind == "multi",
+                                device_type=device_type)
 
 
-def build(args):
-    """``(cfg, lm, opt_cfg, step)`` for parsed ``args``: the step updates
-    its parameters and optimizer state in place, as the reference's
-    trainer donates them to its jitted step."""
-    if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: training over a device mesh needs several "
-            f"GPUs ({MULTI_GPU}); the dry run (launch/dryrun.py) runs the "
-            f"sharded step on a fake process group")
+def build(args, mesh=None):
+    """``(cfg, lm, opt_cfg, step, mesh)`` for parsed ``args``: the step
+    updates its parameters and optimizer state in place, as the
+    reference's trainer donates them to its jitted step. ``mesh`` (a
+    ``DeviceMesh``) or ``--mesh single|multi`` runs it over a mesh (None
+    without one)."""
+    if mesh is None and args.mesh != "none":
+        mesh = production_mesh(args.mesh, resolve_device(args.device).type)
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = shrink(cfg, d_model=args.d_model, vocab=args.vocab,
@@ -55,8 +87,9 @@ def build(args):
     lm = LM(cfg)
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=20, total_steps=args.steps)
     step = make_train_step(cfg, opt_cfg, remat=args.remat,
-                           microbatches=args.microbatches, donate=True)
-    return cfg, lm, opt_cfg, step
+                           microbatches=args.microbatches, donate=True,
+                           mesh=mesh)
+    return cfg, lm, opt_cfg, step, mesh
 
 
 def parse_args(argv=None):
@@ -88,13 +121,17 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def main(argv=None, data=None):
+def main(argv=None, data=None, mesh=None):
     """Train as the arguments say and return the Supervisor's
     ``RunResult``. ``data(step)`` gives a step's ``{"tokens", "labels"}``
-    (numpy arrays); by default the bigram stream's batch."""
+    (numpy arrays); by default the bigram stream's batch. ``mesh`` (a
+    ``DeviceMesh`` over the process group) trains over it, as ``--mesh``
+    does over the production mesh."""
     args = parse_args(argv)
+    cfg, lm, opt_cfg, step_fn_, mesh = build(args, mesh)
     dev = resolve_device(args.device)
-    cfg, lm, opt_cfg, step_fn_ = build(args)
+    if dev.type == "cuda":      # --mesh has taken the rank's card by now
+        dev = torch.device("cuda", torch.cuda.current_device())
     stream = BigramStream(cfg.vocab_size, seed=args.seed)
     if data is None:
         data = lambda step: stream.batch(step, args.batch, args.seq)
@@ -102,14 +139,27 @@ def main(argv=None, data=None):
 
     def init_state_fn():
         gen = torch.Generator(device=dev).manual_seed(args.seed)
-        params = init_params(lm.param_specs(), gen, dev)
+        leaf = lambda s: init_leaf(s, gen, dev)
+        if mesh is not None:
+            # a leaf at a time, drawn whole as without a mesh and placed at
+            # once: no rank holds more than one whole leaf
+            leaf = lambda s: distribute(mesh, init_leaf(s, gen, dev),
+                                        param_pspec(mesh, s))
+        params = map_specs(leaf, lm.param_specs())
         return {"params": params, "opt": init_state(opt_cfg, params)}
+
+    def placed(batch):
+        if mesh is None:
+            return batch
+        cell = ShapeCell("train", args.seq, args.batch, "train")
+        pspecs = {k: v[2] for k, v in input_layout(cfg, cell, mesh).items()}
+        return {k: distribute(mesh, v, pspecs[k]) for k, v in batch.items()}
 
     t_step = [time.monotonic()]
 
     def step_fn(state, step):
-        batch = {k: torch.from_numpy(v).to(dev)
-                 for k, v in data(step).items()}
+        batch = placed({k: torch.from_numpy(v).to(dev)
+                        for k, v in data(step).items()})
         params, opt, metrics = step_fn_(state["params"], state["opt"], batch)
         loss = float(metrics["loss"])
         dt = time.monotonic() - t_step[0]
@@ -121,7 +171,8 @@ def main(argv=None, data=None):
         return {"params": params, "opt": opt}, {"loss": loss}
 
     sup = Supervisor(args.ckpt_dir, save_every=args.save_every,
-                     injector=FaultInjector(set(args.fail_at)))
+                     injector=FaultInjector(set(args.fail_at)),
+                     barrier=None if mesh is None else dist.barrier)
     res = sup.run(init_state=init_state_fn, step_fn=step_fn,
                   n_steps=args.steps)
     print(f"done: {res.steps_done} steps, {res.restarts} restarts, "

@@ -9,9 +9,18 @@
 
 * atomic publish: a crash while writing never corrupts the latest
   checkpoint (tmp directory, then a rename);
-* async save: the device-to-host copy is synchronous, the file writes
-  run on a thread, whose handle :func:`save` returns;
+* async save: the copy to the host is synchronous and always a copy,
+  into buffers that nothing else owns (on the CPU too, where ``.cpu()``
+  would return the leaf itself and a donated step would overwrite it
+  under the writer); the file writes run on a thread, whose handle
+  :func:`save` returns;
 * retention: the last ``keep_last`` checkpoints are kept.
+
+A tree of DTensors (a program over a device mesh) is saved in the same
+layout: every rank calls :func:`save`, each leaf is gathered whole (a
+collective), and only global rank 0 writes; :func:`restore` reads the
+whole leaves on every rank and distributes them into the placements of
+the target's leaves.
 
 Leaves are stored as whole host arrays; bf16, which ``.npy`` cannot hold,
 as its raw bits in uint16 (the manifest keeps ``"bfloat16"``), read back
@@ -34,9 +43,16 @@ from repro_torch.train import tree as tr
 MANIFEST = "manifest.json"
 
 
+def _is_dtensor(x) -> bool:
+    return getattr(x, "device_mesh", None) is not None
+
+
 def _host(x: torch.Tensor) -> tuple[np.ndarray, str]:
-    """A leaf as a host array and its dtype's name."""
-    x = x.detach().cpu()
+    """A leaf (a DTensor gathered whole) as a host array of its own and
+    its dtype's name."""
+    if _is_dtensor(x):
+        x = x.full_tensor()
+    x = x.detach().to("cpu", copy=True)
     if x.dtype == torch.bfloat16:
         return x.view(torch.uint16).numpy(), "bfloat16"
     a = x.numpy()
@@ -47,10 +63,20 @@ def save(ckpt_dir: str, step: int, tree, *, extra: dict | None = None,
          async_write: bool = True,
          keep_last: int = 3) -> threading.Thread | None:
     """Copy ``tree`` to the host and write checkpoint ``step``; with
-    ``async_write`` the writes run on the returned (started) thread."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    ``async_write`` the writes run on the returned (started) thread. For
+    a tree with DTensor leaves only global rank 0 writes (None on the
+    others)."""
     leaves, treedef = tr.flatten(tree)
+    if any(_is_dtensor(x) for x in leaves):
+        import torch.distributed as dist
+
+        if dist.get_rank() != 0:      # it joins the gathers, writes nothing
+            for x in leaves:
+                if _is_dtensor(x):
+                    x.full_tensor()
+            return None
     host = [_host(x) for x in leaves]
+    os.makedirs(ckpt_dir, exist_ok=True)
 
     def write():
         name = f"step_{step:08d}"
@@ -102,8 +128,8 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 def restore(ckpt_dir: str, step: int, like_tree) -> tuple[Any, dict]:
     """Checkpoint ``step`` in the structure of ``like_tree``, whose leaves
-    (tensors) give each leaf's dtype and device; returns ``(tree,
-    extra)``."""
+    (tensors, or DTensors whose placements a leaf takes) give each leaf's
+    dtype and device; returns ``(tree, extra)``."""
     name = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(name, MANIFEST)) as f:
         manifest = json.load(f)
@@ -119,5 +145,13 @@ def restore(ckpt_dir: str, step: int, like_tree) -> tuple[Any, dict]:
         if tuple(t.shape) != tuple(ref.shape):
             raise ValueError(f"leaf {i}: checkpoint shape {tuple(t.shape)} "
                              f"!= target {tuple(ref.shape)}")
-        out.append(t.to(device=ref.device, dtype=ref.dtype))
+        if _is_dtensor(ref):
+            from torch.distributed.tensor import distribute_tensor
+
+            t = distribute_tensor(
+                t.to(device=ref.to_local().device, dtype=ref.dtype),
+                ref.device_mesh, ref.placements)
+        else:
+            t = t.to(device=ref.device, dtype=ref.dtype)
+        out.append(t)
     return tr.unflatten(treedef, out), manifest["extra"]

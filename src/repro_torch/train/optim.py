@@ -62,9 +62,10 @@ def lr_at(cfg: AdamWConfig, step) -> torch.Tensor:
 
 def init_state(cfg: AdamWConfig, params) -> dict:
     """``{"step": int32 0, "m": zeros, "v": zeros}``, m and v in
-    ``cfg.state_dtype`` on each parameter's device."""
+    ``cfg.state_dtype`` on each parameter's device (a DTensor parameter's
+    in its placements)."""
     sdt = DTYPES[cfg.state_dtype]
-    zeros = lambda p: torch.zeros(p.shape, dtype=sdt, device=p.device)
+    zeros = lambda p: torch.zeros_like(p, dtype=sdt)
     dev = tr.leaves(params)[0].device
     return {"step": torch.zeros((), dtype=torch.int32, device=dev),
             "m": tr.tree_map(zeros, params),

@@ -9,7 +9,8 @@ detection, exercised in one process.
   ``deadline_factor`` x the rolling median is flagged and counted.
 
 Unlike the reference's, :meth:`Supervisor.run` joins the checkpoint
-writers it started before it restores and before it returns or raises:
+writers it started before it restores (then, with ``barrier``, waits for
+every rank of a mesh program) and before it returns or raises:
 a restart resumes from the last checkpoint saved, whatever the writers'
 timing, and no writer is still in a directory its caller may remove. It
 also drops the failed state before it restores the next.
@@ -70,12 +71,16 @@ class Supervisor:
 
     def __init__(self, ckpt_dir: str, *, save_every: int = 10,
                  max_restarts: int = 10,
-                 injector: Optional[FaultInjector] = None):
+                 injector: Optional[FaultInjector] = None,
+                 barrier: Optional[Callable[[], None]] = None):
         self.ckpt_dir = ckpt_dir
         self.save_every = save_every
         self.max_restarts = max_restarts
         self.injector = injector or FaultInjector()
         self.restarts = 0
+        # ranks of one program over a mesh: after its own writers, each
+        # waits for every rank's before a restore reads the checkpoints
+        self.barrier = barrier
 
     def run(self, *, init_state: Callable[[], object], step_fn: Callable,
             n_steps: int) -> RunResult:
@@ -106,10 +111,11 @@ class Supervisor:
                         if self.save_every and (
                                 (step + 1) % self.save_every == 0
                                 or step == n_steps - 1):
-                            writers.append(ckpt.save(
-                                self.ckpt_dir, step + 1, state,
-                                extra={"next_step": step + 1},
-                                async_write=True))
+                            th = ckpt.save(self.ckpt_dir, step + 1, state,
+                                           extra={"next_step": step + 1},
+                                           async_write=True)
+                            if th is not None:   # this rank writes
+                                writers.append(th)
                     return RunResult(steps_done=n_steps,
                                      restarts=self.restarts,
                                      stragglers=monitor.stragglers,
@@ -127,6 +133,8 @@ class Supervisor:
                     # depend on the writers' timing
                     for th in writers:
                         th.join()
+                    if self.barrier is not None:
+                        self.barrier()
         finally:
             for th in writers:
                 th.join()

@@ -366,10 +366,11 @@ def test_training_modules_load_no_jax():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
-# the launch and dry-run layer (ROADMAP slice 12) and the sharding under it
+# the launch and dry-run layer (ROADMAP slice 12), the sharding under it,
+# the pipeline and the trainer that runs over a mesh
 SHARDING_MODULES = ("nn.sharding", "launch.mesh", "launch.costs",
                     "launch.roofline", "launch.dryrun", "launch.report",
-                    "launch.steps")
+                    "launch.steps", "nn.pipeline", "launch.train")
 
 
 def test_sharding_and_dryrun_modules_load_no_jax():

@@ -11,6 +11,7 @@ Python's salted ``hash``); checkpoint manifests equal but for the
 """
 import json
 import os
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -257,6 +258,36 @@ def test_checkpoint_roundtrip_and_atomicity(tmp_path):
     out, _ = restore(rd, 7, like)
     for a, b in zip(tr.leaves(out), tr.leaves(tree)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_async_checkpoint_keeps_the_values_at_save(tmp_path, monkeypatch,
+                                                   dtype):
+    """An asynchronous save writes the tree as it was when ``save``
+    returned, though the caller (a donated step) changes it in place
+    before the writer runs: the writer is held on an event until after
+    the change, so the check does not depend on timing."""
+    from repro_torch.train import checkpoint as ckpt_mod
+
+    go = threading.Event()
+    real_save = np.save
+
+    def held_save(*a, **kw):
+        assert go.wait(30)
+        real_save(*a, **kw)
+
+    monkeypatch.setattr(ckpt_mod.np, "save", held_save)
+    tree = {"w": torch.arange(6, dtype=dtype).reshape(2, 3),
+            "b": [torch.zeros(4, dtype=dtype)]}
+    want = tr.tree_map(torch.clone, tree)
+    th = save(str(tmp_path), 1, tree, async_write=True)
+    for x in tr.leaves(tree):
+        x.add_(1)
+    go.set()
+    th.join()
+    out, _ = restore(str(tmp_path), 1, tr.tree_map(torch.zeros_like, tree))
+    for a, b in zip(tr.leaves(out), tr.leaves(want), strict=True):
+        assert a.dtype == dtype and torch.equal(a, b)
 
 
 def test_checkpoint_retention(tmp_path):

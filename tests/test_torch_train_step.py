@@ -246,11 +246,6 @@ def test_train_main_smoke_runs_on_cpu(capsys, tmp_path):
     assert faulty.losses == clean.losses[:4] + clean.losses[3:]
 
 
-def test_train_main_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="several GPUs"):
-        train_mod.main(["--smoke", "--device", "cpu", "--mesh", "single"])
-
-
 def test_prefill_and_decode_steps_are_the_models():
     """make_prefill_step and make_decode_step call LM.prefill and
     LM.decode as they are."""
