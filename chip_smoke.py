@@ -77,7 +77,15 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            frames, KV 16, G 1, Dh 64, non-causal), its cross-attention
            prefill (64 tokens over 1024 frames) and decode (B 4 over 1024
            frames), and jamba's prefill (512 tokens, KV 8, G 8, Dh 128,
-           causal) and decode (B 4, S 128).
+           causal) and decode (B 4, S 128). Then kernel 7 with pos in
+           device memory (the batcher's graphed step): at the batcher's
+           shape and at S 32768 with B 1/4/8, pos before, on and past the
+           chunk edges and past S, held against the plain version; one
+           captured launch replayed with pos rewritten before each replay,
+           which must match the plain version at its own pos and not at
+           the capture's; timed at pos S - 1 (and pos 8191 at B 4) beside
+           the host-int launch, the bound and scaled_dot_product_attention
+           over rows 0..pos.
 4. stage1  a 2**20-entry ``CortexCache`` at D=768 on the kernel backend
            against the numpy backend on the same contents: candidate
            se_ids identical and in the same order, except that entries
@@ -148,10 +156,17 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            phase on the tensor-core design.
 8. colocated  the agent decodes 8 requests (prompts of 16-64 tokens, 16
            new tokens) in a ContinuousBatcher of 4 slots x 128 while the
-           full-width judge scores 8 pairs between ticks: every request
-           finishes, kernels 6 and 7 launch, every launch on the
-           tensor-core design, no plain version runs, and a fresh batcher
-           replays the same tokens; decode steps per second.
+           full-width judge scores 8 pairs between ticks, in two forms:
+           the batcher's step and the judge's score replayed as captured
+           CUDA graphs (the port's path), and the same step functions run
+           eagerly on the card (nothing captured); COLO_RUNS runs of each
+           on fresh batchers: every request finishes, kernels 6 and 7
+           launch exactly once per attention layer and pass, every launch
+           on the tensor-core design, no plain version runs, every run's
+           tokens equal, the graphed bitwise the eager; a decode step of
+           each form under the profiler (host ms, device ms, busy share);
+           forward and decode steps per second of each form, median and
+           range; the graph pools' bytes.
    lm_assigned  the ten assigned models at their published widths,
            bf16, parameters drawn on the card, one on the card at a time,
            each at the most layers up to its published depth that fit the
@@ -190,7 +205,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            seamless-m4t-large-v2, which the decoder-only batcher does not
            take, answers its 4 requests by LM.prefill over 1024 frames and
            greedy LM.decode; counts exact; a fresh run replays the tokens
-           exactly; forward steps per second, a smoke reading of 4 short
+           exactly; each batcher steps through its captured CUDA graph;
+           forward steps per second, a smoke reading of 4 short
            requests, not a throughput measurement.
    train   the training slice on granite-3-8b: (a) kernel 6's per-row
            log-sum-exp (``return_lse``) against its plain version on both
@@ -247,7 +263,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    launches by design in colocated, lm, (g), lm_assigned and
    serve_assigned, their wide-head sizes and the hybrid and
    encoder-decoder sizes, and kernel 6's at the training shape with its
-   lse and the attention backward's times; kernels 1 and 2 with
+   lse and the attention backward's times, kernel 7's with pos in device
+   memory and its replays; kernels 1 and 2 with
    theirs in every serve run, all on the one-launch designs, and their
    CUDA launches a call; kernels 3-5 with their launches by design in
    the runs that launch them and both designs' device times, kernels 3
@@ -2649,6 +2666,7 @@ LM_PREFIX = 63     # decode-after-prefill: prefill 63 tokens, decode the 64th
 LM_REL_TOL = 0.05
 COLO = dict(slots=4, max_len=128, n_req=8, max_new=16, lo=16, hi=64,
             pairs=8)
+COLO_RUNS = 3      # runs of each form (graphed, eager), every one timed
 # the seven decoder-only assigned models at their published widths, one
 # at a time, in bf16, each at the most superblock repeats, up to its
 # published depth, that fit the card (assigned_config), but for
@@ -2931,6 +2949,100 @@ def planted_faults(q, kc, vc, sms: int) -> dict:
     return out
 
 
+# kernel 7 with pos in device memory (the batcher's graphed step): the
+# batcher's shape and the agent's decode at 32k rows, (B, S, positions);
+# the first position is timed, the rest held and replayed
+DECODE_AT = [(4, 128, (127, 0, 63, 64, 200)),
+             (1, 32768, (32767, 0, 5000, 16385, 40000)),
+             (4, 32768, (32767, 255, 8191)),
+             (8, 32768, (32767, 1000))]
+DECODE_AT_PART = 8191   # 32k rows, B 4: a quarter of the rows, timed
+
+
+def hold_decode_at(q, kc, vc, pos: int) -> float:
+    """Kernel 7 with ``pos`` in device memory against its plain version
+    at the host int, on the design the dispatch gives the inputs."""
+    from repro_torch.kernels import decode_attention as da
+    scale = 1.0 / float(q.shape[-1]) ** 0.5
+    before = design_counts(da.decode_attention)
+    at = torch.tensor(pos, dtype=torch.int32, device=q.device)
+    got = da.decode_attention(q, kc, vc, at, scale=scale)
+    torch.cuda.synchronize()
+    check_design(da.decode_attention, before, expect_design(q),
+                 f"decode_attention at {tuple(kc.shape)} device pos={pos}")
+    want = da.decode_attention_plain(q, kc, vc, pos, scale)
+    err, share = attn_err(got, want)
+    TOL_SHARE["decode_attention"] = max(TOL_SHARE["decode_attention"], share)
+    check(share <= 1.0,
+          f"decode_attention with a device pos differs by {err} ({share} of "
+          f"the tolerance) at cache {tuple(kc.shape)} pos={pos}")
+    return err
+
+
+def replayed_pos(q, kc, vc, positions) -> dict:
+    """One kernel-7 call with ``pos`` in device memory captured into a CUDA
+    graph (``kernels/graphs.StepGraph``), then replayed with ``pos``
+    rewritten before each replay: every replay must match the plain
+    version at its own position, and must not match it at the position of
+    the capture (0): the kernel reads pos from memory at each replay."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels.graphs import StepGraph
+    scale = 1.0 / float(q.shape[-1]) ** 0.5
+    pos = torch.zeros((), dtype=torch.int32, device=q.device)
+    graph = StepGraph(lambda: da.decode_attention(q, kc, vc, pos,
+                                                  scale=scale))
+    stale = da.decode_attention_plain(q, kc, vc, 0, scale)
+    errs, shares = [], []
+    for p in positions:
+        pos.fill_(p)
+        out = graph.replay()
+        torch.cuda.synchronize()
+        err, share = attn_err(out, da.decode_attention_plain(q, kc, vc, p,
+                                                             scale))
+        check(share <= 1.0, f"a replayed kernel 7 at pos={p} differs by "
+              f"{err} ({share} of the tolerance) at {tuple(kc.shape)}")
+        if p != 0:
+            _, moved = attn_err(out, stale)
+            check(moved > 1.0, f"a replayed kernel 7 at pos={p} still "
+                  f"returns the capture's pos 0 at {tuple(kc.shape)}")
+        errs.append(err)
+        shares.append(share)
+    return {"s": kc.shape[1], "b": q.shape[0], "positions": list(positions),
+            "max_abs_err": max(errs), "tol_share": max(shares)}
+
+
+def measure_decode_at(q, kc, vc, pos: int) -> dict:
+    """Kernel 7 with ``pos`` in device memory (the launch planned for all
+    S rows), beside the host-int launch at the same pos, the plain
+    version, one scaled_dot_product_attention call over rows 0..pos and
+    the bound over those rows."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    b, kvh, g, dh = q.shape
+    scale = 1.0 / float(dh) ** 0.5
+    rows = min(pos, kc.shape[1] - 1) + 1
+    at = torch.tensor(pos, dtype=torch.int32, device=q.device)
+    qh = q.reshape(b, kvh * g, 1, dh)
+    kh, vh = kc[:, :rows].transpose(1, 2), vc[:, :rows].transpose(1, 2)
+    bound_ms, bound_by = bound_decode(q, kc, pos)
+    out = {"b": b, "kv": kvh, "g": g, "dh": dh, "s": kc.shape[1],
+           "pos": pos, "pos_in": "device memory",
+           "dtype": str(q.dtype).removeprefix("torch.")}
+    out.update(timings(
+        lambda: da.decode_attention(q, kc, vc, at, scale=scale),
+        lambda: da.decode_attention_plain(q, kc, vc, at, scale),
+        lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale,
+                                               enable_gqa=True),
+        required=True))
+
+    def host():
+        return da.decode_attention(q, kc, vc, pos, scale=scale)
+
+    out.update(host_pos_ms=timed_ms(host), host_pos_device_ms=device_ms(
+        host, required=True), bound_ms=bound_ms, bound_by=bound_by)
+    return out
+
+
 def phase_kernel_attn(dev):
     """Kernels 6 and 7 against their plain versions at the reference's
     test shapes (fp32 and bf16, causal on and off, windows, pos 0 / mid /
@@ -2942,7 +3054,7 @@ def phase_kernel_attn(dev):
     g = torch.Generator(device=dev).manual_seed(11)
     errs = {"flash_attention_fwd": 0.0, "decode_attention": 0.0}
     cases = {"reference": 0, "flash_edges": 0, "decode_edges": 0,
-             "full_width": 0}
+             "full_width": 0, "device_pos": 0}
     for b, sq, sk, kvh, gq, dh, causal, win in FLASH_CASES:
         for dt in (torch.float32, torch.bfloat16):
             q = randn(g, (b, sq, kvh, gq, dh), dt, dev)
@@ -3018,7 +3130,23 @@ def phase_kernel_attn(dev):
         cases["full_width"] += 2
         decode_sizes.append(measure_decode(q, kc, vc, s - 1))
         del q, kc, vc
-    wide = {"flash": [], "decode": [], "flash_11a": [], "decode_11a": []}
+    # kernel 7 reading pos from device memory: held at each position,
+    # replayed from one capture with pos rewritten, timed at the first
+    at_sizes, replays = [], []
+    for b, s, positions in DECODE_AT:
+        q = randn(g, (b, kvh, gq, 128), bf, dev)
+        kc, vc = (randn(g, (b, s, kvh, 128), bf, dev) for _ in range(2))
+        for pos in positions:
+            errs["decode_attention"] = max(errs["decode_attention"],
+                                           hold_decode_at(q, kc, vc, pos))
+            cases["device_pos"] += 1
+        replays.append(replayed_pos(q, kc, vc, positions))
+        at_sizes.append(measure_decode_at(q, kc, vc, positions[0]))
+        if (b, s) == (4, 32768):
+            at_sizes.append(measure_decode_at(q, kc, vc, DECODE_AT_PART))
+        del q, kc, vc
+    wide = {"flash": [], "decode": [], "flash_11a": [], "decode_11a": [],
+            "decode_at": at_sizes}
     for b, sq, kvh, gq, dh, win in FLASH_WIDE_FULL:
         q = randn(g, (b, sq, kvh, gq, dh), bf, dev)
         k, v = (randn(g, (b, sq, kvh, dh), bf, dev) for _ in range(2))
@@ -3061,7 +3189,8 @@ def phase_kernel_attn(dev):
                          "ctas_per_sm": {dh: ctas_per_sm(dh)
                                          for dh in DECODE_EDGE_DH},
                          "tol_share": dict(TOL_SHARE),
-                         "planted_faults": faults}, \
+                         "planted_faults": faults,
+                         "device_pos_replays": replays}, \
         flash_sizes, decode_sizes, wide
 
 
@@ -3319,28 +3448,81 @@ def phase_lm(dev):
     return models, judge, line, errs
 
 
-def profile_decode(lm, params, dev, steps: int = 8) -> dict:
-    """Where a batched decode step of the agent spends its time: host
-    clock per step (synchronised), device time per step from the profiler,
-    and the kernels with the most device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+class EagerStep:
+    """``kernels/graphs.StepGraph``'s interface with nothing captured or
+    warmed up: each replay runs the step eagerly, the form the CPU runs.
+    Under :func:`uncaptured` a batcher or a model judge built on the card
+    steps this way: the eager form beside the graphed one."""
+
+    pool_bytes = 0
+
+    def __init__(self, fn, pool=None):
+        self.fn = fn
+
+    def replay(self):
+        return self.fn()
+
+
+@contextlib.contextmanager
+def uncaptured():
+    """Batchers built and judge shapes first scored inside step eagerly
+    (:class:`EagerStep`), on the card."""
+    from repro_torch.kernels import graphs
+
+    real = graphs.StepGraph
+    graphs.StepGraph = EagerStep
+    try:
+        yield
+    finally:
+        graphs.StepGraph = real
+
+
+def batcher_step(cb):
+    """One decode step of the batcher ``cb`` at position t, as its ticks
+    run it (``_decode``: the inputs' copy up, then the graph's replay or
+    the eager step)."""
+    toks = np.ones((COLO["slots"], 1), np.int32)
+    return lambda t: cb._decode(toks, np.full(COLO["slots"], t, np.int32))
+
+
+def host_pos_step(lm, params, dev):
+    """One decode step at position t through ``LM.decode`` with t a host
+    int (the eager path before the batcher's step took a device pos)."""
     from repro_torch.nn.param import init_params
 
     caches = init_params(lm.cache_specs(COLO["slots"], COLO["max_len"]),
                          None, dev)
     toks = torch.ones((COLO["slots"], 1), dtype=torch.int32, device=dev)
 
-    def run(first: int):
+    def step(t: int):
         with torch.inference_mode():
-            for t in range(first, first + steps):
-                lm.decode(params, toks, caches, t)
+            lm.decode(params, toks, caches, t)
+
+    return step
+
+
+def profile_decode(step, steps: int = 8) -> dict:
+    """Where a batched decode step of the agent (``step(t)``) spends its
+    time: host clock per step (steps back to back, one synchronise at the
+    end), device time per step from the profiler's kernel records and
+    between CUDA events, the device's busy share, and the kernels with
+    the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def run(first: int):
+        for t in range(first, first + steps):
+            step(t)
         torch.cuda.synchronize()
 
     run(0)
     t = time.perf_counter()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
     run(steps)
+    end.record()
     wall = (time.perf_counter() - t) / steps * 1e3
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run(2 * steps)
@@ -3349,6 +3531,7 @@ def profile_decode(lm, params, dev, steps: int = 8) -> dict:
     busy = sum(e.self_device_time_total for e in device) / steps / 1e3
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:6]
     return {"steps": steps, "batch": COLO["slots"], "wall_ms_per_step": wall,
+            "events_ms_per_step": start.elapsed_time(end) / steps,
             "device_ms_per_step": busy,
             "device_busy_share": busy / wall if wall else None,
             "top_kernels": [{"name": e.key[:80], "calls_per_step":
@@ -3357,14 +3540,32 @@ def profile_decode(lm, params, dev, steps: int = 8) -> dict:
                             for e in top]}
 
 
+def spread(xs: list) -> dict:
+    """Median and range of a few runs' readings."""
+    return {"runs": xs, "median": float(np.median(xs)), "min": min(xs),
+            "max": max(xs)}
+
+
 def phase_colocated(dev, models, judge):
     """The paper's co-location (§4.4): the agent decodes COLO['n_req']
     requests in a ContinuousBatcher while the full-width judge scores a
-    micro-batch between ticks under the priority rule. Counts are set to
-    0 just before and read just after; then a fresh batcher replays the
-    requests and must generate the same tokens, and request 0 alone (it
-    has the longest prompt, so the batcher's max(pos) writes never move
-    its cache) is compared too."""
+    micro-batch between ticks under the priority rule, in two forms: the
+    batcher's and the judge's steps as captured CUDA graphs (the port's
+    path on the card), and the same step functions run eagerly on the card
+    (``uncaptured``: nothing captured or warmed up). COLO_RUNS runs of
+    each, every one on a fresh batcher, counts set to 0 just before each
+    and read just after: every request finishes, kernels 6 and 7 launch
+    exactly once per attention layer and pass (the judge's prefill, every
+    agent step), all on the tensor-core design, no plain version runs, and
+    every run of either form generates the same tokens (the graphed runs
+    bitwise the eager ones: a capture leaves no state behind, and a fresh
+    graphed batcher replays them). Request 0 alone (it has the longest
+    prompt, so the batcher's max(pos) writes never move its cache) is
+    compared too. Then a decode step of each form under the profiler, and
+    one of ``LM.decode`` with a host-int position (the eager step before
+    the position became a device value); steps per second of each form,
+    median and range."""
+    from repro_torch.core.judge import ModelJudge
     from repro_torch.serving.generator import ContinuousBatcher, GenRequest
 
     lm, params = models["agent"]
@@ -3374,6 +3575,8 @@ def phase_colocated(dev, models, judge):
                                        size=COLO["n_req"] - 1).tolist()
     prompts = [rng.integers(1, vocab, size=n).astype(np.int32) for n in lens]
     qs, ks = judge_pairs(COLO["pairs"])
+    per_step = attn_mixers(lm)[1]
+    per_score = attn_mixers(judge.lm)[0]
 
     def batcher(judge_fn=None):
         return ContinuousBatcher(lm.cfg, params=params, slots=COLO["slots"],
@@ -3391,36 +3594,78 @@ def phase_colocated(dev, models, judge):
         return reqs, ticks, time.perf_counter() - t
 
     wrappers = kernel_wrappers()
-    cb = batcher(lambda: judge.score_pairs(qs, ks))
-    reset_counts(wrappers)
-    reqs, ticks, wall = serve(cb, range(COLO["n_req"]))
-    launches = {n: w.launches for n, w in wrappers.items()}
-    plain = {n: w.plain_calls for n, w in wrappers.items() if w.plain_calls}
-    check(all(r.done and len(r.out_tokens) == COLO["max_new"] for r in reqs),
-          "colocated: a request did not finish")
-    check(launches["flash_attention_fwd"] > 0
-          and launches["decode_attention"] > 0,
-          f"colocated: an attention kernel never launched: {launches}")
-    check(not plain, f"colocated: the CUDA path took a plain version: "
-          f"{plain}")
-    by_design = check_all_tc(wrappers, "colocated")
-    check(cb.judge_batches_run > 0, "colocated: the judge never ran")
-    again, _, _ = serve(batcher(), range(COLO["n_req"]))
-    check([r.out_tokens for r in again] == [r.out_tokens for r in reqs],
-          "colocated: a fresh batcher generated other tokens")
-    solo, _, _ = serve(batcher(), [0])
     prefill_steps = int(sum(lens))
-    step_profile = profile_decode(lm, params, dev)
-    return launches, by_design, {
-        "requests": len(reqs), "prompt_lens": lens, "ticks": ticks,
-        "decode_steps": cb.decode_steps, "prefill_steps": prefill_steps,
-        "judge_batches": cb.judge_batches_run, "wall_s": wall,
-        "decode_steps_per_s": cb.decode_steps / wall,
-        "forward_steps_per_s": (cb.decode_steps + prefill_steps) / wall,
-        "launches": {n: launches[n] for n in attn_wrappers()},
-        "launches_by_design": by_design, "replay_equal": True,
-        "solo_request0_equal": solo[0].out_tokens == reqs[0].out_tokens,
-        "tokens_request0": reqs[0].out_tokens, "decode_step": step_profile}
+
+    def runs(form, scorer):
+        out = {"tokens": None, "forward": [], "decode": []}
+        for _ in range(COLO_RUNS):
+            cb = batcher(lambda: scorer.score_pairs(qs, ks))
+            reset_counts(wrappers)
+            reqs, ticks, wall = serve(cb, range(COLO["n_req"]))
+            launches = {n: w.launches for n, w in wrappers.items()}
+            plain = {n: w.plain_calls for n, w in wrappers.items()
+                     if w.plain_calls}
+            check(all(r.done and len(r.out_tokens) == COLO["max_new"]
+                      for r in reqs), f"colocated {form}: a request did not "
+                  f"finish")
+            check(cb.judge_batches_run > 0,
+                  f"colocated {form}: the judge never ran")
+            want = {"flash_attention_fwd": per_score * cb.judge_batches_run,
+                    "decode_attention": per_step * (cb.decode_steps
+                                                     + prefill_steps)}
+            got = {n: launches[n] for n in want}
+            check(got == want, f"colocated {form}: launches {got}, want "
+                  f"{want}")
+            check(not plain, f"colocated {form}: the CUDA path took a plain "
+                  f"version: {plain}")
+            by_design = check_all_tc(wrappers, f"colocated {form}")
+            tokens = [r.out_tokens for r in reqs]
+            check(out["tokens"] in (None, tokens),
+                  f"colocated {form}: a fresh batcher generated other "
+                  f"tokens")
+            out.update(tokens=tokens, launches=launches,
+                       launches_by_design=by_design, ticks=ticks,
+                       decode_steps=cb.decode_steps,
+                       judge_batches=cb.judge_batches_run,
+                       graph_pool_bytes=cb.graph_pool_bytes)
+            out["forward"].append((cb.decode_steps + prefill_steps) / wall)
+            out["decode"].append(cb.decode_steps / wall)
+        out["decode_step"] = profile_decode(batcher_step(batcher()))
+        return out
+
+    with uncaptured():
+        eager_judge = ModelJudge(cfg=judge.cfg, max_len=judge.max_len,
+                                 device=dev, params=judge.params)
+        eager = runs("eager", eager_judge)
+    graph = runs("graph", judge)
+    check(graph["tokens"] == eager["tokens"],
+          "colocated: the graphed batcher's tokens differ from the eager "
+          "step's")
+    check(graph["launches"] == eager["launches"],
+          f"colocated: launches {graph['launches']} graphed, "
+          f"{eager['launches']} eager")
+    solo, _, _ = serve(batcher(), [0])
+    forms = {}
+    for form, got in (("eager", eager), ("graph", graph)):
+        forms[form] = {
+            "forward_steps_per_s": spread(got["forward"]),
+            "decode_steps_per_s": spread(got["decode"]),
+            "decode_step": got["decode_step"],
+            "graph_pool_bytes": got["graph_pool_bytes"]}
+    forms["graph"]["judge_graph_pool_bytes"] = judge.graph_pool_bytes
+    forms["eager_host_pos"] = {"decode_step": profile_decode(
+        host_pos_step(lm, params, dev))}
+    launches = {n: graph["launches"][n] for n in attn_wrappers()}
+    return graph["launches"], graph["launches_by_design"], {
+        "requests": COLO["n_req"], "prompt_lens": lens,
+        "ticks": graph["ticks"], "decode_steps": graph["decode_steps"],
+        "prefill_steps": prefill_steps,
+        "judge_batches": graph["judge_batches"], "runs_per_form": COLO_RUNS,
+        "launches": launches, "launches_by_design":
+        graph["launches_by_design"], "graph_equals_eager": True,
+        "replay_equal": True,
+        "solo_request0_equal": solo[0].out_tokens == graph["tokens"][0],
+        "tokens_request0": graph["tokens"][0], "forms": forms}
 
 
 # ------------------------------------------------ the assigned models
@@ -3788,7 +4033,7 @@ def phase_serve_assigned(dev):
     seamless-m4t-large-v2 answering them by prefill and greedy decode
     (serve_encdec), counts set to 0 just before and read just after and
     required exact (attn_mixers); a fresh run replays the tokens
-    exactly."""
+    exactly. The batchers step through their captured CUDA graphs."""
     from repro_torch.serving.generator import ContinuousBatcher, GenRequest
 
     sa = SERVE_ASSIGNED
@@ -3824,7 +4069,9 @@ def phase_serve_assigned(dev):
             info.update(encoder_frames=ENC_FRAMES, prefills=len(prompts),
                         decode_steps=decodes)
         else:
-            def serve():
+            def serve(reset=lambda: None):
+                # the batcher captures its step (a warm-up step included)
+                # before the counts are set to 0
                 cb = ContinuousBatcher(lm.cfg, params=params,
                                        slots=sa["slots"],
                                        max_len=sa["max_len"], device=dev)
@@ -3832,28 +4079,23 @@ def phase_serve_assigned(dev):
                         for i, p in enumerate(prompts)]
                 for r in reqs:
                     cb.submit(r)
+                reset()
                 t = time.perf_counter()
                 ticks = cb.run()
                 torch.cuda.synchronize()
                 check(all(r.done and len(r.out_tokens) == sa["max_new"]
                           for r in reqs), f"serve_assigned {name}: a "
                       f"request did not finish")
-                info.update(ticks=ticks, decode_steps=cb.decode_steps)
+                info.update(ticks=ticks, decode_steps=cb.decode_steps,
+                            graph_pool_bytes=cb.graph_pool_bytes)
                 return [r.out_tokens for r in reqs], \
                     time.perf_counter() - t
 
-            reset_counts(wrappers)
-            with moe_drop_log() as drops:
-                tokens, wall = serve()
+            tokens, wall = serve(lambda: reset_counts(wrappers))
             # prefill by decode: every prompt token is a batched step
             steps = info["decode_steps"] + sum(len(p) for p in prompts)
             want = {"flash_attention_fwd": 0,
                     "decode_attention": steps * n_decode}
-            if drops:
-                info["moe_dispatch"] = {
-                    "plans": len(drops),
-                    "dropped": sum(d for d, _, _ in drops),
-                    "capacities": sorted({c for *_, c in drops})}
         launches = {n: w.launches for n, w in wrappers.items()}
         by_design = check_all_tc(wrappers, f"serve_assigned {name}")
         check(launches == want, f"serve_assigned {name}: launches "
@@ -5486,6 +5728,7 @@ def main() -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    start = time.perf_counter()
     card = card_line()
     print(card, flush=True)
     emit(phase="card", nvidia_smi=card, name=torch.cuda.get_device_name(0),
@@ -5541,7 +5784,8 @@ def main() -> int:
          max_abs_err=attn_errs, flash_full_width=flash_sizes,
          decode_full_width=decode_sizes, flash_wide_heads=wide["flash"],
          decode_wide_heads=wide["decode"], flash_11a=wide["flash_11a"],
-         decode_11a=wide["decode_11a"], seconds=time.perf_counter() - t)
+         decode_11a=wide["decode_11a"], decode_device_pos=wide["decode_at"],
+         seconds=time.perf_counter() - t)
 
     t = time.perf_counter()
     world, caches, stage1 = phase_stage1(dev)
@@ -5770,6 +6014,9 @@ def main() -> int:
             "sizes": sizes_of,
             "wide_head_sizes": wide_sizes,
             "hybrid_encdec_sizes": sizes_11a,
+            **({} if name == "flash_attention_fwd" else {
+                "device_pos_sizes": wide["decode_at"],
+                "device_pos_replays": attn_edges["device_pos_replays"]}),
             **({"train_size": trained["train_attention"],
                 "lse_max_abs_err": trained["max_abs_err"]["lse"],
                 "backward": {k: v for k, v in
@@ -5780,6 +6027,7 @@ def main() -> int:
                 ["lse"], "split_max_abs_err": sharded["decode_lse"]
                 ["max_abs_err"]["split"]}),
         })
+    emit(phase="total", seconds=time.perf_counter() - start)
     print(card, flush=True)
     emit(kernels=kernels)
     emit(ok=True, device={"platform": "gpu",

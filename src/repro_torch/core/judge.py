@@ -112,7 +112,14 @@ class ModelJudge:
     The score of a pair is sigmoid(mean of the last position's hidden
     state) of ``"{query} [SEP] {cached}"`` as byte tokens. ``params`` (the
     port's LM parameters, e.g. from ``convert.lm_params_from_numpy``)
-    replaces the seeded init, which draws on ``device``."""
+    replaces the seeded init, which draws on ``device``.
+
+    :meth:`score` is the function the reference jits. On a CUDA device
+    ``score_pairs`` runs it as a CUDA graph per (B, max_len), captured at
+    the first micro-batch of that shape on one pool
+    (``kernels/graphs.StepGraph``): the tokens go into the graph's static
+    buffer from pinned memory, and the (B,) scores come down. On the CPU
+    it calls :meth:`score` eagerly."""
 
     def __init__(self, cfg=None, max_len: int = 128, seed: int = 1,
                  device="cuda", params=None):
@@ -132,6 +139,8 @@ class ModelJudge:
             self.lm.param_specs(),
             torch.Generator(device=self.device).manual_seed(seed),
             self.device)
+        self._graphs: dict = {}        # (B, max_len) -> (graph, tokens)
+        self._pool = None
 
     def score(self, tokens: torch.Tensor) -> torch.Tensor:
         """(B, S) tokens on the judge's device -> (B,) fp32 scores."""
@@ -146,9 +155,37 @@ class ModelJudge:
             self._byte_tokens(f"{q} [SEP] {c}", self.max_len)
             for q, c in zip(queries, cached_keys)
         ]) % self.cfg.vocab_size
-        with torch.inference_mode():
-            out = self.score(torch.from_numpy(toks).to(self.device))
-        return out.cpu().numpy().astype(np.float32)
+        host = torch.from_numpy(toks.astype(np.int32))
+        if self.device.type != "cuda":
+            with torch.inference_mode():
+                out = self.score(host.to(self.device))
+            return out.cpu().numpy().astype(np.float32)
+        graph, buf = self._graph_for(host.shape)
+        buf.copy_(host.pin_memory(), non_blocking=True)
+        return graph.replay().cpu().numpy().astype(np.float32)
+
+    def _graph_for(self, shape) -> tuple:
+        """The graph of :meth:`score` on a static token buffer of
+        ``shape``, captured the first time it is asked for."""
+        key = tuple(shape)
+        if key not in self._graphs:
+            from repro_torch.kernels.graphs import StepGraph
+
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            buf = torch.zeros(key, dtype=torch.int32, device=self.device)
+
+            def step():
+                with torch.inference_mode():
+                    return self.score(buf)
+
+            self._graphs[key] = (StepGraph(step, self._pool), buf)
+        return self._graphs[key]
+
+    @property
+    def graph_pool_bytes(self) -> int:
+        """What the captures added to the judge's graph pool."""
+        return sum(g.pool_bytes for g, _ in self._graphs.values())
 
     def staticity(self, query: str) -> int:
         # stable across processes (Python's hash() is salted per run,

@@ -5,7 +5,10 @@
 // TPU kernel) with its contract:
 //   q (B, KV, G, Dh), caches (B, S, KV, Dh) contiguous, fp32 or bf16, Dh in
 //   {16, 32, 64, 128, 256}, G <= 16, a position pos -> o (B, KV, G, Dh) in
-//   q's type. The G query rows of one KV head attend over cache rows 0..pos
+//   q's type. pos is a host int, or an int32 in device memory (the TPU
+//   kernel's pos_ref), read by every CTA, so that a captured CUDA graph
+//   follows a pos that changes between replays. The G query rows of one
+//   KV head attend over cache rows 0..pos
 //   (rows past pos are the reference's masked -1e30 scores, whose weights
 //   exp(-1e30 - m) are exactly 0 next to any real score); scores, max,
 //   denominator and accumulator in fp32; o = acc / max(l, 1e-30).
@@ -24,6 +27,13 @@
 // picks chunks of cache rows so that the (b, kv, chunk) CTAs fill the card
 // in one wave, and one chunk when the cache is short (the batcher's
 // max_len of 128).
+//
+// Where pos lives in device memory the host cannot plan by it: the grid,
+// the chunks and the scratch are planned for all S rows (the reference's
+// grid is sized from the cache length too), each CTA reads pos, and a
+// chunk that starts past it reads no row and writes an empty partial (m
+// = -1e30, l = 0), which decode_combine skips. With a host pos (a null
+// pointer) the plan covers rows 0..pos alone, as before.
 //
 // Two designs; the wrapper (kernels/decode_attention.py::pick_design)
 // chooses, and each has its own entry point:
@@ -79,6 +89,13 @@ constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int G_MAX = 16;     // query rows per KV head
 
+// The rows a CTA reads: min(pos, S - 1) + 1 from device memory where pos
+// lives there (a negative pos reads as 0), else the host's count.
+__device__ __forceinline__ int rows_read(const int* pos, int rows,
+                                         int s_cache) {
+  return pos == nullptr ? rows : min(max(*pos, 0), s_cache - 1) + 1;
+}
+
 template <int DH>
 constexpr size_t smem_bytes() {
   return sizeof(float) *
@@ -89,8 +106,8 @@ template <typename T, int DH, int VEC>
 __global__ void __launch_bounds__(THREADS)
 decode_partial(const T* __restrict__ q, const T* __restrict__ kc,
                const T* __restrict__ vc, float* __restrict__ part,
-               int s_cache, int kvh, int g, int rows, int chunk, int nsplit,
-               float scale) {
+               const int* __restrict__ pos, int s_cache, int kvh, int g,
+               int rows, int chunk, int nsplit, float scale) {
   extern __shared__ float smem[];
   float* qs = smem;                     // [G_MAX][DH] query rows
   float* ks = qs + G_MAX * DH;          // [BK][DH + 1] key tile
@@ -112,7 +129,7 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ kc,
   const int b = bh / kvh;
   const int kv = bh % kvh;
   const int j0 = split * chunk;
-  const int j1 = min(rows, j0 + chunk);
+  const int j1 = min(rows_read(pos, rows, s_cache), j0 + chunk);
   const int tid = threadIdx.x;
   const long long row_stride = static_cast<long long>(kvh) * DH;
   const long long head0 =
@@ -249,7 +266,8 @@ __device__ __forceinline__ float cta_reduce(float x, float* red) {
 
 // Pass 2 of a split: one CTA per (b, kv, query row) rescales the chunks'
 // partials to their common max and divides (a single chunk passes through
-// with weight exp(0) = 1). The chunks are spread over the CTA's threads:
+// with weight exp(0) = 1). Chunks that start past a device pos hold empty
+// partials and are skipped. The chunks are spread over the CTA's threads:
 // the max and the weights over all of them, then each Dh column over
 // CTHREADS / DH groups of chunks, so that a long cache (64 chunks per head
 // at 32k rows) costs a few loads per thread, not one CTA per (b, kv)
@@ -257,16 +275,21 @@ __device__ __forceinline__ float cta_reduce(float x, float* red) {
 template <typename T, int DH>
 __global__ void __launch_bounds__(CTHREADS)
 decode_combine(const float* __restrict__ part, T* __restrict__ o,
-               float* __restrict__ lse, int g, int nsplit) {
+               float* __restrict__ lse, const int* __restrict__ pos,
+               int s_cache, int g, int rows, int chunk, int nsplit_plan) {
   extern __shared__ float csm[];
   float* wt = csm;               // [nsplit] each chunk's weight
-  float* red = wt + nsplit;      // [CTHREADS] reduction scratch
+  float* red = wt + nsplit_plan;  // [CTHREADS] reduction scratch
   constexpr int GROUPS = CTHREADS / DH;
   const int row = blockIdx.x;    // (b * kvh + kv) * g + gi
   const long long sstride = static_cast<long long>(g) * (DH + 2);
-  const float* p = part + static_cast<long long>(row / g) * nsplit * sstride +
+  const float* p = part +
+                   static_cast<long long>(row / g) * nsplit_plan * sstride +
                    (row % g) * (DH + 2);
   const int tid = threadIdx.x;
+  // the chunks that hold rows: all of the plan's for a host pos
+  const int nsplit =
+      min(nsplit_plan, (rows_read(pos, rows, s_cache) + chunk - 1) / chunk);
   float mx = attn::NEG;
   for (int s = tid; s < nsplit; s += CTHREADS) mx = fmaxf(mx, p[s * sstride]);
   mx = cta_reduce<true>(mx, red);
@@ -296,19 +319,22 @@ decode_combine(const float* __restrict__ part, T* __restrict__ o,
 // decode_combine over b * kvh * g query rows; its shared memory holds one
 // weight per chunk.
 template <typename T, int DH>
-cudaError_t launch_combine(const float* part, T* o, float* lse, int b,
-                           int kvh, int g, int nsplit, cudaStream_t stream) {
+cudaError_t launch_combine(const float* part, T* o, float* lse,
+                           const int* pos, int b, int s_cache, int kvh, int g,
+                           int rows, int chunk, int nsplit,
+                           cudaStream_t stream) {
   const size_t smem = sizeof(float) * (nsplit + CTHREADS);
   if (smem > 48 * 1024) return cudaErrorInvalidValue;
   decode_combine<T, DH><<<b * kvh * g, CTHREADS, smem, stream>>>(
-      part, o, lse, g, nsplit);
+      part, o, lse, pos, s_cache, g, rows, chunk, nsplit);
   return cudaGetLastError();
 }
 
 template <typename T, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, void* part, int b, int s_cache, int kvh, int g,
-                   int rows, int chunk, float scale, cudaStream_t stream) {
+                   float* lse, void* part, const int* pos, int b, int s_cache,
+                   int kvh, int g, int rows, int chunk, float scale,
+                   cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
   static_assert(attn::ctas_per_sm<DH>() * smem <= attn::SMEM_MAX,
                 "CTAs per SM (decode_attention_ctas_per_sm)");
@@ -331,12 +357,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   auto* pp = static_cast<float*>(part);
   kern<<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), pp, s_cache, kvh, g, rows, chunk, nsplit,
-      scale);
+      static_cast<const T*>(v), pp, pos, s_cache, kvh, g, rows, chunk,
+      nsplit, scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_combine<T, DH>(pp, static_cast<T*>(o), lse, b, kvh, g,
-                               nsplit, stream);
+  return launch_combine<T, DH>(pp, static_cast<T*>(o), lse, pos, b, s_cache,
+                               kvh, g, rows, chunk, nsplit, stream);
 }
 
 // ------------------------------------------------ tensor-core design
@@ -363,9 +389,9 @@ template <int DH>
 __global__ void __launch_bounds__(THREADS, 2)
 decode_tc(const attn::bf16* __restrict__ q, const attn::bf16* __restrict__ kc,
           const attn::bf16* __restrict__ vc, attn::bf16* __restrict__ o,
-          float* __restrict__ lse, float* __restrict__ part, int s_cache,
-          int kvh, int g, int rows,
-          int chunk, int nsplit, float scale_log2) {
+          float* __restrict__ lse, float* __restrict__ part,
+          const int* __restrict__ pos, int s_cache, int kvh, int g,
+          int rows, int chunk, int nsplit, float scale_log2) {
   using attn::bf16;
   constexpr int LD = attn::ld_bf16<DH>();
   constexpr int NT = DH / 8;
@@ -377,7 +403,7 @@ decode_tc(const attn::bf16* __restrict__ q, const attn::bf16* __restrict__ kc,
   const int b = bh / kvh;
   const int kv = bh % kvh;
   const int j0 = split * chunk;
-  const int j1 = min(rows, j0 + chunk);
+  const int j1 = min(rows_read(pos, rows, s_cache), j0 + chunk);
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int col = 2 * (lane % 4);
@@ -390,7 +416,8 @@ decode_tc(const attn::bf16* __restrict__ q, const attn::bf16* __restrict__ kc,
   bf16* ring = qs + QROWS * LD + warp * STAGES * SLOT;  // this warp's ring
   constexpr bool QREG = !attn::wide_head<DH>();  // Q's fragments in registers
 
-  const int ntiles = (j1 - j0 + TR - 1) / TR;
+  // a chunk past a device pos (j1 <= j0) has no tile: an empty partial
+  const int ntiles = j1 > j0 ? (j1 - j0 + TR - 1) / TR : 0;
   const int mine = ntiles > warp ? (ntiles - warp + WARPS - 1) / WARPS : 0;
   auto load_tile = [&](int i) {  // this warp's i-th tile: tile warp + 4 i
     bf16* kd = ring + (i % STAGES) * SLOT;
@@ -502,8 +529,9 @@ decode_tc(const attn::bf16* __restrict__ q, const attn::bf16* __restrict__ kc,
 
 template <int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, void* part, int b, int s_cache, int kvh, int g,
-                   int rows, int chunk, float scale, cudaStream_t stream) {
+                   float* lse, void* part, const int* pos, int b, int s_cache,
+                   int kvh, int g, int rows, int chunk, float scale,
+                   cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
   static_assert(attn::ctas_per_sm<DH>() * smem <= attn::SMEM_MAX,
                 "CTAs per SM (decode_attention_ctas_per_sm)");
@@ -522,36 +550,37 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   kern<<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
       static_cast<const attn::bf16*>(q), static_cast<const attn::bf16*>(k),
       static_cast<const attn::bf16*>(v), static_cast<attn::bf16*>(o), lse,
-      pp, s_cache, kvh, g, rows, chunk, nsplit, scale * attn::LOG2E);
+      pp, pos, s_cache, kvh, g, rows, chunk, nsplit, scale * attn::LOG2E);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return err;
   return launch_combine<attn::bf16, DH>(pp, static_cast<attn::bf16*>(o), lse,
-                                        b, kvh, g, nsplit, stream);
+                                        pos, b, s_cache, kvh, g, rows, chunk,
+                                        nsplit, stream);
 }
 
 }  // namespace tc
 
 template <typename T>
 cudaError_t launch_dh(int dh, const void* q, const void* k, const void* v,
-                      void* o, float* lse, void* part, int b, int s_cache,
-                      int kvh, int g, int rows, int chunk, float scale,
-                      cudaStream_t stream) {
+                      void* o, float* lse, void* part, const int* pos, int b,
+                      int s_cache, int kvh, int g, int rows, int chunk,
+                      float scale, cudaStream_t stream) {
   switch (dh) {
     case 16:
-      return launch<T, 16>(q, k, v, o, lse, part, b, s_cache, kvh,
-                           g, rows, chunk, scale, stream);
+      return launch<T, 16>(q, k, v, o, lse, part, pos, b, s_cache,
+                           kvh, g, rows, chunk, scale, stream);
     case 32:
-      return launch<T, 32>(q, k, v, o, lse, part, b, s_cache, kvh,
-                           g, rows, chunk, scale, stream);
+      return launch<T, 32>(q, k, v, o, lse, part, pos, b, s_cache,
+                           kvh, g, rows, chunk, scale, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, lse, part, b, s_cache, kvh,
-                           g, rows, chunk, scale, stream);
+      return launch<T, 64>(q, k, v, o, lse, part, pos, b, s_cache,
+                           kvh, g, rows, chunk, scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, lse, part, b, s_cache, kvh,
-                           g, rows, chunk, scale, stream);
+      return launch<T, 128>(q, k, v, o, lse, part, pos, b, s_cache,
+                           kvh, g, rows, chunk, scale, stream);
     case 256:
-      return launch<T, 256>(q, k, v, o, lse, part, b, s_cache, kvh,
-                           g, rows, chunk, scale, stream);
+      return launch<T, 256>(q, k, v, o, lse, part, pos, b, s_cache,
+                           kvh, g, rows, chunk, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -561,25 +590,28 @@ cudaError_t launch_dh(int dh, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// The CUDA-core design. dtype: 0 = fp32, 1 = bf16. rows = min(pos, S - 1)
-// + 1 cache rows are read, in chunks of `chunk` rows (a multiple of 64);
-// lse: null, or (B, KV, G) fp32 that receives each query row's
+// The CUDA-core design. dtype: 0 = fp32, 1 = bf16. pos: null, and then
+// rows = min(pos, S - 1) + 1 cache rows are read; or a device int32
+// holding pos, and then rows is the plan's S and each CTA reads pos
+// itself. The rows are planned in chunks of `chunk` rows (a multiple of
+// 64); lse: null, or (B, KV, G) fp32 that receives each query row's
 // log-sum-exp; part is fp32 scratch of b * kvh * ceil(rows / chunk) * g *
 // (dh + 2) floats. Returns the cudaError_t of the launches.
 int decode_attention_launch(int dtype, int dh, const void* q, const void* k,
                             const void* v, void* o, float* lse, void* part,
-                            int b, int s_cache, int kvh, int g, int rows,
-                            int chunk, float scale, void* stream) {
+                            const int* pos, int b, int s_cache, int kvh,
+                            int g, int rows, int chunk, float scale,
+                            void* stream) {
   if (b < 1 || s_cache < 1 || kvh < 1 || g < 1 || g > G_MAX || rows < 1 ||
       rows > s_cache || chunk < 1 || chunk % BK != 0)
     return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_dh<float>(dh, q, k, v, o, lse, part, b, s_cache, kvh, g,
-                            rows, chunk, scale, s);
+    return launch_dh<float>(dh, q, k, v, o, lse, part, pos, b, s_cache, kvh,
+                            g, rows, chunk, scale, s);
   if (dtype == 1)
-    return launch_dh<__nv_bfloat16>(dh, q, k, v, o, lse, part, b, s_cache,
-                                    kvh, g, rows, chunk, scale, s);
+    return launch_dh<__nv_bfloat16>(dh, q, k, v, o, lse, part, pos, b,
+                                    s_cache, kvh, g, rows, chunk, scale, s);
   return cudaErrorInvalidValue;
 }
 
@@ -588,11 +620,12 @@ int decode_attention_launch(int dtype, int dh, const void* q, const void* k,
 // elsewhere). With one chunk (rows <= chunk) a single launch writes o and
 // part may be null; otherwise part is the scratch decode_attention_launch
 // describes, and decode_combine runs after. Returns the cudaError_t of the
-// launches. lse as decode_attention_launch's.
+// launches. lse and pos as decode_attention_launch's.
 int decode_attention_tc_launch(int dh, const void* q, const void* k,
                                const void* v, void* o, float* lse, void* part,
-                               int b, int s_cache, int kvh, int g, int rows,
-                               int chunk, float scale, void* stream) {
+                               const int* pos, int b, int s_cache, int kvh,
+                               int g, int rows, int chunk, float scale,
+                               void* stream) {
   if (b < 1 || s_cache < 1 || kvh < 1 || g < 1 || g > G_MAX || rows < 1 ||
       rows > s_cache || chunk < 1 || chunk % BK != 0)
     return cudaErrorInvalidValue;
@@ -602,20 +635,20 @@ int decode_attention_tc_launch(int dh, const void* q, const void* k,
   const auto s = static_cast<cudaStream_t>(stream);
   switch (dh) {
     case 16:
-      return tc::launch<16>(q, k, v, o, lse, part, b, s_cache,
-                             kvh, g, rows, chunk, scale, s);
+      return tc::launch<16>(q, k, v, o, lse, part, pos, b,
+                             s_cache, kvh, g, rows, chunk, scale, s);
     case 32:
-      return tc::launch<32>(q, k, v, o, lse, part, b, s_cache,
-                             kvh, g, rows, chunk, scale, s);
+      return tc::launch<32>(q, k, v, o, lse, part, pos, b,
+                             s_cache, kvh, g, rows, chunk, scale, s);
     case 64:
-      return tc::launch<64>(q, k, v, o, lse, part, b, s_cache,
-                             kvh, g, rows, chunk, scale, s);
+      return tc::launch<64>(q, k, v, o, lse, part, pos, b,
+                             s_cache, kvh, g, rows, chunk, scale, s);
     case 128:
-      return tc::launch<128>(q, k, v, o, lse, part, b, s_cache,
-                             kvh, g, rows, chunk, scale, s);
+      return tc::launch<128>(q, k, v, o, lse, part, pos, b,
+                             s_cache, kvh, g, rows, chunk, scale, s);
     case 256:
-      return tc::launch<256>(q, k, v, o, lse, part, b, s_cache,
-                             kvh, g, rows, chunk, scale, s);
+      return tc::launch<256>(q, k, v, o, lse, part, pos, b,
+                             s_cache, kvh, g, rows, chunk, scale, s);
     default:
       return cudaErrorInvalidValue;
   }

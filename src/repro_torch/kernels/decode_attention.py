@@ -4,10 +4,18 @@ Hopper (``csrc/decode_attention.cu``) beside its plain PyTorch version.
 
 Replaces ``repro/kernels/decode_attention.py::_decode_kernel``, the Pallas
 TPU kernel, with its contract: ``q`` (B, KV, G, Dh), ``k_cache``/``v_cache``
-(B, S, KV, Dh), fp32 or bf16, and a host integer ``pos`` -> (B, KV, G, Dh)
-in q's dtype: the G query rows of each KV head attend over cache rows
-``0..pos`` (the caller has written the new token's K/V at ``pos``), with
-an fp32 softmax.
+(B, S, KV, Dh), fp32 or bf16, and ``pos`` -> (B, KV, G, Dh) in q's dtype:
+the G query rows of each KV head attend over cache rows ``0..pos`` (the
+caller has written the new token's K/V at ``pos``), with an fp32 softmax.
+
+``pos`` is a host int, or a 0-d integer tensor on the caches' device: the
+TPU kernel's ``pos_ref``, which the kernels read from device memory, so
+that a captured CUDA graph of a decode step (``serving/generator.py``)
+follows the position of each replay. The host then cannot plan by it: the
+launch is planned for all S rows (the TPU kernel's grid is sized from the
+cache length as well), and a chunk that starts past ``pos`` reads nothing
+and is skipped by the combine pass. A host int plans for rows ``0..pos``
+alone. For equal values both give the same result.
 
 What bounds it on an H100: the bytes of cache rows 0..pos of K and V (the
 Pallas kernel streams the whole cache; these kernels read only those rows).
@@ -39,13 +47,15 @@ With ``return_lse=True`` it also returns each query row's log-sum-exp
 outputs over disjoint row ranges of one cache (a cache whose rows are
 split across ranks: ``nn/attention.decode_attend``). Both designs write
 it; without it nothing changes. The wrapper's body is the op
-``torch.ops.repro_torch.decode_attention``, so that the device picks the
-version (CPU: plain, CUDA: the kernels), a ``meta`` or fake tensor gets
-the outputs' shapes alone (the dry run), and ``torch.utils.flop_counter``
-counts its products over rows ``0..pos``.
+``torch.ops.repro_torch.decode_attention`` (``decode_attention_at`` for a
+tensor ``pos``), so that the device picks the version (CPU: plain, CUDA:
+the kernels), a ``meta`` or fake tensor gets the outputs' shapes alone
+(the dry run), and ``torch.utils.flop_counter`` counts its products over
+rows ``0..pos`` (all S rows for a tensor ``pos``).
 ``decode_attention.launches`` counts every call that launched,
 ``.launches_tc`` and ``.launches_simt`` each design's, and ``.plain_calls``
-the plain version's calls.
+the plain version's calls. A call captured into a CUDA graph by
+``kernels/graphs.StepGraph`` counts at each replay, not at its capture.
 """
 from __future__ import annotations
 
@@ -88,14 +98,17 @@ def ctas_per_sm(dh: int) -> int:
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
-                           v_cache: torch.Tensor, pos: int, scale: float,
-                           return_lse: bool = False):
+                           v_cache: torch.Tensor, pos: int | torch.Tensor,
+                           scale: float, return_lse: bool = False):
     """Plain PyTorch version (the reference's ``decode_attention_ref``):
-    the fp32 softmax over the whole cache with rows past ``pos`` masked;
-    with ``return_lse`` also its rows' log-sum-exp (B, KV, G)."""
+    the fp32 softmax over the whole cache with rows past ``pos`` (a host
+    int, or a 0-d tensor, read as the kernels read it) masked; with
+    ``return_lse`` also its rows' log-sum-exp (B, KV, G)."""
     s_cache = k_cache.shape[1]
     s = torch.einsum("bkgd,bskd->bkgs", flash_attention.wide(q),
                      flash_attention.wide(k_cache)) * scale
+    if isinstance(pos, torch.Tensor):
+        pos = pos.clamp_min(0)
     valid = torch.arange(s_cache, device=q.device) <= pos
     s = torch.where(valid, s, NEG)
     p = torch.softmax(s, dim=-1)
@@ -154,8 +167,15 @@ def _check(q, k_cache, v_cache, pos) -> None:
         raise TypeError(f"q and the caches must all be float32 or bfloat16 "
                         f"(or float64 on the CPU); got {q.dtype}, "
                         f"{k_cache.dtype}, {v_cache.dtype}")
-    if not isinstance(pos, int) or pos < 0:
-        raise ValueError(f"pos must be a host int >= 0, got {pos!r}")
+    if isinstance(pos, torch.Tensor):
+        if pos.ndim != 0 or pos.dtype not in (torch.int32, torch.int64) \
+                or pos.device != q.device:
+            raise ValueError(f"a tensor pos must be a 0-d int32 or int64 on "
+                             f"{q.device}; got {tuple(pos.shape)} "
+                             f"{pos.dtype} on {pos.device}")
+    elif not isinstance(pos, int) or pos < 0:
+        raise ValueError(f"pos must be a host int >= 0 or a 0-d device "
+                         f"tensor, got {pos!r}")
     if not (q.device == k_cache.device == v_cache.device):
         raise ValueError(f"tensors on different devices: {q.device}, "
                          f"{k_cache.device}, {v_cache.device}")
@@ -165,12 +185,13 @@ def _lib():
     lib = build.load("decode_attention")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        # q, k, v, o, lse (None: a null pointer, no lse written), scratch
+        # q, k, v, o, lse (None: a null pointer, no lse written), scratch,
+        # pos (None: the host's rows)
         lib.decode_attention_launch.argtypes = [
-            i, i, p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
+            i, i, p, p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
         lib.decode_attention_launch.restype = i
         lib.decode_attention_tc_launch.argtypes = [
-            i, p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
+            i, p, p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
         lib.decode_attention_tc_launch.restype = i
         lib.decode_attention_ctas_per_sm.argtypes = [i]
         lib.decode_attention_ctas_per_sm.restype = i
@@ -181,27 +202,30 @@ def _lib():
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, pos: int, *, scale: float,
-                     return_lse: bool = False):
+                     v_cache: torch.Tensor, pos: int | torch.Tensor, *,
+                     scale: float, return_lse: bool = False):
     """Attention of one token's G query rows per KV head over cache rows
-    ``0..pos`` (all rows when ``pos >= S``). CUDA tensors take
-    :func:`pick_design`'s kernels. Inputs that require grad are refused
-    while grad mode is on (``flash_attention.refuse_grad``). Returns
-    ``out``, or ``(out, lse)`` with ``return_lse``."""
+    ``0..pos`` (all rows when ``pos >= S``); ``pos`` a host int, or a 0-d
+    integer tensor on q's device that the kernels read there. CUDA
+    tensors take :func:`pick_design`'s kernels. Inputs that require grad
+    are refused while grad mode is on (``flash_attention.refuse_grad``).
+    Returns ``out``, or ``(out, lse)`` with ``return_lse``."""
     _check(q, k_cache, v_cache, pos)
     flash_attention.refuse_grad("decode_attention", q, k_cache, v_cache)
-    out, lse = torch.ops.repro_torch.decode_attention(
-        q, k_cache, v_cache, pos, float(scale), return_lse)
+    op = torch.ops.repro_torch.decode_attention_at \
+        if isinstance(pos, torch.Tensor) else \
+        torch.ops.repro_torch.decode_attention
+    out, lse = op(q, k_cache, v_cache, pos, float(scale), return_lse)
     return (out, lse) if return_lse else out
 
 
-def _on_cpu(q, k_cache, v_cache, pos: int, scale: float, return_lse: bool):
+def _on_cpu(q, k_cache, v_cache, pos, scale: float, return_lse: bool):
     decode_attention.plain_calls += 1
     return flash_attention._lse_or_none(decode_attention_plain(
         q, k_cache, v_cache, pos, scale, return_lse), return_lse)
 
 
-def _on_cuda(q, k_cache, v_cache, pos: int, scale: float, return_lse: bool):
+def _on_cuda(q, k_cache, v_cache, pos, scale: float, return_lse: bool):
     if q.shape[2] > G_MAX:
         raise ValueError(f"G={q.shape[2]} above {G_MAX}")
     if not (q.is_contiguous() and k_cache.is_contiguous()
@@ -213,8 +237,7 @@ def _on_cuda(q, k_cache, v_cache, pos: int, scale: float, return_lse: bool):
         design, q, k_cache, v_cache, pos, scale, return_lse), return_lse)
 
 
-def _shapes_only(q, k_cache, v_cache, pos: int, scale: float,
-                 return_lse: bool):
+def _shapes_only(q, k_cache, v_cache, pos, scale: float, return_lse: bool):
     """The outputs of a call on ``meta`` or fake tensors, nothing run."""
     shape = q.shape[:3] if return_lse else (0,)
     return torch.empty_like(q), q.new_empty(shape, dtype=torch.float32)
@@ -227,6 +250,13 @@ _OPS.impl("decode_attention", _on_cpu, "CPU")
 _OPS.impl("decode_attention", _on_cuda, "CUDA")
 torch.library.register_fake("repro_torch::decode_attention", _shapes_only,
                             lib=_OPS)
+# the same with pos in device memory (a 0-d int32 or int64 tensor)
+_OPS.define("decode_attention_at(Tensor q, Tensor k_cache, Tensor v_cache, "
+            "Tensor pos, float scale, bool return_lse) -> (Tensor, Tensor)")
+_OPS.impl("decode_attention_at", _on_cpu, "CPU")
+_OPS.impl("decode_attention_at", _on_cuda, "CUDA")
+torch.library.register_fake("repro_torch::decode_attention_at",
+                            _shapes_only, lib=_OPS)
 
 
 @register_flop_formula(torch.ops.repro_torch.decode_attention)
@@ -237,16 +267,29 @@ def _flops(q_shape, k_shape, v_shape, pos: int, *args, **kwargs) -> int:
     return 4 * b * kvh * g * (min(pos, k_shape[1] - 1) + 1) * dh
 
 
+@register_flop_formula(torch.ops.repro_torch.decode_attention_at)
+def _flops_at(q_shape, k_shape, *args, **kwargs) -> int:
+    """A device ``pos`` the host cannot read: the products over all S
+    rows, the most the call can do."""
+    b, kvh, g, dh = q_shape
+    return 4 * b * kvh * g * k_shape[1] * dh
+
+
 def _launch(design: str, q: torch.Tensor, k_cache: torch.Tensor,
-            v_cache: torch.Tensor, pos: int, scale: float,
+            v_cache: torch.Tensor, pos: int | torch.Tensor, scale: float,
             return_lse: bool = False):
     """Launch ``design``'s kernels on checked CUDA inputs and count the
     call (chip_smoke.py also calls it to time the CUDA-core design on
-    inputs the dispatch sends to the tensor cores). Returns ``out``, or
-    ``(out, lse)`` with ``return_lse``."""
+    inputs the dispatch sends to the tensor cores). A tensor ``pos`` is
+    passed by pointer and the launch planned for all S rows; a host int
+    plans for rows ``0..pos``. Returns ``out``, or ``(out, lse)`` with
+    ``return_lse``."""
     b, kvh, g, dh = q.shape
     s_cache = k_cache.shape[1]
-    rows = min(pos, s_cache - 1) + 1
+    on_device = isinstance(pos, torch.Tensor)
+    if on_device:
+        pos = pos.to(torch.int32)
+    rows = s_cache if on_device else min(pos, s_cache - 1) + 1
     chunk = split_rows(rows, b * kvh, _sm_count(q.device.index),
                        ctas_per_sm(dh))
     shape = partial_shape(design, b * kvh, -(-rows // chunk), g, dh)
@@ -260,8 +303,9 @@ def _launch(design: str, q: torch.Tensor, k_cache: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         args = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                 out.data_ptr(), None if lse is None else lse.data_ptr(),
-                None if part is None else part.data_ptr(), b, s_cache, kvh,
-                g, rows, chunk, float(scale), stream)
+                None if part is None else part.data_ptr(),
+                pos.data_ptr() if on_device else None, b, s_cache, kvh, g,
+                rows, chunk, float(scale), stream)
         if design == "tc":
             err = lib.decode_attention_tc_launch(dh, *args)
         else:
@@ -270,7 +314,8 @@ def _launch(design: str, q: torch.Tensor, k_cache: torch.Tensor,
         msg = lib.decode_attention_error_string(err).decode()
         raise RuntimeError(
             f"decode_attention launch failed (cuda error {err}: {msg}) at "
-            f"q {tuple(q.shape)} cache {tuple(k_cache.shape)} pos={pos} "
+            f"q {tuple(q.shape)} cache {tuple(k_cache.shape)} "
+            f"pos={'on the device' if on_device else pos} "
             f"dtype={q.dtype} design={design}")
     decode_attention.launches += 1
     if design == "tc":

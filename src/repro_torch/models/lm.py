@@ -501,17 +501,27 @@ class LM:
 
         return model_flops(self.cfg, "prefill", tokens)
 
-    def decode(self, params, tokens: torch.Tensor, caches: dict, pos: int,
+    def decode(self, params, tokens: torch.Tensor, caches: dict,
+               pos: int | torch.Tensor,
                positions: Optional[torch.Tensor] = None):
         """tokens (B, 1); ``caches`` from :meth:`cache_specs` (or a
-        prefill), updated in place; ``pos`` the host-int write index;
-        ``positions`` (B, 1) per-row rope positions (default ``pos``).
-        Cross-attention reads the cross K/V in the caches, as the
-        reference's decode does."""
+        prefill), updated in place; ``pos`` the write index, a host int or,
+        without a mesh, a 0-d integer tensor on the tokens' device (the
+        reference's traced position inside its jitted step: no layer then
+        reads it on the host); ``positions`` (B, 1) per-row rope positions
+        (default ``pos``). Cross-attention reads the cross K/V in the
+        caches, as the reference's decode does."""
+        on_device = isinstance(pos, torch.Tensor)
+        if on_device and (self.ctx.mesh is not None or pos.ndim != 0
+                          or pos.device != tokens.device):
+            raise ValueError("a tensor pos is a 0-d tensor on the tokens' "
+                             "device, for the model without a mesh")
         with self.ctx.scope():
             params = self._gathered(params)
             x = self._embed(params, tokens)
-            if positions is None:
+            if positions is None and on_device:
+                positions = pos.to(torch.int32).expand(tokens.shape[0], 1)
+            elif positions is None:
                 positions = torch.full((tokens.shape[0], 1), int(pos),
                                        dtype=torch.int32,
                                        device=tokens.device)

@@ -13,7 +13,12 @@ every path:
   buffer), then ``kernels/decode_attention.decode_attention`` attends over
   rows ``0..min(cache_pos, S-1)``. That one bound is the reference's decode
   mask in both layouts: ``kj <= cache_pos`` (full), and the ring's
-  ``(kj <= cache_pos % S) | (cache_pos >= S)`` (window).
+  ``(kj <= cache_pos % S) | (cache_pos >= S)`` (window). ``cache_pos`` is
+  a host int or, without a mesh, a 0-d integer tensor on the device (the
+  reference's traced ``jnp.max(pos_vec)`` inside its jitted step): then
+  the write index, its clamp and the bound are device arithmetic and
+  kernel 7 reads the position from device memory, so that a decode step
+  takes no host value of it and can be captured as a CUDA graph.
 
 Cache layout, the reference's: ``{"k": (B, S_cache, KV, Dh), "v": ...}``,
 with int8 values plus fp16 per-(token, head) absmax scales (``k_scale``,
@@ -153,8 +158,9 @@ def gqa_apply(p, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor,
 
     * train / prefill: ``cache`` None -> causal self-attention over x; the
       returned cache is this call's ``{"k", "v"}``.
-    * decode: ``cache`` given, x is (B, 1, D), ``cache_pos`` (a host int)
-      the write index; the cache is updated in place and returned.
+    * decode: ``cache`` given, x is (B, 1, D), ``cache_pos`` (a host int,
+      or a 0-d device tensor without a mesh) the write index; the cache
+      is updated in place and returned.
     * cross-attention: ``kv_override=(k, v)`` precomputed from the
       encoder (:func:`cross_kv`); a decode step when ``cache_pos`` is
       given. Returns ``cache`` as it came.
@@ -175,8 +181,10 @@ def gqa_apply(p, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor,
             raise ValueError(f"decode takes one token per row, got {sq}")
         s_cache = cache["k"].shape[1]
         write = cache_pos % s_cache if cfg.window is not None else cache_pos
-        out = decode_attend(ctx, q, cache, k, v, write,
-                            min(int(cache_pos), s_cache - 1), scale)
+        # kernel 7 clamps a device position to the cache itself
+        bound = cache_pos if isinstance(cache_pos, torch.Tensor) else \
+            min(int(cache_pos), s_cache - 1)
+        out = decode_attend(ctx, q, cache, k, v, write, bound, scale)
         new_cache = cache
     return _out_proj(ctx, out.reshape(b, sq, h * dh), p["wo"]), new_cache
 
@@ -232,7 +240,7 @@ def attend(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attend(ctx, q: torch.Tensor, cache: dict, k_new, v_new,
-                  write: int, bound: int, scale: float) -> torch.Tensor:
+                  write, bound, scale: float) -> torch.Tensor:
     """One token's GQA attention (q (B, 1, H, Dh)) over a K/V cache (B, S,
     KV, Dh), rows ``0..bound`` valid, after writing ``k_new``/``v_new`` (B,
     1, KV, Dh; None: no write) at row ``write`` (int8 caches quantised):
@@ -242,7 +250,8 @@ def decode_attend(ctx, q: torch.Tensor, cache: dict, k_new, v_new,
     "kv_seq"/"seq" axes) the kernel also returns its rows' log-sum-exp,
     and the ranks that split the sequence merge their outputs by it
     (flash-decoding's combine: the max of the lse, then the sums of the
-    rescaled outputs and weights). Returns (B, KV, G, Dh)."""
+    rescaled outputs and weights). ``write`` and ``bound`` are host ints,
+    or 0-d device tensors without a mesh. Returns (B, KV, G, Dh)."""
     names = [n for n in ("k", "v", "k_scale", "v_scale") if n in cache]
     bufs = [cache[n] for n in names]
     if ctx.mesh is None:
@@ -285,7 +294,8 @@ def _decode_local(q, bufs, k_new, v_new, write: int, bound: int,
         kf, vf = bufs[0], bufs[1]
     qg = q.view(b, kvh, h // kvh, dh)
     if not groups:
-        return decode_attention(qg, kf, vf, bound - off, scale=scale)
+        return decode_attention(qg, kf, vf, bound - off if off else bound,
+                                scale=scale)
     if bound >= off:
         out, lse = decode_attention(qg, kf, vf, bound - off, scale=scale,
                                     return_lse=True)
@@ -298,14 +308,24 @@ def _decode_local(q, bufs, k_new, v_new, write: int, bound: int,
     return (num / psum(wt, groups)[..., None]).to(q.dtype)
 
 
-def _dyn_write(buf: torch.Tensor, val: torch.Tensor, idx: int,
+def _dyn_write(buf: torch.Tensor, val: torch.Tensor, idx,
                off: int = 0, total: int | None = None) -> None:
     """``buf[:, idx:idx + len] = val`` in place, along the sequence axis,
     with ``lax.dynamic_update_slice``'s clamp of the start index. ``buf``
     may be the rows ``off..`` of a sequence of ``total`` rows (a rank's
-    shard): then only the rows it holds are written."""
+    shard): then only the rows it holds are written. A 0-d tensor
+    ``idx`` (a whole sequence only) is clamped and written on its device,
+    with no host read."""
     n = val.shape[1]
     total = buf.shape[1] + off if total is None else total
+    if isinstance(idx, torch.Tensor):
+        if off or total != buf.shape[1]:
+            raise ValueError("a device write index takes a whole sequence, "
+                             "not a rank's shard")
+        rows = idx.clamp(0, total - n).long() + torch.arange(
+            n, device=buf.device)
+        buf.index_copy_(1, rows, val.to(buf.dtype))
+        return
     idx = max(0, min(int(idx), total - n)) - off
     lo, hi = max(idx, 0), min(idx + n, buf.shape[1])
     if lo < hi:
@@ -487,9 +507,10 @@ def _mla_decode_local(q_nope, q_rope, latent, k_rope, cl, cr, w_uk, w_uv,
                       cache_pos: int, scale: float, off: int, total: int,
                       groups):
     """MLA's absorbed decode on local tensors: the token's latent and rope
-    key written at ``cache_pos``, then its heads over rows ``off..`` of a
-    latent cache of ``total`` rows, the softmax combined over ``groups``
-    when there are any."""
+    key written at ``cache_pos`` (a host int, or a 0-d device tensor on a
+    whole cache), then its heads over rows ``off..`` of a latent cache of
+    ``total`` rows, the softmax combined over ``groups`` when there are
+    any."""
     _dyn_write(cl, latent, cache_pos, off, total)
     _dyn_write(cr, k_rope, cache_pos, off, total)
     # absorbed: q' = q_nope . w_uk scores against the latent directly

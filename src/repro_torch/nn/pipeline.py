@@ -11,7 +11,12 @@ ring with ``torch.distributed`` P2P on the axis's group (the reference's
 over the axis so that every rank holds them (the reference's ``psum``).
 
 A stage skips its bubble ticks (nothing to compute): its output there is
-zeros, which the reference's schedule computes and discards.
+zeros, which the reference's schedule computes and discards. Every
+choice between values is a ``torch.where`` on a condition that is
+constant on the rank (the reference's ``jnp.where``), never a product
+with 0: an inf or NaN in one microbatch stays in that microbatch, in the
+output and in the gradient, where ``0 * inf`` would spread NaN to the
+others.
 
 Gradients. The ring shift is an autograd function whose backward sends
 the cotangent the other way. The final all-reduce's backward is the
@@ -27,10 +32,11 @@ P2P call waits forever, whatever inputs a caller asks gradients for
 (``torch.autograd.grad`` runs only the nodes on a path to them). So each
 rank's whole chain of ticks stays in its graph and on a path to every
 parameter: the first buffer is a function of the stage's parameters
-with zero gradient (``_Tie``), a skipped tick or a stage that feeds
-from the input still takes the buffer times 0, and the non-last stages
-keep their outputs times 0. The backwards then run tick T − 2 down to 0
-on every rank.
+with zero gradient (``_Tie``), and a skipped tick, a stage that feeds
+from the input and the non-last stages' outputs each select past the
+value they do not use with ``torch.where``, whose backward gives that
+branch exact zeros. The backwards then run tick T − 2 down to 0 on every
+rank.
 
 At S = 1 the ring shift is the identity and no collective runs (a rank
 cannot send to itself); the pipeline is then the microbatches run through
@@ -135,16 +141,18 @@ def pipeline_apply(mesh, axis: str, stage_fn, stage_params, x_microbatches):
     buf = torch.zeros_like(xs[0])
     if deps:
         buf = _Tie.apply(buf, *deps)
+    yes, no = (torch.tensor(v, device=xs.device) for v in (True, False))
     outs = [None] * m
     for t in range(n_stages + m - 1):
         mb = t - sid                        # this stage's microbatch
         if 0 <= mb < m:
-            cur = xs[t] + 0 * buf if sid == 0 else buf
+            cur = torch.where(yes, xs[t], buf) if sid == 0 else buf
             y = stage_fn(stage_params, cur)
         else:                               # a bubble tick
-            y = 0 * buf
+            y = torch.where(no, buf, torch.zeros_like(buf))
         if t >= n_stages - 1:               # the last stage's output
-            outs[t - (n_stages - 1)] = y if last else 0 * y
+            outs[t - (n_stages - 1)] = torch.where(yes if last else no, y,
+                                                   torch.zeros_like(y))
         if t < n_stages + m - 2:
             buf = _RingShift.apply(y, group, ranks, sid)
     return _Replicate.apply(torch.stack(outs), group)

@@ -13,6 +13,16 @@ K/V at the batch's largest position (the reference passes
 ``max(pos_vec)`` as the one scalar ``cache_pos``) and masks the cache at
 that position, and prefill-by-decode steps every slot, idle ones fed
 token 0.
+
+The step is :func:`decode_step`, the function the reference jits: tokens
+and per-slot positions in, the argmax token per slot out, the caches
+updated in place, the cache position ``pos_vec.max()`` a device value
+all the way down to kernel 7. On a CUDA device the batcher captures it
+once, at construction, into a CUDA graph (``kernels/graphs.StepGraph``)
+whose inputs are one static (2, slots) int32 buffer of tokens and
+positions; each call copies the host's values into it from pinned memory
+and replays the graph. On the CPU (the tests) it calls the same function
+eagerly, as a kernel's wrapper takes its plain version there.
 """
 from __future__ import annotations
 
@@ -25,6 +35,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models.lm import LM
 from repro_torch.nn.param import init_params, map_specs
+from repro_torch.train import tree as tr
 
 
 @dataclasses.dataclass
@@ -36,13 +47,28 @@ class GenRequest:
     done: bool = False
 
 
+def decode_step(lm: LM, params, caches: dict, tokens: torch.Tensor,
+                pos_vec: torch.Tensor) -> torch.Tensor:
+    """One batched decode step over every slot, the reference's jitted
+    ``decode_step``: ``tokens`` (slots, 1) and ``pos_vec`` (slots,) on the
+    device, per-slot rope positions, the caches written and masked at
+    ``pos_vec.max()`` (a device value: nothing is read on the host) and
+    updated in place; returns the argmax next token per slot."""
+    with torch.inference_mode():
+        logits, _ = lm.decode(params, tokens, caches, pos_vec.max(),
+                              positions=pos_vec[:, None])
+        return torch.argmax(logits[:, -1, :], dim=-1)
+
+
 class ContinuousBatcher:
     """Slot-based continuous batching for a decoder-only LM (attention,
     Mamba or xLSTM layers). ``params`` (the port's LM parameters) replaces
     the seeded init, which draws on ``device``. As in the reference, every
     decode call steps every slot, so a recurrent layer's state in one slot
     moves with its neighbours' steps and is not cleared on admit (ROADMAP
-    section 3)."""
+    section 3). On CUDA every step replays the one graph of
+    :func:`decode_step` captured here; ``graph_pool_bytes`` is what its
+    pool holds."""
 
     def __init__(self, cfg, params=None, *, slots: int = 4,
                  max_len: int = 128, seed: int = 0,
@@ -77,18 +103,40 @@ class ContinuousBatcher:
         self.queue: list[GenRequest] = []
         self.judge_batches_run = 0
         self.decode_steps = 0
+        # the step's static inputs: row 0 the tokens, row 1 pos_vec
+        self._io = torch.zeros((2, slots), dtype=torch.int32,
+                               device=self.device)
+        self._graph = None
+        self.graph_pool_bytes = 0
+        if self.device.type == "cuda":
+            from repro_torch.kernels.graphs import StepGraph
+
+            self._graph = StepGraph(self._step,
+                                    torch.cuda.graph_pool_handle())
+            self.graph_pool_bytes = self._graph.pool_bytes
+            # the warm-up step wrote K/V rows and moved recurrent states:
+            # back to zeros, as the reference starts
+            for leaf in tr.leaves(self.caches):
+                leaf.zero_()
+
+    def _step(self) -> torch.Tensor:
+        """:func:`decode_step` on the static inputs."""
+        return decode_step(self.lm, self.params, self.caches,
+                           self._io[0][:, None], self._io[1])
 
     def _decode(self, tokens: np.ndarray, pos_vec: np.ndarray) -> torch.Tensor:
-        """One batched decode step over every slot: per-slot rope
-        positions, the cache written and masked at ``max(pos_vec)``;
-        returns the argmax next token per slot (on the device)."""
-        dev = self.device
-        positions = torch.from_numpy(pos_vec[:, None].astype(np.int32)).to(dev)
-        with torch.inference_mode():
-            logits, _ = self.lm.decode(
-                self.params, torch.from_numpy(tokens).to(dev), self.caches,
-                int(pos_vec.max()), positions=positions)
-            return torch.argmax(logits[:, -1, :], dim=-1)
+        """One batched decode step over every slot: the host's tokens
+        (slots, 1) and positions into the static inputs (one copy, from
+        pinned memory on CUDA), then the graph's replay (CUDA) or the step
+        itself (CPU); returns the argmax next token per slot (on the
+        device, rewritten by the next step)."""
+        host = torch.from_numpy(np.stack([tokens[:, 0], pos_vec])
+                                .astype(np.int32))
+        if self._graph is None:
+            self._io.copy_(host)
+            return self._step()
+        self._io.copy_(host.pin_memory(), non_blocking=True)
+        return self._graph.replay()
 
     # ---------------------------------------------------------- admit
 

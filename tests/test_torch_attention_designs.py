@@ -412,7 +412,7 @@ def test_ctypes_signatures_match_the_c_entry_points(monkeypatch, mod):
     else:
         for name in ("decode_attention_launch", "decode_attention_tc_launch"):
             n = 8 if name == "decode_attention_launch" else 7
-            assert len(sigs[name]) == n + 8    # ... o, lse, part, b, ...
+            assert len(sigs[name]) == n + 9    # ... o, lse, part, pos, b, ...
 
 
 @pytest.mark.parametrize("design", ["tc", "simt"])
@@ -453,11 +453,14 @@ def test_flash_launch_passes_lse_or_null(monkeypatch, design, return_lse):
 @pytest.mark.parametrize("design", ["tc", "simt"])
 @pytest.mark.parametrize("return_lse", [False, True])
 @pytest.mark.parametrize("pos", [100, 3000])
+@pytest.mark.parametrize("on_device", [False, True])
 def test_decode_launch_passes_lse_or_null(monkeypatch, design, return_lse,
-                                          pos):
+                                          pos, on_device):
     """``_launch`` hands kernel 7 a fresh (B, KV, G) fp32 lse after the
     output with ``return_lse``, else a null pointer (None), then the
-    scratch (None only for the tensor-core design's one chunk)."""
+    scratch (None only for the tensor-core design's one chunk), then
+    ``pos``: a null pointer and rows 0..pos for a host int, the tensor's
+    pointer and a plan for all S rows for a tensor."""
     import contextlib
     import types
 
@@ -473,7 +476,8 @@ def test_decode_launch_passes_lse_or_null(monkeypatch, design, return_lse,
         monkeypatch.setattr(da.decode_attention, name, 0)
     q = torch.zeros((2, 2, 3, 16), dtype=torch.bfloat16)
     kc = vc = torch.zeros((2, 4096, 2, 16), dtype=torch.bfloat16)
-    got = da._launch(design, q, kc, vc, pos, 0.25, return_lse)
+    arg = torch.tensor(pos, dtype=torch.int32) if on_device else pos
+    got = da._launch(design, q, kc, vc, arg, 0.25, return_lse)
     entry = lib.decode_attention_tc_launch if design == "tc" else \
         lib.decode_attention_launch
     (call,) = entry.calls
@@ -485,9 +489,11 @@ def test_decode_launch_passes_lse_or_null(monkeypatch, design, return_lse,
         assert call[at + 1] == lse.data_ptr()
     else:
         assert call[at + 1] is None
-    one_chunk = design == "tc" and pos < da.MIN_CHUNK
+    rows = 4096 if on_device else pos + 1
+    one_chunk = design == "tc" and rows <= da.MIN_CHUNK
     assert (call[at + 2] is None) == one_chunk
-    assert call[at + 3:at + 8] == (2, 4096, 2, 3, pos + 1) and call[-1] == 5
+    assert call[at + 3] == (arg.data_ptr() if on_device else None)
+    assert call[at + 4:at + 9] == (2, 4096, 2, 3, rows) and call[-1] == 5
     assert (da.decode_attention.launches,
             getattr(da.decode_attention, f"launches_{design}")) == (1, 1)
 

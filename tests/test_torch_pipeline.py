@@ -17,7 +17,14 @@ One spawn of four ranks serves the whole file. Each rank runs:
   the output and the gradient of every stage's parameters against the
   one-device port running the layers in sequence;
 * S=1 over the "pod" axis of a (1, 4) mesh: no P2P call, the output and
-  the gradient bitwise the microbatches run through the stage in order.
+  the gradient bitwise the microbatches run through the stage in order;
+* a non-finite microbatch: S=2 over the "pod" axis of a (2, 2) mesh (two
+  pipelines of 2 ranks each), M=4, the stage ``x * p``, ``xs`` ones with
+  ``xs[0, 0, 0] = inf``: the output and the gradient of a loss over
+  microbatches 1-3 against the reference's. Its ``jax.grad`` is itself
+  NaN in p's first column (the stage's own ``0 * inf`` on microbatch 0),
+  so the pattern of non-finite entries must match and the finite ones
+  agree.
 
 Tolerance: 1e-5 of each tensor's scale (its largest magnitude): sums in
 another order (the reference's XLA against torch's), and for granite the
@@ -46,6 +53,17 @@ TOY = {"add": ((4,), ("pod",), "add"),
        "tanh": ((4,), ("pod",), "tanh"),
        "tanh_s2": ((2, 2), ("pod", "data"), "tanh")}
 GRANITE_LAYERS, GRANITE_M, GRANITE_SEQ = 4, 3, 8
+INF_M, INF_SHAPE = 4, (2, 3)     # the non-finite case: S=2, M=4, (2, 3)
+
+
+def _inf_x() -> np.ndarray:
+    xs = np.ones((INF_M, *INF_SHAPE), np.float32)
+    xs[0, 0, 0] = np.inf
+    return xs
+
+
+def _inf_params() -> np.ndarray:
+    return 1.0 + 0.25 * np.arange(6, dtype=np.float32).reshape(2, 3)
 
 
 def _toy_params(n_stages: int, fn: str) -> np.ndarray:
@@ -143,6 +161,14 @@ def _worker(rank: int, port: int, path: str) -> None:
     except ValueError as e:
         out["refused"] = str(e)
 
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("pod", "data"))
+    sid = mesh.get_local_rank("pod")
+    p = torch.from_numpy(_inf_params()[sid]).requires_grad_()
+    y = pipeline.pipeline_apply(mesh, "pod", lambda p, x: x * p[None, :], p,
+                                torch.from_numpy(_inf_x()))
+    out["inf"] = {"sid": sid, "out": y.detach(),
+                  "grad": _grads((y[1:] ** 2).sum(), [p])[0]}
+
     mesh = init_device_mesh("cpu", (1, WORLD), mesh_dim_names=("pod", "data"))
     p = torch.from_numpy(_toy_params(1, "tanh")[0]).float().requires_grad_()
     before = len(sent)
@@ -190,6 +216,13 @@ for name, (shape, _, fn) in t.TOY.items():
     loss, g = jax.value_and_grad(lambda p: jnp.sum(f(p) ** 2))(params)
     res[name] = {"out": np.asarray(out).tolist(), "loss": float(loss),
                  "grad": np.asarray(g).tolist()}
+mesh = mk((2, 4), ("pod", "data"))
+stage = lambda p, x: x * p[None, :]
+f = lambda p: pipeline_apply(mesh, "pod", stage, p, jnp.asarray(t._inf_x()))
+params = jnp.asarray(t._inf_params())
+g = jax.jit(jax.grad(lambda p: jnp.sum(f(p)[1:] ** 2)))(params)
+res["inf"] = {"out": np.asarray(jax.jit(f)(params)).tolist(),
+              "grad": np.asarray(g).tolist()}
 print("REF_JSON " + json.dumps(res))
 """
 
@@ -268,6 +301,29 @@ def test_pipeline_of_granite_layers_matches_the_sequence(runs):
         assert len(got) == n
         for a, b in zip(got, want[rank * n:(rank + 1) * n], strict=True):
             assert _rel(a, b) <= TOL
+
+
+def _same_pattern(got: torch.Tensor, want: torch.Tensor) -> None:
+    """Non-finite in the same places, the finite entries within TOL."""
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin)
+    assert _rel(got[fin], want[fin]) <= TOL
+
+
+def test_an_inf_stays_in_its_microbatch(runs):
+    """One inf in microbatch 0: microbatch 0 is non-finite and 1-3 are
+    finite and the reference's, on every rank; each stage's gradient of a
+    loss over microbatches 1-3 has the reference's pattern and values
+    (a product with 0 in the schedule turned 1-3 into NaN)."""
+    ranks, ref = runs
+    want_out = torch.tensor(ref["inf"]["out"], dtype=torch.float32)
+    want_grad = torch.tensor(ref["inf"]["grad"], dtype=torch.float32)
+    assert not bool(torch.isfinite(want_out[0]).all())
+    assert bool(torch.isfinite(want_out[1:]).all())
+    for r in ranks:
+        got = r["inf"]
+        _same_pattern(got["out"], want_out)
+        _same_pattern(got["grad"], want_grad[got["sid"]])
 
 
 def test_one_stage_is_the_sequence_with_no_p2p(runs):
