@@ -1514,6 +1514,35 @@ def phase_kernel_sharded(dev):
     return max(errs_f), max(errs_q), len(errs_f) + len(errs_q), sizes
 
 
+def sharded_library(sel, en, q, buckets, valid, rows, bounds, k,
+                    quant=None):
+    """Kernel 5's library yardstick on these inputs (fp32, or int8 with
+    ``quant = (q_scales, bucket_scale)``): one batched matmul over the
+    gathered buckets, a stable sort, the finalists' global rows, each
+    probe's finalists placed at its owning shard."""
+    b, nprobe = sel.shape
+    _, cap, d = buckets.shape
+    s = bounds.numel() - 1
+    owner = torch.searchsorted(bounds, sel, right=True) - 1
+    shard = torch.arange(s, device=sel.device)[:, None, None, None]
+
+    def library():
+        sb = sel.long()
+        sc = torch.bmm(buckets[sb].reshape(b * nprobe, cap, d).float(),
+                       q.float().repeat_interleave(nprobe, 0)[:, :, None])
+        sc = sc.reshape(b, nprobe, cap)
+        if quant is not None:
+            sc = sc * quant[1][sb] * quant[0][:, None, None]
+        sc = torch.where(valid[sb] & (en > 0)[:, :, None], sc, NEG)
+        order = torch.sort(-sc, dim=2, stable=True).indices[..., :k]
+        v = sc.gather(2, order)
+        r = torch.where(v > NEG / 2, rows[sb[:, :, None], order], -1)
+        own = owner[None, :, :, None] == shard
+        return torch.where(own, v, NEG), torch.where(own, r, -1)
+
+    return library
+
+
 def measure_sharded(sel, en, q, buckets, valid, rows, bounds, k, *,
                     quant=None, required: bool = False) -> dict:
     """Times of kernel 5, fp32 or with ``quant = (q_scales, bucket_scale)``
@@ -1543,26 +1572,12 @@ def measure_sharded(sel, en, q, buckets, valid, rows, bounds, k, *,
             return ivf.ann_topk_ivf_quant(sel, en, q, quant[0], buckets,
                                           quant[1], valid, k)
     design = expect_routed_design(cap)
-    owner = torch.searchsorted(bounds, sel, right=True) - 1
-    shard = torch.arange(s, device=sel.device)[:, None, None, None]
 
     def block():
         return sh._launch("block", kernel, *args, k=k)
 
-    def library():
-        sb = sel.long()
-        sc = torch.bmm(buckets[sb].reshape(b * nprobe, cap, d).float(),
-                       q.float().repeat_interleave(nprobe, 0)[:, :, None])
-        sc = sc.reshape(b, nprobe, cap)
-        if quant is not None:
-            sc = sc * quant[1][sb] * quant[0][:, None, None]
-        sc = torch.where(valid[sb] & (en > 0)[:, :, None], sc, NEG)
-        order = torch.sort(-sc, dim=2, stable=True).indices[..., :k]
-        v = sc.gather(2, order)
-        r = torch.where(v > NEG / 2, rows[sb[:, :, None], order], -1)
-        own = owner[None, :, :, None] == shard
-        return torch.where(own, v, NEG), torch.where(own, r, -1)
-
+    library = sharded_library(sel, en, q, buckets, valid, rows, bounds, k,
+                              quant)
     bound_ms, bound_by = bound_ivf(sel, en, valid, d, k, quant is not None,
                                    n_shards=s)
     out = {"b": b, "nprobe": nprobe, "c": c, "cap": cap, "d": d, "k": k,
@@ -1878,13 +1893,26 @@ def index_parts_hold(index, quant: bool, q: torch.Tensor, k: int,
             sh.bounds_dev, k)
         per = lambda: aks.ann_topk_ivf_quant_sharded_parts(
             sel, en, qq, qs, parts, sh.bounds_dev, k)
+        library = sharded_library(sel, en, qq, bq, lay.bucket_valid,
+                                  lay.bucket_rows, sh.bounds_dev, k,
+                                  (qs, bsc))
     else:
         one = lambda: aks.ann_topk_ivf_sharded(
             sel, en, q, lay.payload, lay.bucket_valid, lay.bucket_rows,
             sh.bounds_dev, k)
         per = lambda: aks.ann_topk_ivf_sharded_parts(sel, en, q, parts,
                                                      sh.bounds_dev, k)
+        library = sharded_library(sel, en, q, lay.payload, lay.bucket_valid,
+                                  lay.bucket_rows, sh.bounds_dev, k)
     out = hold_parts(one, per, parts, k, "int8" if quant else "fp32", timed)
+    if timed:
+        # the same function as one launch's: its bound and library call
+        # on these inputs (bound_ivf with the S-fold stack)
+        out["bound_ms"], out["bound_by"] = bound_ivf(
+            sel, en, lay.bucket_valid, q.shape[1], k, quant,
+            n_shards=len(parts))
+        out["library_ms"] = timed_ms(library)
+        out["library_device_ms"] = device_ms(library)
     del parts
     return {"b": q.shape[0], **out}
 
@@ -3455,6 +3483,7 @@ class EagerStep:
     steps this way: the eager form beside the graphed one."""
 
     pool_bytes = 0
+    launches: dict = {}
 
     def __init__(self, fn, pool=None):
         self.fn = fn
@@ -4416,42 +4445,391 @@ def op_kind(name: str) -> str:
     return "other"
 
 
-def profiled_main(main, argv, data, dev) -> dict:
-    """``main(argv, data)`` under torch.profiler, whose schedule's one
-    active step is step 2 (the data hook marks the steps): that step's
-    device time (the profiler's own ProfilerStep range left out) by kind
-    (op_kind), its share of the step's host clock, and the top device
-    operations."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
+# (f) the reference's last two compiled programs as CUDA graphs: the
+# trainer's donated step (launch/steps.TrainStepGraph, through
+# launch.train.main) and the model embedder's encode, each held to its
+# eager form on the card
+GRAPH_LOSS_REL = 1e-6     # graphed losses against eager: (d)'s remat limit
+TRAIN_PROFILED = (8, 9)   # (d)'s step under torch.profiler, in each form
+# the reference's documented example, --smoke --batch 8 --seq 128
+SMOKE_TRAIN = dict(steps=20, batch=8, seq=128, runs=3, profiled=(15, 19))
+# the ten assigned configs shrunk (2 repeats): a capture, 3 replays
+SHRUNK_TRAIN = dict(steps=3, batch=4, seq=32, micro=2, d_model=128,
+                    vocab=512)
+EMBED_BATCHES = (1, 8, 64)
+EMBED_REPLAYS = 5
 
-    stamps = []
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=1, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        def hook(step):
-            if step:
-                prof.step()
-            stamps.append(time.perf_counter())
-            return data(step)
 
+class StepClock:
+    """The host clock read as each step starts (:meth:`tick`, from the
+    step's data hook or loop), and steps ``profiled[0]`` to ``profiled[1]
+    - 1`` under torch.profiler (started before its stamp, stopped after
+    its stamp, so that the steps beside the window carry the profiler's
+    own start and stop)."""
+
+    def __init__(self, profiled: tuple):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.profiled = profiled
+        self.stamps = {}
+        self.prof = profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+
+    def tick(self, step: int) -> None:
+        p0, p1 = self.profiled
+        if step == p0:
+            torch.cuda.synchronize()
+            self.prof.start()
+        self.stamps[step] = time.perf_counter()
+        if step == p1:
+            self.prof.stop()
+
+    def report(self) -> dict:
+        """Each step's host ms; ``step_ms`` the median of the steps after
+        the first that the profiler's start, window and stop left alone
+        (None if the run has none);
+        the window's host ms and device ms a step (the profiler's own
+        ranges left out), by kind (op_kind), and the top device
+        operations; the busy share, device ms over ``step_ms``."""
+        from torch.autograd import DeviceType
+
+        p0, p1 = self.profiled
+        st = self.stamps
+        each = {s: (st[s + 1] - st[s]) * 1e3 for s in sorted(st)
+                if s + 1 in st}
+        plain = [ms for s, ms in each.items()
+                 if s >= 1 and not p0 - 1 <= s <= p1]
+        step_ms = float(np.median(plain)) if plain else None
+        n = p1 - p0
+        device = [e for e in self.prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and not e.key.startswith("ProfilerStep")]
+        dev_ms = sum(e.self_device_time_total for e in device) / 1e3 / n
+        kinds = {}
+        for e in device:
+            kind = op_kind(e.key)
+            kinds[kind] = kinds.get(kind, 0.0) + \
+                e.self_device_time_total / 1e3 / n
+        top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
+        return {"step_ms": step_ms, "step_ms_each": list(each.values()),
+                "first_step_ms": each.get(0), "profiled_steps": [p0, p1],
+                "profiled_host_ms": (st[p1] - st[p0]) * 1e3 / n,
+                "device_ms": dev_ms,
+                "device_busy_share": dev_ms / step_ms if plain else None,
+                "device_ms_by_kind": kinds,
+                "top_device_ops": [{"name": e.key[:90], "calls_per_step":
+                                    e.count / n, "ms_per_step":
+                                    e.self_device_time_total / 1e3 / n}
+                                   for e in top]}
+
+
+def timed_main(main, argv, data, profiled: tuple) -> tuple:
+    """``main(argv, data=...)`` on a :class:`StepClock`: ``(RunResult,
+    the clock's report)``."""
+    clock = StepClock(profiled)
+
+    def hook(step):
+        clock.tick(step)
+        return data(step)
+
+    with contextlib.redirect_stdout(sys.stderr):
         res = main(argv, data=hook)
-    wall = (stamps[3] - stamps[2]) * 1e3
-    device = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and not e.key.startswith("ProfilerStep")]
-    busy = sum(e.self_device_time_total for e in device) / 1e3
-    kinds = {}
-    for e in device:
-        kind = op_kind(e.key)
-        kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e3
-    top = sorted(device, key=lambda e: -e.self_device_time_total)[:10]
-    return {"losses": res.losses, "profiled_step_wall_ms": wall,
-            "device_ms": busy, "device_ms_by_kind": kinds,
-            "device_busy_share": busy / wall if wall else None,
-            "top_device_ops": [{"name": e.key[:90], "calls": e.count,
-                                "ms": e.self_device_time_total / 1e3}
-                               for e in top]}
+    return res, clock.report()
+
+
+@contextlib.contextmanager
+def recording_graphs():
+    """Inside: each ``kernels/graphs.StepGraph`` made (a capture) counted
+    and each ``launch.train`` TrainStepGraph kept, with its state's
+    data_ptrs when it was made: ``{"captures": n, "owners": [...]}``."""
+    from repro_torch.kernels import graphs
+    from repro_torch.launch import train as train_mod
+    from repro_torch.train import tree as tr
+
+    made = {"captures": 0, "owners": []}
+    real_graph, real_owner = graphs.StepGraph, train_mod.TrainStepGraph
+
+    class Counted(real_graph):
+        def __init__(self, *a, **kw):
+            made["captures"] += 1
+            super().__init__(*a, **kw)
+
+    class Kept(real_owner):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.ptrs = [x.data_ptr() for x in tr.leaves(self.state)]
+            made["owners"].append(self)
+
+    graphs.StepGraph, train_mod.TrainStepGraph = Counted, Kept
+    try:
+        yield made
+    finally:
+        graphs.StepGraph, train_mod.TrainStepGraph = real_graph, real_owner
+
+
+def flash_counts(counts: dict) -> dict:
+    """Kernel 6's entries of a ``kernels/graphs.counts()``-keyed dict."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+
+    return {n: counts[(flash_attention_fwd, n)]
+            for n in ("launches", "launches_tc", "launches_simt",
+                      "plain_calls")}
+
+
+def one_owner(made: dict, what: str, want_replay: int) -> dict:
+    """The run's one capture and one owner, whose tensors kept their
+    data_ptrs and whose replay launches kernel 6 ``want_replay`` times,
+    all on the tensor cores; the owner is dropped from ``made`` (its
+    graph's pool goes with it). Returns its pool bytes and counts."""
+    from repro_torch.train import tree as tr
+
+    check(made["captures"] == 1 and len(made["owners"]) == 1,
+          f"{what}: {made['captures']} captures and "
+          f"{len(made['owners'])} owners, want one of each")
+    owner = made["owners"].pop()
+    check([x.data_ptr() for x in tr.leaves(owner.state)] == owner.ptrs,
+          f"{what}: the owner's tensors moved")
+    replay = flash_counts(owner.launches)
+    check(replay == {"launches": want_replay, "launches_tc": want_replay,
+                     "launches_simt": 0, "plain_calls": 0},
+          f"{what}: kernel 6 in one replay {replay}, want {want_replay} "
+          f"on the tensor cores")
+    return {"pool_bytes": owner.pool_bytes, "replay_launches": replay}
+
+
+def loss_match(graphed: list, eager: list, what: str) -> dict:
+    """Each graphed loss within GRAPH_LOSS_REL of the eager one; which
+    steps are bitwise."""
+    check(len(graphed) == len(eager) and np.isfinite(graphed).all(),
+          f"{what}: losses {graphed} against {eager}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(graphed, eager)]
+    check(max(rel) <= GRAPH_LOSS_REL, f"{what}: graphed losses {graphed} "
+          f"part from eager {eager} by up to {max(rel)} relative")
+    return {"max_rel": max(rel),
+            "bitwise_steps": [i for i, (a, b) in enumerate(zip(graphed,
+                                                                eager))
+                              if a == b]}
+
+
+def smoke_train(dev) -> dict:
+    """The reference's documented example (``--smoke``, batch 8 x 128,
+    granite) SMOKE_TRAIN["runs"] times in each form on the same bigram
+    batches: through launch.train.main (the graphed step), and eager
+    through make_train_step in a loop (batch up with ``.to``, the loss
+    read each step). Median and range of step ms and busy share; each
+    run's losses within GRAPH_LOSS_REL of the eager ones."""
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.lm import LM
+    from repro_torch.nn.param import init_params
+    from repro_torch.train.data import BigramStream
+    from repro_torch.train.optim import init_state
+
+    sm = SMOKE_TRAIN
+    argv = ["--arch", TRAIN_ARCH, "--smoke", "--device", "cuda", "--steps",
+            str(sm["steps"]), "--batch", str(sm["batch"]), "--seq",
+            str(sm["seq"]), "--save-every", "0"]
+    cfg, lm, opt_cfg, _, _ = train_mod.build(train_mod.parse_args(argv))
+    stream = BigramStream(cfg.vocab_size, seed=0)
+    batches = [{k: np.ascontiguousarray(v) for k, v in
+                stream.batch(s, sm["batch"], sm["seq"]).items()}
+               for s in range(sm["steps"])]
+
+    def eager_run():
+        step = make_train_step(cfg, opt_cfg, remat="none", donate=True)
+        params = init_params(LM(cfg).param_specs(),
+                             torch.Generator(device=dev).manual_seed(0), dev)
+        opt = init_state(opt_cfg, params)
+        clock, losses = StepClock(sm["profiled"]), []
+        for s, b in enumerate(batches):
+            clock.tick(s)
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+            params, opt, m = step(params, opt, batch)
+            losses.append(float(m["loss"]))
+        return losses, clock.report()
+
+    forms = {"graphed": [], "eager": []}
+    for _ in range(sm["runs"]):
+        with recording_graphs() as made:
+            res, rep = timed_main(train_mod.main, argv,
+                                  lambda s: batches[s], sm["profiled"])
+        rep.update(one_owner(made, "smoke train", attn_mixers(lm)[0]))
+        forms["graphed"].append((res.losses, rep))
+        forms["eager"].append(eager_run())
+        release(dev)
+    out = {**{k: sm[k] for k in ("steps", "batch", "seq")},
+           "layers": cfg.n_layers, "d_model": cfg.d_model}
+    for form, runs in forms.items():
+        out[form] = {key: spread([r[key] for _, r in runs]) for key in
+                     ("step_ms", "device_ms", "device_busy_share")}
+        out[form]["device_ms_by_kind"] = runs[0][1]["device_ms_by_kind"]
+        out[form]["top_device_ops"] = runs[0][1]["top_device_ops"][:4]
+    eager_losses = forms["eager"][0][0]
+    out["losses"] = [loss_match(losses, eager_losses,
+                                f"smoke train run {i}")
+                     for i, (losses, _) in enumerate(forms["graphed"])]
+    out["eager_runs_bitwise"] = all(l == eager_losses
+                                    for l, _ in forms["eager"])
+    out["pool_bytes"] = forms["graphed"][0][1]["pool_bytes"]
+    return out
+
+
+def shrunk_batch(cfg, seed: int) -> dict:
+    """Host tensors of every train input of ``cfg`` at SHRUNK_TRAIN's
+    (batch, seq): tokens and labels, qwen2-vl's frontend embeddings on
+    the first quarter of the positions with (3, B, S) M-RoPE positions,
+    seamless's encoder frames."""
+    from repro_torch.configs.common import input_layout
+    from repro_torch.nn.config import ShapeCell
+
+    b, s = SHRUNK_TRAIN["batch"], SHRUNK_TRAIN["seq"]
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, (shape, dt, _) in input_layout(
+            cfg, ShapeCell("train", s, b, "train")).items():
+        if k in ("tokens", "labels"):
+            a = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
+        elif k == "positions":
+            a = np.broadcast_to(np.arange(s, dtype=np.int32), shape).copy()
+            a[1, :, :s // 4] = np.arange(s // 4) // 2
+        elif k == "frontend_mask":
+            a = np.zeros(shape, bool)
+            a[:, :s // 4] = True
+        else:
+            a = rng.standard_normal(shape).astype(np.float32)
+        out[k] = torch.from_numpy(a).to(dt)
+    return out
+
+
+def card_dims(cfg):
+    """``cfg`` with each MLA layer's q/k width (nope + rope) at 32, a head
+    dim kernel 6 takes: ``shrink``'s 16 + 8 = 24 runs only in its plain
+    version."""
+    import dataclasses
+
+    def fix(sp):
+        if sp.attn is None or sp.attn.kind != "mla":
+            return sp
+        return dataclasses.replace(sp, attn=dataclasses.replace(
+            sp.attn, qk_nope_dim=32 - sp.attn.qk_rope_dim))
+
+    return dataclasses.replace(cfg, blocks=tuple(map(fix, cfg.blocks)),
+                               prefix=tuple(map(fix, cfg.prefix)))
+
+
+def shrunk_graph_vs_eager(name: str, dev) -> dict:
+    """Assigned config ``name`` shrunk to 2 repeats (``card_dims``):
+    SHRUNK_TRAIN["steps"] steps of the donated step eager, then the same
+    steps through a TrainStepGraph from the same parameters (a capture,
+    then replays): losses within GRAPH_LOSS_REL, kernel 6 once per
+    attention mixer and microbatch a pass (eager, warm-up, replay), all
+    tensor-core."""
+    from repro_torch.configs import get_config, shrink
+    from repro_torch.kernels import graphs
+    from repro_torch.launch.steps import TrainStepGraph, make_train_step
+    from repro_torch.models.lm import LM
+    from repro_torch.nn.param import init_params
+    from repro_torch.train import tree as tr
+    from repro_torch.train.optim import AdamWConfig, init_state
+
+    st = SHRUNK_TRAIN
+    cfg = card_dims(shrink(get_config(name), d_model=st["d_model"],
+                           vocab=st["vocab"], n_repeat=2))
+    lm = LM(cfg)
+    before = graphs.counts()
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    p0 = init_params(lm.param_specs(),
+                     torch.Generator(device=dev).manual_seed(37), dev)
+    batches = [shrunk_batch(cfg, 40 + i) for i in range(st["steps"])]
+    step = lambda: make_train_step(cfg, opt_cfg, remat="none",
+                                   microbatches=st["micro"], donate=True)
+    params = tr.tree_map(torch.clone, p0)
+    opt = init_state(opt_cfg, params)
+    eager, f = [], step()
+    for b in batches:
+        params, opt, m = f(params, opt, {k: v.to(dev) for k, v in
+                                         b.items()})
+        eager.append(float(m["loss"]))
+    params = tr.tree_map(torch.clone, p0)
+    state = {"params": params, "opt": init_state(opt_cfg, params)}
+
+    def reset():
+        for x, y in zip(tr.leaves(params), tr.leaves(p0)):
+            x.copy_(y)
+        for x in tr.leaves(state["opt"]):
+            x.zero_()
+
+    layout = {k: (tuple(v.shape), v.dtype) for k, v in batches[0].items()}
+    owner = TrainStepGraph(step(), state, layout, reset)
+    graphed = [float(owner(b)["loss"]) for b in batches]
+    torch.cuda.synchronize()
+    after = graphs.counts()
+    # a training pass: one a prefill's, and DeepSeek-V3's MTP block
+    # (its superblock's last layer) once more
+    mtp = int(bool(cfg.mtp) and cfg.blocks[-1].kind == "attn")
+    per_pass = (attn_mixers(lm)[0] + mtp) * st["micro"]
+    replay = flash_counts(owner.launches)
+    check(replay == {"launches": per_pass, "launches_tc": per_pass,
+                     "launches_simt": 0, "plain_calls": 0},
+          f"{name} shrunk: kernel 6 in one replay {replay}, want "
+          f"{per_pass} on the tensor cores")
+    # the eager steps, the warm-up and the replays
+    run = flash_counts({k: after[k] - before[k] for k in after})
+    want = (2 * st["steps"] + 1) * per_pass
+    check(run == {"launches": want, "launches_tc": want, "launches_simt": 0,
+                  "plain_calls": 0},
+          f"{name} shrunk: kernel 6 {run} in the run, want {want}")
+    out = {"losses": graphed, "eager_losses": eager,
+           **loss_match(graphed, eager, f"{name} shrunk"),
+           "pool_bytes": owner.pool_bytes, "replay_launches": replay,
+           "launches": run}
+    return out
+
+
+def embedder_graphs(dev) -> dict:
+    """ModelEmbedder (the default: qwen3-0.6b shrunk, max_len 64) at each
+    B of EMBED_BATCHES: a graph per B, then EMBED_REPLAYS replays, each
+    of which launches kernel 6 once per attention layer on the tensor
+    cores; the rows bitwise an eager embedder's (``uncaptured``, the same
+    seed) on the same texts; pool bytes and ms a call in each form."""
+    from repro_torch.core.embedder import ModelEmbedder
+
+    wrappers = attn_wrappers()
+    graphed, eager = ModelEmbedder(device=dev), None
+    with uncaptured():
+        eager = ModelEmbedder(device=dev)
+    layers = attn_mixers(graphed.lm)[0]
+    out = {"layers": layers, "max_len": graphed.max_len,
+           "d_model": graphed.dim, "batches": {}}
+    for b in EMBED_BATCHES:
+        texts = [f"what is the price of item {i} in region {i % 7}"
+                 for i in range(b)]
+        graphed.embed_batch(texts)              # the capture
+        reset_counts(wrappers)
+        rows = [graphed.embed_batch(texts) for _ in range(EMBED_REPLAYS)]
+        torch.cuda.synchronize()
+        want = EMBED_REPLAYS * layers
+        launches = {n: w.launches for n, w in wrappers.items()}
+        check(launches == {"flash_attention_fwd": want,
+                           "decode_attention": 0},
+              f"embedder B={b}: launches {launches}, want {want}")
+        designs = check_all_tc(wrappers, f"embedder B={b}")
+        with uncaptured():
+            want_rows = eager.embed_batch(texts)
+        check(all(np.array_equal(r, want_rows) for r in rows)
+              and rows[0].shape == (b, graphed.dim),
+              f"embedder B={b}: graphed rows are not the eager ones")
+        with uncaptured():
+            eager_ms = timed_ms(lambda: eager.embed_batch(texts), 10)
+        out["batches"][b] = {
+            "launches": launches["flash_attention_fwd"],
+            "launches_by_design": designs["flash_attention_fwd"],
+            "ms": timed_ms(lambda: graphed.embed_batch(texts), 10),
+            "eager_ms": eager_ms, "bitwise": True}
+    out["pool_bytes"] = graphed.graph_pool_bytes
+    check(sorted(graphed._graphs) == sorted(EMBED_BATCHES),
+          f"embedder: graphs for {sorted(graphed._graphs)}")
+    return out
 
 
 def phase_train(dev):
@@ -4460,13 +4838,20 @@ def phase_train(dev):
     shape, with times with and without it; (b) the attention gradient at
     the training shape, with two planted faults; (c) a bf16 step against
     an fp32 one at 2 layers; (d) launch.train.main at full width (the depth
-    that fits), 10 steps on one repeated batch, kernel 6 launched layers x
-    microbatches times a step, all tensor-core, then remat "dots" on one
-    step and bigram steps, one profiled; (e) restart exactness."""
+    that fits), 10 steps on one repeated batch, its step one CUDA graph
+    (one capture, the owner's tensors kept), kernel 6 launched layers x
+    microbatches times a replay, all tensor-core, then remat "dots" on one
+    step and bigram steps, one profiled; (e) restart exactness under the
+    graph (one capture, the tensors kept across the restore); (f) (d)'s
+    run eager on the card, its losses and times beside the graphed ones,
+    the reference's example config (--smoke, 8 x 128) in both forms, the
+    ten assigned configs shrunk (a capture, replays against eager) and
+    the model embedder's graphs per batch size."""
     import contextlib
     import dataclasses
     import tempfile
 
+    from repro_torch.configs import ASSIGNED, get_config, shrink
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.roofline import model_flops
     from repro_torch.launch.steps import value_and_grad
@@ -4571,45 +4956,75 @@ def phase_train(dev):
     layers = depth["layers"]
     cfg_l = dataclasses.replace(cfg, n_repeat=layers)
     fixed = train_batch(cfg, TRAIN_BATCH, 31)
-    stamps = []
+    argv = train_args(layers, "--steps", str(TRAIN_STEPS))
 
-    def repeated(step):
-        stamps.append(time.perf_counter())
-        return fixed
-
+    # the graphed step (launch.train.main's on the card): counts from 0
+    # before main, so the warm-up's pass is in them; one replay's counts
+    # are the capture's
     wrappers = attn_wrappers()
     reset_counts(wrappers)
     release(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    with contextlib.redirect_stdout(sys.stderr):
-        res = train_main(train_args(layers, "--steps", str(TRAIN_STEPS)),
-                         data=repeated)
+    t_graph = time.perf_counter()
+    with recording_graphs() as made:
+        res, clock = timed_main(train_main, argv, lambda step: fixed,
+                                TRAIN_PROFILED)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated(dev)
+    per_step = layers * TRAIN_MICRO
+    owner = one_owner(made, "train (d)", per_step)
     launches = {n: wr.launches for n, wr in wrappers.items()}
     by_design = design_counts(wrappers["flash_attention_fwd"])
-    want = TRAIN_STEPS * layers * TRAIN_MICRO
+    want = (TRAIN_STEPS + 1) * per_step
     check(launches == {"flash_attention_fwd": want, "decode_attention": 0}
           and by_design == {"tc": want, "simt": 0},
           f"train: kernel launches {launches} by design {by_design}, want "
-          f"{want} (steps x layers x microbatches) on the tensor cores")
+          f"{want} ((steps + the warm-up) x layers x microbatches) on the "
+          f"tensor cores")
     losses = res.losses
     check(len(losses) == TRAIN_STEPS and np.isfinite(losses).all(),
           f"train: losses {losses}")
     check(losses[-1] < TRAIN_FALL * losses[0],
           f"train: the loss on one repeated batch went {losses[0]} -> "
           f"{losses[-1]}, not below {TRAIN_FALL} x its first value")
-    step_s = float(np.median(np.diff(stamps)[1:]))
+    step_s = clock["step_ms"] / 1e3
     tokens = TRAIN_BATCH * TRAIN_SEQ
     flops = model_flops(cfg_l, "train", tokens)
     full = {**depth, "published_layers": cfg.n_layers, "steps": TRAIN_STEPS,
             "losses": losses, "peak_bytes": peak,
-            "step_ms": step_s * 1e3, "first_step_ms":
-            (stamps[1] - stamps[0]) * 1e3, "tokens_per_s": tokens / step_s,
+            "step_ms": clock["step_ms"],
+            "first_step_ms": clock["first_step_ms"],
+            "tokens_per_s": tokens / step_s,
             "model_flops": flops, "mfu": flops / step_s / BF16_FLOPS,
             "launches": launches["flash_attention_fwd"],
-            "launches_per_step": launches["flash_attention_fwd"]
-            // TRAIN_STEPS, "launches_by_design": by_design}
+            "launches_per_step": owner["replay_launches"]["launches"],
+            "launches_by_design": by_design,
+            "run_s": time.perf_counter() - t_graph}
+    del clock["step_ms_each"]
+    graph = {"granite": {"layers": layers, "graphed": {
+        **clock, **owner, "peak_bytes": peak}}}
+    release(dev)
+    # (f) the same run eager on the card (each step's function called,
+    # nothing captured): losses step by step, its times beside
+    reset_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_eager = time.perf_counter()
+    with uncaptured():
+        res_e, clock_e = timed_main(train_main, argv, lambda step: fixed,
+                                    TRAIN_PROFILED)
+    torch.cuda.synchronize()
+    del clock_e["step_ms_each"]
+    eager_l = wrappers["flash_attention_fwd"].launches
+    check(eager_l == TRAIN_STEPS * per_step,
+          f"train eager: kernel 6 {eager_l}, want {TRAIN_STEPS * per_step}")
+    full["eager_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    graph["granite"]["eager"] = {
+        **clock_e, "peak_bytes": full["eager_peak_bytes"],
+        "run_s": time.perf_counter() - t_eager, "launches": eager_l}
+    graph["granite"]["losses"] = {
+        "graphed": losses, "eager": res_e.losses,
+        **loss_match(losses, res_e.losses, "train (d) graphed")}
+    graph["launches"] = launches["flash_attention_fwd"] + eager_l
     release(dev)
     with contextlib.redirect_stdout(sys.stderr):
         remat = train_main(train_args(layers, "--steps", "1", "--remat",
@@ -4620,13 +5035,14 @@ def phase_train(dev):
           f"{losses[0]}")
     full["remat_dots_first_loss"] = remat.losses[0]
     release(dev)
+    # each graphed run's pool went back when its run ended
+    full["allocated_after_runs"] = torch.cuda.memory_allocated(dev)
     from repro_torch.train.data import BigramStream
     stream = BigramStream(cfg.vocab_size, seed=0)
-    with contextlib.redirect_stdout(sys.stderr):
-        bigram = profiled_main(
-            train_main, train_args(layers, "--steps",
-                                   str(TRAIN_BIGRAM_STEPS)),
-            lambda step: stream.batch(step, TRAIN_BATCH, TRAIN_SEQ), dev)
+    res_b, bigram = timed_main(
+        train_main, train_args(layers, "--steps", str(TRAIN_BIGRAM_STEPS)),
+        lambda step: stream.batch(step, TRAIN_BATCH, TRAIN_SEQ), (2, 3))
+    bigram["losses"] = res_b.losses
     # the profiler slows the host side of its step: its device time over
     # an unprofiled step's host clock too
     bigram["device_share_of_step_ms"] = bigram["device_ms"] / full["step_ms"]
@@ -4638,21 +5054,53 @@ def phase_train(dev):
             str(r["steps"]), "--batch", str(r["batch"]), "--seq",
             str(r["seq"]), "--save-every", str(r["save_every"])]
     TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    smoke_layers = attn_mixers(LM(shrink(get_config(TRAIN_ARCH), d_model=128,
+                                         vocab=512, n_repeat=2)))[0]
     with tempfile.TemporaryDirectory(dir=TRACE_DIR) as d, \
             contextlib.redirect_stdout(sys.stderr):
-        clean = train_main(argv + ["--ckpt-dir", f"{d}/clean"])
-        faulty = train_main(argv + ["--ckpt-dir", f"{d}/faulty",
-                                    "--fail-at", str(r["fail_at"])])
+        with recording_graphs() as made:
+            clean = train_main(argv + ["--ckpt-dir", f"{d}/clean"])
+        one_owner(made, "restart (clean)", smoke_layers)
+        with recording_graphs() as made:
+            faulty = train_main(argv + ["--ckpt-dir", f"{d}/faulty",
+                                        "--fail-at", str(r["fail_at"])])
+        kept = one_owner(made, "restart under the graph", smoke_layers)
     back = r["fail_at"] // r["save_every"] * r["save_every"]
     check(faulty.restarts == 1 and faulty.losses ==
           clean.losses[:r["fail_at"]] + clean.losses[back:],
           f"restart: losses {faulty.losses} against {clean.losses}")
     restart = {**r, "restarts": faulty.restarts, "replayed_from": back,
-               "final_loss": faulty.losses[-1], "deterministic_mode": False}
+               "final_loss": faulty.losses[-1], "deterministic_mode": False,
+               "graphed": True, "captures": 1, "data_ptrs_kept": True,
+               "pool_bytes": kept["pool_bytes"]}
+    release(dev)
+
+    # (f) the reference's example config in both forms, the ten assigned
+    # configs shrunk, and the model embedder
+    t = time.perf_counter()
+    graph["smoke"] = smoke_train(dev)
+    graph["smoke"]["seconds"] = time.perf_counter() - t
+    reset_counts(wrappers)
+    t = time.perf_counter()
+    graph["shrunk"] = {}
+    for name in ASSIGNED:
+        graph["shrunk"][name] = shrunk_graph_vs_eager(name, dev)
+        release(dev)
+    graph["shrunk_seconds"] = time.perf_counter() - t
+    shrunk_l = wrappers["flash_attention_fwd"].launches
+    check(shrunk_l == sum(x["launches"]["launches"]
+                          for x in graph["shrunk"].values()),
+          f"shrunk configs: kernel 6 {shrunk_l} in all")
+    t = time.perf_counter()
+    graph["embedder"] = embedder_graphs(dev)
+    graph["embedder"]["seconds"] = time.perf_counter() - t
+    graph["launches"] += shrunk_l + sum(
+        b["launches"] for b in graph["embedder"]["batches"].values())
     return {"lse_cases": n_cases, "max_abs_err": errs,
             "train_attention": attn, "judge_micro_batch": judge,
             "attention_grad": grad, "bf16_vs_fp32": bf16_fp32,
-            "full_width": full, "bigram": bigram, "restart": restart}
+            "full_width": full, "bigram": bigram, "restart": restart,
+            "graph": graph}
 
 
 SHARDED_MODELS = ("granite-3-8b", "deepseek-v2-236b")
@@ -5143,19 +5591,23 @@ def phase_sharded(dev, trained: dict) -> dict:
         print(json.dumps({"dryrun": rec}), flush=True)
     c = recs[-1]
     flops = full["model_flops"]
-    hbm_rel = c["hbm_per_device"] / full["peak_bytes"] - 1
+    # the eager step's peak: the dry run counts what one step holds live,
+    # where the graphed step's pool also keeps its own layout
+    hbm_rel = c["hbm_per_device"] / full["eager_peak_bytes"] - 1
     flops_rel = c["flops_per_device"] / flops - 1
     step_ms = max(c["t_compute"], c["t_memory"], c["t_collective"]) * 1e3
     check(abs(hbm_rel) <= DRYRUN_HOLD,
           f"dry run of train (d)'s cell: {c['hbm_per_device']} bytes a "
-          f"device against the {full['peak_bytes']} measured ({hbm_rel:+.3f})")
+          f"device against the {full['eager_peak_bytes']} measured "
+          f"({hbm_rel:+.3f})")
     check(abs(flops_rel) <= DRYRUN_HOLD,
           f"dry run of train (d)'s cell: {c['flops_per_device']} FLOPs "
           f"against model_flops {flops} ({flops_rel:+.3f})")
     check_cell = {"layers": full["layers"], "tokens": TRAIN_BATCH * TRAIN_SEQ,
                   "microbatches": TRAIN_MICRO, "remat": "none",
                   "hbm_per_device": c["hbm_per_device"],
-                  "measured_peak_bytes": full["peak_bytes"],
+                  "measured_peak_bytes": full["eager_peak_bytes"],
+                  "graphed_peak_bytes": full["peak_bytes"],
                   "hbm_rel": hbm_rel, "flops_per_device":
                   c["flops_per_device"], "model_flops": flops,
                   "flops_rel": flops_rel, "roofline_step_ms": step_ms,
@@ -5980,6 +6432,8 @@ def main() -> int:
                 "colocated": colo_launches[name],
                 "train": (trained["full_width"]["launches"]
                           if name == "flash_attention_fwd" else 0),
+                "train_graph": (trained["graph"]["launches"]
+                                if name == "flash_attention_fwd" else 0),
                 "sharded": sharded_l[name],
                 "pipeline": sharded["pipeline"]["launches"][name],
                 "mesh_train": sharded["mesh_train"]["launches"][name],

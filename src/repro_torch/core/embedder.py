@@ -37,7 +37,15 @@ def byte_tokens(text: str, max_len: int) -> np.ndarray:
 
 class ModelEmbedder:
     """``params`` (the port's LM parameters, e.g. from
-    ``convert.lm_params_from_numpy``) replaces the seeded init."""
+    ``convert.lm_params_from_numpy``) replaces the seeded init.
+
+    :meth:`encode` is the function the reference jits. On a CUDA device
+    ``embed_batch`` runs it as a CUDA graph per batch size B at
+    ``max_len`` (``kernels/graphs.StepGraph``, one pool), captured at the
+    first batch of that size, the padding mask and the pooling inside it:
+    the tokens go into the graph's static buffer from pinned memory, and
+    the (B, d_model) rows come down. On the CPU it calls :meth:`encode`
+    eagerly."""
 
     def __init__(self, cfg=None, dim: int = 256, max_len: int = 64, seed=0,
                  device="cuda", params=None):
@@ -55,6 +63,8 @@ class ModelEmbedder:
             self.lm.param_specs(),
             torch.Generator(device=self.device).manual_seed(seed),
             self.device)
+        self._graphs: dict = {}        # B -> (graph, tokens)
+        self._pool = None
 
     @property
     def dim(self) -> int:
@@ -76,9 +86,37 @@ class ModelEmbedder:
             [byte_tokens(t % self.cfg.vocab_size if isinstance(t, int)
                          else t, self.max_len) for t in texts]
         ) % self.cfg.vocab_size
-        with torch.inference_mode():
-            out = self.encode(torch.from_numpy(toks).to(self.device))
-        return out.cpu().numpy().astype(np.float32)
+        host = torch.from_numpy(toks)
+        if self.device.type != "cuda":
+            with torch.inference_mode():
+                out = self.encode(host.to(self.device))
+            return out.cpu().numpy().astype(np.float32)
+        graph, buf = self._graph_for(host.shape[0])
+        buf.copy_(host.pin_memory(), non_blocking=True)
+        return graph.replay().cpu().numpy().astype(np.float32)
+
+    def _graph_for(self, b: int) -> tuple:
+        """The graph of :meth:`encode` on a static (b, max_len) token
+        buffer, captured the first time it is asked for."""
+        if b not in self._graphs:
+            from repro_torch.kernels.graphs import StepGraph
+
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            buf = torch.zeros((b, self.max_len), dtype=torch.int32,
+                              device=self.device)
+
+            def step():
+                with torch.inference_mode():
+                    return self.encode(buf)
+
+            self._graphs[b] = (StepGraph(step, self._pool), buf)
+        return self._graphs[b]
+
+    @property
+    def graph_pool_bytes(self) -> int:
+        """What the captures added to the embedder's graph pool."""
+        return sum(g.pool_bytes for g, _ in self._graphs.values())
 
 
 class WorldEmbedder:

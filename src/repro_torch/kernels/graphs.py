@@ -1,16 +1,19 @@
 """A step captured once into a CUDA graph and replayed: the port's
-counterpart of the reference's ``jax.jit`` of its serving steps (the
-batcher's decode step, ``serving/generator.py``; the model judge's score,
-``core/judge.py``), which compile each step into one device program.
+counterpart of the reference's ``jax.jit`` of its four device programs
+(the batcher's decode step, ``serving/generator.py``; the model judge's
+score, ``core/judge.py``; the model embedder's encode,
+``core/embedder.py``; the trainer's donated step, ``launch/steps.py``
+``TrainStepGraph``), which compile each into one device program.
 
-:class:`StepGraph` runs the step once eagerly on a side stream (with
-``torch.cuda.set_sync_debug_mode("error")``, so that a hidden host sync
-raises there with its stack, before the capture would fail on it), then
-captures it into a ``torch.cuda.CUDAGraph`` on the memory pool its owner
+:class:`StepGraph` runs the step once eagerly on the device's side
+stream (:func:`side_stream`; with ``torch.cuda.set_sync_debug_mode(
+"error")``, so that a hidden host sync raises there with its stack,
+before the capture would fail on it), then captures it on the same
+stream into a ``torch.cuda.CUDAGraph`` on the memory pool its owner
 gives. Inputs are the step's own static tensors, which the owner refills
-in place before each :meth:`StepGraph.replay`; the output is the tensor
-the capture returned, rewritten by every replay. A capture that fails
-raises: there is no eager fall back.
+in place before each :meth:`StepGraph.replay`; the output is what the
+capture returned (a tensor, or a dict of tensors), rewritten by every
+replay. A capture that fails raises: there is no eager fall back.
 
 The attention kernels' wrappers count the calls that launched
 (``launches``, ``launches_tc``, ``launches_simt``; ``plain_calls``). A
@@ -29,6 +32,20 @@ from repro_torch.kernels.flash_attention import flash_attention_fwd
 
 COUNTED = (flash_attention_fwd, decode_attention)
 COUNTS = ("launches", "launches_tc", "launches_simt", "plain_calls")
+_SIDE: dict = {}        # device index -> the warm-ups' and captures' stream
+
+
+def side_stream() -> torch.cuda.Stream:
+    """The one stream of every warm-up and capture on the current device.
+    cuBLAS keeps a workspace per (handle, stream), made at the first
+    product on that stream: made at an eager warm-up it lives in the
+    ordinary pool and every capture reuses it, where one made inside a
+    capture would land in that graph's pool and hold its segment after
+    the graph is gone."""
+    dev = torch.cuda.current_device()
+    if dev not in _SIDE:
+        _SIDE[dev] = torch.cuda.Stream()
+    return _SIDE[dev]
 
 
 def counts() -> dict:
@@ -50,7 +67,7 @@ class StepGraph:
     counts of one replay."""
 
     def __init__(self, fn, pool=None):
-        side = torch.cuda.Stream()
+        side = side_stream()
         side.wait_stream(torch.cuda.current_stream())
         mode = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode("error")
@@ -67,7 +84,7 @@ class StepGraph:
         before = counts()
         self.graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(self.graph, pool=pool):
+            with torch.cuda.graph(self.graph, pool=pool, stream=side):
                 self.out = fn()
         finally:
             after = counts()
@@ -77,7 +94,7 @@ class StepGraph:
 
     def replay(self):
         """Run the captured step on the current stream; returns its
-        output tensor (read it before the next replay rewrites it)."""
+        output (read it before the next replay rewrites it)."""
         self.graph.replay()
         _add(self.launches)
         return self.out

@@ -3,9 +3,13 @@ training step (loss, gradients over microbatches, AdamW), and thin
 prefill and decode steps. Without a mesh every step runs on the
 parameters' device; with one (``mesh``, ``shard_cfg``) it is the model's
 DTensor program over it (``nn.sharding.ShardCtx``), its parameters,
-state and inputs DTensors.
+state and inputs DTensors. :class:`TrainStepGraph` runs the donated
+training step as the reference's trainer runs its jitted one: compiled
+once (on CUDA, one CUDA graph) over state and batch buffers it owns.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -88,13 +92,14 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         else:
             acc = tr.tree_map(lambda p: torch.zeros_like(
                 p, dtype=accum_dtype), params)
-            loss = torch.zeros((), dtype=torch.float32)
+            loss = None     # the first microbatch's starts the sum: no
+            #                 zero made on the host and copied up
             for mb in split_mb(batch, microbatches, ctx):
                 l_mb, g = value_and_grad(lm, params, mb, remat)
                 for a, x in zip(tr.leaves(acc), tr.leaves(g)):
                     a.add_(x.to(a.dtype))
                 del g  # before the next microbatch's backward
-                loss = loss.to(l_mb.device) + l_mb.float()
+                loss = l_mb.float() if loss is None else loss + l_mb.float()
             for a in tr.leaves(acc):
                 a.div_(microbatches)
             grads, loss = acc, loss / microbatches
@@ -107,6 +112,93 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
             return step(params, opt_state, batch)
 
     return train_step
+
+
+class TrainStepGraph:
+    """The reference trainer's ``jax.jit(step, donate_argnums=(0, 1))``
+    without a mesh: ``step`` (``make_train_step(..., donate=True)``) over
+    tensors this object owns, the parameters and AdamW state (``state``:
+    ``{"params", "opt"}``, updated in place by every step) and a static
+    batch of ``layout``'s keys, shapes and dtypes (``batch``).
+
+    On CUDA the step is captured once into a CUDA graph
+    (``kernels/graphs.StepGraph``: one eager warm-up on a side stream,
+    under ``set_sync_debug_mode("error")``, then the capture). ``reset()``
+    writes the initial state into ``state`` in place; it runs before the
+    warm-up and again after it, because the warm-up stepped the state, so
+    that the first replay is the first step. A call copies its batch into
+    a pinned staging buffer, then up in one copy per dtype, replays the
+    graph, and returns the step's metrics (``loss``, ``lr``,
+    ``grad_norm``: tensors the next call rewrites). A capture that fails
+    raises. On the CPU a call runs the step eagerly on the same buffers.
+    """
+
+    def __init__(self, step, state: dict, layout: dict, reset):
+        self.state = state
+        self.reset = reset
+        device = tr.leaves(state["params"])[0].device
+        cuda = device.type == "cuda"
+        self.layout = {k: (tuple(shape), dt)
+                       for k, (shape, dt) in layout.items()}
+        groups: dict = {}
+        for k, (_, dt) in self.layout.items():
+            groups.setdefault(dt, []).append(k)
+        self.batch, self._host, self._up = {}, {}, []
+        for dt, keys in groups.items():
+            n = sum(math.prod(self.layout[k][0]) for k in keys)
+            dev_buf = torch.zeros(n, dtype=dt, device=device)
+            host_buf = torch.zeros(n, dtype=dt, pin_memory=True) if cuda \
+                else dev_buf
+            off = 0
+            for k in keys:
+                shape = self.layout[k][0]
+                n_k = math.prod(shape)
+                self.batch[k] = dev_buf[off:off + n_k].view(shape)
+                self._host[k] = host_buf[off:off + n_k].view(shape)
+                off += n_k
+            if cuda:
+                self._up.append((dev_buf, host_buf))
+        self._copied = None
+        batch = self.batch      # (the graph's step holds no self)
+        self._step = lambda: step(state["params"], state["opt"], batch)[2]
+        self.graph = None
+        # what the capture added to the graph's pool, and the wrappers'
+        # counts of one replay (kernels/graphs.counts() keys)
+        self.pool_bytes, self.launches = 0, {}
+        reset()
+        if cuda:
+            from repro_torch.kernels.graphs import StepGraph
+
+            self.graph = StepGraph(self._step, torch.cuda.graph_pool_handle())
+            self.pool_bytes = self.graph.pool_bytes
+            self.launches = self.graph.launches
+            reset()
+
+    def load(self, batch: dict) -> None:
+        """``batch`` (numpy arrays or host tensors of the layout's keys,
+        shapes and dtypes) into the static buffers."""
+        if set(batch) != set(self.layout):
+            raise ValueError(f"batch keys {sorted(batch)}, the step's are "
+                             f"{sorted(self.layout)}")
+        if self._copied is not None:
+            self._copied.synchronize()   # the last copy up read the staging
+        for k, v in batch.items():
+            v = torch.as_tensor(v)
+            shape, dt = self.layout[k]
+            if tuple(v.shape) != shape or v.dtype != dt:
+                raise ValueError(f"{k}: {tuple(v.shape)} {v.dtype}, the "
+                                 f"step's static batch holds {shape} {dt}")
+            self._host[k].copy_(v)
+        if self._up:
+            for dev_buf, host_buf in self._up:
+                dev_buf.copy_(host_buf, non_blocking=True)
+            self._copied = torch.cuda.Event()
+            self._copied.record()
+
+    def __call__(self, batch: dict) -> dict:
+        """One training step on ``batch``; returns its metrics."""
+        self.load(batch)
+        return self._step() if self.graph is None else self.graph.replay()
 
 
 def make_prefill_step(cfg: ModelConfig, mesh=None, shard_cfg=None):

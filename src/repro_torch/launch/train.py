@@ -10,14 +10,26 @@ CPU example (a few minutes):
 On one GPU (the default device) a published config trains at its widths;
 ``--n-repeat`` cuts its depth to the superblock repeats that fit the card
 (with ``--smoke`` it is the shrunk config's depth, 2 by default, as in the
-reference). ``--mesh single|multi`` trains on the reference's production
-mesh, re-expressed for H100 nodes (``launch/mesh.py``: (32, 8), or (2, 32,
-8) with ``multi``) as a DTensor program over the launched process group,
-one rank a GPU: parameters and AdamW state initialised from the seed as
+reference). Without a mesh the step runs as the reference's jitted one:
+``launch/steps.TrainStepGraph`` owns the parameters, the AdamW state and
+a static (batch, seq) buffer of tokens and labels, and on CUDA replays
+one CUDA graph of the donated step a training step (captured once per
+run, at the first start; a restart seeds the same tensors again or
+restores the checkpoint into them, and replays the same graph); each
+batch goes up from a pinned staging buffer, and the metrics are read
+after the replay. On the CPU the same owner runs the step eagerly; the
+eager step stays ``make_train_step``.
+
+``--mesh single|multi`` trains on the reference's production mesh,
+re-expressed for H100 nodes (``launch/mesh.py``: (32, 8), or (2, 32, 8)
+with ``multi``) as a DTensor program over the launched process group, one
+rank a GPU: parameters and AdamW state initialised from the seed as
 without a mesh, then placed by ``param_pspec``; each batch placed by its
 input pspecs; checkpoints in the reference's layout (one ``.npy`` per
-whole leaf, written by rank 0). The process group comes from the caller,
-or from ``torchrun``'s environment; its size must be the mesh's.
+whole leaf, written by rank 0). This step stays eager: a DTensor
+program's NCCL collectives are not captured. The process group comes
+from the caller, or from ``torchrun``'s environment; its size must be the
+mesh's.
 ``build``/``main`` also take a ``mesh=`` (any ``DeviceMesh`` with the
 reference's axis names), which is how the tests reach a small mesh.
 """
@@ -35,11 +47,12 @@ import torch.distributed as dist
 from repro_torch.configs import get_config, shrink
 from repro_torch.configs.common import input_layout
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.steps import TrainStepGraph, make_train_step
 from repro_torch.models.lm import LM
 from repro_torch.nn.config import ShapeCell
 from repro_torch.nn.param import init_leaf, map_specs
 from repro_torch.nn.sharding import distribute, param_pspec
+from repro_torch.train import tree as tr
 from repro_torch.train.data import BigramStream
 from repro_torch.train.optim import AdamWConfig, init_state
 from repro_torch.train.supervisor import FaultInjector, Supervisor
@@ -73,7 +86,8 @@ def production_mesh(kind: str, device_type: str):
 def build(args, mesh=None):
     """``(cfg, lm, opt_cfg, step, mesh)`` for parsed ``args``: the step
     updates its parameters and optimizer state in place, as the
-    reference's trainer donates them to its jitted step. ``mesh`` (a
+    reference's trainer donates them to its jitted step (``main`` runs it
+    through ``TrainStepGraph`` without a mesh). ``mesh`` (a
     ``DeviceMesh``) or ``--mesh single|multi`` runs it over a mesh (None
     without one)."""
     if mesh is None and args.mesh != "none":
@@ -137,16 +151,42 @@ def main(argv=None, data=None, mesh=None):
         data = lambda step: stream.batch(step, args.batch, args.seq)
     print(f"arch={cfg.name} layers={cfg.n_layers} vocab={cfg.vocab_size}")
 
+    owner = []      # without a mesh: the TrainStepGraph, made once
+
     def init_state_fn():
-        gen = torch.Generator(device=dev).manual_seed(args.seed)
-        leaf = lambda s: init_leaf(s, gen, dev)
         if mesh is not None:
             # a leaf at a time, drawn whole as without a mesh and placed at
             # once: no rank holds more than one whole leaf
-            leaf = lambda s: distribute(mesh, init_leaf(s, gen, dev),
-                                        param_pspec(mesh, s))
-        params = map_specs(leaf, lm.param_specs())
-        return {"params": params, "opt": init_state(opt_cfg, params)}
+            gen = torch.Generator(device=dev).manual_seed(args.seed)
+            params = map_specs(lambda s: distribute(
+                mesh, init_leaf(s, gen, dev), param_pspec(mesh, s)),
+                lm.param_specs())
+            return {"params": params, "opt": init_state(opt_cfg, params)}
+        if owner:       # a restart: the same tensors, seeded again
+            owner[0].reset()
+            return owner[0].state
+        pairs = []
+
+        def alloc(s):
+            pairs.append((s, torch.empty(s.shape, dtype=s.dtype,
+                                         device=dev)))
+            return pairs[-1][1]
+
+        params = map_specs(alloc, lm.param_specs())
+        state = {"params": params, "opt": init_state(opt_cfg, params)}
+
+        def seed():
+            # the draws of init_leaf in the specs' order, into place
+            g = torch.Generator(device=dev).manual_seed(args.seed)
+            for s, x in pairs:
+                x.copy_(init_leaf(s, g, dev))
+            for x in tr.leaves(state["opt"]):
+                x.zero_()
+
+        layout = {k: ((args.batch, args.seq), torch.int32)
+                  for k in ("tokens", "labels")}
+        owner.append(TrainStepGraph(step_fn_, state, layout, seed))
+        return state
 
     def placed(batch):
         if mesh is None:
@@ -158,9 +198,13 @@ def main(argv=None, data=None, mesh=None):
     t_step = [time.monotonic()]
 
     def step_fn(state, step):
-        batch = placed({k: torch.from_numpy(v).to(dev)
-                        for k, v in data(step).items()})
-        params, opt, metrics = step_fn_(state["params"], state["opt"], batch)
+        if mesh is None:
+            metrics = owner[0](data(step))
+        else:
+            batch = placed({k: torch.from_numpy(v).to(dev)
+                            for k, v in data(step).items()})
+            state["params"], state["opt"], metrics = step_fn_(
+                state["params"], state["opt"], batch)
         loss = float(metrics["loss"])
         dt = time.monotonic() - t_step[0]
         t_step[0] = time.monotonic()
@@ -168,7 +212,7 @@ def main(argv=None, data=None, mesh=None):
             print(f"step {step:5d} loss {loss:.4f} "
                   f"lr {float(metrics['lr']):.2e} "
                   f"gnorm {float(metrics['grad_norm']):.2f} {dt:.2f}s")
-        return {"params": params, "opt": opt}, {"loss": loss}
+        return state, {"loss": loss}
 
     sup = Supervisor(args.ckpt_dir, save_every=args.save_every,
                      injector=FaultInjector(set(args.fail_at)),

@@ -221,17 +221,20 @@ def _remat_layer(remat: str, spec: LayerSpec, p, x: torch.Tensor,
                                 norm_eps=norm_eps, ctx=ctx)
         return x, aux
 
+    # no RNG state kept for the recompute: no model here draws random
+    # numbers in its step, and the CUDA generator's state, read at each
+    # checkpoint and set again in the backward, is host bookkeeping that a
+    # CUDA graph of the step would not redo at its replays
+    remat_fn = functools.partial(ckpt.checkpoint, use_reentrant=False,
+                                 preserve_rng_state=False)
     if remat == "full":
-        return ckpt.checkpoint(layer, x, use_reentrant=False)
+        return remat_fn(layer, x)
     if remat == "dots":
-        return ckpt.checkpoint(
-            layer, x, use_reentrant=False,
-            context_fn=functools.partial(
-                ckpt.create_selective_checkpoint_contexts, _dots_policy))
-    x = ckpt.checkpoint(lambda x: mix(x)[0], x, use_reentrant=False)
-    return ckpt.checkpoint(functools.partial(_channel, spec, p,
-                                             norm_eps=norm_eps, ctx=ctx),
-                           x, use_reentrant=False)
+        return remat_fn(layer, x, context_fn=functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    x = remat_fn(lambda x: mix(x)[0], x)
+    return remat_fn(functools.partial(_channel, spec, p, norm_eps=norm_eps,
+                                      ctx=ctx), x)
 
 
 def _bidir_attn(p, cfg, x: torch.Tensor, positions: torch.Tensor,

@@ -105,9 +105,11 @@ def apply_rope(cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor,
         if positions.ndim == 2:
             positions = positions[None].expand(3, *positions.shape)
         ang = positions[..., None].float() * inv            # (3, B, S, rot/2)
-        band = torch.cat([torch.full((n,), i, dtype=torch.long)
+        # stream of band f, filled on the device (no copy up a call)
+        band = torch.cat([torch.full((n,), i, dtype=torch.long,
+                                     device=x.device)
                           for i, n in enumerate(cfg.mrope_sections)])
-        band = band[:rot // 2].to(x.device)                 # stream of band f
+        band = band[:rot // 2]
         ang = torch.gather(ang, 0, band.expand(1, *ang.shape[1:-1], -1))[0]
     else:
         ang = positions[..., None].float() * inv            # (B, S, rot/2)

@@ -19,8 +19,9 @@
 A tree of DTensors (a program over a device mesh) is saved in the same
 layout: every rank calls :func:`save`, each leaf is gathered whole (a
 collective), and only global rank 0 writes; :func:`restore` reads the
-whole leaves on every rank and distributes them into the placements of
-the target's leaves.
+whole leaves on every rank and copies each rank's shard into the
+target's leaves. :func:`restore` writes into the target's own tensors,
+so that a restart keeps the tensors a CUDA graph of the step holds.
 
 Leaves are stored as whole host arrays; bf16, which ``.npy`` cannot hold,
 as its raw bits in uint16 (the manifest keeps ``"bfloat16"``), read back
@@ -126,32 +127,37 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, step: int, like_tree) -> tuple[Any, dict]:
-    """Checkpoint ``step`` in the structure of ``like_tree``, whose leaves
-    (tensors, or DTensors whose placements a leaf takes) give each leaf's
-    dtype and device; returns ``(tree, extra)``."""
+def restore(ckpt_dir: str, step: int, tree) -> tuple[Any, dict]:
+    """Checkpoint ``step`` copied into the leaves of ``tree`` (tensors, or
+    DTensors, each of which takes its shard of the whole leaf), in place:
+    a CUDA graph that holds their addresses, or a donated step, goes on
+    with the same tensors. A leaf whose shape or dtype is not the
+    checkpoint's is refused before anything is written. Returns ``(tree,
+    extra)``."""
     name = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(name, MANIFEST)) as f:
         manifest = json.load(f)
-    leaves, treedef = tr.flatten(like_tree)
+    leaves = tr.leaves(tree)
     if len(leaves) != manifest["n_leaves"]:
         raise ValueError(f"checkpoint has {manifest['n_leaves']} leaves, "
                          f"restore target has {len(leaves)}")
-    out = []
+    for i, ref in enumerate(leaves):
+        shape = tuple(manifest["shapes"][i])
+        dtype = str(ref.dtype).removeprefix("torch.")
+        if shape != tuple(ref.shape) or manifest["dtypes"][i] != dtype:
+            raise ValueError(f"leaf {i}: checkpoint {shape} "
+                             f"{manifest['dtypes'][i]} != target "
+                             f"{tuple(ref.shape)} {dtype}")
     for i, ref in enumerate(leaves):
         t = torch.from_numpy(np.load(os.path.join(name, f"arr_{i:05d}.npy")))
         if manifest["dtypes"][i] == "bfloat16":
             t = t.view(torch.bfloat16)
-        if tuple(t.shape) != tuple(ref.shape):
-            raise ValueError(f"leaf {i}: checkpoint shape {tuple(t.shape)} "
-                             f"!= target {tuple(ref.shape)}")
         if _is_dtensor(ref):
             from torch.distributed.tensor import distribute_tensor
 
-            t = distribute_tensor(
-                t.to(device=ref.to_local().device, dtype=ref.dtype),
-                ref.device_mesh, ref.placements)
+            t = distribute_tensor(t.to(ref.to_local().device),
+                                  ref.device_mesh, ref.placements)
+            ref.to_local().copy_(t.to_local())
         else:
-            t = t.to(device=ref.device, dtype=ref.dtype)
-        out.append(t)
-    return tr.unflatten(treedef, out), manifest["extra"]
+            ref.copy_(t)
+    return tree, manifest["extra"]

@@ -42,12 +42,20 @@ def _f32(x, device=None) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
+def _const(x: float, device) -> torch.Tensor:
+    """The fp32 constant ``x`` made on ``device`` (a fill, not a copy from
+    the host, which a CUDA graph's capture refuses). ``torch.pow(0.9, t)``
+    with a Python base would round 0.9 as a double; the reference's ``b1``
+    is fp32, and so is this."""
+    return torch.full((), x, dtype=torch.float32, device=device)
+
+
 def lr_at(cfg: AdamWConfig, step) -> torch.Tensor:
     """The learning rate at ``step`` (an int or a 0-d tensor), in fp32."""
     step = _f32(step)
     warm = torch.clamp(step / max(cfg.warmup_steps, 1), max=1.0)
     if cfg.schedule == "const":
-        decay = _f32(1.0)
+        decay = torch.ones_like(step)
     else:
         t = torch.clamp((step - cfg.warmup_steps)
                         / max(cfg.total_steps - cfg.warmup_steps, 1),
@@ -117,10 +125,10 @@ def adamw_update(cfg: AdamWConfig, params, grads, state, *,
         gnorm = global_norm(grads)
         clip = _clip_scale(gnorm, cfg.grad_clip)
     else:
-        gnorm = torch.zeros((), dtype=torch.float32)
+        gnorm = torch.zeros((), dtype=torch.float32, device=step.device)
     b1, b2 = cfg.b1, cfg.b2
-    bc1 = 1 - torch.pow(_f32(b1, step.device), step.float())
-    bc2 = 1 - torch.pow(_f32(b2, step.device), step.float())
+    bc1 = 1 - torch.pow(_const(b1, step.device), step.float())
+    bc2 = 1 - torch.pow(_const(b2, step.device), step.float())
 
     def upd(p, g, m, v):
         if clip is not None:

@@ -85,8 +85,11 @@ class Supervisor:
     def run(self, *, init_state: Callable[[], object], step_fn: Callable,
             n_steps: int) -> RunResult:
         """Run ``n_steps`` of ``step_fn(state, step) -> (state, metrics)``
-        with checkpoints and restarts; ``state`` is a tree of tensors,
-        which a restart restores into a fresh ``init_state()``."""
+        with checkpoints and restarts; ``state`` is a tree of tensors. At
+        each start the latest checkpoint, if any, is copied into
+        ``init_state()``'s tensors in place (``checkpoint.restore``): an
+        ``init_state`` that hands back the same tensors every time (a
+        trainer whose step is a CUDA graph over them) keeps them."""
         monitor = StragglerMonitor()
         losses = []
         writers = []

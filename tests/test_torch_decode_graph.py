@@ -221,6 +221,7 @@ class _FakeCuda:
         for name, fn in {
                 "Stream": lambda: stream,
                 "current_stream": lambda: stream,
+                "current_device": lambda: 0,
                 "stream": lambda s: contextlib.nullcontext(),
                 "get_sync_debug_mode": lambda: self.mode,
                 "set_sync_debug_mode": self._set,
@@ -228,7 +229,8 @@ class _FakeCuda:
                 "memory_reserved": lambda: 0,
                 "CUDAGraph": lambda: types.SimpleNamespace(
                     replay=lambda: None),
-                "graph": lambda g, pool=None: contextlib.nullcontext()}.items():
+                "graph": lambda g, pool=None, stream=None:
+                contextlib.nullcontext()}.items():
             monkeypatch.setattr(torch.cuda, name, fn)
 
     def _set(self, mode):
