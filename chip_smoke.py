@@ -4544,7 +4544,6 @@ def recording_graphs():
     data_ptrs when it was made: ``{"captures": n, "owners": [...]}``."""
     from repro_torch.kernels import graphs
     from repro_torch.launch import train as train_mod
-    from repro_torch.train import tree as tr
 
     made = {"captures": 0, "owners": []}
     real_graph, real_owner = graphs.StepGraph, train_mod.TrainStepGraph
@@ -4557,7 +4556,7 @@ def recording_graphs():
     class Kept(real_owner):
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
-            self.ptrs = [x.data_ptr() for x in tr.leaves(self.state)]
+            self.ptrs = local_ptrs(self.state)
             made["owners"].append(self)
 
     graphs.StepGraph, train_mod.TrainStepGraph = Counted, Kept
@@ -4565,6 +4564,15 @@ def recording_graphs():
         yield made
     finally:
         graphs.StepGraph, train_mod.TrainStepGraph = real_graph, real_owner
+
+
+def local_ptrs(state) -> list:
+    """The data_ptr of every leaf of ``state``, a DTensor's its local
+    shard's."""
+    from repro_torch.train import tree as tr
+
+    return [(x.to_local() if hasattr(x, "to_local") else x).data_ptr()
+            for x in tr.leaves(state)]
 
 
 def flash_counts(counts: dict) -> dict:
@@ -4581,13 +4589,11 @@ def one_owner(made: dict, what: str, want_replay: int) -> dict:
     data_ptrs and whose replay launches kernel 6 ``want_replay`` times,
     all on the tensor cores; the owner is dropped from ``made`` (its
     graph's pool goes with it). Returns its pool bytes and counts."""
-    from repro_torch.train import tree as tr
-
     check(made["captures"] == 1 and len(made["owners"]) == 1,
           f"{what}: {made['captures']} captures and "
           f"{len(made['owners'])} owners, want one of each")
     owner = made["owners"].pop()
-    check([x.data_ptr() for x in tr.leaves(owner.state)] == owner.ptrs,
+    check(local_ptrs(owner.state) == owner.ptrs,
           f"{what}: the owner's tensors moved")
     replay = flash_counts(owner.launches)
     check(replay == {"launches": want_replay, "launches_tc": want_replay,
@@ -5417,7 +5423,10 @@ def sharded_model(name: str, mesh, dev) -> dict:
 
 
 PIPE_LAYERS, PIPE_M, PIPE_SEQ = 4, 4, 1024   # (ii): 4 microbatches of 1 x 1024
-MESH_TRAIN = dict(steps=6, save_every=3, fail_at=4, batch=4, seq=64)  # (iii)
+# (iii): the shrunk trainer on the (1, 1) mesh; steps ``profiled`` under
+# torch.profiler in each form (StepClock)
+MESH_TRAIN = dict(steps=12, save_every=3, fail_at=4, batch=4, seq=64,
+                  profiled=(8, 10))
 
 
 def pipe_model(dev, layers: int):
@@ -5498,51 +5507,145 @@ def pipeline_one_card(dev) -> dict:
     return out
 
 
+def mesh_full_data(step: int) -> dict:
+    """MESH_TRAIN_FULL's batch of ``step``: seeded tokens over granite's
+    published vocabulary."""
+    from repro_torch.configs.granite_3_8b import PAPER_VOCAB
+
+    r = MESH_TRAIN_FULL
+    t = np.random.default_rng(500 + step).integers(
+        0, PAPER_VOCAB, (r["batch"], r["seq"] + 1)).astype(np.int32)
+    return {"tokens": t[:, :-1].copy(), "labels": t[:, 1:].copy()}
+
+
+def mesh_full_args(device: str) -> list:
+    """``launch.train`` arguments of MESH_TRAIN_FULL: granite-3-8b at its
+    published width, its layers, steps and batch, no checkpoints."""
+    r = MESH_TRAIN_FULL
+    return ["--arch", TRAIN_ARCH, "--device", device, "--n-repeat",
+            str(r["layers"]), "--steps", str(r["steps"]), "--batch",
+            str(r["batch"]), "--seq", str(r["seq"]), "--save-every", "0"]
+
+
+def train_forms(argv, data, mesh, dev, what: str, per_step: int,
+                profiled: tuple) -> dict:
+    """``launch.train.main(argv)`` over ``mesh`` in both forms on ``data``:
+    graphed (the trainer's path: one capture, its owner's local shards
+    kept, kernel 6 ``per_step`` times a replay and once more a step in
+    the warm-up) and eager (``uncaptured()``: the step function itself
+    each step), each on a StepClock; in both, kernel 6 all tensor-core
+    and kernel 7 never launched (``check_all_tc``). Per form: the
+    losses, host ms and device ms a step, the busy share, the graph's pool
+    bytes, the peak bytes and both kernels' measured counts; the caller
+    holds the losses."""
+    import functools
+
+    from repro_torch.launch.train import main as train_main
+
+    steps = int(argv[argv.index("--steps") + 1])
+    wrappers = attn_wrappers()
+    out = {}
+    for form in ("graphed", "eager"):
+        release(dev)
+        reset_counts(wrappers)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        with (contextlib.nullcontext() if form == "graphed"
+              else uncaptured()), recording_graphs() as made:
+            res, clock = timed_main(functools.partial(train_main, mesh=mesh),
+                                    argv, data, profiled)
+        torch.cuda.synchronize()
+        clock.pop("step_ms_each")
+        rec = {**clock, "losses": res.losses,
+               "peak_bytes": torch.cuda.max_memory_allocated(dev),
+               "run_s": time.perf_counter() - t}
+        want = steps * per_step
+        if form == "graphed":
+            rec.update(one_owner(made, what, per_step))
+            want += per_step
+        launches = {n: w.launches for n, w in wrappers.items()}
+        rec["launches_by_design"] = check_all_tc(wrappers, f"{what} {form}")
+        check(launches == {"flash_attention_fwd": want,
+                           "decode_attention": 0},
+              f"{what} {form}: launches {launches}, want kernel 6 x {want} "
+              f"and no kernel 7")
+        rec["launches"] = launches
+        out[form] = rec
+    release(dev)
+    return out
+
+
 def train_mesh_one_card(mesh, dev) -> dict:
-    """(iii) ``launch.train.main`` on the (1, 1) mesh: the shrunk config,
-    MESH_TRAIN's steps, a clean run and one that fails and restarts from
-    its checkpoint; the losses bitwise the mesh-free trainer's, the
-    replay exact, kernel 6 once a layer and step on the mesh."""
+    """(iii) ``launch.train.main`` on the (1, 1) mesh, where it replays one
+    CUDA graph of the DTensor step (deterministic mode): the shrunk config
+    (``--smoke``) for MESH_TRAIN's steps in both forms (``train_forms``),
+    the losses bitwise the mesh-free trainer's and between the forms, and
+    a run that fails and restarts from its checkpoint under the graph
+    (one capture, the owner's local shards kept, the replay exact); then
+    granite at published width (MESH_TRAIN_FULL) in both forms, bitwise
+    between them."""
     import tempfile
 
     from repro_torch.launch.train import main as train_main
+    from repro_torch.train.data import BigramStream
 
     r = MESH_TRAIN
     argv = ["--arch", TRAIN_ARCH, "--smoke", "--device", "cuda", "--steps",
             str(r["steps"]), "--batch", str(r["batch"]), "--seq",
-            str(r["seq"]), "--save-every", str(r["save_every"])]
-    wrappers = attn_wrappers()
+            str(r["seq"])]
+    stream = BigramStream(512, seed=0)      # --smoke's vocabulary
+    batches = [{k: np.ascontiguousarray(v) for k, v in stream.batch(
+        s, r["batch"], r["seq"]).items()} for s in range(r["steps"])]
+    data = lambda s: batches[s]
+    layers = 2        # --smoke's depth; one microbatch
     TRACE_DIR.mkdir(parents=True, exist_ok=True)
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         with tempfile.TemporaryDirectory(dir=TRACE_DIR) as d, \
                 contextlib.redirect_stdout(sys.stderr):
-            free = train_main(argv + ["--ckpt-dir", f"{d}/free"])
-            reset_counts(wrappers)
-            meshed = train_main(argv + ["--ckpt-dir", f"{d}/mesh"],
-                                mesh=mesh)
-            launches = {n: w.launches for n, w in wrappers.items()}
-            designs = check_all_tc(wrappers, "train on the (1, 1) mesh")
-            faulty = train_main(argv + ["--ckpt-dir", f"{d}/faulty",
-                                        "--fail-at", str(r["fail_at"])],
-                                mesh=mesh)
+            free = train_main(argv + ["--save-every", "0", "--ckpt-dir",
+                                      f"{d}/free"], data=data)
+            smoke = train_forms(argv + ["--save-every", "0", "--ckpt-dir",
+                                        f"{d}/mesh"], data, mesh, dev,
+                                "train on the (1, 1) mesh", layers,
+                                r["profiled"])
+            with recording_graphs() as made:
+                faulty = train_main(argv + ["--save-every",
+                                            str(r["save_every"]),
+                                            "--fail-at", str(r["fail_at"]),
+                                            "--ckpt-dir", f"{d}/faulty"],
+                                    data=data, mesh=mesh)
+            restart = one_owner(made, "restart on the (1, 1) mesh", layers)
+            release(dev)
+            full = train_forms(mesh_full_args("cuda"), mesh_full_data, mesh,
+                               dev, "granite at published width on the "
+                               "(1, 1) mesh", MESH_TRAIN_FULL["layers"],
+                               MESH_TRAIN_FULL["profiled"])
     finally:
         torch.use_deterministic_algorithms(False)
-    layers = 2        # --smoke's depth
-    check(launches == {"flash_attention_fwd": layers * r["steps"],
-                       "decode_attention": 0},
-          f"train on the (1, 1) mesh: launches {launches}")
-    check(meshed.losses == free.losses,
-          f"train on the (1, 1) mesh: losses {meshed.losses} against the "
+    meshed = smoke["graphed"]["losses"]
+    check(meshed == free.losses,
+          f"train on the (1, 1) mesh: losses {meshed} against the "
           f"mesh-free trainer's {free.losses}")
+    for name, run in (("--smoke", smoke), ("published width", full)):
+        check(run["eager"]["losses"] == run["graphed"]["losses"],
+              f"train on the (1, 1) mesh, {name}: graphed losses "
+              f"{run['graphed']['losses']} against eager "
+              f"{run['eager']['losses']}")
     back = r["fail_at"] // r["save_every"] * r["save_every"]
     check(faulty.restarts == 1 and faulty.losses
-          == meshed.losses[:r["fail_at"]] + meshed.losses[back:],
+          == meshed[:r["fail_at"]] + meshed[back:],
           f"train on the (1, 1) mesh: the restart gave {faulty.losses}")
     release(dev)
-    return {**r, "losses": meshed.losses, "losses_bitwise": True,
-            "replay_exact": True, "launches": launches,
-            "launches_by_design": designs}
+    return {**{k: r[k] for k in ("steps", "batch", "seq", "save_every",
+                                 "fail_at")},
+            "losses": meshed, "losses_bitwise": True, "forms_bitwise": True,
+            "replay_exact": True, "launches": smoke["graphed"]["launches"],
+            "launches_by_design": smoke["graphed"]["launches_by_design"],
+            "restart": restart, "smoke": smoke,
+            "full_width": {**{k: MESH_TRAIN_FULL[k] for k in
+                              ("layers", "steps", "batch", "seq")},
+                           **full}}
 
 
 def phase_sharded(dev, trained: dict) -> dict:
@@ -5655,7 +5758,11 @@ def mesh_model(cfg, mesh, dev) -> dict:
     MESH_DECODE decode steps (teacher-forced with the mesh-free model's
     greedy tokens) against the same model without a mesh on this card,
     as shares of the logits' scale, and the mesh passes' launches of
-    kernels 6 and 7 by design on this rank."""
+    kernels 6 and 7 by design on this rank. The caches and tokens each
+    rank computed for itself go onto the mesh as rank 0's (a broadcast);
+    ``own_values_not_rank0s`` counts those whose own copy was not."""
+    import torch.distributed as dist
+
     from repro_torch.models.lm import LM
     from repro_torch.nn.param import init_params
     from repro_torch.nn.sharding import (ShardCtx, distribute,
@@ -5675,6 +5782,17 @@ def mesh_model(cfg, mesh, dev) -> dict:
         axes = ("dp",) + (None,) * (t.ndim - 1)
         return distribute(mesh, t, resolve_pspec(mesh, axes, t.shape))
 
+    own_differs = []    # per-rank values that were not rank 0's, bitwise
+
+    def agreed(t):
+        # rank 0's copy of a value each rank computed for itself (its own
+        # mesh-free prefill and greedy tokens): ``distribute`` keeps each
+        # rank's own copy, and its replicas must be equal on every rank
+        r0 = t.clone()
+        dist.broadcast(r0, 0)
+        own_differs.append(not torch.equal(r0, t))
+        return r0
+
     def rel(got, want) -> float:
         return float((got.float() - want.float()).abs().max()
                      / want.float().abs().max())
@@ -5690,7 +5808,7 @@ def mesh_model(cfg, mesh, dev) -> dict:
         caches = grow_caches(lm, caches, MESH_DECODE)
         caches_d = distribute_tree(
             mesh, lm.cache_specs(MESH_BATCH, MESH_PROMPT + MESH_DECODE),
-            tr.tree_map(torch.clone, caches))
+            tr.tree_map(agreed, caches))
         toks, want = [], []
         tok = logits[:, -1:].argmax(-1)
         for t in range(MESH_DECODE):
@@ -5708,11 +5826,13 @@ def mesh_model(cfg, mesh, dev) -> dict:
         reset_counts(wrappers)
         rels = []
         for t in range(MESH_DECODE):
-            lg, caches_d = lmd.decode(pd, rows(toks[t]), caches_d,
+            lg, caches_d = lmd.decode(pd, rows(agreed(toks[t])), caches_d,
                                       MESH_PROMPT + t)
             rels.append(rel(lg.full_tensor(), want[t]))
         sync(dev)
         out["decode_rel"] = rels
+        out["own_values_not_rank0s"] = f"{sum(own_differs)} of " \
+            f"{len(own_differs)}"
         out["decode_launches"] = {n: design_counts(w) | {
             "plain": w.plain_calls} for n, w in wrappers.items()}
     out["attn_mixers"] = attn_mixers(lm)
@@ -5792,8 +5912,9 @@ def phase_mesh(cfgs: dict) -> dict:
                           f"mesh {name} rank {i} {what}: {kname} {c}, want "
                           f"{n} on tc")
         line[name] = {"layers": ranks[0]["layers"],
-                      "ranks": [{k: r[k] for k in ("prefill_rel",
-                                                   "decode_rel", "seconds")}
+                      "ranks": [{k: r[k] for k in (
+                          "prefill_rel", "decode_rel",
+                          "own_values_not_rank0s", "seconds")}
                                 for r in ranks],
                       "launches_per_rank": {
                           "prefill": ranks[0]["prefill_launches"],
@@ -5802,8 +5923,8 @@ def phase_mesh(cfgs: dict) -> dict:
 
 
 MESH_SHARDS = 4           # stage 1: one shard's bucket range a card
-MESH_TRAIN_FULL = dict(layers=2, steps=4, batch=2, seq=1024, save_every=2,
-                       fail_at=3)
+MESH_TRAIN_FULL = dict(layers=2, steps=8, batch=2, seq=1024, save_every=2,
+                       fail_at=3, profiled=(5, 7))
 MESH_TRAIN_TOL = 0.01     # mesh losses against the mesh-free trainer's
 
 
@@ -5992,46 +6113,47 @@ def mesh_train_worker(rank: int, world: int, port: int, port_env: int,
         del y, want, grads, want_g, layers, mine, leaves
         if cuda:
             release(dev)
-        # the trainer on the (2, 2) mesh against the mesh-free one on card 0
+        # the trainer on the (2, 2) mesh against the mesh-free one on card 0,
+        # its graph against the same steps eager, each rank's times
         r = MESH_TRAIN_FULL
-        argv = ["--arch", TRAIN_ARCH, "--device", dev.type, "--n-repeat",
-                str(r["layers"]), "--steps", str(r["steps"]), "--batch",
-                str(r["batch"]), "--seq", str(r["seq"])]
-        from repro_torch.configs.granite_3_8b import PAPER_VOCAB
-
-        def data(step):
-            t = np.random.default_rng(500 + step).integers(
-                0, PAPER_VOCAB, (r["batch"], r["seq"] + 1)).astype(np.int32)
-            return {"tokens": t[:, :-1].copy(), "labels": t[:, 1:].copy()}
-
+        argv = mesh_full_args(dev.type)
         mesh2 = init_device_mesh(dev.type, MESH_SHAPE,
                                  mesh_dim_names=("data", "model"))
         d = ckpt
         with contextlib.redirect_stdout(sys.stderr):
-            reset_counts(wrappers)
             t = time.perf_counter()
-            clean = train_main(argv + ["--save-every", "0", "--ckpt-dir",
-                                       f"{d}/clean"], data=data, mesh=mesh2)
+            forms = train_forms(argv + ["--ckpt-dir", f"{d}/clean"],
+                                mesh_full_data, mesh2, dev,
+                                f"mesh train rank {rank}", r["layers"],
+                                r["profiled"])
             clean_s = time.perf_counter() - t
-            launches = {n: w.launches for n, w in wrappers.items()}
             t = time.perf_counter()
-            faulty = train_main(argv + ["--save-every", str(r["save_every"]),
-                                        "--fail-at", str(r["fail_at"]),
-                                        "--ckpt-dir", f"{d}/faulty"],
-                                data=data, mesh=mesh2)
+            with recording_graphs() as made:
+                faulty = train_main(argv + ["--save-every",
+                                            str(r["save_every"]),
+                                            "--fail-at", str(r["fail_at"]),
+                                            "--ckpt-dir", f"{d}/faulty"],
+                                    data=mesh_full_data, mesh=mesh2)
+            restart = one_owner(made, f"mesh train rank {rank} restart",
+                                r["layers"])
             faulty_s = time.perf_counter() - t
             dist.barrier()
             free = None
             if rank == 0:
                 if cuda:
                     release(dev)
-                free = train_main(argv + ["--save-every", "0", "--ckpt-dir",
-                                          f"{d}/free"], data=data).losses
+                free = train_main(argv + ["--ckpt-dir", f"{d}/free"],
+                                  data=mesh_full_data).losses
             dist.barrier()
-        res["train"] = {"losses": clean.losses, "faulty": faulty.losses,
+        res["train"] = {"losses": forms["graphed"]["losses"],
+                        "eager_losses": forms["eager"]["losses"],
+                        "faulty": faulty.losses,
                         "restarts": faulty.restarts, "free": free,
-                        "launches": launches, "clean_s": clean_s,
-                        "faulty_s": faulty_s}
+                        "launches": forms["graphed"]["launches"],
+                        "restart": restart,
+                        "forms": {f: {k: v for k, v in forms[f].items()
+                                      if k != "losses"} for f in forms},
+                        "clean_s": clean_s, "faulty_s": faulty_s}
         # --mesh single as a launcher starts it (the single mesh patched
         # to MESH_SHAPE): no group yet, every rank on card 0 until the
         # trainer takes card LOCAL_RANK
@@ -6045,12 +6167,16 @@ def mesh_train_worker(rank: int, world: int, port: int, port_env: int,
                           LOCAL_RANK=str(rank))
         if cuda:
             torch.cuda.set_device(0)
-        with contextlib.redirect_stdout(sys.stderr):
-            env = train_main(argv + ["--mesh", "single", "--save-every", "0",
-                                     "--ckpt-dir", f"{d}/env"], data=data)
+        with contextlib.redirect_stdout(sys.stderr), \
+                recording_graphs() as made:
+            env = train_main(argv + ["--mesh", "single", "--ckpt-dir",
+                                     f"{d}/env"], data=mesh_full_data)
         res["train"]["env"] = env.losses
         res["train"]["env_card"] = torch.cuda.current_device() if cuda \
             else rank
+        res["train"]["env_graph"] = one_owner(
+            made, f"mesh train rank {rank} from the environment",
+            r["layers"])
         every = [None] * world
         dist.all_gather_object(every, res)
         if rank == 0:
@@ -6064,12 +6190,16 @@ def phase_mesh_train() -> dict:
     width, PIPE_M microbatches of 1 x PIPE_SEQ): the output and every
     stage's gradients within LM_REL_TOL of the layers in sequence on one
     card, kernel 6 PIPE_M times on every card, all tensor-core; the
-    trainer on the (2, 2) mesh (granite at published width, 2 layers, 4
-    steps of 2 x 1024): losses within MESH_TRAIN_TOL of the mesh-free
-    trainer's on one card, and a restart from the checkpoint replays the
-    clean run bitwise on every rank; ``--mesh single`` started from a
-    launcher's environment takes card LOCAL_RANK on every rank and trains
-    within MESH_TRAIN_TOL too."""
+    trainer on the (2, 2) mesh (granite at published width,
+    MESH_TRAIN_FULL's 2 layers and 8 steps of 2 x 1024): losses within
+    MESH_TRAIN_TOL of the mesh-free
+    trainer's on one card, each rank replaying one CUDA graph of its step,
+    its losses within GRAPH_LOSS_REL of the same steps eager on the same
+    mesh (``train_forms``: each rank's host and device ms a step in both
+    forms), and a restart from the checkpoint replays the clean run
+    bitwise on every rank under the graph; ``--mesh single`` started from
+    a launcher's environment takes card LOCAL_RANK on every rank, replays
+    its graph and trains within MESH_TRAIN_TOL too."""
     import socket
     import tempfile
 
@@ -6112,8 +6242,10 @@ def phase_mesh_train() -> dict:
               f"mesh train rank {i}: the restart gave {tr_['faulty']} "
               f"against {tr_['losses']}")
         check(tr_["launches"]["flash_attention_fwd"]
-              == r["layers"] * r["steps"],
+              == r["layers"] * (r["steps"] + 1),
               f"mesh train rank {i}: launches {tr_['launches']}")
+        tr_["graphed_vs_eager"] = loss_match(
+            tr_["losses"], tr_["eager_losses"], f"mesh train rank {i}")
         env_worst = max(abs(a - b) / abs(b)
                         for a, b in zip(tr_["env"], free))
         tr_["env_rel_to_free"] = env_worst

@@ -28,8 +28,7 @@ def input_layout(cfg: ModelConfig, cell: ShapeCell, mesh=None) -> dict:
     s = cell.seq_len
 
     def one(shape, dtype, *axes):
-        return (shape, dtype,
-                resolve_pspec(mesh, axes, shape) if mesh is not None else ())
+        return (shape, dtype, resolve_pspec(mesh, axes, shape))
 
     out = {}
     if cell.kind == "decode":

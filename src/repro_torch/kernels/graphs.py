@@ -2,16 +2,20 @@
 counterpart of the reference's ``jax.jit`` of its four device programs
 (the batcher's decode step, ``serving/generator.py``; the model judge's
 score, ``core/judge.py``; the model embedder's encode,
-``core/embedder.py``; the trainer's donated step, ``launch/steps.py``
-``TrainStepGraph``), which compile each into one device program.
+``core/embedder.py``; the trainer's donated step, with or without a
+mesh, ``launch/steps.py`` ``TrainStepGraph``), which compile each into
+one device program.
 
 :class:`StepGraph` runs the step once eagerly on the device's side
 stream (:func:`side_stream`; with ``torch.cuda.set_sync_debug_mode(
 "error")``, so that a hidden host sync raises there with its stack,
 before the capture would fail on it), then captures it on the same
 stream into a ``torch.cuda.CUDAGraph`` on the memory pool its owner
-gives. Inputs are the step's own static tensors, which the owner refills
-in place before each :meth:`StepGraph.replay`; the output is what the
+gives. A step over a mesh captures its NCCL collectives with it: the
+warm-up's first collectives make the process group's communicators, and
+each ``wait_tensor`` joins NCCL's stream back into the capturing one.
+Inputs are the step's own static tensors, which the owner refills in
+place before each :meth:`StepGraph.replay`; the output is what the
 capture returned (a tensor, or a dict of tensors), rewritten by every
 replay. A capture that fails raises: there is no eager fall back.
 
@@ -84,7 +88,14 @@ class StepGraph:
         before = counts()
         self.graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(self.graph, pool=pool, stream=side):
+            # "thread_local": only this thread's calls are checked against
+            # the capture. Under the default "global" mode a call that
+            # is unsafe during a capture fails in any thread, and
+            # ProcessGroupNCCL's watchdog thread queries its collectives'
+            # CUDA events all along, so a step over a mesh could not be
+            # captured; no other thread of the port launches work.
+            with torch.cuda.graph(self.graph, pool=pool, stream=side,
+                                  capture_error_mode="thread_local"):
                 self.out = fn()
         finally:
             after = counts()

@@ -15,7 +15,8 @@ import torch
 
 from repro_torch.models.lm import LM
 from repro_torch.nn.config import ModelConfig
-from repro_torch.nn.sharding import ShardCtx, batch_map
+from repro_torch.nn.sharding import (ShardCtx, batch_map, dtensor_of,
+                                     local_part, local_shape)
 from repro_torch.train import tree as tr
 from repro_torch.train.optim import AdamWConfig, adamw_update
 
@@ -115,49 +116,64 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
 
 
 class TrainStepGraph:
-    """The reference trainer's ``jax.jit(step, donate_argnums=(0, 1))``
-    without a mesh: ``step`` (``make_train_step(..., donate=True)``) over
-    tensors this object owns, the parameters and AdamW state (``state``:
-    ``{"params", "opt"}``, updated in place by every step) and a static
-    batch of ``layout``'s keys, shapes and dtypes (``batch``).
+    """The reference trainer's ``jax.jit(step, donate_argnums=(0, 1))``:
+    ``step`` (``make_train_step(..., donate=True)``, over ``mesh`` when
+    one is given) over tensors this object owns, the parameters and AdamW
+    state (``state``: ``{"params", "opt"}``, updated in place by every
+    step) and a static batch of ``layout``'s keys, global shapes and
+    dtypes (``batch``). ``layout`` maps each key to ``(shape, dtype)`` or
+    ``(shape, dtype, pspec)`` (``configs/common.input_layout``).
+
+    On a mesh the state's leaves are DTensors over local shards, and the
+    static batch is DTensors over per-rank local buffers at their pspecs
+    (``nn/sharding.dtensor_of``): each rank stages and copies up only its
+    own slice of the global batch, with no collective.
 
     On CUDA the step is captured once into a CUDA graph
     (``kernels/graphs.StepGraph``: one eager warm-up on a side stream,
-    under ``set_sync_debug_mode("error")``, then the capture). ``reset()``
-    writes the initial state into ``state`` in place; it runs before the
-    warm-up and again after it, because the warm-up stepped the state, so
-    that the first replay is the first step. A call copies its batch into
-    a pinned staging buffer, then up in one copy per dtype, replays the
-    graph, and returns the step's metrics (``loss``, ``lr``,
-    ``grad_norm``: tensors the next call rewrites). A capture that fails
-    raises. On the CPU a call runs the step eagerly on the same buffers.
+    under ``set_sync_debug_mode("error")``, then the capture; on a mesh
+    each rank captures its own program, collectives included, and every
+    rank replays once a step). ``reset()`` writes the initial state into
+    ``state`` in place; it runs before the warm-up and again after it,
+    because the warm-up stepped the state, so that the first replay is
+    the first step. A call copies its batch into a pinned staging buffer,
+    then up in one copy per dtype, replays the graph, and returns the
+    step's metrics (``loss``, ``lr``, ``grad_norm``: tensors the next
+    call rewrites). A capture that fails raises. On the CPU a call runs
+    the step eagerly on the same buffers.
     """
 
-    def __init__(self, step, state: dict, layout: dict, reset):
+    def __init__(self, step, state: dict, layout: dict, reset, mesh=None):
         self.state = state
         self.reset = reset
+        # (a DTensor's device is its local shard's)
         device = tr.leaves(state["params"])[0].device
         cuda = device.type == "cuda"
-        self.layout = {k: (tuple(shape), dt)
-                       for k, (shape, dt) in layout.items()}
+        self.layout = {k: (tuple(v[0]), v[1]) for k, v in layout.items()}
+        self._pspecs = pspecs = {k: tuple(v[2]) if len(v) > 2 else ()
+                                 for k, v in layout.items()}
         groups: dict = {}
         for k, (_, dt) in self.layout.items():
             groups.setdefault(dt, []).append(k)
         self.batch, self._host, self._up = {}, {}, []
         for dt, keys in groups.items():
-            n = sum(math.prod(self.layout[k][0]) for k in keys)
+            shapes = {k: local_shape(mesh, self.layout[k][0], pspecs[k])
+                      for k in keys}
+            n = sum(math.prod(shapes[k]) for k in keys)
             dev_buf = torch.zeros(n, dtype=dt, device=device)
             host_buf = torch.zeros(n, dtype=dt, pin_memory=True) if cuda \
                 else dev_buf
             off = 0
             for k in keys:
-                shape = self.layout[k][0]
-                n_k = math.prod(shape)
-                self.batch[k] = dev_buf[off:off + n_k].view(shape)
-                self._host[k] = host_buf[off:off + n_k].view(shape)
+                n_k = math.prod(shapes[k])
+                local = dev_buf[off:off + n_k].view(shapes[k])
+                self._host[k] = host_buf[off:off + n_k].view(shapes[k])
+                self.batch[k] = dtensor_of(mesh, local, self.layout[k][0],
+                                           pspecs[k])
                 off += n_k
             if cuda:
                 self._up.append((dev_buf, host_buf))
+        self.mesh = mesh
         self._copied = None
         batch = self.batch      # (the graph's step holds no self)
         self._step = lambda: step(state["params"], state["opt"], batch)[2]
@@ -176,7 +192,8 @@ class TrainStepGraph:
 
     def load(self, batch: dict) -> None:
         """``batch`` (numpy arrays or host tensors of the layout's keys,
-        shapes and dtypes) into the static buffers."""
+        global shapes and dtypes) into the static buffers: on a mesh
+        only this rank's slice of each is staged and copied up."""
         if set(batch) != set(self.layout):
             raise ValueError(f"batch keys {sorted(batch)}, the step's are "
                              f"{sorted(self.layout)}")
@@ -188,7 +205,7 @@ class TrainStepGraph:
             if tuple(v.shape) != shape or v.dtype != dt:
                 raise ValueError(f"{k}: {tuple(v.shape)} {v.dtype}, the "
                                  f"step's static batch holds {shape} {dt}")
-            self._host[k].copy_(v)
+            self._host[k].copy_(local_part(v, self.mesh, self._pspecs[k]))
         if self._up:
             for dev_buf, host_buf in self._up:
                 dev_buf.copy_(host_buf, non_blocking=True)

@@ -10,11 +10,11 @@ CPU example (a few minutes):
 On one GPU (the default device) a published config trains at its widths;
 ``--n-repeat`` cuts its depth to the superblock repeats that fit the card
 (with ``--smoke`` it is the shrunk config's depth, 2 by default, as in the
-reference). Without a mesh the step runs as the reference's jitted one:
-``launch/steps.TrainStepGraph`` owns the parameters, the AdamW state and
-a static (batch, seq) buffer of tokens and labels, and on CUDA replays
-one CUDA graph of the donated step a training step (captured once per
-run, at the first start; a restart seeds the same tensors again or
+reference). The step runs as the reference's jitted one, with a mesh or
+without: ``launch/steps.TrainStepGraph`` owns the parameters, the AdamW
+state and a static (batch, seq) buffer of tokens and labels, and on CUDA
+replays one CUDA graph of the donated step a training step (captured once
+per run, at the first start; a restart seeds the same tensors again or
 restores the checkpoint into them, and replays the same graph); each
 batch goes up from a pinned staging buffer, and the metrics are read
 after the replay. On the CPU the same owner runs the step eagerly; the
@@ -23,13 +23,15 @@ eager step stays ``make_train_step``.
 ``--mesh single|multi`` trains on the reference's production mesh,
 re-expressed for H100 nodes (``launch/mesh.py``: (32, 8), or (2, 32, 8)
 with ``multi``) as a DTensor program over the launched process group, one
-rank a GPU: parameters and AdamW state initialised from the seed as
-without a mesh, then placed by ``param_pspec``; each batch placed by its
-input pspecs; checkpoints in the reference's layout (one ``.npy`` per
-whole leaf, written by rank 0). This step stays eager: a DTensor
-program's NCCL collectives are not captured. The process group comes
-from the caller, or from ``torchrun``'s environment; its size must be the
-mesh's.
+rank a GPU, each rank replaying its own graph of the step, NCCL
+collectives included. Every parameter and AdamW moment is a DTensor over
+a local shard allocated once: the seeded init draws each
+leaf whole as without a mesh and copies in this rank's shard, placed by
+``param_pspec``; each rank stages and copies up only its own slice of a
+batch, placed by its input pspecs (no collective in either); checkpoints
+are in the reference's layout (one ``.npy`` per whole leaf, written by
+rank 0). The process group comes from the caller, or from ``torchrun``'s
+environment; its size must be the mesh's.
 ``build``/``main`` also take a ``mesh=`` (any ``DeviceMesh`` with the
 reference's axis names), which is how the tests reach a small mesh.
 """
@@ -51,7 +53,8 @@ from repro_torch.launch.steps import TrainStepGraph, make_train_step
 from repro_torch.models.lm import LM
 from repro_torch.nn.config import ShapeCell
 from repro_torch.nn.param import init_leaf, map_specs
-from repro_torch.nn.sharding import distribute, param_pspec
+from repro_torch.nn.sharding import (dtensor_of, local_part, local_shape,
+                                     param_pspec)
 from repro_torch.train import tree as tr
 from repro_torch.train.data import BigramStream
 from repro_torch.train.optim import AdamWConfig, init_state
@@ -87,7 +90,7 @@ def build(args, mesh=None):
     """``(cfg, lm, opt_cfg, step, mesh)`` for parsed ``args``: the step
     updates its parameters and optimizer state in place, as the
     reference's trainer donates them to its jitted step (``main`` runs it
-    through ``TrainStepGraph`` without a mesh). ``mesh`` (a
+    through ``TrainStepGraph``, with a mesh or without). ``mesh`` (a
     ``DeviceMesh``) or ``--mesh single|multi`` runs it over a mesh (None
     without one)."""
     if mesh is None and args.mesh != "none":
@@ -104,6 +107,26 @@ def build(args, mesh=None):
                            microbatches=args.microbatches, donate=True,
                            mesh=mesh)
     return cfg, lm, opt_cfg, step, mesh
+
+
+def owned_state(specs, opt_cfg: AdamWConfig, dev, mesh=None):
+    """The trainer's state, allocated once: ``(state, leaves)``, ``state``
+    ``{"params", "opt"}`` with each parameter of the spec tree ``specs``
+    an empty tensor on ``dev`` (on a mesh a DTensor over this rank's shard
+    alone, placed by ``param_pspec``) and AdamW's zeros beside;
+    ``leaves`` the ``(spec, local tensor, pspec)`` triples in the specs'
+    order."""
+    leaves = []
+
+    def alloc(s):
+        ps = param_pspec(mesh, s)
+        local = torch.empty(local_shape(mesh, s.shape, ps), dtype=s.dtype,
+                            device=dev)
+        leaves.append((s, local, ps))
+        return dtensor_of(mesh, local, s.shape, ps)
+
+    params = map_specs(alloc, specs)
+    return {"params": params, "opt": init_state(opt_cfg, params)}, leaves
 
 
 def parse_args(argv=None):
@@ -151,60 +174,35 @@ def main(argv=None, data=None, mesh=None):
         data = lambda step: stream.batch(step, args.batch, args.seq)
     print(f"arch={cfg.name} layers={cfg.n_layers} vocab={cfg.vocab_size}")
 
-    owner = []      # without a mesh: the TrainStepGraph, made once
+    owner = []      # the TrainStepGraph, made once a run
 
     def init_state_fn():
-        if mesh is not None:
-            # a leaf at a time, drawn whole as without a mesh and placed at
-            # once: no rank holds more than one whole leaf
-            gen = torch.Generator(device=dev).manual_seed(args.seed)
-            params = map_specs(lambda s: distribute(
-                mesh, init_leaf(s, gen, dev), param_pspec(mesh, s)),
-                lm.param_specs())
-            return {"params": params, "opt": init_state(opt_cfg, params)}
         if owner:       # a restart: the same tensors, seeded again
             owner[0].reset()
             return owner[0].state
-        pairs = []
-
-        def alloc(s):
-            pairs.append((s, torch.empty(s.shape, dtype=s.dtype,
-                                         device=dev)))
-            return pairs[-1][1]
-
-        params = map_specs(alloc, lm.param_specs())
-        state = {"params": params, "opt": init_state(opt_cfg, params)}
+        state, leaves = owned_state(lm.param_specs(), opt_cfg, dev, mesh)
 
         def seed():
-            # the draws of init_leaf in the specs' order, into place
+            # the draws of init_leaf in the specs' order, into place; on a
+            # mesh each leaf is drawn whole, as without one, and this
+            # rank's shard copied in: no rank holds more than one whole
+            # leaf, and no collective
             g = torch.Generator(device=dev).manual_seed(args.seed)
-            for s, x in pairs:
-                x.copy_(init_leaf(s, g, dev))
+            for s, local, ps in leaves:
+                local.copy_(local_part(init_leaf(s, g, dev), mesh, ps))
             for x in tr.leaves(state["opt"]):
                 x.zero_()
 
-        layout = {k: ((args.batch, args.seq), torch.int32)
-                  for k in ("tokens", "labels")}
-        owner.append(TrainStepGraph(step_fn_, state, layout, seed))
-        return state
-
-    def placed(batch):
-        if mesh is None:
-            return batch
         cell = ShapeCell("train", args.seq, args.batch, "train")
-        pspecs = {k: v[2] for k, v in input_layout(cfg, cell, mesh).items()}
-        return {k: distribute(mesh, v, pspecs[k]) for k, v in batch.items()}
+        layout = {k: v for k, v in input_layout(cfg, cell, mesh).items()
+                  if k in ("tokens", "labels")}
+        owner.append(TrainStepGraph(step_fn_, state, layout, seed, mesh))
+        return state
 
     t_step = [time.monotonic()]
 
     def step_fn(state, step):
-        if mesh is None:
-            metrics = owner[0](data(step))
-        else:
-            batch = placed({k: torch.from_numpy(v).to(dev)
-                            for k, v in data(step).items()})
-            state["params"], state["opt"], metrics = step_fn_(
-                state["params"], state["opt"], batch)
+        metrics = owner[0](data(step))
         loss = float(metrics["loss"])
         dt = time.monotonic() - t_step[0]
         t_step[0] = time.monotonic()

@@ -110,13 +110,14 @@ def axis_size(mesh, names: tuple[str, ...]) -> int:
 
 def resolve_pspec(mesh, spec_axes: tuple[Any, ...], shape: tuple[int, ...],
                   cfg: ShardingConfig | None = None) -> tuple:
-    """Resolve logical axes to a pspec, dropping non-divisible axes."""
+    """Resolve logical axes to a pspec, dropping non-divisible axes
+    (without a mesh nothing is split: ``()``)."""
+    if mesh is None or not spec_axes:
+        return ()
     cfg = cfg or ShardingConfig()
     sizes = mesh_sizes(mesh)
     entries: list[Any] = []
     used: set[str] = set()
-    if not spec_axes:
-        return ()
     for dim, logical in zip(shape, spec_axes):
         names = [n for n in cfg.mesh_axes(logical)
                  if n in sizes and n not in used]
@@ -157,10 +158,7 @@ def placements(mesh, pspec: tuple) -> tuple:
     names = list(mesh.mesh_dim_names)
     out = [Replicate() for _ in names]
     for d, entry in enumerate(pspec):
-        if entry is None:
-            continue
-        axes = (entry,) if isinstance(entry, str) else tuple(entry)
-        idx = [names.index(a) for a in axes]
+        idx = [names.index(a) for a in _axes(entry)]
         if idx != sorted(idx):
             raise ValueError(f"pspec entry {entry} is not in mesh order "
                              f"{tuple(names)}")
@@ -172,38 +170,96 @@ def placements(mesh, pspec: tuple) -> tuple:
     return tuple(out)
 
 
+def _axes(entry) -> tuple[str, ...]:
+    """The mesh axes of one pspec entry (a name, a tuple of names, or
+    None)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
 def local_shape(mesh, shape: tuple[int, ...], pspec: tuple) -> tuple:
     """The per-device shard shape of a tensor of ``shape`` under ``pspec``
-    (dims divide evenly: ``resolve_pspec`` keeps only dividing axes)."""
+    (dims divide evenly: ``resolve_pspec`` keeps only dividing axes);
+    ``shape`` itself without a mesh."""
+    if mesh is None:
+        return tuple(shape)
     sizes = mesh_sizes(mesh)
     out = list(shape)
     for d, entry in enumerate(pspec):
-        if entry is None:
-            continue
-        axes = (entry,) if isinstance(entry, str) else tuple(entry)
-        out[d] //= math.prod(sizes[a] for a in axes)
+        out[d] //= math.prod(sizes[a] for a in _axes(entry))
     return tuple(out)
 
 
-def meta_dtensor(mesh, shape: tuple[int, ...], dtype, pspec: tuple):
-    """A DTensor of global ``shape`` placed by ``pspec`` whose local shard
-    is a ``meta`` tensor: the dry run's stand-in, never allocated."""
+def local_part(x, mesh, pspec: tuple):
+    """This rank's shard of ``x`` (a whole tensor or numpy array) under
+    ``pspec``, cut on this rank (a view; ``x`` itself without a mesh):
+    along each dim, block ``i * n_b + j`` of ``local_shape``'s size for
+    mesh coordinates (i, j) on the entry's axes (a, b), the first-named
+    axis major, as ``placements`` and ``NamedSharding`` place it."""
+    if mesh is None:
+        return x
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    sizes = mesh_sizes(mesh)
+    cut = []
+    for d, n in enumerate(local_shape(mesh, tuple(x.shape), pspec)):
+        block = 0
+        for a in _axes(pspec[d] if d < len(pspec) else None):
+            block = block * sizes[a] + coord[a]
+        cut.append(slice(block * n, (block + 1) * n))
+    return x[tuple(cut)]
+
+
+def pspec_of(x) -> tuple:
+    """The pspec that places the DTensor ``x`` (``placements``' inverse,
+    a mesh dim of size 1 left out, no trailing None, as ``resolve_pspec``
+    gives it)."""
+    axes: list[list[str]] = [[] for _ in range(x.ndim)]
+    for name, p in zip(x.device_mesh.mesh_dim_names, x.placements):
+        if p.is_shard():
+            axes[p.dim].append(name)
+    while axes and not axes[-1]:
+        axes.pop()
+    return tuple(None if not a else a[0] if len(a) == 1 else tuple(a)
+                 for a in axes)
+
+
+def dtensor_of(mesh, local: torch.Tensor, shape: tuple[int, ...],
+               pspec: tuple):
+    """The DTensor of global ``shape`` placed by ``pspec`` over ``local``,
+    this rank's shard (of ``local_shape``), which the caller owns: no
+    copy and no collective, so a write into ``local`` is a write into the
+    DTensor (a CUDA graph's static input, a state updated in place).
+    Without a mesh, ``local`` itself."""
+    if mesh is None:
+        return local
     from torch.distributed.tensor import DTensor
 
-    local = torch.empty(local_shape(mesh, shape, pspec), dtype=dtype,
-                        device="meta")
-    stride = torch.empty(shape, dtype=dtype, device="meta").stride()
+    stride = torch.empty(shape, device="meta").stride()
     return DTensor.from_local(local, mesh, placements(mesh, pspec),
                               run_check=False, shape=torch.Size(shape),
                               stride=stride)
 
 
-def distribute(mesh, x: torch.Tensor, pspec: tuple):
-    """The DTensor of a full tensor that every rank holds, placed by
-    ``pspec`` (each rank keeps its shard; no collective)."""
-    from torch.distributed.tensor import distribute_tensor
+def meta_dtensor(mesh, shape: tuple[int, ...], dtype, pspec: tuple):
+    """A DTensor of global ``shape`` placed by ``pspec`` whose local shard
+    is a ``meta`` tensor: the dry run's stand-in, never allocated."""
+    local = torch.empty(local_shape(mesh, shape, pspec), dtype=dtype,
+                        device="meta")
+    return dtensor_of(mesh, local, shape, pspec)
 
-    return distribute_tensor(x, mesh, placements(mesh, pspec))
+
+def distribute(mesh, x: torch.Tensor, pspec: tuple):
+    """The DTensor of a full tensor that every rank holds, equal on every
+    rank (drawn from one seed or read from one file), placed by ``pspec``:
+    each rank keeps a copy of its own shard of its own ``x``, with no
+    collective. A value that each rank computed for itself may differ
+    between ranks in its last bits; its caller makes the ranks agree
+    first (a broadcast), or the replicas would quietly differ."""
+    local = local_part(x.detach(), mesh, pspec).clone(
+        memory_format=torch.contiguous_format)
+    return dtensor_of(mesh, local, tuple(x.shape),
+                      pspec).requires_grad_(x.requires_grad)
 
 
 # ------------------------------------------------------------ collectives

@@ -19,9 +19,10 @@
 A tree of DTensors (a program over a device mesh) is saved in the same
 layout: every rank calls :func:`save`, each leaf is gathered whole (a
 collective), and only global rank 0 writes; :func:`restore` reads the
-whole leaves on every rank and copies each rank's shard into the
-target's leaves. :func:`restore` writes into the target's own tensors,
-so that a restart keeps the tensors a CUDA graph of the step holds.
+whole leaves on every rank and copies each rank's own shard, cut on that
+rank, into the target's local shards (no collective). :func:`restore`
+writes into the target's own tensors, so that a restart keeps the
+tensors a CUDA graph of the step holds.
 
 Leaves are stored as whole host arrays; bf16, which ``.npy`` cannot hold,
 as its raw bits in uint16 (the manifest keeps ``"bfloat16"``), read back
@@ -153,11 +154,12 @@ def restore(ckpt_dir: str, step: int, tree) -> tuple[Any, dict]:
         if manifest["dtypes"][i] == "bfloat16":
             t = t.view(torch.bfloat16)
         if _is_dtensor(ref):
-            from torch.distributed.tensor import distribute_tensor
+            from repro_torch.nn.sharding import local_part, pspec_of
 
-            t = distribute_tensor(t.to(ref.to_local().device),
-                                  ref.device_mesh, ref.placements)
-            ref.to_local().copy_(t.to_local())
+            # this rank's shard, cut from the whole leaf every rank read:
+            # no collective, and only the shard goes up
+            ref.to_local().copy_(local_part(t, ref.device_mesh,
+                                            pspec_of(ref)))
         else:
             ref.copy_(t)
     return tree, manifest["extra"]

@@ -212,6 +212,7 @@ class _FakeCuda:
     def __init__(self):
         self.mode = 0
         self.modes = []
+        self.capture_modes = []
 
     def install(self, monkeypatch):
         import contextlib
@@ -229,9 +230,15 @@ class _FakeCuda:
                 "memory_reserved": lambda: 0,
                 "CUDAGraph": lambda: types.SimpleNamespace(
                     replay=lambda: None),
-                "graph": lambda g, pool=None, stream=None:
-                contextlib.nullcontext()}.items():
+                "graph": self._graph}.items():
             monkeypatch.setattr(torch.cuda, name, fn)
+
+    def _graph(self, g, pool=None, stream=None,
+               capture_error_mode="global"):
+        import contextlib
+
+        self.capture_modes.append(capture_error_mode)
+        return contextlib.nullcontext()
 
     def _set(self, mode):
         self.modes.append(mode)
@@ -255,6 +262,9 @@ def test_step_graph_counts_a_capture_once_a_replay(monkeypatch):
 
     g = graphs.StepGraph(step)
     assert fake.modes == ["error", 0]
+    # only the capturing thread's calls are checked: NCCL's watchdog
+    # thread queries events during a capture over a mesh
+    assert fake.capture_modes == ["thread_local"]
     assert (w.launches, w.launches_tc) == (2, 2)     # the warm-up
     assert g.launches[(w, "launches")] == 2
     for _ in range(3):

@@ -32,6 +32,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed.tensor as dtensor_mod
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
@@ -77,7 +80,17 @@ class CaptureRehearsal(TorchDispatchMode):
     ``torch.tensor`` / ``torch.as_tensor`` of host data onto it, which no
     dispatch mode sees on ``meta``), and an op that takes a host tensor of
     one or more dims beside tensors on ``device`` (a 0-d host tensor is a
-    scalar operand, read at the launch)."""
+    scalar operand, read at the launch).
+
+    A step over a mesh (DTensors with ``meta`` shards over a fake process
+    group) is rehearsed as each rank runs it: an op on DTensors is handed
+    back to DTensor, whose local ops come through this mode again, and
+    the fake tensors of DTensor's own sharding propagation pass. On a mesh
+    it also fails on a collective of ``torch.distributed``'s own API
+    (``c10d`` ops, such as the scatter of ``distribute_tensor`` from a
+    source rank, which is also watched since no dispatch mode sees it on
+    ``meta``): the step's collectives are ``_c10d_functional`` ops, each
+    joined to the stream by its ``wait_tensor``."""
 
     SYNC = (aten._local_scalar_dense.default, aten.nonzero.default)
 
@@ -92,6 +105,13 @@ class CaptureRehearsal(TorchDispatchMode):
         kwargs = kwargs or {}
         ts = [t for t in tree_leaves((args, kwargs))
               if isinstance(t, torch.Tensor)]
+        if any(isinstance(t, DTensor) for t in ts):
+            return NotImplemented
+        if any(isinstance(t, FakeTensor) for t in ts):
+            return func(*args, **kwargs)
+        if func.namespace == "c10d":
+            raise AssertionError(f"{func}: a collective outside the "
+                                 f"functional ops")
         host = [t for t in ts if t.device.type == "cpu"]
         if func in self.SYNC:
             raise AssertionError(f"{func}: the host reads the device")
@@ -112,8 +132,10 @@ class CaptureRehearsal(TorchDispatchMode):
     @contextlib.contextmanager
     def watching_constructors(self):
         """``torch.tensor`` and ``torch.as_tensor`` of host data onto the
-        step's device fail too."""
+        step's device fail too, and so does ``distribute_tensor`` from a
+        source rank (a scatter or broadcast of that rank's data)."""
         real = {n: getattr(torch, n) for n in ("tensor", "as_tensor")}
+        real_distribute = dtensor_mod.distribute_tensor
 
         def watched(name):
             def make(data, *a, **kw):
@@ -124,13 +146,21 @@ class CaptureRehearsal(TorchDispatchMode):
                 return real[name](data, *a, **kw)
             return make
 
+        def distribute(*a, src_data_rank=0, **kw):
+            if src_data_rank is not None:
+                raise AssertionError(f"distribute_tensor: a scatter from "
+                                     f"rank {src_data_rank}")
+            return real_distribute(*a, src_data_rank=None, **kw)
+
         try:
             for n in real:
                 setattr(torch, n, watched(n))
+            dtensor_mod.distribute_tensor = distribute
             yield self
         finally:
             for n, f in real.items():
                 setattr(torch, n, f)
+            dtensor_mod.distribute_tensor = real_distribute
 
 
 REHEARSED = ["granite-3-8b", "qwen2-vl-7b", "deepseek-v2-236b",

@@ -19,6 +19,24 @@ restart restores step 3 and replays steps 3-5). Held:
   ``RANK``, ``LOCAL_RANK``, no process group yet), the single mesh patched
   to (2, 2), trains as the ``mesh=`` runs do, loss for loss.
 
+The trainer runs its mesh step through ``launch/steps.TrainStepGraph``
+(on the card one CUDA graph a rank; eager here), and each rank also:
+
+* runs the eager mesh path the owner replaced (the init placed and each
+  batch copied up and placed by ``distribute_tensor``'s scatter from
+  rank 0, the pure step's results taken back): the owner's losses, clean
+  and restarted, are bitwise its losses;
+* records the run's one owner across the ``--fail-at 4`` restart: the
+  restore wrote into its DTensors' local shards, every ``data_ptr`` kept;
+* steps an owner from the reference's initial parameters carried into
+  its DTensors in place: the first 3 losses within 1e-5 relative of the
+  reference's jitted, donated step on the same batches (fp32, AdamW
+  without weight decay as tests/test_torch_train_graph.py; the reference
+  runs in the parent process);
+* places every parameter with ``distribute`` and restores the checkpoint
+  with no collective, to the same local shards as the forms with a
+  scatter from rank 0 give.
+
 The batches come from a seeded numpy function (``data=``), the same in
 every process: the bigram stream's seed is Python's salted ``hash``, which
 differs between processes.
@@ -35,6 +53,7 @@ import tempfile
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 WORLD = 4
 MESH = (2, 2)
@@ -43,6 +62,22 @@ ARGS = ["--arch", "granite-3-8b", "--smoke", "--device", "cpu", "--steps",
         str(STEPS), "--batch", str(BATCH), "--seq", str(SEQ),
         "--save-every", "3"]
 TOL = 1e-5
+OPT = dict(lr=1e-3, warmup_steps=0, eps=1e-3, weight_decay=0.0)
+REF_STEPS = 3
+
+
+class Collectives(TorchDispatchMode):
+    """Counts the collectives dispatched while entered (``c10d`` ops of
+    ``torch.distributed``'s own API, ``_c10d_functional`` ops)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.namespace in ("c10d", "_c10d_functional"):
+            self.ops.append(func)
+        return func(*args, **(kwargs or {}))
 
 
 def _data(step: int) -> dict:
@@ -62,6 +97,137 @@ def _manifest(d: str, step: int) -> dict:
         return json.load(f)
 
 
+def _local_ptrs(state) -> list:
+    from repro_torch.train import tree as tr
+
+    return [(x.to_local() if hasattr(x, "to_local") else x).data_ptr()
+            for x in tr.leaves(state)]
+
+
+def _old_main(argv, data, mesh):
+    """``launch.train.main``'s mesh path before its step became the
+    owner's: the seeded init drawn whole and placed by
+    ``distribute_tensor`` with its scatter from rank 0, every batch copied
+    up whole and placed the same way, the donated step's results taken
+    back, the Supervisor's restarts through ``checkpoint.restore``."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs.common import input_layout
+    from repro_torch.launch import train as train_mod
+    from repro_torch.nn.config import ShapeCell
+    from repro_torch.nn.param import init_leaf, map_specs
+    from repro_torch.nn.sharding import param_pspec, placements
+    from repro_torch.train.optim import init_state
+    from repro_torch.train.supervisor import FaultInjector, Supervisor
+
+    args = train_mod.parse_args(argv)
+    cfg, lm, opt_cfg, step, mesh = train_mod.build(args, mesh)
+
+    def old_distribute(x, pspec):
+        return distribute_tensor(x, mesh, placements(mesh, pspec))
+
+    def init():
+        gen = torch.Generator().manual_seed(args.seed)
+        params = map_specs(lambda s: old_distribute(
+            init_leaf(s, gen, "cpu"), param_pspec(mesh, s)),
+            lm.param_specs())
+        return {"params": params, "opt": init_state(opt_cfg, params)}
+
+    cell = ShapeCell("train", args.seq, args.batch, "train")
+    pspecs = {k: v[2] for k, v in input_layout(cfg, cell, mesh).items()}
+
+    def step_fn(state, i):
+        batch = {k: old_distribute(torch.from_numpy(v), pspecs[k])
+                 for k, v in data(i).items()}
+        state["params"], state["opt"], m = step(state["params"],
+                                                state["opt"], batch)
+        return state, {"loss": float(m["loss"])}
+
+    sup = Supervisor(args.ckpt_dir, save_every=args.save_every,
+                     injector=FaultInjector(set(args.fail_at)),
+                     barrier=dist.barrier)
+    return sup.run(init_state=init, step_fn=step_fn, n_steps=args.steps)
+
+
+def _carried_losses(train_mod, mesh, ref_params) -> list:
+    """REF_STEPS steps of an owner over ``mesh`` whose parameters are the
+    reference's (numpy, carried over), copied into its DTensors' local
+    shards in place."""
+    from repro_torch.configs.common import input_layout
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.launch.steps import TrainStepGraph, make_train_step
+    from repro_torch.nn.config import ShapeCell
+    from repro_torch.nn.sharding import local_part, pspec_of
+    from repro_torch.train import tree as tr
+    from repro_torch.train.optim import AdamWConfig
+
+    args = train_mod.parse_args(ARGS)
+    cfg, lm, _, _, _ = train_mod.build(args, mesh)
+    opt = AdamWConfig(**OPT)
+    pp = lm_params_from_numpy(ref_params, cfg, "cpu")
+    state, _ = train_mod.owned_state(lm.param_specs(), opt, "cpu", mesh)
+
+    def reset():
+        for x, p in zip(tr.leaves(state["params"]), tr.leaves(pp),
+                        strict=True):
+            x.to_local().copy_(local_part(p, mesh, pspec_of(x)))
+        for x in tr.leaves(state["opt"]):
+            x.zero_()
+
+    step = make_train_step(cfg, opt, remat="none", donate=True, mesh=mesh)
+    layout = {k: v for k, v in input_layout(cfg, ShapeCell(
+        "train", SEQ, BATCH, "train"), mesh).items()
+        if k in ("tokens", "labels")}
+    owner = TrainStepGraph(step, state, layout, reset, mesh)
+    return [float(owner(_data(i))["loss"]) for i in range(REF_STEPS)]
+
+
+def _shards_as_before(train_mod, mesh, d: str) -> dict:
+    """``distribute`` of every parameter and ``checkpoint.restore`` of the
+    clean run's last checkpoint: the collectives each issues, and whether
+    every local shard is the one the forms with a scatter from rank 0
+    give."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.nn.param import init_params
+    from repro_torch.nn.sharding import distribute, param_pspec, placements
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import tree as tr
+    from repro_torch.train.optim import init_state
+
+    args = train_mod.parse_args(ARGS)
+    cfg, lm, opt_cfg, _, _ = train_mod.build(args, mesh)
+    specs = lm.param_specs()
+    wholes = init_params(specs, torch.Generator().manual_seed(5), "cpu")
+    out = {"distribute_ops": 0, "old_distribute_ops": 0,
+           "distribute_same": True}
+    for s, x in zip(tr.leaves(specs), tr.leaves(wholes), strict=True):
+        pl = placements(mesh, param_pspec(mesh, s))
+        with Collectives() as new:
+            a = distribute(mesh, x, param_pspec(mesh, s))
+        with Collectives() as old:
+            b = distribute_tensor(x, mesh, pl)
+        out["distribute_ops"] += len(new.ops)
+        out["old_distribute_ops"] += len(old.ops)
+        out["distribute_same"] &= torch.equal(a.to_local(), b.to_local())
+    state, _ = train_mod.owned_state(specs, opt_cfg, "cpu", mesh)
+    with Collectives() as new:
+        got, _ = ckpt.restore(f"{d}/mesh_clean", STEPS, state)
+    out["restore_ops"] = len(new.ops)
+    out["restore_same"] = True
+    step_dir = os.path.join(f"{d}/mesh_clean", f"step_{STEPS:08d}")
+    for i, ref in enumerate(tr.leaves(got)):
+        whole = torch.from_numpy(np.load(os.path.join(
+            step_dir, f"arr_{i:05d}.npy")))
+        if hasattr(ref, "to_local"):
+            old = distribute_tensor(whole, mesh, ref.placements).to_local()
+            out["restore_same"] &= torch.equal(ref.to_local(), old)
+        else:
+            out["restore_same"] &= torch.equal(ref, whole)
+    return out
+
+
 def _worker(rank: int, port: int, port_env: int, d: str) -> None:
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -78,10 +244,33 @@ def _worker(rank: int, port: int, port_env: int, d: str) -> None:
     out = {}
     clean = train_mod.main(ARGS + ["--ckpt-dir", f"{d}/mesh_clean"],
                            data=_data, mesh=mesh)
-    faulty = train_mod.main(ARGS + ["--ckpt-dir", f"{d}/mesh_faulty",
-                                    "--fail-at", "4"], data=_data, mesh=mesh)
+    # the run's owners, with their local shards' data_ptrs when made
+    made, real = [], train_mod.TrainStepGraph
+
+    class Kept(real):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append((self, _local_ptrs(self.state)))
+
+    train_mod.TrainStepGraph = Kept
+    try:
+        faulty = train_mod.main(ARGS + ["--ckpt-dir", f"{d}/mesh_faulty",
+                                        "--fail-at", "4"], data=_data,
+                                mesh=mesh)
+    finally:
+        train_mod.TrainStepGraph = real
     out["clean"], out["faulty"] = clean.losses, faulty.losses
     out["restarts"] = faulty.restarts
+    out["owners"] = len(made)
+    out["ptrs_kept"] = all(_local_ptrs(o.state) == p for o, p in made)
+    out["old_clean"] = _old_main(ARGS + ["--ckpt-dir", f"{d}/old_clean"],
+                                 _data, mesh).losses
+    out["old_faulty"] = _old_main(ARGS + ["--ckpt-dir", f"{d}/old_faulty",
+                                          "--fail-at", "4"], _data,
+                                  mesh).losses
+    with open(f"{d}/ref_params.pkl", "rb") as f:
+        out["carried"] = _carried_losses(train_mod, mesh, pickle.load(f))
+    out["shards"] = _shards_as_before(train_mod, mesh, d)
     # the last checkpoint restores into the mesh's placements
     args = train_mod.parse_args(ARGS)
     cfg, lm, opt_cfg, _, _ = train_mod.build(args, mesh)
@@ -137,6 +326,9 @@ def runs():
     from repro_torch.launch import train as train_mod
 
     with tempfile.TemporaryDirectory() as d:
+        ref_params, ref_losses = _reference()
+        with open(f"{d}/ref_params.pkl", "wb") as f:
+            pickle.dump(ref_params, f)
         mp.spawn(_worker, args=(_free_port(), _free_port(), d),
                  nprocs=WORLD, join=True)
         ranks = []
@@ -156,7 +348,40 @@ def runs():
                      for k in ("one", "mesh_clean")}
         mesh_arrays = ckpt.restore(f"{d}/mesh_clean", STEPS, _like())[0]
     return {"ranks": ranks, "one": one.losses, "manifests": manifests,
-            "mesh_ckpt": mesh_arrays}
+            "mesh_ckpt": mesh_arrays, "ref": ref_losses}
+
+
+def _reference():
+    """The reference's initial parameters of the trainer's shrunk granite
+    (fp32; numpy, for the ranks) and REF_STEPS losses of its jitted,
+    donated step on ``_data``'s batches. JAX is imported here only, so
+    the spawned ranks never load it."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config as ref_get_config
+    from repro.configs import shrink as ref_shrink
+    from repro.launch.steps import make_train_step as ref_make_train_step
+    from repro.models.lm import LM as RefLM
+    from repro.nn.param import init_tree
+    from repro.train.optim import AdamWConfig as RefAdamWConfig
+    from repro.train.optim import init_state as ref_init_state
+
+    cfg = dataclasses.replace(
+        ref_shrink(ref_get_config("granite-3-8b"), d_model=128, vocab=VOCAB,
+                   n_repeat=2),
+        param_dtype="float32", compute_dtype="float32")
+    params = init_tree(jax.random.PRNGKey(0), RefLM(cfg).param_specs())
+    host = jax.tree.map(np.asarray, params)
+    opt = RefAdamWConfig(**OPT)
+    step = jax.jit(ref_make_train_step(cfg, None, opt, remat="none"),
+                   donate_argnums=(0, 1))
+    p, s, losses = params, ref_init_state(opt, params), []
+    for i in range(REF_STEPS):
+        p, s, m = step(p, s, {k: jnp.asarray(v)
+                              for k, v in _data(i).items()})
+        losses.append(float(m["loss"]))
+    return host, losses
 
 
 def _like():
@@ -212,6 +437,36 @@ def test_mesh_checkpoint_has_the_one_device_layout(runs):
         assert res["next_step"] == STEPS and res["placed"]
         for a, b in zip(res["params"], params, strict=True):
             assert torch.equal(a, b)
+
+
+def test_mesh_owner_is_bitwise_the_eager_path_it_replaced(runs):
+    """The owner's losses, clean and across the restart, are the eager
+    mesh path's before it, bit for bit, on every rank."""
+    for r in runs["ranks"]:
+        assert r["clean"] == r["old_clean"]
+        assert r["faulty"] == r["old_faulty"]
+
+
+def test_mesh_restart_restores_into_the_owners_dtensors(runs):
+    for r in runs["ranks"]:
+        assert r["restarts"] == 1
+        assert r["owners"] == 1 and r["ptrs_kept"]
+
+
+def test_mesh_owner_matches_the_reference_jitted_step(runs):
+    """The reference's parameters carried into the (2, 2) owner's
+    DTensors: REF_STEPS losses within 1e-5 relative of the reference's
+    jitted, donated step, on every rank (sums in another order)."""
+    for r in runs["ranks"]:
+        np.testing.assert_allclose(r["carried"], runs["ref"], rtol=1e-5)
+
+
+def test_distribute_and_restore_keep_the_shards_with_no_collective(runs):
+    for r in runs["ranks"]:
+        sh = r["shards"]
+        assert sh["distribute_ops"] == 0 and sh["restore_ops"] == 0
+        assert sh["old_distribute_ops"] > 0
+        assert sh["distribute_same"] and sh["restore_same"]
 
 
 def test_mesh_of_the_wrong_size_is_refused(runs):
