@@ -3894,8 +3894,8 @@ def chunk_crossing(lm, params, g, dev, n: int, held: bool = True) -> dict:
             "same_argmax": bool(dec.argmax() == full.argmax())}
 
 
-def as_fp32(lm, params):
-    """The model and its parameters in fp32 (FP32_HOLDS)."""
+def as_dtype(lm, params, dtype=torch.float32):
+    """The model and its parameters in ``dtype``: fp32 for FP32_HOLDS."""
     import dataclasses
 
     from repro_torch.models.lm import LM
@@ -3905,10 +3905,11 @@ def as_fp32(lm, params):
             return {k: up(v) for k, v in t.items()}
         if isinstance(t, list):
             return [up(v) for v in t]
-        return t.float()
+        return t.to(dtype)
 
-    return LM(dataclasses.replace(lm.cfg, param_dtype="float32",
-                                  compute_dtype="float32")), up(params)
+    name = str(dtype).removeprefix("torch.")
+    return LM(dataclasses.replace(lm.cfg, param_dtype=name,
+                                  compute_dtype=name)), up(params)
 
 
 def phase_lm_assigned(dev):
@@ -3966,7 +3967,7 @@ def phase_lm_assigned(dev):
                 info["chunk_crossing_bf16"] = chunk_crossing(
                     serving, params, g, dev, CHUNK_CROSS[name], held=False)
             g.set_state(state)     # the held runs draw the same tokens
-            held_lm, held_params = as_fp32(serving, params)
+            held_lm, held_params = as_dtype(serving, params)
         reset_counts(wrappers)
         info["decode_after_prefill"] = decode_after_prefill(
             held_lm, held_params, g, dev, prompt, frontend, enc_emb)
@@ -5734,6 +5735,8 @@ def phase_sharded(dev, trained: dict) -> dict:
 MESH_SHAPE = (2, 2)       # (data, model)
 MESH_BATCH = 4            # two rows a data rank; each cache's rows over model
 MESH_PROMPT, MESH_DECODE = 64, 8
+# a model's own prompt length on the mesh: xlstm's two mLSTM chunks
+MESH_PROMPTS = {"xlstm-350m": CHUNK_CROSS["xlstm-350m"]}
 
 
 def mesh_configs() -> dict:
@@ -5743,27 +5746,63 @@ def mesh_configs() -> dict:
     at published width, the in-block layers 4 and 5 (its attention layer,
     then a Mamba layer on each rank's 8192 of 16384 channels with the MoE
     on each rank's 8 of 16 experts), at an unbounded capacity (no choice
-    drops, so that a rounding cannot move a drop)."""
+    drops, so that a rounding cannot move a drop); xlstm-350m at published
+    width and depth (21 mLSTM and 3 sLSTM layers, each core on each rank's
+    2 of 4 heads), in fp32 as FP32_HOLDS holds it."""
     import dataclasses
 
     granite = dataclasses.replace(lm_config("granite-3-8b"), n_repeat=2)
     jamba = lm_config("jamba-1.5-large-398b")
     jamba = dataclasses.replace(jamba, blocks=jamba.blocks[4:6], n_repeat=1)
+    xlstm = dataclasses.replace(lm_config("xlstm-350m"),
+                                param_dtype="float32",
+                                compute_dtype="float32")
     return {"granite-3-8b": unbounded_capacity(granite),
-            "jamba-1.5-large-398b": unbounded_capacity(jamba)}
+            "jamba-1.5-large-398b": unbounded_capacity(jamba),
+            "xlstm-350m": xlstm}
 
 
-def mesh_model(cfg, mesh, dev) -> dict:
-    """One rank's readings of ``cfg`` on ``mesh``: its prefill logits and
-    MESH_DECODE decode steps (teacher-forced with the mesh-free model's
-    greedy tokens) against the same model without a mesh on this card,
-    as shares of the logits' scale, and the mesh passes' launches of
-    kernels 6 and 7 by design on this rank. The caches and tokens each
-    rank computed for itself go onto the mesh as rank 0's (a broadcast);
-    ``own_values_not_rank0s`` counts those whose own copy was not."""
+def xlstm_layers(lm) -> dict:
+    """The xLSTM layers of one pass, by block: the split counts that one
+    pass on a mesh must read under whole heads a rank."""
+    out = {}
+    for sp in lm.layers:
+        if sp.kind in ("mlstm", "slstm"):
+            out[f"{sp.kind}:heads"] = out.get(f"{sp.kind}:heads", 0) + 1
+    return out
+
+
+def device_ms_of(prof) -> dict:
+    """The device time of the kernels a torch.profiler window recorded,
+    ms: ``all`` (an NCCL kernel's wait for the other ranks included) and
+    ``no_nccl`` (the NCCL kernels left out)."""
+    from torch.autograd import DeviceType
+
+    ks = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    ms = lambda es: sum(e.self_device_time_total for e in es) / 1e3
+    return {"all": ms(ks),
+            "no_nccl": ms([e for e in ks if "nccl" not in e.key.lower()])}
+
+
+def mesh_model(cfg, mesh, dev, prompt_len: int = MESH_PROMPT) -> dict:
+    """One rank's readings of ``cfg`` on ``mesh``: its prefill logits over
+    ``prompt_len`` tokens and MESH_DECODE decode steps (teacher-forced
+    with the mesh-free model's greedy tokens) against the same model
+    without a mesh on this card, as shares of the logits' scale, and the
+    mesh passes' launches of kernels 6 and 7 by design and xLSTM splits
+    by rule on this rank; the host ms of the prefill (its first call,
+    and a second) and of each decode step (to a synchronize after it),
+    and the device ms of a third prefill and of the last decode step under
+    torch.profiler. An fp32 model's mesh-free prefill also runs in
+    float64: both prefills' distance from it says how far fp32 alone
+    moves the logits. The caches and tokens each rank computed for itself
+    go onto the mesh as rank 0's (a broadcast); ``own_values_not_rank0s``
+    counts those whose own copy was not."""
     import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models.lm import LM
+    from repro_torch.nn import xlstm as xl
     from repro_torch.nn.param import init_params
     from repro_torch.nn.sharding import (ShardCtx, distribute,
                                          distribute_tree, resolve_pspec)
@@ -5775,7 +5814,7 @@ def mesh_model(cfg, mesh, dev) -> dict:
     pd = distribute_tree(mesh, lm.param_specs(), params)
     rng = np.random.default_rng(17)
     prompt = torch.from_numpy(rng.integers(
-        0, min(cfg.vocab_size, 32000), (MESH_BATCH, MESH_PROMPT))
+        0, min(cfg.vocab_size, 32000), (MESH_BATCH, prompt_len))
         .astype(np.int32)).to(dev)
 
     def rows(t):
@@ -5801,41 +5840,85 @@ def mesh_model(cfg, mesh, dev) -> dict:
         if dev.type == "cuda":
             torch.cuda.synchronize()
 
+    def splits():
+        return {f"{b}:{r}": n for (b, r), n in sorted(xl.SPLITS.items())}
+
+    def profiled():
+        return profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+
     wrappers = attn_wrappers()
-    out = {"layers": cfg.n_layers}
+    out = {"layers": cfg.n_layers, "prompt": prompt_len}
     with torch.no_grad():
         logits, caches = lm.prefill(params, prompt)
         caches = grow_caches(lm, caches, MESH_DECODE)
         caches_d = distribute_tree(
-            mesh, lm.cache_specs(MESH_BATCH, MESH_PROMPT + MESH_DECODE),
+            mesh, lm.cache_specs(MESH_BATCH, prompt_len + MESH_DECODE),
             tr.tree_map(agreed, caches))
         toks, want = [], []
         tok = logits[:, -1:].argmax(-1)
         for t in range(MESH_DECODE):
-            lg, caches = lm.decode(params, tok, caches, MESH_PROMPT + t)
+            lg, caches = lm.decode(params, tok, caches, prompt_len + t)
             toks.append(tok)
             want.append(lg)
             tok = lg[:, -1:].argmax(-1)
+        placed = rows(prompt)
         sync(dev)
         reset_counts(wrappers)
-        got, _ = lmd.prefill(pd, rows(prompt))
-        out["prefill_rel"] = rel(got.full_tensor(), logits)
+        xl.SPLITS.clear()
+        t0 = time.perf_counter()
+        got, _ = lmd.prefill(pd, placed)
+        sync(dev)
+        out["prefill_host_ms_first"] = (time.perf_counter() - t0) * 1e3
+        got = got.full_tensor()
+        out["prefill_rel"] = rel(got, logits)
         sync(dev)
         out["prefill_launches"] = {n: design_counts(w) | {
             "plain": w.plain_calls} for n, w in wrappers.items()}
+        out["prefill_splits"] = splits()
+        if cfg.compute_dtype == "float32":
+            lm64, p64 = as_dtype(lm, params, torch.float64)
+            want64, _ = lm64.prefill(p64, prompt)
+            out["prefill_rel_fp64"] = {"mesh_free": rel(logits, want64),
+                                       "mesh": rel(got, want64)}
+            del lm64, p64, want64
+        sync(dev)
+        t0 = time.perf_counter()
+        lmd.prefill(pd, placed)
+        sync(dev)
+        out["prefill_host_ms"] = (time.perf_counter() - t0) * 1e3
+        with profiled() as prof:
+            lmd.prefill(pd, placed)
+            sync(dev)
+        out["prefill_device_ms"] = device_ms_of(prof)
         reset_counts(wrappers)
-        rels = []
+        xl.SPLITS.clear()
+        rels, host = [], []
         for t in range(MESH_DECODE):
-            lg, caches_d = lmd.decode(pd, rows(agreed(toks[t])), caches_d,
-                                      MESH_PROMPT + t)
+            tok_d = rows(agreed(toks[t]))
+            last = t == MESH_DECODE - 1
+            sync(dev)
+            t0 = time.perf_counter()
+            with profiled() if last else contextlib.nullcontext() as prof:
+                lg, caches_d = lmd.decode(pd, tok_d, caches_d,
+                                          prompt_len + t)
+                sync(dev)
+            if last:
+                out["decode_device_ms"] = device_ms_of(prof)
+            else:
+                host.append((time.perf_counter() - t0) * 1e3)
             rels.append(rel(lg.full_tensor(), want[t]))
         sync(dev)
         out["decode_rel"] = rels
+        out["decode_host_ms"] = float(np.median(host[1:]))
+        out["decode_host_ms_each"] = host
         out["own_values_not_rank0s"] = f"{sum(own_differs)} of " \
             f"{len(own_differs)}"
         out["decode_launches"] = {n: design_counts(w) | {
             "plain": w.plain_calls} for n, w in wrappers.items()}
+        out["decode_splits"] = splits()
     out["attn_mixers"] = attn_mixers(lm)
+    out["xlstm_layers"] = xlstm_layers(lm)
     return out
 
 
@@ -5853,6 +5936,9 @@ def mesh_worker(rank: int, world: int, port: int, cfgs: dict,
     dev = torch.device("cuda", rank) if cuda else torch.device("cpu")
     if cuda:
         torch.cuda.set_device(dev)
+    # fp32 products in full fp32, as main() takes them (xlstm's fp32 hold)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dist.init_process_group("nccl" if cuda else "gloo", rank=rank,
                             world_size=world,
                             init_method=f"tcp://localhost:{port}")
@@ -5862,7 +5948,8 @@ def mesh_worker(rank: int, world: int, port: int, cfgs: dict,
         res = {}
         for name, cfg in cfgs.items():
             t = time.perf_counter()
-            res[name] = mesh_model(cfg, mesh, dev)
+            res[name] = mesh_model(cfg, mesh, dev,
+                                   MESH_PROMPTS.get(name, MESH_PROMPT))
             res[name]["seconds"] = time.perf_counter() - t
             if cuda:
                 release(dev)
@@ -5880,7 +5967,8 @@ def phase_mesh(cfgs: dict) -> dict:
     rank, kernel 6 once per attention mixer in the prefill and kernel 7
     once per GQA mixer a decode step on every rank (the cache's rows split
     over the model axis: each rank's call returns its lse), all on the
-    tensor-core design."""
+    tensor-core design, and every xLSTM layer's core split by whole heads
+    in every pass on every rank."""
     import socket
     import tempfile
 
@@ -5911,11 +5999,27 @@ def phase_mesh(cfgs: dict) -> dict:
                     check(c == {"tc": n, "simt": 0, "plain": 0},
                           f"mesh {name} rank {i} {what}: {kname} {c}, want "
                           f"{n} on tc")
+                passes = 1 if what == "prefill" else MESH_DECODE
+                want_splits = {k: n * passes
+                               for k, n in r["xlstm_layers"].items()}
+                check(r[f"{what}_splits"] == want_splits,
+                      f"mesh {name} rank {i} {what}: xLSTM splits "
+                      f"{r[f'{what}_splits']}, want {want_splits}")
         line[name] = {"layers": ranks[0]["layers"],
+                      "prompt": ranks[0]["prompt"],
+                      "prefill_rel_fp64": [r.get("prefill_rel_fp64")
+                                           for r in ranks],
                       "ranks": [{k: r[k] for k in (
                           "prefill_rel", "decode_rel",
-                          "own_values_not_rank0s", "seconds")}
+                          "own_values_not_rank0s", "prefill_host_ms_first",
+                          "prefill_host_ms", "prefill_device_ms",
+                          "decode_host_ms",
+                          "decode_host_ms_each", "decode_device_ms",
+                          "seconds")}
                                 for r in ranks],
+                      "splits_per_rank": {
+                          "prefill": ranks[0]["prefill_splits"],
+                          "decode": ranks[0]["decode_splits"]},
                       "launches_per_rank": {
                           "prefill": ranks[0]["prefill_launches"],
                           "decode": ranks[0]["decode_launches"]}}
@@ -6286,7 +6390,7 @@ def main_mesh() -> int:
          seconds=time.perf_counter() - t)
     t = time.perf_counter()
     emit(phase="mesh", mesh=list(MESH_SHAPE), batch=MESH_BATCH,
-         prompt=MESH_PROMPT, decode_steps=MESH_DECODE,
+         decode_steps=MESH_DECODE,
          models=phase_mesh(mesh_configs()), seconds=time.perf_counter() - t)
     t = time.perf_counter()
     emit(phase="mesh_train", **phase_mesh_train(),

@@ -413,6 +413,13 @@ class ShardCtx:
             return 1
         return axis_size(self.mesh, self.cfg.mesh_axes("model"))
 
+    def local_rows(self, b: int) -> int:
+        """The rows of a batch of ``b`` that each rank holds when the
+        batch is split over the dp axes that divide it."""
+        if self.mesh is None:
+            return b
+        return local_shape(self.mesh, (b,), self.pspec(("dp",), (b,)))[0]
+
     # ---- regions: local_map bodies with explicit collectives
 
     def axes_of(self, logical: str) -> tuple[str, ...]:
@@ -526,10 +533,14 @@ def make_test_mesh(device_type: str = "cpu"):
                             mesh_dim_names=("data", "model"))
 
 
-def batch_map(ctx: ShardCtx, fn, args, batch_dims, out_batch_dims):
+def batch_map(ctx: ShardCtx, fn, args, batch_dims, out_batch_dims,
+              rows_over_model: bool = False):
     """``fn(*local args)`` on each rank's shard of the batch, replicated
     over every other mesh axis: the region of a piece with no DTensor
     rule, or none worth sharding, run redundantly across the model axis.
+    With ``rows_over_model`` each rank's batch shard is split again over
+    the model axis (which the caller has checked divides it), so that no
+    rank repeats another's rows.
 
     ``batch_dims[i]`` is argument i's batch dim (split over the dp axes
     that divide the batch), None for a parameter or a non-tensor (whole on
@@ -543,6 +554,8 @@ def batch_map(ctx: ShardCtx, fn, args, batch_dims, out_batch_dims):
 
     b = next(a.shape[d] for a, d in zip(args, batch_dims) if d is not None)
     bp = ctx.placements(("dp",), (b,))
+    if rows_over_model:
+        bp = ctx.with_dims(bp, ctx.axes_of("model"), Shard(0))
     split = [i for i, p in enumerate(bp) if isinstance(p, Shard)]
 
     def at(d):

@@ -12,9 +12,17 @@ recurrent update. sLSTM steps through time with per-head recurrent
 weights. Decode writes every state into the cache in place (the port's
 decode contract) and returns the same dict. The reference has no Pallas
 kernel here: both are plain tensor ops in both packages.
+
+On a mesh both cores split over the model axis as the reference's
+compiled program splits them (:func:`split_rule`): whole heads a rank,
+else rows of each rank's batch shard, else every model rank runs its whole
+batch shard. The states leave at the cache's placement (batch over the dp
+axes, whole over the model axis), as the reference's cache specs place
+them.
 """
 from __future__ import annotations
 
+import collections
 import functools
 import math
 from typing import Optional
@@ -26,6 +34,67 @@ from repro_torch.nn.config import XLSTMConfig
 from repro_torch.nn.basic import COL, ROW, f32, f32_dtype
 from repro_torch.nn.param import ParamSpec
 from repro_torch.nn.sharding import NO_MESH, batch_map, write_states
+
+# The split each call of a core took, by (block, rule), as
+# :func:`split_rule` chose and counted it.
+SPLITS: collections.Counter = collections.Counter()
+
+
+def split_rule(ctx, block: str, n_heads: int, batch: int) -> Optional[str]:
+    """How a call of the xLSTM core ``block`` of ``n_heads`` heads on a
+    batch of ``batch`` rows divides over the model axis, from shapes
+    alone, counted in SPLITS: ``"heads"``, whole heads a rank, where the
+    model axis divides the heads; else ``"rows"``, each rank's batch shard
+    split again over the model axis, where that divides it; else
+    ``"replicated"``, every model rank running its whole batch shard. None
+    without a mesh or on a model axis of 1: there is nothing to split
+    over it (``batch_map`` over the dp axes)."""
+    tp = ctx.tp_size()
+    if ctx.mesh is None or tp == 1:
+        return None
+    if n_heads % tp == 0:
+        rule = "heads"
+    elif ctx.local_rows(batch) % tp == 0:
+        rule = "rows"
+    else:
+        rule = "replicated"
+    SPLITS[block, rule] += 1
+    return rule
+
+
+def _head_regions(ctx, batch: int):
+    """What a whole-heads region of a core needs: ``(at, model_part, bp,
+    dp_part, rep, r)``: ``at(base, dim)`` is ``base`` with ``Shard(dim)``
+    over the model axis; ``model_part(base)`` is ``base`` with Partial
+    there (the gradient of an input that every model rank reads whole but
+    uses only for its heads); ``bp`` places a batch over the dp axes,
+    ``dp_part`` is the same with Partial where the batch is split (a
+    parameter's gradient); ``r`` is this rank's index on the model
+    axis."""
+    from torch.distributed.tensor import Partial, Shard
+
+    model = ctx.axes_of("model")
+    bp = ctx.placements(("dp",), (batch,))
+    dp_part = tuple(Partial() if isinstance(pl, Shard) else pl for pl in bp)
+
+    def at(base, dim):
+        return ctx.with_dims(base, model, Shard(dim))
+
+    def model_part(base):
+        return ctx.with_dims(base, model, Partial())
+
+    return at, model_part, bp, dp_part, ctx.rep(), ctx.coord(model[0])
+
+
+def _placed_states(ctx, cache, new: dict) -> dict:
+    """The states after a step at the cache's own placement (batch over
+    the dp axes, whole over the model axis): a decode's written into
+    ``cache``, a prefill's redistributed there."""
+    if cache is None:
+        new = {k: ctx.constrain(t, "dp", *(None,) * (t.ndim - 1))
+               for k, t in new.items()}
+    return write_states(ctx, cache, new)
+
 
 # ================================================================= mLSTM
 
@@ -67,34 +136,80 @@ def mlstm_apply(p, cfg: XLSTMConfig, x: torch.Tensor,
                 cache: Optional[dict] = None, ctx=NO_MESH):
     """x (B, S, D) -> ``(y, cache)``; cache ``{c (B, H, dk, dv), n (B, H,
     dk), m (B, H)}``, returned new by a prefill, updated in place by a
-    decode. On a mesh the cell runs on each rank's batch shard, replicated
-    over the model axis (``batch_map``)."""
+    decode. On a mesh the cell splits over the model axis by
+    :func:`split_rule`: whole heads a rank (:func:`_mlstm_heads`), else
+    rows of each rank's batch shard, else the whole batch shard on every
+    model rank (``batch_map``); y then goes into the row-parallel
+    down-projection by its columns."""
     up = ctx.constrain(x @ p["w_up"], "dp", None, "model")
     names = ("w_q", "w_k", "w_v", "w_if", "b_if", "gn_scale")
     states = tuple(cache[k] for k in ("c", "n", "m")) if cache else ()
-    y, c, n, m = batch_map(
-        ctx, functools.partial(_mlstm_core, cfg, x.dtype),
-        (up, *(p[k] for k in names), *states),
-        (0,) + (None,) * len(names) + (0,) * len(states), (0, 0, 0, 0))
+    args = (up, *(p[k] for k in names), *states)
+    rule = split_rule(ctx, "mlstm", cfg.n_heads, x.shape[0])
+    if rule == "heads":
+        y, c, n, m = _mlstm_heads(ctx, cfg, x.dtype, *args)
+    else:
+        def core(up, *rest):
+            return _mlstm_core(cfg, x.dtype, *torch.chunk(up, 2, dim=-1),
+                               *rest)
+
+        y, c, n, m = batch_map(
+            ctx, core, args, (0,) + (None,) * len(names) + (0,) * len(states),
+            (0, 0, 0, 0), rows_over_model=rule == "rows")
+    y = ctx.constrain(y, "dp", None, "model")
     out = ctx.constrain(y @ p["w_down"], "dp", None, None)
-    return out, write_states(ctx, cache, {"c": c, "n": n, "m": m})
+    return out, _placed_states(ctx, cache, {"c": c, "n": n, "m": m})
 
 
-def _mlstm_core(cfg: XLSTMConfig, dtype, up, w_q, w_k, w_v, w_if, b_if,
-                gn_scale, c_prev=None, n_prev=None, m_prev=None):
-    """The cell between the up- and down-projections: ``(y (B, S, d_in),
-    c, n, m)``; a decode (states given) writes the states in place."""
-    b, s, _ = up.shape
-    h = cfg.n_heads
-    xi, z = torch.chunk(up, 2, dim=-1)
-    d_in = xi.shape[-1]
-    dh = d_in // h
+def _mlstm_heads(ctx, cfg: XLSTMConfig, dtype, up, w_q, w_k, w_v, w_if,
+                 b_if, gn_scale, *states):
+    """The cell as a ``local_map`` body on this rank's batch shard and its
+    H / tp whole heads: xi gathered whole over the model axis (q, k and v
+    contract over all of d_in), the rank's heads the local column blocks
+    of w_q, w_k and w_v, the gates of every head from the replicated w_if
+    and b_if, of which the rank keeps its own, and z and gn_scale the
+    rank's columns (the group norm is per head). No collective inside: y
+    leaves sharded by its columns over the model axis, the states by their
+    heads."""
+    at, model_part, bp, dp_part, rep, r = _head_regions(ctx, up.shape[0])
+    d_in = up.shape[-1] // 2
+    w = d_in // ctx.tp_size()
+    head0 = r * (cfg.n_heads // ctx.tp_size())
+
+    def body(up_l, *rest):
+        xi = up_l[..., :d_in]
+        z = up_l[..., d_in + r * w:d_in + (r + 1) * w]
+        return _mlstm_core(cfg, dtype, xi, z, *rest, head0=head0)
+
+    cols, gates = at(rep, 1), rep
+    in_pl = (bp, cols, cols, cols, gates, gates, at(rep, 0))
+    grad_pl = (model_part(bp),) + (at(dp_part, 1),) * 3 \
+        + (model_part(dp_part),) * 2 + (at(dp_part, 0),)
+    st_pl = tuple(at(bp, 1) for _ in states)
+    return ctx.region(body, (at(bp, 2),) + (at(bp, 1),) * 3,
+                      in_pl + st_pl, grad_pl + st_pl, up, w_q, w_k, w_v,
+                      w_if, b_if, gn_scale, *states)
+
+
+def _mlstm_core(cfg: XLSTMConfig, dtype, xi, z, w_q, w_k, w_v, w_if, b_if,
+                gn_scale, c_prev=None, n_prev=None, m_prev=None,
+                head0: int = 0):
+    """The cell between the up- and down-projections on heads ``head0``
+    onward, as many as w_q's columns hold (every head when they are
+    whole), from the whole xi (B, S, d_in) and those heads' columns of z:
+    ``(y (B, S, heads·Dh), c, n, m)``; a decode (states given) writes the
+    states in place."""
+    b, s, d_in = xi.shape
+    dh = d_in // cfg.n_heads
+    h = w_q.shape[-1] // dh
     q = (xi @ w_q).reshape(b, s, h, dh)
     k = (xi @ w_k).reshape(b, s, h, dh)
     v = (xi @ w_v).reshape(b, s, h, dh)
     k = k / torch.tensor(math.sqrt(dh), dtype=torch.float32).to(k.dtype)
     gates = f32(xi) @ w_if + b_if                       # (B, S, 2H)
-    i_pre, f_pre = gates[..., :h], gates[..., h:]          # log-space gates
+    f0 = cfg.n_heads + head0
+    i_pre = gates[..., head0:head0 + h]                    # log-space gates
+    f_pre = gates[..., f0:f0 + h]
     logf = F.logsigmoid(f_pre)
 
     if c_prev is None and s > 1:
@@ -103,7 +218,7 @@ def _mlstm_core(cfg: XLSTMConfig, dtype, up, w_q, w_k, w_v, w_if, b_if,
     else:
         cache = c_prev is not None
         if not cache:
-            wide = dict(dtype=f32_dtype(up.dtype), device=up.device)
+            wide = dict(dtype=f32_dtype(xi.dtype), device=xi.device)
             c_prev = torch.zeros((b, h, dh, dh), **wide)
             n_prev = torch.zeros((b, h, dh), **wide)
             m_prev = torch.full((b, h), -1e30, **wide)
@@ -124,7 +239,7 @@ def _mlstm_core(cfg: XLSTMConfig, dtype, up, w_q, w_k, w_v, w_if, b_if,
             for old, t in zip((c_prev, n_prev, m_prev), (c, n, m)):
                 old.copy_(t)
 
-    y = _headwise_norm(y, gn_scale).to(dtype).reshape(b, s, d_in)
+    y = _headwise_norm(y, gn_scale).to(dtype).reshape(b, s, h * dh)
     y = y * F.silu(f32(z)).to(dtype)
     return y, new["c"], new["n"], new["m"]
 
@@ -226,25 +341,51 @@ def slstm_apply(p, cfg: XLSTMConfig, x: torch.Tensor,
                 cache: Optional[dict] = None, ctx=NO_MESH):
     """x (B, S, D) -> ``(y, cache)``; cache ``{h, c, n, m}``, each (B, H,
     Dh) fp32: a sequential scan over S from the cache's states (a
-    prefill's from h = c = m = 0, n = 1). On a mesh the scan runs on each
-    rank's batch shard, replicated over the model axis (``batch_map``)."""
+    prefill's from h = c = m = 0, n = 1). On a mesh the scan splits over
+    the model axis as :func:`mlstm_apply`'s cell does (whole heads a rank:
+    :func:`_slstm_heads`)."""
     names = ("w_gates", "b_gates", "r_gates", "gn_scale")
     states = tuple(cache[k] for k in ("h", "c", "n", "m")) if cache else ()
-    y, hs, c, n, m = batch_map(
-        ctx, functools.partial(_slstm_core, cfg, x.dtype),
-        (x, *(p[k] for k in names), *states),
-        (0,) + (None,) * len(names) + (0,) * len(states), (0,) * 5)
+    args = (x, *(p[k] for k in names), *states)
+    rule = split_rule(ctx, "slstm", cfg.n_heads, x.shape[0])
+    if rule == "heads":
+        y, hs, c, n, m = _slstm_heads(ctx, x.dtype, *args)
+    else:
+        y, hs, c, n, m = batch_map(
+            ctx, functools.partial(_slstm_core, x.dtype), args,
+            (0,) + (None,) * len(names) + (0,) * len(states), (0,) * 5,
+            rows_over_model=rule == "rows")
+    y = ctx.constrain(y, "dp", None, "model")
     out = ctx.constrain(y @ p["w_down"], "dp", None, None)
-    return out, write_states(ctx, cache, {"h": hs, "c": c, "n": n, "m": m})
+    return out, _placed_states(ctx, cache,
+                               {"h": hs, "c": c, "n": n, "m": m})
 
 
-def _slstm_core(cfg: XLSTMConfig, dtype, x, w_gates, b_gates, r, gn_scale,
-                h0=None, c0=None, n0=None, m0=None):
-    """The scan before the down-projection: ``(y (B, S, D), h, c, n,
-    m)``; a decode (states given) writes the states in place."""
-    b, s, d_model = x.shape
-    nh = cfg.n_heads
-    dh = d_model // nh
+def _slstm_heads(ctx, dtype, x, w_gates, b_gates, r_gates, gn_scale,
+                 *states):
+    """The scan as a ``local_map`` body on this rank's batch shard and its
+    H / tp whole heads: x whole, the column blocks of w_gates, b_gates and
+    gn_scale (each head's four gates lie together) and the rank's heads
+    of r_gates, so a step needs no collective. y leaves sharded by its
+    columns over the model axis, the states by their heads."""
+    at, model_part, bp, dp_part, rep, _ = _head_regions(ctx, x.shape[0])
+    in_pl = (bp, at(rep, 1), at(rep, 0), at(rep, 0), at(rep, 0))
+    grad_pl = (model_part(bp), at(dp_part, 1)) + (at(dp_part, 0),) * 3
+    st_pl = tuple(at(bp, 1) for _ in states)
+    return ctx.region(functools.partial(_slstm_core, dtype),
+                      (at(bp, 2),) + (at(bp, 1),) * 4, in_pl + st_pl,
+                      grad_pl + st_pl, x, w_gates, b_gates, r_gates,
+                      gn_scale, *states)
+
+
+def _slstm_core(dtype, x, w_gates, b_gates, r, gn_scale, h0=None, c0=None,
+                n0=None, m0=None):
+    """The scan before the down-projection on the heads of ``r`` (H, Dh,
+    4·Dh) (some heads: their columns of w_gates and b_gates): ``(y (B, S,
+    heads·Dh), h, c, n, m)``; a decode (states given) writes the states in
+    place."""
+    b, s, _ = x.shape
+    nh, dh = r.shape[0], r.shape[1]
 
     wx = f32(x) @ f32(w_gates) + b_gates
     wx = wx.reshape(b, s, nh, 4 * dh)
@@ -267,7 +408,7 @@ def _slstm_core(cfg: XLSTMConfig, dtype, x, w_gates, b_gates, r, gn_scale,
         m = m_t
         ys.append(hs)
     y = torch.stack(ys, dim=1)                              # (B, S, H, Dh)
-    y = _headwise_norm(y, gn_scale).to(dtype).reshape(b, s, d_model)
+    y = _headwise_norm(y, gn_scale).to(dtype).reshape(b, s, nh * dh)
     if h0 is not None:
         for old, t in zip((h0, c0, n0, m0), (hs, c, n, m)):
             old.copy_(t)

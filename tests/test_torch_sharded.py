@@ -1,12 +1,16 @@
 """The sharded program on four ``gloo`` CPU ranks, a (2, 2) (data, model)
-mesh, against the one-device port on the same numbers.
+mesh, against the one-device port on the same numbers; xlstm also on a
+(1, 4) mesh of the same ranks.
 
 One spawn of four ranks serves the whole file (about 30 s of tier-1):
 each rank runs six shrunk configs as DTensor programs (granite; gemma3's
 sliding window; deepseek-v3's MLA, MoE under expert parallelism and MTP;
 jamba's Mamba (on each rank's channels) and MoE; xlstm's mLSTM and sLSTM;
 seamless's encoder and cross-attention) and every collective on every
-rank; rank 0 also runs the one-device calls and writes both. The loss,
+rank; rank 0 also runs the one-device calls and writes both. xlstm's two
+heads split whole over the model axis on (2, 2) and, where four model
+ranks do not divide them, its four rows a rank each on (1, 4)
+(``nn/xlstm.split_rule``). The loss,
 every gradient leaf, the prefill logits and four decode steps must agree
 within 1e-5 of each tensor's scale (its largest magnitude). Four configs
 run in fp32; jamba and xlstm in float64 (parameters, caches and every
@@ -34,6 +38,9 @@ NAMES = ["granite-3-8b", "gemma3-12b", "deepseek-v3-671b",
          "jamba-1.5-large-398b", "xlstm-350m", "seamless-m4t-large-v2"]
 WORLD = 4
 MESH = (2, 2)
+ROW_MESH = (1, 4)
+# each config on MESH; a case ``name@1x4`` is the config on ROW_MESH
+CASES = NAMES + ["xlstm-350m@1x4"]
 B, S, ENC, VOCAB = 4, 8, 5, 128
 DECODE_STEPS = 4
 TOL = 1e-5
@@ -117,14 +124,16 @@ def _worker(rank: int, port: int, path: str) -> None:
     from repro_torch.models import lm as lm_mod
     from repro_torch.models.lm import LM
     from repro_torch.nn import moe as moe_mod
+    from repro_torch.nn import xlstm as xl
     from repro_torch.nn.sharding import (ShardCtx, distribute,
                                          distribute_tree, resolve_pspec)
 
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=WORLD)
-    mesh = init_device_mesh("cpu", MESH, mesh_dim_names=("data", "model"))
-    ctx = ShardCtx(mesh)
+    meshes = {shape: init_device_mesh("cpu", shape,
+                                      mesh_dim_names=("data", "model"))
+              for shape in (MESH, ROW_MESH)}
     calls: dict[str, int] = {}
 
     def counted(mod, name):
@@ -139,27 +148,36 @@ def _worker(rank: int, port: int, path: str) -> None:
                       (moe_mod, "_moe_mesh")):
         counted(mod, name)
 
-    def wrap(t, specs):
-        if specs is not None:
-            return distribute_tree(mesh, specs, t)
-        axes = ("dp",) + (None,) * (t.ndim - 1)
-        return distribute(mesh, t, resolve_pspec(mesh, axes, t.shape))
+    def wrapper(mesh):
+        def wrap(t, specs):
+            if specs is not None:
+                return distribute_tree(mesh, specs, t)
+            axes = ("dp",) + (None,) * (t.ndim - 1)
+            return distribute(mesh, t, resolve_pspec(mesh, axes, t.shape))
+        return wrap
 
-    results = {}
-    for name in NAMES:
+    results, ones = {}, {}
+    for case in CASES:
+        name = case.split("@")[0]
+        mesh = meshes[ROW_MESH if "@" in case else MESH]
+        ctx, wrap = ShardCtx(mesh), wrapper(mesh)
         cfg = _cfg(name)
         batch = _inputs(cfg)
         calls.clear()
+        xl.SPLITS.clear()
         lmd = LM(cfg, ctx)
         got = _run(lmd, wrap(_params(lmd), lmd.param_specs()), batch, wrap,
                    lambda t: t.full_tensor())
         got["calls"] = dict(calls)
+        got["splits"] = dict(xl.SPLITS)
         got["ep"] = any(sp.moe is not None and
                         sp.moe.n_experts % ctx.tp_size() == 0
                         for sp in cfg.layer_iter())
         if rank == 0:
-            lm = LM(cfg)
-            results[name] = {"mesh": got, "one": _run(lm, _params(lm), batch)}
+            if name not in ones:
+                lm = LM(cfg)
+                ones[name] = _run(lm, _params(lm), batch)
+            results[case] = {"mesh": got, "one": ones[name]}
     if rank == 0:
         with open(path, "wb") as f:
             pickle.dump(results, f)
@@ -200,11 +218,11 @@ def _pairs(res, what):
 
 @pytest.mark.timeout(300)
 @pytest.mark.parametrize("what", ["loss", "grads", "prefill", "decode"])
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", CASES)
 def test_sharded_equals_one_device(runs, name, what):
     pairs = _pairs(runs[name], what)
     assert pairs
-    want = torch.float64 if name in FLOAT64 else torch.float32
+    want = torch.float64 if name.split("@")[0] in FLOAT64 else torch.float32
     for one, mesh in pairs:
         assert mesh.shape == one.shape and mesh.dtype == one.dtype == want
         assert torch.isfinite(mesh).all()
@@ -216,15 +234,21 @@ def test_sharded_equals_one_device(runs, name, what):
 @pytest.mark.timeout(300)
 def test_manual_regions_ran_on_the_mesh(runs):
     """The vocab-sharded embedding and cross-entropy ran for every config
-    (vocab 128 over a model axis of 2), and deepseek-v3's and jamba's MoE
-    layers took the expert-parallel region (4 experts over 2 ranks)."""
-    for name in NAMES:
+    (vocab 128 over a model axis of 2 or 4), deepseek-v3's and jamba's MoE
+    layers took the expert-parallel region (4 experts over 2 ranks), and
+    every call of xlstm's two cores took whole heads on (2, 2) and rows on
+    (1, 4)."""
+    for name in CASES:
         calls = runs[name]["mesh"]["calls"]
         assert calls.get("_sharded_embed", 0) > 0, name
         assert calls.get("_sharded_xent", 0) > 0, name
     for name in ("deepseek-v3-671b", "jamba-1.5-large-398b"):
         assert runs[name]["mesh"]["ep"], name
         assert runs[name]["mesh"]["calls"].get("_moe_mesh", 0) > 0, name
+    for case, rule in (("xlstm-350m", "heads"), ("xlstm-350m@1x4", "rows")):
+        splits = runs[case]["mesh"]["splits"]
+        assert set(splits) == {("mlstm", rule), ("slstm", rule)}, \
+            (case, splits)
 
 
 if __name__ == "__main__":
@@ -237,7 +261,7 @@ if __name__ == "__main__":
         mp.spawn(_worker, args=(_free_port(), path), nprocs=WORLD)
         with open(path, "rb") as f:
             res = pickle.load(f)
-    for name in NAMES:
+    for name in CASES:
         for what in ("loss", "grads", "prefill", "decode"):
             errs = [_rel(o, m) for o, m in _pairs(res[name], what)]
             print(f"{name} {what}: max {max(errs):.3g} of scale over "

@@ -4,7 +4,8 @@
 the CPU where there is no card and no capture:
 
 * the donated DTensor step of shrunk granite-3-8b and deepseek-v2 (MoE,
-  MLA) at 1 and 2 microbatches, through the owner's own static batch
+  MLA) at 1 and 2 microbatches, and of shrunk xlstm-350m (its cores over
+  whole heads a rank) at 1, through the owner's own static batch
   (DTensors over per-rank local buffers), on ``meta`` shards over a fake
   process group of a (2, 2) mesh, under ``CaptureRehearsal``
   (tests/test_torch_train_graph.py); and the rehearsal failing when the
@@ -126,6 +127,19 @@ def test_mesh_capture_rehearsal_passes(name, micro, remat):
         t = metrics[k]
         local = t.to_local() if isinstance(t, dtensor_mod.DTensor) else t
         assert local.device.type == "meta" and local.ndim == 0, k
+
+
+def test_mesh_capture_rehearsal_passes_xlstm():
+    """Shrunk xlstm-350m's step over the mesh, its two heads split whole
+    over the model axis in both cores (``nn/xlstm.split_rule``): the
+    regions read nothing of the device on the host and copy nothing up."""
+    from repro_torch.nn import xlstm as xl
+
+    xl.SPLITS.clear()
+    metrics = rehearse_mesh("xlstm-350m", 1, "none")
+    assert metrics["loss"].to_local().device.type == "meta"
+    assert set(xl.SPLITS) == {("mlstm", "heads"), ("slstm", "heads")}, \
+        xl.SPLITS
 
 
 @pytest.mark.parametrize("plant", ["batch_copied_up", "batch_scattered",
