@@ -2330,6 +2330,12 @@ TIERED_FRESH = dict(workload="longtail", n_intents=3000, n_requests=3000,
                     warm_frac=0.5, cluster=True, churn_period=20.0,
                     churn_max_period=3600.0, invalidation=True,
                     refresh_ahead=True)
+# (e) under churn: run (e)'s 8 shards on (h), so that rows leave the
+# shards' mirrors (the shard layout re-cut around them) while both routers
+# train. At (e)'s own budget of 0.3 under churn the warm router never
+# trains (no int8 rows to route); (h)'s 0.15 fills both tiers, as it does
+# unsharded. Kernel 5 must launch on each tier after a removal.
+E_FRESH = dict(TIERED_FRESH, shards=8)
 BROWNOUT = dict(workload="trend", trend_duration=12.0, sample_interval=5.0,
                 slo=["p99:window.latency_p99:<=:5.0"], overload="on",
                 faults=["origin_brownout:50:150:error_rate=0.6,throttle=0.2"])
@@ -2417,12 +2423,14 @@ def mirror_bytes(index) -> int:
 
 
 def mirror_report(caches: list, log: list, run: str, *,
-                  want_routed: bool) -> list:
+                  want_routed: bool, sharded: bool = False) -> list:
     """Per cache (per region in a federation): rows removed from each
     mirror, launches per kernel on each mirror, its device bytes and its
     routers' state. With ``want_routed``, both routers must have trained,
-    kernels 1-4 must have launched on the cache's mirrors, and kernels 3
-    and 4 after the first removal from the mirror they scan."""
+    kernels 1 and 2 and the routed scans (kernels 3 and 4, or with
+    ``sharded`` kernel 5's two) must have launched on the cache's
+    mirrors, the routed scans after the first removal from the mirror
+    they scan."""
     out = []
     for i, cache in enumerate(caches):
         tiers = {"hot": cache.seri.index}
@@ -2443,6 +2451,8 @@ def mirror_report(caches: list, log: list, run: str, *,
                     if j > first:
                         after[name] = after.get(name, 0) + n
             routed = "ann_topk_ivf" if tier == "hot" else "ann_topk_ivf_quant"
+            if sharded:
+                routed += "_sharded"
             ready = bool(index.router is not None and index.router.ready)
             line[tier] = {"rows_removed": removed, "launches": launches,
                           f"{routed}_after_removal": after.get(routed, 0),
@@ -2518,6 +2528,8 @@ def phase_serve_fresh(dev):
             backend=backend, device=device, **FRESH), FRESH),
         "h_churn_tiered_clustered": (lambda backend, device: run_once(
             backend=backend, device=device, **TIERED_FRESH), TIERED_FRESH),
+        "e_churn_sharded": (lambda backend, device: run_once(
+            backend=backend, device=device, **E_FRESH), E_FRESH),
         "i_brownout_overload_traced": (lambda backend, device: run_once(
             backend=backend, device=device, **BROWNOUT, **traced[backend]),
             BROWNOUT),
@@ -2540,9 +2552,11 @@ def phase_serve_fresh(dev):
         check(launches["ann_topk"] > 0, f"{name}: no ann_topk launch")
         check(not any(w.plain_calls for w in wrappers.values()),
               f"{name}: the CUDA path took a plain version")
-        check(not any(launches[n] for n in ("ann_topk_ivf_sharded",
-                                            "ann_topk_ivf_quant_sharded")),
-              f"{name}: a sharded scan launched: {launches}")
+        sharded = name == "e_churn_sharded"
+        unsharded = ("ann_topk_ivf", "ann_topk_ivf_quant")
+        check(not any(launches[n] for n in (
+            unsharded if sharded else (f"{u}_sharded" for u in unsharded))),
+              f"{name}: a scan of the other layout launched: {launches}")
         fed = name.startswith("fed_")
         check(len(caches) == (3 if fed else 1),
               f"{name}: built {len(caches)} caches")
@@ -2552,7 +2566,8 @@ def phase_serve_fresh(dev):
         per_cache = mirror_report(
             caches, log, name,
             want_routed=name in ("h_churn_tiered_clustered",
-                                 "fed_tiered_clustered"))
+                                 "e_churn_sharded", "fed_tiered_clustered"),
+            sharded=sharded)
         t_numpy = time.perf_counter()
         want = drive("numpy", "cpu")
         t_numpy = time.perf_counter() - t_numpy
@@ -2581,11 +2596,15 @@ def phase_serve_fresh(dev):
             check(not diff, f"{name} {block}: differs from the numpy "
                   f"backend: {diff}")
         summary = got["aggregate"] if fed else got
-        if name in ("g_churn", "h_churn_tiered_clustered"):
+        if name in ("g_churn", "h_churn_tiered_clustered",
+                    "e_churn_sharded"):
             check(summary["invalidations"] > 0 and summary["refreshes"] > 0,
                   f"{name}: no invalidation or no refresh")
-        if name == "h_churn_tiered_clustered":
+        if name in ("h_churn_tiered_clustered", "e_churn_sharded"):
             check(summary["demotions"] > 0, f"{name}: nothing demoted")
+        if sharded:
+            check(summary.get("stage1_shards") == E_FRESH["shards"],
+                  f"{name}: {summary.get('stage1_shards')} shards")
         if name == "fed_outage":
             check(summary["hung_peeks"] == 0, f"{name}: hung peeks")
             check(summary["peek_timeouts"] > 0, f"{name}: no peek timed out")
@@ -3698,6 +3717,115 @@ def phase_colocated(dev, models, judge):
 
 
 # ------------------------------------------------ the assigned models
+
+
+# ------------------------------------------------------------ examples
+
+def phase_examples(dev) -> dict:
+    """The reference's examples as the port's entry points
+    (``repro_torch.examples``), each through its function on the card
+    with every count set to 0 just before and read just after: the
+    quickstart, serve_cortex (600 requests in each of three modes) and
+    multi_region (3 regions x 250 requests, three topologies) print the
+    lines and give the summaries and aggregates of the same function on
+    ``backend="numpy"``, every launch of kernel 1 on its one-launch
+    design; colocated_serving serves every request with judge batches
+    between ticks, its tokens bitwise those of the same batcher stepped
+    eagerly (``uncaptured()``); train_lm restarts once and its loss falls,
+    kernel 6 launched (steps + the warm-up) x layers times, all on the
+    tensor cores, from one capture. Returns each example's launches,
+    designs and seconds."""
+    from contextlib import redirect_stdout
+
+    from repro_torch.configs import get_config, shrink
+    from repro_torch.examples import (colocated_serving, multi_region,
+                                      quickstart, serve_cortex, train_lm)
+    from repro_torch.models.lm import LM
+
+    wrappers = kernel_wrappers()
+    out = {}
+
+    def held(name, run, numpy_run, same):
+        reset_counts(wrappers)
+        t = time.perf_counter()
+        with redirect_stdout(sys.stderr):
+            got = run()
+        torch.cuda.synchronize()
+        rec = {"seconds": time.perf_counter() - t,
+               "launches": {n: w.launches for n, w in wrappers.items()
+                            if w.launches},
+               "launches_by_design": check_all_one_launch(wrappers, name)}
+        check(rec["launches"].get("ann_topk", 0) > 0
+              and not any(w.plain_calls for w in wrappers.values()),
+              f"examples {name}: kernel 1 launched {rec['launches']}")
+        with redirect_stdout(sys.stderr):
+            want = numpy_run()
+        check(same(got, want), f"examples {name}: differs from the numpy "
+              "backend")
+        out[name] = rec
+
+    held("quickstart", lambda: quickstart.quickstart(dev),
+         lambda: quickstart.quickstart("cpu", "numpy"),
+         lambda a, b: a == b)
+    held("serve_cortex", lambda: serve_cortex.serve_cortex(dev),
+         lambda: serve_cortex.serve_cortex("cpu", "numpy"),
+         lambda a, b: a == b)
+    held("multi_region", lambda: multi_region.multi_region(dev),
+         lambda: multi_region.multi_region("cpu", "numpy"),
+         lambda a, b: a[0] == b[0] and all(
+             a[1][t]["aggregate"] == b[1][t]["aggregate"]
+             and a[1][t]["regions"] == b[1][t]["regions"] for t in a[1]))
+
+    # the batcher and the judge graphed, then the same batcher's weights
+    # stepped eagerly with an eager judge
+    reset_counts(wrappers)
+    t = time.perf_counter()
+    with redirect_stdout(sys.stderr):
+        _, reqs, cb = colocated_serving.colocated(dev)
+    torch.cuda.synchronize()
+    rec = {"seconds": time.perf_counter() - t,
+           "launches": {n: w.launches for n, w in wrappers.items()
+                        if w.launches},
+           "launches_by_design": check_all_tc(wrappers, "examples colocated"),
+           "decode_steps": cb.decode_steps,
+           "judge_batches": cb.judge_batches_run}
+    check(all(rec["launches"].get(n, 0) > 0 for n in attn_wrappers())
+          and not rec["launches"].get("ann_topk"),
+          f"examples colocated_serving: launched {rec['launches']}")
+    with uncaptured(), redirect_stdout(sys.stderr):
+        _, eager, _ = colocated_serving.colocated(dev, params=cb.params)
+    check(all(r.done for r in reqs) and cb.judge_batches_run > 0
+          and [r.out_tokens for r in reqs] == [r.out_tokens for r in eager],
+          "examples colocated_serving: the graphed tokens differ from the "
+          "eager ones")
+    out["colocated_serving"] = rec
+    del cb
+    release(dev)
+
+    reset_counts(wrappers)
+    t = time.perf_counter()
+    with recording_graphs() as made, redirect_stdout(sys.stderr):
+        res = train_lm.train_lm(dev)
+    torch.cuda.synchronize()
+    per_step = attn_mixers(LM(shrink(get_config("granite-3-8b"), d_model=128,
+                                     vocab=256, n_repeat=2)))[0]
+    owner = one_owner(made, "examples train_lm", per_step)
+    want = (len(res.losses) + 1) * per_step
+    launches = {n: w.launches for n, w in wrappers.items() if w.launches}
+    by_design = check_all_tc(wrappers, "examples train_lm")
+    check(launches == {"flash_attention_fwd": want}
+          and res.restarts == 1 and res.losses[-1] < res.losses[0],
+          f"examples train_lm: launches {launches}, want {want} ((steps + "
+          f"the warm-up) x layers); {res.restarts} restarts")
+    out["train_lm"] = {"seconds": time.perf_counter() - t,
+                       "launches": launches, "launches_by_design": by_design,
+                       "steps_run": len(res.losses),
+                       "restarts": res.restarts,
+                       "loss_first": res.losses[0],
+                       "loss_last": res.losses[-1],
+                       "replay_launches": owner["replay_launches"]}
+    release(dev)
+    return out
 
 
 def assigned_config(name: str, dev):
@@ -6059,7 +6187,8 @@ def phase_stage1_mesh() -> dict:
     fp32 and int8) with shard s's buckets on card s, at B in 1 and 16,
     bitwise one card's one-launch stacks, timed beside them; then engine
     run (d) at 2 and 4 shards, where the dispatch puts each shard on its
-    own card, held to the numpy backend key for key."""
+    own card, and run (e) under churn at 4 (rows leave the shards'
+    mirrors), held to the numpy backend key for key."""
     from repro_torch.kernels import ann_topk_sharded as aks
     from repro_torch.kernels.ops import _route
     from repro_torch.launch.mesh import make_shard_mesh
@@ -6153,6 +6282,37 @@ def phase_stage1_mesh() -> dict:
             "rows_scanned": got["rows_scanned"],
             "rows_scanned_max_shard": got["rows_scanned_max_shard"],
             "hit_rate": got["hit_rate"]}
+    # (e) under churn, a shard a card: rows leave the mirrors, and each
+    # card's part (core/clustering.py::shard_part) is rebuilt around them
+    name = f"e_churn_shards{MESH_SHARDS}"
+    kw = dict(E_FRESH, shards=MESH_SHARDS)
+    reset_counts(wrappers)
+    t = time.perf_counter()
+    with routed_launch_log() as log, mirror_log(wrappers) as mlog, \
+            keeping_caches() as caches:
+        got = run_once(backend="kernel", device=dev, **kw)
+    wall = time.perf_counter() - t
+    want = run_once(backend="numpy", device="cpu", **kw)
+    diff = {key: (got.get(key), want.get(key))
+            for key in set(got) | set(want) if got.get(key) != want.get(key)}
+    check(not diff, f"{name}: the summary differs from the numpy backend: "
+          f"{diff}")
+    by_device = {}
+    for n, *_, dev_name in log:
+        by_device.setdefault(n, {}).setdefault(dev_name, 0)
+        by_device[n][dev_name] += 1
+    for n in ("ann_topk_ivf_sharded", "ann_topk_ivf_quant_sharded"):
+        check(set(by_device.get(n, {})) == {str(d) for d in devs},
+              f"{name}: {n} launched on {by_device.get(n)}")
+    check(not any(w.plain_calls for w in wrappers.values()),
+          f"{name}: the CUDA path took a plain version")
+    engine[name] = {
+        "kwargs": kw, "launches_by_device": by_device, "wall_s": wall,
+        "per_cache": mirror_report(caches, mlog, name, want_routed=True,
+                                   sharded=True),
+        **{k: got.get(k) for k in ("invalidations", "refreshes", "demotions",
+                                   "hit_rate", "rows_scanned",
+                                   "rows_scanned_max_shard")}}
     out["engine"] = engine
     return out
 
@@ -6529,6 +6689,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t = time.perf_counter()
+    examples = phase_examples(dev)
+    emit(phase="examples", **examples, seconds=time.perf_counter() - t)
+
+    t = time.perf_counter()
     assigned_line, assigned_errs = phase_lm_assigned(dev)
     emit(phase="lm_assigned", **assigned_line, max_abs_err=assigned_errs,
          seconds=time.perf_counter() - t)
@@ -6559,6 +6723,9 @@ def main() -> int:
                 shardq_err, serve_errs["ann_topk_ivf_quant_sharded"])}
     launches_by_run = {name: {r["run"]: r["launches"][name] for r in runs}
                        for name in errs}
+    launches_by_run["ann_topk"].update(
+        {f"examples {n}": examples[n]["launches"]["ann_topk"]
+         for n in ("quickstart", "serve_cortex", "multi_region")})
     kernels = [{
         "name": "ann_topk", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ann_topk.cu",
@@ -6573,8 +6740,10 @@ def main() -> int:
         "design": main["design"],
         "launches_per_call": main["launches_per_call"],
         "twopass_device_ms": main["twopass_device_ms"],
-        "launches_by_design": {r["run"]: r["launches_by_design"]["ann_topk"]
-                               for r in runs},
+        "launches_by_design": {
+            **{r["run"]: r["launches_by_design"]["ann_topk"] for r in runs},
+            **{f"examples {n}": examples[n]["launches_by_design"]["ann_topk"]
+               for n in ("quickstart", "serve_cortex", "multi_region")}},
         "shape": {k: main[k] for k in ("n", "d", "b", "k")},
         "sizes": main_sizes + sizes,
     }]
@@ -6679,7 +6848,9 @@ def main() -> int:
                     run[name] for run in assigned_line[m]["launches"]
                     .values()) for m in ASSIGNED_MODELS},
                 **{f"serve_assigned {m}": served[m]["launches"][name]
-                   for m in served}},
+                   for m in served},
+                **{f"examples {n}": examples[n]["launches"].get(name, 0)
+                   for n in ("colocated_serving", "train_lm")}},
             "launches_by_design": {
                 "colocated": colo_designs[name],
                 "g_model_judge": g_run["launches_by_design"][name],
@@ -6689,7 +6860,9 @@ def main() -> int:
                    served[m]["launches_by_design"][name]
                    for m in served},
                 "train": (trained["full_width"]["launches_by_design"]
-                          if name == "flash_attention_fwd" else {})},
+                          if name == "flash_attention_fwd" else {}),
+                **{f"examples {n}": examples[n]["launches_by_design"][name]
+                   for n in ("colocated_serving", "train_lm")}},
             "max_abs_err": max(attn_errs[name], lm_errs[name],
                                assigned_errs[name],
                                trained["max_abs_err"]["out"]

@@ -9,8 +9,11 @@ measurements.
 The reference lowers and compiles each cell with XLA and reads its
 ``cost_analysis``, which counts a while loop's body once; it therefore
 compiled unrolled variants at depths 1 and 2 and extrapolated
-(``extrapolated_metrics``, ``nn/runtime.UNROLL``). Eager code counts every
-trip of every loop, so the port runs each cell once, at its full depth.
+(``extrapolated_metrics``, ``nn/runtime.UNROLL``). The port runs each cell
+once, at its full depth, and counts every layer; a loop of same-shaped
+trips written with ``nn/runtime.scan`` (sLSTM's time steps, the mLSTM and
+Mamba chunks) runs two trips under the counter and is counted as all of
+them, unless autograd records it (a train cell runs every trip).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-34b --shape train_4k

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.nn.config import MambaConfig
 from repro_torch.nn.basic import COL, ROW, f32
+from repro_torch.nn import runtime
 from repro_torch.nn.param import ParamSpec
 from repro_torch.nn.sharding import (NO_MESH, batch_map, psum_split,
                                      write_states)
@@ -180,19 +181,19 @@ def _mamba_core(cfg: MambaConfig, dtype, xi, z, conv_w, conv_b, w_x, w_dt,
         q = min(cfg.chunk, s)
         if s % q:
             raise ValueError(f"seq {s} must be divisible by chunk {q}")
-        h = xi.new_zeros((b, d_inner, n), dtype=xcf.dtype)
-        ys = []
-        for lo in range(0, s, q):
-            dt_c = dt[:, lo:lo + q]
+
+        def step(j, h):
+            sl = slice(j * q, (j + 1) * q)
+            dt_c = dt[:, sl]
             decay = torch.exp(dt_c[..., None] * a)              # (B,Q,d,N)
-            inp = (dt_c * xcf[:, lo:lo + q])[..., None] \
-                * b_in[:, lo:lo + q, None, :]
+            inp = (dt_c * xcf[:, sl])[..., None] * b_in[:, sl, None, :]
             h_all = _scan_chunk(h, decay, inp)
-            ys.append(torch.einsum("bqdn,bqn->bqd", h_all,
-                                   c_in[:, lo:lo + q]))
-            h = h_all[:, -1]
-            del decay, inp, h_all
-        y = torch.cat(ys, dim=1)
+            return h_all[:, -1], torch.einsum("bqdn,bqn->bqd", h_all,
+                                              c_in[:, sl])
+
+        h, y = runtime.scan(step, xi.new_zeros((b, d_inner, n),
+                                               dtype=xcf.dtype),
+                            s // q, stack=False)
     else:
         # one step: decode, or a one-token prefill
         h_prev = ssm_state if ssm_state is not None else \

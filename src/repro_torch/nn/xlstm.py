@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.nn.config import XLSTMConfig
 from repro_torch.nn.basic import COL, ROW, f32, f32_dtype
+from repro_torch.nn import runtime
 from repro_torch.nn.param import ParamSpec
 from repro_torch.nn.sharding import NO_MESH, batch_map, write_states
 
@@ -256,9 +257,10 @@ def _mlstm_chunked(cfg: XLSTMConfig, q, k, v, i_pre, logf) -> torch.Tensor:
     n_prev = torch.zeros((b, h, dh), **wide)
     m_prev = torch.zeros((b, h), **wide)
     tri = torch.tril(torch.ones((cs, cs), dtype=torch.bool, device=q.device))
-    ys = []
-    for lo in range(0, s, cs):
-        sl = slice(lo, lo + cs)
+
+    def step(j, carry):
+        c_prev, n_prev, m_prev = carry
+        sl = slice(j * cs, (j + 1) * cs)
         qf, kf, vf = f32(q[:, sl]), f32(k[:, sl]), f32(v[:, sl])
         ib, fb = i_pre[:, sl], logf[:, sl]
         fcum = torch.cumsum(fb, dim=1)               # (B, cs, H) inclusive
@@ -278,8 +280,7 @@ def _mlstm_chunked(cfg: XLSTMConfig, q, k, v, i_pre, logf) -> torch.Tensor:
         scores = torch.einsum("bthd,bshd->btsh", qf, kf) * wmat
         num = num_carry + torch.einsum("btsh,bshv->bthv", scores, vf)
         den = den_carry + torch.sum(scores, dim=2)
-        ys.append(num / torch.maximum(torch.abs(den),
-                                      torch.exp(-m_t))[..., None])
+        y = num / torch.maximum(torch.abs(den), torch.exp(-m_t))[..., None]
         # carry to the chunk's end
         w_log = ib + (ftot[:, None] - fcum)
         m_new = torch.maximum(ftot + m_prev, torch.amax(w_log, dim=1))
@@ -289,8 +290,10 @@ def _mlstm_chunked(cfg: XLSTMConfig, q, k, v, i_pre, logf) -> torch.Tensor:
             "bthd,bth,bthv->bhdv", kf, wi, vf)
         n_prev = decay[..., None] * n_prev + torch.einsum(
             "bthd,bth->bhd", kf, wi)
-        m_prev = m_new
-    return torch.cat(ys, dim=1)
+        return (c_prev, n_prev, m_new), y
+
+    _, y = runtime.scan(step, (c_prev, n_prev, m_prev), s // cs, stack=False)
+    return y
 
 
 def _mlstm_final_state(k, v, i_pre, logf) -> dict:
@@ -395,8 +398,9 @@ def _slstm_core(dtype, x, w_gates, b_gates, r, gn_scale, h0=None, c0=None,
         wide = dict(dtype=f32_dtype(x.dtype), device=x.device)
         hs, c, m = (torch.zeros((b, nh, dh), **wide) for _ in range(3))
         n = torch.ones((b, nh, dh), **wide)
-    ys = []
-    for t in range(s):
+
+    def step(t, carry):
+        hs, c, n, m = carry
         g = wx[:, t] + torch.einsum("bhd,hdg->bhg", hs, r)
         i_pre, f_pre, z_pre, o_pre = torch.chunk(g, 4, dim=-1)
         m_t = torch.maximum(f_pre + m, i_pre)
@@ -405,9 +409,9 @@ def _slstm_core(dtype, x, w_gates, b_gates, r, gn_scale, h0=None, c0=None,
         c = f_g * c + i_g * torch.tanh(z_pre)
         n = f_g * n + i_g
         hs = torch.sigmoid(o_pre) * c / torch.clamp(n, min=1e-6)
-        m = m_t
-        ys.append(hs)
-    y = torch.stack(ys, dim=1)                              # (B, S, H, Dh)
+        return (hs, c, n, m_t), hs
+
+    (hs, c, n, m), y = runtime.scan(step, (hs, c, n, m), s)  # (B,S,H,Dh)
     y = _headwise_norm(y, gn_scale).to(dtype).reshape(b, s, nh * dh)
     if h0 is not None:
         for old, t in zip((h0, c0, n0, m0), (hs, c, n, m)):

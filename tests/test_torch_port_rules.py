@@ -229,18 +229,22 @@ ASSIGNED_CONFIGS = ("deepseek_v2_236b", "deepseek_v3_671b", "gemma3_12b",
                     "granite_3_8b", "jamba_1_5_large_398b", "qwen1_5_110b",
                     "qwen2_vl_7b", "seamless_m4t_large_v2", "xlstm_350m",
                     "yi_34b")
+EXAMPLES = ("quickstart", "serve_cortex", "multi_region", "colocated_serving",
+            "train_lm", "multi_pod_dryrun")
 PORTED_MODULES = ("obs.export", "obs.analyze", "obs.slo", "core.freshness",
                   "serving.faults", "serving.overload", "serving.federation",
-                  "nn.moe", "nn.ssm", "nn.xlstm",
-                  *(f"configs.{c}" for c in ASSIGNED_CONFIGS))
+                  "nn.moe", "nn.ssm", "nn.xlstm", "nn.runtime",
+                  *(f"configs.{c}" for c in ASSIGNED_CONFIGS),
+                  *(f"examples.{e}" for e in EXAMPLES))
 
 
 def test_port_keeps_its_own_copies_of_the_ported_modules():
     """Importing the port's copy of every module of the freshness,
     robustness, telemetry-export and federation slice, of the MoE, Mamba
-    and xLSTM mixers and of the assigned configs loads none of
-    ``repro.obs.*``, ``repro.core.freshness``, ``repro.serving.{faults,
-    overload,federation}``, ``repro.nn.{moe,ssm,xlstm}`` or
+    and xLSTM mixers, of the counted loop, of the assigned configs and of
+    the six examples loads none of ``repro.obs.*``,
+    ``repro.core.freshness``, ``repro.serving.{faults,overload,
+    federation}``, ``repro.nn.{moe,ssm,xlstm,runtime}`` or
     ``repro.configs.*`` (nor JAX)."""
     for mod in PORTED_MODULES:
         assert (ROOT / "src" / "repro_torch" / (mod.replace(".", "/")

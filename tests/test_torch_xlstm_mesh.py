@@ -98,35 +98,40 @@ def _key(block: str, mode: str, shape) -> str:
     return f"{block} {mode} {shape[0]}x{shape[1]}"
 
 
+def _count_block(block: str, shape, mode: str, b: int = B):
+    """``(FLOPs of rank 0, the split rules taken)`` of one call of
+    ``block`` on the ``shape`` mesh: a prefill of S tokens or one decode
+    step, at batch ``b``."""
+    cfg = XLSTMConfig(kind=block, n_heads=4, proj_factor=2.0, chunk=128)
+    mesh = make_production_mesh(shape=shape)
+    ctx = ShardCtx(mesh)
+
+    def placed(tree):
+        return struct_tree(tree, mesh, lambda sp: param_pspec(mesh, sp))
+
+    params = placed(getattr(xl, f"{block}_specs")(cfg, D, torch.bfloat16))
+    s = S if mode == "prefill" else 1
+    x = meta_dtensor(mesh, (b, s, D), torch.bfloat16,
+                     resolve_pspec(mesh, ("dp", None, None), (b, s, D)))
+    cache = placed(getattr(xl, f"{block}_cache_specs")(cfg, D, b)) \
+        if mode == "decode" else None
+    xl.SPLITS.clear()
+    counter = CostMode()
+    with counter, ctx.scope():
+        getattr(xl, f"{block}_apply")(ctx.fsdp_gather(params), cfg, x, cache,
+                                      ctx=ctx)
+    return counter.flops, dict(xl.SPLITS)
+
+
 def _port_flops() -> tuple[dict, dict]:
     """``({cell: FLOPs of rank 0}, {cell: the split rules it took})``
     over (1, 1) and MESHES."""
     flops, rules = {}, {}
     for block in BLOCKS:
-        cfg = XLSTMConfig(kind=block, n_heads=4, proj_factor=2.0, chunk=128)
-        specs = getattr(xl, f"{block}_specs")(cfg, D, torch.bfloat16)
-        cspecs = getattr(xl, f"{block}_cache_specs")(cfg, D, B)
-        apply = getattr(xl, f"{block}_apply")
         for shape in [(1, 1)] + MESHES:
-            mesh = make_production_mesh(shape=shape)
-            ctx = ShardCtx(mesh)
-
-            def placed(tree):
-                return struct_tree(tree, mesh,
-                                   lambda sp: param_pspec(mesh, sp))
-
-            params = placed(specs)
-            for mode, s in (("prefill", S), ("decode", 1)):
-                x = meta_dtensor(mesh, (B, s, D), torch.bfloat16,
-                                 resolve_pspec(mesh, ("dp", None, None),
-                                               (B, s, D)))
-                cache = placed(cspecs) if mode == "decode" else None
-                xl.SPLITS.clear()
-                counter = CostMode()
-                with counter, ctx.scope():
-                    apply(ctx.fsdp_gather(params), cfg, x, cache, ctx=ctx)
-                flops[_key(block, mode, shape)] = counter.flops
-                rules[_key(block, mode, shape)] = dict(xl.SPLITS)
+            for mode in MODES:
+                key = _key(block, mode, shape)
+                flops[key], rules[key] = _count_block(block, shape, mode)
     return flops, rules
 
 
@@ -181,3 +186,18 @@ def test_one_device_takes_no_rule(counts):
             key = _key(block, mode, (1, 1))
             assert counts["rules"][key] == {}, counts["rules"][key]
             assert counts["port"][key] > 0 and counts["reference"][key] > 0
+
+
+@pytest.mark.parametrize("mode,batch", [("prefill", 1), ("decode", 4)])
+@pytest.mark.parametrize("block", BLOCKS)
+def test_whole_batch_shard_where_neither_heads_nor_rows_divide(block, mode,
+                                                               batch):
+    """On (1, 8) at B 1 (a prefill of S tokens) and B 4 (one decode step)
+    the model axis divides neither the 4 heads nor the rows: every model
+    rank runs its whole batch shard, the rule the dry run's prefill_32k,
+    decode_32k and long_500k cells take on (32, 8). The reference's
+    compiled share at these shapes is recorded in ROADMAP (queue 1, item
+    5); no bound is held here."""
+    flops, rules = _count_block(block, (1, 8), mode, batch)
+    assert rules == {(block, "replicated"): 1}, rules
+    assert flops > 0
