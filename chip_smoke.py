@@ -250,13 +250,16 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            kernels 6 and 7 launched exactly once per attention mixer a
            pass, all tensor-core; (b) the dry run (launch/dryrun.py) of
            granite-3-8b x {train_4k, prefill_32k, decode_32k} on the
-           (32, 8) mesh and train_4k on (2, 32, 8), on a fake process
+           (32, 8) mesh and train_4k on (2, 32, 8), and of xlstm-350m and
+           jamba-1.5-large-398b x train_4k on (32, 8), on a fake process
            group in subprocesses on the host (no card memory), a record
-           each; (c) the dry run of train (d)'s own cell (its layers, 2 x
-           4096 tokens in 2 microbatches, remat none) on a (1, 1) mesh:
-           its per-device memory within 15% of (d)'s measured peak, its
-           FLOPs within 15% of model_flops, its roofline step time beside
-           (d)'s measured step time.
+           and its seconds each (a train cell counted at depths 1 and 2
+           and one and two microbatches, and extrapolated); (c) the dry
+           run of train (d)'s own cell (its layers, 2 x 4096 tokens in 2
+           microbatches, remat none, extrapolated to them) on a (1, 1)
+           mesh: its per-device memory within 15% of (d)'s measured peak,
+           its FLOPs within 15% of model_flops, its roofline step time
+           beside (d)'s measured step time.
 9. the ``kernels`` line: per kernel, its launches on the run that drives
    it and on every serve run, serve_fresh's too (a serve run; the
    colocated run for kernels 6 and 7, with their
@@ -1844,7 +1847,7 @@ def hold_parts(one, per, parts, k: int, what: str,
     ``*_parts`` scan) against one launch over the whole layout
     (``one()``): the stacks bitwise equal, one launch a non-empty shard
     on the design its cap gives, the launches by device; with ``timed``
-    both between CUDA events."""
+    both between CUDA events and under torch.profiler."""
     want = one()
     wrapper = shard_scans(None if what == "fp32" else True)[0]
     before = wrapper.launches
@@ -1869,7 +1872,25 @@ def hold_parts(one, per, parts, k: int, what: str,
     if timed:
         out["ms"] = timed_ms(per)
         out["one_launch_ms"] = timed_ms(one)
+        # device time under torch.profiler: every kernel and copy of a
+        # call, and kernel 5's own launches (one a shard in ``per``)
+        out["device_ms"], out["kernel_device_ms"] = split_device_ms(
+            per, "ivf_")
+        out["one_launch_device_ms"], out["one_launch_kernel_device_ms"] = \
+            split_device_ms(one, "ivf_")
     return out
+
+
+def split_device_ms(fn, marker: str):
+    """(device ms per call of every CUDA kernel and copy ``fn`` runs, of
+    those whose names hold ``marker``); (None, None) where no profiler
+    session kept the records (``per_call``)."""
+    calls = per_call(fn)
+    if not calls:
+        return None, None
+    return (sum(n * us for n, us in calls.values()) / 1e3,
+            sum(n * us for name, (n, us) in calls.items()
+                if marker in name) / 1e3)
 
 
 def index_parts_hold(index, quant: bool, q: torch.Tensor, k: int,
@@ -5242,13 +5263,19 @@ SHARDED_MODELS = ("granite-3-8b", "deepseek-v2-236b")
 SHARDED_PROMPT = 64       # prefill tokens, then greedy decode steps
 SHARDED_DECODE = 8
 SHARDED_TRAIN = (1, 4096)
-# (b): the production mesh's cells of granite, and train_4k on two pods
-DRYRUN_CELLS = (("train_4k", False), ("prefill_32k", False),
-                ("decode_32k", False), ("train_4k", True))
+# (b): the production mesh's cells of granite, and train_4k on two pods;
+# xlstm's and jamba's train_4k, counted from depths 1 and 2
+DRYRUN_CELLS = ((TRAIN_ARCH, "train_4k", False),
+                (TRAIN_ARCH, "prefill_32k", False),
+                (TRAIN_ARCH, "decode_32k", False),
+                (TRAIN_ARCH, "train_4k", True),
+                ("xlstm-350m", "train_4k", False),
+                ("jamba-1.5-large-398b", "train_4k", False))
 DRYRUN_HOLD = 0.15        # (c): the dry run's memory and FLOPs
 DRYRUN_S = 600            # a dry-run subprocess's time limit
 DRYRUN_CHILD = """
-import json, sys
+import json, sys, time
+t0 = time.perf_counter()
 sys.path.insert(0, {src!r})
 from repro_torch.configs import get_config
 from repro_torch.launch import dryrun
@@ -5260,7 +5287,7 @@ if cut:
               cfg=dryrun._with_repeat(get_config(arch), cut["layers"]),
               microbatches=cut["microbatches"], remat=cut["remat"])
 rec = dryrun.run_cell(arch, shape, multi, verbose=False, **kw)
-print(json.dumps(rec))
+print(json.dumps({{"rec": rec, "seconds": time.perf_counter() - t0}}))
 """
 
 
@@ -5270,7 +5297,7 @@ def start_dryruns(train_cell: dict) -> list:
     import os
 
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(SRC))
-    jobs = [(TRAIN_ARCH, shape, multi, None) for shape, multi in DRYRUN_CELLS]
+    jobs = [(arch, shape, multi, None) for arch, shape, multi in DRYRUN_CELLS]
     jobs.append((TRAIN_ARCH, "train_4k", False, train_cell))
     procs = []
     for job in jobs:
@@ -5282,8 +5309,9 @@ def start_dryruns(train_cell: dict) -> list:
 
 
 def finish_dryruns(procs: list) -> list:
-    """Each subprocess's record; one that fails or outlives DRYRUN_S fails
-    the phase (every subprocess is stopped first)."""
+    """Each subprocess's record and seconds (its own clock, from its start
+    to its record); one that fails or outlives DRYRUN_S fails the phase
+    (every subprocess is stopped first)."""
     recs, t0 = [], time.perf_counter()
     try:
         for job, proc in procs:
@@ -5817,10 +5845,12 @@ def phase_sharded(dev, trained: dict) -> dict:
             proc.kill()
             proc.wait()
         raise
-    recs = finish_dryruns(procs)
-    for rec in recs[:-1]:
-        check(rec["status"] == "OK", f"dry run: {rec}")
-        print(json.dumps({"dryrun": rec}), flush=True)
+    done = finish_dryruns(procs)
+    recs = [d["rec"] for d in done]
+    for d in done[:-1]:
+        check(d["rec"]["status"] == "OK", f"dry run: {d['rec']}")
+        print(json.dumps({"dryrun": d["rec"], "seconds": d["seconds"]}),
+              flush=True)
     c = recs[-1]
     flops = full["model_flops"]
     # the eager step's peak: the dry run counts what one step holds live,
@@ -5847,15 +5877,15 @@ def phase_sharded(dev, trained: dict) -> dict:
                   "t_compute_ms": c["t_compute"] * 1e3,
                   "t_memory_ms": c["t_memory"] * 1e3,
                   "measured_step_ms": full["step_ms"],
-                  "fake_run_s": c["t_compile_s"]}
+                  "fake_run_s": c["t_compile_s"],
+                  "seconds": done[-1]["seconds"]}
     return {"decode_lse": decode_lse, "one_card": one_card,
             "pipeline": pipeline, "mesh_train": mesh_train,
-            "dryrun": [{k: r[k] for k in ("arch", "shape", "mesh", "status",
-                                          "hbm_per_device", "fits_hbm",
-                                          "t_compute", "t_memory",
-                                          "t_collective", "bottleneck",
-                                          "mfu", "t_compile_s")}
-                       for r in recs[:-1]],
+            "dryrun": [{**{k: d["rec"][k] for k in (
+                "arch", "shape", "mesh", "status", "hbm_per_device",
+                "fits_hbm", "t_compute", "t_memory", "t_collective",
+                "bottleneck", "mfu", "t_compile_s")},
+                "seconds": d["seconds"]} for d in done[:-1]],
             "check_cell": check_cell}
 
 

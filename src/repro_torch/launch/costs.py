@@ -17,9 +17,14 @@ one rank's program. It counts
 * the collectives (op, bytes of the result, process group).
 
 A loop written with ``nn/runtime.scan`` finds the mode on
-``runtime.COUNTERS`` (the mode puts itself there while entered), runs two
-trips, and has the mode count the second ``n - 2`` more times
-(:meth:`CostMode.mark`, :meth:`CostMode.repeat`, :meth:`CostMode.release`).
+``runtime.COUNTERS`` (the mode puts itself there while entered), runs a
+few trips, and has the mode count one of them as the trips it stands for
+(:meth:`CostMode.mark`, :meth:`CostMode.repeat`, :meth:`CostMode.release`;
+where autograd records the trips, :meth:`CostMode.token` holds the
+storage they keep for the backward until it ends). ``microbatches`` cuts
+a training step to its first microbatches (``nn/runtime.microbatches``),
+and the mode then keeps the peak of each segment of the step apart
+(:meth:`CostMode.boundary`), for the dry run to extrapolate in depth.
 
 The mode also sees DTensor's own calls: at global shapes on the DTensors
 themselves, and its sharding propagation's at global shapes on fake
@@ -35,6 +40,7 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.distributed.tensor import DTensor
 from torch.utils._pytree import tree_leaves
+from torch.utils._python_dispatch import _disable_current_modes
 
 from repro_torch.nn import runtime
 
@@ -54,16 +60,31 @@ class Mark:
     n_collectives: int
     live: int
     peak: int
+    keys: frozenset | None = None
 
 
 class CostMode(FakeTensorMode):
     """Counts one rank's local ops while entered (see the module's
     docstring): ``flops``, ``bytes``, ``peak`` / ``live`` (bytes of
     storage made inside the mode) and ``collectives`` (a list of ``(op,
-    bytes, group name)``)."""
+    bytes, group name)``). ``microbatches`` (None: all) is how many of a
+    training step's microbatches run (``nn/runtime.microbatches``);
+    ``trip`` is then the last one's FLOPs, bytes and span of
+    ``collectives``, ``shift`` the live bytes it added, and ``segments``
+    the peak of each segment of the step (:meth:`boundary`)."""
 
-    def __init__(self):
+    def __init__(self, microbatches: int | None = None):
         super().__init__(allow_non_fake_inputs=True)
+        self.microbatches = microbatches
+        self.trip = None
+        self.shift = 0
+        # the dry run's variants keep the peak of each segment of the
+        # step too (:meth:`boundary`)
+        self.segmented = microbatches is not None
+        self.segments: list[tuple[tuple, int]] = []
+        self.trip_index = 0
+        self._segment = ("start", 0)
+        self._segment_peak = 0
         self.flops = 0.0
         self.bytes = 0.0
         self.live = 0
@@ -81,13 +102,55 @@ class CostMode(FakeTensorMode):
         runtime.COUNTERS.remove(self)
         return super().__exit__(*exc)
 
-    def mark(self) -> Mark:
+    def mark(self, keys: bool = False) -> Mark:
         """The counts before a trip; the peak from here on is the trip's
-        own, until :meth:`repeat`."""
+        own, until :meth:`repeat`. ``keys`` also notes the live storages,
+        for :meth:`made_since`."""
         m = Mark(self.flops, self.bytes, len(self.collectives), self.live,
-                 self.peak)
+                 self.peak, frozenset(self._storages) if keys else None)
         self.peak = self.live
         return m
+
+    def made_since(self, mark: Mark) -> list:
+        """The live storages made since ``mark`` (taken with ``keys``)."""
+        return [(k, e) for k, e in self._storages.items()
+                if k not in mark.keys]
+
+    def live_bytes(self, storages: list) -> int:
+        """The bytes of those of ``storages`` (:meth:`made_since`) that
+        are still live."""
+        return sum(e[0] for k, e in storages if self._storages.get(k) is e)
+
+    def token(self) -> torch.Tensor:
+        """An empty tensor whose storage counts as live bytes from
+        :meth:`grow` until the tensor dies."""
+        with _disable_current_modes():
+            t = torch.empty(0, device="meta")
+        key = t.untyped_storage()._cdata
+        self._storages[key] = [0, 1]
+        weakref.finalize(t, self._release, key)
+        return t
+
+    def grow(self, token: torch.Tensor, nbytes: int) -> None:
+        """``nbytes`` more live on ``token``'s storage."""
+        self._storages[token.untyped_storage()._cdata][0] += nbytes
+        self.live += nbytes
+        self._reach(self.live)
+
+    def _reach(self, nbytes: int) -> None:
+        """``nbytes`` live at once: the peak, and the segment's."""
+        self.peak = max(self.peak, nbytes)
+        self._segment_peak = max(self._segment_peak, nbytes)
+
+    def boundary(self, label) -> None:
+        """A segment of the step ends and the next, ``(label, trip
+        index)``, starts: the ended one's peak goes to ``segments``. The
+        dry run marks the edges of the layer stacks, forward and backward,
+        and of each microbatch, so that the live bytes in a segment rise
+        with depth in one way (``launch/dryrun.extrapolated_metrics``)."""
+        self.segments.append((self._segment, self._segment_peak))
+        self._segment = (label, self.trip_index)
+        self._segment_peak = self.live
 
     def repeat(self, mark: Mark, times: int) -> int:
         """Count the trip since ``mark`` ``times`` more times: its FLOPs,
@@ -101,9 +164,19 @@ class CostMode(FakeTensorMode):
         self.collectives.extend(self.collectives[mark.n_collectives:]
                                 * times)
         held = max(0, times * (self.live - mark.live))
-        self.peak = max(mark.peak, self.peak + held)
+        own = self.peak
+        self.peak = max(mark.peak, own + held)
+        self._segment_peak = max(self._segment_peak, own + held)
         self.live += held
         return held
+
+    def trip_ends(self, mark: Mark) -> None:
+        """The trip since ``mark`` ends: its FLOPs, bytes and collectives
+        are kept as ``trip``, the live bytes it added as ``shift``."""
+        self.trip = (self.flops - mark.flops, self.bytes - mark.bytes,
+                     (mark.n_collectives, len(self.collectives)))
+        self.shift = self.live - mark.live
+        self.peak = max(mark.peak, self.peak)
 
     def release(self, held: int) -> None:
         """The bytes :meth:`repeat` held die (the loop's outputs)."""
@@ -154,7 +227,7 @@ class CostMode(FakeTensorMode):
             n = t.untyped_storage().nbytes()
             entry = self._storages[key] = [n, 0]
             self.live += n
-            self.peak = max(self.peak, self.live)
+            self._reach(self.live)
         entry[1] += 1
         weakref.finalize(t, self._release, key)
 

@@ -8,12 +8,22 @@ measurements.
 
 The reference lowers and compiles each cell with XLA and reads its
 ``cost_analysis``, which counts a while loop's body once; it therefore
-compiled unrolled variants at depths 1 and 2 and extrapolated
-(``extrapolated_metrics``, ``nn/runtime.UNROLL``). The port runs each cell
-once, at its full depth, and counts every layer; a loop of same-shaped
-trips written with ``nn/runtime.scan`` (sLSTM's time steps, the mLSTM and
-Mamba chunks) runs two trips under the counter and is counted as all of
-them, unless autograd records it (a train cell runs every trip).
+compiled unrolled variants at (depth, microbatches) (n, μ) ∈ {1, 2}² and
+extrapolated bilinearly (``extrapolated_metrics``). The port counts a
+train cell the same way, from its step at depths 1 and 2 running two of
+the plan's microbatches, the count at one read off each
+(:func:`extrapolated_metrics`); the full count's numbers equal them, since
+each superblock and each microbatch after the first adds the same ops.
+Its peak memory is the largest of the peaks of the step's segments
+(between the edges of its layer stacks and microbatches), each affine in
+depth. Prefill, decode and long cells run once at full depth. A loop of
+same-shaped trips written with ``nn/runtime.scan`` (sLSTM's time steps,
+the mLSTM and Mamba chunks) runs a few trips under the counter and is
+counted as all of them, forward and backward. ``run_cell(...,
+full=True)`` counts a train cell whole, every superblock and microbatch.
+``--all`` runs its cells one after another and prints each one's
+seconds; to run them in parallel, start a process a cell (one ``--arch A
+--shape S --json F_A_S`` each).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-34b --shape train_4k
@@ -24,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import logging
 import os
@@ -34,7 +45,7 @@ import traceback
 import torch
 
 from repro_torch.configs import ASSIGNED, get_config, input_specs
-from repro_torch.launch.costs import CostMode
+from repro_torch.launch.costs import CostMode, _nbytes
 from repro_torch.launch.mesh import (HW, MULTI, SINGLE, make_production_mesh,
                                      mesh_name)
 from repro_torch.launch.roofline import (Roofline, active_params,
@@ -70,6 +81,25 @@ TRAIN_PLAN = {
 def train_plan(arch: str):
     mb, sdt, accum = TRAIN_PLAN.get(arch, TRAIN_PLAN["default"])
     return AdamWConfig(state_dtype=sdt), mb, accum
+
+
+def train_microbatches(arch: str, force_mb: int | None = None,
+                       rows: int | None = None) -> int:
+    """A train cell's microbatches: ``force_mb``, else the plan's (1
+    under ``REPRO_TRAIN_PLAN=fsdp``, whose batch shards over all chips),
+    at most ``rows``, the rows a data rank holds: on the two-pod mesh's
+    64 data ranks a rank holds 4 of ``train_4k``'s 256 rows, where the
+    reference's 32 hold the 8 that its plan's 8 microbatches split, and a
+    microbatch keeps the plan's one row a rank."""
+    if force_mb is not None:
+        return force_mb
+    mb = 1 if TRAIN_PLAN_ENV == "fsdp" else train_plan(arch)[1]
+    return mb if rows is None else max(1, min(mb, rows))
+
+
+def _rank_rows(batch: dict) -> int:
+    """The rows of a step's batch (its stand-ins) that one rank holds."""
+    return _locals(batch["tokens"])[0].shape[0]
 
 
 def skip_reason(cfg: ModelConfig, cell: ShapeCell) -> str | None:
@@ -119,17 +149,14 @@ def build_lowerable(arch: str, shape: str, mesh, cfg: ModelConfig = None,
     batch = input_specs(cfg, cell, mesh)
 
     if cell.kind == "train":
-        opt_cfg, mb, accum = train_plan(arch)
+        opt_cfg, _, accum = train_plan(arch)
         shard_cfg = None
         if TRAIN_PLAN_ENV == "fsdp":
             shard_cfg = ShardingConfig.fsdp_only()
-            mb = 1  # batch shards over all chips; no accumulation needed
         elif TRAIN_PLAN_ENV == "fsdp_hybrid":
             shard_cfg = ShardingConfig.fsdp_hybrid()
-        if force_mb is not None:
-            mb = force_mb
-        elif force_mb1:
-            mb = 1
+        mb = train_microbatches(arch, 1 if force_mb1 and force_mb is None
+                                else force_mb, _rank_rows(batch))
         pspecs = lm.param_specs()
         params = _structs(mesh, pspecs, shard_cfg)
         opt = _structs(mesh, state_specs(opt_cfg, pspecs), shard_cfg)
@@ -184,16 +211,175 @@ def _group_axes(mesh, names) -> dict:
     return out
 
 
+def _metrics(mesh, flops: float, nbytes: float, colls: list) -> dict:
+    """FLOPs, bytes and the collectives' wire bytes, by op, their counts
+    and by mesh axis, of a count's ``(op, bytes, group)`` records."""
+    stats = collective_stats(colls, _group_axes(mesh,
+                                                [g for _, _, g in colls]))
+    return {"flops": flops, "bytes": nbytes, "wire": stats.wire_bytes,
+            "by_op": stats.by_op, "counts": stats.counts,
+            "by_axis": stats.wire_by_axis}
+
+
+def _count(build, mesh, microbatches: int | None = None) -> dict:
+    """One count of a step under a ``CostMode`` (cut to its first
+    ``microbatches``), the step and its stand-ins from ``build()``: per
+    device, the FLOPs, bytes, peak and
+    collectives (:func:`_metrics`, and ``colls`` the records), the last
+    microbatch's counts (``trip``, ``CostMode.trip_ends``), the bytes of
+    the arguments, of the outputs, of those outputs that are donated
+    arguments updated in place, and of the donated arguments; and the
+    seconds of the build and of the run."""
+    t0 = time.time()
+    fn, args, donate = build()
+    mode = CostMode(microbatches=microbatches)
+    t1 = time.time()
+    with mode:
+        out = fn(*args)
+        mode.boundary("end")
+    t_run = time.time() - t1
+    out_locals = _locals(out)
+    donated = [t for i in donate for t in _locals(args[i])]
+    ids = {id(t) for t in donated}
+    return {**_metrics(mesh, mode.flops, mode.bytes, mode.collectives),
+            "peak": mode.peak, "colls": mode.collectives, "trip": mode.trip,
+            "segments": mode.segments, "shift": mode.shift,
+            "arg_bytes": sum(_nbytes(t) for t in _locals(args)),
+            "out_bytes": sum(_nbytes(t) for t in out_locals),
+            "alias_bytes": sum(_nbytes(t) for t in out_locals
+                               if id(t) in ids),
+            "donated_bytes": sum(_nbytes(t) for t in donated),
+            "t_build": t1 - t0, "t_run": t_run}
+
+
+def _first_microbatch(m: dict, mesh) -> dict:
+    """The counts of the step ``m`` counted at two microbatches, at one:
+    the second one's FLOPs, bytes and collectives taken away (every op
+    outside the microbatch loop is the same at one)."""
+    flops, nbytes, (lo, hi) = m["trip"]
+    return {**m, **_metrics(mesh, m["flops"] - flops, m["bytes"] - nbytes,
+                            m["colls"][:lo] + m["colls"][hi:])}
+
+
+def _at_depth(cfg: ModelConfig, n: int) -> ModelConfig:
+    """``_with_repeat``, an encoder deeper or shallower than the decoder
+    kept at its depth."""
+    if cfg.enc_repeat in (0, cfg.n_repeat):
+        return _with_repeat(cfg, n)
+    return dataclasses.replace(_with_repeat(cfg, n),
+                               enc_repeat=cfg.enc_repeat)
+
+
+def _peak(m1: dict, m2: dict, n: int, mu: int) -> int:
+    """The peak of the step at depth ``n`` and ``mu`` microbatches from
+    its counts at depths 1 and 2 (``m1``, ``m2``), each running two of its
+    microbatches (one where ``mu`` is 1): the largest of its segments'
+    peaks (``CostMode.boundary``), each affine in depth, since within a
+    segment the live bytes rise with the layers of one stack (or not at
+    all). A microbatch left out, the third on, starts ``shift`` bytes
+    above where the second started (the second adds them: in
+    ``make_train_step`` the loss's running sum, 4 bytes) and climbs as the
+    second did. That holds only while every microbatch after the second
+    leaves the live bytes as it found them, so that the rest and the tail
+    start where the second ends: ``make_train_step``'s do, and
+    ``tests/test_torch_dryrun_extrapolate.py`` holds the third's shift at
+    0 and the peak at μ 3 and 4 to the full count's. A change to the
+    accumulation loop that makes later microbatches keep more must change
+    this rule."""
+    keys = [k for k, _ in m1["segments"]]
+    if keys != [k for k, _ in m2["segments"]]:
+        raise RuntimeError("depths 1 and 2 of the step have other segments")
+    shift = m1["shift"] + (n - 1) * (m2["shift"] - m1["shift"])
+    peak = 0
+    for (key, p1), (_, p2) in zip(m1["segments"], m2["segments"]):
+        p = p1 + (n - 1) * (p2 - p1)
+        peak = max(peak, p, p + shift if mu > 2 and key[1] == 1 else 0)
+    return peak
+
+
+def extrapolated_metrics(arch: str, shape: str, mesh, cfg: ModelConfig,
+                         cell: ShapeCell, microbatches: int | None = None,
+                         remat: str = "full") -> dict:
+    """A train cell's per-device counts from its step at (n, μ) ∈ {1,2}²,
+    extrapolated bilinearly to the cell's depth N (``cfg.n_repeat``; the
+    prefix layers run in every variant) and microbatches M, as the
+    reference's ``extrapolated_metrics`` does:
+
+        m(N, M) = m11 + (N−1)Δn + (M−1)Δμ + (N−1)(M−1)Δnμ
+
+    A variant at μ runs the first μ of the step's M microbatches (``CostMode
+    (microbatches=μ)``), each of the plan's rows, so that each microbatch
+    after the first adds the same ops as in the whole step: the
+    reference's variants, at the global batch over μ, would change the
+    rows of each and an MoE layer's capacity with them. The step is
+    counted at μ 2, and its count at μ 1 read off that count, the second
+    microbatch's counts taken away (:func:`_first_microbatch`). FLOPs,
+    bytes and the collectives' wire bytes, by op, counts and by axis
+    extrapolate so; with M = 1 or N = 1 the variants collapse. The peak
+    comes from the same two counts (:func:`_peak`), segment by segment.
+    Every donated argument must come back updated in place; the bytes out
+    beside them are depth 1's."""
+    n = cfg.n_repeat
+    mu = train_microbatches(arch, microbatches,
+                            _rank_rows(input_specs(cfg, cell, mesh)))
+
+    def count(depth: int, mb: int) -> dict:
+        return _count(functools.partial(
+            build_lowerable, arch, shape, mesh, cfg=_at_depth(cfg, depth),
+            force_mb=mu, cell=cell, remat=remat), mesh, microbatches=mb)
+
+    if mu > 1:
+        m12 = count(1, 2)
+        m22 = count(2, 2) if n > 1 else m12
+        m11, m21 = (_first_microbatch(m, mesh) for m in (m12, m22))
+    else:
+        m11 = count(1, 1)
+        m21 = count(2, 1) if n > 1 else m11
+        m12, m22 = m11, m21
+
+    def bilinear(get):
+        a = get(m11)
+        dn = get(m21) - a
+        dm = get(m12) - a
+        dnm = get(m22) - get(m21) - get(m12) + a
+        return a + (n - 1) * dn + (mu - 1) * dm + (n - 1) * (mu - 1) * dnm
+
+    def by_key(name):
+        # in the order of first sight, the whole step's order
+        keys = dict.fromkeys(k for m in (m11, m21, m12, m22)
+                             for k in m[name])
+        return {k: bilinear(lambda m, k=k: m[name].get(k, 0))
+                for k in keys}
+
+    out = {k: bilinear(lambda m, k=k: m[k])
+           for k in ("flops", "bytes", "wire")}
+    out.update(by_op=by_key("by_op"), counts=by_key("counts"),
+               by_axis=by_key("by_axis"))
+    out["peak"] = _peak(m12, m22, n, mu)
+    for m in (m11, m21, m12, m22):
+        if m["alias_bytes"] != m["donated_bytes"]:
+            raise RuntimeError(f"{arch}: the step returns a donated "
+                               f"argument that it did not update in place")
+    out["extra_out_bytes"] = m11["out_bytes"] - m11["alias_bytes"]
+    variants = {id(m): m for m in (m11, m21, m12, m22)}.values()
+    out["t_build"] = sum(m["t_build"] for m in variants)
+    out["t_run"] = sum(m["t_run"] for m in variants)
+    return out
+
+
 def run_cell(arch: str, shape: str, multi_pod: bool, verbose: bool = True,
              *, mesh_shape=None,
              cfg: ModelConfig | None = None, cell: ShapeCell | None = None,
-             microbatches: int | None = None, remat: str = "full"):
-    """One cell's record (the reference's ``metrics`` switch, for its
-    extrapolated metrics, has no counterpart: every cell's counts are
-    exact). ``mesh_shape``, ``cfg``, ``cell``, ``microbatches``
-    and ``remat`` replace the production mesh, the registered config, the
-    workload shape, the train plan's microbatches and the full remat, to
-    dry-run a cut-down cell (e.g. one a single card trains)."""
+             microbatches: int | None = None, remat: str = "full",
+             full: bool = False):
+    """One cell's record. A train cell's FLOPs, bytes, collectives and
+    peak come from :func:`extrapolated_metrics` (the reference's
+    ``metrics=True``), or, with ``full``, from one count of the whole
+    step, which they equal; the other cells' from one count. ``mesh_shape``,
+    ``cfg``, ``cell``, ``microbatches`` and ``remat`` replace the
+    production mesh, the registered config, the workload shape, the train
+    plan's microbatches and the full remat, to dry-run a cut-down cell
+    (e.g. one a single card trains)."""
     cfg = cfg or get_config(arch)
     cell = cell or SHAPES[shape]
     reason = skip_reason(cfg, cell)
@@ -206,35 +392,35 @@ def run_cell(arch: str, shape: str, multi_pod: bool, verbose: bool = True,
         return rec
 
     n_dev = mesh.size()
-    t0 = time.time()
-    fn, args, donate = build_lowerable(arch, shape, mesh, cfg=cfg,
-                                       force_mb=microbatches, cell=cell,
-                                       remat=remat)
-    t_lower = time.time() - t0
-    arg_locals = _locals(args)
-    arg_bytes = sum(t.numel() * t.element_size() for t in arg_locals)
-    mode = CostMode()
-    t1 = time.time()
-    with mode:
-        out = fn(*args)
-    t_run = time.time() - t1
-    out_locals = _locals(out)
-    donated = {id(t) for i in donate for t in _locals(args[i])}
-    out_bytes = sum(t.numel() * t.element_size() for t in out_locals)
-    alias_bytes = sum(t.numel() * t.element_size() for t in out_locals
-                      if id(t) in donated)
-    temp_bytes = max(0, mode.peak - (out_bytes - alias_bytes))
+    build = functools.partial(build_lowerable, arch, shape, mesh, cfg=cfg,
+                              force_mb=microbatches, cell=cell, remat=remat)
+    if cell.kind == "train" and not full:
+        t0 = time.time()
+        _, args, donate = build()     # the full depth's stand-ins
+        t_lower = time.time() - t0
+        mx = extrapolated_metrics(arch, shape, mesh, cfg, cell,
+                                  microbatches, remat)
+        arg_bytes = sum(_nbytes(t) for t in _locals(args))
+        alias_bytes = sum(_nbytes(t) for i in donate
+                          for t in _locals(args[i]))
+        out_bytes = alias_bytes + mx["extra_out_bytes"]
+        t_lower += mx["t_build"]
+    else:
+        mx = _count(build, mesh)
+        arg_bytes, out_bytes, alias_bytes = (
+            mx["arg_bytes"], mx["out_bytes"], mx["alias_bytes"])
+        t_lower = mx["t_build"]
+    t_run = mx["t_run"]
+    temp_bytes = max(0, mx["peak"] - (out_bytes - alias_bytes))
     hbm = arg_bytes + out_bytes + temp_bytes - alias_bytes
-    colls = collective_stats(mode.collectives, _group_axes(
-        mesh, [g for _, _, g in mode.collectives]))
 
     tokens = cell.global_batch * (cell.seq_len if cell.kind != "decode"
                                   else 1)
     mf = model_flops(cfg, cell.kind, tokens,
                      paper_heads=PAPER_HEADS.get(arch))
-    rl = Roofline(flops=mode.flops, bytes_accessed=mode.bytes,
-                  wire_bytes=colls.wire_bytes, n_devices=n_dev,
-                  model_flops=mf, wire_by_axis=colls.wire_by_axis)
+    rl = Roofline(flops=mx["flops"], bytes_accessed=mx["bytes"],
+                  wire_bytes=mx["wire"], n_devices=n_dev,
+                  model_flops=mf, wire_by_axis=mx["by_axis"])
     rec.update(
         status="OK",
         t_lower_s=round(t_lower, 1),
@@ -249,9 +435,9 @@ def run_cell(arch: str, shape: str, multi_pod: bool, verbose: bool = True,
         bytes_per_device=rl.bytes_accessed,
         wire_bytes_per_device=rl.wire_bytes,
         raw_flops_rolled=rl.flops,
-        coll_by_op={k: round(v) for k, v in colls.by_op.items()},
-        coll_counts=colls.counts,
-        wire_by_axis={k: round(v) for k, v in colls.wire_by_axis.items()},
+        coll_by_op={k: round(v) for k, v in mx["by_op"].items()},
+        coll_counts=mx["counts"],
+        wire_by_axis={k: round(v) for k, v in mx["by_axis"].items()},
         t_compute=rl.t_compute,
         t_memory=rl.t_memory,
         t_collective=rl.t_collective,
@@ -273,7 +459,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool, verbose: bool = True,
         print(
             f"  per-device: {rl.flops/1e12:.2f} TFLOP, "
             f"{rl.bytes_accessed/2**30:.2f} GiB accessed, "
-            f"{rl.wire_bytes/2**20:.1f} MiB on wire {colls.counts}"
+            f"{rl.wire_bytes/2**20:.1f} MiB on wire {mx['counts']}"
         )
         print(
             f"  roofline: compute {rl.t_compute*1e3:.2f}ms "
@@ -313,6 +499,7 @@ def main(argv=None):
     records = []
     failed = []
     for arch, shape, mp in cells:
+        t0 = time.time()
         try:
             rec = run_cell(arch, shape, mp)
         except Exception as e:  # noqa: BLE001 — report all cell failures
@@ -324,6 +511,8 @@ def main(argv=None):
             }
             failed.append(rec)
         records.append(rec)
+        print(f"  {arch} × {shape} × {rec['mesh']}: {rec['status']} in "
+              f"{time.time() - t0:.1f} s", flush=True)
         if args.json:
             with open(args.json, "a") as f:
                 f.write(json.dumps(rec) + "\n")

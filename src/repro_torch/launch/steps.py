@@ -14,6 +14,7 @@ import math
 import torch
 
 from repro_torch.models.lm import LM
+from repro_torch.nn import runtime
 from repro_torch.nn.config import ModelConfig
 from repro_torch.nn.sharding import (ShardCtx, batch_map, dtensor_of,
                                      local_part, local_shape)
@@ -95,7 +96,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                 p, dtype=accum_dtype), params)
             loss = None     # the first microbatch's starts the sum: no
             #                 zero made on the host and copied up
-            for mb in split_mb(batch, microbatches, ctx):
+            # all of them (the dry run's counter may run the first ones)
+            for mb in runtime.microbatches(split_mb(batch, microbatches,
+                                                    ctx)):
                 l_mb, g = value_and_grad(lm, params, mb, remat)
                 for a, x in zip(tr.leaves(acc), tr.leaves(g)):
                     a.add_(x.to(a.dtype))

@@ -38,6 +38,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.nn import attention as att
 from repro_torch.nn import basic
 from repro_torch.nn import moe as moe_mod
+from repro_torch.nn import runtime
 from repro_torch.nn import ssm
 from repro_torch.nn import xlstm as xl
 from repro_torch.nn.config import LayerSpec, ModelConfig
@@ -367,6 +368,8 @@ class LM:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         new_layers = []
         for i, spec in enumerate(self.layers):
+            if i == len(self.cfg.prefix):
+                x = runtime.stack_edge(x, "decoder", start=True)
             p_i = params["layers"][i]
             if remat != "none" and caches is None and not want_cache:
                 x, a = _remat_layer(remat, spec, p_i, x, positions, enc_out,
@@ -379,6 +382,7 @@ class LM:
                                        ctx=self.ctx)
                 new_layers.append(nc)
             aux = aux + a
+        x = runtime.stack_edge(x, "decoder", start=False)
         if caches is None and not want_cache:
             return x, None, aux
         return x, {"layers": new_layers}, aux
@@ -388,9 +392,11 @@ class LM:
         S_enc, D) at positions 0..S_enc-1, then ``enc_norm``."""
         x = enc_emb
         positions = self.ctx.replicated(self._positions(enc_emb[..., 0]))
+        x = runtime.stack_edge(x, "encoder", start=True)
         for spec, p in zip(self.enc_layers, params["enc_layers"]):
             x, _, _ = apply_layer(spec, p, x, positions, causal=False,
                                   norm_eps=self.cfg.norm_eps, ctx=self.ctx)
+        x = runtime.stack_edge(x, "encoder", start=False)
         return basic.rmsnorm(params["enc_norm"], x, self.cfg.norm_eps)
 
     # ---------------- public steps

@@ -260,4 +260,9 @@ def _moe_mesh(ctx, p, pw, cfg: MoEConfig, x: torch.Tensor):
                       w_grad),
                      xg, w, slot_src, tok_slot, pw["w_gate"], pw["w_up"],
                      pw["w_down"])
+    if 1 < b < n_groups:
+        # a row's tokens lie in groups of several ranks (a batch of fewer
+        # rows than data ranks): back to x's placements before the rows
+        # are whole again, as XLA reshards the reference's reshape
+        out = out.redistribute(ctx.mesh, x.placements)
     return out.reshape(b, s, d), aux

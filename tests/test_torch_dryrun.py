@@ -1,7 +1,8 @@
 """The port's launch and dry-run layer against the reference's: input
 stand-ins, collective pricing, roofline terms, report tables, and the dry
-run itself on a fake process group (shrunk configs; about 25 s of tier-1,
-most of it the reference's compile in a subprocess)."""
+run itself on a fake process group (shrunk configs, and batches of fewer
+rows than data ranks; about 40 s of tier-1, much of it the reference's
+compile in a subprocess)."""
 from __future__ import annotations
 
 import dataclasses
@@ -186,6 +187,47 @@ def test_long_500k_skips_full_attention():
 
     rec = dryrun.run_cell("granite-3-8b", "long_500k", False, verbose=False)
     assert rec["status"] == "SKIP" and "long_500k" in rec["reason"]
+
+
+def test_moe_batch_of_fewer_rows_than_data_ranks():
+    """A prefill of 2 rows on 8 data ranks, as the two-pod mesh's 64 data
+    ranks take ``prefill_32k``'s 32 rows: the MoE layers' 8 token groups
+    each hold part of a row, and ``nn/moe._moe_mesh`` gives the output
+    the input's placements before its rows are whole again. Shrunk
+    deepseek-v2 (a dense prefix layer, then MoE) on a fake (8, 2) mesh
+    ends OK with collectives on the data axis."""
+    from repro_torch.launch import dryrun
+
+    rec = dryrun.run_cell("deepseek-v2-236b", "prefill_32k", False,
+                          verbose=False, mesh_shape=(8, 2),
+                          cfg=_shrunk("deepseek-v2-236b"),
+                          cell=ShapeCell("prefill_32k", 16, 2, "prefill"))
+    assert rec["status"] == "OK"
+    assert rec["flops_per_device"] > 0 and rec["coll_counts"]
+    assert "data" in rec["wire_by_axis"]
+
+
+def test_train_microbatches_capped_at_a_ranks_rows():
+    """A rank holding fewer rows than the plan's microbatches (granite's
+    4) runs one microbatch a row, as on the two-pod mesh, where a rank
+    holds 4 of ``train_4k``'s 256 rows and deepseek's plan asks for 8: 16
+    rows on a fake (8, 2) mesh, 2 a rank, 2 microbatches, and the
+    extrapolated record is the full count's."""
+    from repro_torch.launch import dryrun
+
+    assert dryrun.train_microbatches("granite-3-8b") == 4
+    assert dryrun.train_microbatches("granite-3-8b", rows=2) == 2
+    assert dryrun.train_microbatches("granite-3-8b", 3, rows=2) == 3
+    kw = dict(verbose=False, mesh_shape=(8, 2), cfg=_shrunk("granite-3-8b"),
+              cell=ShapeCell("train_4k", 16, 16, "train"))
+    got = dryrun.run_cell("granite-3-8b", "train_4k", False, **kw)
+    want = dryrun.run_cell("granite-3-8b", "train_4k", False, full=True,
+                           **kw)
+    assert got["status"] == want["status"] == "OK"
+    for key in ("flops_per_device", "bytes_per_device",
+                "wire_bytes_per_device", "coll_by_op", "coll_counts",
+                "wire_by_axis", "temp_bytes", "hbm_per_device"):
+        assert got[key] == want[key], key
 
 
 _REF_ARG_BYTES = """

@@ -8,16 +8,19 @@ run it makes finish.
   cores ran before), for the sLSTM and mLSTM blocks at xlstm-350m's
   width (d_model 1024, 4 heads, proj 2, chunk 128, bf16 parameters) at
   S 512 with no mesh and on the fake (32, 8) production mesh, for a
-  Mamba block at jamba's width, for a step with a collective in every
-  trip, and where autograd records the trips (the helper then runs them
-  all).
+  Mamba block at jamba's width and for a step with a collective in every
+  trip.
+* Where autograd records the trips, it runs three and counts the middle
+  one as the rest, forward and backward: a forward and backward of the
+  sLSTM and mLSTM blocks count what the plain loop counts, with no mesh
+  and on the fake (32, 8) mesh, and under a remat's recompute.
 * Eagerly its outputs are bitwise those of the cores' old loops (copied
   here as they were).
 * ``dryrun.run_cell`` of xlstm-350m's ``prefill_32k`` cut to S 512 counts
   383,420,497,920 FLOPs a device, and the bytes and memory of a count of
   every trip.
 
-About 25 s in one process.
+About 40 s in one process.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import pytest
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.launch.costs import CostMode
 from repro_torch.launch.mesh import make_production_mesh
@@ -157,27 +161,65 @@ def test_collectives_of_every_trip_are_counted(monkeypatch):
     assert len(got["collectives"]) == 7
 
 
-@pytest.mark.parametrize("kind", ["slstm", "mlstm"])
-def test_recorded_trips_all_run(kind, monkeypatch):
-    """Where autograd records the trips, the helper runs every one, so
-    that a backward sees them: a forward and backward count the same as
-    the plain loop's, and the step ran n times."""
-    cfg = XL_CFG[kind]
+def _recorded_block(kind: str, mesh_shape, remat: str):
+    """A forward and backward of the block ``kind`` (d_model 64, S 16:
+    16 sLSTM steps or 4 mLSTM chunks) on ``meta`` inputs that require
+    grad: with no mesh at batch 2, or over the fake production mesh of
+    ``mesh_shape`` at batch 32; the block under ``torch.utils.checkpoint``
+    where ``remat`` is "full", as the model's layers run under it."""
+    cfg = XLSTMConfig(kind=kind, n_heads=4, proj_factor=2.0, chunk=4)
     specs = getattr(xl, f"{kind}_specs")(cfg, 64, torch.float32)
-    trips = []
+    apply = getattr(xl, f"{kind}_apply")
+    mesh = make_production_mesh(shape=mesh_shape) if mesh_shape else None
+    ctx = ShardCtx(mesh) if mesh else NO_MESH
 
     def run():
-        params = {k: torch.empty(s.shape, device="meta", requires_grad=True)
-                  for k, s in specs.items()}
-        x = torch.empty((2, 16, 64), device="meta", requires_grad=True)
-        cfg_small = XLSTMConfig(kind=kind, n_heads=4, proj_factor=2.0,
-                                chunk=4)
-        y, _ = getattr(xl, f"{kind}_apply")(params, cfg_small, x)
-        y.sum().backward()
+        if mesh is None:
+            params = {k: torch.empty(s.shape, device="meta",
+                                     requires_grad=True)
+                      for k, s in specs.items()}
+            x = torch.empty((2, 16, 64), device="meta", requires_grad=True)
+        else:
+            params = {k: v.requires_grad_() for k, v in struct_tree(
+                specs, mesh, lambda sp: param_pspec(mesh, sp)).items()}
+            x = meta_dtensor(mesh, (32, 16, 64), torch.float32,
+                             resolve_pspec(mesh, ("dp", None, None),
+                                           (32, 16, 64))).requires_grad_()
 
+        def block(x):
+            return apply(ctx.fsdp_gather(params), cfg, x, ctx=ctx)[0]
+
+        with ctx.scope():
+            y = ckpt.checkpoint(block, x, use_reentrant=False,
+                                preserve_rng_state=False) \
+                if remat == "full" else block(x)
+            y.sum().backward()
+    return run
+
+
+@pytest.mark.parametrize("kind,mesh_shape,remat", [
+    pytest.param("slstm", None, "none", id="slstm"),
+    pytest.param("mlstm", None, "none", id="mlstm"),
+    pytest.param("slstm", (32, 8), "none", id="slstm-32x8"),
+    pytest.param("mlstm", (32, 8), "none", id="mlstm-32x8"),
+    pytest.param("slstm", None, "full", id="slstm-remat-full"),
+    pytest.param("mlstm", None, "full", id="mlstm-remat-full"),
+    pytest.param("slstm", (32, 8), "full", id="slstm-32x8-remat-full")])
+def test_recorded_trips_all_run(kind, mesh_shape, remat, monkeypatch):
+    """Where autograd records the trips, the helper runs trips 0, 1 and 2
+    (and again in a remat's recompute) and counts trip 1 as the middle
+    trips: a forward and backward count the FLOPs, bytes, peak and
+    collectives of the plain loop over every trip."""
+    run = _recorded_block(kind, mesh_shape, remat)
+    trips, full = [], []
     got = _counted(run, _tripping(runtime.scan, trips), monkeypatch)
-    assert len(trips) == (16 if kind == "slstm" else 4)
-    assert got == _counted(run, _plain_scan, monkeypatch)
+    want = _counted(run, _tripping(_plain_scan, full), monkeypatch)
+    passes = 2 if remat == "full" else 1
+    assert trips == [0, 1, 2] * passes
+    assert len(full) == (16 if kind == "slstm" else 4) * passes
+    assert got == want
+    assert got["flops"] > 0 and got["peak"] > 0
+    assert (len(got["collectives"]) > 0) == (mesh_shape is not None)
 
 
 # ------------------------------------------------- the old loops, eagerly

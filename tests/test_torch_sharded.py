@@ -1,6 +1,7 @@
 """The sharded program on four ``gloo`` CPU ranks, a (2, 2) (data, model)
 mesh, against the one-device port on the same numbers; xlstm also on a
-(1, 4) mesh of the same ranks.
+(1, 4) mesh of the same ranks, and deepseek-v3 on a (4, 1) mesh at a
+batch of 2 rows, fewer than its data ranks.
 
 One spawn of four ranks serves the whole file (about 30 s of tier-1):
 each rank runs six shrunk configs as DTensor programs (granite; gemma3's
@@ -10,7 +11,9 @@ seamless's encoder and cross-attention) and every collective on every
 rank; rank 0 also runs the one-device calls and writes both. xlstm's two
 heads split whole over the model axis on (2, 2) and, where four model
 ranks do not divide them, its four rows a rank each on (1, 4)
-(``nn/xlstm.split_rule``). The loss,
+(``nn/xlstm.split_rule``). On (4, 1) the prefill's 16 tokens make 4 MoE
+token groups of half a row each, which ``nn/moe._moe_mesh`` gives back
+the input's placements before the rows are whole again. The loss,
 every gradient leaf, the prefill logits and four decode steps must agree
 within 1e-5 of each tensor's scale (its largest magnitude). Four configs
 run in fp32; jamba and xlstm in float64 (parameters, caches and every
@@ -39,9 +42,13 @@ NAMES = ["granite-3-8b", "gemma3-12b", "deepseek-v3-671b",
 WORLD = 4
 MESH = (2, 2)
 ROW_MESH = (1, 4)
-# each config on MESH; a case ``name@1x4`` is the config on ROW_MESH
-CASES = NAMES + ["xlstm-350m@1x4"]
+DATA_MESH = (4, 1)
+# each config on MESH; a case ``name@1x4`` is the config on ROW_MESH,
+# ``name@4x1`` on DATA_MESH at a batch of FEW_ROWS
+CASE_MESHES = {"1x4": ROW_MESH, "4x1": DATA_MESH}
+CASES = NAMES + ["xlstm-350m@1x4", "deepseek-v3-671b@4x1"]
 B, S, ENC, VOCAB = 4, 8, 5, 128
+FEW_ROWS = 2
 DECODE_STEPS = 4
 TOL = 1e-5
 FLOAT64 = ("jamba-1.5-large-398b", "xlstm-350m")
@@ -65,14 +72,14 @@ def _widen(tree, cfg):
                        tree)
 
 
-def _inputs(cfg):
+def _inputs(cfg, b: int = B):
     rng = np.random.default_rng(1)
-    batch = {k: torch.from_numpy(rng.integers(0, VOCAB, (B, S))
+    batch = {k: torch.from_numpy(rng.integers(0, VOCAB, (b, S))
                                  .astype(np.int32))
              for k in ("tokens", "labels")}
     if cfg.enc_dec:
         batch["enc_emb"] = torch.from_numpy(
-            rng.standard_normal((B, ENC, 64)).astype(np.float32))
+            rng.standard_normal((b, ENC, 64)).astype(np.float32))
     return batch
 
 
@@ -106,7 +113,8 @@ def _run(lm, params, batch, wrap=lambda t, specs: t, full=lambda t: t):
     extra = {k: v for k, v in bw.items() if k == "enc_emb"}
     logits, _ = lm.prefill(params, bw["tokens"], **extra)
     out["prefill"] = full(logits)
-    specs = lm.cache_specs(B, S, enc_len=ENC if cfg.enc_dec else 0)
+    specs = lm.cache_specs(batch["tokens"].shape[0], S,
+                           enc_len=ENC if cfg.enc_dec else 0)
     caches = wrap(_widen(init_params(specs, None, "cpu"), cfg), specs)
     steps = []
     for t in range(DECODE_STEPS):
@@ -133,7 +141,7 @@ def _worker(rank: int, port: int, path: str) -> None:
                             rank=rank, world_size=WORLD)
     meshes = {shape: init_device_mesh("cpu", shape,
                                       mesh_dim_names=("data", "model"))
-              for shape in (MESH, ROW_MESH)}
+              for shape in (MESH, *CASE_MESHES.values())}
     calls: dict[str, int] = {}
 
     def counted(mod, name):
@@ -147,6 +155,15 @@ def _worker(rank: int, port: int, path: str) -> None:
     for mod, name in ((lm_mod, "_sharded_embed"), (lm_mod, "_sharded_xent"),
                       (moe_mod, "_moe_mesh")):
         counted(mod, name)
+    moe_mesh = moe_mod._moe_mesh
+
+    def split_rows(ctx, p, pw, cfg, x):
+        # a batch of fewer rows than data ranks, in as many token groups
+        b, s = x.shape[:2]
+        if 1 < b < ctx.dp_size() and (b * s) % ctx.dp_size() == 0:
+            calls["split_rows"] = calls.get("split_rows", 0) + 1
+        return moe_mesh(ctx, p, pw, cfg, x)
+    moe_mod._moe_mesh = split_rows
 
     def wrapper(mesh):
         def wrap(t, specs):
@@ -158,11 +175,12 @@ def _worker(rank: int, port: int, path: str) -> None:
 
     results, ones = {}, {}
     for case in CASES:
-        name = case.split("@")[0]
-        mesh = meshes[ROW_MESH if "@" in case else MESH]
+        name, _, at = case.partition("@")
+        mesh = meshes[CASE_MESHES.get(at, MESH)]
         ctx, wrap = ShardCtx(mesh), wrapper(mesh)
         cfg = _cfg(name)
-        batch = _inputs(cfg)
+        rows = FEW_ROWS if at == "4x1" else B
+        batch = _inputs(cfg, rows)
         calls.clear()
         xl.SPLITS.clear()
         lmd = LM(cfg, ctx)
@@ -174,10 +192,10 @@ def _worker(rank: int, port: int, path: str) -> None:
                         sp.moe.n_experts % ctx.tp_size() == 0
                         for sp in cfg.layer_iter())
         if rank == 0:
-            if name not in ones:
+            if (name, rows) not in ones:
                 lm = LM(cfg)
-                ones[name] = _run(lm, _params(lm), batch)
-            results[case] = {"mesh": got, "one": ones[name]}
+                ones[name, rows] = _run(lm, _params(lm), batch)
+            results[case] = {"mesh": got, "one": ones[name, rows]}
     if rank == 0:
         with open(path, "wb") as f:
             pickle.dump(results, f)
@@ -234,14 +252,19 @@ def test_sharded_equals_one_device(runs, name, what):
 @pytest.mark.timeout(300)
 def test_manual_regions_ran_on_the_mesh(runs):
     """The vocab-sharded embedding and cross-entropy ran for every config
-    (vocab 128 over a model axis of 2 or 4), deepseek-v3's and jamba's MoE
-    layers took the expert-parallel region (4 experts over 2 ranks), and
-    every call of xlstm's two cores took whole heads on (2, 2) and rows on
-    (1, 4)."""
+    on a model axis of 2 or 4 (vocab 128 over it), deepseek-v3's and
+    jamba's MoE layers took the expert-parallel region (4 experts over 2
+    ranks), every call of xlstm's two cores took whole heads on (2, 2) and
+    rows on (1, 4), and deepseek-v3's MoE layers on (4, 1) took a batch of
+    2 rows in 4 token groups."""
     for name in CASES:
+        if name.endswith("@4x1"):
+            continue
         calls = runs[name]["mesh"]["calls"]
         assert calls.get("_sharded_embed", 0) > 0, name
         assert calls.get("_sharded_xent", 0) > 0, name
+    assert runs["deepseek-v3-671b@4x1"]["mesh"]["calls"].get(
+        "split_rows", 0) > 0
     for name in ("deepseek-v3-671b", "jamba-1.5-large-398b"):
         assert runs[name]["mesh"]["ep"], name
         assert runs[name]["mesh"]["calls"].get("_moe_mesh", 0) > 0, name
