@@ -250,8 +250,10 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            kernels 6 and 7 launched exactly once per attention mixer a
            pass, all tensor-core; (b) the dry run (launch/dryrun.py) of
            granite-3-8b x {train_4k, prefill_32k, decode_32k} on the
-           (32, 8) mesh and train_4k on (2, 32, 8), and of xlstm-350m and
-           jamba-1.5-large-398b x train_4k on (32, 8), on a fake process
+           (32, 8) mesh and train_4k on (2, 32, 8), of xlstm-350m and
+           jamba-1.5-large-398b x train_4k on (32, 8), and of xlstm-350m
+           x prefill_32k on (32, 8) (its cores split by each head's
+           columns over the 2 model ranks of a head), on a fake process
            group in subprocesses on the host (no card memory), a record
            and its seconds each (a train cell counted at depths 1 and 2
            and one and two microbatches, and extrapolated); (c) the dry
@@ -288,7 +290,10 @@ program over a (2, 2) (data, model) mesh, 4 sequences of a 64-token
 prompt and 8 decode steps, the logits on every rank within LM_REL_TOL of
 the same model without a mesh and kernels 6 and 7 launched once per
 attention mixer a pass on every rank (kernel 7 on each rank's half of
-the cache rows, merged by its lse), all on the tensor-core design.
+the cache rows, merged by its lse), all on the tensor-core design;
+xlstm-350m (24 layers, fp32) the same way with a 256-token prompt, each
+xLSTM core on whole heads, and again with 2 heads a block on a (1, 4)
+mesh at one row, each core on one head's half of the columns.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
 without the port's sources beside this file, it prints no result and
@@ -5264,13 +5269,15 @@ SHARDED_PROMPT = 64       # prefill tokens, then greedy decode steps
 SHARDED_DECODE = 8
 SHARDED_TRAIN = (1, 4096)
 # (b): the production mesh's cells of granite, and train_4k on two pods;
-# xlstm's and jamba's train_4k, counted from depths 1 and 2
+# xlstm's and jamba's train_4k, counted from depths 1 and 2; xlstm's
+# prefill_32k, its cores split by each head's columns (1 row a rank)
 DRYRUN_CELLS = ((TRAIN_ARCH, "train_4k", False),
                 (TRAIN_ARCH, "prefill_32k", False),
                 (TRAIN_ARCH, "decode_32k", False),
                 (TRAIN_ARCH, "train_4k", True),
                 ("xlstm-350m", "train_4k", False),
-                ("jamba-1.5-large-398b", "train_4k", False))
+                ("jamba-1.5-large-398b", "train_4k", False),
+                ("xlstm-350m", "prefill_32k", False))
 DRYRUN_HOLD = 0.15        # (c): the dry run's memory and FLOPs
 DRYRUN_S = 600            # a dry-run subprocess's time limit
 DRYRUN_CHILD = """
@@ -5893,8 +5900,16 @@ def phase_sharded(dev, trained: dict) -> dict:
 MESH_SHAPE = (2, 2)       # (data, model)
 MESH_BATCH = 4            # two rows a data rank; each cache's rows over model
 MESH_PROMPT, MESH_DECODE = 64, 8
+# a case of its own mesh and batch: xlstm-350m's width with 2 heads a
+# block on (1, 4) at one row, where the model axis of 4 divides neither
+# the heads nor the rows, so each head's columns split over 2 cards; the
+# rule every xLSTM layer of a case must take (whole heads elsewhere)
+MESH_CASES = {"xlstm-350m@2heads,1x4": dict(shape=(1, 4), batch=1,
+                                            rule="columns")}
+MESH_RULE = "heads"
 # a model's own prompt length on the mesh: xlstm's two mLSTM chunks
-MESH_PROMPTS = {"xlstm-350m": CHUNK_CROSS["xlstm-350m"]}
+MESH_PROMPTS = {"xlstm-350m": CHUNK_CROSS["xlstm-350m"],
+                "xlstm-350m@2heads,1x4": CHUNK_CROSS["xlstm-350m"]}
 
 
 def mesh_configs() -> dict:
@@ -5906,7 +5921,9 @@ def mesh_configs() -> dict:
     on each rank's 8 of 16 experts), at an unbounded capacity (no choice
     drops, so that a rounding cannot move a drop); xlstm-350m at published
     width and depth (21 mLSTM and 3 sLSTM layers, each core on each rank's
-    2 of 4 heads), in fp32 as FP32_HOLDS holds it."""
+    2 of 4 heads), in fp32 as FP32_HOLDS holds it; and MESH_CASES' case,
+    the same xlstm with 2 heads a block (head width 1024 in mLSTM, 512 in
+    sLSTM) on (1, 4), each core on one head's half of the columns."""
     import dataclasses
 
     granite = dataclasses.replace(lm_config("granite-3-8b"), n_repeat=2)
@@ -5915,18 +5932,27 @@ def mesh_configs() -> dict:
     xlstm = dataclasses.replace(lm_config("xlstm-350m"),
                                 param_dtype="float32",
                                 compute_dtype="float32")
+    two = dataclasses.replace(xlstm, blocks=tuple(
+        dataclasses.replace(b, xlstm=dataclasses.replace(b.xlstm, n_heads=2))
+        for b in xlstm.blocks))
     return {"granite-3-8b": unbounded_capacity(granite),
             "jamba-1.5-large-398b": unbounded_capacity(jamba),
-            "xlstm-350m": xlstm}
+            "xlstm-350m": xlstm, "xlstm-350m@2heads,1x4": two}
 
 
-def xlstm_layers(lm) -> dict:
+def mesh_case(name: str) -> dict:
+    """A ``--mesh`` case's mesh shape, batch and xLSTM rule."""
+    return {"shape": MESH_SHAPE, "batch": MESH_BATCH, "rule": MESH_RULE,
+            **MESH_CASES.get(name, {})}
+
+
+def xlstm_layers(lm, rule: str = MESH_RULE) -> dict:
     """The xLSTM layers of one pass, by block: the split counts that one
-    pass on a mesh must read under whole heads a rank."""
+    pass on a mesh must read under ``rule``."""
     out = {}
     for sp in lm.layers:
         if sp.kind in ("mlstm", "slstm"):
-            out[f"{sp.kind}:heads"] = out.get(f"{sp.kind}:heads", 0) + 1
+            out[f"{sp.kind}:{rule}"] = out.get(f"{sp.kind}:{rule}", 0) + 1
     return out
 
 
@@ -5942,9 +5968,10 @@ def device_ms_of(prof) -> dict:
             "no_nccl": ms([e for e in ks if "nccl" not in e.key.lower()])}
 
 
-def mesh_model(cfg, mesh, dev, prompt_len: int = MESH_PROMPT) -> dict:
+def mesh_model(cfg, mesh, dev, prompt_len: int = MESH_PROMPT,
+               batch: int = MESH_BATCH, rule: str = MESH_RULE) -> dict:
     """One rank's readings of ``cfg`` on ``mesh``: its prefill logits over
-    ``prompt_len`` tokens and MESH_DECODE decode steps (teacher-forced
+    ``prompt_len`` tokens of ``batch`` rows and MESH_DECODE decode steps (teacher-forced
     with the mesh-free model's greedy tokens) against the same model
     without a mesh on this card, as shares of the logits' scale, and the
     mesh passes' launches of kernels 6 and 7 by design and xLSTM splits
@@ -5972,7 +5999,7 @@ def mesh_model(cfg, mesh, dev, prompt_len: int = MESH_PROMPT) -> dict:
     pd = distribute_tree(mesh, lm.param_specs(), params)
     rng = np.random.default_rng(17)
     prompt = torch.from_numpy(rng.integers(
-        0, min(cfg.vocab_size, 32000), (MESH_BATCH, prompt_len))
+        0, min(cfg.vocab_size, 32000), (batch, prompt_len))
         .astype(np.int32)).to(dev)
 
     def rows(t):
@@ -6011,7 +6038,7 @@ def mesh_model(cfg, mesh, dev, prompt_len: int = MESH_PROMPT) -> dict:
         logits, caches = lm.prefill(params, prompt)
         caches = grow_caches(lm, caches, MESH_DECODE)
         caches_d = distribute_tree(
-            mesh, lm.cache_specs(MESH_BATCH, prompt_len + MESH_DECODE),
+            mesh, lm.cache_specs(batch, prompt_len + MESH_DECODE),
             tr.tree_map(agreed, caches))
         toks, want = [], []
         tok = logits[:, -1:].argmax(-1)
@@ -6076,7 +6103,7 @@ def mesh_model(cfg, mesh, dev, prompt_len: int = MESH_PROMPT) -> dict:
             "plain": w.plain_calls} for n, w in wrappers.items()}
         out["decode_splits"] = splits()
     out["attn_mixers"] = attn_mixers(lm)
-    out["xlstm_layers"] = xlstm_layers(lm)
+    out["xlstm_layers"] = xlstm_layers(lm, rule)
     return out
 
 
@@ -6084,7 +6111,8 @@ def mesh_worker(rank: int, world: int, port: int, cfgs: dict,
                 path: str) -> None:
     """One of the ``--mesh`` ranks: card ``rank``, an NCCL group of
     ``world`` (gloo and the CPU where there is no card), the (data,
-    model) mesh, every model of ``cfgs``; rank 0 writes every rank's
+    model) meshes of the cases (every rank makes them in one order),
+    every model of ``cfgs`` on its case's; rank 0 writes every rank's
     readings to ``path``."""
     sys.path.insert(0, str(SRC))
     import torch.distributed as dist
@@ -6101,13 +6129,16 @@ def mesh_worker(rank: int, world: int, port: int, cfgs: dict,
                             world_size=world,
                             init_method=f"tcp://localhost:{port}")
     try:
-        mesh = init_device_mesh(dev.type, MESH_SHAPE,
-                                mesh_dim_names=("data", "model"))
+        meshes = {shape: init_device_mesh(dev.type, shape,
+                                          mesh_dim_names=("data", "model"))
+                  for shape in sorted({mesh_case(n)["shape"] for n in cfgs})}
         res = {}
         for name, cfg in cfgs.items():
+            case = mesh_case(name)
             t = time.perf_counter()
-            res[name] = mesh_model(cfg, mesh, dev,
-                                   MESH_PROMPTS.get(name, MESH_PROMPT))
+            res[name] = mesh_model(cfg, meshes[case["shape"]], dev,
+                                   MESH_PROMPTS.get(name, MESH_PROMPT),
+                                   case["batch"], case["rule"])
             res[name]["seconds"] = time.perf_counter() - t
             if cuda:
                 release(dev)
@@ -6125,8 +6156,9 @@ def phase_mesh(cfgs: dict) -> dict:
     rank, kernel 6 once per attention mixer in the prefill and kernel 7
     once per GQA mixer a decode step on every rank (the cache's rows split
     over the model axis: each rank's call returns its lse), all on the
-    tensor-core design, and every xLSTM layer's core split by whole heads
-    in every pass on every rank."""
+    tensor-core design, and every xLSTM layer's core split by its case's
+    rule (whole heads, or each head's columns) in every pass on every
+    rank."""
     import socket
     import tempfile
 
@@ -6163,8 +6195,10 @@ def phase_mesh(cfgs: dict) -> dict:
                 check(r[f"{what}_splits"] == want_splits,
                       f"mesh {name} rank {i} {what}: xLSTM splits "
                       f"{r[f'{what}_splits']}, want {want_splits}")
+        case = mesh_case(name)
         line[name] = {"layers": ranks[0]["layers"],
                       "prompt": ranks[0]["prompt"],
+                      "mesh": list(case["shape"]), "batch": case["batch"],
                       "prefill_rel_fp64": [r.get("prefill_rel_fp64")
                                            for r in ranks],
                       "ranks": [{k: r[k] for k in (

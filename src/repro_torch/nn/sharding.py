@@ -317,6 +317,76 @@ def pmax(x: torch.Tensor, groups) -> torch.Tensor:
     return _reduce(x.detach(), "max", groups) if groups else x.detach()
 
 
+def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """All-gather of a local tensor along ``dim`` over ``group``, the
+    ranks' parts in rank order."""
+    n = group.size()
+    y = torch.ops._c10d_functional.all_gather_into_tensor(
+        x.unsqueeze(0).contiguous(), n, group.group_name)
+    y = torch.ops._c10d_functional.wait_tensor(y)
+    return torch.movedim(y, 0, dim).flatten(dim, dim + 1)
+
+
+def _scatter_sum(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Reduce-scatter of a local tensor along ``dim`` over ``group``: the
+    sum over the ranks of rank i's part, on rank i (``_gather``'s
+    adjoint)."""
+    n = group.size()
+    parts = torch.movedim(x.unflatten(dim, (n, x.shape[dim] // n)), dim, 0)
+    y = torch.ops._c10d_functional.reduce_scatter_tensor(
+        parts.contiguous(), "sum", n, group.group_name)
+    return torch.ops._c10d_functional.wait_tensor(y).squeeze(0)
+
+
+class _GatherSplit(torch.autograd.Function):
+    """All-gather inside a region whose result each rank then uses on its
+    own part of the work: each rank's gradient of the whole is only its
+    own part's, so the backward sums them and hands each rank the rows of
+    its own piece (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_sum(g, ctx.dim, ctx.group), None, None
+
+
+def gather_split(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    return _GatherSplit.apply(x, dim % x.ndim, group)
+
+
+def head_group(mesh, n_heads: int):
+    """The process group of the model ranks that share this rank's head
+    when ``n_heads`` heads split over the model axis of tp = n_heads · g
+    ranks by their columns: the g consecutive model ranks of head r // g
+    (model rank r holds block r of a column-parallel weight, block r % g
+    of that head's columns). The last dim of a ``DeviceMesh`` whose model
+    axis is split into ("head", "col"), made outside any dispatch mode (a
+    counter's fake tensors) once per mesh and ``n_heads``: every rank
+    makes it where the model first needs it, in the same order, so on
+    NCCL that is a pass before any CUDA-graph capture. A mesh's groups
+    are kept on the mesh itself, not by its value: a new mesh equal to
+    one whose process group was destroyed makes its own."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    groups = mesh.__dict__.setdefault("_head_groups", {})
+    if n_heads not in groups:
+        names = list(mesh.mesh_dim_names)
+        i = names.index("model")
+        with _disable_current_modes():
+            ranks = torch.movedim(mesh.mesh, i, -1)
+            ranks = ranks.reshape(*ranks.shape[:-1], n_heads,
+                                  ranks.shape[-1] // n_heads)
+            sub = DeviceMesh(mesh.device_type, ranks, mesh_dim_names=(
+                *names[:i], *names[i + 1:], "head", "col"))
+        groups[n_heads] = sub.get_group("col")
+    return groups[n_heads]
+
+
 # ------------------------------------------------------------ context
 
 

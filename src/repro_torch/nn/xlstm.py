@@ -15,17 +15,19 @@ kernel here: both are plain tensor ops in both packages.
 
 On a mesh both cores split over the model axis as the reference's
 compiled program splits them (:func:`split_rule`): whole heads a rank,
-else rows of each rank's batch shard, else every model rank runs its whole
-batch shard. The states leave at the cache's placement (batch over the dp
-axes, whole over the model axis), as the reference's cache specs place
-them.
+else rows of each rank's batch shard, else each head's columns over the
+model ranks that share it (:class:`HeadPart`), else every model rank runs
+its whole batch shard. The states leave at the cache's placement (batch
+over the dp axes, whole over the model axis), as the reference's cache
+specs place them.
 """
 from __future__ import annotations
 
 import collections
+import dataclasses
 import functools
 import math
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
@@ -34,22 +36,27 @@ from repro_torch.nn.config import XLSTMConfig
 from repro_torch.nn.basic import COL, ROW, f32, f32_dtype
 from repro_torch.nn import runtime
 from repro_torch.nn.param import ParamSpec
-from repro_torch.nn.sharding import NO_MESH, batch_map, write_states
+from repro_torch.nn.sharding import (NO_MESH, batch_map, gather_split,
+                                     head_group, psum_split, write_states)
 
 # The split each call of a core took, by (block, rule), as
 # :func:`split_rule` chose and counted it.
 SPLITS: collections.Counter = collections.Counter()
 
 
-def split_rule(ctx, block: str, n_heads: int, batch: int) -> Optional[str]:
-    """How a call of the xLSTM core ``block`` of ``n_heads`` heads on a
-    batch of ``batch`` rows divides over the model axis, from shapes
-    alone, counted in SPLITS: ``"heads"``, whole heads a rank, where the
-    model axis divides the heads; else ``"rows"``, each rank's batch shard
-    split again over the model axis, where that divides it; else
-    ``"replicated"``, every model rank running its whole batch shard. None
-    without a mesh or on a model axis of 1: there is nothing to split
-    over it (``batch_map`` over the dp axes)."""
+def split_rule(ctx, block: str, n_heads: int, head_dim: int,
+               batch: int) -> Optional[str]:
+    """How a call of the xLSTM core ``block`` of ``n_heads`` heads of
+    ``head_dim`` columns on a batch of ``batch`` rows divides over the
+    model axis, from shapes alone, counted in SPLITS: ``"heads"``, whole
+    heads a rank, where the model axis divides the heads; else
+    ``"rows"``, each rank's batch shard split again over the model axis,
+    where that divides it (no collective inside a loop); else
+    ``"columns"``, each head's columns over the g model ranks that share
+    it, where the model axis is n_heads · g and g divides ``head_dim``;
+    else ``"replicated"``, every model rank running its whole batch
+    shard. None without a mesh or on a model axis of 1: there is nothing
+    to split over it (``batch_map`` over the dp axes)."""
     tp = ctx.tp_size()
     if ctx.mesh is None or tp == 1:
         return None
@@ -57,10 +64,76 @@ def split_rule(ctx, block: str, n_heads: int, batch: int) -> Optional[str]:
         rule = "heads"
     elif ctx.local_rows(batch) % tp == 0:
         rule = "rows"
+    elif tp % n_heads == 0 and head_dim % (tp // n_heads) == 0:
+        rule = "columns"
     else:
         rule = "replicated"
     SPLITS[block, rule] += 1
     return rule
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadPart:
+    """The columns of each head that a core computes: block ``c`` of
+    ``g`` equal blocks, the other blocks on the other ranks of ``group``
+    (the model ranks that share the head, ``sharding.head_group``), under
+    the ``columns`` rule; every column (:data:`WHOLE`: g 1, no group)
+    otherwise, where each method is the identity. A product that
+    contracts over a head's columns is a partial sum on each rank
+    (:meth:`total`); one that needs a whole head's operand gathers it
+    (:meth:`gather`)."""
+    g: int = 1
+    c: int = 0
+    group: Any = None
+
+    def total(self, *parts: torch.Tensor) -> tuple:
+        """``parts`` summed over the group, in one all-reduce."""
+        if self.group is None:
+            return parts
+        flat = psum_split(torch.cat([p.reshape(-1) for p in parts]),
+                          [self.group])
+        return tuple(t.view_as(p) for t, p in zip(
+            flat.split([p.numel() for p in parts]), parts))
+
+    def gather(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """The whole head's ``t`` from each rank's columns along ``dim``."""
+        return t if self.group is None else gather_split(t, dim, self.group)
+
+    def mine(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """This rank's columns of a whole head's ``t`` along ``dim``."""
+        if self.g == 1:
+            return t
+        w = t.shape[dim] // self.g
+        return t.narrow(dim, self.c * w, w)
+
+
+WHOLE = HeadPart()
+
+
+def _column_part(ctx, n_heads: int) -> tuple[HeadPart, int]:
+    """This rank's :class:`HeadPart` under the ``columns`` rule and the
+    index of its head."""
+    g = ctx.tp_size() // n_heads
+    r = ctx.coord(ctx.axes_of("model")[0])
+    return HeadPart(g, r % g, head_group(ctx.mesh, n_heads)), r // g
+
+
+def _column_states(ctx, n_heads: int, new: dict) -> dict:
+    """A ``columns`` region's states, each (B, tp, w, ...) sharded over
+    the model axis by its (head, column block) pairs, or (B, tp) for one
+    value a head that every rank of the head holds, at the cache's shapes
+    and placement: gathered whole over the model axis, then (B, H, Dh,
+    ...) or (B, H)."""
+    out = {}
+    for k, t in new.items():
+        t = ctx.constrain(t, "dp", *(None,) * (t.ndim - 1))
+        b, tp = t.shape[:2]
+        if t.ndim == 2:
+            out[k] = t.reshape(b, n_heads, tp // n_heads)[..., 0]
+        else:
+            out[k] = t.reshape(b, n_heads, tp // n_heads * t.shape[2],
+                               *t.shape[3:])
+    return out
 
 
 def _head_regions(ctx, batch: int):
@@ -122,12 +195,20 @@ def mlstm_specs(cfg: XLSTMConfig, d_model: int, dtype) -> dict:
 
 
 def _headwise_norm(x: torch.Tensor, scale: torch.Tensor,
-                   eps: float = 1e-6) -> torch.Tensor:
+                   eps: float = 1e-6, part: HeadPart = WHOLE) -> torch.Tensor:
     """GroupNorm per head of x (B, S, H, Dh), in fp32: the population
-    variance, as ``jnp.var``."""
+    variance, as ``jnp.var``. Under the ``columns`` rule x holds this
+    rank's columns of each head (``part``) and the mean and the variance
+    are sums over the head's ranks."""
     xf = f32(x)
-    mu = torch.mean(xf, dim=-1, keepdim=True)
-    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    if part.group is None:
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    else:
+        dh = x.shape[-1] * part.g
+        mu = part.total(torch.sum(xf, dim=-1, keepdim=True))[0] / dh
+        var = part.total(torch.sum(torch.square(xf - mu), dim=-1,
+                                   keepdim=True))[0] / dh
     out = (xf - mu) * torch.rsqrt(var + eps)
     b, s, h, dh = x.shape
     return (out.reshape(b, s, h * dh) * scale).reshape(b, s, h, dh)
@@ -139,16 +220,22 @@ def mlstm_apply(p, cfg: XLSTMConfig, x: torch.Tensor,
     dk), m (B, H)}``, returned new by a prefill, updated in place by a
     decode. On a mesh the cell splits over the model axis by
     :func:`split_rule`: whole heads a rank (:func:`_mlstm_heads`), else
-    rows of each rank's batch shard, else the whole batch shard on every
-    model rank (``batch_map``); y then goes into the row-parallel
+    rows of each rank's batch shard, else each head's columns
+    (:func:`_mlstm_columns`), else the whole batch shard on every model
+    rank (``batch_map``); y then goes into the row-parallel
     down-projection by its columns."""
     up = ctx.constrain(x @ p["w_up"], "dp", None, "model")
     names = ("w_q", "w_k", "w_v", "w_if", "b_if", "gn_scale")
     states = tuple(cache[k] for k in ("c", "n", "m")) if cache else ()
     args = (up, *(p[k] for k in names), *states)
-    rule = split_rule(ctx, "mlstm", cfg.n_heads, x.shape[0])
+    rule = split_rule(ctx, "mlstm", cfg.n_heads,
+                      _mlstm_dims(cfg, x.shape[-1])[1], x.shape[0])
     if rule == "heads":
         y, c, n, m = _mlstm_heads(ctx, cfg, x.dtype, *args)
+    elif rule == "columns":
+        y, *new = _mlstm_columns(ctx, cfg, x.dtype, *args)
+        c, n, m = _column_states(ctx, cfg.n_heads,
+                                 dict(zip("cnm", new))).values()
     else:
         def core(up, *rest):
             return _mlstm_core(cfg, x.dtype, *torch.chunk(up, 2, dim=-1),
@@ -182,30 +269,76 @@ def _mlstm_heads(ctx, cfg: XLSTMConfig, dtype, up, w_q, w_k, w_v, w_if,
         z = up_l[..., d_in + r * w:d_in + (r + 1) * w]
         return _mlstm_core(cfg, dtype, xi, z, *rest, head0=head0)
 
+    return _mlstm_region(ctx, body, at(bp, 1), up, w_q, w_k, w_v, w_if,
+                         b_if, gn_scale, *states)
+
+
+def _mlstm_region(ctx, body, state_pl, up, w_q, w_k, w_v, w_if, b_if,
+                  gn_scale, *states):
+    """``body`` as the cell's ``local_map`` region over this rank's batch
+    shard: up whole over the model axis, w_q, w_k, w_v and gn_scale this
+    rank's column blocks, w_if and b_if whole, the states at ``state_pl``;
+    y out sharded by its columns over the model axis, the states by dim
+    1."""
+    at, model_part, bp, dp_part, rep, _ = _head_regions(ctx, up.shape[0])
     cols, gates = at(rep, 1), rep
     in_pl = (bp, cols, cols, cols, gates, gates, at(rep, 0))
     grad_pl = (model_part(bp),) + (at(dp_part, 1),) * 3 \
         + (model_part(dp_part),) * 2 + (at(dp_part, 0),)
-    st_pl = tuple(at(bp, 1) for _ in states)
+    st_pl = tuple(state_pl for _ in states)
     return ctx.region(body, (at(bp, 2),) + (at(bp, 1),) * 3,
                       in_pl + st_pl, grad_pl + st_pl, up, w_q, w_k, w_v,
                       w_if, b_if, gn_scale, *states)
 
 
+def _mlstm_columns(ctx, cfg: XLSTMConfig, dtype, up, w_q, w_k, w_v, w_if,
+                   b_if, gn_scale, *states):
+    """The cell as a ``local_map`` body on this rank's batch shard and its
+    Dh / g columns of one head, as :func:`_mlstm_heads` takes whole heads:
+    q, k and v this rank's columns (the local column blocks of w_q, w_k
+    and w_v), z and gn_scale too, the head's gates from the replicated
+    w_if and b_if. The core sums its partial products over the head's g
+    ranks (:class:`HeadPart`) and gathers the head's v whole, and a
+    decode's states come in whole and are cut there. y leaves sharded by
+    its columns over the model axis; the states (c this rank's rows of
+    each dk, n its columns, m the head's) by (head, column block), for
+    :func:`_column_states`."""
+    _, _, bp, _, _, r = _head_regions(ctx, up.shape[0])
+    part, head = _column_part(ctx, cfg.n_heads)
+    d_in = up.shape[-1] // 2
+    w = d_in // ctx.tp_size()
+
+    def body(up_l, w_q, w_k, w_v, w_if, b_if, gn_scale, *st):
+        xi = up_l[..., :d_in]
+        z = up_l[..., d_in + r * w:d_in + (r + 1) * w]
+        if st:      # the head's states, this rank's rows of dk in c and n
+            c, n, m = (t[:, head:head + 1] for t in st)
+            st = (part.mine(c, 2), part.mine(n, 2), m)
+        return _mlstm_core(cfg, dtype, xi, z, w_q, w_k, w_v, w_if, b_if,
+                           gn_scale, *st, head0=head, part=part)
+
+    return _mlstm_region(ctx, body, bp, up, w_q, w_k, w_v, w_if, b_if,
+                         gn_scale, *states)
+
+
 def _mlstm_core(cfg: XLSTMConfig, dtype, xi, z, w_q, w_k, w_v, w_if, b_if,
                 gn_scale, c_prev=None, n_prev=None, m_prev=None,
-                head0: int = 0):
+                head0: int = 0, part: HeadPart = WHOLE):
     """The cell between the up- and down-projections on heads ``head0``
     onward, as many as w_q's columns hold (every head when they are
     whole), from the whole xi (B, S, d_in) and those heads' columns of z:
     ``(y (B, S, heads·Dh), c, n, m)``; a decode (states given) writes the
-    states in place."""
+    states in place. Under the ``columns`` rule (``part``) w_q, w_k, w_v,
+    z, gn_scale and y hold this rank's columns of head ``head0``, v is
+    gathered whole, c and n hold this rank's rows of dk (c every dv), and
+    the states given are cut from the cache, which the caller writes."""
     b, s, d_in = xi.shape
     dh = d_in // cfg.n_heads
-    h = w_q.shape[-1] // dh
-    q = (xi @ w_q).reshape(b, s, h, dh)
-    k = (xi @ w_k).reshape(b, s, h, dh)
-    v = (xi @ w_v).reshape(b, s, h, dh)
+    dl = dh // part.g                                   # columns a head here
+    h = w_q.shape[-1] // dl
+    q = (xi @ w_q).reshape(b, s, h, dl)
+    k = (xi @ w_k).reshape(b, s, h, dl)
+    v = part.gather((xi @ w_v).reshape(b, s, h, dl))    # (B, S, H, Dh)
     k = k / torch.tensor(math.sqrt(dh), dtype=torch.float32).to(k.dtype)
     gates = f32(xi) @ w_if + b_if                       # (B, S, 2H)
     f0 = cfg.n_heads + head0
@@ -214,14 +347,14 @@ def _mlstm_core(cfg: XLSTMConfig, dtype, xi, z, w_q, w_k, w_v, w_if, b_if,
     logf = F.logsigmoid(f_pre)
 
     if c_prev is None and s > 1:
-        y = _mlstm_chunked(cfg, q, k, v, i_pre, logf)
+        y = _mlstm_chunked(cfg, q, k, v, i_pre, logf, part)
         new = _mlstm_final_state(k, v, i_pre, logf)
     else:
         cache = c_prev is not None
         if not cache:
             wide = dict(dtype=f32_dtype(xi.dtype), device=xi.device)
-            c_prev = torch.zeros((b, h, dh, dh), **wide)
-            n_prev = torch.zeros((b, h, dh), **wide)
+            c_prev = torch.zeros((b, h, dl, dh), **wide)
+            n_prev = torch.zeros((b, h, dl), **wide)
             m_prev = torch.full((b, h), -1e30, **wide)
         i1, f1 = i_pre[:, 0], logf[:, 0]                  # (B, H)
         m = torch.maximum(f1 + m_prev, i1)
@@ -231,30 +364,36 @@ def _mlstm_core(cfg: XLSTMConfig, dtype, xi, z, w_q, w_k, w_v, w_if, b_if,
         c = fi[..., None, None] * c_prev + ii[..., None, None] * (
             kf[..., :, None] * vf[..., None, :])
         n = fi[..., None] * n_prev + ii[..., None] * kf
-        num = torch.einsum("bhd,bhdv->bhv", qf, c)
-        den = torch.abs(torch.einsum("bhd,bhd->bh", qf, n))
-        yt = num / torch.maximum(den, torch.exp(-m))[..., None]
-        y = yt[:, None].to(dtype).reshape(b, 1, h, dh)
+        num, den = part.total(torch.einsum("bhd,bhdv->bhv", qf, c),
+                              torch.einsum("bhd,bhd->bh", qf, n))
+        den = torch.abs(den)
+        yt = part.mine(num) / torch.maximum(den, torch.exp(-m))[..., None]
+        y = yt[:, None].to(dtype).reshape(b, 1, h, dl)
         new = {"c": c, "n": n, "m": m}
-        if cache:
+        if cache and part.group is None:
             for old, t in zip((c_prev, n_prev, m_prev), (c, n, m)):
                 old.copy_(t)
 
-    y = _headwise_norm(y, gn_scale).to(dtype).reshape(b, s, h * dh)
+    y = _headwise_norm(y, gn_scale, part=part).to(dtype).reshape(
+        b, s, h * dl)
     y = y * F.silu(f32(z)).to(dtype)
     return y, new["c"], new["n"], new["m"]
 
 
-def _mlstm_chunked(cfg: XLSTMConfig, q, k, v, i_pre, logf) -> torch.Tensor:
+def _mlstm_chunked(cfg: XLSTMConfig, q, k, v, i_pre, logf,
+                   part: HeadPart = WHOLE) -> torch.Tensor:
     """Chunkwise-parallel mLSTM (the stabilised linear-attention form);
-    y (B, S, H, Dh) fp32."""
-    b, s, h, dh = q.shape
+    y (B, S, H, Dh) fp32. Under the ``columns`` rule (``part``) q and k
+    hold this rank's columns of its head and v the head's whole: a chunk
+    sums its three partial products over the head's ranks in one
+    all-reduce, and y is this rank's columns."""
+    b, s, h, dk = q.shape
     cs = min(cfg.chunk, s)
     if s % cs:
         raise ValueError(f"seq {s} must divide chunk {cs}")
     wide = dict(dtype=f32_dtype(q.dtype), device=q.device)
-    c_prev = torch.zeros((b, h, dh, dh), **wide)
-    n_prev = torch.zeros((b, h, dh), **wide)
+    c_prev = torch.zeros((b, h, dk, v.shape[-1]), **wide)
+    n_prev = torch.zeros((b, h, dk), **wide)
     m_prev = torch.zeros((b, h), **wide)
     tri = torch.tril(torch.ones((cs, cs), dtype=torch.bool, device=q.device))
 
@@ -278,7 +417,10 @@ def _mlstm_chunked(cfg: XLSTMConfig, q, k, v, i_pre, logf) -> torch.Tensor:
         den_carry = torch.einsum("bthd,bhd->bth", qf, n_prev) * w_carry
         wmat = torch.exp(dmat - m_t[:, :, None, :])         # (B, t, t', H)
         scores = torch.einsum("bthd,bshd->btsh", qf, kf) * wmat
-        num = num_carry + torch.einsum("btsh,bshv->bthv", scores, vf)
+        num_carry, den_carry, scores = part.total(num_carry, den_carry,
+                                                  scores)
+        num = part.mine(num_carry) + torch.einsum("btsh,bshv->bthv", scores,
+                                                  part.mine(vf))
         den = den_carry + torch.sum(scores, dim=2)
         y = num / torch.maximum(torch.abs(den), torch.exp(-m_t))[..., None]
         # carry to the chunk's end
@@ -346,13 +488,18 @@ def slstm_apply(p, cfg: XLSTMConfig, x: torch.Tensor,
     Dh) fp32: a sequential scan over S from the cache's states (a
     prefill's from h = c = m = 0, n = 1). On a mesh the scan splits over
     the model axis as :func:`mlstm_apply`'s cell does (whole heads a rank:
-    :func:`_slstm_heads`)."""
+    :func:`_slstm_heads`; each head's columns: :func:`_slstm_columns`)."""
     names = ("w_gates", "b_gates", "r_gates", "gn_scale")
     states = tuple(cache[k] for k in ("h", "c", "n", "m")) if cache else ()
     args = (x, *(p[k] for k in names), *states)
-    rule = split_rule(ctx, "slstm", cfg.n_heads, x.shape[0])
+    rule = split_rule(ctx, "slstm", cfg.n_heads, x.shape[-1] // cfg.n_heads,
+                      x.shape[0])
     if rule == "heads":
         y, hs, c, n, m = _slstm_heads(ctx, x.dtype, *args)
+    elif rule == "columns":
+        y, *new = _slstm_columns(ctx, cfg.n_heads, x.dtype, *args)
+        hs, c, n, m = _column_states(ctx, cfg.n_heads,
+                                     dict(zip("hcnm", new))).values()
     else:
         y, hs, c, n, m = batch_map(
             ctx, functools.partial(_slstm_core, x.dtype), args,
@@ -381,27 +528,69 @@ def _slstm_heads(ctx, dtype, x, w_gates, b_gates, r_gates, gn_scale,
                       gn_scale, *states)
 
 
+def _slstm_columns(ctx, n_heads: int, dtype, x, w_gates, b_gates, r_gates,
+                   gn_scale, *states):
+    """The scan as a ``local_map`` body on this rank's batch shard and its
+    Dh / g columns of one head: x whole; the local column blocks of
+    w_gates and b_gates (this rank's block of its head's four gates,
+    whose products the core gathers over the head's ranks and cuts to
+    this rank's columns of each gate), gn_scale this rank's columns, and
+    r_gates whole (the core takes its head's rows and this rank's gate
+    columns). A step gathers the head's h over its ranks. y leaves
+    sharded by its columns over the model axis, the states by (head,
+    column block), for :func:`_column_states`."""
+    at, model_part, bp, dp_part, rep, _ = _head_regions(ctx, x.shape[0])
+    part, head = _column_part(ctx, n_heads)
+
+    def body(x, w_gates, b_gates, r_gates, gn_scale, *st):
+        st = [part.mine(t[:, head:head + 1]) for t in st]
+        return _slstm_core(dtype, x, w_gates, b_gates,
+                           r_gates[head:head + 1], gn_scale, *st, part=part)
+
+    in_pl = (bp, at(rep, 1), at(rep, 0), rep, at(rep, 0))
+    grad_pl = (model_part(bp), at(dp_part, 1), at(dp_part, 0),
+               model_part(dp_part), at(dp_part, 0))
+    st_pl = tuple(bp for _ in states)
+    return ctx.region(body, (at(bp, 2),) + (at(bp, 1),) * 4, in_pl + st_pl,
+                      grad_pl + st_pl, x, w_gates, b_gates, r_gates,
+                      gn_scale, *states)
+
+
 def _slstm_core(dtype, x, w_gates, b_gates, r, gn_scale, h0=None, c0=None,
-                n0=None, m0=None):
+                n0=None, m0=None, part: HeadPart = WHOLE):
     """The scan before the down-projection on the heads of ``r`` (H, Dh,
     4·Dh) (some heads: their columns of w_gates and b_gates): ``(y (B, S,
     heads·Dh), h, c, n, m)``; a decode (states given) writes the states in
-    place."""
+    place. Under the ``columns`` rule (``part``) w_gates and b_gates hold
+    this rank's block of its head's four gates: their product is gathered
+    over the head's ranks and cut to this rank's columns of each gate, as
+    r is; a step gathers the head's h; y, gn_scale and the states (given
+    cut from the cache, which the caller writes) hold this rank's
+    columns."""
     b, s, _ = x.shape
     nh, dh = r.shape[0], r.shape[1]
+    dl = dh // part.g                                   # columns a head here
+
+    def own(t):
+        # this rank's columns of each of the four gates of its head
+        if part.g == 1:
+            return t
+        t = t.reshape(*t.shape[:-1], 4, dh)
+        return part.mine(t).reshape(*t.shape[:-2], 4 * dl)
 
     wx = f32(x) @ f32(w_gates) + b_gates
-    wx = wx.reshape(b, s, nh, 4 * dh)
+    wx = own(part.gather(wx)).reshape(b, s, nh, 4 * dl)
+    r = own(r)
     if h0 is not None:
         hs, c, n, m = h0, c0, n0, m0
     else:
         wide = dict(dtype=f32_dtype(x.dtype), device=x.device)
-        hs, c, m = (torch.zeros((b, nh, dh), **wide) for _ in range(3))
-        n = torch.ones((b, nh, dh), **wide)
+        hs, c, m = (torch.zeros((b, nh, dl), **wide) for _ in range(3))
+        n = torch.ones((b, nh, dl), **wide)
 
     def step(t, carry):
         hs, c, n, m = carry
-        g = wx[:, t] + torch.einsum("bhd,hdg->bhg", hs, r)
+        g = wx[:, t] + torch.einsum("bhd,hdg->bhg", part.gather(hs), r)
         i_pre, f_pre, z_pre, o_pre = torch.chunk(g, 4, dim=-1)
         m_t = torch.maximum(f_pre + m, i_pre)
         i_g = torch.exp(i_pre - m_t)
@@ -412,8 +601,9 @@ def _slstm_core(dtype, x, w_gates, b_gates, r, gn_scale, h0=None, c0=None,
         return (hs, c, n, m_t), hs
 
     (hs, c, n, m), y = runtime.scan(step, (hs, c, n, m), s)  # (B,S,H,Dh)
-    y = _headwise_norm(y, gn_scale).to(dtype).reshape(b, s, nh * dh)
-    if h0 is not None:
+    y = _headwise_norm(y, gn_scale, part=part).to(dtype).reshape(
+        b, s, nh * dl)
+    if h0 is not None and part.group is None:
         for old, t in zip((h0, c0, n0, m0), (hs, c, n, m)):
             old.copy_(t)
     return y, hs, c, n, m

@@ -17,8 +17,9 @@ run it makes finish.
 * Eagerly its outputs are bitwise those of the cores' old loops (copied
   here as they were).
 * ``dryrun.run_cell`` of xlstm-350m's ``prefill_32k`` cut to S 512 counts
-  383,420,497,920 FLOPs a device, and the bytes and memory of a count of
-  every trip.
+  63,396,937,728 FLOPs a device (its cores split by each head's columns,
+  ``nn/xlstm.split_rule``), and the bytes and memory of a count of every
+  trip.
 
 About 40 s in one process.
 """
@@ -53,9 +54,9 @@ MAMBA_D = 8192                  # jamba-1.5-large's d_model
 MAMBA_S = 2048                  # 8 of its chunks
 
 # the cut cell's per-device counts, by a count of every trip
-CELL_FLOPS = 383_420_497_920
-CELL_BYTES = 17_958_253_692
-CELL_HBM = 282_646_088
+CELL_FLOPS = 63_396_937_728
+CELL_BYTES = 4_033_727_436
+CELL_HBM = 232_239_204
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -1,7 +1,7 @@
 """The sharded program on four ``gloo`` CPU ranks, a (2, 2) (data, model)
 mesh, against the one-device port on the same numbers; xlstm also on a
-(1, 4) mesh of the same ranks, and deepseek-v3 on a (4, 1) mesh at a
-batch of 2 rows, fewer than its data ranks.
+(1, 4) mesh of the same ranks, at 4 rows and at 1, and deepseek-v3 on a
+(4, 1) mesh at a batch of 2 rows, fewer than its data ranks.
 
 One spawn of four ranks serves the whole file (about 30 s of tier-1):
 each rank runs six shrunk configs as DTensor programs (granite; gemma3's
@@ -10,8 +10,9 @@ jamba's Mamba (on each rank's channels) and MoE; xlstm's mLSTM and sLSTM;
 seamless's encoder and cross-attention) and every collective on every
 rank; rank 0 also runs the one-device calls and writes both. xlstm's two
 heads split whole over the model axis on (2, 2) and, where four model
-ranks do not divide them, its four rows a rank each on (1, 4)
-(``nn/xlstm.split_rule``). On (4, 1) the prefill's 16 tokens make 4 MoE
+ranks do not divide them, its four rows a rank each on (1, 4); at one row
+on (1, 4) each head's columns split over the two model ranks that share
+it (``nn/xlstm.split_rule``). On (4, 1) the prefill's 16 tokens make 4 MoE
 token groups of half a row each, which ``nn/moe._moe_mesh`` gives back
 the input's placements before the rows are whole again. The loss,
 every gradient leaf, the prefill logits and four decode steps must agree
@@ -44,11 +45,14 @@ MESH = (2, 2)
 ROW_MESH = (1, 4)
 DATA_MESH = (4, 1)
 # each config on MESH; a case ``name@1x4`` is the config on ROW_MESH,
-# ``name@4x1`` on DATA_MESH at a batch of FEW_ROWS
-CASE_MESHES = {"1x4": ROW_MESH, "4x1": DATA_MESH}
-CASES = NAMES + ["xlstm-350m@1x4", "deepseek-v3-671b@4x1"]
+# ``name@1x4b1`` there at a batch of one row, ``name@4x1`` on DATA_MESH at
+# a batch of FEW_ROWS
+CASE_MESHES = {"1x4": ROW_MESH, "1x4b1": ROW_MESH, "4x1": DATA_MESH}
+CASES = NAMES + ["xlstm-350m@1x4", "deepseek-v3-671b@4x1",
+                 "xlstm-350m@1x4b1"]
 B, S, ENC, VOCAB = 4, 8, 5, 128
 FEW_ROWS = 2
+CASE_ROWS = {"4x1": FEW_ROWS, "1x4b1": 1}
 DECODE_STEPS = 4
 TOL = 1e-5
 FLOAT64 = ("jamba-1.5-large-398b", "xlstm-350m")
@@ -179,7 +183,7 @@ def _worker(rank: int, port: int, path: str) -> None:
         mesh = meshes[CASE_MESHES.get(at, MESH)]
         ctx, wrap = ShardCtx(mesh), wrapper(mesh)
         cfg = _cfg(name)
-        rows = FEW_ROWS if at == "4x1" else B
+        rows = CASE_ROWS.get(at, B)
         batch = _inputs(cfg, rows)
         calls.clear()
         xl.SPLITS.clear()
@@ -254,9 +258,10 @@ def test_manual_regions_ran_on_the_mesh(runs):
     """The vocab-sharded embedding and cross-entropy ran for every config
     on a model axis of 2 or 4 (vocab 128 over it), deepseek-v3's and
     jamba's MoE layers took the expert-parallel region (4 experts over 2
-    ranks), every call of xlstm's two cores took whole heads on (2, 2) and
-    rows on (1, 4), and deepseek-v3's MoE layers on (4, 1) took a batch of
-    2 rows in 4 token groups."""
+    ranks), every call of xlstm's two cores took whole heads on (2, 2),
+    rows on (1, 4) and each head's columns on (1, 4) at one row, and
+    deepseek-v3's MoE layers on (4, 1) took a batch of 2 rows in 4 token
+    groups."""
     for name in CASES:
         if name.endswith("@4x1"):
             continue
@@ -268,7 +273,8 @@ def test_manual_regions_ran_on_the_mesh(runs):
     for name in ("deepseek-v3-671b", "jamba-1.5-large-398b"):
         assert runs[name]["mesh"]["ep"], name
         assert runs[name]["mesh"]["calls"].get("_moe_mesh", 0) > 0, name
-    for case, rule in (("xlstm-350m", "heads"), ("xlstm-350m@1x4", "rows")):
+    for case, rule in (("xlstm-350m", "heads"), ("xlstm-350m@1x4", "rows"),
+                       ("xlstm-350m@1x4b1", "columns")):
         splits = runs[case]["mesh"]["splits"]
         assert set(splits) == {("mlstm", rule), ("slstm", rule)}, \
             (case, splits)
