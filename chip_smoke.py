@@ -107,6 +107,24 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            cut points on the card, kernel 5 holds against its plain
            version and the unsharded kernels, with times at B in 1/16 and
            the bytes the reference's padded shard stack would take.
+   stage1_shapes  kernels 1-5 at the shapes the reference takes beyond
+           the first designs' limits, each bitwise against its plain
+           version on small-integer inputs (every summation order
+           exact), on the design the dispatch gives: kernel 1 "wide" at
+           k 65/100/256 (B 1/16, 2^16 x 128), over 100 rows at k 256 and
+           in bf16 (NEG rows too); "fused" and "twopass" at 2^18 rows x
+           D 3072/4096 x B 5/16/64 (blocks shrunk) and D 60000 (queries
+           read in place), "wide" at D 3072/4096; kernel 2 "wide" at k
+           65/100/256, "tc" and "dp4a" at D 4096, 16384 and 32768, B 16;
+           routing at nprobe 65/128/C over C = 256 and kernels 3 and 4
+           at k 100 ("block"), kernel 5 at 4 shards; "chunked" at a
+           chunk of 1024 against "block" at cap 4096, every scan; kernel
+           3 at cap 65,536, D 768 (2^20 rows over 16 clusters,
+           "chunked"). Then the new designs' times (device ms, plain,
+           library, bound) and two engine runs equal to numpy key for
+           key: nprobe=None over 128 clusters (routing on "wide") and D
+           4096 with micro-batches up to 16. ``python3 chip_smoke.py
+           stage1_shapes`` runs this phase alone after the build.
 5. serve   ``run_once`` on the kernel backend (launch counts reset just
            before, read just after) equals ``backend="numpy"``, at the
            defaults, in an eviction-heavy run, and for (a) the repo's
@@ -2145,11 +2163,11 @@ def routed_launch_log():
     from repro_torch.kernels import ann_topk_sharded as sh
     log, launch = [], ivf._launch
 
-    def logged(design, wrapper, *args, k):
+    def logged(design, wrapper, *args, k, **kw):
         buckets = args[4 if args[2].dtype == torch.int8 else 3]
         log.append((wrapper.__name__, design, buckets.shape[1], k,
                     str(args[0].device)))
-        return launch(design, wrapper, *args, k=k)
+        return launch(design, wrapper, *args, k=k, **kw)
 
     ivf._launch = sh._launch = logged
     try:
@@ -2171,8 +2189,7 @@ def check_routed_designs(wrappers: dict, log: list, run: str) -> dict:
         check(not wrong, f"{run}: {name} launched {len(wrong)} times on the "
               f"wrong design: {sorted(set(wrong))}")
         counts = design_counts(wrappers[name])
-        check(counts == {d: sum(x == d for x, _ in mine)
-                         for d in ("warp", "block")}
+        check(counts == {d: sum(x == d for x, _ in mine) for d in counts}
               and wrappers[name].launches == len(mine),
               f"{run}: {name} counts {counts} disagree with its launches")
         out[name] = {**counts, "caps": sorted({cap for _, cap in mine})}
@@ -6589,6 +6606,423 @@ def phase_mesh_train() -> dict:
                       "ranks": [e["train"] for e in every]}}
 
 
+# ------------------------------------------- stage 1 at every shape
+# The shapes the reference's kernels take beyond the first designs' limits:
+# k and nprobe above 64 ("wide" for kernels 1 and 2; "block" for 3-5 at
+# any k), query blocks of any width (kernels 1 and 2 shrink the block, and
+# read the queries in place where not even one fits) and buckets larger
+# than shared memory ("chunked", kernels 3-5). The holds' inputs are small
+# integers, so every summation order gives the same fp32 sums: each hold is
+# bitwise, the many exact ties included.
+SHAPES_N = 1 << 16        # rows of the brute holds
+WIDE_N = 1 << 18          # rows at the embedders' widths: 512-row tiles
+WIDE_KS = (65, 100, 256)
+WIDE_DS = (3072, 4096)    # text-embedding-3-large; e5-mistral, NV-Embed-v2
+WIDE_BS = (5, 16, 64)
+QUANT_DS = (4096, 16384)
+ROUTE_C, ROUTE_CAP = 256, 64          # kernels 3-5 at k 100: "block"
+ROUTE_NPROBES = (65, 128, ROUTE_C)
+# 2^20 rows over 16 clusters at D 768 (3.2 GB fp32): "chunked"
+BIG_C, BIG_CAP, BIG_D = 16, 1 << 16, 768
+CHUNK_CAP, CHUNK = 4096, 1024         # "chunked" held bitwise to "block"
+STAGE1_ENGINE = {
+    # nprobe=None probes every cluster (routing at k = n_clusters = 128)
+    "nprobe_all": dict(cluster=True, n_clusters=128, nprobe=None,
+                       n_requests=1500, cache_ratio=0.8),
+    # an embedder's width, micro-batches up to 16 (query blocks shrunk)
+    "dim4096": dict(dim=4096, concurrency=64, qpm=None)}
+
+
+def int_rows(g, shape, dev, dtype=torch.float32) -> torch.Tensor:
+    return torch.randint(-3, 4, shape, device=dev, generator=g).to(dtype)
+
+
+def hold_bitwise(got, want, what: str, *, all_rows: bool = False) -> None:
+    """Values bitwise; rows wherever the value is a real score, or
+    everywhere (``all_rows``: the designs whose NEG rows are the plain
+    version's stable sort too)."""
+    gv, gr = (t.cpu() for t in got)
+    wv, wr = (t.cpu() for t in want)
+    check(gv.shape == wv.shape and torch.equal(gv, wv),
+          f"{what}: vals differ")
+    real = wv > NEG / 2
+    check(torch.equal(gr[real], wr[real]), f"{what}: rows differ")
+    check(not all_rows or torch.equal(gr, wr), f"{what}: NEG rows differ")
+
+
+def hold_call(w, design: str, fn, want, what: str, *,
+              all_rows: bool = False) -> None:
+    """``fn()`` (a call of wrapper ``w``) launched ``design`` once and
+    equals ``want`` bitwise."""
+    before = design_counts(w)
+    got = fn()
+    torch.cuda.synchronize()
+    check_design(w, before, design, what)
+    hold_bitwise(got, want, what, all_rows=all_rows)
+
+
+@contextlib.contextmanager
+def brute_launch_log():
+    """Within the block, every launch of kernels 1 and 2 as (wrapper name,
+    design, b, d, k, qb, qglobal), the block as the module's ``plan``
+    gives it."""
+    from repro_torch.kernels import ann_topk as k1
+    from repro_torch.kernels import ann_topk_quant as k2
+    log, launches = [], (k1._launch, k2._launch)
+
+    def logger(mod, launch, name):
+        at = 4 if mod is k2 else 2              # k, after the queries
+
+        def logged(design, emb, *args, **kw):
+            k = args[at]
+            qb = kw.get("qb", args[at + 1] if len(args) > at + 1 else None)
+            b = args[at - 1 if mod is k1 else at - 2].shape[0]
+            n, d = emb.shape
+            cut = mod.plan(design, n, d, b, k, mod.sm_count(emb.device), qb)
+            log.append((name, design, b, d, k, cut["qb"], cut["qglobal"]))
+            return launch(design, emb, *args, **kw)
+        return logged
+
+    k1._launch = logger(k1, launches[0], "ann_topk")
+    k2._launch = logger(k2, launches[1], "ann_topk_quant")
+    try:
+        yield log
+    finally:
+        k1._launch, k2._launch = launches
+
+
+def time_design(kernel, plain, library, bound_ms_by, shape: dict) -> dict:
+    """A new design's times at one shape: device ms (torch.profiler, its
+    CUDA launches a call summed), ms between events, the plain version's
+    and the library call's, and the bound."""
+    out = {**shape, **timings(kernel, plain, library, required=True),
+           "launches_per_call": launches_per_call(kernel)}
+    out["bound_ms"], out["bound_by"] = bound_ms_by
+    return out
+
+
+def phase_stage1_shapes(dev) -> dict:
+    """Every hold of kernels 1-5 at the shapes the reference takes beyond
+    the first designs' limits, each against its plain version on the
+    card; the new designs' times; then two engine runs equal to numpy key
+    for key."""
+    from repro_torch.kernels import ann_topk as k1
+    from repro_torch.kernels import ann_topk_ivf as ivf
+    from repro_torch.kernels import ann_topk_quant as k2
+    from repro_torch.kernels import ann_topk_sharded as sh
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(33)
+    cases = {}
+    plans = []
+
+    def case(name):
+        cases[name] = cases.get(name, 0) + 1
+
+    # kernel 1 above k 64: "wide", its rows (NEG ones too) the plain's
+    emb = int_rows(g, (SHAPES_N, 128), dev)
+    act = torch.rand(SHAPES_N, device=dev, generator=g) > 0.2
+    for k in WIDE_KS:
+        for b in (1, 16):
+            q = int_rows(g, (b, 128), dev)
+            hold_call(k1.ann_topk, "wide", lambda: k1.ann_topk(emb, act, q, k),
+                      k1.ann_topk_plain(emb, act, q, k),
+                      f"ann_topk k={k} b={b}", all_rows=True)
+            case("ann_topk wide")
+    few = int_rows(g, (100, 64), dev)
+    few_act = torch.rand(100, device=dev, generator=g) > 0.5
+    qf = int_rows(g, (3, 64), dev)
+    hold_call(k1.ann_topk, "wide", lambda: k1.ann_topk(few, few_act, qf, 256),
+              k1.ann_topk_plain(few, few_act, qf, 256),
+              "ann_topk: 100 rows, k=256", all_rows=True)
+    bf = int_rows(g, (3000, 64), dev, torch.bfloat16)
+    bf_act = torch.rand(3000, device=dev, generator=g) > 0.2
+    qbf = int_rows(g, (5, 64), dev, torch.bfloat16)
+    hold_call(k1.ann_topk, "wide", lambda: k1.ann_topk(bf, bf_act, qbf, 100),
+              k1.ann_topk_plain(bf, bf_act, qbf, 100),
+              "ann_topk bf16 k=100", all_rows=True)
+    case("ann_topk wide")
+    case("ann_topk wide")
+    del emb, act
+
+    # kernel 1 at the embedders' widths: the block shrinks; "twopass" too
+    for d in WIDE_DS:
+        emb = torch.randint(-3, 4, (WIDE_N, d), device=dev, generator=g,
+                            dtype=torch.int8).float()
+        act = torch.rand(WIDE_N, device=dev, generator=g) > 0.2
+        for b in WIDE_BS:
+            q = int_rows(g, (b, d), dev)
+            want = k1.ann_topk_plain(emb, act, q, 4)
+            hold_call(k1.ann_topk, "fused", lambda: k1.ann_topk(emb, act, q, 4),
+                      want, f"ann_topk d={d} b={b}")
+            hold_bitwise(k1._launch("twopass", emb, act, q, 4), want,
+                         f"ann_topk twopass d={d} b={b}")
+            for design in ("fused", "twopass"):
+                cut = k1.plan(design, WIDE_N, d, b, 4, k1.sm_count(dev))
+                plans.append({"kernel": "ann_topk", "design": design,
+                              "d": d, "b": b, "qb": cut["qb"],
+                              "qglobal": cut["qglobal"],
+                              "smem": cut["smem"]})
+            case("ann_topk wide d")
+        q = int_rows(g, (16, d), dev)
+        hold_call(k1.ann_topk, "wide", lambda: k1.ann_topk(emb, act, q, 100),
+                  k1.ann_topk_plain(emb, act, q, 100),
+                  f"ann_topk d={d} b=16 k=100", all_rows=True)
+        case("ann_topk wide")
+        del emb, act
+    emb = int_rows(g, (4096, 60000), dev)
+    act = torch.rand(4096, device=dev, generator=g) > 0.2
+    q = int_rows(g, (2, 60000), dev)
+    want = k1.ann_topk_plain(emb, act, q, 4)
+    hold_call(k1.ann_topk, "fused", lambda: k1.ann_topk(emb, act, q, 4), want,
+              "ann_topk d=60000 (queries in place)")
+    hold_bitwise(k1._launch("twopass", emb, act, q, 4), want,
+                 "ann_topk twopass d=60000")
+    check(k1.plan("fused", 4096, 60000, 2, 4, k1.sm_count(dev))["qglobal"],
+          "d=60000 did not read its queries in place")
+    case("ann_topk wide d")
+    del emb, act
+
+    # kernel 2: "wide" at k 100; "tc" at D 4096 and 16384 (block 16, 8)
+    # and 32768 (queries in place), "dp4a" beside each
+    def int8_index(n, d, b):
+        eq = torch.randint(-127, 128, (n, d), device=dev, generator=g,
+                           dtype=torch.int8)
+        es = torch.rand(n, device=dev, generator=g) + 0.5
+        act = torch.rand(n, device=dev, generator=g) > 0.2
+        qq = torch.randint(-127, 128, (b, d), device=dev, generator=g,
+                           dtype=torch.int8)
+        qs = torch.rand(b, device=dev, generator=g) + 0.5
+        return eq, es, act, qq, qs
+
+    args = int8_index(SHAPES_N, 128, 16)
+    for k in (65, 100, 256):
+        hold_call(k2.ann_topk_quant, "wide",
+                  lambda: k2.ann_topk_quant(*args, k),
+                  k2.ann_topk_quant_plain(*args, k),
+                  f"ann_topk_quant k={k}", all_rows=True)
+        case("ann_topk_quant wide")
+    for n, d in ((16384, QUANT_DS[0]), (16384, QUANT_DS[1]), (4096, 32768)):
+        args = int8_index(n, d, 16)
+        want = k2.ann_topk_quant_plain(*args, 16)
+        hold_call(k2.ann_topk_quant, "tc",
+                  lambda: k2.ann_topk_quant(*args, 16), want,
+                  f"ann_topk_quant d={d} b=16")
+        hold_bitwise(k2._launch("dp4a", *args, 16), want,
+                     f"ann_topk_quant dp4a d={d}")
+        for design in ("tc", "dp4a"):
+            cut = k2.plan(design, n, d, 16, 16, k2.sm_count(dev))
+            plans.append({"kernel": "ann_topk_quant", "design": design,
+                          "d": d, "b": 16, "qb": cut["qb"],
+                          "qglobal": cut["qglobal"], "smem": cut["smem"]})
+        case("ann_topk_quant wide d")
+    del args
+
+    # kernels 3-5: routing at nprobe 65, 128 and C, the scans at k 100
+    cent = int_rows(g, (ROUTE_C, 128), dev)
+    live = torch.rand(ROUTE_C, device=dev, generator=g) > 0.1
+    buckets = int_rows(g, (ROUTE_C, ROUTE_CAP, 128), dev)
+    valid = torch.rand((ROUTE_C, ROUTE_CAP), device=dev, generator=g) > 0.3
+    rows = torch.arange(ROUTE_C * ROUTE_CAP, dtype=torch.int32,
+                        device=dev).reshape(ROUTE_C, ROUTE_CAP)
+    rows = torch.where(valid, rows, -1)
+    q = int_rows(g, (4, 128), dev)
+    bq, bs = quantize_dev(buckets.reshape(-1, 128))
+    bq, bs = bq.reshape(buckets.shape), bs.reshape(valid.shape)
+    qq, qs = quantize_dev(q)
+    bounds = torch.tensor([0, 60, 128, 128, ROUTE_C], dtype=torch.int32,
+                          device=dev)
+    for nprobe in ROUTE_NPROBES:
+        hold_call(k1.ann_topk, "wide" if nprobe > k1.K_MAX else "fused",
+                  lambda: k1.ann_topk(cent, live, q, nprobe),
+                  k1.ann_topk_plain(cent, live, q, nprobe),
+                  f"routing nprobe={nprobe}")
+        sel, en = ops._route(cent, live, q, nprobe)
+        fp32 = (sel, en, q, buckets, valid)
+        int8 = (sel, en, qq, qs, bq, bs, valid)
+        hold_call(ivf.ann_topk_ivf, "block",
+                  lambda: ivf.ann_topk_ivf(*fp32, 100),
+                  ivf.ann_topk_ivf_plain(*fp32, 100),
+                  f"ann_topk_ivf nprobe={nprobe} k=100", all_rows=True)
+        hold_call(ivf.ann_topk_ivf_quant, "block",
+                  lambda: ivf.ann_topk_ivf_quant(*int8, 100),
+                  ivf.ann_topk_ivf_quant_plain(*int8, 100),
+                  f"ann_topk_ivf_quant nprobe={nprobe} k=100", all_rows=True)
+        case("ann_topk_ivf k=100")
+        if nprobe == 128:
+            for w, plain, a in (
+                    (sh.ann_topk_ivf_sharded, sh.ann_topk_ivf_sharded_plain,
+                     (*fp32, rows, bounds)),
+                    (sh.ann_topk_ivf_quant_sharded,
+                     sh.ann_topk_ivf_quant_sharded_plain,
+                     (*int8, rows, bounds))):
+                hold_call(w, "block", lambda: w(*a, 100), plain(*a, 100),
+                          f"{w.__name__} 4 shards nprobe=128 k=100",
+                          all_rows=True)
+                case("ann_topk_ivf_sharded k=100")
+
+    # "chunked" at a chunk of 1024 against "block" at cap 4096, bitwise
+    small = (8, CHUNK_CAP, 128)
+    buckets = int_rows(g, small, dev)
+    valid = torch.rand(small[:2], device=dev, generator=g) > 0.3
+    rows = torch.where(valid, torch.arange(
+        small[0] * small[1], dtype=torch.int32, device=dev).reshape(
+            small[:2]), -1)
+    bq, bs = quantize_dev(buckets.reshape(-1, 128))
+    bq, bs = bq.reshape(buckets.shape), bs.reshape(valid.shape)
+    q = int_rows(g, (4, 128), dev)
+    qq, qs = quantize_dev(q)
+    sel = torch.stack([torch.randperm(8, device=dev, generator=g)[:4]
+                       for _ in range(4)]).to(torch.int32)
+    en = (torch.rand((4, 4), device=dev, generator=g) > 0.2).to(torch.int32)
+    two = torch.tensor([0, 3, 8], dtype=torch.int32, device=dev)
+    for k in (4, 100):
+        for w, a in ((ivf.ann_topk_ivf, (sel, en, q, buckets, valid)),
+                     (ivf.ann_topk_ivf_quant,
+                      (sel, en, qq, qs, bq, bs, valid)),
+                     (sh.ann_topk_ivf_sharded,
+                      (sel, en, q, buckets, valid, rows, two)),
+                     (sh.ann_topk_ivf_quant_sharded,
+                      (sel, en, qq, qs, bq, bs, valid, rows, two))):
+            before = design_counts(w)
+            got = ivf._launch("chunked", w, *a, k=k, chunk=CHUNK)
+            torch.cuda.synchronize()
+            check_design(w, before, "chunked", f"{w.__name__} chunked")
+            hold_bitwise(got, ivf._launch("block", w, *a, k=k),
+                         f"{w.__name__} chunked vs block k={k}",
+                         all_rows=True)
+            case("chunked vs block")
+
+    # kernel 3 at cap 65536, D 768: 2^20 rows over 16 clusters, "chunked"
+    big = torch.randint(-3, 4, (BIG_C, BIG_CAP, BIG_D), device=dev,
+                        generator=g, dtype=torch.int8).float()
+    big_valid = torch.rand((BIG_C, BIG_CAP), device=dev, generator=g) > 0.2
+    qb = int_rows(g, (4, BIG_D), dev)
+    big_sel = torch.stack([torch.randperm(BIG_C, device=dev, generator=g)[:4]
+                           for _ in range(4)]).to(torch.int32)
+    big_en = torch.ones((4, 4), dtype=torch.int32, device=dev)
+    check(ivf.pick_design(BIG_CAP, 4, BIG_D, False, False) == "chunked",
+          "cap 65536 at D 768 did not take 'chunked'")
+    big_args = (big_sel, big_en, qb, big, big_valid)
+    for k in (4, 100):
+        hold_call(ivf.ann_topk_ivf, "chunked",
+                  lambda: ivf.ann_topk_ivf(*big_args, k),
+                  ivf.ann_topk_ivf_plain(*big_args, k),
+                  f"ann_topk_ivf cap={BIG_CAP} d={BIG_D} k={k}",
+                  all_rows=True)
+        case("ann_topk_ivf chunked cap 65536")
+
+    # the new designs' times
+    times = {}
+    c_route = torch.randn((128, 128), device=dev, generator=g)
+    c_route /= c_route.norm(dim=1, keepdim=True)
+    l_route = torch.ones(128, dtype=torch.bool, device=dev)
+    q1 = torch.randn((1, 128), device=dev, generator=g)
+
+    def brute_timing(emb, act, q, k):
+        n, d = emb.shape
+        return time_design(
+            lambda: k1.ann_topk(emb, act, q, k),
+            lambda: k1.ann_topk_plain(emb, act, q, k),
+            lambda: torch.topk(torch.where(act[None, :], q @ emb.T, NEG), k,
+                               dim=1),
+            bound(act, d, q.shape[0], k),
+            {"n": n, "d": d, "b": q.shape[0], "k": k,
+             "design": k1.pick_design(emb.dtype, True, d, k)})
+
+    times["ann_topk wide, routing nprobe=128"] = brute_timing(
+        c_route, l_route, q1, 128)
+    emb = torch.randn((SHAPES_N, 128), device=dev, generator=g)
+    act = torch.rand(SHAPES_N, device=dev, generator=g) > 0.2
+    times["ann_topk wide, k=100"] = brute_timing(
+        emb, act, torch.randn((16, 128), device=dev, generator=g), 100)
+    emb = torch.randn((SHAPES_N, 4096), device=dev, generator=g)
+    times["ann_topk fused d=4096 b=16"] = brute_timing(
+        emb, act, torch.randn((16, 4096), device=dev, generator=g), 4)
+    del emb
+    eq, es = quantize_dev(torch.randn((8192, 128), device=dev, generator=g))
+    qact = torch.rand(8192, device=dev, generator=g) > 0.2
+    qq1, qs1 = quantize_dev(torch.randn((1, 128), device=dev, generator=g))
+    qq_t = torch.cat([qq1, qq1.new_zeros((7, 128))]).T.contiguous()
+
+    def int_mm_sort():
+        s = torch._int_mm(eq, qq_t)[:, :1].T.float() * es[None, :]
+        s = torch.where(qact[None, :], s * qs1[:, None], NEG)
+        return torch.sort(-s, dim=1, stable=True).indices[:, :128]
+
+    times["ann_topk_quant wide, warm tier top_k=32"] = time_design(
+        lambda: k2.ann_topk_quant(eq, es, qact, qq1, qs1, 128),
+        lambda: k2.ann_topk_quant_plain(eq, es, qact, qq1, qs1, 128),
+        int_mm_sort, bound_quant(qact, 128, 1, 128),
+        {"n": 8192, "d": 128, "b": 1, "k": 128, "design": "wide"})
+
+    def gathered_bmm():
+        sb = big_sel.long()
+        s = torch.bmm(big[sb].reshape(16, BIG_CAP, BIG_D),
+                      qb.repeat_interleave(4, 0)[:, :, None])
+        s = torch.where(big_valid[sb] & (big_en > 0)[:, :, None],
+                        s.reshape(4, 4, BIG_CAP), NEG)
+        return torch.topk(s, 4, dim=2)
+
+    times["ann_topk_ivf chunked, cap=65536 d=768"] = time_design(
+        lambda: ivf.ann_topk_ivf(*big_args, 4),
+        lambda: ivf.ann_topk_ivf_plain(*big_args, 4), gathered_bmm,
+        bound_ivf(big_sel, big_en, big_valid, BIG_D, 4, False),
+        {"b": 4, "nprobe": 4, "c": BIG_C, "cap": BIG_CAP, "d": BIG_D, "k": 4,
+         "design": "chunked", "chunk": ivf.chunk_slots(BIG_CAP)})
+    del big, big_valid, big_args
+    torch.cuda.empty_cache()
+
+    # the engine runs, every count 0 just before and read just after
+    from repro_torch.launch.serve import run_once
+    wrappers = kernel_wrappers()
+    engine = {}
+    for name, kw in STAGE1_ENGINE.items():
+        reset_counts(wrappers)
+        t = time.perf_counter()
+        with brute_launch_log() as log, routed_launch_log() as rlog:
+            got = run_once(mode="cortex", backend="kernel", device=dev, **kw)
+        wall = time.perf_counter() - t
+        launches = {n: w.launches for n, w in wrappers.items() if w.launches}
+        by_design = {n: design_counts(wrappers[n]) for n in launches}
+        check(not any(w.plain_calls for w in wrappers.values()),
+              f"{name}: the CUDA path took a plain version")
+        want = run_once(mode="cortex", backend="numpy", device="cpu", **kw)
+        diff = {key: (got.get(key), want.get(key))
+                for key in set(got) | set(want) if got.get(key) != want.get(key)}
+        check(not diff, f"{name}: summary differs from numpy: {diff}")
+        engine[name] = {"kwargs": kw, "launches": launches,
+                        "launches_by_design": by_design, "wall_s": wall,
+                        "hit_rate": got["hit_rate"],
+                        "rows_scanned": got.get("rows_scanned"),
+                        "brute_blocks": sorted({(n, design, b, qb, qg)
+                                                for n, design, b, _, _, qb, qg
+                                                in log}),
+                        "routed_caps": sorted({c for _, _, c, *_ in rlog})}
+    check(engine["nprobe_all"]["launches_by_design"]["ann_topk"]["wide"] > 0
+          and engine["nprobe_all"]["launches"].get("ann_topk_ivf", 0) > 0,
+          "nprobe=None: no wide routing or no routed scan")
+    blocks = engine["dim4096"]["brute_blocks"]
+    check(any(b > 4 for *_, b, _, _ in blocks),
+          f"dim=4096: no micro-batch above 4 ({blocks})")
+    check(all(design == "fused" and k1.fused_smem(qb, 4096, 512, qg)
+              <= k1.SMEM_MAX for _, design, _, qb, qg in blocks),
+          f"dim=4096: blocks {blocks}")
+    return {"cases": cases, "plans": plans, "times": times,
+            "engine": engine}
+
+
+def stage1_shapes_line(shapes: dict, name: str) -> dict:
+    """A stage-1 kernel's part of phase stage1_shapes for the ``kernels``
+    line: its launches by design in the phase's engine runs and the new
+    designs' times."""
+    return {"launches_by_design": {
+                run: e["launches_by_design"].get(name, {})
+                for run, e in shapes["engine"].items()},
+            "times": {key: v for key, v in shapes["times"].items()
+                      if key.split(" ")[0] == name}}
+
+
 def main_mesh() -> int:
     """``python3 chip_smoke.py --mesh``: phase_mesh on four cards of one
     host, after building kernels 6 and 7."""
@@ -6626,7 +7060,9 @@ def main_mesh() -> int:
     return 0
 
 
-def main() -> int:
+def main(only: str | None = None) -> int:
+    """The whole script, or with ``only = "stage1_shapes"`` the card, the
+    build and that phase alone."""
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: no port sources under {SRC}", file=sys.stderr)
         return 2
@@ -6654,6 +7090,16 @@ def main() -> int:
     emit(phase="build", seconds=time.perf_counter() - t,
          built=sorted(n for n, b in built.items() if b.log is not None),
          sources=list(build.SOURCES))
+
+    if only == "stage1_shapes":
+        t = time.perf_counter()
+        shapes = phase_stage1_shapes(dev)
+        emit(phase="stage1_shapes", **shapes, seconds=time.perf_counter() - t)
+        print(card, flush=True)
+        emit(ok=True, device={"platform": "gpu",
+                              "kind": torch.cuda.get_device_name(0),
+                              "count": torch.cuda.device_count()})
+        return 0
 
     t = time.perf_counter()
     max_err, cases, sizes = phase_kernel(ann_topk, ann_topk_plain, dev)
@@ -6722,6 +7168,10 @@ def main() -> int:
          seconds=time.perf_counter() - t)
     del world, caches, warm
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    shapes = phase_stage1_shapes(dev)
+    emit(phase="stage1_shapes", **shapes, seconds=time.perf_counter() - t)
     torch.cuda.empty_cache()
 
     t = time.perf_counter()
@@ -6810,6 +7260,7 @@ def main() -> int:
                for n in ("quickstart", "serve_cortex", "multi_region")}},
         "shape": {k: main[k] for k in ("n", "d", "b", "k")},
         "sizes": main_sizes + sizes,
+        "stage1_shapes": stage1_shapes_line(shapes, "ann_topk"),
     }]
     # each later kernel at the shapes of the run that drives it: run (c)
     # for kernels 2-4, run (e) for kernel 5
@@ -6877,6 +7328,7 @@ def main() -> int:
             "shape": {key: v for key, v in at.items()
                       if isinstance(v, int)},
             "sizes": [at] + real,
+            "stage1_shapes": stage1_shapes_line(shapes, name),
         })
     # kernels 6 and 7 at the colocated run's shapes: the judge's micro-batch
     # of 8 pairs x 128 tokens, and the batcher's 4 slots x 128 rows
@@ -6964,4 +7416,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main_mesh() if sys.argv[1:] == ["--mesh"] else main())
+    if sys.argv[1:] == ["--mesh"]:
+        sys.exit(main_mesh())
+    sys.exit(main(*sys.argv[1:2]) if sys.argv[1:] in ([], ["stage1_shapes"])
+             else f"usage: {sys.argv[0]} [--mesh | stage1_shapes]")

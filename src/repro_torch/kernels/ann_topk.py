@@ -20,8 +20,8 @@ summation order, so a row scores bitwise the same here and in the routed
 scan, and no tensor cores (TF32 would break row parity with the host
 path).
 
-Two designs (``csrc/ann_topk.cu`` has the details), chosen by
-:func:`pick_design` from the dtype, the alignment and D:
+Three designs (``csrc/ann_topk.cu`` has the details), chosen by
+:func:`pick_design` from k, the dtype, the alignment and D:
 
 * ``"fused"``: fp32 rows on 16-byte boundaries with D % 4 == 0, every
   call of the engine and of the routing. One launch: :func:`tile_plan`
@@ -33,15 +33,24 @@ Two designs (``csrc/ann_topk.cu`` has the details), chosen by
 * ``"twopass"``: bf16, and fp32 rows off a 16-byte boundary or with
   D % 4 != 0: the first design, 512-row tiles and a second launch that
   merges the finalists.
+* ``"wide"``: k above ``K_MAX`` (the sorting networks' limit), any dtype
+  (the warm tier's 4k coarse candidates, routing at nprobe above 64).
+  ``"twopass"``'s tiles, each writing its min(k, 512) best in order,
+  then :func:`merge_levels`: launches that merge the lists two by two by
+  merge path, a thread an output entry, until one list of k is left.
+  Its rows, those of NEG entries included, are the plain version's.
 
-Both take a block of 1, 4 or 16 queries per CTA (the smallest that holds
-B, :func:`query_block`).
+Each takes a block of 1, 4 or 16 queries per CTA: the smallest that holds
+B (:func:`query_block`) where its shared memory fits ``SMEM_MAX``, else
+the largest smaller block that fits; where not even a block of 1 fits (D
+above about 55,000), a block of 1 that reads its query from device memory
+(:func:`fit_block`). Every block sums each row in the same order, so the
+block changes no score.
 
 :func:`ann_topk` launches a kernel for CUDA tensors and raises if it
 cannot; it takes :func:`ann_topk_plain` only for CPU tensors.
-``ann_topk.launches`` counts every launch, ``.launches_fused`` and
-``.launches_twopass`` each design's, and ``.plain_calls`` the plain
-version's calls.
+``ann_topk.launches`` counts every call that launches, ``.launches_<design>``
+each design's, and ``.plain_calls`` the plain version's calls.
 """
 from __future__ import annotations
 
@@ -53,27 +62,89 @@ from repro_torch.kernels import build
 
 TILE_N = 512   # rows per CTA tile of "twopass", and the most "fused" takes
 CTAS_PER_SM = 2  # what tile_plan aims for
-K_MAX = 64
+K_MAX = 64     # the largest k of "fused" and "twopass" (sorting networks)
 NEG = -3.0e38  # the reference's inactive-row score
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 QUERY_BLOCKS = (1, 4, 16)  # queries per CTA the kernel is compiled for
-DESIGNS = ("fused", "twopass")
+DESIGNS = ("fused", "twopass", "wide")
+SMEM_MAX = 232448  # H100: shared memory a CTA can take
+# select.cuh's buffers beside a one-launch tile (THREADS = 256, 8 warps):
+# the threshold pass's TILE_CAP = 64 pairs a warp and the last CTA's
+# MERGE_CAP = 512 pairs a warp
+TILE_SMEM = 8 * 64 * 8
+MERGE_SMEM = 8 * 512 * 8
 
 
-def query_block(b: int) -> int:
-    """Queries per CTA for a batch of ``b``: the smallest block that holds
-    it, up to 16. Unused slots cost registers and shuffles; chip_smoke.py
+def query_block(b: int, blocks: tuple = QUERY_BLOCKS) -> int:
+    """Queries per CTA for a batch of ``b`` where shared memory allows
+    (:func:`fit_block`): the smallest of ``blocks`` that holds it, else
+    the largest. Unused slots cost registers and shuffles; chip_smoke.py
     times each block at B = 1 and 4 against the block of 16."""
-    return next((qb for qb in QUERY_BLOCKS if b <= qb), QUERY_BLOCKS[-1])
+    return next((qb for qb in blocks if b <= qb), blocks[-1])
 
 
-def pick_design(dtype: torch.dtype, aligned: bool, d: int) -> str:
-    """The design of a CUDA call: ``"fused"`` for fp32 rows that start on
-    16-byte boundaries (``aligned``: emb's base on one, and D % 4 == 0 so
-    every row is), else ``"twopass"``."""
+def fit_block(b: int, smem_of, blocks: tuple = QUERY_BLOCKS
+              ) -> tuple[int, bool]:
+    """``(qb, qglobal)`` of a call: the block :func:`query_block` gives
+    where ``smem_of(qb, False)`` bytes of shared memory fit ``SMEM_MAX``,
+    else the largest smaller block of ``blocks`` that fits; where none
+    does, the smallest block, reading its queries from device memory
+    (``qglobal``) instead of shared memory."""
+    top = query_block(b, blocks)
+    for qb in reversed(blocks):
+        if qb <= top and smem_of(qb, False) <= SMEM_MAX:
+            return qb, False
+    return blocks[0], True
+
+
+def fused_smem(qb: int, d: int, tile_n: int, qglobal: bool) -> int:
+    """Bytes of dynamic shared memory of a "fused" CTA
+    (``csrc/ann_topk.cu::launch_fused``): the query block unless it is
+    read from device memory, the tile's scores and active bytes (or the
+    last CTA's merge buffers, if larger), then the threshold pass's."""
+    body = (0 if qglobal else qb * d * 4) + qb * tile_n * 4 + tile_n
+    return -(-max(body, MERGE_SMEM) // 16) * 16 + TILE_SMEM
+
+
+def tiles_smem(qb: int, d: int, qglobal: bool) -> int:
+    """Bytes of dynamic shared memory of a "twopass" or "wide" tile CTA
+    (``csrc/ann_topk.cu::launch_tiles``): the fp32 query block unless it
+    is read from device memory, and the 512-row tile's scores."""
+    return qb * TILE_N * 4 + (0 if qglobal else qb * d * 4)
+
+
+def pick_design(dtype: torch.dtype, aligned: bool, d: int,
+                k: int = 1) -> str:
+    """The design of a CUDA call: ``"wide"`` for k above ``K_MAX``, else
+    ``"fused"`` for fp32 rows that start on 16-byte boundaries
+    (``aligned``: emb's base on one, and D % 4 == 0 so every row is), else
+    ``"twopass"``."""
+    if k > K_MAX:
+        return "wide"
     if dtype == torch.float32 and aligned and d % 4 == 0:
         return "fused"
     return "twopass"
+
+
+def merge_levels(ntiles: int, kt: int, k: int) -> list[tuple[int, int]]:
+    """``(lists, length)`` a query of each level of "wide"'s merge
+    (``csrc/select.cuh::merge_pairs``): level 0 the tiles' lists of ``kt``
+    (= min(k, 512)), each next level lists 2i and 2i + 1 of the one before
+    merged and cut to k, the last level one list of k, the result. A
+    level's lists lie one after another, a query's after the other's."""
+    levels = [(ntiles, kt)]
+    while len(levels) == 1 or levels[-1][0] > 1:
+        cnt, ln = levels[-1]
+        nxt = -(-cnt // 2)
+        levels.append((nxt, k if nxt == 1 else min(k, 2 * ln)))
+    return levels
+
+
+def wide_scratch(b: int, ntiles: int, kt: int, k: int) -> int:
+    """Entries of each of "wide"'s two scratch buffers: levels 0, 2, ...
+    in the first, 1, 3, ... in the second, the last level in the
+    results."""
+    return b * max(c * ln for c, ln in merge_levels(ntiles, kt, k)[:-1])
 
 
 def fused_rows(qb: int) -> int:
@@ -169,8 +240,8 @@ def _check(emb, active, q, k) -> None:
                         f"{emb.dtype}, {q.dtype}")
     if active.dtype not in (torch.bool, torch.uint8):
         raise TypeError(f"active must be bool or uint8, got {active.dtype}")
-    if not 1 <= k <= K_MAX:
-        raise ValueError(f"k must be in [1, {K_MAX}], got {k}")
+    if k < 1:
+        raise ValueError(f"k must be at least 1, got {k}")
     if not (emb.device == active.device == q.device):
         raise ValueError(f"tensors on different devices: {emb.device}, "
                          f"{active.device}, {q.device}")
@@ -180,12 +251,15 @@ def _lib():
     lib = build.load("ann_topk")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ann_topk_launch.argtypes = [i, i, p, p, p, i, i, i, i, p, p, p,
-                                        p, p]
+        lib.ann_topk_launch.argtypes = [i, i, p, p, p, p, i, i, i, i, p, p,
+                                        p, p, p]
         lib.ann_topk_launch.restype = i
-        lib.ann_topk_fused_launch.argtypes = [i, i, p, p, p, i, i, i, i, p,
-                                              p, p, p, p, p]
+        lib.ann_topk_fused_launch.argtypes = [i, i, i, p, p, p, i, i, i, i,
+                                              p, p, p, p, p, p]
         lib.ann_topk_fused_launch.restype = i
+        lib.ann_topk_wide_launch.argtypes = [i, i, p, p, p, p, i, i, i, i, p,
+                                             p, p, p, p, p, p]
+        lib.ann_topk_wide_launch.restype = i
         lib.ann_topk_error_string.argtypes = [i]
         lib.ann_topk_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -209,8 +283,41 @@ def ann_topk(emb: torch.Tensor, active: torch.Tensor, q: torch.Tensor,
     if not (emb.is_contiguous() and active.is_contiguous()
             and q.is_contiguous()):
         raise ValueError("ann_topk needs contiguous emb, active and q")
-    design = pick_design(emb.dtype, emb.data_ptr() % 16 == 0, emb.shape[1])
+    design = pick_design(emb.dtype, emb.data_ptr() % 16 == 0, emb.shape[1],
+                         k)
     return _launch(design, emb, active, q, k, qb)
+
+
+def plan(design: str, n: int, d: int, b: int, k: int, sms: int,
+         qb: int | None = None) -> dict:
+    """How ``design`` cuts a call: the query block ``qb`` (:func:`fit_block`
+    unless given), ``qglobal``, ``nqb`` blocks, ``tile_n``-row tiles
+    (:func:`tile_plan` for "fused", 512 rows else), ``ntiles``, the
+    finalists a tile keeps (``kt``) and the CTA's shared memory."""
+    if design == "fused":
+        def smem_of(x, g):
+            return fused_smem(x, d, tile_plan(n, b, k, x, sms,
+                                              fused_rows(x))[0], g)
+    else:
+        def smem_of(x, g):
+            return tiles_smem(x, d, g)
+    if qb is None:
+        qb, qglobal = fit_block(b, smem_of)
+    else:
+        qglobal = smem_of(qb, False) > SMEM_MAX
+    if design == "fused":
+        tile_n, ntiles, nqb = tile_plan(n, b, k, qb, sms, fused_rows(qb))
+    else:
+        tile_n, ntiles, nqb = TILE_N, -(-n // TILE_N), -(-b // qb)
+    return {"qb": qb, "qglobal": qglobal, "nqb": nqb, "tile_n": tile_n,
+            "ntiles": ntiles, "kt": min(k, TILE_N),
+            "smem": smem_of(qb, qglobal)}
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy on a 16-byte boundary: a kernel reading its
+    queries from device memory reads them 16 bytes at a time."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _launch(design: str, emb: torch.Tensor, active: torch.Tensor,
@@ -219,40 +326,55 @@ def _launch(design: str, emb: torch.Tensor, active: torch.Tensor,
     """Launch ``design``'s kernel on checked CUDA inputs and count it
     (chip_smoke.py also calls it to hold and time "twopass" on inputs the
     dispatch sends to "fused")."""
+    if design not in DESIGNS:
+        raise ValueError(f"design must be one of {DESIGNS}, got {design!r}")
+    if design != "wide" and k > K_MAX:
+        raise ValueError(f"design {design!r} takes k up to {K_MAX}, got {k}")
     n, d = emb.shape
     b = q.shape[0]
-    qb = qb or query_block(b)
     dev = emb.device
-    fused = design == "fused"
-    if fused:
-        tile_n, ntiles, nqb = tile_plan(n, b, k, qb, sm_count(dev),
-                                        fused_rows(qb))
-    else:
-        ntiles = -(-n // TILE_N)
-    buf = scratch(b, ntiles, k, dev)
+    cut = plan(design, n, d, b, k, sm_count(dev), qb)
+    qb, ntiles = cut["qb"], cut["ntiles"]
+    # a query block read from device memory is read as fp32 16 bytes at a
+    # time, so it must be fp32 on a 16-byte boundary
+    qf = _aligned(q.float()) if cut["qglobal"] else None
     vals = torch.empty((b, k), dtype=torch.float32, device=dev)
     rows = torch.empty((b, k), dtype=torch.int32, device=dev)
     act = active.view(torch.uint8) if active.dtype == torch.bool else active
+    qfp = 0 if qf is None else qf.data_ptr()
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if fused:
+        if design == "fused":
+            buf = scratch(b, ntiles, k, dev)
+            qp = q.data_ptr() if qf is None else qfp
             err = lib.ann_topk_fused_launch(
-                qb, tile_n, emb.data_ptr(), act.data_ptr(), q.data_ptr(), n,
-                d, b, k, buf["fv"].data_ptr(), buf["fr"].data_ptr(),
-                tickets(dev, nqb).data_ptr(),
+                qb, cut["tile_n"], int(cut["qglobal"]), emb.data_ptr(),
+                act.data_ptr(), qp, n, d, b, k, buf["fv"].data_ptr(),
+                buf["fr"].data_ptr(), tickets(dev, cut["nqb"]).data_ptr(),
                 vals.data_ptr(), rows.data_ptr(), stream)
-        else:
+        elif design == "twopass":
+            buf = scratch(b, ntiles, k, dev)
             err = lib.ann_topk_launch(
                 _DTYPE_CODE[emb.dtype], qb, emb.data_ptr(), act.data_ptr(),
-                q.data_ptr(), n, d, b, k, buf["fv"].data_ptr(),
+                q.data_ptr(), qfp, n, d, b, k, buf["fv"].data_ptr(),
                 buf["fr"].data_ptr(), vals.data_ptr(), rows.data_ptr(),
                 stream)
+        else:
+            size = wide_scratch(b, ntiles, cut["kt"], k)
+            fv, gv = torch.empty((2, size), dtype=torch.float32, device=dev)
+            fr, gr = torch.empty((2, size), dtype=torch.int32, device=dev)
+            err = lib.ann_topk_wide_launch(
+                _DTYPE_CODE[emb.dtype], qb, emb.data_ptr(), act.data_ptr(),
+                q.data_ptr(), qfp, n, d, b, k, fv.data_ptr(), fr.data_ptr(),
+                gv.data_ptr(), gr.data_ptr(), vals.data_ptr(),
+                rows.data_ptr(), stream)
     if err != 0:
         msg = lib.ann_topk_error_string(err).decode()
         raise RuntimeError(f"ann_topk launch failed (cuda error {err}: {msg}) "
                            f"at n={n} d={d} b={b} k={k} qb={qb} "
-                           f"dtype={emb.dtype} design={design}")
+                           f"qglobal={cut['qglobal']} dtype={emb.dtype} "
+                           f"design={design}")
     ann_topk.launches += 1
     setattr(ann_topk, f"launches_{design}",
             getattr(ann_topk, f"launches_{design}") + 1)
@@ -262,4 +384,5 @@ def _launch(design: str, emb: torch.Tensor, active: torch.Tensor,
 ann_topk.launches = 0
 ann_topk.launches_fused = 0
 ann_topk.launches_twopass = 0
+ann_topk.launches_wide = 0
 ann_topk.plain_calls = 0

@@ -31,20 +31,24 @@ them. The routed scans of this module and the shard-owned ones of
   ``WARP_PROBES`` probes a CTA and no block barrier: the warp scores only
   the row groups that hold a valid slot, keeps two scores a lane, sorts
   them with one bitonic network and writes the probe's k finalists.
-* ``"block"``: larger buckets (the real-size router's): one CTA of 256
-  threads per (query, probe) that reads its own ``sel``/``enabled`` entry
-  (the TPU's scalar prefetch), scores every slot of the bucket into shared
-  memory and runs k block-wide argmax passes. A bucket too large for
-  shared memory fails at launch.
+* ``"block"``: larger buckets (the real-size router's), and any k: one
+  CTA of 256 threads per (query, probe) that reads its own
+  ``sel``/``enabled`` entry (the TPU's scalar prefetch), scores every slot
+  of the bucket into shared memory and runs k block-wide argmax passes.
+* ``"chunked"``: buckets whose scores and query overflow shared memory
+  (:func:`block_smem`; a cap above about 57,000 slots at D = 768): the
+  CTA reads its query in place and scores the bucket in chunks of
+  :func:`chunk_slots` slots, merging each chunk into a running list of
+  the probe's k best kept in device memory.
 
-Both designs give the same finalists bitwise, the slots of NEG entries
+All three give the same finalists bitwise, the slots of NEG entries
 included. A shape a design cannot take fails at launch, with the shape and
-the design in the error; there is no fall back to the other design.
+the design in the error; there is no fall back to another design.
 
 :func:`ann_topk_ivf` and :func:`ann_topk_ivf_quant` launch the kernels for
 CUDA tensors and raise if they cannot; they take the plain versions only
 for CPU tensors. Each counts ``launches``, each design's launches
-(``launches_warp``, ``launches_block``) and ``plain_calls``.
+(``launches_<design>``) and ``plain_calls``.
 """
 from __future__ import annotations
 
@@ -53,12 +57,12 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ann_topk import K_MAX, NEG
+from repro_torch.kernels.ann_topk import K_MAX, NEG, _aligned
 from repro_torch.kernels.ann_topk_quant import int8_scores
 
 
-DESIGNS = ("warp", "block")
-_DESIGN_CODE = {"block": 0, "warp": 1}   # csrc/ann_topk_ivf.cu::Design
+DESIGNS = ("warp", "block", "chunked")
+_DESIGN_CODE = {"block": 0, "warp": 1, "chunked": 2}  # ::Design
 WARP_CAP = 64      # the largest bucket "warp" takes: two slots a lane
 WARP_PROBES = 4    # probes (warps) in a CTA of "warp"
 SMEM_MAX = 232448  # H100: shared memory a CTA can take
@@ -74,17 +78,37 @@ def warp_smem(d: int, quant: bool, sharded: bool = True) -> int:
                                    else 0))
 
 
+def block_smem(cap: int, d: int, k: int, quant: bool,
+               sharded: bool = True) -> int:
+    """Bytes of shared memory a CTA of "block" takes
+    (``csrc/ann_topk_ivf.cu::launch``): the cap scores, the query on a
+    16-byte boundary, and for the sharded writer its k finalists and
+    their slots after it, on another."""
+    query = -(-cap * 4 // 16) * 16 + d * (1 if quant else 4)
+    return -(-query // 16) * 16 + k * 8 if sharded else query
+
+
+def chunk_slots(cap: int) -> int:
+    """Slots a chunk of "chunked" scores into shared memory: as many
+    multiples of 256 as fit ``SMEM_MAX`` (1 KB left for the CTA's own
+    variables), or the whole bucket where it is smaller."""
+    return min(cap, (SMEM_MAX - 1024) // 4 // 256 * 256)
+
+
 def pick_design(cap: int, k: int, d: int, quant: bool,
                 sharded: bool = True) -> str:
     """The design of a CUDA call of kernels 3–5: ``"warp"`` for buckets of
     at most ``WARP_CAP`` slots (any k up to ``K_MAX``: its network sorts
     max(cap, k) <= 64 entries) whose queries fit its shared memory, else
-    ``"block"``. ``sharded`` names the writer (kernel 5's, or kernels 3
-    and 4's)."""
+    ``"block"`` where the bucket's scores and the query fit shared memory
+    (:func:`block_smem`), else ``"chunked"``. ``sharded`` names the writer
+    (kernel 5's, or kernels 3 and 4's)."""
     if cap <= WARP_CAP and k <= K_MAX \
             and warp_smem(d, quant, sharded) <= SMEM_MAX:
         return "warp"
-    return "block"
+    if block_smem(cap, d, k, quant, sharded) <= SMEM_MAX:
+        return "block"
+    return "chunked"
 
 
 def _stable_topk(s: torch.Tensor, k: int):
@@ -165,8 +189,8 @@ def _check(sel, enabled, q, buckets, bucket_valid, k, *, q_dtype,
     if bucket_valid.dtype not in (torch.bool, torch.uint8):
         raise TypeError(f"bucket_valid must be bool or uint8, got "
                         f"{bucket_valid.dtype}")
-    if not 1 <= k <= K_MAX:
-        raise ValueError(f"k must be in [1, {K_MAX}], got {k}")
+    if k < 1:
+        raise ValueError(f"k must be at least 1, got {k}")
     tensors = (sel, enabled, q, buckets, bucket_valid, *extra)
     devices = {t.device for t in tensors}
     if len(devices) != 1:
@@ -195,6 +219,9 @@ def _lib():
         lib.ann_topk_ivf_quant_sharded_launch.argtypes = [p] * 9 + \
             [i] * 8 + [p, p, p]
         lib.ann_topk_ivf_quant_sharded_launch.restype = i
+        lib.ann_topk_ivf_chunked_launch.argtypes = [i] + [p] * 9 + [i] * 8 \
+            + [p] * 5
+        lib.ann_topk_ivf_chunked_launch.restype = i
         lib.ann_topk_ivf_error_string.argtypes = [i]
         lib.ann_topk_ivf_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -205,14 +232,15 @@ def _u8(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.uint8) if t.dtype == torch.bool else t
 
 
-def _launch(design: str, wrapper, *args, k: int):
+def _launch(design: str, wrapper, *args, k: int, chunk: int | None = None):
     """Launch ``design``'s kernel for ``wrapper`` (any of the routed scans
     of kernels 3–5) on its checked CUDA inputs, in the wrapper's argument
     order, on the inputs' current stream, into fresh (B, nprobe, k)
     outputs, or (S, B, nprobe, k) stacks for the shard-owned scans, and
     count it; raises with the shape and the design if it fails.
     chip_smoke.py also calls it to hold and time "block" on inputs the
-    dispatch sends to "warp"."""
+    dispatch sends to "warp", and "chunked" at a smaller ``chunk`` than
+    :func:`chunk_slots`'s on inputs "block" takes."""
     if design not in DESIGNS:
         raise ValueError(f"design must be one of {DESIGNS}, got {design!r}")
     # the int8 scans carry the queries' scales after the queries, and the
@@ -226,14 +254,33 @@ def _launch(design: str, wrapper, *args, k: int):
     dev = sel.device
     vals = torch.empty((*lead, b, nprobe, k), dtype=torch.float32, device=dev)
     idx = torch.empty((*lead, b, nprobe, k), dtype=torch.int32, device=dev)
-    ptrs = [t.data_ptr() for t in (*args[:at], _u8(args[at]), *args[at + 1:])]
     name = wrapper.__name__
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, f"{name}_launch")(
-            *ptrs, *lead, b, nprobe, c, cap, d, k, _DESIGN_CODE[design],
-            vals.data_ptr(), idx.data_ptr(), stream)
+        if design == "chunked":
+            chunk = chunk or chunk_slots(cap)
+            tmp_v = torch.empty((b, nprobe, k), dtype=torch.float32,
+                                device=dev)
+            tmp_i = torch.empty((b, nprobe, k), dtype=torch.int32,
+                                device=dev)
+            # the query is read in place, 16 bytes at a time
+            q = _aligned(args[2])
+            scales = (args[3], args[5]) if quant else (None, None)
+            tail = args[at + 1:] if lead else (None, None)
+            ptrs = [0 if t is None else t.data_ptr() for t in (
+                sel, args[1], q, scales[0], buckets, scales[1], _u8(args[at]),
+                *tail)]
+            err = lib.ann_topk_ivf_chunked_launch(
+                int(quant), *ptrs, *(lead or (1,)), b, nprobe, c, cap, d, k,
+                chunk, tmp_v.data_ptr(), tmp_i.data_ptr(), vals.data_ptr(),
+                idx.data_ptr(), stream)
+        else:
+            ptrs = [t.data_ptr() for t in (*args[:at], _u8(args[at]),
+                                           *args[at + 1:])]
+            err = getattr(lib, f"{name}_launch")(
+                *ptrs, *lead, b, nprobe, c, cap, d, k, _DESIGN_CODE[design],
+                vals.data_ptr(), idx.data_ptr(), stream)
     if err != 0:
         msg = lib.ann_topk_ivf_error_string(err).decode()
         where = f"s={lead[0]} " if lead else ""
@@ -291,4 +338,5 @@ for _w in (ann_topk_ivf, ann_topk_ivf_quant):
     _w.launches = 0
     _w.launches_warp = 0
     _w.launches_block = 0
+    _w.launches_chunked = 0
     _w.plain_calls = 0

@@ -28,14 +28,15 @@ the others. They score exactly as ``ann_topk_ivf`` /
 ``ann_topk_ivf_quant`` do (the same device code), so at S = 1 the stacks
 equal the unsharded kernels' bitwise. They share the unsharded scans'
 dispatch (``ann_topk_ivf.pick_design``, ``"warp"`` for buckets of at most
-64 slots, ``"block"`` above) and launcher; ``csrc/ann_topk_ivf.cu`` has
-the details. Shapes a design cannot take fail at launch, with the shape
-and the design in the error; there is no fall back to the other design.
+64 slots at k <= 64, ``"block"`` above, ``"chunked"`` for buckets larger
+than shared memory) and launcher; ``csrc/ann_topk_ivf.cu`` has the
+details. Shapes a design cannot take fail at launch, with the shape and
+the design in the error; there is no fall back to another design.
 
 :func:`ann_topk_ivf_sharded` and :func:`ann_topk_ivf_quant_sharded` launch
 the kernels for CUDA tensors and raise if they cannot; they take the plain
 versions only for CPU tensors. Each counts ``launches``, each design's
-launches (``launches_warp``, ``launches_block``) and ``plain_calls``.
+launches (``launches_<design>``) and ``plain_calls``.
 
 The reference's ``shard_map`` mode, one shard's bucket range per device,
 is :func:`ann_topk_ivf_sharded_parts` /
@@ -59,7 +60,8 @@ import torch
 from repro_torch.kernels.ann_topk import NEG
 from repro_torch.kernels.ann_topk_ivf import (  # noqa: F401 (kernel 5's names)
     DESIGNS, SMEM_MAX, WARP_CAP, WARP_PROBES, _check, _launch,
-    ann_topk_ivf_plain, ann_topk_ivf_quant_plain, pick_design, warp_smem)
+    ann_topk_ivf_plain, ann_topk_ivf_quant_plain, block_smem, chunk_slots,
+    pick_design, warp_smem)
 
 
 def mesh_available(n_shards: int) -> bool:
@@ -306,4 +308,5 @@ for _w in (ann_topk_ivf_sharded, ann_topk_ivf_quant_sharded):
     _w.launches = 0
     _w.launches_warp = 0
     _w.launches_block = 0
+    _w.launches_chunked = 0
     _w.plain_calls = 0

@@ -7,7 +7,7 @@
 //
 // Contract (the reference's):
 //   emb (N, D) fp32 or bf16, active (N,) bytes, q (B, D) of emb's type
-//   -> vals (B, k) fp32, rows (B, k) int32, k <= 64.
+//   -> vals (B, k) fp32, rows (B, k) int32, any k >= 1.
 //   Products and sums in fp32; inactive rows score NEG = -3e38. Order is
 //   value descending, then row ascending on ties. Entries whose value is
 //   NEG carry unspecified rows.
@@ -51,6 +51,22 @@
 //   block of QB queries), each warp 4 rows at once through dot::warp_dot,
 //   then the tile's k finalists; pass 2, sel::merge_topk: one CTA per
 //   query takes the top k of its ntiles*k finalists.
+// "wide", k above K_MAX = 64 (the networks' limit), any dtype: pass 1 is
+//   twopass's, each tile keeping its kt = min(k, 512) best in order (k
+//   argmax passes, which take any k); then sel::merge_pairs launches merge
+//   the tiles' lists two by two, a thread an output entry finding its
+//   place by merge path (a binary search of the two sorted lists), each
+//   list cut to k, until one list of k is left
+//   (kernels/ann_topk.py::merge_levels). Selection grows with k and no
+//   list needs to fit in shared memory. Every tile holds 512 entries
+//   (rows past N score NEG at their own index), so the NEG entries come
+//   out in row order and, past the padded rows, as NEG at row p: the
+//   plain version's stable sort, rows included.
+// Any D: every design keeps its query block in shared memory where it
+// fits (the host shrinks the block to 4 or 1 queries first); where not
+// even one query fits (fp32 D above about 55,000), a block of one reads
+// its query from device memory (qglobal; the host passes it as fp32 on a
+// 16-byte boundary). The sums run in the same order either way.
 // No design allocates: the caller passes the finalist scratch and the
 // tickets.
 
@@ -75,17 +91,18 @@ constexpr int ROWS = 4;          // rows a warp scores at once ("twopass")
 // read of a query feeds 8 FMAs, but 4 for a block of 16 queries, where
 // 8 x 16 sums take 254 registers and leave one CTA per SM
 constexpr int fused_rows(int qb) { return qb == 16 ? 4 : 8; }
-constexpr int K_MAX = 64;
+constexpr int K_MAX = 64;       // the largest k of "fused" and "twopass"
 constexpr size_t SMEM_MAX = 232448;  // H100: 227 KB of dynamic shared memory
 
+// k: the finalists a tile keeps (<= TILE_N), each tile's list k long.
+// qf: null, or the queries as fp32 in device memory, read in place.
 template <typename T, int VEC, int QB>
 __global__ void __launch_bounds__(THREADS)
 ann_tile_topk(const T* __restrict__ emb, const uint8_t* __restrict__ active,
-              const T* __restrict__ q, int n, int d, int b, int k, int ntiles,
-              int nqb, float* __restrict__ fv, int* __restrict__ fr) {
+              const T* __restrict__ q, const float* __restrict__ qf, int n,
+              int d, int b, int k, int ntiles, int nqb,
+              float* __restrict__ fv, int* __restrict__ fr) {
   extern __shared__ float smem[];
-  float* sq = smem;               // [QB][d] query block, fp32
-  float* sc = smem + QB * d;      // [QB][TILE_N] tile scores
   // query blocks of one tile are neighbours in launch order, so they find
   // the tile in L2
   const int qblk = blockIdx.x % nqb;
@@ -95,9 +112,14 @@ ann_tile_topk(const T* __restrict__ emb, const uint8_t* __restrict__ active,
   const int row0 = tile * TILE_N;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  // [QB][d] query block, fp32, then [QB][TILE_N] tile scores
+  const float* sq = qf ? qf + static_cast<size_t>(q0) * d : smem;
+  float* sc = qf ? smem : smem + QB * d;
 
-  for (int i = threadIdx.x; i < nq * d; i += THREADS)
-    sq[i] = dot::to_f32(q[static_cast<size_t>(q0) * d + i]);
+  if (!qf) {
+    for (int i = threadIdx.x; i < nq * d; i += THREADS)
+      smem[i] = dot::to_f32(q[static_cast<size_t>(q0) * d + i]);
+  }
   __syncthreads();
 
   for (int r0 = warp * ROWS; r0 < TILE_N; r0 += WARPS * ROWS) {
@@ -131,9 +153,11 @@ ann_tile_topk(const T* __restrict__ emb, const uint8_t* __restrict__ active,
 
 template <typename T, int VEC, int QB>
 cudaError_t launch_tiles(const void* emb, const uint8_t* active, const void* q,
-                         int n, int d, int b, int k, int ntiles, float* fv,
-                         int* fr, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(QB) * (d + TILE_N) * sizeof(float);
+                         const float* qf, int n, int d, int b, int k,
+                         int ntiles, float* fv, int* fr,
+                         cudaStream_t stream) {
+  const size_t smem =
+      static_cast<size_t>(QB) * ((qf ? 0 : d) + TILE_N) * sizeof(float);
   if (smem > SMEM_MAX) return cudaErrorInvalidValue;
   auto kern = ann_tile_topk<T, VEC, QB>;
   if (smem > 48 * 1024) {
@@ -144,30 +168,52 @@ cudaError_t launch_tiles(const void* emb, const uint8_t* active, const void* q,
   }
   const int nqb = (b + QB - 1) / QB;
   kern<<<ntiles * nqb, THREADS, smem, stream>>>(
-      static_cast<const T*>(emb), active, static_cast<const T*>(q), n, d, b, k,
-      ntiles, nqb, fv, fr);
+      static_cast<const T*>(emb), active, static_cast<const T*>(q), qf, n, d,
+      b, k, ntiles, nqb, fv, fr);
   return cudaGetLastError();
 }
 
 template <typename T, int VEC>
 cudaError_t launch_qb(int qb, const void* emb, const uint8_t* active,
-                      const void* q, int n, int d, int b, int k, int ntiles,
-                      float* fv, int* fr, cudaStream_t stream) {
+                      const void* q, const float* qf, int n, int d, int b,
+                      int k, int ntiles, float* fv, int* fr,
+                      cudaStream_t stream) {
   switch (qb) {
     case 1:
-      return launch_tiles<T, VEC, 1>(emb, active, q, n, d, b, k, ntiles, fv, fr, stream);
+      return launch_tiles<T, VEC, 1>(emb, active, q, qf, n, d, b, k, ntiles, fv, fr, stream);
     case 4:
-      return launch_tiles<T, VEC, 4>(emb, active, q, n, d, b, k, ntiles, fv, fr, stream);
+      return launch_tiles<T, VEC, 4>(emb, active, q, qf, n, d, b, k, ntiles, fv, fr, stream);
     case 16:
-      return launch_tiles<T, VEC, 16>(emb, active, q, n, d, b, k, ntiles, fv, fr, stream);
+      return launch_tiles<T, VEC, 16>(emb, active, q, qf, n, d, b, k, ntiles, fv, fr, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+// Pass 1 of "twopass" and "wide": each tile's k best (k <= TILE_N) into
+// fv/fr ((b, ntiles, k)), the load width by dtype and alignment.
+cudaError_t tiles_pass(int dtype, int qb, const void* emb, const void* active,
+                       const void* q, const float* qf, int n, int d, int b,
+                       int k, int ntiles, float* fv, int* fr,
+                       cudaStream_t s) {
+  const auto* act = static_cast<const uint8_t*>(active);
+  // 16-byte loads need rows that start on 16-byte boundaries
+  const bool aligned = reinterpret_cast<uintptr_t>(emb) % 16 == 0;
+  if (dtype == 0) {
+    return (aligned && d % 4 == 0)
+        ? launch_qb<float, 4>(qb, emb, act, q, qf, n, d, b, k, ntiles, fv, fr, s)
+        : launch_qb<float, 1>(qb, emb, act, q, qf, n, d, b, k, ntiles, fv, fr, s);
+  }
+  return (aligned && d % 8 == 0)
+      ? launch_qb<__nv_bfloat16, 8>(qb, emb, act, q, qf, n, d, b, k, ntiles, fv, fr, s)
+      : launch_qb<__nv_bfloat16, 1>(qb, emb, act, q, qf, n, d, b, k, ntiles, fv, fr, s);
+}
+
 // "fused": one CTA per (tile of tile_n rows, block of QB queries), the
-// merge in the last CTA of each query block (see the head of this file)
-template <int QB, int FROWS>
+// merge in the last CTA of each query block (see the head of this file).
+// QG: the query block is read in place from device memory; a template
+// argument, so that the shared-memory instance keeps its shared loads.
+template <int QB, int FROWS, bool QG>
 __global__ void __launch_bounds__(THREADS)
 ann_fused(const float* __restrict__ emb, const uint8_t* __restrict__ active,
           const float* __restrict__ q, int n, int d, int b, int k,
@@ -175,9 +221,10 @@ ann_fused(const float* __restrict__ emb, const uint8_t* __restrict__ active,
           int* tickets, float* vals, int* rows, int tbuf_at) {
   using S = dot::Scatter<FROWS, QB>;
   extern __shared__ __align__(16) float smem[];
-  float* sq = smem;                   // [QB][d] query block
-  float* sc = sq + QB * d;            // [QB][tile_n] tile scores
-  auto* sa = reinterpret_cast<uint8_t*>(sc + QB * tile_n);  // [tile_n]
+  // [QB][d] query block (unless QG), [QB][tile_n] tile scores, [tile_n]
+  // active bytes
+  float* sc = QG ? smem : smem + QB * d;
+  auto* sa = reinterpret_cast<uint8_t*>(sc + QB * tile_n);
   const int qblk = blockIdx.x % nqb;
   const int tile = blockIdx.x / nqb;
   const int q0 = qblk * QB;
@@ -187,11 +234,14 @@ ann_fused(const float* __restrict__ emb, const uint8_t* __restrict__ active,
   const int warp = threadIdx.x >> 5;
 
   const float* qb = q + static_cast<size_t>(q0) * d;
-  if (qvec) {
-    for (int i = threadIdx.x; i < nq * d / 4; i += THREADS)
-      reinterpret_cast<float4*>(sq)[i] = __ldg(reinterpret_cast<const float4*>(qb) + i);
-  } else {
-    for (int i = threadIdx.x; i < nq * d; i += THREADS) sq[i] = qb[i];
+  const float* sq = QG ? qb : smem;
+  if constexpr (!QG) {
+    if (qvec) {
+      for (int i = threadIdx.x; i < nq * d / 4; i += THREADS)
+        reinterpret_cast<float4*>(smem)[i] = __ldg(reinterpret_cast<const float4*>(qb) + i);
+    } else {
+      for (int i = threadIdx.x; i < nq * d; i += THREADS) smem[i] = qb[i];
+    }
   }
   for (int i = threadIdx.x; i < tile_n; i += THREADS)
     sa[i] = row0 + i < n ? active[row0 + i] : 0;
@@ -233,17 +283,19 @@ ann_fused(const float* __restrict__ emb, const uint8_t* __restrict__ active,
 template <int QB, int FROWS>
 cudaError_t launch_fused(const float* emb, const uint8_t* active,
                          const float* q, int n, int d, int b, int k,
-                         int tile_n, int qvec, float* fv, int* fr,
-                         int* tickets, float* vals, int* rows,
+                         int tile_n, int qvec, int qglobal, float* fv,
+                         int* fr, int* tickets, float* vals, int* rows,
                          cudaStream_t stream) {
-  // the tile's queries, scores and active bytes (the last CTA's merge
-  // reuses them), then the tile's candidates
+  // the tile's queries (unless read in place), scores and active bytes
+  // (the last CTA's merge reuses them), then the tile's candidates
+  // (kernels/ann_topk.py::fused_smem)
   const size_t tbuf_at = (std::max(
-      static_cast<size_t>(QB) * (d + tile_n) * sizeof(float) + tile_n,
+      static_cast<size_t>(QB) * ((qglobal ? 0 : d) + tile_n) * sizeof(float) +
+          tile_n,
       sel::merge_smem<THREADS>()) + 15) / 16 * 16;
   const size_t smem = tbuf_at + sel::tile_smem<THREADS>();
   if (smem > SMEM_MAX) return cudaErrorInvalidValue;
-  auto kern = ann_fused<QB, FROWS>;
+  auto kern = qglobal ? ann_fused<QB, FROWS, true> : ann_fused<QB, FROWS, false>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -264,24 +316,26 @@ extern "C" {
 
 // Design "fused": fp32 emb on a 16-byte boundary, d % 4 == 0. tile_n: rows
 // per CTA, a multiple of fused_rows(qb) in [k, 512]
-// (kernels/ann_topk.py::tile_plan).
+// (kernels/ann_topk.py::tile_plan). qglobal: read the queries in place (q
+// on a 16-byte boundary) instead of from shared memory.
 // fv/fr: (b, ceil(n / tile_n), k) fp32/int32 finalist scratch; tickets:
 // ceil(b / qb) int32, all 0, left 0. qb: queries per CTA, 1, 4 or 16.
 // One launch; returns its cudaError_t.
-int ann_topk_fused_launch(int qb, int tile_n, const void* emb,
+int ann_topk_fused_launch(int qb, int tile_n, int qglobal, const void* emb,
                           const void* active, const void* q, int n, int d,
                           int b, int k, void* fv, void* fr,
                           void* tickets, void* vals, void* rows,
                           void* stream) {
+  const int qvec = reinterpret_cast<uintptr_t>(q) % 16 == 0;
   if (n < 1 || d < 1 || b < 1 || k < 1 || k > K_MAX || d % 4 != 0 ||
       reinterpret_cast<uintptr_t>(emb) % 16 != 0 ||
-      tile_n % fused_rows(qb) != 0 || tile_n < k || tile_n > TILE_N)
+      tile_n % fused_rows(qb) != 0 || tile_n < k || tile_n > TILE_N ||
+      (qglobal && !qvec))
     return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* e = static_cast<const float*>(emb);
   const auto* act = static_cast<const uint8_t*>(active);
   const auto* qp = static_cast<const float*>(q);
-  const int qvec = reinterpret_cast<uintptr_t>(q) % 16 == 0;
   auto* pv = static_cast<float*>(fv);
   auto* pr = static_cast<int*>(fr);
   auto* pt = static_cast<int*>(tickets);
@@ -289,47 +343,63 @@ int ann_topk_fused_launch(int qb, int tile_n, const void* emb,
   auto* orow = static_cast<int*>(rows);
   switch (qb) {
     case 1:
-      return launch_fused<1, fused_rows(1)>(e, act, qp, n, d, b, k, tile_n, qvec, pv, pr, pt, ov, orow, s);
+      return launch_fused<1, fused_rows(1)>(e, act, qp, n, d, b, k, tile_n, qvec, qglobal, pv, pr, pt, ov, orow, s);
     case 4:
-      return launch_fused<4, fused_rows(4)>(e, act, qp, n, d, b, k, tile_n, qvec, pv, pr, pt, ov, orow, s);
+      return launch_fused<4, fused_rows(4)>(e, act, qp, n, d, b, k, tile_n, qvec, qglobal, pv, pr, pt, ov, orow, s);
     case 16:
-      return launch_fused<16, fused_rows(16)>(e, act, qp, n, d, b, k, tile_n, qvec, pv, pr, pt, ov, orow, s);
+      return launch_fused<16, fused_rows(16)>(e, act, qp, n, d, b, k, tile_n, qvec, qglobal, pv, pr, pt, ov, orow, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 // Design "twopass": fv/fr: (b, ceil(n / 512), k) fp32/int32 finalist scratch.
-// dtype: 0 = fp32, 1 = bf16. qb: queries per CTA, 1, 4 or 16.
+// dtype: 0 = fp32, 1 = bf16. qb: queries per CTA, 1, 4 or 16. qf: null, or
+// the queries as fp32 on a 16-byte boundary, read in place.
 // Returns the cudaError_t of the launches.
 int ann_topk_launch(int dtype, int qb, const void* emb, const void* active,
-                    const void* q, int n, int d, int b, int k, void* fv,
-                    void* fr, void* vals, void* rows, void* stream) {
+                    const void* q, const void* qf, int n, int d, int b, int k,
+                    void* fv, void* fr, void* vals, void* rows, void* stream) {
   if (n < 1 || d < 1 || b < 1 || k < 1 || k > K_MAX || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
   const int ntiles = (n + TILE_N - 1) / TILE_N;
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto* act = static_cast<const uint8_t*>(active);
   auto* pv = static_cast<float*>(fv);
   auto* pr = static_cast<int*>(fr);
-  // 16-byte loads need rows that start on 16-byte boundaries
-  const bool aligned = reinterpret_cast<uintptr_t>(emb) % 16 == 0;
-  cudaError_t err;
-  if (dtype == 0) {
-    err = (aligned && d % 4 == 0)
-        ? launch_qb<float, 4>(qb, emb, act, q, n, d, b, k, ntiles, pv, pr, s)
-        : launch_qb<float, 1>(qb, emb, act, q, n, d, b, k, ntiles, pv, pr, s);
-  } else {
-    err = (aligned && d % 8 == 0)
-        ? launch_qb<__nv_bfloat16, 8>(qb, emb, act, q, n, d, b, k, ntiles, pv, pr, s)
-        : launch_qb<__nv_bfloat16, 1>(qb, emb, act, q, n, d, b, k, ntiles, pv, pr, s);
-  }
+  const cudaError_t err =
+      tiles_pass(dtype, qb, emb, active, q, static_cast<const float*>(qf), n,
+                 d, b, k, ntiles, pv, pr, s);
   if (err != cudaSuccess) return err;
   // one CTA per query merges its ntiles*k finalists
   sel::merge_topk<THREADS><<<b, THREADS, 0, s>>>(pv, pr, ntiles * k, k,
                                                  static_cast<float*>(vals),
                                                  static_cast<int*>(rows));
   return cudaGetLastError();
+}
+
+// Design "wide", any k: pass 1 as "twopass" with lists of kt = min(k, 512),
+// then the levels of kernels/ann_topk.py::merge_levels. fv/fr and gv/gr:
+// fp32/int32 scratch of kernels/ann_topk.py::wide_scratch entries each;
+// levels 0, 2, ... go to fv/fr, 1, 3, ... to gv/gr, the last to vals/rows.
+// Returns the cudaError_t of the launches.
+int ann_topk_wide_launch(int dtype, int qb, const void* emb,
+                         const void* active, const void* q, const void* qf,
+                         int n, int d, int b, int k, void* fv, void* fr,
+                         void* gv, void* gr, void* vals, void* rows,
+                         void* stream) {
+  if (n < 1 || d < 1 || b < 1 || k < 1 || (dtype != 0 && dtype != 1))
+    return cudaErrorInvalidValue;
+  const int ntiles = (n + TILE_N - 1) / TILE_N;
+  const int kt = std::min(k, TILE_N);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = tiles_pass(
+      dtype, qb, emb, active, q, static_cast<const float*>(qf), n, d, b, kt,
+      ntiles, static_cast<float*>(fv), static_cast<int*>(fr), s);
+  if (err != cudaSuccess) return err;
+  return sel::merge_lists<THREADS>(
+      ntiles, kt, k, b, static_cast<float*>(fv), static_cast<int*>(fr),
+      static_cast<float*>(gv), static_cast<int*>(gr),
+      static_cast<float*>(vals), static_cast<int*>(rows), s);
 }
 
 const char* ann_topk_error_string(int err) {

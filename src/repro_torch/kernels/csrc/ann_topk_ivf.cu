@@ -15,7 +15,7 @@
 //   sel, enabled (B, nprobe) int32; buckets (C, cap, D) fp32 with q (B, D)
 //   fp32, or int8 with bucket_scale (C, cap) fp32, qq (B, D) int8 and
 //   q_scales (B,) fp32; bucket_valid (C, cap) bytes
-//   -> vals, slots (B, nprobe, k), k <= 64.
+//   -> vals, slots (B, nprobe, k), any k >= 1, any cap, any D.
 //   Probe (b, j) scores every slot of bucket sel[b, j] against query b;
 //   invalid slots and disabled probes score NEG = -3e38; its k finalists
 //   are in (value desc, slot asc) order. Where fewer than k slots remain,
@@ -54,23 +54,40 @@
 // Sharded, the owner alone reads the bucket, so the bytes are the
 // unsharded scan's plus the S-fold stack of finalists.
 //
-// Two designs for every scan, fp32 and int8, unsharded (kernels 3 and 4)
+// Three designs for every scan, fp32 and int8, unsharded (kernels 3 and 4)
 // and sharded (kernel 5); the wrappers' one pick_design sends buckets of
-// at most WARP_CAP = 64 slots (every bucket the engine lays out) to "warp"
-// and larger ones (the real-size router's) to "block".
+// at most WARP_CAP = 64 slots (every bucket the engine lays out) at k <= 64
+// to "warp", larger ones (the real-size router's) and any k to "block",
+// and buckets whose scores and query overflow shared memory to "chunked".
 //
 // Design "block" (ivf_topk, ivf_topk_sharded): one kernel for both payload
 // types over a scorer policy; one CTA per (query b, probe j), reading
 // sel[b, j] and enabled[b, j] itself (the TPU's scalar prefetch) and
 // offsetting into the bucket. The query sits in shared memory; warps
 // score ROWS slots at once (dot.cuh) into a cap-long score array in
-// dynamic shared memory (cap <= 32768 at D = 768: 227 KB), then the whole
+// dynamic shared memory (cap below about 57,000 at D = 768), then the whole
 // block runs k argmax passes (select.cuh, ties to the lowest slot; buckets
-// hold their rows in ascending order, so that is the lowest row). CTAs of
-// queries that probe the same bucket find it in L2 only by chance. The
-// sharded CTA also reads the (S+1,) bounds to find the owner of its bucket
-// and writes the whole (S, k) column of the stack: its finalists, with
-// their rows read from bucket_rows, at the owner, NEG / -1 at the others.
+// hold their rows in ascending order, so that is the lowest row), any k.
+// CTAs of queries that probe the same bucket find it in L2 only by chance.
+// The sharded CTA also reads the (S+1,) bounds to find the owner of its
+// bucket and writes the whole (S, k) column of the stack: its finalists
+// (staged in dynamic shared memory after the query), with their rows read
+// from bucket_rows, at the owner, NEG / -1 at the others.
+//
+// Design "chunked" (ivf_chunked, ivf_chunked_sharded; buckets whose cap
+// scores and query overflow shared memory): "block" over chunks of the
+// bucket that fit. One CTA per (query, probe) reads its query in place
+// from device memory (on a 16-byte boundary) and scores chunk after chunk
+// of `chunk` slots into shared memory with the same dot.cuh code, so
+// every score is bitwise "block"'s. The probe's running list, its best
+// min(k, slots so far) in (value desc, slot asc) order, lives in device
+// memory, in the output row and a scratch row taken in turns; each chunk
+// merges into it by k passes that take the better of the list's next
+// entry and the chunk's best (a block argmax, run again only when the
+// chunk's best was taken). Every earlier slot is lower than the chunk's,
+// so the list wins a tie, as the one-chunk argmax would have it. Past the
+// bucket's cap the last chunk writes NEG and slot p, as "block" does. No
+// list needs shared memory, so neither k nor cap has a limit.
 //
 // Design "warp" (ivf_warp, ivf_warp_sharded; buckets of at most 64
 // slots): at B = 1, nprobe = 8 and cap 16 the block design keeps 4 of its
@@ -109,16 +126,20 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int ROWS = 4;          // slots a warp scores at once
-constexpr int K_MAX = 64;
+constexpr int K_MAX = 64;        // "warp": the largest k
 constexpr size_t SMEM_MAX = 232448;  // H100: 227 KB of dynamic shared memory
 constexpr int WARP_PROBES = 4;  // "warp": probes (warps) a CTA
 constexpr int WARP_CAP = 64;    // "warp": the largest bucket, two slots a lane
-enum Design { BLOCK = 0, WARP = 1 };
+enum Design { BLOCK = 0, WARP = 1, CHUNKED = 2 };
 
-// shared memory layout: cap fp32 scores, then the query on a 16-byte
-// boundary
+// shared memory layout of "block": cap fp32 scores, then the query on a
+// 16-byte boundary, then (sharded) the k finalists' values and slots
 __host__ __device__ inline size_t query_offset(int cap) {
   return (static_cast<size_t>(cap) * sizeof(float) + 15) & ~static_cast<size_t>(15);
+}
+__host__ __device__ inline size_t top_offset(int cap, int d, size_t elem) {
+  return (query_offset(cap) + static_cast<size_t>(d) * elem + 15) &
+         ~static_cast<size_t>(15);
 }
 
 // a probe no design scanned (disabled, or out of range): NEG and slot p
@@ -165,6 +186,40 @@ struct Scorer<int8_t, VEC> {
   }
 };
 
+// The whole block scores slots c0 .. c0 + m - 1 of a bucket (its payload
+// `bucket`, valid bytes bv, int8 scales bs) against the query sq into
+// sc[0..m), ROWS slots a warp at once; NEG where a slot is invalid.
+template <typename E, int VEC>
+__device__ __forceinline__ void score_slots(const E* bucket,
+                                            const uint8_t* bv,
+                                            const float* bs, const E* sq,
+                                            float q_scale, int c0, int m,
+                                            int cap, int d, float* sc) {
+  using S = Scorer<E, VEC>;
+  constexpr bool kScaled = std::is_same_v<E, int8_t>;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int r0 = warp * ROWS; r0 < m; r0 += WARPS * ROWS) {
+    const E* erow[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+      erow[r] = bucket + static_cast<size_t>(min(c0 + r0 + r, cap - 1)) * d;
+    typename S::Acc acc[ROWS][1];
+    S::rows(erow, sq, d, lane, acc);
+    if (lane == 0) {
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        const int i = r0 + r, slot = c0 + i;
+        if (i < m)
+          sc[i] = bv[slot] != 0
+                      ? S::finish(acc[r][0], kScaled ? bs + slot : nullptr,
+                                  q_scale)
+                      : sel::NEG;
+      }
+    }
+  }
+}
+
 // The whole block scores bucket c against query bq and writes its k
 // finalists (value desc, slot asc) to ov/oi. E = float (q, buckets fp32;
 // qs and bscale unused) or int8_t (qq, buckets_q int8 with q_scales and
@@ -175,41 +230,17 @@ __device__ __forceinline__ void scan_bucket(
     const E* __restrict__ buckets, const float* __restrict__ bscale,
     const uint8_t* __restrict__ valid, int cap, int d, int k,
     unsigned char* smem, float* red_v, int* red_i, float* ov, int* oi) {
-  using S = Scorer<E, VEC>;
   constexpr bool kScaled = std::is_same_v<E, int8_t>;
   float* sc = reinterpret_cast<float*>(smem);              // [cap]
   E* sq = reinterpret_cast<E*>(smem + query_offset(cap));  // [d]
   const size_t base = static_cast<size_t>(c) * cap;
-  const E* bucket = buckets + base * d;
-  const uint8_t* bv = valid + base;
-  const float* bs = kScaled ? bscale + base : nullptr;
-  const float q_scale = kScaled ? qs[bq] : 1.f;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
 
   for (int i = threadIdx.x; i < d; i += THREADS)
     sq[i] = q[static_cast<size_t>(bq) * d + i];
   __syncthreads();
-
-  for (int r0 = warp * ROWS; r0 < cap; r0 += WARPS * ROWS) {
-    const E* erow[ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r)
-      erow[r] = bucket + static_cast<size_t>(min(r0 + r, cap - 1)) * d;
-    typename S::Acc acc[ROWS][1];
-    S::rows(erow, sq, d, lane, acc);
-    if (lane == 0) {
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const int slot = r0 + r;
-        if (slot < cap)
-          sc[slot] = bv[slot] != 0
-                         ? S::finish(acc[r][0], kScaled ? bs + slot : nullptr,
-                                     q_scale)
-                         : sel::NEG;
-      }
-    }
-  }
+  score_slots<E, VEC>(buckets + base * d, valid + base,
+                      kScaled ? bscale + base : nullptr, sq,
+                      kScaled ? qs[bq] : 1.f, 0, cap, cap, d, sc);
   __syncthreads();
   sel::block_topk<THREADS>(sc, cap, k, ov, oi, red_v, red_i);
 }
@@ -256,8 +287,9 @@ ivf_topk_sharded(const int* __restrict__ sel_, const int* __restrict__ en,
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red_v[WARPS];
   __shared__ int red_i[WARPS];
-  __shared__ float top_v[K_MAX];
-  __shared__ int top_i[K_MAX];
+  // the finalists, after the scores and the query (block_smem)
+  float* top_v = reinterpret_cast<float*>(smem + top_offset(cap, d, sizeof(E)));
+  int* top_i = reinterpret_cast<int*>(top_v + k);
   const int bj = blockIdx.x;
   const int c = sel_[bj];
   bool scan = en[bj] != 0 && c >= 0 && c < c_count;
@@ -285,6 +317,147 @@ ivf_topk_sharded(const int* __restrict__ sel_, const int* __restrict__ en,
     const size_t o = (static_cast<size_t>(s) * bn + bj) * k + p;
     vals[o] = v;
     rows[o] = r;
+  }
+}
+
+// "chunked": the whole block scans bucket c against query bq in chunks of
+// `chunk` slots (sc: chunk scores in shared memory) and leaves the probe's
+// k finalists (value desc, slot asc) in ov/oi, device memory; tv/ti: a
+// k-long scratch row. Thread 0 alone reads and writes the running lists.
+template <typename E, int VEC>
+__device__ __forceinline__ void scan_chunked(
+    int c, int bq, const E* __restrict__ q, const float* __restrict__ qs,
+    const E* __restrict__ buckets, const float* __restrict__ bscale,
+    const uint8_t* __restrict__ valid, int cap, int d, int k, int chunk,
+    float* sc, float* ov, int* oi, float* tv, int* ti) {
+  constexpr bool kScaled = std::is_same_v<E, int8_t>;
+  __shared__ float red_v[WARPS];
+  __shared__ int red_i[WARPS];
+  __shared__ float cb_v;   // the chunk's best untaken score, its position
+  __shared__ int cb_i;
+  __shared__ int took[2];  // by pass parity: did pass p take cb?
+  const size_t base = static_cast<size_t>(c) * cap;
+  const float* bs = kScaled ? bscale + base : nullptr;
+  const float q_scale = kScaled ? qs[bq] : 1.f;
+  const E* sq = q + static_cast<size_t>(bq) * d;  // read in place
+  const int nch = (cap + chunk - 1) / chunk;
+  int rlen = 0;  // the running list's length: min(k, slots scanned)
+  for (int t = 0; t < nch; ++t) {
+    const int c0 = t * chunk;
+    const int m = min(chunk, cap - c0);
+    // the last chunk's list is the output: the lists alternate backwards
+    const bool to_out = (nch - 1 - t) % 2 == 0;
+    float* dv = to_out ? ov : tv;
+    int* di = to_out ? oi : ti;
+    const float* rv = to_out ? tv : ov;
+    const int* ri_ = to_out ? ti : oi;
+    score_slots<E, VEC>(buckets + base * d, valid + base, bs, sq, q_scale,
+                        c0, m, cap, d, sc);
+    __syncthreads();
+    const int len = min(k, rlen + m);
+    const int fill = t == nch - 1 ? k : len;
+    int head = 0;      // the running list's next entry (thread 0)
+    bool need = true;  // find the chunk's best before this pass
+    for (int p = 0; p < fill; ++p) {
+      if (p < len && need)
+        sel::block_argmax<THREADS>(sc, m, red_v, red_i, &cb_v, &cb_i);
+      if (threadIdx.x == 0) {
+        float v = sel::NEG;
+        int slot = p;  // past the cap: NEG at slot p
+        int take = 0;
+        if (p < len) {
+          const bool from_list =
+              head < rlen &&
+              (cb_i == INT_MAX ||
+               sel::ranks_before(rv[head], ri_[head], cb_v, c0 + cb_i));
+          if (from_list) {
+            v = rv[head];
+            slot = ri_[head];
+            ++head;
+          } else {
+            v = cb_v;
+            slot = c0 + cb_i;
+            sc[cb_i] = -INFINITY;
+            take = 1;
+          }
+        }
+        dv[p] = v;
+        di[p] = slot;
+        took[p & 1] = take;
+      }
+      __syncthreads();
+      need = took[p & 1] != 0;
+    }
+    rlen = len;
+    __syncthreads();  // the next chunk overwrites sc
+  }
+}
+
+// One CTA per (query b, probe j): the unsharded writer of "chunked".
+template <typename E, int VEC>
+__global__ void __launch_bounds__(THREADS)
+ivf_chunked(const int* __restrict__ sel_, const int* __restrict__ en,
+            const E* __restrict__ q, const float* __restrict__ qs,
+            const E* __restrict__ buckets, const float* __restrict__ bscale,
+            const uint8_t* __restrict__ valid, int nprobe, int c_count,
+            int cap, int d, int k, int chunk, float* __restrict__ tmp_v,
+            int* __restrict__ tmp_i, float* __restrict__ vals,
+            int* __restrict__ slots) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int bj = blockIdx.x;
+  const size_t at = static_cast<size_t>(bj) * k;
+  const int c = sel_[bj];
+  if (en[bj] == 0 || c < 0 || c >= c_count) {
+    write_disabled(vals + at, slots + at, k, threadIdx.x, THREADS);
+    return;
+  }
+  scan_chunked<E, VEC>(c, bj / nprobe, q, qs, buckets, bscale, valid, cap, d,
+                       k, chunk, reinterpret_cast<float*>(smem), vals + at,
+                       slots + at, tmp_v + at, tmp_i + at);
+}
+
+// One CTA per (query b, probe j): the sharded writer of "chunked". The
+// running lists end in the owner's row of the stacks, whose slots then
+// become global rows; the other shards' rows get NEG / -1.
+template <typename E, int VEC>
+__global__ void __launch_bounds__(THREADS)
+ivf_chunked_sharded(const int* __restrict__ sel_, const int* __restrict__ en,
+                    const E* __restrict__ q, const float* __restrict__ qs,
+                    const E* __restrict__ buckets,
+                    const float* __restrict__ bscale,
+                    const uint8_t* __restrict__ valid,
+                    const int* __restrict__ bucket_rows,
+                    const int* __restrict__ bounds, int n_shards, int nprobe,
+                    int c_count, int cap, int d, int k, int chunk,
+                    float* __restrict__ tmp_v, int* __restrict__ tmp_i,
+                    float* __restrict__ vals, int* __restrict__ rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int bj = blockIdx.x;
+  const size_t bn = static_cast<size_t>(gridDim.x);
+  const int c = sel_[bj];
+  int owner = -1;
+  if (en[bj] != 0 && c >= 0 && c < c_count)
+    for (int s = 0; s < n_shards && owner < 0; ++s)
+      if (owns(bounds, s, c)) owner = s;
+  if (owner >= 0) {  // the same for every thread of the block
+    const size_t o = (static_cast<size_t>(owner) * bn + bj) * k;
+    scan_chunked<E, VEC>(c, bj / nprobe, q, qs, buckets, bscale, valid, cap,
+                         d, k, chunk, reinterpret_cast<float*>(smem),
+                         vals + o, rows + o,
+                         tmp_v + static_cast<size_t>(bj) * k,
+                         tmp_i + static_cast<size_t>(bj) * k);
+  }
+  for (int i = threadIdx.x; i < n_shards * k; i += THREADS) {
+    const int s = i / k;
+    const size_t o = (static_cast<size_t>(s) * bn + bj) * k + (i - s * k);
+    if (s == owner) {  // the slot becomes its global row
+      rows[o] = vals[o] > sel::NEG / 2
+                    ? bucket_rows[static_cast<size_t>(c) * cap + rows[o]]
+                    : -1;
+    } else {
+      vals[o] = sel::NEG;
+      rows[o] = -1;
+    }
   }
 }
 
@@ -536,6 +709,9 @@ struct Args {
   int design;  // Design
   float* vals;
   int* idx;  // slots, or the sharded scan's global rows
+  int chunk = 0;  // "chunked": slots a chunk, and its k-long scratch rows
+  float* tmp_v = nullptr;
+  int* tmp_i = nullptr;
 };
 
 // kernels above 48 KB of dynamic shared memory must ask for it
@@ -581,11 +757,47 @@ cudaError_t launch_warp(const Args& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// "chunked": ivf_chunked_sharded with bounds, else ivf_chunked
+template <typename E, int VEC>
+cudaError_t launch_chunked(const Args& a, cudaStream_t s) {
+  const size_t smem = static_cast<size_t>(a.chunk) * sizeof(float);
+  if (a.chunk < 1 || smem > SMEM_MAX || a.tmp_v == nullptr ||
+      a.tmp_i == nullptr ||
+      reinterpret_cast<uintptr_t>(a.q) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const auto* q = static_cast<const E*>(a.q);
+  const auto* bk = static_cast<const E*>(a.buckets);
+  const int grid = a.b * a.nprobe;
+  cudaError_t err;
+  if (a.bounds == nullptr) {
+    auto kern = ivf_chunked<E, VEC>;
+    if ((err = allow_smem(kern, smem)) != cudaSuccess) return err;
+    kern<<<grid, THREADS, smem, s>>>(a.sel, a.en, q, a.qs, bk, a.bscale,
+                                     a.valid, a.nprobe, a.c, a.cap, a.d, a.k,
+                                     a.chunk, a.tmp_v, a.tmp_i, a.vals,
+                                     a.idx);
+  } else {
+    auto kern = ivf_chunked_sharded<E, VEC>;
+    if ((err = allow_smem(kern, smem)) != cudaSuccess) return err;
+    kern<<<grid, THREADS, smem, s>>>(a.sel, a.en, q, a.qs, bk, a.bscale,
+                                     a.valid, a.bucket_rows, a.bounds,
+                                     a.n_shards, a.nprobe, a.c, a.cap, a.d,
+                                     a.k, a.chunk, a.tmp_v, a.tmp_i, a.vals,
+                                     a.idx);
+  }
+  return cudaGetLastError();
+}
+
 template <typename E, int VEC>
 cudaError_t launch(const Args& a, cudaStream_t s) {
   if (a.design == WARP) return launch_warp<E, VEC>(a, s);
+  if (a.design == CHUNKED) return launch_chunked<E, VEC>(a, s);
+  // scores, query, and for the sharded writer its finalists (block_smem)
   const size_t smem =
-      query_offset(a.cap) + static_cast<size_t>(a.d) * sizeof(E);
+      a.bounds == nullptr
+          ? query_offset(a.cap) + static_cast<size_t>(a.d) * sizeof(E)
+          : top_offset(a.cap, a.d, sizeof(E)) +
+                static_cast<size_t>(a.k) * (sizeof(float) + sizeof(int));
   if (smem > SMEM_MAX) return cudaErrorInvalidValue;
   const auto* q = static_cast<const E*>(a.q);
   const auto* bk = static_cast<const E*>(a.buckets);
@@ -610,8 +822,8 @@ cudaError_t launch(const Args& a, cudaStream_t s) {
 
 bool bad_shape(const Args& a) {
   return a.b < 1 || a.nprobe < 1 || a.c < 1 || a.cap < 1 || a.d < 1 ||
-         a.k < 1 || a.k > K_MAX || a.n_shards < 1 ||
-         (a.design != BLOCK && a.design != WARP);
+         a.k < 1 || a.n_shards < 1 || (a.design == WARP && a.k > K_MAX) ||
+         (a.design != BLOCK && a.design != WARP && a.design != CHUNKED);
 }
 
 int launch_f32(const Args& a, void* stream) {
@@ -637,8 +849,8 @@ int launch_i8(const Args& a, void* stream) {
 
 extern "C" {
 
-// design 0 "block", 1 "warp" (cap <= 64); vals/slots: (b, nprobe, k)
-// fp32/int32. Each entry point returns the cudaError_t of the launch.
+// design 0 "block", 1 "warp" (cap <= 64, k <= 64); vals/slots: (b, nprobe,
+// k) fp32/int32. Each entry point returns the cudaError_t of the launch.
 int ann_topk_ivf_launch(const void* sel_, const void* enabled, const void* q,
                         const void* buckets, const void* bucket_valid, int b,
                         int nprobe, int c, int cap, int d, int k, int design,
@@ -700,6 +912,33 @@ int ann_topk_ivf_quant_sharded_launch(
        s, b, nprobe, c, cap, d, k, design, static_cast<float*>(vals),
        static_cast<int*>(rows)},
       stream);
+}
+
+// Design "chunked", every scan: quant 0 (fp32: q, buckets; q_scales and
+// bucket_scale null) or 1 (int8 with both scales); bucket_rows and bounds
+// null for the unsharded scans, else as above (s shards). q on a 16-byte
+// boundary. chunk: slots a chunk (chunk * 4 bytes of shared memory);
+// tmp_v/tmp_i: (b, nprobe, k) fp32/int32 scratch; vals/idx as the other
+// entry points give them. Returns the cudaError_t of the launch.
+int ann_topk_ivf_chunked_launch(int quant, const void* sel_,
+                                const void* enabled, const void* q,
+                                const void* q_scales, const void* buckets,
+                                const void* bucket_scale,
+                                const void* bucket_valid,
+                                const void* bucket_rows, const void* bounds,
+                                int s, int b, int nprobe, int c, int cap,
+                                int d, int k, int chunk, void* tmp_v,
+                                void* tmp_i, void* vals, void* idx,
+                                void* stream) {
+  Args a{static_cast<const int*>(sel_), static_cast<const int*>(enabled), q,
+         static_cast<const float*>(q_scales), buckets,
+         static_cast<const float*>(bucket_scale),
+         static_cast<const uint8_t*>(bucket_valid),
+         static_cast<const int*>(bucket_rows), static_cast<const int*>(bounds),
+         s, b, nprobe, c, cap, d, k, CHUNKED, static_cast<float*>(vals),
+         static_cast<int*>(idx), chunk, static_cast<float*>(tmp_v),
+         static_cast<int*>(tmp_i)};
+  return quant ? launch_i8(a, stream) : launch_f32(a, stream);
 }
 
 const char* ann_topk_ivf_error_string(int err) {

@@ -8,7 +8,7 @@
 //
 // Contract (the reference's):
 //   emb_q (N, D) int8, scales (N,) fp32, active (N,) bytes, qq (B, D) int8,
-//   q_scales (B,) fp32 -> vals (B, k) fp32, rows (B, k) int32, k <= 64.
+//   q_scales (B,) fp32 -> vals (B, k) fp32, rows (B, k) int32, any k >= 1.
 //   Each score is the exact int32 dot, rescaled as float(i32) * row_scale,
 //   then * q_scale, each product rounded to nearest; inactive rows score
 //   NEG = -3e38. Order is value descending, then row ascending on ties.
@@ -51,6 +51,15 @@
 //   summing with __dp4a on the CUDA cores (at D = 128 only 8 of 32 lanes
 //   hold a chunk); pass 2, sel::merge_topk: one CTA per query merges its
 //   ntiles*k finalists.
+// "wide", k above K_MAX = 64: "dp4a"'s tiles, each keeping its min(k, 512)
+//   best in order, then ann_topk.cu's "wide" merge (sel::merge_lists).
+// Any D: the host takes the largest query block whose shared memory fits
+// (16 or 8 queries for "tc", 16, 4 or 1 for the others); where none does
+// (D above about 200,000 bytes for "dp4a", 25,000 for "tc"), the smallest
+// block reads its queries in place from device memory (qglobal; the host
+// passes them on a 16-byte boundary; "tc" reads query nq - 1 again for the
+// block's empty columns, whose scores it drops). Integer sums are exact in
+// any order, so the values stay bitwise the same.
 // No design allocates: the caller passes the finalist scratch and the
 // tickets.
 
@@ -71,7 +80,7 @@ constexpr int TILE_N = 512;      // rows per CTA tile ("dp4a"; the most
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int ROWS = 4;          // rows a warp scores at once ("dp4a")
-constexpr int K_MAX = 64;
+constexpr int K_MAX = 64;       // the largest k of "tc" and "dp4a"
 constexpr size_t SMEM_MAX = 232448;  // H100: 227 KB of dynamic shared memory
 
 template <int VEC, int QB>
@@ -79,7 +88,7 @@ __global__ void __launch_bounds__(THREADS)
 annq_tile_topk(const int8_t* __restrict__ emb, const float* __restrict__ scale,
                const uint8_t* __restrict__ active,
                const int8_t* __restrict__ qq, const float* __restrict__ qs,
-               int n, int d, int b, int k, int ntiles, int nqb,
+               int n, int d, int b, int k, int ntiles, int nqb, int qglobal,
                float* __restrict__ fv, int* __restrict__ fr) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* sc = reinterpret_cast<float*>(smem);  // [QB][TILE_N] tile scores
@@ -92,8 +101,12 @@ annq_tile_topk(const int8_t* __restrict__ emb, const float* __restrict__ scale,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
-  for (int i = threadIdx.x; i < nq * d; i += THREADS)
-    sq[i] = qq[static_cast<size_t>(q0) * d + i];
+  if (qglobal) {
+    sq = const_cast<int8_t*>(qq) + static_cast<size_t>(q0) * d;  // read only
+  } else {
+    for (int i = threadIdx.x; i < nq * d; i += THREADS)
+      sq[i] = qq[static_cast<size_t>(q0) * d + i];
+  }
   __syncthreads();
 
   for (int r0 = warp * ROWS; r0 < TILE_N; r0 += WARPS * ROWS) {
@@ -131,8 +144,10 @@ template <int VEC, int QB>
 cudaError_t launch_tiles(const int8_t* emb, const float* scale,
                          const uint8_t* active, const int8_t* qq,
                          const float* qs, int n, int d, int b, int k,
-                         int ntiles, float* fv, int* fr, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(QB) * (TILE_N * sizeof(float) + d);
+                         int ntiles, int qglobal, float* fv, int* fr,
+                         cudaStream_t stream) {
+  const size_t smem =
+      static_cast<size_t>(QB) * (TILE_N * sizeof(float) + (qglobal ? 0 : d));
   if (smem > SMEM_MAX) return cudaErrorInvalidValue;
   auto kern = annq_tile_topk<VEC, QB>;
   if (smem > 48 * 1024) {
@@ -143,31 +158,56 @@ cudaError_t launch_tiles(const int8_t* emb, const float* scale,
   }
   const int nqb = (b + QB - 1) / QB;
   kern<<<ntiles * nqb, THREADS, smem, stream>>>(emb, scale, active, qq, qs, n,
-                                                d, b, k, ntiles, nqb, fv, fr);
+                                                d, b, k, ntiles, nqb, qglobal,
+                                                fv, fr);
   return cudaGetLastError();
 }
 
 template <int VEC>
 cudaError_t launch_qb(int qb, const int8_t* emb, const float* scale,
                       const uint8_t* active, const int8_t* qq, const float* qs,
-                      int n, int d, int b, int k, int ntiles, float* fv,
-                      int* fr, cudaStream_t stream) {
+                      int n, int d, int b, int k, int ntiles, int qglobal,
+                      float* fv, int* fr, cudaStream_t stream) {
   switch (qb) {
     case 1:
-      return launch_tiles<VEC, 1>(emb, scale, active, qq, qs, n, d, b, k, ntiles, fv, fr, stream);
+      return launch_tiles<VEC, 1>(emb, scale, active, qq, qs, n, d, b, k, ntiles, qglobal, fv, fr, stream);
     case 4:
-      return launch_tiles<VEC, 4>(emb, scale, active, qq, qs, n, d, b, k, ntiles, fv, fr, stream);
+      return launch_tiles<VEC, 4>(emb, scale, active, qq, qs, n, d, b, k, ntiles, qglobal, fv, fr, stream);
     case 16:
-      return launch_tiles<VEC, 16>(emb, scale, active, qq, qs, n, d, b, k, ntiles, fv, fr, stream);
+      return launch_tiles<VEC, 16>(emb, scale, active, qq, qs, n, d, b, k, ntiles, qglobal, fv, fr, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+// Pass 1 of "dp4a" and "wide": each tile's k best (k <= TILE_N) into fv/fr
+// ((b, ntiles, k)). Wide loads need rows that start on boundaries of their
+// width (the shared query block's rows start on them whenever d is a
+// multiple, and so do the queries read in place, on a 16-byte boundary).
+cudaError_t tiles_pass(int qb, const void* emb_q, const void* scales,
+                       const void* active, const void* qq,
+                       const void* q_scales, int n, int d, int b, int k,
+                       int ntiles, int qglobal, float* fv, int* fr,
+                       cudaStream_t s) {
+  const auto* e = static_cast<const int8_t*>(emb_q);
+  const auto* sc = static_cast<const float*>(scales);
+  const auto* act = static_cast<const uint8_t*>(active);
+  const auto* q = static_cast<const int8_t*>(qq);
+  const auto* qs = static_cast<const float*>(q_scales);
+  const auto addr = reinterpret_cast<uintptr_t>(emb_q);
+  if (addr % 16 == 0 && d % 16 == 0)
+    return launch_qb<16>(qb, e, sc, act, q, qs, n, d, b, k, ntiles, qglobal, fv, fr, s);
+  if (addr % 4 == 0 && d % 4 == 0)
+    return launch_qb<4>(qb, e, sc, act, q, qs, n, d, b, k, ntiles, qglobal, fv, fr, s);
+  return launch_qb<1>(qb, e, sc, act, q, qs, n, d, b, k, ntiles, qglobal, fv, fr, s);
+}
+
 // "tc": one CTA per (tile of tile_n rows, block of 8 NT queries), the
 // int8 tensor cores, the merge in the last CTA of each query block (see
 // the head of this file). qstride: bytes per query row in shared memory.
-template <int NT>
+// QG: the query block is read in place from device memory; a template
+// argument, so that the shared-memory instance keeps its shared loads.
+template <int NT, bool QG>
 __global__ void __launch_bounds__(THREADS)
 annq_tc(const int8_t* __restrict__ emb, const float* __restrict__ scale,
         const uint8_t* __restrict__ active, const int8_t* __restrict__ qq,
@@ -178,7 +218,8 @@ annq_tc(const int8_t* __restrict__ emb, const float* __restrict__ scale,
   extern __shared__ __align__(16) unsigned char smem[];
   float* sc = reinterpret_cast<float*>(smem);               // [QB][tile_n]
   int8_t* sq = reinterpret_cast<int8_t*>(sc + QB * tile_n);  // [QB][qstride]
-  uint8_t* sa = reinterpret_cast<uint8_t*>(sq + QB * qstride);  // [tile_n]
+  // [tile_n] active bytes, after the query block unless it is read in place
+  uint8_t* sa = reinterpret_cast<uint8_t*>(sq + (QG ? 0 : QB * qstride));
   const int qblk = blockIdx.x % nqb;
   const int tile = blockIdx.x / nqb;
   const int q0 = qblk * QB;
@@ -188,8 +229,11 @@ annq_tc(const int8_t* __restrict__ emb, const float* __restrict__ scale,
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
 
-  // the query block, zero past nq, in 16-byte words
-  const int words = d / 16;
+  // the query block, zero past nq, in 16-byte words; read in place, query
+  // nq - 1 again past nq (those columns' scores are dropped)
+  const int words = QG ? 0 : d / 16;
+  const int8_t* qbase = QG ? qq + static_cast<size_t>(q0) * d : sq;
+  const int qrow = QG ? d : qstride;
   for (int i = threadIdx.x; i < QB * words; i += THREADS) {
     const int j = i / words, c = i % words;
     int4 v = make_int4(0, 0, 0, 0);
@@ -247,7 +291,8 @@ annq_tc(const int8_t* __restrict__ emb, const float* __restrict__ scale,
 #pragma unroll
           for (int nt = 0; nt < NT; ++nt) {
             const int4 w = *reinterpret_cast<const int4*>(
-                sq + (nt * 8 + g) * qstride + 64 * (c0 + u) + 16 * t);
+                qbase + (QG ? min(nt * 8 + g, nq - 1) : nt * 8 + g) * qrow +
+                64 * (c0 + u) + 16 * t);
             dot::mma_s8(acc[nt], a[u].x, a8[u].x, a[u].y, a8[u].y, w.x, w.y);
             dot::mma_s8(acc[nt], a[u].z, a8[u].z, a[u].w, a8[u].w, w.z, w.w);
           }
@@ -260,7 +305,8 @@ annq_tc(const int8_t* __restrict__ emb, const float* __restrict__ scale,
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const int2 u = *reinterpret_cast<const int2*>(
-            sq + (nt * 8 + g) * qstride + 64 * nch + 8 * t);
+            qbase + (QG ? min(nt * 8 + g, nq - 1) : nt * 8 + g) * qrow +
+            64 * nch + 8 * t);
         dot::mma_s8(acc[nt], a.x, a8.x, a.y, a8.y, u.x, u.y);
       }
     }
@@ -292,19 +338,20 @@ template <int NT>
 cudaError_t launch_tc(const int8_t* emb, const float* scale,
                       const uint8_t* active, const int8_t* qq,
                       const float* qs, int n, int d, int b, int k, int tile_n,
-                      int qvec, float* fv, int* fr, int* tickets,
+                      int qvec, int qglobal, float* fv, int* fr, int* tickets,
                       float* vals, int* rows, cudaStream_t stream) {
   constexpr int QB = 8 * NT;
   const int qstride = tc_qstride(d);
-  // the tile's scores, queries and active bytes (the last CTA's merge
-  // reuses them), then the tile's candidates
+  // the tile's scores, queries (unless read in place) and active bytes
+  // (the last CTA's merge reuses them), then the tile's candidates
+  // (kernels/ann_topk_quant.py::tc_smem)
   const size_t tbuf_at = (std::max(
       static_cast<size_t>(QB) * tile_n * sizeof(float) +
-          static_cast<size_t>(QB) * qstride + tile_n,
+          static_cast<size_t>(QB) * (qglobal ? 0 : qstride) + tile_n,
       sel::merge_smem<THREADS>()) + 15) / 16 * 16;
   const size_t smem = tbuf_at + sel::tile_smem<THREADS>();
   if (smem > SMEM_MAX) return cudaErrorInvalidValue;
-  auto kern = annq_tc<NT>;
+  auto kern = qglobal ? annq_tc<NT, true> : annq_tc<NT, false>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -325,18 +372,20 @@ extern "C" {
 
 // Design "tc": emb_q on a 16-byte boundary, d % 32 == 0. tile_n: rows per
 // CTA, a multiple of 16 in [k, 512] (kernels/ann_topk_quant.py's plan).
+// qglobal: read the queries in place (qq on a 16-byte boundary).
 // fv/fr: (b, ceil(n / tile_n), k) fp32/int32 finalist scratch; tickets:
 // ceil(b / qb) int32, all 0, left 0. qb: queries per CTA, 8 or 16. One
 // launch; returns its cudaError_t.
-int ann_topk_quant_tc_launch(int qb, int tile_n, const void* emb_q,
-                             const void* scales, const void* active,
-                             const void* qq, const void* q_scales, int n,
-                             int d, int b, int k, void* fv, void* fr,
-                             void* tickets, void* vals, void* rows,
-                             void* stream) {
+int ann_topk_quant_tc_launch(int qb, int tile_n, int qglobal,
+                             const void* emb_q, const void* scales,
+                             const void* active, const void* qq,
+                             const void* q_scales, int n, int d, int b, int k,
+                             void* fv, void* fr, void* tickets, void* vals,
+                             void* rows, void* stream) {
+  const int qvec = reinterpret_cast<uintptr_t>(qq) % 16 == 0;
   if (n < 1 || d < 1 || b < 1 || k < 1 || k > K_MAX || d % 32 != 0 ||
       reinterpret_cast<uintptr_t>(emb_q) % 16 != 0 || tile_n % 16 != 0 ||
-      tile_n < k || tile_n > TILE_N)
+      tile_n < k || tile_n > TILE_N || (qglobal && !qvec))
     return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* e = static_cast<const int8_t*>(emb_q);
@@ -344,7 +393,6 @@ int ann_topk_quant_tc_launch(int qb, int tile_n, const void* emb_q,
   const auto* act = static_cast<const uint8_t*>(active);
   const auto* q = static_cast<const int8_t*>(qq);
   const auto* qsp = static_cast<const float*>(q_scales);
-  const int qvec = reinterpret_cast<uintptr_t>(qq) % 16 == 0;
   auto* pv = static_cast<float*>(fv);
   auto* pr = static_cast<int*>(fr);
   auto* pt = static_cast<int*>(tickets);
@@ -352,9 +400,9 @@ int ann_topk_quant_tc_launch(int qb, int tile_n, const void* emb_q,
   auto* orow = static_cast<int*>(rows);
   switch (qb) {
     case 8:
-      return launch_tc<1>(e, sc, act, q, qsp, n, d, b, k, tile_n, qvec, pv, pr, pt, ov, orow, s);
+      return launch_tc<1>(e, sc, act, q, qsp, n, d, b, k, tile_n, qvec, qglobal, pv, pr, pt, ov, orow, s);
     case 16:
-      return launch_tc<2>(e, sc, act, q, qsp, n, d, b, k, tile_n, qvec, pv, pr, pt, ov, orow, s);
+      return launch_tc<2>(e, sc, act, q, qsp, n, d, b, k, tile_n, qvec, qglobal, pv, pr, pt, ov, orow, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -363,38 +411,53 @@ int ann_topk_quant_tc_launch(int qb, int tile_n, const void* emb_q,
 // Design "dp4a":
 
 // fv/fr: (b, ceil(n / 512), k) fp32/int32 finalist scratch.
-// qb: queries per CTA, 1, 4 or 16. Returns the cudaError_t of the launches.
-int ann_topk_quant_launch(int qb, const void* emb_q, const void* scales,
-                          const void* active, const void* qq,
-                          const void* q_scales, int n, int d, int b, int k,
-                          void* fv, void* fr, void* vals, void* rows,
-                          void* stream) {
-  if (n < 1 || d < 1 || b < 1 || k < 1 || k > K_MAX)
+// qb: queries per CTA, 1, 4 or 16. qglobal: read the queries in place (qq
+// on a 16-byte boundary). Returns the cudaError_t of the launches.
+int ann_topk_quant_launch(int qb, int qglobal, const void* emb_q,
+                          const void* scales, const void* active,
+                          const void* qq, const void* q_scales, int n, int d,
+                          int b, int k, void* fv, void* fr, void* vals,
+                          void* rows, void* stream) {
+  if (n < 1 || d < 1 || b < 1 || k < 1 || k > K_MAX ||
+      (qglobal && reinterpret_cast<uintptr_t>(qq) % 16 != 0))
     return cudaErrorInvalidValue;
   const int ntiles = (n + TILE_N - 1) / TILE_N;
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto* e = static_cast<const int8_t*>(emb_q);
-  const auto* sc = static_cast<const float*>(scales);
-  const auto* act = static_cast<const uint8_t*>(active);
-  const auto* q = static_cast<const int8_t*>(qq);
-  const auto* qs = static_cast<const float*>(q_scales);
   auto* pv = static_cast<float*>(fv);
   auto* pr = static_cast<int*>(fr);
-  // wide loads need rows that start on boundaries of their width (the
-  // shared query block's rows start on them whenever d is a multiple)
-  const auto addr = reinterpret_cast<uintptr_t>(emb_q);
-  cudaError_t err;
-  if (addr % 16 == 0 && d % 16 == 0)
-    err = launch_qb<16>(qb, e, sc, act, q, qs, n, d, b, k, ntiles, pv, pr, s);
-  else if (addr % 4 == 0 && d % 4 == 0)
-    err = launch_qb<4>(qb, e, sc, act, q, qs, n, d, b, k, ntiles, pv, pr, s);
-  else
-    err = launch_qb<1>(qb, e, sc, act, q, qs, n, d, b, k, ntiles, pv, pr, s);
+  const cudaError_t err = tiles_pass(qb, emb_q, scales, active, qq, q_scales,
+                                     n, d, b, k, ntiles, qglobal, pv, pr, s);
   if (err != cudaSuccess) return err;
   sel::merge_topk<THREADS><<<b, THREADS, 0, s>>>(pv, pr, ntiles * k, k,
                                                  static_cast<float*>(vals),
                                                  static_cast<int*>(rows));
   return cudaGetLastError();
+}
+
+// Design "wide", any k: "dp4a"'s tiles with lists of kt = min(k, 512), then
+// ann_topk.cu's levels (kernels/ann_topk.py::merge_levels) through fv/fr
+// and gv/gr (kernels/ann_topk.py::wide_scratch entries each) into
+// vals/rows. Returns the cudaError_t of the launches.
+int ann_topk_quant_wide_launch(int qb, int qglobal, const void* emb_q,
+                               const void* scales, const void* active,
+                               const void* qq, const void* q_scales, int n,
+                               int d, int b, int k, void* fv, void* fr,
+                               void* gv, void* gr, void* vals, void* rows,
+                               void* stream) {
+  if (n < 1 || d < 1 || b < 1 || k < 1 ||
+      (qglobal && reinterpret_cast<uintptr_t>(qq) % 16 != 0))
+    return cudaErrorInvalidValue;
+  const int ntiles = (n + TILE_N - 1) / TILE_N;
+  const int kt = std::min(k, TILE_N);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = tiles_pass(
+      qb, emb_q, scales, active, qq, q_scales, n, d, b, kt, ntiles, qglobal,
+      static_cast<float*>(fv), static_cast<int*>(fr), s);
+  if (err != cudaSuccess) return err;
+  return sel::merge_lists<THREADS>(
+      ntiles, kt, k, b, static_cast<float*>(fv), static_cast<int*>(fr),
+      static_cast<float*>(gv), static_cast<int*>(gr),
+      static_cast<float*>(vals), static_cast<int*>(rows), s);
 }
 
 const char* ann_topk_quant_error_string(int err) {

@@ -140,6 +140,134 @@ merge_topk(float* fv, const int* fr, int m, int k, float* __restrict__ vals,
   }
 }
 
+// ------------------------------------------------------ any k
+// The "wide" designs of ann_topk.cu and ann_topk_quant.cu, for k above the
+// networks' 64: each tile's list of its kt best in ranks_before order,
+// then levels that merge the lists two by two, each list cut to k, until
+// one is left (kernels/ann_topk.py::merge_levels). Nothing is kept in
+// shared memory, so no k is too large.
+
+// One thread per output entry (query, list o, position p) of a level:
+// entry p of the merge of source lists 2o and 2o + 1 (a last list without
+// a partner merges with nothing), each len long, of cnt lists a query.
+// Merge path: the number i of entries of list a among the first p of the
+// merge is found by binary search (a's entry mid is among them unless b's
+// entry p - mid - 1 ranks before it; a first on equal pairs), and entry p
+// is the one of a[i], b[p - i] that ranks first. Positions past both
+// lists hold the pad (-inf, INT_MAX), which ranks last. On the last level
+// (the result) a pad becomes NEG at row p: it is reached only where no
+// list was ever cut, so the rows before p are every row of the padded
+// tiles, and the stable sort of the NEG-padded scores puts row p there.
+template <int THREADS>
+__global__ void __launch_bounds__(THREADS)
+merge_pairs(const float* __restrict__ sv, const int* __restrict__ sr, int cnt,
+            int len, float* __restrict__ dv, int* __restrict__ dr, int ncnt,
+            int nlen, int b, int last) {
+  const size_t at = static_cast<size_t>(blockIdx.x) * THREADS + threadIdx.x;
+  const size_t per_q = static_cast<size_t>(ncnt) * nlen;
+  if (at >= per_q * b) return;
+  const size_t bq = at / per_q;
+  const int o = static_cast<int>((at % per_q) / nlen);
+  const int p = static_cast<int>(at % nlen);
+  const size_t a0 = (bq * cnt + 2 * static_cast<size_t>(o)) * len;
+  const float* av = sv + a0;
+  const int* ar = sr + a0;
+  const float* bv = av + len;
+  const int* br = ar + len;
+  const int la = len, lb = 2 * o + 1 < cnt ? len : 0;
+  float v = -INFINITY;
+  int r = INT_MAX;
+  if (p < la + lb) {
+    int lo = max(0, p - lb), hi = min(p, la);
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      const int j = p - mid - 1;
+      if (ranks_before(bv[j], br[j], av[mid], ar[mid])) {
+        hi = mid;
+      } else {
+        lo = mid + 1;
+      }
+    }
+    const int j = p - lo;
+    if (lo < la && (j >= lb || !ranks_before(bv[j], br[j], av[lo], ar[lo]))) {
+      v = av[lo];
+      r = ar[lo];
+    } else {
+      v = bv[j];
+      r = br[j];
+    }
+  }
+  if (last && v == -INFINITY) {
+    v = NEG;
+    r = p;
+  }
+  dv[at] = v;
+  dr[at] = r;
+}
+
+// The levels after the tiles' lists (ntiles lists of kt a query in fv/fr):
+// levels 1, 3, ... into gv/gr, 2, 4, ... into fv/fr, the last (one list
+// of k) into vals/rows. Returns the cudaError_t of the launches.
+template <int THREADS>
+cudaError_t merge_lists(int ntiles, int kt, int k, int b, float* fv, int* fr,
+                        float* gv, int* gr, float* vals, int* rows,
+                        cudaStream_t s) {
+  int cnt = ntiles, len = kt;
+  float* src_v = fv;
+  int* src_r = fr;
+  for (int level = 1;; ++level) {
+    const int ncnt = (cnt + 1) / 2;
+    const int last = ncnt == 1;
+    const int nlen = last ? k : (2 * len < k ? 2 * len : k);
+    float* dst_v = last ? vals : (level % 2 ? gv : fv);
+    int* dst_r = last ? rows : (level % 2 ? gr : fr);
+    const size_t n = static_cast<size_t>(b) * ncnt * nlen;
+    merge_pairs<THREADS><<<static_cast<unsigned>((n + THREADS - 1) / THREADS),
+                           THREADS, 0, s>>>(src_v, src_r, cnt, len, dst_v,
+                                            dst_r, ncnt, nlen, b, last);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || last) return err;
+    cnt = ncnt;
+    len = nlen;
+    src_v = dst_v;
+    src_r = dst_r;
+  }
+}
+
+// The whole block: the best (value, index) of s[0..m) by ranks_before
+// order on (value, position), into *out_v, *out_i (shared memory; index
+// INT_MAX where every entry is -inf, i.e. taken). red_v, red_i:
+// WARPS-long shared scratch. Ends with a block barrier.
+template <int THREADS>
+__device__ __forceinline__ void block_argmax(const float* s, int m,
+                                             float* red_v, int* red_i,
+                                             float* out_v, int* out_i) {
+  constexpr int WARPS = THREADS / 32;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float best = -INFINITY;
+  int bi = INT_MAX;
+  for (int i = threadIdx.x; i < m; i += THREADS) {
+    const float v = s[i];
+    if (v > best) { best = v; bi = i; }
+  }
+  int bp = bi;
+  warp_best(best, bi, bp);
+  if (lane == 0) { red_v[warp] = best; red_i[warp] = bi; }
+  __syncthreads();
+  if (warp == 0) {
+    best = lane < WARPS ? red_v[lane] : -INFINITY;
+    bi = lane < WARPS ? red_i[lane] : INT_MAX;
+    bp = bi;
+    warp_best(best, bi, bp);
+    if (lane == 0) {
+      *out_v = best;
+      *out_i = bi;
+    }
+  }
+  __syncthreads();
+}
+
 // ------------------------------------------------- one-launch scans
 // The one-launch designs of ann_topk.cu ("fused") and ann_topk_quant.cu
 // ("tc") end every tile CTA with finish_tile: the tile's finalists go to

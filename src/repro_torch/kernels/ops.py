@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.ann_topk import K_MAX, NEG, ann_topk
+from repro_torch.kernels.ann_topk import NEG, ann_topk
 from repro_torch.kernels.ann_topk_ivf import ann_topk_ivf, ann_topk_ivf_quant
 from repro_torch.kernels.ann_topk_quant import ann_topk_quant
 from repro_torch.kernels.ann_topk_sharded import (
@@ -67,11 +67,9 @@ def _route(centroids: torch.Tensor, live: torch.Tensor, q: torch.Tensor,
     ``repro.kernels.ops._route``: ``where(live, q @ centroids.T, NEG)``,
     then top-nprobe with ties to the lowest cluster id, which is exactly
     ``ann_topk(centroids, live, q, nprobe)``, so routing runs through the
-    port's own kernel (one summation order, the same tie rule). Returns
-    ``(sel, enabled)``, both (B, nprobe) int32."""
-    if nprobe > K_MAX:
-        raise ValueError(f"nprobe={nprobe} exceeds the routing kernel's "
-                         f"k limit K_MAX={K_MAX}")
+    port's own kernel (one summation order, the same tie rule) at any
+    nprobe up to the centroid count (above 64 on its ``"wide"`` design).
+    Returns ``(sel, enabled)``, both (B, nprobe) int32."""
     vals, sel = ann_topk(centroids, live, q, nprobe)
     return sel, (vals > NEG / 2).to(torch.int32)
 

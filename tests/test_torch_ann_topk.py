@@ -156,10 +156,21 @@ def test_cpu_tensors_take_the_plain_version_and_count_it():
 @pytest.mark.parametrize("case", ["dtype", "qdtype", "active", "k0", "k65",
                                   "shape", "qb"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(case):
+    """Bad types, shapes, k 0 and query blocks are refused. k 65 is taken
+    (the "wide" design on the card): over fewer rows than k the result
+    equals the plain version's, NEG-padded, and the reference's."""
     emb = torch.zeros(10, 8)
     act = torch.ones(10, dtype=torch.bool)
     q = torch.zeros(2, 8)
     k = 4
+    if case == "k65":
+        emb, act, q = _data(300, 8, 2, seed=65)
+        got = ann_topk(*(torch.from_numpy(a) for a in (emb, act, q)), 65)
+        want = ann_topk_plain(*(torch.from_numpy(a) for a in (emb, act, q)),
+                              65)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        _assert_agrees(*got, *_reference(emb, act, q, 65))
+        return
     if case == "dtype":
         emb = emb.double()
     elif case == "qdtype":
@@ -168,8 +179,6 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
         act = act.float()
     elif case == "k0":
         k = 0
-    elif case == "k65":
-        k = 65
     elif case == "shape":
         q = torch.zeros(2, 7)
     with pytest.raises((TypeError, ValueError)):

@@ -17,6 +17,7 @@ import torch
 from repro.core.tiers import quantize_rows
 from repro.kernels.ann_topk_ivf import ann_topk_ivf as jax_ivf
 from repro.kernels.ann_topk_ivf import ann_topk_ivf_quant as jax_ivf_quant
+from repro.kernels.ops import _route as ref_route
 from repro.kernels.ops import ann_topk_ivf_jit, ann_topk_ivf_quant_jit
 from repro_torch.kernels.ann_topk import NEG
 from repro_torch.kernels.ann_topk_ivf import (ann_topk_ivf,
@@ -223,14 +224,25 @@ def test_adapters_match_reference_adapters(nprobe):
 
 
 def test_nprobe_above_the_kernel_limit_is_refused():
+    """nprobe 65 routes (through ``ann_topk``'s "wide" design on the
+    card) as the reference's ``_route`` does: clusters and enabled flags
+    equal."""
     cent, live, _, _, _, q = _clustered(80, 8, 16, 2, seed=7)
-    with pytest.raises(ValueError, match="K_MAX=64"):
-        _route(*_t(cent, live.astype(bool), q), 65)
+    sel, en = _route(*_t(cent, live.astype(bool), q), 65)
+    want_sel, want_en = ref_route(cent, live.astype(np.int32), q, 65)
+    assert sel.shape == en.shape == (2, 65)
+    np.testing.assert_array_equal(en.numpy(), np.asarray(want_en))
+    on = np.asarray(want_en) > 0
+    np.testing.assert_array_equal(sel.numpy()[on], np.asarray(want_sel)[on])
 
 
 @pytest.mark.parametrize("bad", ["sel_dtype", "shape", "k"])
 def test_wrappers_refuse_bad_inputs(bad):
-    sel, en, q, buckets, valid = _t(*_inputs(4, 8, 16, 2, 2, seed=8))
+    """Bad types and shapes are refused. k 65 is taken (the "block"
+    design on the card): the finalists equal the plain version's and the
+    reference's (values within ATOL, slots scoring the same)."""
+    arrays = _inputs(4, 8, 16, 2, 2, seed=8)
+    sel, en, q, buckets, valid = _t(*arrays)
     if bad == "sel_dtype":
         with pytest.raises(TypeError):
             ann_topk_ivf(sel.long(), en, q, buckets, valid)
@@ -238,5 +250,17 @@ def test_wrappers_refuse_bad_inputs(bad):
         with pytest.raises(ValueError):
             ann_topk_ivf(sel, en, q[:, :8], buckets, valid)
     else:
-        with pytest.raises(ValueError):
-            ann_topk_ivf(sel, en, q, buckets, valid, k=65)
+        v, s = ann_topk_ivf(sel, en, q, buckets, valid, k=65)
+        pv, ps = ann_topk_ivf_plain(sel, en, q, buckets, valid, 65)
+        assert torch.equal(v, pv) and torch.equal(s, ps)
+        wv, ws = jax_ivf(*(jnp.asarray(a) for a in arrays[:4]),
+                         jnp.asarray(arrays[4], np.int32), 65)
+        wv, ws = np.asarray(wv), np.asarray(ws)
+        v, s = v.numpy(), s.numpy()
+        assert v.shape == wv.shape == (2, 2, 65)
+        live = wv > NEG / 2
+        np.testing.assert_array_equal(v > NEG / 2, live)
+        np.testing.assert_allclose(v[live], wv[live], atol=ATOL)
+        for bi in range(2):
+            scores = arrays[3][arrays[0][bi]] @ arrays[2][bi]
+            _live_slots_score_the_same(scores, s[bi], ws[bi], live[bi])

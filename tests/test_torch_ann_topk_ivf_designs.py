@@ -70,7 +70,7 @@ def test_designs_are_named_by_the_counts():
     """Each design has its count on both wrappers, starting at 0 in a fresh
     process and never touched by the CPU path; ``_launch`` refuses a
     design it does not know before it touches the card."""
-    assert sh.DESIGNS == ("warp", "block")
+    assert sh.DESIGNS == ("warp", "block", "chunked")
     for w in (sh.ann_topk_ivf_sharded, sh.ann_topk_ivf_quant_sharded):
         for d in sh.DESIGNS:
             assert isinstance(getattr(w, f"launches_{d}"), int)
@@ -115,7 +115,8 @@ def test_kernel_5_resolves_the_same_dispatch():
     for name in ("pick_design", "warp_smem", "_launch", "DESIGNS",
                  "WARP_CAP", "WARP_PROBES", "SMEM_MAX"):
         assert getattr(sh, name) is getattr(ivf, name)
-    assert ivf.DESIGNS == ("warp", "block") and ivf.WARP_CAP == 64
+    assert ivf.DESIGNS == ("warp", "block", "chunked") \
+        and ivf.WARP_CAP == 64
 
 
 @pytest.mark.parametrize("quant", [False, True])
@@ -165,7 +166,7 @@ def test_cpu_calls_of_the_unsharded_scans_leave_the_launch_counts_at_0():
 ENTRY_POINTS = ("ann_topk_ivf_launch", "ann_topk_ivf_quant_launch",
                 "ann_topk_ivf_sharded_launch",
                 "ann_topk_ivf_quant_sharded_launch",
-                "ann_topk_ivf_error_string")
+                "ann_topk_ivf_chunked_launch", "ann_topk_ivf_error_string")
 
 
 def _c_signatures() -> dict:

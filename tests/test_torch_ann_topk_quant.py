@@ -137,8 +137,11 @@ def test_adapter_matches_reference_adapter():
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "k"])
 def test_wrapper_refuses_bad_inputs(bad):
-    eq, es, act, qq, qs = (torch.from_numpy(a) for a in
-                           _quantized(*_data(64, 32, 2, seed=8)))
+    """Bad types and shapes are refused. k 65 is taken (the "wide" design
+    on the card): the result equals the plain version's and the
+    reference's bitwise."""
+    arrays = _quantized(*_data(64, 32, 2, seed=8))
+    eq, es, act, qq, qs = (torch.from_numpy(a) for a in arrays)
     if bad == "dtype":
         with pytest.raises(TypeError):
             ann_topk_quant(eq.float(), es, act, qq, qs)
@@ -146,5 +149,6 @@ def test_wrapper_refuses_bad_inputs(bad):
         with pytest.raises(ValueError):
             ann_topk_quant(eq, es[:10], act, qq, qs)
     else:
-        with pytest.raises(ValueError):
-            ann_topk_quant(eq, es, act, qq, qs, k=65)
+        got = _port(ann_topk_quant, *arrays, 65)
+        _assert_exact(got, _port(ann_topk_quant_plain, *arrays, 65))
+        _assert_exact(got, _reference(*arrays, 65))

@@ -250,7 +250,11 @@ def test_wrappers_count_plain_calls_on_the_cpu():
 @pytest.mark.parametrize("bad", ["bounds_dtype", "bounds_short", "rows_shape",
                                  "k"])
 def test_wrappers_refuse_bad_inputs(bad):
-    sel, en, q, buckets, valid, rows = _t(*_inputs(4, 8, 16, 2, 2, seed=8))
+    """Malformed cut points and rows are refused. k 65, above the "warp"
+    design's 64, is taken (the "block" design on the card): the stacks
+    equal the plain version's and the reference's."""
+    arrays = _inputs(4, 8, 16, 2, 2, seed=8)
+    sel, en, q, buckets, valid, rows = _t(*arrays)
     bounds = torch.tensor([0, 2, 4], dtype=torch.int32)
     k = 4
     if bad == "bounds_dtype":
@@ -261,5 +265,17 @@ def test_wrappers_refuse_bad_inputs(bad):
         rows = rows[:, :4]
     else:
         k = 65
+        got = ann_topk_ivf_sharded(sel, en, q, buckets, valid, rows, bounds,
+                                   k)
+        plain = ann_topk_ivf_sharded_plain(sel, en, q, buckets, valid, rows,
+                                           bounds, k)
+        assert all(torch.equal(a, b) for a, b in zip(got, plain))
+        sb, sv, sr = _stacks([0, 2, 4], arrays[3],
+                             arrays[4].astype(np.int32), arrays[5])
+        want = ref_sharded.ann_topk_ivf_sharded(
+            jnp.asarray(arrays[0]), jnp.asarray(arrays[1]),
+            jnp.asarray(arrays[2]), sb, sv, sr, np.array([0, 2, 4]), k)
+        _check_stacks(got, want, exact=False)
+        return
     with pytest.raises(ValueError):
         ann_topk_ivf_sharded(sel, en, q, buckets, valid, rows, bounds, k)
