@@ -86,6 +86,26 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            the capture's; timed at pos S - 1 (and pos 8191 at B 4) beside
            the host-int launch, the bound and scaled_dot_product_attention
            over rows 0..pos.
+   attn_shapes  kernels 6 and 7 at the shapes the reference's attention
+           takes beyond the models' widths (its kernels take any Dh and
+           G): every Dh of SHAPE_DH (1 to 1024) in fp32 and bf16, rows on
+           and off 16-byte boundaries, kernel 6 at kernel_attn-like edges
+           and kernel 7 at G 7 and 24, pos 0/65/chunk/S-1; kernel 7 at G
+           17-128 (G-tiles of 16) on both designs at Dh 64 and 96 and the
+           pos edges of kernel_attn; each call on the design pick_design
+           gives ("tc" at the padded width tc_width, "simt", or
+           "simt_any" with Dh at run time), the tensor-core calls held on
+           the CUDA-core design too, every one by attn_err against the
+           plain version.
+           Then, timed beside their bound and scaled_dot_product_attention,
+           published shapes: Phi-3-mini's prefill (4096, KV 32, Dh 96) and
+           decode (B 4, S 4096), phi-2's (Dh 80; 2048), StarCoder's MQA
+           (KV 1, G 48, Dh 128; 8192), Falcon-7B's decode (G 71, Dh 64) and
+           Falcon-180B's (KV 8, G 29), MiniCPM3's MLA prefill (40 heads,
+           folded 96); and decode after prefill within 5% on 2-layer LMs
+           at Phi-3-mini's and StarCoder's widths, every launch on the
+           tensor cores, the counts exact. ``python3 chip_smoke.py
+           attn_shapes`` runs this phase alone after the build.
 4. stage1  a 2**20-entry ``CortexCache`` at D=768 on the kernel backend
            against the numpy backend on the same contents: candidate
            se_ids identical and in the same order, except that entries
@@ -284,7 +304,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    it and on every serve run, serve_fresh's too (a serve run; the
    colocated run for kernels 6 and 7, with their
    launches by design in colocated, lm, (g), lm_assigned and
-   serve_assigned, their wide-head sizes and the hybrid and
+   serve_assigned, their wide-head sizes, attn_shapes' launches by
+   design and full-width sizes, and the hybrid and
    encoder-decoder sizes, and kernel 6's at the training shape with its
    lse and the attention backward's times, kernel 7's with pos in device
    memory and its replays; kernels 1 and 2 with
@@ -2824,9 +2845,23 @@ def misaligned(x: torch.Tensor) -> torch.Tensor:
 
 
 def expect_design(q, aligned: bool = True) -> str:
-    """The design a CUDA call on ``q``'s dtype must take: the tensor-core
-    kernels for bf16 rows on 16-byte boundaries, else the CUDA-core ones."""
-    return "tc" if q.dtype == torch.bfloat16 and aligned else "simt"
+    """The design a CUDA call on ``q`` (kernel 6's 5-d q or kernel 7's 4-d
+    one) must take: the tensor-core kernels for bf16 rows on 16-byte
+    boundaries (Dh a multiple of 8 up to 256), else the CUDA-core ones
+    (cuda_core)."""
+    dh = q.shape[-1]
+    if q.dtype == torch.bfloat16 and aligned and dh % 8 == 0 and dh <= 256:
+        return "tc"
+    return cuda_core(q)
+
+
+def cuda_core(q) -> str:
+    """The CUDA-core design of kernel 6 (5-d q) or 7 at q's head dim: the
+    instances of the models' widths ("simt"), else Dh at run time
+    ("simt_any")."""
+    dims = (16, 32, 64, 128, 192, 256) if q.ndim == 5 else \
+        (16, 32, 64, 128, 256)
+    return "simt" if q.shape[-1] in dims else "simt_any"
 
 
 def check_design(w, before: dict, want: str, what: str) -> None:
@@ -2947,8 +2982,8 @@ def bound_decode(q, kc, pos: int) -> tuple[float, str]:
 
 def simt_timings(kernel) -> dict:
     """The CUDA-core design's times on the same inputs (the kernel fp32 and
-    misaligned rows take), beside the tensor-core design's in the same
-    call."""
+    misaligned rows take: "simt", or "simt_any" at a width it has no
+    instance for), beside the tensor-core design's in the same call."""
     return {"simt_ms": timed_ms(kernel), "simt_device_ms": device_ms(kernel)}
 
 
@@ -2982,7 +3017,7 @@ def measure_flash(q, k, v, window=None, causal=True) -> dict:
             scale=scale, enable_gqa=True),
         plain_repeats=5 if sq > 1024 else REPEATS))
     out.update(simt_timings(
-        lambda: fa._launch("simt", q, k, v, scale, causal, window)))
+        lambda: fa._launch(cuda_core(q), q, k, v, scale, causal, window)))
     out.update(bound_ms=bound_ms, bound_by=bound_by)
     return out
 
@@ -3005,7 +3040,7 @@ def measure_decode(q, kc, vc, pos: int) -> dict:
         lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale,
                                                enable_gqa=True)))
     out.update(simt_timings(
-        lambda: da._launch("simt", q, kc, vc, pos, scale)))
+        lambda: da._launch(cuda_core(q), q, kc, vc, pos, scale)))
     out.update(bound_ms=bound_ms, bound_by=bound_by)
     return out
 
@@ -3282,6 +3317,201 @@ def phase_kernel_attn(dev):
                          "planted_faults": faults,
                          "device_pos_replays": replays}, \
         flash_sizes, decode_sizes, wide
+
+
+# Phase attn_shapes: kernels 6 and 7 at the shapes the reference's attention
+# takes beyond the models of the repo (its kernels take any Dh and G). The
+# sweep: head dims off every instance (1, 3 and 12 off 16-byte rows; 24 the
+# shrunk DeepSeek configs' folded q/k; 80, 96 phi-2's and Phi-3-mini's;
+# 1024 the widest), and kernel 7's G past one 16-row G-tile (17, 29: a
+# ragged second tile; 48, 71: StarCoder's and Falcon-7B's MQA; 128: eight
+# tiles)
+SHAPE_DH = (1, 3, 8, 12, 24, 40, 48, 72, 80, 96, 100, 112, 160, 200, 224,
+            320, 512, 1024)
+SHAPE_G = (17, 24, 29, 32, 48, 64, 71, 128)
+SHAPE_G_DH = (64, 96)          # an instance's width, and a padded one
+SHAPE_DH_G = (7, 24)           # kernel 7's G in the Dh sweep
+SHAPE_FLASH_EDGES = [(65, 65, True, None), (200, 65, True, None),
+                     (63, 200, False, None), (200, 200, True, 70)]
+# timed, bf16: (model, B, Sq, KV, G, Dh) prefill; (model, B, KV, G, Dh, S)
+# decode at pos S - 1; published models at full width, and the shrunk
+# deepseek-v2's folded 24 at train (f)'s microbatch. MiniCPM3's MLA
+# prefill folds q/k to nope 64 + rope 32 = 96 over its 40 heads, as
+# nn/attention.mla_prefill_qkv does
+SHAPE_FLASH_FULL = [("phi-3-mini", 1, 4096, 32, 1, 96),
+                    ("phi-2", 1, 2048, 32, 1, 80),
+                    ("starcoder", 1, 8192, 1, 48, 128),
+                    ("minicpm3-mla", 1, 4096, 40, 1, 96),
+                    ("deepseek-v2-shrunk", 2, 32, 4, 1, 24)]
+SHAPE_DECODE_FULL = [("phi-3-mini", 4, 32, 1, 96, 4096),
+                     ("phi-2", 4, 32, 1, 80, 2048),
+                     ("starcoder", 4, 1, 48, 128, 8192),
+                     ("falcon-7b", 4, 1, 71, 64, 2048),
+                     ("falcon-180b", 4, 8, 29, 64, 2048)]
+# decode after prefill at published widths, 2 layers: granite-3-8b's
+# layer with the model's widths (Phi-3-mini: 32 heads of 96 over 32 KV
+# heads; StarCoderBase-15B: 48 heads of 128 over one KV head)
+SHAPE_LMS = {"phi-3-mini": dict(d_model=3072, n_heads=32, n_kv_heads=32,
+                                head_dim=96, d_ff=8192, vocab=32064),
+             "starcoder": dict(d_model=6144, n_heads=48, n_kv_heads=1,
+                               head_dim=128, d_ff=24576, vocab=49152)}
+SHAPE_LM_LAYERS = 2
+
+
+def shape_lm_config(name: str):
+    """granite-3-8b's config with ``name``'s published widths
+    (SHAPE_LMS) at SHAPE_LM_LAYERS layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    w = SHAPE_LMS[name]
+    base = get_config("granite-3-8b")
+    spec = base.blocks[0]
+    attn = dataclasses.replace(spec.attn, n_heads=w["n_heads"],
+                               n_kv_heads=w["n_kv_heads"],
+                               head_dim=w["head_dim"])
+    return dataclasses.replace(
+        base, name=f"{name} widths", d_model=w["d_model"],
+        vocab_size=w["vocab"], n_repeat=SHAPE_LM_LAYERS,
+        blocks=(dataclasses.replace(spec, attn=attn, d_ff=w["d_ff"]),))
+
+
+def shape_lm(name: str, dev, g) -> dict:
+    """Decode after prefill (kernels 6 and 7 on the tensor cores, at the
+    padded width 96 or at G 48) within LM_REL_TOL, every launch counted:
+    kernel 6 once a layer in the full forward and in the prefill, kernel
+    7 once a layer in the decode step."""
+    from repro_torch.models.lm import LM
+    from repro_torch.nn.param import init_params
+
+    cfg = shape_lm_config(name)
+    lm = LM(cfg)
+    params = init_params(lm.param_specs(),
+                         torch.Generator(device=dev).manual_seed(23), dev)
+    wrappers = attn_wrappers()
+    reset_counts(wrappers)
+    out = decode_after_prefill(lm, params, g, dev)
+    counts = check_all_tc(wrappers, f"attn_shapes {name}")
+    prefill, decode = attn_mixers(lm)
+    want = {"flash_attention_fwd": 2 * prefill, "decode_attention": decode}
+    for w, n in want.items():
+        check(wrappers[w].launches == n,
+              f"attn_shapes {name}: {w} launched {wrappers[w].launches} "
+              f"times, want {n}")
+    del params
+    release(dev)
+    return {**out, "d_model": cfg.d_model, "layers": cfg.n_layers,
+            "heads": cfg.blocks[0].attn.n_heads,
+            "kv_heads": cfg.blocks[0].attn.n_kv_heads,
+            "head_dim": cfg.blocks[0].attn.head_dim,
+            "launches_by_design": counts}
+
+
+def phase_attn_shapes(dev) -> dict:
+    """Kernels 6 and 7 at every head dim of SHAPE_DH (fp32 and bf16, rows
+    on and off 16-byte boundaries) and kernel 7 at every G of SHAPE_G,
+    each call on the design pick_design gives and against its plain
+    version (attn_err), the tensor-core calls held on the CUDA-core
+    design too; the full-width shapes of published models, timed; two
+    LMs at published widths, decode after prefill."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    wrappers = attn_wrappers()
+    reset_counts(wrappers)
+    errs = {"flash_attention_fwd": 0.0, "decode_attention": 0.0}
+    cases = {"flash_dh": 0, "decode_dh": 0, "decode_g": 0, "full_width": 0}
+
+    def flash(*args, **kw):
+        errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"],
+                                          hold_flash(*args, **kw))
+
+    def decode(*args, **kw):
+        errs["decode_attention"] = max(errs["decode_attention"],
+                                       hold_decode(*args, **kw))
+
+    bf = torch.bfloat16
+    for dh in SHAPE_DH:
+        for dt in (torch.float32, bf):
+            for sq, sk, causal, win in SHAPE_FLASH_EDGES:
+                q = randn(g, (2, sq, 2, 2, dh), dt, dev)
+                k, v = (randn(g, (2, sk, 2, dh), dt, dev) for _ in range(2))
+                flash(q, k, v, causal=causal, window=win)
+                flash(*map(misaligned, (q, k, v)), causal=causal, window=win,
+                      aligned=False)
+                cases["flash_dh"] += 2
+                if expect_design(q) == "tc":
+                    flash(q, k, v, causal=causal, window=win,
+                          design=cuda_core(q))
+                    cases["flash_dh"] += 1
+    s = DECODE_EDGE_S
+    nsplits = set()
+    for dh in SHAPE_DH:
+        for dt in (torch.float32, bf):
+            for gq in SHAPE_DH_G:
+                q = randn(g, (2, 2, gq, dh), dt, dev)
+                kc, vc = (randn(g, (2, s, 2, dh), dt, dev) for _ in range(2))
+                chunk = da.split_rows(s, 4 * da.g_tiles(gq), sms,
+                                      da.ctas_per_sm(dh))
+                for pos in (0, 65, chunk, s - 1):
+                    decode(q, kc, vc, pos)
+                    decode(q, misaligned(kc), misaligned(vc), pos,
+                           aligned=False)
+                    cases["decode_dh"] += 2
+                    if expect_design(q) == "tc":
+                        decode(q, kc, vc, pos, design=cuda_core(q))
+                        cases["decode_dh"] += 1
+    for gq in SHAPE_G:
+        for dh in SHAPE_G_DH:
+            q = randn(g, (2, 2, gq, dh), bf, dev)
+            kc, vc = (randn(g, (2, s, 2, dh), bf, dev) for _ in range(2))
+            chunk = da.split_rows(s, 4 * da.g_tiles(gq), sms,
+                                  da.ctas_per_sm(dh))
+            for pos in (0, 63, 64, 65, chunk - 1, chunk, s - 1):
+                decode(q, kc, vc, pos)
+                decode(q, kc, vc, pos, design=cuda_core(q))
+                nsplits.add(-(-(pos + 1) // da.split_rows(
+                    pos + 1, 4 * da.g_tiles(gq), sms, da.ctas_per_sm(dh))))
+                cases["decode_g"] += 2
+            decode(q, misaligned(kc), misaligned(vc), s - 1, aligned=False)
+            q, kc, vc = (x.float() for x in (q, kc, vc))
+            for pos in (0, chunk, s - 1):
+                decode(q, kc, vc, pos)
+            cases["decode_g"] += 4
+    check(1 in nsplits and max(nsplits) > 1,
+          f"attn_shapes: chunk counts {sorted(nsplits)}, want 1 and more")
+    full = {"flash": [], "decode": []}
+    for model, b, sq, kvh, gq, dh in SHAPE_FLASH_FULL:
+        q = randn(g, (b, sq, kvh, gq, dh), bf, dev)
+        k, v = (randn(g, (b, sq, kvh, dh), bf, dev) for _ in range(2))
+        flash(q, k, v)
+        flash(q, k, v, design=cuda_core(q))
+        cases["full_width"] += 2
+        full["flash"].append({"model": model, **measure_flash(q, k, v)})
+        del q, k, v
+    for model, b, kvh, gq, dh, s in SHAPE_DECODE_FULL:
+        q = randn(g, (b, kvh, gq, dh), bf, dev)
+        kc, vc = (randn(g, (b, s, kvh, dh), bf, dev) for _ in range(2))
+        decode(q, kc, vc, s - 1)
+        decode(q, kc, vc, s - 1, design=cuda_core(q))
+        cases["full_width"] += 2
+        full["decode"].append({"model": model, **measure_decode(q, kc, vc,
+                                                                s - 1)})
+        del q, kc, vc
+    launches = {n: design_counts(w) for n, w in wrappers.items()}
+    check(all(c[d] > 0 for c in launches.values()
+              for d in ("tc", "simt", "simt_any")),
+          f"attn_shapes: a design never launched: {launches}")
+    torch.cuda.empty_cache()
+    lms = {name: shape_lm(name, dev, g) for name in SHAPE_LMS}
+    return {"cases": cases, "max_abs_err": errs,
+            "tol_share": dict(TOL_SHARE),
+            "tc_widths": {dh: fa.tc_width(dh) for dh in SHAPE_DH},
+            "decode_chunk_counts": sorted(nsplits),
+            "launches_by_design": launches, "full_width": full, "lms": lms}
 
 
 def build_lm(role: str, dev, seed: int):
@@ -4101,7 +4331,8 @@ def phase_lm_assigned(dev):
     errs = {"flash_attention_fwd": 0.0, "decode_attention": 0.0}
     wrappers = attn_wrappers()
     totals = {n: 0 for n in wrappers}
-    by_design = {n: {"tc": 0, "simt": 0} for n in wrappers}
+    by_design = {n: dict.fromkeys(design_counts(w), 0)
+                 for n, w in wrappers.items()}
 
     def path_run(run: str, want: dict) -> dict:
         """The kernels' launches since the counts were set to 0, all on the
@@ -4879,29 +5110,14 @@ def shrunk_batch(cfg, seed: int) -> dict:
     return out
 
 
-def card_dims(cfg):
-    """``cfg`` with each MLA layer's q/k width (nope + rope) at 32, a head
-    dim kernel 6 takes: ``shrink``'s 16 + 8 = 24 runs only in its plain
-    version."""
-    import dataclasses
-
-    def fix(sp):
-        if sp.attn is None or sp.attn.kind != "mla":
-            return sp
-        return dataclasses.replace(sp, attn=dataclasses.replace(
-            sp.attn, qk_nope_dim=32 - sp.attn.qk_rope_dim))
-
-    return dataclasses.replace(cfg, blocks=tuple(map(fix, cfg.blocks)),
-                               prefix=tuple(map(fix, cfg.prefix)))
-
-
 def shrunk_graph_vs_eager(name: str, dev) -> dict:
-    """Assigned config ``name`` shrunk to 2 repeats (``card_dims``):
-    SHRUNK_TRAIN["steps"] steps of the donated step eager, then the same
-    steps through a TrainStepGraph from the same parameters (a capture,
-    then replays): losses within GRAPH_LOSS_REL, kernel 6 once per
-    attention mixer and microbatch a pass (eager, warm-up, replay), all
-    tensor-core."""
+    """Assigned config ``name`` shrunk to 2 repeats, at ``shrink``'s
+    widths (deepseek's MLA q/k at 16 + 8 = 24, on kernel 6's tensor-core
+    instance of width 32): SHRUNK_TRAIN["steps"] steps of the donated
+    step eager, then the same steps through a TrainStepGraph from the
+    same parameters (a capture, then replays): losses within
+    GRAPH_LOSS_REL, kernel 6 once per attention mixer and microbatch a
+    pass (eager, warm-up, replay), all tensor-core."""
     from repro_torch.configs import get_config, shrink
     from repro_torch.kernels import graphs
     from repro_torch.launch.steps import TrainStepGraph, make_train_step
@@ -4911,8 +5127,8 @@ def shrunk_graph_vs_eager(name: str, dev) -> dict:
     from repro_torch.train.optim import AdamWConfig, init_state
 
     st = SHRUNK_TRAIN
-    cfg = card_dims(shrink(get_config(name), d_model=st["d_model"],
-                           vocab=st["vocab"], n_repeat=2))
+    cfg = shrink(get_config(name), d_model=st["d_model"], vocab=st["vocab"],
+                 n_repeat=2)
     lm = LM(cfg)
     before = graphs.counts()
     opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
@@ -5107,7 +5323,7 @@ def phase_train(dev):
     loss_f, grads_f = value_and_grad(lm2, params_f, mb)
     torch.cuda.synchronize()
     fp32_designs = {d: n - before[d] for d, n in design_counts(w).items()}
-    check(fp32_designs == {"tc": 0, "simt": 2},
+    check(fp32_designs == {"tc": 0, "simt": 2, "simt_any": 0},
           f"fp32 step: kernel 6 launches by design {fp32_designs}, want "
           f"2 on the CUDA-core design")
     rel = abs(float(loss_b) - float(loss_f)) / abs(float(loss_f))
@@ -5155,7 +5371,7 @@ def phase_train(dev):
     by_design = design_counts(wrappers["flash_attention_fwd"])
     want = (TRAIN_STEPS + 1) * per_step
     check(launches == {"flash_attention_fwd": want, "decode_attention": 0}
-          and by_design == {"tc": want, "simt": 0},
+          and by_design == {"tc": want, "simt": 0, "simt_any": 0},
           f"train: kernel launches {launches} by design {by_design}, want "
           f"{want} ((steps + the warm-up) x layers x microbatches) on the "
           f"tensor cores")
@@ -6203,7 +6419,8 @@ def phase_mesh(cfgs: dict) -> dict:
                                ("decode", (0, k7 * MESH_DECODE))):
                 got = r[f"{what}_launches"]
                 for (kname, c), n in zip(got.items(), want):
-                    check(c == {"tc": n, "simt": 0, "plain": 0},
+                    check(c == {"tc": n, "simt": 0, "simt_any": 0,
+                                "plain": 0},
                           f"mesh {name} rank {i} {what}: {kname} {c}, want "
                           f"{n} on tc")
                 passes = 1 if what == "prefill" else MESH_DECODE
@@ -7061,8 +7278,8 @@ def main_mesh() -> int:
 
 
 def main(only: str | None = None) -> int:
-    """The whole script, or with ``only = "stage1_shapes"`` the card, the
-    build and that phase alone."""
+    """The whole script, or with ``only = "stage1_shapes"`` or
+    ``"attn_shapes"`` the card, the build and that phase alone."""
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: no port sources under {SRC}", file=sys.stderr)
         return 2
@@ -7089,12 +7306,23 @@ def main(only: str | None = None) -> int:
               file=sys.stderr)
     emit(phase="build", seconds=time.perf_counter() - t,
          built=sorted(n for n, b in built.items() if b.log is not None),
-         sources=list(build.SOURCES))
+         sources=list(build.SOURCES),
+         nvcc_seconds={n: b.seconds for n, b in built.items()})
 
     if only == "stage1_shapes":
         t = time.perf_counter()
         shapes = phase_stage1_shapes(dev)
         emit(phase="stage1_shapes", **shapes, seconds=time.perf_counter() - t)
+        print(card, flush=True)
+        emit(ok=True, device={"platform": "gpu",
+                              "kind": torch.cuda.get_device_name(0),
+                              "count": torch.cuda.device_count()})
+        return 0
+    if only == "attn_shapes":
+        t = time.perf_counter()
+        attn_shapes = phase_attn_shapes(dev)
+        emit(phase="attn_shapes", **attn_shapes,
+             seconds=time.perf_counter() - t)
         print(card, flush=True)
         emit(ok=True, device={"platform": "gpu",
                               "kind": torch.cuda.get_device_name(0),
@@ -7144,6 +7372,12 @@ def main(only: str | None = None) -> int:
          decode_wide_heads=wide["decode"], flash_11a=wide["flash_11a"],
          decode_11a=wide["decode_11a"], decode_device_pos=wide["decode_at"],
          seconds=time.perf_counter() - t)
+
+    t = time.perf_counter()
+    attn_shapes = phase_attn_shapes(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    emit(phase="attn_shapes", **attn_shapes, seconds=time.perf_counter() - t)
 
     t = time.perf_counter()
     world, caches, stage1 = phase_stage1(dev)
@@ -7381,6 +7615,7 @@ def main(only: str | None = None) -> int:
                    for n in ("colocated_serving", "train_lm")}},
             "max_abs_err": max(attn_errs[name], lm_errs[name],
                                assigned_errs[name],
+                               attn_shapes["max_abs_err"][name],
                                trained["max_abs_err"]["out"]
                                if name == "flash_attention_fwd" else
                                sharded["decode_lse"]["max_abs_err"]["out"]),
@@ -7393,6 +7628,13 @@ def main(only: str | None = None) -> int:
             "sizes": sizes_of,
             "wide_head_sizes": wide_sizes,
             "hybrid_encdec_sizes": sizes_11a,
+            "attn_shapes": {
+                "launches_by_design": attn_shapes["launches_by_design"][name],
+                "lm_launches_by_design": {
+                    m: e["launches_by_design"][name]
+                    for m, e in attn_shapes["lms"].items()},
+                "sizes": attn_shapes["full_width"][
+                    "flash" if name == "flash_attention_fwd" else "decode"]},
             **({} if name == "flash_attention_fwd" else {
                 "device_pos_sizes": wide["decode_at"],
                 "device_pos_replays": attn_edges["device_pos_replays"]}),
@@ -7418,5 +7660,7 @@ def main(only: str | None = None) -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--mesh"]:
         sys.exit(main_mesh())
-    sys.exit(main(*sys.argv[1:2]) if sys.argv[1:] in ([], ["stage1_shapes"])
-             else f"usage: {sys.argv[0]} [--mesh | stage1_shapes]")
+    sys.exit(main(*sys.argv[1:2])
+             if sys.argv[1:] in ([], ["stage1_shapes"], ["attn_shapes"])
+             else f"usage: {sys.argv[0]} [--mesh | stage1_shapes | "
+                  f"attn_shapes]")

@@ -1,11 +1,18 @@
 // attention.cuh — what the attention kernels (flash_attention.cu,
-// decode_attention.cu) share. Two designs each:
-//   * CUDA-core (fp32 and rows off a 16-byte boundary): fp32 conversion of
-//     the input types and the staging of a block of rows (queries, keys,
-//     values) in shared memory as fp32;
-//   * tensor-core (bf16 rows on 16-byte boundaries): rows copied to shared
-//     memory in bf16 with cp.async, read into mma fragments with ldmatrix,
-//     products with mma.sync m16n8k16 (bf16 in, fp32 accumulate).
+// decode_attention.cu) share. Three designs each:
+//   * CUDA-core (fp32 and rows off a 16-byte boundary) at the head widths
+//     of the models (Dh a template argument): fp32 conversion of the input
+//     types and the staging of a block of rows (queries, keys, values) in
+//     shared memory as fp32;
+//   * CUDA-core at any width (Dh a runtime argument, 1..DH_MAX; tile_any):
+//     the same staging, tiles sized at launch to fit shared memory, and the
+//     accumulator in shared memory instead of registers;
+//   * tensor-core (bf16 rows on 16-byte boundaries, Dh a multiple of 8 up
+//     to 256): rows copied to shared memory in bf16 with cp.async, read into
+//     mma fragments with ldmatrix, products with mma.sync m16n8k16 (bf16 in,
+//     fp32 accumulate); a width without an instance runs on the next one
+//     (the wrapper's flash_attention.tc_width picks it), its rows
+//     zero-padded in shared memory.
 
 #pragma once
 
@@ -19,6 +26,10 @@ namespace attn {
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float NEG = -1.0e30f;   // the reference's masked score
 constexpr size_t SMEM_MAX = 232448;  // H100: 227 KB of dynamic shared memory
+// The widest head either kernel takes: the any-width design's smallest
+// tiles (16 query rows and their fp32 accumulator, 8 keys and 8 values)
+// hold 4 x (2 x 16 + 2 x 8) x Dh bytes, 196,608 at Dh 1024, of SMEM_MAX.
+constexpr int DH_MAX = 1024;
 
 // -inf: the score of a tile slot that is not a key at all (p = 0)
 __device__ __forceinline__ float neg_inf() { return -__int_as_float(0x7f800000); }
@@ -93,6 +104,32 @@ __device__ __forceinline__ void stage_batch(const T* __restrict__ base,
   }
 }
 
+// stage_rows at a runtime width: `rows` rows of `dh` elements (dh % VEC ==
+// 0) into dst with row stride ld, zeros at or past `jend`; chunk c of the
+// block to thread c % THREADS.
+template <typename T, int VEC, int THREADS>
+__device__ __forceinline__ void stage_rows_any(const T* __restrict__ base,
+                                               long long stride, int j0,
+                                               int jend, int rows, int dh,
+                                               float* dst, int ld) {
+  const int cpr = dh / VEC;
+  const int chunks = rows * cpr;
+#pragma unroll 4
+  for (int c = threadIdx.x; c < chunks; c += THREADS) {
+    const int r = c / cpr, x = c - r * cpr;
+    float v[VEC];
+    if (j0 + r < jend) {
+      load_vec<T, VEC>(base + (j0 + r) * stride + x * VEC, v);
+    } else {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) v[i] = 0.f;
+    }
+    float* o = dst + r * ld + x * VEC;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) o[i] = v[i];
+  }
+}
+
 // Rows [j0, j0 + ROWS) of one head (row j at base + j * stride, DH
 // contiguous elements) into shared memory as fp32, row r at dst + r *
 // DST_STRIDE. Rows at or past `jend` are zero, so a p of 0 times them stays
@@ -125,6 +162,77 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ base,
   }
 }
 
+// ------------------------------------------- the any-width CUDA-core design
+
+// Shared-memory row stride of an fp32 key tile at width dh: odd, so that the
+// 32 keys a warp scores at once sit in 32 distinct banks.
+__host__ __device__ constexpr int ld_any(int dh) { return dh | 1; }
+
+// One key tile of the any-width design for `nr` query rows: qs (row stride
+// dh) against `bk` keys (ks, row stride ld_any(dh)) and values (vs, row
+// stride dh). Every (row, key) score goes through score(r, j, s) (scale and
+// mask; -inf for a slot that is no key) into ps (row stride bk + 1); then
+// each row's online softmax, one warp a row (running max ms, denominator
+// ls, this tile's rescale as); then acc = acc * alpha + P V with acc in
+// shared memory (row stride dh). Threads take consecutive keys, then
+// consecutive columns. The caller syncs before (the tile is staged) and
+// after (before it stages the next one).
+template <int THREADS, typename Score>
+__device__ __forceinline__ void tile_any(const float* qs, const float* ks,
+                                         const float* vs, float* ps,
+                                         float* acc, float* ms, float* ls,
+                                         float* as, int nr, int bk, int dh,
+                                         Score score) {
+  const int tid = threadIdx.x;
+  const int ldk = ld_any(dh), ldp = bk + 1;
+  for (int e = tid; e < nr * bk; e += THREADS) {
+    const int r = e / bk, j = e - r * bk;
+    const float* qr = qs + r * dh;
+    const float* kr = ks + j * ldk;
+    float s = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < dh; ++d) s = fmaf(qr[d], kr[d], s);
+    ps[r * ldp + j] = score(r, j, s);
+  }
+  __syncthreads();
+  const int warp = tid / 32, lane = tid % 32;
+  for (int r = warp; r < nr; r += THREADS / 32) {
+    float* pr = ps + r * ldp;
+    float mx = neg_inf();
+    for (int j = lane; j < bk; j += 32) mx = fmaxf(mx, pr[j]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+    const float m_old = ms[r];
+    const float m_new = fmaxf(m_old, mx);
+    float sum = 0.f;
+    for (int j = lane; j < bk; j += 32) {
+      const float p = expf(pr[j] - m_new);
+      pr[j] = p;
+      sum += p;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(FULL, sum, off);
+    __syncwarp();
+    if (lane == 0) {
+      const float alpha = expf(m_old - m_new);
+      ls[r] = ls[r] * alpha + sum;
+      ms[r] = m_new;
+      as[r] = alpha;
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < nr * dh; e += THREADS) {
+    const int r = e / dh, d = e - r * dh;
+    const float* pr = ps + r * ldp;
+    float a = acc[e] * as[r];
+#pragma unroll 4
+    for (int j = 0; j < bk; ++j) a = fmaf(pr[j], vs[j * dh + d], a);
+    acc[e] = a;
+  }
+}
+
 // ------------------------------------------------ the tensor-core design
 
 using bf16 = __nv_bfloat16;
@@ -138,16 +246,21 @@ constexpr float LN2 = 0.6931471805599453f;
 template <int DH>
 __host__ __device__ constexpr int ld_bf16() { return DH + 8; }
 
-// Wide heads (Dh 192 and 256: MLA's folded q/k and gemma3): the fp32
-// accumulator alone takes Dh / 2 registers a thread, so the tensor-core
-// kernels read Q's fragments from shared memory at each k-step instead of
-// keeping Dh / 4 more registers of them (qk_tile_smem), and their tiles
-// fit one CTA per SM, not two.
+// Wide heads (above Dh 128: MLA's folded q/k at 192 and gemma3's 256): the
+// fp32 accumulator alone takes Dh / 2 registers a thread, so the
+// tensor-core kernels read Q's fragments from shared memory at each k-step
+// instead of keeping Dh / 4 more registers of them (qk_tile_smem), and
+// their tiles fit one CTA per SM, not two. The any-width design sizes its
+// tiles for the same count (ctas_per_sm_at; the wrapper's
+// decode_attention.ctas_per_sm, whose wave split_rows fills, says the same).
+__host__ __device__ constexpr int ctas_per_sm_at(int dh) {
+  return dh > 128 ? 1 : 2;
+}
 template <int DH>
 __host__ __device__ constexpr bool wide_head() { return DH > 128; }
 template <int DH>
 __host__ __device__ constexpr int ctas_per_sm() {
-  return wide_head<DH>() ? 1 : 2;
+  return ctas_per_sm_at(DH);
 }
 
 // 16 bytes global -> shared without going through registers (cp.async.cg,
@@ -169,22 +282,24 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Rows [r0, r0 + ROWS) of one head (row j at base + j * stride, DH
-// contiguous bf16) into dst (row r at dst + r * ld_bf16<DH>()), by NT
-// threads of which this is thread `t`; rows at or past `rend` are zero
-// (their products are 0, never NaN). The caller commits the group.
+// Rows [r0, r0 + ROWS) of one head (row j at base + j * stride, cpr
+// 16-byte chunks of contiguous bf16) into dst (row r at dst + r *
+// ld_bf16<DH>(), DH / 8 chunks), by NT threads of which this is thread `t`;
+// rows at or past `rend`, and the chunks of a row past its cpr (a head
+// narrower than its instance), are zero: their products are 0, never NaN.
+// The caller commits the group.
 template <int DH, int ROWS, int NT>
 __device__ __forceinline__ void cp_rows(bf16* dst, const bf16* base,
                                         long long stride, int r0, int rend,
-                                        int t) {
-  constexpr int CPR = DH / 8;  // 16-byte chunks per row
+                                        int t, int cpr) {
+  constexpr int CPR = DH / 8;  // 16-byte chunks per shared-memory row
   constexpr int CHUNKS = ROWS * CPR;
 #pragma unroll
   for (int i = 0; i < (CHUNKS + NT - 1) / NT; ++i) {
     const int c = i * NT + t;
     if (CHUNKS % NT == 0 || c < CHUNKS) {
       const int r = c / CPR, x = c % CPR;
-      const bool ok = r0 + r < rend;
+      const bool ok = r0 + r < rend && x < cpr;
       const bf16* src = ok ? base + (r0 + r) * stride + x * 8 : base;
       cp_async16(dst + r * ld_bf16<DH>() + x * 8, src, ok ? 16 : 0);
     }

@@ -3,9 +3,9 @@
 //
 // Replaces repro/kernels/decode_attention.py::_decode_kernel (the Pallas
 // TPU kernel) with its contract:
-//   q (B, KV, G, Dh), caches (B, S, KV, Dh) contiguous, fp32 or bf16, Dh in
-//   {16, 32, 64, 128, 256}, G <= 16, a position pos -> o (B, KV, G, Dh) in
-//   q's type. pos is a host int, or an int32 in device memory (the TPU
+//   q (B, KV, G, Dh), caches (B, S, KV, Dh) contiguous, fp32 or bf16, any
+//   Dh from 1 to 1024 (attn::DH_MAX), any G, a position pos -> o (B, KV, G,
+//   Dh) in q's type. pos is a host int, or an int32 in device memory (the TPU
 //   kernel's pos_ref), read by every CTA, so that a captured CUDA graph
 //   follows a pos that changes between replays. The G query rows of one
 //   KV head attend over cache rows 0..pos
@@ -35,12 +35,21 @@
 // = -1e30, l = 0), which decode_combine skips. With a host pos (a null
 // pointer) the plan covers rows 0..pos alone, as before.
 //
-// Two designs; the wrapper (kernels/decode_attention.py::pick_design)
+// The G query rows of a KV head go in G-tiles of up to 16 (G_TILE): a CTA
+// per (b, kv, chunk, G-tile), the G-tile the fastest grid axis, so that
+// the ceil(G / 16) CTAs of one chunk run side by side and all but the first
+// read its K/V rows from L2 (a multi-query model's G 48 or 71 is 3 or 5
+// G-tiles over one cache). At G <= 16 there is one G-tile and the grid is
+// the (b, kv, chunk) grid it always was.
+//
+// Three designs; the wrapper (kernels/decode_attention.py::pick_design)
 // chooses, and each has its own entry point:
 //
 // decode_tc — bf16 caches on 16-byte boundaries (every decode step of the
-//   LM path). One CTA of 4 warps per (b, kv, chunk). The G <= 16 query rows
-//   of the KV head are the M side of mma.sync m16n8k16 (bf16 in, fp32
+//   LM path), Dh a multiple of 8 up to 256: one instance a width of the
+//   wrapper's 12 (flash_attention.tc_width, passed in as w), a head without
+//   its own on the next, zero-padded in shared memory (as flash_fwd_tc). One CTA of 4 warps per (b, kv, chunk,
+//   G-tile). The G-tile's query rows are the M side of mma.sync m16n8k16 (bf16 in, fp32
 //   accumulate), padded to 16 with zero rows; cache rows are N of S = Q K^T
 //   and K of acc += P V. (Cache rows on M and G on N = 8 would waste less of
 //   each product at G <= 8, but then S's accumulator is not P's A fragment,
@@ -72,7 +81,14 @@
 //   per query row to an fp32 scratch the caller owns, and decode_combine,
 //   one CTA per (b, kv, query row), rescales the chunks' partials to their
 //   common max and divides (a single chunk passes through with weight
-//   exp(0) = 1).
+//   exp(0) = 1). One instance a width of {16, 32, 64, 128, 256}.
+//
+// decode_partial_any — the same for every other width (fp32, caches off a
+//   16-byte boundary, bf16 with Dh % 8 != 0, and above 256), Dh a runtime
+//   argument: the G-tile's rows, a K and a V tile, P and the fp32
+//   accumulator in shared memory (attn::tile_any), the tile of BK rows the
+//   largest of 64 down to 8 that fits ctas_per_sm_at(Dh) CTAs an SM (8 at
+//   Dh 1024: 197 KB); then decode_combine, as every design.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,7 +103,18 @@ namespace {
 constexpr int BK = 64;        // cache rows per tile
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
-constexpr int G_MAX = 16;     // query rows per KV head
+constexpr int G_TILE = 16;    // query rows of a KV head per CTA
+
+// (b * kvh + kv, chunk, G-tile) of this CTA, the G-tile varying fastest
+struct Cta {
+  int bh, split, g0, gq;  // g0: the tile's first query row; gq: its rows
+};
+__device__ __forceinline__ Cta cta_of(int nsplit, int g) {
+  const int ngt = (g + G_TILE - 1) / G_TILE;
+  const int rest = static_cast<int>(blockIdx.x) / ngt;
+  const int g0 = (static_cast<int>(blockIdx.x) % ngt) * G_TILE;
+  return {rest / nsplit, rest % nsplit, g0, min(G_TILE, g - g0)};
+}
 
 // The rows a CTA reads: min(pos, S - 1) + 1 from device memory where pos
 // lives there (a negative pos reads as 0), else the host's count.
@@ -99,7 +126,7 @@ __device__ __forceinline__ int rows_read(const int* pos, int rows,
 template <int DH>
 constexpr size_t smem_bytes() {
   return sizeof(float) *
-         (G_MAX * DH + BK * (DH + 1) + BK * DH + G_MAX * BK + 3 * G_MAX);
+         (G_TILE * DH + BK * (DH + 1) + BK * DH + G_TILE * BK + 3 * G_TILE);
 }
 
 template <typename T, int DH, int VEC>
@@ -109,23 +136,25 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ kc,
                const int* __restrict__ pos, int s_cache, int kvh, int g,
                int rows, int chunk, int nsplit, float scale) {
   extern __shared__ float smem[];
-  float* qs = smem;                     // [G_MAX][DH] query rows
-  float* ks = qs + G_MAX * DH;          // [BK][DH + 1] key tile
+  float* qs = smem;                     // [G_TILE][DH] query rows
+  float* ks = qs + G_TILE * DH;         // [BK][DH + 1] key tile
   float* vs = ks + BK * (DH + 1);       // [BK][DH] value tile
-  float* ss = vs + BK * DH;             // [G_MAX][BK] scores, then p
-  float* ms = ss + G_MAX * BK;          // [G_MAX] running max
-  float* ls = ms + G_MAX;               // [G_MAX] running denominator
-  float* as = ls + G_MAX;               // [G_MAX] this tile's rescale
+  float* ss = vs + BK * DH;             // [G_TILE][BK] scores, then p
+  float* ms = ss + G_TILE * BK;         // [G_TILE] running max
+  float* ls = ms + G_TILE;              // [G_TILE] running denominator
+  float* as = ls + G_TILE;              // [G_TILE] this tile's rescale
   // P.V: thread (column d, query rows g0 + TPD r) holds Dh columns d + DW c;
-  // up to Dh 128 one column and G_MAX / (THREADS / Dh) rows a thread, at
+  // up to Dh 128 one column and G_TILE / (THREADS / Dh) rows a thread, at
   // Dh 256 two columns and every row
   constexpr int CPT = DH > THREADS ? DH / THREADS : 1;  // columns a thread
   constexpr int DW = DH / CPT;          // threads across a row's columns
   constexpr int TPD = THREADS / DW;     // threads per Dh column
-  constexpr int GR = G_MAX / TPD;       // query rows per thread in P.V
+  constexpr int GR = G_TILE / TPD;      // query rows per thread in P.V
 
-  const int split = blockIdx.x % nsplit;
-  const int bh = blockIdx.x / nsplit;   // b * kvh + kv
+  const Cta at = cta_of(nsplit, g);
+  const int split = at.split;
+  const int bh = at.bh;                 // b * kvh + kv
+  const int gq = at.gq;                 // this G-tile's query rows
   const int b = bh / kvh;
   const int kv = bh % kvh;
   const int j0 = split * chunk;
@@ -137,10 +166,10 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ kc,
       static_cast<long long>(kv) * DH;
   const T* kbase = kc + head0;
   const T* vbase = vc + head0;
-  const T* qbase = q + static_cast<long long>(bh) * g * DH;
+  const T* qbase = q + (static_cast<long long>(bh) * g + at.g0) * DH;
 
-  for (int i = tid; i < g * DH; i += THREADS) qs[i] = attn::to_f32(qbase[i]);
-  if (tid < g) {
+  for (int i = tid; i < gq * DH; i += THREADS) qs[i] = attn::to_f32(qbase[i]);
+  if (tid < gq) {
     ms[tid] = attn::NEG;
     ls[tid] = 0.f;
   }
@@ -163,7 +192,7 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ kc,
     // scores: thread (row j, query rows g0', g0' + 2, ...)
     {
       const int j = tid % BK;
-      for (int gi = tid / BK; gi < g; gi += THREADS / BK) {
+      for (int gi = tid / BK; gi < gq; gi += THREADS / BK) {
         float s = 0.f;
 #pragma unroll 8
         for (int e = 0; e < DH; ++e)
@@ -177,7 +206,7 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ kc,
     {
       const int warp = tid / 32;
       const int lane = tid % 32;
-      for (int gi = warp; gi < g; gi += WARPS) {
+      for (int gi = warp; gi < gq; gi += WARPS) {
         const float x0 = ss[gi * BK + lane];
         const float x1 = ss[gi * BK + lane + 32];
         float mx = fmaxf(x0, x1);
@@ -208,7 +237,7 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ kc,
     // acc += P . V: thread (Dh columns d + DW c, query rows g0 + TPD r)
 #pragma unroll
     for (int r = 0; r < GR; ++r)
-      if (g0 + TPD * r < g)
+      if (g0 + TPD * r < gq)
 #pragma unroll
         for (int c = 0; c < CPT; ++c) acc[r][c] *= as[g0 + TPD * r];
 #pragma unroll 4
@@ -219,7 +248,7 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
       for (int r = 0; r < GR; ++r) {
         const int gi = g0 + TPD * r;
-        if (gi < g)
+        if (gi < gq)
 #pragma unroll
           for (int c = 0; c < CPT; ++c)
             acc[r][c] = fmaf(ss[gi * BK + j], vx[c], acc[r][c]);
@@ -228,17 +257,17 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ kc,
   }
 
   // partial of this chunk, per query row: [m, l, acc[DH]]
-  float* out = part + (static_cast<long long>(bh) * nsplit + split) * g *
-                          (DH + 2);
+  float* out = part + ((static_cast<long long>(bh) * nsplit + split) * g +
+                       at.g0) * (DH + 2);
 #pragma unroll
   for (int r = 0; r < GR; ++r) {
     const int gi = g0 + TPD * r;
-    if (gi < g)
+    if (gi < gq)
 #pragma unroll
       for (int c = 0; c < CPT; ++c)
         out[gi * (DH + 2) + 2 + d + DW * c] = acc[r][c];
   }
-  if (tid < g) {
+  if (tid < gq) {
     out[tid * (DH + 2)] = ms[tid];
     out[tid * (DH + 2) + 1] = ls[tid];
   }
@@ -268,26 +297,28 @@ __device__ __forceinline__ float cta_reduce(float x, float* red) {
 // partials to their common max and divides (a single chunk passes through
 // with weight exp(0) = 1). Chunks that start past a device pos hold empty
 // partials and are skipped. The chunks are spread over the CTA's threads:
-// the max and the weights over all of them, then each Dh column over
-// CTHREADS / DH groups of chunks, so that a long cache (64 chunks per head
-// at 32k rows) costs a few loads per thread, not one CTA per (b, kv)
-// walking every chunk.
-template <typename T, int DH>
+// the max and the weights over all of them, then, up to CTHREADS columns,
+// each Dh column over CTHREADS / Dh groups of chunks, so that a long cache
+// (64 chunks per head at 32k rows) costs a few loads per thread, not one
+// CTA per (b, kv) walking every chunk; above CTHREADS columns a thread a
+// column (and the columns CTHREADS on) over every chunk. Dh is a runtime
+// argument: every design's partials (at the head's own width, a padded
+// tensor-core instance's too) merge here.
+template <typename T>
 __global__ void __launch_bounds__(CTHREADS)
 decode_combine(const float* __restrict__ part, T* __restrict__ o,
                float* __restrict__ lse, const int* __restrict__ pos,
-               int s_cache, int g, int rows, int chunk, int nsplit_plan) {
+               int s_cache, int g, int dh, int rows, int chunk,
+               int nsplit_plan) {
   extern __shared__ float csm[];
-  float* wt = csm;               // [nsplit] each chunk's weight
+  float* wt = csm;                // [nsplit] each chunk's weight
   float* red = wt + nsplit_plan;  // [CTHREADS] reduction scratch
-  constexpr int GROUPS = CTHREADS / DH;
-  const int row = blockIdx.x;    // (b * kvh + kv) * g + gi
-  const long long sstride = static_cast<long long>(g) * (DH + 2);
+  const int row = blockIdx.x;     // (b * kvh + kv) * g + gi
+  const long long sstride = static_cast<long long>(g) * (dh + 2);
   const float* p = part +
                    static_cast<long long>(row / g) * nsplit_plan * sstride +
-                   (row % g) * (DH + 2);
+                   static_cast<long long>(row % g) * (dh + 2);
   const int tid = threadIdx.x;
-  // the chunks that hold rows: all of the plan's for a host pos
   const int nsplit =
       min(nsplit_plan, (rows_read(pos, rows, s_cache) + chunk - 1) / chunk);
   float mx = attn::NEG;
@@ -300,34 +331,153 @@ decode_combine(const float* __restrict__ part, T* __restrict__ o,
     l = fmaf(p[s * sstride + 1], w, l);
   }
   l = cta_reduce<false>(l, red);  // its barrier also publishes wt
-  const int d = tid % DH, grp = tid / DH;
-  float a = 0.f;
-#pragma unroll 8
-  for (int s = grp; s < nsplit; s += GROUPS)
-    a = fmaf(p[s * sstride + 2 + d], wt[s], a);
-  red[tid] = a;
-  __syncthreads();
-  if (grp == 0) {
-#pragma unroll
-    for (int j = 1; j < GROUPS; ++j) a += red[j * DH + d];
-    o[static_cast<long long>(row) * DH + d] =
-        attn::from_f32<T>(a / fmaxf(l, 1e-30f));
-    if (lse != nullptr && d == 0) lse[row] = mx + logf(fmaxf(l, 1e-30f));
+  const float den = fmaxf(l, 1e-30f);
+  if (lse != nullptr && tid == 0) lse[row] = mx + logf(den);
+  T* orow = o + static_cast<long long>(row) * dh;
+  if (dh <= CTHREADS) {
+    const int groups = CTHREADS / dh;
+    const int d = tid % dh, grp = tid / dh;
+    float a = 0.f;
+    if (grp < groups)
+      for (int s = grp; s < nsplit; s += groups)
+        a = fmaf(p[s * sstride + 2 + d], wt[s], a);
+    red[tid] = a;
+    __syncthreads();
+    if (grp == 0) {
+      for (int j = 1; j < groups; ++j) a += red[j * dh + d];
+      orow[d] = attn::from_f32<T>(a / den);
+    }
+  } else {
+    for (int d = tid; d < dh; d += CTHREADS) {
+      float a = 0.f;
+      for (int s = 0; s < nsplit; ++s)
+        a = fmaf(p[s * sstride + 2 + d], wt[s], a);
+      orow[d] = attn::from_f32<T>(a / den);
+    }
   }
 }
 
 // decode_combine over b * kvh * g query rows; its shared memory holds one
 // weight per chunk.
-template <typename T, int DH>
+template <typename T>
 cudaError_t launch_combine(const float* part, T* o, float* lse,
                            const int* pos, int b, int s_cache, int kvh, int g,
-                           int rows, int chunk, int nsplit,
+                           int dh, int rows, int chunk, int nsplit,
                            cudaStream_t stream) {
   const size_t smem = sizeof(float) * (nsplit + CTHREADS);
   if (smem > 48 * 1024) return cudaErrorInvalidValue;
-  decode_combine<T, DH><<<b * kvh * g, CTHREADS, smem, stream>>>(
-      part, o, lse, pos, s_cache, g, rows, chunk, nsplit);
+  decode_combine<T><<<b * kvh * g, CTHREADS, smem, stream>>>(
+      part, o, lse, pos, s_cache, g, dh, rows, chunk, nsplit);
   return cudaGetLastError();
+}
+
+// the any-width partial pass's tiles of cache rows, largest first: the
+// first whose shared memory fits ctas_per_sm_at(dh) CTAs an SM
+constexpr int ANY_BK[] = {64, 32, 16, 8};
+
+size_t any_smem_bytes(int bk, int dh) {
+  const size_t k = bk, d = dh;
+  return sizeof(float) * (G_TILE * d + k * attn::ld_any(dh) + k * d +
+                          G_TILE * (k + 1) + G_TILE * d + 3 * G_TILE);
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(THREADS)
+decode_partial_any(const T* __restrict__ q, const T* __restrict__ kc,
+                   const T* __restrict__ vc, float* __restrict__ part,
+                   const int* __restrict__ pos, int s_cache, int kvh, int g,
+                   int dh, int bk, int rows, int chunk, int nsplit,
+                   float scale) {
+  extern __shared__ float smem[];
+  float* qs = smem;                        // [G_TILE][dh] query rows
+  float* ks = qs + G_TILE * dh;            // [bk][ld_any] key tile
+  float* vs = ks + bk * attn::ld_any(dh);  // [bk][dh] value tile
+  float* ps = vs + bk * dh;                // [G_TILE][bk + 1] scores, then p
+  float* acc = ps + G_TILE * (bk + 1);     // [G_TILE][dh] accumulator
+  float* ms = acc + G_TILE * dh;           // [G_TILE] running max
+  float* ls = ms + G_TILE;                 // [G_TILE] running denominator
+  float* as = ls + G_TILE;                 // [G_TILE] this tile's rescale
+
+  const Cta at = cta_of(nsplit, g);
+  const int b = at.bh / kvh;
+  const int kv = at.bh % kvh;
+  const int j0 = at.split * chunk;
+  const int j1 = min(rows_read(pos, rows, s_cache), j0 + chunk);
+  const int tid = threadIdx.x;
+  const long long row_stride = static_cast<long long>(kvh) * dh;
+  const long long head0 =
+      static_cast<long long>(b) * s_cache * row_stride +
+      static_cast<long long>(kv) * dh;
+  const T* qbase = q + (static_cast<long long>(at.bh) * g + at.g0) * dh;
+
+  attn::stage_rows_any<T, VEC, THREADS>(qbase, dh, 0, at.gq, at.gq, dh, qs,
+                                        dh);
+  for (int e = tid; e < at.gq * dh; e += THREADS) acc[e] = 0.f;
+  for (int r = tid; r < at.gq; r += THREADS) {
+    ms[r] = attn::NEG;
+    ls[r] = 0.f;
+  }
+  for (int t0 = j0; t0 < j1; t0 += bk) {
+    __syncthreads();  // the last tile's readers are done (and q is staged)
+    attn::stage_rows_any<T, VEC, THREADS>(kc + head0, row_stride, t0, j1, bk,
+                                          dh, ks, attn::ld_any(dh));
+    attn::stage_rows_any<T, VEC, THREADS>(vc + head0, row_stride, t0, j1, bk,
+                                          dh, vs, dh);
+    __syncthreads();
+    attn::tile_any<THREADS>(qs, ks, vs, ps, acc, ms, ls, as, at.gq, bk, dh,
+                            [&](int, int j, float x) {
+                              // rows past the chunk: not keys, p = 0
+                              return t0 + j < j1 ? x * scale
+                                                 : attn::neg_inf();
+                            });
+  }
+  __syncthreads();
+  // partial of this chunk, per query row: [m, l, acc[dh]]
+  float* out = part + ((static_cast<long long>(at.bh) * nsplit + at.split) *
+                           g + at.g0) * (dh + 2);
+  for (int e = tid; e < at.gq * dh; e += THREADS) {
+    const int r = e / dh, d = e - r * dh;
+    out[r * (dh + 2) + 2 + d] = acc[e];
+  }
+  for (int r = tid; r < at.gq; r += THREADS) {
+    out[r * (dh + 2)] = ms[r];
+    out[r * (dh + 2) + 1] = ls[r];
+  }
+}
+
+template <typename T, int VEC>
+cudaError_t launch_any(int dh, const void* q, const void* k, const void* v,
+                       void* o, float* lse, void* part, const int* pos, int b,
+                       int s_cache, int kvh, int g, int rows, int chunk,
+                       float scale, cudaStream_t stream) {
+  int bk = 0;
+  for (const int t : ANY_BK)
+    if (any_smem_bytes(t, dh) * attn::ctas_per_sm_at(dh) <= attn::SMEM_MAX) {
+      bk = t;
+      break;
+    }
+  if (bk == 0 || part == nullptr) return cudaErrorInvalidValue;
+  const size_t smem = any_smem_bytes(bk, dh);
+  auto kern = decode_partial_any<T, VEC>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const int nsplit = (rows + chunk - 1) / chunk;
+  const long long blocks = static_cast<long long>(b) * kvh * nsplit *
+                           ((g + G_TILE - 1) / G_TILE);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  auto* pp = static_cast<float*>(part);
+  kern<<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), pp, pos, s_cache, kvh, g, dh, bk, rows, chunk,
+      nsplit, scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_combine<T>(pp, static_cast<T*>(o), lse, pos, b, s_cache, kvh,
+                           g, dh, rows, chunk, nsplit, stream);
 }
 
 template <typename T, int DH>
@@ -337,9 +487,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
   static_assert(attn::ctas_per_sm<DH>() * smem <= attn::SMEM_MAX,
-                "CTAs per SM (decode_attention_ctas_per_sm)");
+                "CTAs per SM (decode_attention.ctas_per_sm)");
   // contiguous caches: every row starts on a 16-byte boundary when the
-  // base pointers do (DH * sizeof(T) is a multiple of 16)
+  // base pointers do (DH * sizeof(T) is a multiple of 16 at every DH here)
   const bool aligned = reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(v) % 16 == 0;
   constexpr int VEC = static_cast<int>(16 / sizeof(T));
@@ -352,7 +502,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     if (err != cudaSuccess) return err;
   }
   const int nsplit = (rows + chunk - 1) / chunk;
-  const long long blocks = static_cast<long long>(b) * kvh * nsplit;
+  const long long blocks = static_cast<long long>(b) * kvh * nsplit *
+                           ((g + G_TILE - 1) / G_TILE);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   auto* pp = static_cast<float*>(part);
   kern<<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
@@ -361,8 +512,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       nsplit, scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_combine<T, DH>(pp, static_cast<T*>(o), lse, pos, b, s_cache,
-                               kvh, g, rows, chunk, nsplit, stream);
+  return launch_combine<T>(pp, static_cast<T*>(o), lse, pos, b, s_cache, kvh,
+                           g, DH, rows, chunk, nsplit, stream);
+}
+
+// Contiguous q and caches: every row of every head starts on a 16-byte
+// boundary when the base pointers do and dh elements make whole 16-byte
+// chunks (a head starts dh elements after the last; Dh 12 in bf16 or 3 in
+// fp32 puts the second head off the boundary).
+bool rows_aligned(size_t elt, int dh, const void* q, const void* k,
+                  const void* v) {
+  if ((static_cast<size_t>(dh) * elt) % 16 != 0) return false;
+  for (const void* p : {q, k, v})
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  return true;
 }
 
 // ------------------------------------------------ tensor-core design
@@ -371,7 +534,7 @@ namespace tc {
 
 constexpr int TR = 16;       // cache rows per warp tile
 constexpr int STAGES = 3;    // each warp's ring depth
-constexpr int QROWS = 16;    // the G query rows, padded to one m16 tile
+constexpr int QROWS = G_TILE;  // a G-tile's query rows, padded to one m16 tile
 
 template <int DH>
 __host__ __device__ constexpr int acc_ld() { return DH + 8; }  // fp32 merge rows
@@ -385,12 +548,13 @@ constexpr size_t smem_bytes() {
   return ring > merge ? ring : merge;
 }
 
-template <int DH>
+// PAD as in flash_fwd_tc: dh_in read at run time; without it dh = DH
+template <int DH, bool PAD>
 __global__ void __launch_bounds__(THREADS, 2)
 decode_tc(const attn::bf16* __restrict__ q, const attn::bf16* __restrict__ kc,
           const attn::bf16* __restrict__ vc, attn::bf16* __restrict__ o,
           float* __restrict__ lse, float* __restrict__ part,
-          const int* __restrict__ pos, int s_cache, int kvh, int g,
+          const int* __restrict__ pos, int s_cache, int kvh, int g, int dh_in,
           int rows, int chunk, int nsplit, float scale_log2) {
   using attn::bf16;
   constexpr int LD = attn::ld_bf16<DH>();
@@ -398,8 +562,10 @@ decode_tc(const attn::bf16* __restrict__ q, const attn::bf16* __restrict__ kc,
   constexpr int SLOT = 2 * TR * LD;   // one stage: K rows, then V rows
   extern __shared__ uint4 smem_tc[];
   bf16* qs = reinterpret_cast<bf16*>(smem_tc);  // [QROWS][LD]
-  const int split = blockIdx.x % nsplit;
-  const int bh = blockIdx.x / nsplit;           // b * kvh + kv
+  const Cta at = cta_of(nsplit, g);
+  const int split = at.split;
+  const int bh = at.bh;                         // b * kvh + kv
+  const int gq = at.gq;                         // this G-tile's query rows
   const int b = bh / kvh;
   const int kv = bh % kvh;
   const int j0 = split * chunk;
@@ -407,10 +573,12 @@ decode_tc(const attn::bf16* __restrict__ q, const attn::bf16* __restrict__ kc,
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int col = 2 * (lane % 4);
-  const long long row_stride = static_cast<long long>(kvh) * DH;
+  const int dh = PAD ? dh_in : DH;
+  const int cpr = dh / 8;  // the head's 16-byte chunks (DH / 8 padded)
+  const long long row_stride = static_cast<long long>(kvh) * dh;
   const long long head0 =
       static_cast<long long>(b) * s_cache * row_stride +
-      static_cast<long long>(kv) * DH;
+      static_cast<long long>(kv) * dh;
   const bf16* kbase = kc + head0;
   const bf16* vbase = vc + head0;
   bf16* ring = qs + QROWS * LD + warp * STAGES * SLOT;  // this warp's ring
@@ -422,11 +590,13 @@ decode_tc(const attn::bf16* __restrict__ q, const attn::bf16* __restrict__ kc,
   auto load_tile = [&](int i) {  // this warp's i-th tile: tile warp + 4 i
     bf16* kd = ring + (i % STAGES) * SLOT;
     const int r0 = j0 + (warp + i * WARPS) * TR;
-    attn::cp_rows<DH, TR, 32>(kd, kbase, row_stride, r0, j1, lane);
-    attn::cp_rows<DH, TR, 32>(kd + TR * LD, vbase, row_stride, r0, j1, lane);
+    attn::cp_rows<DH, TR, 32>(kd, kbase, row_stride, r0, j1, lane, cpr);
+    attn::cp_rows<DH, TR, 32>(kd + TR * LD, vbase, row_stride, r0, j1, lane,
+                              cpr);
   };
   attn::cp_rows<DH, QROWS, THREADS>(
-      qs, q + static_cast<long long>(bh) * g * DH, DH, 0, g, tid);
+      qs, q + (static_cast<long long>(bh) * g + at.g0) * dh, dh, 0, gq, tid,
+      cpr);
   attn::cp_async_commit();
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i) {
@@ -497,8 +667,8 @@ decode_tc(const attn::bf16* __restrict__ q, const attn::bf16* __restrict__ kc,
         make_float2(acc[n][2], acc[n][3]);
   }
   __syncthreads();
-  for (int i = tid; i < g * DH; i += THREADS) {
-    const int gi = i / DH, d = i % DH;
+  for (int i = tid; i < gq * dh; i += THREADS) {
+    const int gi = i / dh, d = i % dh;
     float mx = attn::NEG;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, ms[w * QROWS + gi]);
@@ -509,15 +679,14 @@ decode_tc(const attn::bf16* __restrict__ q, const attn::bf16* __restrict__ kc,
       den = fmaf(ls[w * QROWS + gi], wt, den);
       a = fmaf(as[(w * QROWS + gi) * acc_ld<DH>() + d], wt, a);
     }
+    const long long row = static_cast<long long>(bh) * g + at.g0 + gi;
     if (nsplit == 1) {
-      o[static_cast<long long>(bh) * g * DH + i] =
-          __float2bfloat16(a / fmaxf(den, 1e-30f));
+      o[row * dh + d] = __float2bfloat16(a / fmaxf(den, 1e-30f));
       if (lse != nullptr && d == 0)  // mx is in the log2 domain
-        lse[static_cast<long long>(bh) * g + gi] =
-            mx * attn::LN2 + logf(fmaxf(den, 1e-30f));
-    } else {  // decode_combine's layout, m back in natural-log units
+        lse[row] = mx * attn::LN2 + logf(fmaxf(den, 1e-30f));
+    } else {  // the combine's layout, m back in natural-log units
       float* out = part + ((static_cast<long long>(bh) * nsplit + split) * g +
-                           gi) * (DH + 2);
+                           at.g0 + gi) * (dh + 2);
       out[2 + d] = a;
       if (d == 0) {
         out[0] = mx * attn::LN2;
@@ -527,15 +696,16 @@ decode_tc(const attn::bf16* __restrict__ q, const attn::bf16* __restrict__ kc,
   }
 }
 
-template <int DH>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, void* part, const int* pos, int b, int s_cache,
-                   int kvh, int g, int rows, int chunk, float scale,
-                   cudaStream_t stream) {
+// Dh dh on the instance of width DH (dh <= DH)
+template <int DH, bool PAD>
+cudaError_t launch(int dh, const void* q, const void* k, const void* v,
+                   void* o, float* lse, void* part, const int* pos, int b,
+                   int s_cache, int kvh, int g, int rows, int chunk,
+                   float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
   static_assert(attn::ctas_per_sm<DH>() * smem <= attn::SMEM_MAX,
-                "CTAs per SM (decode_attention_ctas_per_sm)");
-  auto kern = decode_tc<DH>;
+                "CTAs per SM (decode_attention.ctas_per_sm)");
+  auto kern = decode_tc<DH, PAD>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -544,18 +714,36 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   }
   const int nsplit = (rows + chunk - 1) / chunk;
   if (nsplit > 1 && part == nullptr) return cudaErrorInvalidValue;
-  const long long blocks = static_cast<long long>(b) * kvh * nsplit;
+  const long long blocks = static_cast<long long>(b) * kvh * nsplit *
+                           ((g + G_TILE - 1) / G_TILE);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   auto* pp = static_cast<float*>(part);
   kern<<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
       static_cast<const attn::bf16*>(q), static_cast<const attn::bf16*>(k),
       static_cast<const attn::bf16*>(v), static_cast<attn::bf16*>(o), lse,
-      pp, pos, s_cache, kvh, g, rows, chunk, nsplit, scale * attn::LOG2E);
+      pp, pos, s_cache, kvh, g, dh, rows, chunk, nsplit,
+      scale * attn::LOG2E);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || nsplit == 1) return err;
-  return launch_combine<attn::bf16, DH>(pp, static_cast<attn::bf16*>(o), lse,
-                                        pos, b, s_cache, kvh, g, rows, chunk,
-                                        nsplit, stream);
+  return launch_combine<attn::bf16>(pp, static_cast<attn::bf16*>(o), lse,
+                                    pos, b, s_cache, kvh, g, dh, rows, chunk,
+                                    nsplit, stream);
+}
+
+// The instance of width W for Dh dh: the model width's own where dh is one
+// (its code as it was before padded heads), else the padded one.
+template <int W>
+cudaError_t launch_w(int dh, const void* q, const void* k, const void* v,
+                     void* o, float* lse, void* part, const int* pos, int b,
+                     int s_cache, int kvh, int g, int rows, int chunk,
+                     float scale, cudaStream_t stream) {
+  constexpr bool OWN = W == 16 || W == 32 || W == 64 || W == 128 || W == 256;
+  if constexpr (OWN)
+    if (dh == W)
+      return launch<W, false>(dh, q, k, v, o, lse, part, pos, b, s_cache,
+                              kvh, g, rows, chunk, scale, stream);
+  return launch<W, true>(dh, q, k, v, o, lse, part, pos, b, s_cache, kvh, g,
+                         rows, chunk, scale, stream);
 }
 
 }  // namespace tc
@@ -590,7 +778,8 @@ cudaError_t launch_dh(int dh, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// The CUDA-core design. dtype: 0 = fp32, 1 = bf16. pos: null, and then
+// The CUDA-core design at dh in {16, 32, 64, 128, 256}. dtype: 0 = fp32,
+// 1 = bf16. pos: null, and then
 // rows = min(pos, S - 1) + 1 cache rows are read; or a device int32
 // holding pos, and then rows is the plan's S and each CTA reads pos
 // itself. The rows are planned in chunks of `chunk` rows (a multiple of
@@ -602,7 +791,7 @@ int decode_attention_launch(int dtype, int dh, const void* q, const void* k,
                             const int* pos, int b, int s_cache, int kvh,
                             int g, int rows, int chunk, float scale,
                             void* stream) {
-  if (b < 1 || s_cache < 1 || kvh < 1 || g < 1 || g > G_MAX || rows < 1 ||
+  if (b < 1 || s_cache < 1 || kvh < 1 || g < 1 || rows < 1 ||
       rows > s_cache || chunk < 1 || chunk % BK != 0)
     return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
@@ -615,63 +804,96 @@ int decode_attention_launch(int dtype, int dh, const void* q, const void* k,
   return cudaErrorInvalidValue;
 }
 
-// The tensor-core design: bf16 only, q and the caches on 16-byte
-// boundaries (the wrapper checks; a misaligned call is refused, never sent
-// elsewhere). With one chunk (rows <= chunk) a single launch writes o and
-// part may be null; otherwise part is the scratch decode_attention_launch
+// The tensor-core design: bf16 only, every row of q and the caches on a
+// 16-byte boundary (the wrapper checks; a misaligned call is refused, never
+// sent elsewhere), dh a multiple of 8 up to 256, run on the instance of
+// width w (the wrapper's flash_attention.tc_width(dh); w >= dh). With one
+// chunk (rows <= chunk) a single launch writes o and part may be null; otherwise part is the scratch decode_attention_launch
 // describes, and decode_combine runs after. Returns the cudaError_t of the
 // launches. lse and pos as decode_attention_launch's.
-int decode_attention_tc_launch(int dh, const void* q, const void* k,
+int decode_attention_tc_launch(int dh, int w, const void* q, const void* k,
                                const void* v, void* o, float* lse, void* part,
                                const int* pos, int b, int s_cache, int kvh,
                                int g, int rows, int chunk, float scale,
                                void* stream) {
-  if (b < 1 || s_cache < 1 || kvh < 1 || g < 1 || g > G_MAX || rows < 1 ||
-      rows > s_cache || chunk < 1 || chunk % BK != 0)
+  if (b < 1 || s_cache < 1 || kvh < 1 || g < 1 || rows < 1 ||
+      rows > s_cache || chunk < 1 || chunk % BK != 0 || dh < 8 ||
+      dh % 8 != 0 || dh > w)
     return cudaErrorInvalidValue;
-  for (const void* p : {q, k, v})
-    if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
-      return cudaErrorMisalignedAddress;
+  if (!rows_aligned(2, dh, q, k, v)) return cudaErrorMisalignedAddress;
   const auto s = static_cast<cudaStream_t>(stream);
-  switch (dh) {
+  switch (w) {
     case 16:
-      return tc::launch<16>(q, k, v, o, lse, part, pos, b,
-                             s_cache, kvh, g, rows, chunk, scale, s);
+      return tc::launch_w<16>(dh, q, k, v, o, lse, part, pos, b, s_cache,
+                               kvh, g, rows, chunk, scale, s);
     case 32:
-      return tc::launch<32>(q, k, v, o, lse, part, pos, b,
-                             s_cache, kvh, g, rows, chunk, scale, s);
+      return tc::launch_w<32>(dh, q, k, v, o, lse, part, pos, b, s_cache,
+                               kvh, g, rows, chunk, scale, s);
+    case 48:
+      return tc::launch_w<48>(dh, q, k, v, o, lse, part, pos, b, s_cache,
+                               kvh, g, rows, chunk, scale, s);
     case 64:
-      return tc::launch<64>(q, k, v, o, lse, part, pos, b,
-                             s_cache, kvh, g, rows, chunk, scale, s);
+      return tc::launch_w<64>(dh, q, k, v, o, lse, part, pos, b, s_cache,
+                               kvh, g, rows, chunk, scale, s);
+    case 80:
+      return tc::launch_w<80>(dh, q, k, v, o, lse, part, pos, b, s_cache,
+                               kvh, g, rows, chunk, scale, s);
+    case 96:
+      return tc::launch_w<96>(dh, q, k, v, o, lse, part, pos, b, s_cache,
+                               kvh, g, rows, chunk, scale, s);
+    case 112:
+      return tc::launch_w<112>(dh, q, k, v, o, lse, part, pos, b, s_cache,
+                               kvh, g, rows, chunk, scale, s);
     case 128:
-      return tc::launch<128>(q, k, v, o, lse, part, pos, b,
-                             s_cache, kvh, g, rows, chunk, scale, s);
+      return tc::launch_w<128>(dh, q, k, v, o, lse, part, pos, b, s_cache,
+                               kvh, g, rows, chunk, scale, s);
+    case 160:
+      return tc::launch_w<160>(dh, q, k, v, o, lse, part, pos, b, s_cache,
+                               kvh, g, rows, chunk, scale, s);
+    case 192:
+      return tc::launch_w<192>(dh, q, k, v, o, lse, part, pos, b, s_cache,
+                               kvh, g, rows, chunk, scale, s);
+    case 224:
+      return tc::launch_w<224>(dh, q, k, v, o, lse, part, pos, b, s_cache,
+                               kvh, g, rows, chunk, scale, s);
     case 256:
-      return tc::launch<256>(q, k, v, o, lse, part, pos, b,
-                             s_cache, kvh, g, rows, chunk, scale, s);
+      return tc::launch_w<256>(dh, q, k, v, o, lse, part, pos, b, s_cache,
+                               kvh, g, rows, chunk, scale, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-// CTAs of either design that share an SM at head dim dh (shared memory):
-// the wrapper's split_rows aims at one wave of them. 0 for a head dim with
-// no instance.
-int decode_attention_ctas_per_sm(int dh) {
-  switch (dh) {
-    case 16:
-      return attn::ctas_per_sm<16>();
-    case 32:
-      return attn::ctas_per_sm<32>();
-    case 64:
-      return attn::ctas_per_sm<64>();
-    case 128:
-      return attn::ctas_per_sm<128>();
-    case 256:
-      return attn::ctas_per_sm<256>();
-    default:
-      return 0;
+// The any-width CUDA-core design: fp32 (dtype 0) or bf16 (1), any dh from
+// 1 to attn::DH_MAX; part is the scratch decode_attention_launch
+// describes. Arguments as decode_attention_launch's.
+int decode_attention_any_launch(int dtype, int dh, const void* q,
+                                const void* k, const void* v, void* o,
+                                float* lse, void* part, const int* pos, int b,
+                                int s_cache, int kvh, int g, int rows,
+                                int chunk, float scale, void* stream) {
+  if (b < 1 || s_cache < 1 || kvh < 1 || g < 1 || rows < 1 ||
+      rows > s_cache || chunk < 1 || chunk % BK != 0 || dh < 1 ||
+      dh > attn::DH_MAX)
+    return cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    if (rows_aligned(4, dh, q, k, v))
+      return launch_any<float, 4>(dh, q, k, v, o, lse, part, pos, b, s_cache,
+                                  kvh, g, rows, chunk, scale, s);
+    return launch_any<float, 1>(dh, q, k, v, o, lse, part, pos, b, s_cache,
+                                kvh, g, rows, chunk, scale, s);
   }
+  if (dtype == 1) {
+    if (rows_aligned(2, dh, q, k, v))
+      return launch_any<__nv_bfloat16, 8>(dh, q, k, v, o, lse, part, pos, b,
+                                          s_cache, kvh, g, rows, chunk, scale,
+                                          s);
+    return launch_any<__nv_bfloat16, 1>(dh, q, k, v, o, lse, part, pos, b,
+                                        s_cache, kvh, g, rows, chunk, scale,
+                                        s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 const char* decode_attention_error_string(int err) {

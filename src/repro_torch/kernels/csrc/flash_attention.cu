@@ -3,10 +3,11 @@
 //
 // Replaces repro/kernels/flash_attention.py::_flash_kernel (the Pallas TPU
 // kernel) with its public layout and contract:
-//   q (B, Sq, KV, G, Dh), k/v (B, Sk, KV, Dh), fp32 or bf16, Dh in
-//   {16, 32, 64, 128, 192, 256} -> o (B, Sq, KV, G, Dh) contiguous, in q's
-//   type. Dh 192 is MLA's prefill (the 128 + 64 nope and rope dims, v
-//   zero-padded to 192), Dh 256 gemma3's heads.
+//   q (B, Sq, KV, G, Dh), k/v (B, Sk, KV, Dh), fp32 or bf16, any Dh from 1
+//   to 1024 (attn::DH_MAX) and any G -> o (B, Sq, KV, G, Dh) contiguous, in
+//   q's type. Dh 192 is MLA's prefill (the 128 + 64 nope and rope dims, v
+//   zero-padded to 192), Dh 256 gemma3's heads, 24 the shrunk DeepSeek
+//   configs' 16 + 8, 80 and 96 phi-2's and Phi-3-mini's.
 //   Scores, running max m, denominator l and accumulator in fp32; masked
 //   scores are -1e30 (causal kj <= qi; window kj > qi - window); the
 //   output is acc / max(l, 1e-30).
@@ -22,11 +23,15 @@
 // bf16) is bound by its 12.6 MB (3.8 us); an agent prefill of 4096 tokens
 // by its operations (0.139 ms at the bf16 tensor-core peak).
 //
-// Two designs; the wrapper (kernels/flash_attention.py::pick_design)
+// Three designs; the wrapper (kernels/flash_attention.py::pick_design)
 // chooses, and each has its own entry point:
 //
 // flash_fwd_tc — bf16 whose rows start on 16-byte boundaries (every call
-//   of the LM path). One CTA of 4 warps per (batch, KV head, group member,
+//   of the LM path), Dh a multiple of 8 up to 256. One instance a width of
+//   the wrapper's 12 (tc_width, passed in as w): a head without its own
+//   runs on the next (Dh 24 on 32), its rows zero-padded in shared memory by cp_rows, so that the
+//   padding adds exact zeros to every score and fills accumulator columns
+//   that are never written out. One CTA of 4 warps per (batch, KV head, group member,
 //   block of BQ = 64 query rows), each warp owning 16 rows; the grid runs
 //   the last query blocks (the longest under a causal mask) first. The CTA
 //   reads its KV head in place through strides (no moveaxis, no G-fold
@@ -67,9 +72,22 @@
 //   against keys cg + 16j (j < 4), and the accumulator of the same rows at
 //   Dh columns cg + 16c. Row max and row sum reduce over the 16 threads of
 //   a row group with xor shuffles; p goes through shared memory to the P.V
-//   step. Products are fp32 FMAs on the CUDA cores.
+//   step. Products are fp32 FMAs on the CUDA cores. One instance a width of
+//   {16, 32, 64, 128, 192, 256}.
 //
-// Both skip key tiles wholly above the diagonal or before the window when
+// flash_fwd_any — the same for every other width (fp32, rows off a 16-byte
+//   boundary, bf16 with Dh % 8 != 0, and above 256): Dh is a runtime
+//   argument, so the accumulator cannot live in registers sized by it. A
+//   CTA of 128 threads per (batch, KV head, group member, BQ query rows)
+//   keeps the query block, a K and a V tile, P and the fp32 accumulator in
+//   shared memory (attn::tile_any), the tiles (BQ, BK) the largest of
+//   64 x 64 down to 16 x 8 that fit shared memory at ctas_per_sm_at(Dh)
+//   CTAs an SM (16 x 8 at Dh 1024: 197 KB). Threads take (row, key) pairs
+//   for the scores, a warp a row for the softmax, and (row, column) entries
+//   for acc += P V. Right before fast: it serves widths no model of the
+//   repo has.
+//
+// All three skip key tiles wholly above the diagonal or before the window when
 // Sq <= Sk: then every query row qi holds its own key kj = qi inside the
 // loop's range, so the online softmax would wash a skipped, fully masked
 // prefix out with alpha = exp(-1e30 - m) = 0 anyway. With Sq > Sk a row may
@@ -304,6 +322,128 @@ cudaError_t launch_dh(int dh, const void* q, const void* k, const void* v,
   }
 }
 
+// ------------------------------------------------ any-width design
+
+// (BQ, BK) from the largest down: the first whose shared memory fits
+// ctas_per_sm_at(Dh) CTAs an SM
+constexpr int ANY_TILES[][2] = {{64, 64}, {32, 64}, {32, 32},
+                                {16, 32}, {16, 16}, {16, 8}};
+
+size_t any_smem_bytes(int bq, int bk, int dh) {
+  const size_t q = bq, k = bk, d = dh;
+  return sizeof(float) * (q * d + k * attn::ld_any(dh) + k * d +
+                          q * (k + 1) + q * d + 3 * q);
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_any(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, T* __restrict__ o,
+              float* __restrict__ lse, int sq, int sk, int kvh, int g,
+              int dh, int bq, int bk, long long q_sb, long long q_ss,
+              long long k_sb, long long k_ss, long long v_sb, long long v_ss,
+              float scale, int causal, int window, int skip) {
+  extern __shared__ float smem[];
+  float* qs = smem;                        // [bq][dh] query block
+  float* ks = qs + bq * dh;                // [bk][ld_any] key tile
+  float* vs = ks + bk * attn::ld_any(dh);  // [bk][dh] value tile
+  float* ps = vs + bk * dh;                // [bq][bk + 1] scores, then p
+  float* acc = ps + bq * (bk + 1);         // [bq][dh] accumulator
+  float* ms = acc + bq * dh;               // [bq] running max
+  float* ls = ms + bq;                     // [bq] running denominator
+  float* as = ls + bq;                     // [bq] this tile's rescale
+
+  const int nqb = (sq + bq - 1) / bq;
+  const int qb = blockIdx.x % nqb;
+  const int head = blockIdx.x / nqb;       // ((b * kvh) + kv) * g + gi
+  const int gi = head % g;
+  const int kv = (head / g) % kvh;
+  const int b = head / (g * kvh);
+  const int q0 = qb * bq;
+  const int tid = threadIdx.x;
+  const T* qbase = q + b * q_sb + static_cast<long long>(kv * g + gi) * dh;
+  const T* kbase = k + b * k_sb + static_cast<long long>(kv) * dh;
+  const T* vbase = v + b * v_sb + static_cast<long long>(kv) * dh;
+
+  attn::stage_rows_any<T, VEC, THREADS>(qbase, q_ss, q0, sq, bq, dh, qs, dh);
+  for (int e = tid; e < bq * dh; e += THREADS) acc[e] = 0.f;
+  for (int r = tid; r < bq; r += THREADS) {
+    ms[r] = attn::NEG;
+    ls[r] = 0.f;
+  }
+
+  int kbeg = 0, kend = sk;
+  if (skip) {
+    if (causal) kend = min(sk, q0 + bq);
+    if (window > 0) kbeg = max(0, q0 - window + 1);
+    kbeg = (kbeg / bk) * bk;
+  }
+  for (int k0 = kbeg; k0 < kend; k0 += bk) {
+    __syncthreads();  // the last tile's readers are done (and q is staged)
+    attn::stage_rows_any<T, VEC, THREADS>(kbase, k_ss, k0, sk, bk, dh, ks,
+                                          attn::ld_any(dh));
+    attn::stage_rows_any<T, VEC, THREADS>(vbase, v_ss, k0, sk, bk, dh, vs, dh);
+    __syncthreads();
+    attn::tile_any<THREADS>(
+        qs, ks, vs, ps, acc, ms, ls, as, bq, bk, dh,
+        [&](int r, int j, float x) {
+          const int kj = k0 + j, qi = q0 + r;
+          if (kj >= sk) return attn::neg_inf();  // not a key at all, p = 0
+          bool ok = !causal || kj <= qi;
+          if (window > 0) ok = ok && kj > qi - window;
+          return ok ? x * scale : attn::NEG;
+        });
+  }
+  __syncthreads();
+  for (int e = tid; e < bq * dh; e += THREADS) {
+    const int r = e / dh, d = e - r * dh;
+    const int qi = q0 + r;
+    if (qi >= sq) continue;
+    const float den = fmaxf(ls[r], 1e-30f);
+    if (lse != nullptr && d == 0)
+      lse[static_cast<long long>(head) * sq + qi] = ms[r] + logf(den);
+    o[((static_cast<long long>(b) * sq + qi) * kvh + kv) *
+          static_cast<long long>(g) * dh +
+      static_cast<long long>(gi) * dh + d] = attn::from_f32<T>(acc[e] / den);
+  }
+}
+
+template <typename T, int VEC>
+cudaError_t launch_any(int dh, const void* q, const void* k, const void* v,
+                       void* o, float* lse, int b, int sq, int sk, int kvh,
+                       int g, long long q_sb, long long q_ss, long long k_sb,
+                       long long k_ss, long long v_sb, long long v_ss,
+                       float scale, int causal, int window,
+                       cudaStream_t stream) {
+  int bq = 0, bk = 0;
+  for (const auto& t : ANY_TILES)
+    if (any_smem_bytes(t[0], t[1], dh) * attn::ctas_per_sm_at(dh) <=
+        attn::SMEM_MAX) {
+      bq = t[0];
+      bk = t[1];
+      break;
+    }
+  if (bq == 0) return cudaErrorInvalidValue;
+  const size_t smem = any_smem_bytes(bq, bk, dh);
+  auto kern = flash_fwd_any<T, VEC>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const long long blocks =
+      static_cast<long long>(b) * kvh * g * ((sq + bq - 1) / bq);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int skip = sq <= sk;
+  kern<<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, kvh, g, dh,
+      bq, bk, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale, causal, window,
+      skip);
+  return cudaGetLastError();
+}
+
 // ------------------------------------------------ tensor-core design
 
 namespace tc {
@@ -326,13 +466,16 @@ constexpr size_t smem_bytes() {
          (BQ + STAGES * 2 * bk<DH>());
 }
 
-template <int DH>
+// PAD: a head narrower than DH (or at a width without a model's own
+// instance) whose width dh_in is read at run time; without it dh = DH, as
+// in the instances of {16, 32, 64, 128, 192, 256}, which keep their code.
+template <int DH, bool PAD>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_fwd_tc(const attn::bf16* __restrict__ q,
              const attn::bf16* __restrict__ k,
              const attn::bf16* __restrict__ v, attn::bf16* __restrict__ o,
              float* __restrict__ lse, int sq, int sk, int kvh, int g,
-             int heads, long long q_sb, long long q_ss, long long k_sb,
+             int heads, int dh_in, long long q_sb, long long q_ss, long long k_sb,
              long long k_ss, long long v_sb, long long v_ss,
              float scale_log2, int causal, int window, int skip) {
   using attn::bf16;
@@ -356,9 +499,11 @@ flash_fwd_tc(const attn::bf16* __restrict__ q,
   const int row0 = q0 + warp * 16 + lane / 4;  // this thread's rows: row0,
   const int row1 = row0 + 8;                   // row1
   const int col = 2 * (lane % 4);              // and columns col, col + 1
-  const bf16* qbase = q + b * q_sb + static_cast<long long>(kv * g + gi) * DH;
-  const bf16* kbase = k + b * k_sb + static_cast<long long>(kv) * DH;
-  const bf16* vbase = v + b * v_sb + static_cast<long long>(kv) * DH;
+  const int dh = PAD ? dh_in : DH;
+  const int cpr = dh / 8;  // the head's 16-byte chunks (DH / 8 padded)
+  const bf16* qbase = q + b * q_sb + static_cast<long long>(kv * g + gi) * dh;
+  const bf16* kbase = k + b * k_sb + static_cast<long long>(kv) * dh;
+  const bf16* vbase = v + b * v_sb + static_cast<long long>(kv) * dh;
 
   int kbeg = 0, kend = sk;
   if (skip) {
@@ -370,11 +515,12 @@ flash_fwd_tc(const attn::bf16* __restrict__ q,
   auto load_tile = [&](int t) {
     bf16* kd = ring + (t % STAGES) * 2 * BK * LD;
     const int k0 = kbeg + t * BK;
-    attn::cp_rows<DH, BK, THREADS>(kd, kbase, k_ss, k0, sk, tid);
-    attn::cp_rows<DH, BK, THREADS>(kd + BK * LD, vbase, v_ss, k0, sk, tid);
+    attn::cp_rows<DH, BK, THREADS>(kd, kbase, k_ss, k0, sk, tid, cpr);
+    attn::cp_rows<DH, BK, THREADS>(kd + BK * LD, vbase, v_ss, k0, sk, tid,
+                                   cpr);
   };
   // q and tile 0, then tile 1: both stages fill at once
-  attn::cp_rows<DH, BQ, THREADS>(qs, qbase, q_ss, q0, sq, tid);
+  attn::cp_rows<DH, BQ, THREADS>(qs, qbase, q_ss, q0, sq, tid, cpr);
   load_tile(0);
   attn::cp_async_commit();
   if (ntiles > 1) load_tile(1);
@@ -437,7 +583,7 @@ flash_fwd_tc(const attn::bf16* __restrict__ q,
 
   // o = acc / l in bf16, through this warp's own rows of qs (only it read
   // them: into qf at tile 0, or at every tile for wide heads), then out in
-  // 16-byte rows
+  // 16-byte rows (the head's cpr chunks of each)
   __syncwarp();
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -454,29 +600,30 @@ flash_fwd_tc(const attn::bf16* __restrict__ q,
           __floats2bfloat162_rn(acc[n][2 * r] / den, acc[n][2 * r + 1] / den);
   }
   __syncwarp();
-  constexpr int CPR = DH / 8;  // 16-byte chunks per row
+  constexpr int CPR = DH / 8;  // 16-byte chunks per shared-memory row
 #pragma unroll
   for (int c = lane; c < 16 * CPR; c += 32) {
     const int r = c / CPR, x = c % CPR;
     const int qi = q0 + warp * 16 + r;
-    if (qi < sq)
+    if (qi < sq && x < cpr)
       *reinterpret_cast<uint4*>(
           o + ((static_cast<long long>(b) * sq + qi) * kvh + kv) *
-                  static_cast<long long>(g) * DH +
-          static_cast<long long>(gi) * DH + x * 8) =
+                  static_cast<long long>(g) * dh +
+          static_cast<long long>(gi) * dh + x * 8) =
           *reinterpret_cast<const uint4*>(qw + r * LD + x * 8);
   }
 }
 
-template <int DH>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int b, int sq, int sk, int kvh, int g,
+// Dh dh on the instance of width DH (dh <= DH)
+template <int DH, bool PAD>
+cudaError_t launch(int dh, const void* q, const void* k, const void* v,
+                   void* o, float* lse, int b, int sq, int sk, int kvh, int g,
                    long long q_sb, long long q_ss, long long k_sb,
                    long long k_ss, long long v_sb, long long v_ss,
                    float scale, int causal, int window, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
   static_assert(2 * smem <= attn::SMEM_MAX, "two CTAs per SM");
-  auto kern = flash_fwd_tc<DH>;
+  auto kern = flash_fwd_tc<DH, PAD>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -491,18 +638,42 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   kern<<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
       static_cast<const attn::bf16*>(q), static_cast<const attn::bf16*>(k),
       static_cast<const attn::bf16*>(v), static_cast<attn::bf16*>(o), lse,
-      sq, sk, kvh, g, heads, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+      sq, sk, kvh, g, heads, dh, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
       scale * attn::LOG2E, causal, window, skip);
   return cudaGetLastError();
 }
 
+// The instance of width W for Dh dh: the model width's own where dh is one
+// (its code as it was before padded heads), else the padded one.
+template <int W>
+cudaError_t launch_w(int dh, const void* q, const void* k, const void* v,
+                     void* o, float* lse, int b, int sq, int sk, int kvh,
+                     int g, long long q_sb, long long q_ss, long long k_sb,
+                     long long k_ss, long long v_sb, long long v_ss,
+                     float scale, int causal, int window,
+                     cudaStream_t stream) {
+  constexpr bool OWN = W == 16 || W == 32 || W == 64 || W == 128 ||
+                       W == 192 || W == 256;
+  if constexpr (OWN)
+    if (dh == W)
+      return launch<W, false>(dh, q, k, v, o, lse, b, sq, sk, kvh, g, q_sb,
+                              q_ss, k_sb, k_ss, v_sb, v_ss, scale, causal,
+                              window, stream);
+  return launch<W, true>(dh, q, k, v, o, lse, b, sq, sk, kvh, g, q_sb, q_ss,
+                         k_sb, k_ss, v_sb, v_ss, scale, causal, window,
+                         stream);
+}
+
 }  // namespace tc
 
-// 16-byte loads need every row of q, k and v to start on a 16-byte
-// boundary: aligned base pointers and batch/sequence strides.
-bool rows_aligned(size_t elt, const void* q, const void* k, const void* v,
-                  long long q_sb, long long q_ss, long long k_sb,
-                  long long k_ss, long long v_sb, long long v_ss) {
+// 16-byte loads need every row of every head of q, k and v to start on a
+// 16-byte boundary: aligned base pointers, batch/sequence strides and head
+// width (a head starts Dh elements after the last).
+bool rows_aligned(size_t elt, int dh, const void* q, const void* k,
+                  const void* v, long long q_sb, long long q_ss,
+                  long long k_sb, long long k_ss, long long v_sb,
+                  long long v_ss) {
+  if ((static_cast<size_t>(dh) * elt) % 16 != 0) return false;
   for (const void* p : {q, k, v})
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
   for (long long st : {q_sb, q_ss, k_sb, k_ss, v_sb, v_ss})
@@ -529,7 +700,7 @@ int flash_attention_launch(int dtype, int dh, const void* q, const void* k,
     return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    if (rows_aligned(4, q, k, v, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss))
+    if (rows_aligned(4, dh, q, k, v, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss))
       return launch_dh<float, 4>(dh, q, k, v, o, lse, b, sq, sk, kvh, g,
                                  q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale,
                                  causal, window, s);
@@ -538,7 +709,7 @@ int flash_attention_launch(int dtype, int dh, const void* q, const void* k,
                                window, s);
   }
   if (dtype == 1) {
-    if (rows_aligned(2, q, k, v, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss))
+    if (rows_aligned(2, dh, q, k, v, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss))
       return launch_dh<__nv_bfloat16, 8>(dh, q, k, v, o, lse, b, sq, sk,
                                          kvh, g, q_sb, q_ss, k_sb, k_ss,
                                          v_sb, v_ss, scale, causal, window,
@@ -552,47 +723,110 @@ int flash_attention_launch(int dtype, int dh, const void* q, const void* k,
 
 // The tensor-core design: bf16 only, every row of q, k and v on a 16-byte
 // boundary (the wrapper checks; a misaligned call is refused, never sent
-// elsewhere). Arguments as flash_attention_launch's, without dtype.
-int flash_attention_tc_launch(int dh, const void* q, const void* k,
+// elsewhere), dh a multiple of 8 up to 256, run on the instance of width w
+// (the wrapper's tc_width(dh): 16, 32, 48, 64, 80, 96, 112, 128, 160, 192,
+// 224 or 256; w >= dh). Arguments as flash_attention_launch's, with w in
+// place of dtype.
+int flash_attention_tc_launch(int dh, int w, const void* q, const void* k,
                               const void* v, void* o, float* lse, int b,
                               int sq, int sk, int kvh, int g,
                               long long q_sb, long long q_ss, long long k_sb,
                               long long k_ss, long long v_sb, long long v_ss,
                               float scale, int causal, int window,
                               void* stream) {
-  if (b < 1 || sq < 1 || sk < 1 || kvh < 1 || g < 1)
+  if (b < 1 || sq < 1 || sk < 1 || kvh < 1 || g < 1 || dh < 8 ||
+      dh % 8 != 0 || dh > w)
     return cudaErrorInvalidValue;
-  if (!rows_aligned(2, q, k, v, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss))
+  if (!rows_aligned(2, dh, q, k, v, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss))
     return cudaErrorMisalignedAddress;
   const auto s = static_cast<cudaStream_t>(stream);
-  switch (dh) {
+  switch (w) {
     case 16:
-      return tc::launch<16>(q, k, v, o, lse, b, sq, sk, kvh, g, q_sb,
-                            q_ss, k_sb, k_ss, v_sb, v_ss, scale, causal,
-                            window, s);
+      return tc::launch_w<16>(dh, q, k, v, o, lse, b, sq, sk, kvh, g,
+                               q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale,
+                               causal, window, s);
     case 32:
-      return tc::launch<32>(q, k, v, o, lse, b, sq, sk, kvh, g, q_sb,
-                            q_ss, k_sb, k_ss, v_sb, v_ss, scale, causal,
-                            window, s);
+      return tc::launch_w<32>(dh, q, k, v, o, lse, b, sq, sk, kvh, g,
+                               q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale,
+                               causal, window, s);
+    case 48:
+      return tc::launch_w<48>(dh, q, k, v, o, lse, b, sq, sk, kvh, g,
+                               q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale,
+                               causal, window, s);
     case 64:
-      return tc::launch<64>(q, k, v, o, lse, b, sq, sk, kvh, g, q_sb,
-                            q_ss, k_sb, k_ss, v_sb, v_ss, scale, causal,
-                            window, s);
+      return tc::launch_w<64>(dh, q, k, v, o, lse, b, sq, sk, kvh, g,
+                               q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale,
+                               causal, window, s);
+    case 80:
+      return tc::launch_w<80>(dh, q, k, v, o, lse, b, sq, sk, kvh, g,
+                               q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale,
+                               causal, window, s);
+    case 96:
+      return tc::launch_w<96>(dh, q, k, v, o, lse, b, sq, sk, kvh, g,
+                               q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale,
+                               causal, window, s);
+    case 112:
+      return tc::launch_w<112>(dh, q, k, v, o, lse, b, sq, sk, kvh, g,
+                               q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale,
+                               causal, window, s);
     case 128:
-      return tc::launch<128>(q, k, v, o, lse, b, sq, sk, kvh, g, q_sb,
-                             q_ss, k_sb, k_ss, v_sb, v_ss, scale, causal,
-                             window, s);
+      return tc::launch_w<128>(dh, q, k, v, o, lse, b, sq, sk, kvh, g,
+                               q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale,
+                               causal, window, s);
+    case 160:
+      return tc::launch_w<160>(dh, q, k, v, o, lse, b, sq, sk, kvh, g,
+                               q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale,
+                               causal, window, s);
     case 192:
-      return tc::launch<192>(q, k, v, o, lse, b, sq, sk, kvh, g, q_sb,
-                             q_ss, k_sb, k_ss, v_sb, v_ss, scale, causal,
-                             window, s);
+      return tc::launch_w<192>(dh, q, k, v, o, lse, b, sq, sk, kvh, g,
+                               q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale,
+                               causal, window, s);
+    case 224:
+      return tc::launch_w<224>(dh, q, k, v, o, lse, b, sq, sk, kvh, g,
+                               q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale,
+                               causal, window, s);
     case 256:
-      return tc::launch<256>(q, k, v, o, lse, b, sq, sk, kvh, g, q_sb,
-                             q_ss, k_sb, k_ss, v_sb, v_ss, scale, causal,
-                             window, s);
+      return tc::launch_w<256>(dh, q, k, v, o, lse, b, sq, sk, kvh, g,
+                               q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale,
+                               causal, window, s);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The any-width CUDA-core design: fp32 (dtype 0) or bf16 (1), any dh from
+// 1 to attn::DH_MAX. Arguments as flash_attention_launch's.
+int flash_attention_any_launch(int dtype, int dh, const void* q,
+                               const void* k, const void* v, void* o,
+                               float* lse, int b, int sq, int sk, int kvh,
+                               int g, long long q_sb, long long q_ss,
+                               long long k_sb, long long k_ss, long long v_sb,
+                               long long v_ss, float scale, int causal,
+                               int window, void* stream) {
+  if (b < 1 || sq < 1 || sk < 1 || kvh < 1 || g < 1 || dh < 1 ||
+      dh > attn::DH_MAX)
+    return cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    if (rows_aligned(4, dh, q, k, v, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss))
+      return launch_any<float, 4>(dh, q, k, v, o, lse, b, sq, sk, kvh, g,
+                                  q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale,
+                                  causal, window, s);
+    return launch_any<float, 1>(dh, q, k, v, o, lse, b, sq, sk, kvh, g, q_sb,
+                                q_ss, k_sb, k_ss, v_sb, v_ss, scale, causal,
+                                window, s);
+  }
+  if (dtype == 1) {
+    if (rows_aligned(2, dh, q, k, v, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss))
+      return launch_any<__nv_bfloat16, 8>(dh, q, k, v, o, lse, b, sq, sk,
+                                          kvh, g, q_sb, q_ss, k_sb, k_ss,
+                                          v_sb, v_ss, scale, causal, window,
+                                          s);
+    return launch_any<__nv_bfloat16, 1>(dh, q, k, v, o, lse, b, sq, sk, kvh,
+                                        g, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+                                        scale, causal, window, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 const char* flash_attention_error_string(int err) {

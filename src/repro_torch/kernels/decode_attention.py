@@ -26,19 +26,28 @@ Both designs split the rows (split-S, flash-decoding), because (b, KV
 head) pairs alone would leave most of the 132 SMs idle (4 CTAs for one
 agent row): :func:`split_rows` picks the chunk of cache rows per CTA so
 that the CTAs fill the card in one wave, and one chunk when the cache is
-short. :func:`pick_design` chooses the design from the dtype and the
-alignment (``csrc/decode_attention.cu`` has the details):
+short. A KV head's G query rows go in G-tiles of :data:`G_TILE` (a CTA
+per (b, KV head, chunk, G-tile); multi-query models have G 48 or 71), so
+any G runs, and :func:`split_rows` counts those CTAs. :func:`pick_design`
+chooses the design from the dtype, the alignment and the head dim
+(``csrc/decode_attention.cu`` has the details; any Dh from 1 to
+``flash_attention.DH_MAX``, as kernel 6):
 
-* ``"tc"``: bf16 caches on 16-byte boundaries, which is every decode step
-  of the LM path. The G <= 16 query rows are one ``mma.sync`` tile (padded
-  to 16); each of a CTA's 4 warps streams its own 16-row tiles through a
-  3-stage bf16 ring filled by ``cp.async`` and keeps its own (m, l, acc);
-  the warps merge once at the end. With one chunk (the batcher's
-  ``max_len`` of 128) that is the only launch and no scratch is allocated;
-  with more, a combine pass merges the chunks' partials.
+* ``"tc"``: bf16 caches on 16-byte boundaries, Dh a multiple of 8 up to
+  256, which is every decode step of the LM path. A G-tile's query rows
+  are one ``mma.sync`` tile (padded to 16); each of a CTA's 4 warps
+  streams its own 16-row tiles through a 3-stage bf16 ring filled by
+  ``cp.async`` and keeps its own (m, l, acc); the warps merge once at the
+  end. With one chunk (the batcher's ``max_len`` of 128) that is the only
+  launch and no scratch is allocated; with more, a combine pass merges the
+  chunks' partials. One instance a width of
+  ``flash_attention.tc_width``'s 12, a head without its own zero-padded.
 * ``"simt"``: fp32 (its 3e-5 check rules out bf16 products) and caches
-  off a 16-byte boundary: 64-row tiles staged as fp32, fp32 FMAs on the
-  CUDA cores, always a partial pass and a combine pass.
+  off a 16-byte boundary, at the widths of :data:`HEAD_DIMS`: 64-row
+  tiles staged as fp32, fp32 FMAs on the CUDA cores, always a partial
+  pass and a combine pass.
+* ``"simt_any"``: the same at every other width, Dh a runtime argument,
+  the accumulator in shared memory and the tiles sized at launch.
 
 :func:`decode_attention` launches the kernels for CUDA tensors and raises
 if it cannot; it takes :func:`decode_attention_plain` only for CPU tensors.
@@ -53,8 +62,8 @@ the kernels), a ``meta`` or fake tensor gets the outputs' shapes alone
 (the dry run), and ``torch.utils.flop_counter`` counts its products over
 rows ``0..pos`` (all S rows for a tensor ``pos``).
 ``decode_attention.launches`` counts every call that launched,
-``.launches_tc`` and ``.launches_simt`` each design's, and ``.plain_calls``
-the plain version's calls. A call captured into a CUDA graph by
+``.launches_tc``, ``.launches_simt`` and ``.launches_simt_any`` each
+design's, and ``.plain_calls`` the plain version's calls. A call captured into a CUDA graph by
 ``kernels/graphs.StepGraph`` counts at each replay, not at its capture.
 """
 from __future__ import annotations
@@ -69,9 +78,9 @@ from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention
 
 NEG = -1.0e30
-HEAD_DIMS = (16, 32, 64, 128, 256)   # not kernel 6's 192: MLA decodes
-                                     # over its latent, with no kernel
-G_MAX = 16
+HEAD_DIMS = (16, 32, 64, 128, 256)   # "simt"'s instances; not kernel 6's
+                                     # 192: MLA decodes over its latent
+G_TILE = 16        # query rows of a KV head per CTA (one mma.sync tile)
 TILE = 64          # chunks are multiples of 64 cache rows (one simt tile,
                    # one 16-row tile for each of a tc CTA's 4 warps)
 MIN_CHUNK = 256    # no split below 4 tiles per tc warp
@@ -79,22 +88,24 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def pick_design(dtype: torch.dtype, aligned: bool, dh: int) -> str:
-    """Kernel 6's dispatch rule (``flash_attention.dtype_design``) for
-    this kernel's head dims."""
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head dim {dh} not in {HEAD_DIMS}")
-    return flash_attention.dtype_design(dtype, aligned)
+    """Kernel 6's dispatch rule (``flash_attention.design_for``) with this
+    kernel's CUDA-core instances."""
+    return flash_attention.design_for(dtype, aligned, dh, HEAD_DIMS)
 
 
-@functools.lru_cache(maxsize=None)
+def g_tiles(g: int) -> int:
+    """CTAs a (b, KV head, chunk) takes: its G query rows in tiles of
+    :data:`G_TILE`."""
+    return -(-g // G_TILE)
+
+
 def ctas_per_sm(dh: int) -> int:
-    """CTAs of either design that share an SM at head dim ``dh``, from the
-    built library (``attention.cuh::ctas_per_sm``: two up to Dh 128, one
-    above)."""
-    n = _lib().decode_attention_ctas_per_sm(dh)
-    if n < 1:
-        raise ValueError(f"head dim {dh} has no decode_attention instance")
-    return n
+    """CTAs of any design that share an SM at head dim ``dh``: two up to
+    Dh 128, one above, where the tensor-core tiles of a wide head take
+    the SM (every instance's shared memory is sized for this count,
+    ``attention.cuh::ctas_per_sm_at``)."""
+    flash_attention.check_head_dim(dh)
+    return 1 if dh > 128 else 2
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -120,8 +131,8 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def split_rows(rows: int, heads: int, sms: int, ctas: int) -> int:
-    """Cache rows per CTA for ``rows`` rows over ``heads`` (b, KV head)
-    pairs on ``sms`` SMs: as many chunks per pair as fit the card in one
+    """Cache rows per CTA for ``rows`` rows over ``heads`` (b, KV head,
+    G-tile) triples (:func:`g_tiles`) on ``sms`` SMs: as many chunks per pair as fit the card in one
     wave of ``ctas`` CTAs per SM (:func:`ctas_per_sm`; a second,
     partial wave would double the time), each a multiple of TILE rows, and
     no chunk below MIN_CHUNK rows: a shorter one fills no warp's ring and
@@ -133,9 +144,12 @@ def split_rows(rows: int, heads: int, sms: int, ctas: int) -> int:
 
 
 def rows_aligned(*xs: torch.Tensor) -> bool:
-    """Every row of each contiguous tensor starts on a 16-byte boundary:
-    the base pointer is (Dh * element size is a multiple of 16)."""
-    return all(x.data_ptr() % 16 == 0 for x in xs)
+    """Every row of every head of each contiguous tensor starts on a
+    16-byte boundary: the base pointer does and a head's Dh elements make
+    whole 16-byte chunks (each row and head starts a multiple of Dh
+    elements in; Dh 12 in bf16 or 3 in fp32 does not)."""
+    return all(x.data_ptr() % 16 == 0 and
+               x.shape[-1] * x.element_size() % 16 == 0 for x in xs)
 
 
 def partial_shape(design: str, heads: int, nsplit: int, g: int,
@@ -190,11 +204,12 @@ def _lib():
         lib.decode_attention_launch.argtypes = [
             i, i, p, p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
         lib.decode_attention_launch.restype = i
+        lib.decode_attention_any_launch.argtypes = \
+            lib.decode_attention_launch.argtypes
+        lib.decode_attention_any_launch.restype = i
         lib.decode_attention_tc_launch.argtypes = [
-            i, p, p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
+            i, i, p, p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
         lib.decode_attention_tc_launch.restype = i
-        lib.decode_attention_ctas_per_sm.argtypes = [i]
-        lib.decode_attention_ctas_per_sm.restype = i
         lib.decode_attention_error_string.argtypes = [i]
         lib.decode_attention_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -226,8 +241,6 @@ def _on_cpu(q, k_cache, v_cache, pos, scale: float, return_lse: bool):
 
 
 def _on_cuda(q, k_cache, v_cache, pos, scale: float, return_lse: bool):
-    if q.shape[2] > G_MAX:
-        raise ValueError(f"G={q.shape[2]} above {G_MAX}")
     if not (q.is_contiguous() and k_cache.is_contiguous()
             and v_cache.is_contiguous()):
         raise ValueError("decode_attention needs contiguous q and caches")
@@ -290,7 +303,7 @@ def _launch(design: str, q: torch.Tensor, k_cache: torch.Tensor,
     if on_device:
         pos = pos.to(torch.int32)
     rows = s_cache if on_device else min(pos, s_cache - 1) + 1
-    chunk = split_rows(rows, b * kvh, _sm_count(q.device.index),
+    chunk = split_rows(rows, b * kvh * g_tiles(g), _sm_count(q.device.index),
                        ctas_per_sm(dh))
     shape = partial_shape(design, b * kvh, -(-rows // chunk), g, dh)
     part = None if shape is None else torch.empty(
@@ -307,9 +320,13 @@ def _launch(design: str, q: torch.Tensor, k_cache: torch.Tensor,
                 pos.data_ptr() if on_device else None, b, s_cache, kvh, g,
                 rows, chunk, float(scale), stream)
         if design == "tc":
-            err = lib.decode_attention_tc_launch(dh, *args)
-        else:
+            err = lib.decode_attention_tc_launch(
+                dh, flash_attention.tc_width(dh), *args)
+        elif design == "simt":
             err = lib.decode_attention_launch(_DTYPE_CODE[q.dtype], dh, *args)
+        else:
+            err = lib.decode_attention_any_launch(_DTYPE_CODE[q.dtype], dh,
+                                                  *args)
     if err != 0:
         msg = lib.decode_attention_error_string(err).decode()
         raise RuntimeError(
@@ -317,15 +334,11 @@ def _launch(design: str, q: torch.Tensor, k_cache: torch.Tensor,
             f"q {tuple(q.shape)} cache {tuple(k_cache.shape)} "
             f"pos={'on the device' if on_device else pos} "
             f"dtype={q.dtype} design={design}")
-    decode_attention.launches += 1
-    if design == "tc":
-        decode_attention.launches_tc += 1
-    else:
-        decode_attention.launches_simt += 1
+    flash_attention.count(decode_attention, design)
     return (out, lse) if return_lse else out
 
 
 decode_attention.launches = 0
-decode_attention.launches_tc = 0
-decode_attention.launches_simt = 0
+for _d in flash_attention.DESIGNS:
+    setattr(decode_attention, f"launches_{_d}", 0)
 decode_attention.plain_calls = 0

@@ -16,21 +16,31 @@ on the tensor cores in bf16 (989 TFLOP/s) or on the CUDA cores in fp32
 G 2, Dh 128, bf16) the bytes bound it (about 3.8 µs); an agent prefill of
 4096 tokens is bound by the operations.
 
-Two designs (``csrc/flash_attention.cu`` has the details), chosen by
-:func:`pick_design` from the dtype and the rows' alignment:
+Three designs (``csrc/flash_attention.cu`` has the details), chosen by
+:func:`pick_design` from the dtype, the rows' alignment and the head dim
+Dh, which may be anything from 1 to :data:`DH_MAX` (the reference's
+kernel takes any Dh and G; above 1024 the wrapper raises):
 
-* ``"tc"``: bf16 inputs whose rows start on 16-byte boundaries, which is
-  every call of the LM path. One CTA of 4 warps per (batch, KV head, group
-  member, 64 query rows); K/V tiles of 64 keys (32 at Dh 192 and 256,
-  whose Q fragments are then read from shared memory at each k-step) stay
-  bf16 in a 2-stage shared-memory ring filled by ``cp.async``; Q·Kᵀ and
-  P·V on ``mma.sync`` bf16 tensor cores with fp32 accumulation; scores
-  and probabilities in registers, P rounded to bf16 before P·V as the
-  Pallas kernel rounds it.
+* ``"tc"``: bf16 inputs whose rows start on 16-byte boundaries (so Dh % 8
+  == 0), Dh up to 256, which is every call of the LM path. One CTA of 4
+  warps per (batch, KV head, group member, 64 query rows); K/V tiles of 64
+  keys (32 above Dh 128, whose Q fragments are then read from shared
+  memory at each k-step) stay bf16 in a 2-stage shared-memory ring filled
+  by ``cp.async``; Q·Kᵀ and P·V on ``mma.sync`` bf16 tensor cores with
+  fp32 accumulation; scores and probabilities in registers, P rounded to
+  bf16 before P·V as the Pallas kernel rounds it. One instance a width
+  of :func:`tc_width`'s 12: a head without its own (the shrunk DeepSeek
+  configs' 16 + 8 = 24) runs on the next (32), zero-padded in shared
+  memory, which adds exact zeros to every score.
 * ``"simt"``: fp32 (its 3e-5 check rules out TF32 and bf16 products) and
-  rows off a 16-byte boundary (no 16-byte copies). One CTA per (batch, KV
-  head, group member, 32 query rows), 64-key tiles staged in shared memory
-  as fp32, products as fp32 FMAs on the CUDA cores.
+  rows off a 16-byte boundary (no 16-byte copies), at the widths of
+  :data:`HEAD_DIMS`. One CTA per (batch, KV head, group member, 32 query
+  rows), 64-key tiles staged in shared memory as fp32, products as fp32
+  FMAs on the CUDA cores.
+* ``"simt_any"``: the same inputs at every other width, and bf16 whose
+  rows cannot sit on 16-byte boundaries (Dh % 8 != 0) or whose heads are
+  wider than 256: Dh a runtime argument, the accumulator in shared memory,
+  the tiles sized at launch to fit it. Right before fast.
 
 Both read the KV head through strides, so neither the reference's
 ``moveaxis`` copies nor its G-fold ``repeat`` of K/V exist; the TPU's
@@ -53,8 +63,8 @@ so that the device picks the version (CPU: plain, CUDA: the kernels), a
 ``torch.utils.flop_counter`` counts its products over the (query, key)
 pairs the masks keep (:func:`kept_pairs`).
 ``flash_attention_fwd.launches`` counts every launch,
-``.launches_tc`` and ``.launches_simt`` each design's, and
-``.plain_calls`` the plain version's calls.
+``.launches_tc``, ``.launches_simt`` and ``.launches_simt_any`` each
+design's, and ``.plain_calls`` the plain version's calls.
 """
 from __future__ import annotations
 
@@ -66,7 +76,11 @@ from torch.utils.flop_counter import register_flop_formula
 from repro_torch.kernels import build
 
 NEG = -1.0e30
-HEAD_DIMS = (16, 32, 64, 128, 192, 256)   # 192: MLA's folded prefill
+HEAD_DIMS = (16, 32, 64, 128, 192, 256)   # "simt"'s instances; 192: MLA's
+                                          # folded prefill
+DH_MAX = 1024      # attention.cuh's DH_MAX: the widest head either kernel
+                   # takes
+TC_MAX = 256       # the widest tensor-core instance
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -128,18 +142,48 @@ def _check(q, k, v, window) -> None:
                          f"{k.device}, {v.device}")
 
 
-def dtype_design(dtype: torch.dtype, aligned: bool) -> str:
+def tc_width(dh: int) -> int:
+    """The tensor-core instance a head of ``dh`` columns runs on, passed
+    to both kernels' tensor-core entries: the next multiple of 16 up to
+    128, of 32 above (24 -> 32, 40 -> 48, 200 -> 224), 12 widths, each a
+    whole number of 16-column mma k-steps whose padded shared-memory rows
+    keep ldmatrix free of bank conflicts; 0 where the tensor-core design
+    does not take ``dh`` (not a multiple of 8, or above 256)."""
+    if dh < 8 or dh > TC_MAX or dh % 8:
+        return 0
+    step = 16 if dh <= 128 else 32
+    return -(-dh // step) * step
+
+
+def check_head_dim(dh: int) -> None:
+    """Raise for a head dim no design of kernels 6 and 7 takes."""
+    if not 1 <= dh <= DH_MAX:
+        raise ValueError(
+            f"head dim {dh} outside 1..{DH_MAX}: the widest head the "
+            f"attention kernels take. Their CUDA-core design at any width "
+            f"keeps a 16-row query block and its fp32 accumulator and an "
+            f"8-row key and value tile in shared memory, 4 x (2 x 16 + 2 x "
+            f"8) x Dh bytes: 196,608 at Dh {DH_MAX}, of the 232,448 a CTA "
+            f"may have (attention.cuh DH_MAX)")
+
+
+def design_for(dtype: torch.dtype, aligned: bool, dh: int,
+               simt_dims: tuple[int, ...]) -> str:
     """The kernel design of a CUDA call to kernel 6 or 7: ``"tc"`` (bf16
-    tensor cores) for bf16 inputs whose rows start on 16-byte boundaries,
-    else ``"simt"`` (fp32 FMAs on the CUDA cores)."""
-    return "tc" if dtype == torch.bfloat16 and aligned else "simt"
+    tensor cores, on the instance of width :func:`tc_width`) for bf16
+    inputs whose rows start on 16-byte boundaries, Dh a multiple of 8 up
+    to 256; else ``"simt"`` (fp32 FMAs on the CUDA cores) at the widths
+    ``simt_dims`` it has instances for, and ``"simt_any"`` (Dh at run
+    time) at every other."""
+    check_head_dim(dh)
+    if dtype == torch.bfloat16 and aligned and tc_width(dh):
+        return "tc"
+    return "simt" if dh in simt_dims else "simt_any"
 
 
 def pick_design(dtype: torch.dtype, aligned: bool, dh: int) -> str:
-    """:func:`dtype_design` for this kernel's head dims."""
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head dim {dh} not in {HEAD_DIMS}")
-    return dtype_design(dtype, aligned)
+    """:func:`design_for` with this kernel's CUDA-core instances."""
+    return design_for(dtype, aligned, dh, HEAD_DIMS)
 
 
 def _row_strides(x: torch.Tensor) -> tuple[int, int]:
@@ -149,10 +193,13 @@ def _row_strides(x: torch.Tensor) -> tuple[int, int]:
 
 
 def rows_aligned(*xs: torch.Tensor) -> bool:
-    """Every row (batch, sequence position) of each tensor starts on a
-    16-byte boundary: its base pointer and its row strides in bytes are
-    multiples of 16 (the head and Dh dims are dense, Dh * 2 bytes >= 32)."""
+    """Every row (batch, sequence position) of every head of each tensor
+    starts on a 16-byte boundary: its base pointer, its row strides and
+    its head width in bytes are multiples of 16 (the head and Dh dims are
+    dense, so a head starts Dh elements after the last: Dh 12 in bf16 puts
+    every other head off the boundary whatever the strides)."""
     return all(x.data_ptr() % 16 == 0 and
+               x.shape[-1] * x.element_size() % 16 == 0 and
                all(st * x.element_size() % 16 == 0 for st in _row_strides(x))
                for x in xs)
 
@@ -166,8 +213,11 @@ def _lib():
             i, i, p, p, p, p, p, i, i, i, i, i, ll, ll, ll, ll, ll, ll,
             ctypes.c_float, i, i, p]
         lib.flash_attention_launch.restype = i
+        lib.flash_attention_any_launch.argtypes = \
+            lib.flash_attention_launch.argtypes
+        lib.flash_attention_any_launch.restype = i
         lib.flash_attention_tc_launch.argtypes = [
-            i, p, p, p, p, p, i, i, i, i, i, ll, ll, ll, ll, ll, ll,
+            i, i, p, p, p, p, p, i, i, i, i, i, ll, ll, ll, ll, ll, ll,
             ctypes.c_float, i, i, p]
         lib.flash_attention_tc_launch.restype = i
         lib.flash_attention_error_string.argtypes = [i]
@@ -294,25 +344,35 @@ def _launch(design: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 int(bool(causal)), 0 if window is None else int(window),
                 stream)
         if design == "tc":
-            err = lib.flash_attention_tc_launch(dh, *ptrs, *rest)
-        else:
+            err = lib.flash_attention_tc_launch(dh, tc_width(dh), *ptrs,
+                                                *rest)
+        elif design == "simt":
             err = lib.flash_attention_launch(_DTYPE_CODE[q.dtype], dh, *ptrs,
                                              *rest)
+        else:
+            err = lib.flash_attention_any_launch(_DTYPE_CODE[q.dtype], dh,
+                                                 *ptrs, *rest)
     if err != 0:
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(
             f"flash_attention launch failed (cuda error {err}: {msg}) at "
             f"q {tuple(q.shape)} k {tuple(k.shape)} dtype={q.dtype} "
             f"design={design}")
-    flash_attention_fwd.launches += 1
-    if design == "tc":
-        flash_attention_fwd.launches_tc += 1
-    else:
-        flash_attention_fwd.launches_simt += 1
+    count(flash_attention_fwd, design)
     return (out, lse) if return_lse else out
 
 
+DESIGNS = ("tc", "simt", "simt_any")
+
+
+def count(wrapper, design: str) -> None:
+    """One launch of ``design`` on a kernel-6 or 7 wrapper's counts."""
+    wrapper.launches += 1
+    name = f"launches_{design}"
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
+
+
 flash_attention_fwd.launches = 0
-flash_attention_fwd.launches_tc = 0
-flash_attention_fwd.launches_simt = 0
+for _d in DESIGNS:
+    setattr(flash_attention_fwd, f"launches_{_d}", 0)
 flash_attention_fwd.plain_calls = 0

@@ -20,7 +20,8 @@ capture returned (a tensor, or a dict of tensors), rewritten by every
 replay. A capture that fails raises: there is no eager fall back.
 
 The attention kernels' wrappers count the calls that launched
-(``launches``, ``launches_tc``, ``launches_simt``; ``plain_calls``). A
+(``launches``, ``launches_tc``, ``launches_simt``,
+``launches_simt_any``; ``plain_calls``). A
 captured call launches at each replay and not at its capture, so the
 capture's counts are taken back and added again at every replay. The
 eager warm-up did launch, and stays counted.
@@ -35,7 +36,8 @@ from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 
 COUNTED = (flash_attention_fwd, decode_attention)
-COUNTS = ("launches", "launches_tc", "launches_simt", "plain_calls")
+COUNTS = ("launches", "launches_tc", "launches_simt", "launches_simt_any",
+          "plain_calls")
 _SIDE: dict = {}        # device index -> the warm-ups' and captures' stream
 
 

@@ -34,8 +34,8 @@ TOL_BF16 = 3e-2
 NEG = -1.0e30
 LOG2E = 1.4426950408889634
 SMS = 132          # H100 SXM
-# CTAs per SM of kernel 7 at each head dim, as the built library gives them
-# (decode_attention_ctas_per_sm, attention.cuh::ctas_per_sm): one at Dh 256
+# CTAs per SM of kernel 7 at each head dim (decode_attention.ctas_per_sm,
+# attention.cuh::ctas_per_sm): one at Dh 256
 CTAS_PER_SM = {16: 2, 32: 2, 64: 2, 128: 2, 256: 1}
 
 
@@ -155,16 +155,24 @@ def test_pick_design(mod, dtype, aligned, dh):
     assert mod.pick_design(dtype, aligned, dh) == want
 
 
-@pytest.mark.parametrize("mod,dh", [
-    (fa, 8), (fa, 48), (fa, 512), (da, 8), (da, 48), (da, 512),
-    (da, 192)], ids=["flash-8", "flash-48", "flash-512", "decode-8",
-                     "decode-48", "decode-512", "decode-192"])
-def test_pick_design_refuses_other_head_dims(mod, dh):
-    """Head dims with no kernel instance stay refused; 192 is kernel 6's
-    only (MLA's folded prefill: its decode runs over the latent, with no
-    kernel)."""
-    with pytest.raises(ValueError, match="head dim"):
-        mod.pick_design(torch.bfloat16, True, dh)
+@pytest.mark.parametrize("mod,dh,want", [
+    (fa, 8, "tc"), (fa, 48, "tc"), (fa, 512, "simt_any"), (da, 8, "tc"),
+    (da, 48, "tc"), (da, 512, "simt_any"), (da, 192, "tc"),
+    (fa, 0, None), (fa, 1025, None), (da, 0, None), (da, 1025, None)],
+    ids=["flash-8", "flash-48", "flash-512", "decode-8", "decode-48",
+         "decode-512", "decode-192", "flash-0", "flash-1025", "decode-0",
+         "decode-1025"])
+def test_pick_design_refuses_other_head_dims(mod, dh, want):
+    """The reference's kernels take every head dim, so the port's do: the
+    widths that once had no instance (8, 48, 512, and 192 for kernel 7)
+    are taken, bf16 rows on 16-byte boundaries up to 256 by the tensor
+    cores at ``tc_width``, wider heads by the any-width CUDA-core design.
+    Only a head dim outside 1..1024 is refused, the limit named."""
+    if want is None:
+        with pytest.raises(ValueError, match=r"head dim -?\d+ outside 1\.\.1024"):
+            mod.pick_design(torch.bfloat16, True, dh)
+    else:
+        assert mod.pick_design(torch.bfloat16, True, dh) == want
 
 
 @pytest.mark.parametrize("mod,dh", [(fa, 192), (fa, 256), (da, 256)],
@@ -405,14 +413,13 @@ def test_ctypes_signatures_match_the_c_entry_points(monkeypatch, mod):
     assert mod._lib() is lib
     for name, params in sigs.items():
         assert getattr(lib, name).argtypes == params, name
+    # (dtype or the tensor-core width, dh, q, k, v, o, lse, ...)
     if mod is fa:
         for name in ("flash_attention_launch", "flash_attention_tc_launch"):
-            n = 7 if name == "flash_attention_launch" else 6
-            assert len(sigs[name]) == n + 15   # ... q, k, v, o, lse, b, ...
+            assert len(sigs[name]) == 7 + 15   # ... q, k, v, o, lse, b, ...
     else:
         for name in ("decode_attention_launch", "decode_attention_tc_launch"):
-            n = 8 if name == "decode_attention_launch" else 7
-            assert len(sigs[name]) == n + 9    # ... o, lse, part, pos, b, ...
+            assert len(sigs[name]) == 8 + 9    # ... o, lse, part, pos, b, ...
 
 
 @pytest.mark.parametrize("design", ["tc", "simt"])
@@ -437,7 +444,9 @@ def test_flash_launch_passes_lse_or_null(monkeypatch, design, return_lse):
     entry = lib.flash_attention_tc_launch if design == "tc" else \
         lib.flash_attention_launch
     (call,) = entry.calls
-    at = 4 if design == "tc" else 5           # after dh (and dtype), q, k, v
+    # after dh and the tensor-core width (or dtype and dh), q, k, v
+    assert call[:2] == ((16, 16) if design == "tc" else (1, 16))
+    at = 5
     out, lse = got if return_lse else (got, None)
     assert call[at] == out.data_ptr()
     if return_lse:
@@ -481,7 +490,9 @@ def test_decode_launch_passes_lse_or_null(monkeypatch, design, return_lse,
     entry = lib.decode_attention_tc_launch if design == "tc" else \
         lib.decode_attention_launch
     (call,) = entry.calls
-    at = 4 if design == "tc" else 5           # after dh (and dtype), q, k, v
+    # after dh and the tensor-core width (or dtype and dh), q, k, v
+    assert call[:2] == ((16, 16) if design == "tc" else (1, 16))
+    at = 5
     out, lse = got if return_lse else (got, None)
     assert call[at] == out.data_ptr()
     if return_lse:

@@ -90,7 +90,7 @@ def test_decode_attention_ignores_rows_past_pos():
     (100, 1, 132, 256),          # ragged: chunks stay tile multiples
 ])
 def test_split_rows(rows, heads, sms, chunk):
-    # Dh 128: two CTAs per SM (the library's decode_attention_ctas_per_sm)
+    # Dh 128: two CTAs per SM (decode_attention.ctas_per_sm)
     got = split_rows(rows, heads, sms, CTAS_AT_DH_128)
     assert got == chunk and got % TILE == 0 and got >= MIN_CHUNK
     # one wave: every (b, kv, chunk) CTA resident at once
