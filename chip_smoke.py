@@ -29,17 +29,21 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            (20% inactive, k=16, B in 1/16).
    kernel_ivf  ann_topk_ivf and ann_topk_ivf_quant likewise, each case on
            the design the dispatch gives it (buckets of at most 64 slots:
-           one warp per probe, "warp"; larger: "block") and on "block" too,
-           int8 bitwise, the slots of NEG entries as the plain version's
-           stable sort: the reference's kernel-test shapes, D=100/50, k
-           above the bucket size, disabled probes, duplicates inside a
-           bucket, bitwise parity of the routed scan (both designs) and the
-           brute scan; the engine's shapes (C=64, cap 8/16/32/64 with
-           members a prefix, D=128, nprobe 8, B in 1/4/16, k 4 fp32 and 16
-           int8), timed at B=1 with "warp", "block" and kernel 5's "warp"
-           at S=1 in one profiler session; and C=512 buckets x 4096 slots x
-           768 (half valid, nprobe=64, B in 1/16; k=4 fp32, k=16 int8), on
-           "block", with times.
+           one warp per probe, "warp", held on "block" too; larger:
+           "grouped", held at two tiles and two group sizes and bitwise on
+           "block"), int8 bitwise, the slots of NEG entries as the plain
+           version's stable sort: the reference's kernel-test shapes,
+           D=100/50, k above the bucket size, disabled probes, duplicates
+           inside a bucket, buckets of 100-4096 slots over several tiles
+           (k 1-1000, duplicates in different tiles, all-invalid buckets,
+           a bucket probed twice by one query), bitwise parity of the
+           routed scan (every design) and the brute scan; the engine's
+           shapes (C=64, cap 8/16/32/64 with members a prefix, D=128,
+           nprobe 8, B in 1/4/16, k 4 fp32 and 16 int8), timed at B=1 with
+           "warp", "block" and kernel 5's "warp" at S=1 in one profiler
+           session; and C=512 buckets x 4096 slots x 768 (half valid,
+           nprobe=64, B in 1/16; k=4 fp32, k=16 int8), on "grouped", timed
+           beside "block" in one profiler session.
    kernel_sharded  ann_topk_ivf_sharded and ann_topk_ivf_quant_sharded
            against their plain versions, each case on the design the
            dispatch gives it (buckets of at most 64 slots: one warp per
@@ -119,7 +123,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            bitwise equal.
    stage1_clustered  a C=512, nprobe=64 router trained once on the
            kernel index and carried to the numpy index: the routed scans
-           agree within phase 4's near-tie allowance.
+           agree within phase 4's near-tie allowance, every one of them
+           (buckets of thousands of slots) on "grouped".
    stage1_sharded  that router carried into 8 shards and trained once more
            (the shards re-cut, rows migrate), on the hot and the warm
            index: the sharded routed scans agree with numpy's at B=16
@@ -137,14 +142,22 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            read in place), "wide" at D 3072/4096; kernel 2 "wide" at k
            65/100/256, "tc" and "dp4a" at D 4096, 16384 and 32768, B 16;
            routing at nprobe 65/128/C over C = 256 and kernels 3 and 4
-           at k 100 ("block"), kernel 5 at 4 shards; "chunked" at a
-           chunk of 1024 against "block" at cap 4096, every scan; kernel
-           3 at cap 65,536, D 768 (2^20 rows over 16 clusters,
-           "chunked"). Then the new designs' times (device ms, plain,
-           library, bound) and two engine runs equal to numpy key for
-           key: nprobe=None over 128 clusters (routing on "wide") and D
-           4096 with micro-batches up to 16. ``python3 chip_smoke.py
-           stage1_shapes`` runs this phase alone after the build.
+           at k 100 ("grouped", two tiles and two group sizes, bitwise
+           on "block"), kernel 5 at 4 shards ("block"); "chunked" at a
+           chunk of 1024 against "block" at cap 4096, every scan, and
+           "grouped" against both; kernel 3 at cap 65,536, D 768 (2^20
+           rows over 16 clusters, "grouped", bitwise on "chunked") at k
+           4, 100 and 6000, and kernels 3 and 4 at cap 2^20, D 64, k 500
+           (both past the shared-memory merge: lists merged by levels),
+           bitwise on "chunked". Then the new designs' times (device ms,
+           plain, library, bound; "grouped" and "chunked" in one
+           profiler session at cap 65,536) and two engine runs equal to
+           numpy key for key: nprobe=None over 128 clusters (routing on
+           "wide") and D 4096 with micro-batches up to 16. ``python3
+           chip_smoke.py stage1_shapes`` runs this phase alone after the
+           build; ``python3 chip_smoke.py grouped_sweep`` times
+           "grouped" at the tiles and group sizes its picks were set from
+           (not part of the whole run).
 5. serve   ``run_once`` on the kernel backend (launch counts reset just
            before, read just after) equals ``backend="numpy"``, at the
            defaults, in an eviction-heavy run, and for (a) the repo's
@@ -996,7 +1009,8 @@ def measure_ivf(sel, en, q, buckets, valid, k, *, quant=None,
     bucket_scale)`` of the int8 one (q then holds the int8 queries), on
     the design the dispatch gives, its plain version and the library
     yardstick. Where the dispatch gives "warp", one profiler session also
-    times "block" and kernel 5's "warp" at S=1 on the same inputs."""
+    times "block" and kernel 5's "warp" at S=1 on the same inputs; where it
+    gives "grouped", "grouped" and "block" in one session."""
     from repro_torch.kernels import ann_topk_ivf as ivf
     b, nprobe = sel.shape
     c, cap, d = buckets.shape
@@ -1020,7 +1034,7 @@ def measure_ivf(sel, en, q, buckets, valid, k, *, quant=None,
         s = torch.where(valid[sb] & (en > 0)[:, :, None], s, NEG)
         return torch.sort(-s, dim=2, stable=True).indices[..., :k]
 
-    design = expect_routed_design(cap)
+    design = expect_routed_design(cap, False, k)
     bound_ms, bound_by = bound_ivf(sel, en, valid, d, k, quant is not None)
     out = {"b": b, "nprobe": nprobe, "c": c, "cap": cap, "d": d, "k": k,
            "dtype": "fp32" if quant is None else "int8", "design": design,
@@ -1048,6 +1062,20 @@ def measure_ivf(sel, en, q, buckets, valid, k, *, quant=None,
         out.update({f"{name}_device_ms": v for name, v in same.items()})
         out["block_ms"] = timed_ms(lambda: ivf._launch("block", kernel,
                                                        *args, k=k))
+    if design == "grouped":
+        # the plan, the CUDA launches a call, and "block" timed beside it
+        # in one profiler session
+        plan = ivf.grouped_plan(b, nprobe, c, cap, d, k, quant is not None)
+        out.update({key: plan[key] for key in ("tile", "qb", "ntiles")})
+        out["launches_per_call"] = launches_per_call(lambda: kernel(*args, k))
+        check(out["launches_per_call"] == 2,
+              f"grouped: {out['launches_per_call']} CUDA launches a call")
+        same = session_ms({
+            "grouped": (lambda: ivf._launch("grouped", kernel, *args, k=k),
+                        "ivf_grouped"),
+            "block": (lambda: ivf._launch("block", kernel, *args, k=k),
+                      "ivf_topk<")}, required=required)
+        out.update({f"{name}_device_ms": v for name, v in same.items()})
     return out
 
 
@@ -1077,19 +1105,56 @@ def hold_quant(emb_q, scales, act, qq, qs, k) -> float:
     return 0.0
 
 
-def routed_outs(wrapper, args, k) -> list:
-    """``wrapper(*args, k)`` (any routed scan of kernels 3-5) on the design
-    the dispatch gives its bucket size (the wrapper's counts say which
-    ran), then on "block" too where that is "warp"."""
+def grouped_variants(args, k) -> list:
+    """(tile, qb) of three more "grouped" launches on kernel 3's or 4's
+    ``args`` beside the plan's, so that a hold sees two tiles and two
+    group sizes: the plan's tile with the other group size, another tile
+    (half the plan's on a multiple of 32, or 64 where the plan's is 32)
+    with each. Where the other tile is below k, or its lists overflow the
+    shared-memory network, they merge by levels."""
     from repro_torch.kernels import ann_topk_ivf as ivf
     buckets = args[4 if args[2].dtype == torch.int8 else 3]
-    design = expect_routed_design(buckets.shape[1])
+    b, nprobe = args[0].shape
+    c, cap, d = buckets.shape
+    plan = ivf.grouped_plan(b, nprobe, c, cap, d, k,
+                            buckets.dtype == torch.int8)
+    tile, qb = plan["tile"], plan["qb"]
+    other = max(tile // 2 // 32 * 32, 32)
+    if other == tile:
+        other = 2 * tile
+    qb2 = 4 if qb == 1 else 1
+    return [(tile, qb2), (other, qb), (other, qb2)]
+
+
+def routed_outs(wrapper, args, k) -> list:
+    """``wrapper(*args, k)`` (any routed scan of kernels 3-5) on the design
+    the dispatch gives it (the wrapper's counts say which ran), then on
+    "block" too where that is "warp"; where it is "grouped", three more
+    "grouped" launches at another tile and group size
+    (``grouped_variants``) and "block" (where its scores fit shared
+    memory, else "chunked"), each bitwise the first, the slots of NEG
+    entries included."""
+    from repro_torch.kernels import ann_topk_ivf as ivf
+    quant = args[2].dtype == torch.int8
+    buckets = args[4 if quant else 3]
+    _, cap, d = buckets.shape
+    sharded = wrapper.__name__.endswith("_sharded")
+    design = expect_routed_design(cap, sharded, k)
     before = design_counts(wrapper)
     outs = [wrapper(*args, k)]
-    check_design(wrapper, before, design,
-                 f"{wrapper.__name__} at cap={buckets.shape[1]} k={k}")
-    if design != "block":
+    what = f"{wrapper.__name__} at cap={cap} k={k}"
+    check_design(wrapper, before, design, what)
+    if design == "warp":
         outs.append(ivf._launch("block", wrapper, *args, k=k))
+    if design == "grouped":
+        for tile, qb in grouped_variants(args, k):
+            outs.append(ivf._launch("grouped", wrapper, *args, k=k,
+                                    tile=tile, qb=qb))
+        other = "block" if ivf.block_smem(cap, d, k, quant, False) \
+            <= ivf.SMEM_MAX else "chunked"
+        outs.append(ivf._launch(other, wrapper, *args, k=k))
+        for got in outs[1:]:
+            hold_bitwise(got, outs[0], f"{what}: grouped", all_rows=True)
     return outs
 
 
@@ -1215,42 +1280,53 @@ def random_probes(g, b: int, c: int, nprobe: int, dev, p_off: float = 0.0):
 
 def hold_brute_routed_parity(g, dev) -> float:
     """A row scores bitwise the same in the brute scan (ann_topk, both
-    designs) and the routed scan (ann_topk_ivf, both designs: buckets of
-    64 slots take "warp"), the shared summation order of dot.cuh:
-    N rows laid out as C buckets of consecutive rows, every bucket
-    probed, the finalists merged; values and rows must be equal."""
+    designs) and the routed scan (ann_topk_ivf, every design: buckets of
+    64 slots take "warp", held on "block" and "grouped" too; buckets of
+    256 take "grouped", held at two tiles and group sizes and on
+    "block"), the shared summation order of dot.cuh: N rows laid out as C
+    buckets of consecutive rows, every bucket probed, the finalists
+    merged; values and rows must be equal."""
     from repro_torch.kernels import ann_topk as k1
-    from repro_torch.kernels.ann_topk_ivf import ann_topk_ivf
+    from repro_torch.kernels import ann_topk_ivf as ivf
     from repro_torch.kernels.ops import _merge_probes
 
-    c, cap, d, b, k = 16, 64, 128, 8, 8
-    emb = unit_rows(g, c * cap, d, dev)
-    act = torch.rand(c * cap, device=dev, generator=g) > 0.3
-    q = near(emb[torch.randint(0, c * cap, (b,), device=dev, generator=g)], g)
-    sel = torch.arange(c, dtype=torch.int32, device=dev).repeat(b, 1)
-    en = torch.ones_like(sel)
-    rows = torch.arange(c * cap, dtype=torch.int32, device=dev)
+    n, d, b, k = 1024, 128, 8, 8
+    emb = unit_rows(g, n, d, dev)
+    act = torch.rand(n, device=dev, generator=g) > 0.3
+    q = near(emb[torch.randint(0, n, (b,), device=dev, generator=g)], g)
+    rows = torch.arange(n, dtype=torch.int32, device=dev)
     brute = (k1._launch("twopass", emb, act, q, k), k1.ann_topk(emb, act, q, k))
-    outs = routed_outs(ann_topk_ivf, (sel, en, q, emb.reshape(c, cap, d),
-                                      act.reshape(c, cap)), k)
-    check(len(outs) == 2, "the parity shape did not take \"warp\"")
-    for vals, slots in outs:
-        got = _merge_probes(vals, slots, sel, rows.reshape(c, cap), k)
-        for want in brute:
-            compare_exact(got, want)
+    for c, cap in ((16, 64), (4, 256)):
+        sel = torch.arange(c, dtype=torch.int32, device=dev).repeat(b, 1)
+        en = torch.ones_like(sel)
+        args = (sel, en, q, emb.reshape(c, cap, d), act.reshape(c, cap))
+        outs = routed_outs(ivf.ann_topk_ivf, args, k)
+        if cap <= 64:
+            check(len(outs) == 2, "the parity shape did not take \"warp\"")
+            outs.append(ivf._launch("grouped", ivf.ann_topk_ivf, *args, k=k))
+        else:
+            check(len(outs) == 5, "the parity shape did not take "
+                  "\"grouped\"")
+        for vals, slots in outs:
+            got = _merge_probes(vals, slots, sel, rows.reshape(c, cap), k)
+            for want in brute:
+                compare_exact(got, want)
     return 0.0
 
 
 def phase_kernel_ivf(dev):
     """ann_topk_ivf and ann_topk_ivf_quant against their plain versions,
-    each case on the design the dispatch gives it and on "block" too where
-    it gives "warp": the reference's kernel-test shapes
+    each case on the design the dispatch gives it, on "block" too where
+    it gives "warp", and where it gives "grouped" at two tiles and two
+    group sizes and bitwise on "block": the reference's kernel-test shapes
     (tests/test_kernels.py:90-92 and :130), widths the wide loads do not
     divide, k above the bucket size, disabled probes, duplicate rows
-    inside one bucket, bitwise parity with the brute scan; the engine's
-    shapes (C=64, cap 8/16/32/64 with members a prefix, D=128, nprobe 8, B
-    in 1/4/16, k 4 fp32 and 16 int8), both designs timed at B=1; and the
-    real size (on "block")."""
+    inside one bucket, buckets above 64 slots over several tiles
+    (duplicates in different tiles, k above cap, all-invalid buckets, a
+    bucket probed twice by one query), bitwise parity with the brute scan;
+    the engine's shapes (C=64, cap 8/16/32/64 with members a prefix,
+    D=128, nprobe 8, B in 1/4/16, k 4 fp32 and 16 int8), both designs timed
+    at B=1; and the real size (on "grouped", timed beside "block")."""
     g = torch.Generator(device=dev).manual_seed(4)
     errs3, errs4 = [], []
 
@@ -1283,6 +1359,33 @@ def phase_kernel_ivf(dev):
         bk = int(sel[i, 0])
         buckets[bk, [9, 30, 41, 60]] = buckets[bk, 17].clone()
         q[i] = buckets[bk, 17]
+    run(sel, en, buckets, valid, q, k, exact_rows=True)
+    # above 64 slots ("grouped", held at two tiles and two group sizes and
+    # bitwise on "block"): several tiles a bucket, k above the tile and
+    # above cap, sparse and all-invalid buckets, disabled probes, one
+    # query probing one bucket twice
+    for c, cap, d, b, nprobe, k, p_valid in [
+            (8, 100, 32, 3, 4, 4, 0.7), (8, 300, 48, 4, 5, 16, 0.5),
+            (6, 1000, 128, 5, 6, 100, 0.6), (4, 4096, 64, 8, 4, 7, 0.02),
+            (16, 130, 100, 16, 16, 1, 0.9), (5, 700, 16, 2, 3, 1000, 0.4)]:
+        buckets = torch.randn((c, cap, d), device=dev, generator=g)
+        valid = torch.rand((c, cap), device=dev, generator=g) < p_valid
+        valid[0] = False
+        sel, en = random_probes(g, b, c, nprobe, dev, p_off=0.2)
+        sel[0, 1] = sel[0, 0]
+        run(sel, en, buckets, valid,
+            torch.randn((b, d), device=dev, generator=g), k)
+    # a row copied into three other tiles of its bucket ties bitwise: the
+    # lowest slot first, across the tiles' lists
+    c, cap, d, b, nprobe, k = 4, 1024, 128, 4, 2, 6
+    buckets = unit_rows(g, c * cap, d, dev).reshape(c, cap, d)
+    valid = torch.ones((c, cap), dtype=torch.bool, device=dev)
+    sel, en = random_probes(g, b, c, nprobe, dev)
+    q = torch.empty((b, d), device=dev)
+    for i in range(b):
+        bk = int(sel[i, 0])
+        buckets[bk, [40, 300, 700, 1000]] = buckets[bk, 555].clone()
+        q[i] = buckets[bk, 555]
     run(sel, en, buckets, valid, q, k, exact_rows=True)
     errs3.append(hold_brute_routed_parity(g, dev))
 
@@ -1356,11 +1459,15 @@ def sharded_args(sel, en, q, buckets, valid, rows, bounds, quant):
     return (sel, en, q, qs, buckets, bscale, valid, rows, bounds)
 
 
-def expect_routed_design(cap: int) -> str:
+def expect_routed_design(cap: int, sharded: bool = True, k: int = 4) -> str:
     """The design a CUDA call of kernels 3-5 must take: one warp per probe
-    ("warp") for buckets of at most 64 slots, else "block" (at every
-    width checked here, D <= 768, the warp design's queries fit)."""
-    return "warp" if cap <= 64 else "block"
+    ("warp") for buckets of at most 64 slots at k <= 64, else "grouped"
+    for kernels 3 and 4 and "block" for kernel 5 (``sharded``; at every
+    width checked here, D <= 768, the warp design's queries fit and so do
+    the block design's scores)."""
+    if cap <= 64 and k <= 64:
+        return "warp"
+    return "block" if sharded else "grouped"
 
 
 def shard_scans(quant):
@@ -1402,8 +1509,9 @@ def hold_sharded(sel, en, q, buckets, valid, rows, bounds, k, *, quant=None,
 def hold_sharded_merge(sel, en, q, buckets, valid, rows, bounds, k, *,
                        quant=None) -> None:
     """On the design the dispatch gives and on "block", for kernel 3 (or
-    4) and kernel 5 alike: the unsharded scan's two designs agree bitwise
-    (slots of NEG entries too); merged (ops._merge_shards) at S=1 the
+    4) and kernel 5 alike: the unsharded scan's designs agree bitwise
+    (slots of NEG entries too; "grouped" too where kernel 3 takes it);
+    merged (ops._merge_shards) at S=1 the
     sharded scan equals the unsharded one merged (ops._merge_probes)
     bitwise on the other design (kernel 5's "warp" against kernel 3's
     "block", and the reverse); at ``bounds``' S the merged vals equal
@@ -1424,8 +1532,12 @@ def hold_sharded_merge(sel, en, q, buckets, valid, rows, bounds, k, *,
                                    "block")))
     unsharded = {d: ivf._launch(d, scan3, *args3, k=k) for d in designs}
     first = unsharded[designs[0]]
-    for d in designs[1:]:
-        check(all(torch.equal(x, y) for x, y in zip(unsharded[d], first)),
+    # kernels 3 and 4's own design where it is not kernel 5's
+    own = expect_routed_design(buckets.shape[1], False, k)
+    extra = {own: ivf._launch(own, scan3, *args3, k=k)} \
+        if own not in designs else {}
+    for d, got in [*unsharded.items(), *extra.items()][1:]:
+        check(all(torch.equal(x, y) for x, y in zip(got, first)),
               f"{scan3.__name__}: {d} differs from {designs[0]}")
     for design, other in zip(designs, reversed(designs)):
         wv, wr = _merge_probes(*unsharded[other], sel, rows, k + 1)
@@ -1719,6 +1831,7 @@ def phase_stage1_clustered(dev, world, caches):
     t0 = time.perf_counter()
     kidx = caches["kernel"].seri.index
     nidx = caches["numpy"].seri.index
+    wrappers = kernel_wrappers()
     cfg = ClusterConfig(n_clusters=REAL_C, nprobe=REAL_NPROBE, seed=5)
     kidx.router = ClusterRouter(kidx.capacity, kidx.dim, cfg)
     kidx.router.refresh(kidx)
@@ -1735,13 +1848,17 @@ def phase_stage1_clustered(dev, world, caches):
     cands = swaps = 0
     scanned = {"kernel": [], "numpy": []}
     t_search = {"kernel": 0.0, "numpy": 0.0}
+    reset_counts(wrappers)
+    log = []
     for b in (16, 1, 16):
         qe = held_queries(world, rng, N_INTENTS, 8, b)
         out = {}
         for backend, index in (("kernel", kidx), ("numpy", nidx)):
             t = time.perf_counter()
-            out[backend] = index.search_batch(qe, k, tau_sim=-1.0)
+            with routed_launch_log() as seen:
+                out[backend] = index.search_batch(qe, k, tau_sim=-1.0)
             t_search[backend] += time.perf_counter() - t
+            log += seen
             scanned[backend].append(index.last_scanned)
         deeper = nidx.search_batch(qe, k + 1, tau_sim=-1.0)
         for (ik, sk), (i_n, sn), (_, sd) in zip(out["kernel"], out["numpy"],
@@ -1750,6 +1867,11 @@ def phase_stage1_clustered(dev, world, caches):
             swaps += check_ranking(ik, sk, i_n, sn, nxt)
             cands += len(ik)
     check(cands > 0, "the clustered index found nothing")
+    # every routed scan of the real-size layout's buckets on "grouped"
+    designs = check_routed_designs(wrappers, log, "stage1_clustered")
+    check(designs["ann_topk_ivf"].get("grouped", 0) > 0
+          and not any(w.plain_calls for w in wrappers.values()),
+          f"stage1_clustered: routed scans by design {designs}")
     # one query probes 64 of 512 clusters: about an eighth of the rows
     check(scanned["kernel"][1] < len(kidx) // 4,
           f"the routed scan of one query read {scanned['kernel'][1]} rows")
@@ -1758,6 +1880,7 @@ def phase_stage1_clustered(dev, world, caches):
             "nprobe": REAL_NPROBE, "cap": cap,
             "layout_gb": REAL_C * cap * kidx.dim * 4 / 1e9,
             "queries": 33, "candidates": cands, "near_tie_swaps": swaps,
+            "routed_launches_by_design": designs,
             "rows_scanned_per_search_kernel": scanned["kernel"],
             "rows_scanned_per_search_numpy": scanned["numpy"],
             "train_s": t_train, "layout_s": t_layout,
@@ -2199,21 +2322,24 @@ def routed_launch_log():
 
 def check_routed_designs(wrappers: dict, log: list, run: str) -> dict:
     """Every launch of kernels 3-5 in ``run`` took the design its bucket
-    size gives (``expect_routed_design``: "warp" at every cap the engine
-    lays out), and the wrappers' counts by design agree with the log.
-    Returns the counts by design and the caps seen, per wrapper."""
+    size and k give (``expect_routed_design``: "warp" at every cap the
+    engine lays out; above 64 slots "grouped" for kernels 3 and 4), and
+    the wrappers' counts by design agree with the log. Returns the counts
+    by design and the caps seen, per wrapper."""
     out = {}
     for name in ROUTED:
-        mine = [(design, cap) for n, design, cap, *_ in log if n == name]
-        wrong = [(d, cap) for d, cap in mine
-                 if d != expect_routed_design(cap)]
+        sharded = name.endswith("_sharded")
+        mine = [(design, cap, k) for n, design, cap, k, _ in log
+                if n == name]
+        wrong = [(d, cap) for d, cap, k in mine
+                 if d != expect_routed_design(cap, sharded, k)]
         check(not wrong, f"{run}: {name} launched {len(wrong)} times on the "
               f"wrong design: {sorted(set(wrong))}")
         counts = design_counts(wrappers[name])
-        check(counts == {d: sum(x == d for x, _ in mine) for d in counts}
+        check(counts == {d: sum(x == d for x, *_ in mine) for d in counts}
               and wrappers[name].launches == len(mine),
               f"{run}: {name} counts {counts} disagree with its launches")
-        out[name] = {**counts, "caps": sorted({cap for _, cap in mine})}
+        out[name] = {**counts, "caps": sorted({cap for _, cap, _ in mine})}
     return out
 
 
@@ -2955,36 +3081,40 @@ def peak_flops(dt) -> float:
     return BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS
 
 
-def bound_flash(q, k, causal=True, window=None) -> tuple[float, str]:
+def bound_flash(q, k, causal=True, window=None,
+                peak=None) -> tuple[float, str]:
     """Least time on the card for kernel 6 on these inputs: q, k, v read
     once and o written once over HBM, or 4 * Dh operations per kept (row,
-    key) pair and head at the peak rate of the input type."""
+    key) pair and head at the peak rate of the input type (or ``peak``:
+    the CUDA-core designs' fp32 FMAs at FP32_FLOPS)."""
     b, sq, kvh, g, dh = q.shape
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     ops = 4.0 * dh * kept_pairs(sq, k.shape[1], causal, window) * b * kvh * g
     t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = ops / peak_flops(q.dtype) * 1e3
+    t_ops = ops / (peak or peak_flops(q.dtype)) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def bound_decode(q, kc, pos: int) -> tuple[float, str]:
+def bound_decode(q, kc, pos: int, peak=None) -> tuple[float, str]:
     """Least time on the card for kernel 7: q, the cache rows 0..pos of K
     and V read once and o written once, or 4 * Dh operations per (query
-    row, cache row)."""
+    row, cache row) at the input type's peak (or ``peak``)."""
     b, kvh, g, dh = q.shape
     rows = min(pos, kc.shape[1] - 1) + 1
     nbytes = (2 * q.numel() + 2 * b * rows * kvh * dh) * q.element_size()
     ops = 4.0 * dh * g * rows * b * kvh
     t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = ops / peak_flops(q.dtype) * 1e3
+    t_ops = ops / (peak or peak_flops(q.dtype)) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def simt_timings(kernel) -> dict:
+def simt_timings(kernel, bound_ms_by) -> dict:
     """The CUDA-core design's times on the same inputs (the kernel fp32 and
     misaligned rows take: "simt", or "simt_any" at a width it has no
-    instance for), beside the tensor-core design's in the same call."""
-    return {"simt_ms": timed_ms(kernel), "simt_device_ms": device_ms(kernel)}
+    instance for), beside the tensor-core design's in the same call, and
+    its own bound (``bound_ms_by``: its fp32 FMAs at FP32_FLOPS)."""
+    return {"simt_ms": timed_ms(kernel), "simt_device_ms": device_ms(kernel),
+            "simt_bound_ms": bound_ms_by[0], "simt_bound_by": bound_ms_by[1]}
 
 
 def measure_flash(q, k, v, window=None, causal=True) -> dict:
@@ -3017,7 +3147,8 @@ def measure_flash(q, k, v, window=None, causal=True) -> dict:
             scale=scale, enable_gqa=True),
         plain_repeats=5 if sq > 1024 else REPEATS))
     out.update(simt_timings(
-        lambda: fa._launch(cuda_core(q), q, k, v, scale, causal, window)))
+        lambda: fa._launch(cuda_core(q), q, k, v, scale, causal, window),
+        bound_flash(q, k, causal, window, peak=FP32_FLOPS)))
     out.update(bound_ms=bound_ms, bound_by=bound_by)
     return out
 
@@ -3040,7 +3171,8 @@ def measure_decode(q, kc, vc, pos: int) -> dict:
         lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale,
                                                enable_gqa=True)))
     out.update(simt_timings(
-        lambda: da._launch(cuda_core(q), q, kc, vc, pos, scale)))
+        lambda: da._launch(cuda_core(q), q, kc, vc, pos, scale),
+        bound_decode(q, kc, pos, peak=FP32_FLOPS)))
     out.update(bound_ms=bound_ms, bound_by=bound_by)
     return out
 
@@ -6841,6 +6973,7 @@ ROUTE_C, ROUTE_CAP = 256, 64          # kernels 3-5 at k 100: "block"
 ROUTE_NPROBES = (65, 128, ROUTE_C)
 # 2^20 rows over 16 clusters at D 768 (3.2 GB fp32): "chunked"
 BIG_C, BIG_CAP, BIG_D = 16, 1 << 16, 768
+HUGE_CAP, HUGE_D = 1 << 20, 64        # kernels 3 and 4 at k 500
 CHUNK_CAP, CHUNK = 4096, 1024         # "chunked" held bitwise to "block"
 STAGE1_ENGINE = {
     # nprobe=None probes every cluster (routing at k = n_clusters = 128)
@@ -7057,14 +7190,17 @@ def phase_stage1_shapes(dev) -> dict:
         sel, en = ops._route(cent, live, q, nprobe)
         fp32 = (sel, en, q, buckets, valid)
         int8 = (sel, en, qq, qs, bq, bs, valid)
-        hold_call(ivf.ann_topk_ivf, "block",
-                  lambda: ivf.ann_topk_ivf(*fp32, 100),
-                  ivf.ann_topk_ivf_plain(*fp32, 100),
-                  f"ann_topk_ivf nprobe={nprobe} k=100", all_rows=True)
-        hold_call(ivf.ann_topk_ivf_quant, "block",
-                  lambda: ivf.ann_topk_ivf_quant(*int8, 100),
-                  ivf.ann_topk_ivf_quant_plain(*int8, 100),
-                  f"ann_topk_ivf_quant nprobe={nprobe} k=100", all_rows=True)
+        for w, plain, a in ((ivf.ann_topk_ivf, ivf.ann_topk_ivf_plain, fp32),
+                            (ivf.ann_topk_ivf_quant,
+                             ivf.ann_topk_ivf_quant_plain, int8)):
+            hold_call(w, "grouped", lambda: w(*a, 100), plain(*a, 100),
+                      f"{w.__name__} nprobe={nprobe} k=100", all_rows=True)
+            want = ivf._launch("block", w, *a, k=100)
+            for tile, qb in grouped_variants(a, 100):
+                hold_bitwise(ivf._launch("grouped", w, *a, k=100, tile=tile,
+                                         qb=qb), want,
+                             f"{w.__name__} grouped tile={tile} qb={qb} "
+                             f"vs block", all_rows=True)
         case("ann_topk_ivf k=100")
         if nprobe == 128:
             for w, plain, a in (
@@ -7078,7 +7214,9 @@ def phase_stage1_shapes(dev) -> dict:
                           all_rows=True)
                 case("ann_topk_ivf_sharded k=100")
 
-    # "chunked" at a chunk of 1024 against "block" at cap 4096, bitwise
+    # "chunked" at a chunk of 1024 against "block" at cap 4096, bitwise,
+    # every scan; kernels 3 and 4 on "grouped" (two tiles, two group
+    # sizes) against both
     small = (8, CHUNK_CAP, 128)
     buckets = int_rows(g, small, dev)
     valid = torch.rand(small[:2], device=dev, generator=g) > 0.3
@@ -7105,12 +7243,22 @@ def phase_stage1_shapes(dev) -> dict:
             got = ivf._launch("chunked", w, *a, k=k, chunk=CHUNK)
             torch.cuda.synchronize()
             check_design(w, before, "chunked", f"{w.__name__} chunked")
-            hold_bitwise(got, ivf._launch("block", w, *a, k=k),
-                         f"{w.__name__} chunked vs block k={k}",
+            block = ivf._launch("block", w, *a, k=k)
+            hold_bitwise(got, block, f"{w.__name__} chunked vs block k={k}",
                          all_rows=True)
             case("chunked vs block")
+            if w in (ivf.ann_topk_ivf, ivf.ann_topk_ivf_quant):
+                for tile, qb in [(None, None),
+                                 *grouped_variants(a, k)]:
+                    hold_bitwise(ivf._launch("grouped", w, *a, k=k,
+                                             tile=tile, qb=qb), block,
+                                 f"{w.__name__} grouped tile={tile} qb={qb}"
+                                 f" vs block k={k}", all_rows=True)
+                case("grouped vs block and chunked")
 
-    # kernel 3 at cap 65536, D 768: 2^20 rows over 16 clusters, "chunked"
+    # kernel 3 at cap 65536, D 768: 2^20 rows over 16 clusters: "grouped"
+    # (at two tiles and two group sizes) against the plain version and
+    # bitwise against "chunked", kernel 5's design at this cap
     big = torch.randint(-3, 4, (BIG_C, BIG_CAP, BIG_D), device=dev,
                         generator=g, dtype=torch.int8).float()
     big_valid = torch.rand((BIG_C, BIG_CAP), device=dev, generator=g) > 0.2
@@ -7118,16 +7266,62 @@ def phase_stage1_shapes(dev) -> dict:
     big_sel = torch.stack([torch.randperm(BIG_C, device=dev, generator=g)[:4]
                            for _ in range(4)]).to(torch.int32)
     big_en = torch.ones((4, 4), dtype=torch.int32, device=dev)
-    check(ivf.pick_design(BIG_CAP, 4, BIG_D, False, False) == "chunked",
-          "cap 65536 at D 768 did not take 'chunked'")
+    check(ivf.pick_design(BIG_CAP, 4, BIG_D, False, False) == "grouped"
+          and ivf.pick_design(BIG_CAP, 4, BIG_D, False, True) == "chunked",
+          "cap 65536 at D 768: kernel 3 not on 'grouped' or kernel 5 not "
+          "on 'chunked'")
     big_args = (big_sel, big_en, qb, big, big_valid)
-    for k in (4, 100):
-        hold_call(ivf.ann_topk_ivf, "chunked",
+    for k in (4, 100, 6000):
+        hold_call(ivf.ann_topk_ivf, "grouped",
                   lambda: ivf.ann_topk_ivf(*big_args, k),
                   ivf.ann_topk_ivf_plain(*big_args, k),
                   f"ann_topk_ivf cap={BIG_CAP} d={BIG_D} k={k}",
                   all_rows=True)
-        case("ann_topk_ivf chunked cap 65536")
+        want = ivf._launch("chunked", ivf.ann_topk_ivf, *big_args, k=k)
+        for tile, qb_ in [(None, None), *grouped_variants(big_args, k)]:
+            hold_bitwise(ivf._launch("grouped", ivf.ann_topk_ivf, *big_args,
+                                     k=k, tile=tile, qb=qb_), want,
+                         f"ann_topk_ivf cap={BIG_CAP} grouped tile={tile} "
+                         f"qb={qb_} vs chunked k={k}", all_rows=True)
+        case("ann_topk_ivf grouped cap 65536")
+    check(ivf.grouped_plan(4, 4, BIG_C, BIG_CAP, BIG_D, 6000, False)[
+        "merge"] == "levels", "cap 65536 k 6000: not merged by levels")
+
+    # kernels 3 and 4 at cap 2^20, D 64, k 500: 2^21 rows over 2 clusters,
+    # one probed twice by a query, half the slots valid and the second
+    # bucket's last half none; the lists merge by levels, against the
+    # plain version and bitwise against "chunked"
+    huge = int_rows(g, (2, HUGE_CAP, HUGE_D), dev)
+    huge_valid = torch.rand((2, HUGE_CAP), device=dev, generator=g) > 0.5
+    huge_valid[1, HUGE_CAP // 2:] = False
+    hq = int_rows(g, (2, HUGE_D), dev)
+    hsel = torch.tensor([[0, 1, 1], [1, 0, 0]], dtype=torch.int32,
+                        device=dev)
+    hen = torch.tensor([[1, 1, 1], [1, 1, 0]], dtype=torch.int32,
+                       device=dev)
+    hbq, hbs = quantize_dev(huge.reshape(-1, HUGE_D))
+    hqq, hqs = quantize_dev(hq)
+    for w, plain, a in (
+            (ivf.ann_topk_ivf, ivf.ann_topk_ivf_plain,
+             (hsel, hen, hq, huge, huge_valid)),
+            (ivf.ann_topk_ivf_quant, ivf.ann_topk_ivf_quant_plain,
+             (hsel, hen, hqq, hqs, hbq.reshape(huge.shape),
+              hbs.reshape(huge_valid.shape), huge_valid))):
+        quant = w is ivf.ann_topk_ivf_quant
+        check(ivf.grouped_plan(2, 3, 2, HUGE_CAP, HUGE_D, 500, quant)[
+            "merge"] == "levels", f"{w.__name__} cap 2^20 k 500: not "
+                                  f"merged by levels")
+        hold_call(w, "grouped", lambda: w(*a, 500), plain(*a, 500),
+                  f"{w.__name__} cap={HUGE_CAP} d={HUGE_D} k=500",
+                  all_rows=True)
+        want = ivf._launch("chunked", w, *a, k=500)
+        for tile, qb_ in [(None, None), *grouped_variants(a, 500)]:
+            hold_bitwise(ivf._launch("grouped", w, *a, k=500, tile=tile,
+                                     qb=qb_), want,
+                         f"{w.__name__} cap={HUGE_CAP} grouped tile={tile} "
+                         f"qb={qb_} vs chunked k=500", all_rows=True)
+        case("grouped cap 2^20 k 500")
+    del huge, huge_valid, hbq, hbs
 
     # the new designs' times
     times = {}
@@ -7181,12 +7375,22 @@ def phase_stage1_shapes(dev) -> dict:
                         s.reshape(4, 4, BIG_CAP), NEG)
         return torch.topk(s, 4, dim=2)
 
-    times["ann_topk_ivf chunked, cap=65536 d=768"] = time_design(
+    plan = ivf.grouped_plan(4, 4, BIG_C, BIG_CAP, BIG_D, 4, False)
+    big_times = time_design(
         lambda: ivf.ann_topk_ivf(*big_args, 4),
         lambda: ivf.ann_topk_ivf_plain(*big_args, 4), gathered_bmm,
         bound_ivf(big_sel, big_en, big_valid, BIG_D, 4, False),
         {"b": 4, "nprobe": 4, "c": BIG_C, "cap": BIG_CAP, "d": BIG_D, "k": 4,
-         "design": "chunked", "chunk": ivf.chunk_slots(BIG_CAP)})
+         "design": "grouped", "tile": plan["tile"], "qb": plan["qb"],
+         "ntiles": plan["ntiles"], "chunk": ivf.chunk_slots(BIG_CAP)})
+    # the design it replaces, in one profiler session with it
+    same = session_ms({
+        "grouped": (lambda: ivf._launch("grouped", ivf.ann_topk_ivf,
+                                        *big_args, k=4), "ivf_grouped"),
+        "chunked": (lambda: ivf._launch("chunked", ivf.ann_topk_ivf,
+                                        *big_args, k=4), "ivf_chunked<")})
+    big_times.update({f"{n}_device_ms": v for n, v in same.items()})
+    times["ann_topk_ivf grouped, cap=65536 d=768"] = big_times
     del big, big_valid, big_args
     torch.cuda.empty_cache()
 
@@ -7240,6 +7444,79 @@ def stage1_shapes_line(shapes: dict, name: str) -> dict:
                       if key.split(" ")[0] == name}}
 
 
+def phase_grouped_sweep(dev) -> dict:
+    """Device ms of "grouped" at the tiles and group sizes its picks
+    (``ann_topk_ivf.GROUPED_*``) were set from, each shape's variants and
+    the design it replaced in one profiler session: the real-size router's
+    buckets (C 512 x 4096 x D 768, half valid, nprobe 64; fp32 k 4 and
+    int8 k 16 at B 1 and 16) over tiles 128-2048 and groups of 1 and 4;
+    cap 65,536 at D 768 (B 4, nprobe 4, k 4) over tiles 256-8192 beside
+    "chunked"; and cap 65,536 at k 6000, its lists merged by levels,
+    beside "chunked"."""
+    from repro_torch.kernels import ann_topk_ivf as ivf
+
+    g = torch.Generator(device=dev).manual_seed(35)
+    out = {}
+    c, cap, d, nprobe = REAL_C, REAL_CAP, 768, REAL_NPROBE
+    valid = torch.rand((c, cap), device=dev, generator=g) < 0.5
+    buckets = unit_rows(g, c * cap, d, dev).reshape(c, cap, d)
+    bq, bs = quantize_dev(buckets.reshape(c * cap, d))
+    bq, bs = bq.reshape(c, cap, d), bs.reshape(c, cap)
+    for b in (1, 16):
+        sel, en = random_probes(g, b, c, nprobe, dev)
+        q = near(buckets[sel[:, 0].long(), 0], g, 0.1)
+        qq, qs = quantize_dev(q)
+        for quant in (False, True):
+            w = ivf.ann_topk_ivf_quant if quant else ivf.ann_topk_ivf
+            k = 16 if quant else 4
+            args = (sel, en, qq, qs, bq, bs, valid) if quant else \
+                (sel, en, q, buckets, valid)
+            fns = {"block": (lambda: ivf._launch("block", w, *args, k=k),
+                             "ivf_topk<")}
+            for tile in (128, 256, 512, 1024, 2048):
+                for qb in ivf.GROUPED_QBS if b > 1 else (1,):
+                    fns[f"grouped_t{tile}_q{qb}"] = (
+                        lambda tile=tile, qb=qb: ivf._launch(
+                            "grouped", w, *args, k=k, tile=tile, qb=qb),
+                        "ivf_grouped")
+            ms = {name: session_ms({name: fn})[name]
+                  for name, fn in fns.items()}
+            ms["plan"] = ivf.grouped_plan(b, nprobe, c, cap, d, k, quant)
+            ms["bound_ms"], ms["bound_by"] = bound_ivf(sel, en, valid, d, k,
+                                                       quant)
+            out[f"{'int8' if quant else 'fp32'} b={b}"] = ms
+            print(f"grouped_sweep {'int8' if quant else 'fp32'} b={b} "
+                  f"{json.dumps(ms)}", flush=True)
+    del buckets, bq, bs, valid
+    torch.cuda.empty_cache()
+
+    big = torch.randint(-3, 4, (BIG_C, BIG_CAP, BIG_D), device=dev,
+                        generator=g, dtype=torch.int8).float()
+    big_valid = torch.rand((BIG_C, BIG_CAP), device=dev, generator=g) > 0.2
+    q = int_rows(g, (4, BIG_D), dev)
+    sel = torch.stack([torch.randperm(BIG_C, device=dev, generator=g)[:4]
+                       for _ in range(4)]).to(torch.int32)
+    en = torch.ones((4, 4), dtype=torch.int32, device=dev)
+    args = (sel, en, q, big, big_valid)
+    for k, tiles in ((4, (256, 512, 1024, 2048, 8192)), (6000, ())):
+        fns = {"chunked": (lambda k=k: ivf._launch(
+            "chunked", ivf.ann_topk_ivf, *args, k=k), "ivf_chunked<"),
+            "grouped": (lambda k=k: ivf._launch(
+                "grouped", ivf.ann_topk_ivf, *args, k=k), "ivf_grouped")}
+        for tile in tiles:
+            fns[f"grouped_t{tile}"] = (
+                lambda tile=tile, k=k: ivf._launch(
+                    "grouped", ivf.ann_topk_ivf, *args, k=k, tile=tile),
+                "ivf_grouped")
+        ms = {name: session_ms({name: fn})[name] for name, fn in fns.items()}
+        ms["plan"] = ivf.grouped_plan(4, 4, BIG_C, BIG_CAP, BIG_D, k, False)
+        ms["bound_ms"], ms["bound_by"] = bound_ivf(sel, en, big_valid, BIG_D,
+                                                   k, False)
+        out[f"cap65536 k={k}"] = ms
+        print(f"grouped_sweep cap65536 k={k} {json.dumps(ms)}", flush=True)
+    return out
+
+
 def main_mesh() -> int:
     """``python3 chip_smoke.py --mesh``: phase_mesh on four cards of one
     host, after building kernels 6 and 7."""
@@ -7278,8 +7555,9 @@ def main_mesh() -> int:
 
 
 def main(only: str | None = None) -> int:
-    """The whole script, or with ``only = "stage1_shapes"`` or
-    ``"attn_shapes"`` the card, the build and that phase alone."""
+    """The whole script, or with ``only = "stage1_shapes"``,
+    ``"grouped_sweep"`` or ``"attn_shapes"`` the card, the build and that
+    phase alone."""
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: no port sources under {SRC}", file=sys.stderr)
         return 2
@@ -7313,6 +7591,15 @@ def main(only: str | None = None) -> int:
         t = time.perf_counter()
         shapes = phase_stage1_shapes(dev)
         emit(phase="stage1_shapes", **shapes, seconds=time.perf_counter() - t)
+        print(card, flush=True)
+        emit(ok=True, device={"platform": "gpu",
+                              "kind": torch.cuda.get_device_name(0),
+                              "count": torch.cuda.device_count()})
+        return 0
+    if only == "grouped_sweep":
+        t = time.perf_counter()
+        sweep = phase_grouped_sweep(dev)
+        emit(phase="grouped_sweep", **sweep, seconds=time.perf_counter() - t)
         print(card, flush=True)
         emit(ok=True, device={"platform": "gpu",
                               "kind": torch.cuda.get_device_name(0),
@@ -7548,6 +7835,13 @@ def main(only: str | None = None) -> int:
                 extra["warp_device_ms"] = at.get("warp_device_ms")
                 extra["sharded_warp_s1_device_ms"] = at.get(
                     "sharded_warp_s1_device_ms")
+                # "grouped" at real size, "block" in the same session
+                extra["grouped_real_size"] = [
+                    {key: x.get(key) for key in (
+                        "b", "k", "tile", "qb", "launches_per_call",
+                        "grouped_device_ms", "block_device_ms", "bound_ms",
+                        "bound_by", "plain_device_ms", "library_device_ms")}
+                    for x in real]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
@@ -7661,6 +7955,7 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--mesh"]:
         sys.exit(main_mesh())
     sys.exit(main(*sys.argv[1:2])
-             if sys.argv[1:] in ([], ["stage1_shapes"], ["attn_shapes"])
+             if sys.argv[1:] in ([], ["stage1_shapes"], ["grouped_sweep"],
+                                 ["attn_shapes"])
              else f"usage: {sys.argv[0]} [--mesh | stage1_shapes | "
-                  f"attn_shapes]")
+                  f"grouped_sweep | attn_shapes]")

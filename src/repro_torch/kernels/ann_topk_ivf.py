@@ -31,19 +31,35 @@ them. The routed scans of this module and the shard-owned ones of
   ``WARP_PROBES`` probes a CTA and no block barrier: the warp scores only
   the row groups that hold a valid slot, keeps two scores a lane, sorts
   them with one bitonic network and writes the probe's k finalists.
-* ``"block"``: larger buckets (the real-size router's), and any k: one
-  CTA of 256 threads per (query, probe) that reads its own
-  ``sel``/``enabled`` entry (the TPU's scalar prefetch), scores every slot
-  of the bucket into shared memory and runs k block-wide argmax passes.
-* ``"chunked"``: buckets whose scores and query overflow shared memory
-  (:func:`block_smem`; a cap above about 57,000 slots at D = 768): the
-  CTA reads its query in place and scores the bucket in chunks of
-  :func:`chunk_slots` slots, merging each chunk into a running list of
-  the probe's k best kept in device memory.
+* ``"grouped"``: every other unsharded scan (kernels 3 and 4; the
+  real-size router's buckets of thousands of slots, buckets larger than
+  shared memory, any k). Each probed bucket is read once for all the
+  probes on it, and only its valid rows: a first launch groups the probes
+  by bucket on the device (a counting sort, at most ``qb`` probes a
+  group); the second runs one CTA per (group, tile of ``tile`` slots),
+  which stages the group's queries in shared memory, scores each valid
+  row of its tile against all of them and keeps each probe's best
+  min(k, tile) of the tile; the CTA that finishes a group last merges its
+  probes' tile lists, in shared memory where their network fits
+  (:func:`shared_merge`), else by levels in device memory, so no cap, D,
+  k, B or nprobe is refused. :func:`grouped_plan` picks ``qb`` and
+  ``tile`` from the shape alone (the tile so that the grid fills the card
+  at B = 1), and the scratch; two CUDA launches a call.
+* ``"block"``: kernel 5's larger buckets, and any k: one CTA of 256
+  threads per (query, probe) that reads its own ``sel``/``enabled`` entry
+  (the TPU's scalar prefetch), scores every slot of the bucket into
+  shared memory and runs k block-wide argmax passes.
+* ``"chunked"``: kernel 5's buckets whose scores and query overflow
+  shared memory (:func:`block_smem`; a cap above about 57,000 slots at
+  D = 768): the CTA reads its query in place and scores the bucket in
+  chunks of :func:`chunk_slots` slots, merging each chunk into a running
+  list of the probe's k best kept in device memory.
 
-All three give the same finalists bitwise, the slots of NEG entries
-included. A shape a design cannot take fails at launch, with the shape and
-the design in the error; there is no fall back to another design.
+"block" and "chunked" stay launchable for kernels 3 and 4 (``_launch``),
+as the designs chip_smoke.py holds and times "grouped" against. All four
+give the same finalists bitwise, the slots of NEG entries included. A
+shape a design cannot take fails, with the shape and the design in the
+error; there is no fall back to another design.
 
 :func:`ann_topk_ivf` and :func:`ann_topk_ivf_quant` launch the kernels for
 CUDA tensors and raise if they cannot; they take the plain versions only
@@ -61,11 +77,26 @@ from repro_torch.kernels.ann_topk import K_MAX, NEG, _aligned
 from repro_torch.kernels.ann_topk_quant import int8_scores
 
 
-DESIGNS = ("warp", "block", "chunked")
-_DESIGN_CODE = {"block": 0, "warp": 1, "chunked": 2}  # ::Design
+DESIGNS = ("warp", "grouped", "block", "chunked")
+_DESIGN_CODE = {"block": 0, "warp": 1, "chunked": 2,
+                "grouped": 3}  # csrc/ann_topk_ivf.cu::Design
 WARP_CAP = 64      # the largest bucket "warp" takes: two slots a lane
 WARP_PROBES = 4    # probes (warps) in a CTA of "warp"
 SMEM_MAX = 232448  # H100: shared memory a CTA can take
+GROUP_ROWS = 32    # "grouped": the scorer's row step (8 warps x 4 rows)
+# "grouped"'s picks, each timed by ``chip_smoke.py grouped_sweep`` (PERF.md
+# §6 cites the sweep beside each):
+GROUPED_QBS = (1, 4)       # the probes a group can hold
+GROUPED_FILL = 2048        # CTAs the grid aims at (16 an SM)
+GROUPED_TILE_BYTES = 384 << 10  # the least payload a tile holds
+GROUPED_TILE_MAX = 8192    # the largest tile the fill picks
+_TILE_SMEM = 8 * 64 * 8    # select.cuh::tile_smem<256>()
+# "grouped": the dynamic shared memory a CTA may take (1 KB left for its
+# static variables), and the largest tile whose scan fits it (one probe a
+# group, its query read in place: T scores and T slots)
+GROUPED_SMEM = SMEM_MAX - 1024
+GROUPED_TILE_LARGEST = (GROUPED_SMEM - _TILE_SMEM) // 8 // GROUP_ROWS \
+    * GROUP_ROWS
 
 
 def warp_smem(d: int, quant: bool, sharded: bool = True) -> int:
@@ -95,17 +126,162 @@ def chunk_slots(cap: int) -> int:
     return min(cap, (SMEM_MAX - 1024) // 4 // 256 * 256)
 
 
+def _round_up(n: int, step: int) -> int:
+    return -(-n // step) * step
+
+
+def grouped_tile(b: int, nprobe: int, c: int, cap: int, d: int, k: int,
+                 quant: bool) -> int:
+    """Slots a tile of "grouped" at this shape: a multiple of
+    ``GROUP_ROWS`` that cuts the min(B·nprobe, C) buckets the probes can
+    reach into about ``GROUPED_FILL`` CTAs (about 16 on each of an H100's
+    132 SMs, so one query's 64 probes fill the card), holding at least
+    ``GROUPED_TILE_BYTES`` of payload (128 fp32 slots at D 768, 512 int8:
+    a CTA's fixed work, its probes' lists and their merge, against the
+    rows it reads) and at most ``GROUPED_TILE_MAX`` slots; then at least k
+    (lists of k) and the bucket over as many lists as the shared-memory
+    merge takes (:func:`grouped_lists`), but at most
+    ``GROUPED_TILE_LARGEST`` (past it the lists hold the tile's entries,
+    and merge in device memory); the whole bucket where that is as
+    large."""
+    reach = min(b * nprobe, c)
+    least = -(-GROUPED_TILE_BYTES // (d * (1 if quant else 4)))
+    fill = min(max(-(-cap * reach // GROUPED_FILL), least), GROUPED_TILE_MAX)
+    tile = max(fill, k, -(-cap // grouped_lists(k)))
+    return min(_round_up(tile, GROUP_ROWS), _round_up(cap, GROUP_ROWS),
+               GROUPED_TILE_LARGEST)
+
+
+def merge_bytes(ntiles: int, k: int) -> int:
+    """Bytes of shared memory "grouped"'s network merge of ``ntiles`` lists
+    of k takes (``csrc/ann_topk_ivf.cu::merge_bytes``): per list its counts
+    and their scans, the scans' scratch, and the entries above the
+    threshold (up to k - 1 a list) as (value, slot) pairs over a power of
+    two, each part on 16 bytes."""
+    net = 1 << max(ntiles * (k - 1) - 1, 0).bit_length()
+    return _round_up((4 * ntiles + 8 + 1) * 4, 16) + net * 8
+
+
+def grouped_lists(k: int) -> int:
+    """The most tile lists of k the shared-memory merge takes: the largest
+    count whose :func:`merge_bytes` fits ``GROUPED_SMEM`` (1 where none
+    does)."""
+    lo, hi = 1, GROUPED_SMEM
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if merge_bytes(mid, k) <= GROUPED_SMEM else \
+            (lo, mid - 1)
+    return lo
+
+
+def shared_merge(ntiles: int, tile: int, k: int) -> bool:
+    """Do a bucket's tile lists merge in shared memory
+    (``csrc/ann_topk_ivf.cu::shared_merge``)? Where each holds k entries
+    and their network fits; else by levels in device memory."""
+    return tile >= k and merge_bytes(ntiles, k) <= GROUPED_SMEM
+
+
+def level_entries(ntiles: int, kt: int, k: int) -> int:
+    """Entries of one half of a probe's scratch for the merge by levels
+    (``csrc/ann_topk_ivf.cu::level_entries``): the largest level but the
+    last, each merging the lists two by two, cut to k."""
+    most, cnt, length = 0, ntiles, kt
+    while cnt > 2:
+        cnt, length = (cnt + 1) // 2, min(2 * length, k)
+        most = max(most, cnt * length)
+    return most
+
+
+def grouped_qb(b: int, nprobe: int, c: int) -> int:
+    """Probes a group of "grouped" holds at most: the smallest of
+    ``GROUPED_QBS`` at or above twice the mean probes a bucket (B·nprobe
+    / C), else the largest; a bucket with more probes forms more groups,
+    each reading it once."""
+    want = 2 * b * nprobe / c
+    return next((qb for qb in GROUPED_QBS if qb >= want), GROUPED_QBS[-1])
+
+
+def grouped_groups(n_probes: int, c: int, qb: int) -> int:
+    """The most groups ``n_probes`` probes over C buckets make at ``qb`` a
+    group: each probed bucket one, and one more for each ``qb`` probes
+    past its first (the grid's group count)."""
+    return min(n_probes, min(n_probes, c) + n_probes // qb)
+
+
+def grouped_smem(qb: int, tile: int, d: int, cap: int, k: int, quant: bool,
+                 qglobal: bool = False) -> int:
+    """Bytes of dynamic shared memory a CTA of "grouped" takes
+    (``csrc/ann_topk_ivf.cu::grouped_scan_bytes``): qb x tile scores, tile
+    compacted slots, the warps' threshold buffers and, unless read in
+    place, qb queries, each part on 16 bytes; at least
+    :func:`merge_bytes` where the bucket spans more than one tile and its
+    lists merge in shared memory (:func:`shared_merge`)."""
+    scan = (_round_up(qb * tile * 4, 16) + _round_up(tile * 4, 16)
+            + _TILE_SMEM
+            + (0 if qglobal else _round_up(qb * d * (1 if quant else 4), 16)))
+    ntiles = -(-cap // tile)
+    in_smem = ntiles > 1 and shared_merge(ntiles, tile, k)
+    return max(scan, merge_bytes(ntiles, k) if in_smem else 0)
+
+
+def grouped_plan(b: int, nprobe: int, c: int, cap: int, d: int, k: int,
+                 quant: bool, *, tile: int | None = None,
+                 qb: int | None = None) -> dict:
+    """A "grouped" launch at this shape: its ``tile`` and ``qb``
+    (:func:`grouped_tile`, :func:`grouped_qb` unless given), ``qb`` taken
+    down through ``GROUPED_QBS`` and then the query read in place
+    (``qglobal``, one probe a group) until the shared memory fits; the
+    tile count, the grid's ``groups``, the int32 ``scratch``, the
+    ``merge`` ("none" for one tile, "shared" or "levels"), the tile lists'
+    entries (min(k, tile) a list; 0 for one tile) and the levels'
+    (``levels``, 0 unless they merge in more than one level). Raises
+    ValueError, naming the shape and the design, where the tile is not one
+    the kernel takes or a given tile's scan overflows shared memory; the
+    picked tile always fits."""
+    where = (f"b={b} nprobe={nprobe} c={c} cap={cap} d={d} k={k} "
+             f"design=grouped")
+    tile = grouped_tile(b, nprobe, c, cap, d, k, quant) if tile is None \
+        else tile
+    if tile < GROUP_ROWS or tile % GROUP_ROWS:
+        raise ValueError(f"tile {tile} is not a positive multiple of "
+                         f"{GROUP_ROWS} ({where})")
+    ntiles = -(-cap // tile)
+    want = grouped_qb(b, nprobe, c) if qb is None else qb
+    if want not in GROUPED_QBS:
+        raise ValueError(f"qb {want} is not one of {GROUPED_QBS} ({where})")
+    fits = [x for x in reversed(GROUPED_QBS)
+            if x <= want and grouped_smem(x, tile, d, cap, k, quant)
+            <= GROUPED_SMEM]
+    qb_, qglobal = (fits[0], False) if fits else (1, True)
+    smem = grouped_smem(qb_, tile, d, cap, k, quant, qglobal)
+    if smem > GROUPED_SMEM:
+        raise ValueError(f"shared memory {smem} bytes over {GROUPED_SMEM} "
+                         f"({where} tile={tile})")
+    p = b * nprobe
+    groups = grouped_groups(p, c, qb_)
+    kt = min(k, tile)
+    merge = "none" if ntiles == 1 else \
+        "shared" if shared_merge(ntiles, tile, k) else "levels"
+    return {"tile": tile, "qb": qb_, "qglobal": qglobal, "ntiles": ntiles,
+            "groups": groups, "scratch": 3 * c + p + 4 * groups + 1,
+            "merge": merge, "lists": p * ntiles * kt if ntiles > 1 else 0,
+            "levels": 2 * p * level_entries(ntiles, kt, k)
+            if merge == "levels" else 0, "smem": smem}
+
+
 def pick_design(cap: int, k: int, d: int, quant: bool,
                 sharded: bool = True) -> str:
     """The design of a CUDA call of kernels 3–5: ``"warp"`` for buckets of
     at most ``WARP_CAP`` slots (any k up to ``K_MAX``: its network sorts
-    max(cap, k) <= 64 entries) whose queries fit its shared memory, else
+    max(cap, k) <= 64 entries) whose queries fit its shared memory; else,
+    for kernels 3 and 4 (``sharded=False``), ``"grouped"``; for kernel 5,
     ``"block"`` where the bucket's scores and the query fit shared memory
-    (:func:`block_smem`), else ``"chunked"``. ``sharded`` names the writer
-    (kernel 5's, or kernels 3 and 4's)."""
+    (:func:`block_smem`), else ``"chunked"``."""
     if cap <= WARP_CAP and k <= K_MAX \
             and warp_smem(d, quant, sharded) <= SMEM_MAX:
         return "warp"
+    if not sharded:
+        return "grouped"
     if block_smem(cap, d, k, quant, sharded) <= SMEM_MAX:
         return "block"
     return "chunked"
@@ -222,6 +398,9 @@ def _lib():
         lib.ann_topk_ivf_chunked_launch.argtypes = [i] + [p] * 9 + [i] * 8 \
             + [p] * 5
         lib.ann_topk_ivf_chunked_launch.restype = i
+        lib.ann_topk_ivf_grouped_launch.argtypes = [i] + [p] * 7 + \
+            [i] * 10 + [p] * 8
+        lib.ann_topk_ivf_grouped_launch.restype = i
         lib.ann_topk_ivf_error_string.argtypes = [i]
         lib.ann_topk_ivf_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -232,15 +411,17 @@ def _u8(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.uint8) if t.dtype == torch.bool else t
 
 
-def _launch(design: str, wrapper, *args, k: int, chunk: int | None = None):
+def _launch(design: str, wrapper, *args, k: int, chunk: int | None = None,
+            tile: int | None = None, qb: int | None = None):
     """Launch ``design``'s kernel for ``wrapper`` (any of the routed scans
-    of kernels 3–5) on its checked CUDA inputs, in the wrapper's argument
-    order, on the inputs' current stream, into fresh (B, nprobe, k)
-    outputs, or (S, B, nprobe, k) stacks for the shard-owned scans, and
-    count it; raises with the shape and the design if it fails.
-    chip_smoke.py also calls it to hold and time "block" on inputs the
-    dispatch sends to "warp", and "chunked" at a smaller ``chunk`` than
-    :func:`chunk_slots`'s on inputs "block" takes."""
+    of kernels 3–5; "grouped" the unsharded ones only) on its checked CUDA
+    inputs, in the wrapper's argument order, on the inputs' current
+    stream, into fresh (B, nprobe, k) outputs, or (S, B, nprobe, k) stacks
+    for the shard-owned scans, and count it; raises with the shape and the
+    design if it fails. chip_smoke.py also calls it to hold and time
+    "block" and "chunked" (at a smaller ``chunk`` than
+    :func:`chunk_slots`'s) on inputs the dispatch sends elsewhere, and
+    "grouped" at another ``tile`` and ``qb`` than :func:`grouped_plan`'s."""
     if design not in DESIGNS:
         raise ValueError(f"design must be one of {DESIGNS}, got {design!r}")
     # the int8 scans carry the queries' scales after the queries, and the
@@ -255,10 +436,38 @@ def _launch(design: str, wrapper, *args, k: int, chunk: int | None = None):
     vals = torch.empty((*lead, b, nprobe, k), dtype=torch.float32, device=dev)
     idx = torch.empty((*lead, b, nprobe, k), dtype=torch.int32, device=dev)
     name = wrapper.__name__
+    if design == "grouped" and lead:
+        raise ValueError(f"{name}: \"grouped\" is the unsharded scans' "
+                         f"design")
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if design == "chunked":
+        if design == "grouped":
+            plan = grouped_plan(b, nprobe, c, cap, d, k, quant, tile=tile,
+                                qb=qb)
+            scratch = torch.empty(plan["scratch"], dtype=torch.int32,
+                                  device=dev)
+            tmp_v = torch.empty(plan["lists"], dtype=torch.float32,
+                                device=dev)
+            tmp_i = torch.empty(plan["lists"], dtype=torch.int32, device=dev)
+            lev_v = torch.empty(plan["levels"], dtype=torch.float32,
+                                device=dev)
+            lev_i = torch.empty(plan["levels"], dtype=torch.int32,
+                                device=dev)
+            # a query read in place is read 16 bytes at a time
+            q = _aligned(args[2]) if plan["qglobal"] else args[2]
+            scales = (args[3], args[5]) if quant else (None, None)
+            ptrs = [0 if t is None else t.data_ptr() for t in (
+                sel, args[1], q, scales[0], buckets, scales[1],
+                _u8(args[at]))]
+            lists = tuple(t.data_ptr() if t.numel() else 0
+                          for t in (tmp_v, tmp_i, lev_v, lev_i))
+            err = lib.ann_topk_ivf_grouped_launch(
+                int(quant), *ptrs, b, nprobe, c, cap, d, k, plan["qb"],
+                plan["tile"], plan["groups"], int(plan["qglobal"]),
+                scratch.data_ptr(), *lists, vals.data_ptr(), idx.data_ptr(),
+                stream)
+        elif design == "chunked":
             chunk = chunk or chunk_slots(cap)
             tmp_v = torch.empty((b, nprobe, k), dtype=torch.float32,
                                 device=dev)
@@ -337,6 +546,7 @@ def ann_topk_ivf_quant(sel: torch.Tensor, enabled: torch.Tensor,
 for _w in (ann_topk_ivf, ann_topk_ivf_quant):
     _w.launches = 0
     _w.launches_warp = 0
+    _w.launches_grouped = 0
     _w.launches_block = 0
     _w.launches_chunked = 0
     _w.plain_calls = 0

@@ -29,7 +29,8 @@ the others. They score exactly as ``ann_topk_ivf`` /
 equal the unsharded kernels' bitwise. They share the unsharded scans'
 dispatch (``ann_topk_ivf.pick_design``, ``"warp"`` for buckets of at most
 64 slots at k <= 64, ``"block"`` above, ``"chunked"`` for buckets larger
-than shared memory) and launcher; ``csrc/ann_topk_ivf.cu`` has the
+than shared memory; kernels 3 and 4 take ``"grouped"`` above 64 slots,
+whose writer is the unsharded one's alone) and launcher; ``csrc/ann_topk_ivf.cu`` has the
 details. Shapes a design cannot take fail at launch, with the shape and
 the design in the error; there is no fall back to another design.
 
@@ -307,6 +308,7 @@ def ann_topk_ivf_quant_sharded_parts(sel: torch.Tensor, enabled: torch.Tensor,
 for _w in (ann_topk_ivf_sharded, ann_topk_ivf_quant_sharded):
     _w.launches = 0
     _w.launches_warp = 0
+    _w.launches_grouped = 0   # never: "grouped" is kernels 3 and 4's
     _w.launches_block = 0
     _w.launches_chunked = 0
     _w.plain_calls = 0

@@ -22,12 +22,13 @@
 //   or the probe is disabled, pass p writes NEG and slot p, as a stable
 //   sort of the NEG-padded scores would. A sel outside [0, C) scores as a
 //   disabled probe (no read outside the buckets). A NEG entry's slot is
-//   the same on both designs: after the real scores come the invalid
+//   the same on every design: after the real scores come the invalid
 //   slots in ascending order, then the pads cap, cap + 1, ...; a probe
 //   that scans nothing writes slots 0 .. k - 1 ("block": the argmax passes
 //   take NEG entries lowest slot first, then write slot p once the cap
 //   entries are taken; "warp": the network ranks NEG at slot i after NEG
-//   at every lower slot, and write_disabled writes slot p).
+//   at every lower slot, and write_disabled writes slot p; "grouped": a
+//   slot past cap is a NEG entry at its own slot).
 //   fp32 scores use ann_topk.cu's summation order (dot.cuh), so a row
 //   scores bitwise the same in the brute and the routed scan, and
 //   duplicates in one bucket tie bitwise; int8 scores are exact int32 dots
@@ -49,17 +50,79 @@
 // slot of each enabled probe. At B = 16 and nprobe = 64 over C = 512
 // buckets the union is most of the buckets, so the bytes bound it (fp32:
 // 3.35 TB/s against 67 TFLOP/s of CUDA-core rate; int8: against 1979 TOP/s).
-// "block" reads every slot of a probed bucket, valid or not, "warp" every
-// row group that holds a valid slot, once per query that probes it.
 // Sharded, the owner alone reads the bucket, so the bytes are the
 // unsharded scan's plus the S-fold stack of finalists.
 //
-// Three designs for every scan, fp32 and int8, unsharded (kernels 3 and 4)
-// and sharded (kernel 5); the wrappers' one pick_design sends buckets of
-// at most WARP_CAP = 64 slots (every bucket the engine lays out) at k <= 64
-// to "warp", larger ones (the real-size router's) and any k to "block",
-// and buckets whose scores and query overflow shared memory to "chunked".
+// Four designs; the wrappers' one pick_design sends buckets of at most
+// WARP_CAP = 64 slots (every bucket the engine lays out) at k <= 64 to
+// "warp". Above that the unsharded scans (kernels 3 and 4) take
+// "grouped", whatever the cap, D or k; the sharded ones (kernel 5) take
+// "block" where a bucket's scores and the query fit shared memory, else
+// "chunked". "block" and "chunked" stay launchable for kernels 3 and 4 as
+// the designs "grouped" is held and timed against.
 //
+// Design "grouped" (ivf_grouped_probes, then ivf_grouped; the unsharded
+// scans above 64 slots). "block" and "chunked" lose to two faults: one CTA
+// per (query, probe), so a bucket that several queries probe is read once
+// per query (at B = 16 x nprobe 64 over 512 buckets, 1024 reads of
+// 12.6 MB for about 451 distinct buckets; reuse in the 50 MB L2 only by
+// chance), and where there are few probes one CTA streams a whole bucket
+// by itself (B = 1; cap 65,536); and every slot is read and scored, valid
+// or not. "grouped" reads each probed bucket once for all the probes on
+// it, splits it over CTAs by tiles of slots, and reads only valid rows:
+// 1. ivf_grouped_probes (one CTA of 1024 threads) groups the enabled,
+//    in-range probes by bucket with a counting sort over C in device
+//    scratch: counts, their exclusive scan, and up to QB probes a group
+//    (a bucket with more probes forms more groups); it zeroes the groups'
+//    tickets, and writes NEG and slot p for every disabled or
+//    out-of-range probe, as write_disabled does. The order of probes
+//    within a bucket comes from atomics and may differ between calls; no
+//    output depends on it.
+// 2. ivf_grouped<E, VEC, QB>: one CTA per (group, tile of T slots), T a
+//    multiple of the scorer's row step (8 warps x ROWS). The CTA stages
+//    the group's queries in shared memory (or, one query too wide for
+//    it, reads it in place), compacts the tile's valid slots with one
+//    ballot a warp, and scores each valid row once against all of the
+//    group's queries: dot.cuh's QB path, whose every (row, query) sum is
+//    the same fmaf chain and xor tree as "block"'s one-query path, so
+//    every score is bitwise "block"'s (int8: exact int32 dots through
+//    dot::rescale). Invalid slots, and slots past cap in the last tile,
+//    are NEG at their own slot. Each (probe, tile) keeps its min(k, T)
+//    best in ranks_before order (select.cuh's warp selections, a warp a
+//    probe; above K_MAX block_topk, the whole block a probe), straight
+//    into the probe's (k,) row where the bucket is one tile (then NEG and
+//    slot p past T), else into a list of kt = min(k, T) in scratch.
+// 3. The merge: the CTA that takes a group's last ticket merges each of
+//    its probes' tile lists. A ticket, and not a level launch over
+//    select.cuh::merge_pairs, because a level launch waits for every
+//    group's scan and costs a launch a level (log2 of the tile count),
+//    where the last CTA merges a group while the others still scan; the
+//    call stays at two CUDA launches. Where the lists hold k entries each
+//    (T >= k) and their network fits shared memory (shared_merge), one
+//    network (merge_lists): the largest k-th entry of the lists is a
+//    value Lv with k entries at or above it, so no finalist is below it,
+//    and each list holds all of its entries above it (fewer than k);
+//    those go to shared memory and one bitonic network sorts them
+//    (ranks_before), of which the first k are finalists; where fewer than
+//    k are above Lv the rest are entries equal to Lv in list order, which
+//    is slot order (tiles ascend). Else (T < k, or more lists than the
+//    network takes) the same CTA merges them by levels in device memory
+//    (merge_levels): select.cuh::merge_path two lists at a time, each cut
+//    to k, one block barrier a level, a pad on the last level NEG at its
+//    own position. Either way ties go to the lower slot, and the NEG
+//    entries and pads come out as "block" writes them: invalid slots
+//    ascending, then cap, cap + 1, ...
+// The result depends neither on T nor on QB nor on the order within a
+// group. Shared memory: QB x T scores, T compacted slots, the queries and
+// the warps' selection buffers, and the network where the lists merge
+// there; the wrapper (ann_topk_ivf.py::grouped_plan) grows T until the
+// network takes the bucket, up to the largest T whose scan fits with the
+// query read in place, then takes QB down, then reads a query in place,
+// until they fit. No cap, D, k, B or nprobe is refused: past the network
+// the merge runs in device memory, past the largest tile the lists hold T
+// entries each. Scratch: the tile lists (P x ntiles x kt pairs) and the
+// levels' (2 level_entries pairs a probe).
+
 // Design "block" (ivf_topk, ivf_topk_sharded): one kernel for both payload
 // types over a scorer policy; one CTA per (query b, probe j), reading
 // sel[b, j] and enabled[b, j] itself (the TPU's scalar prefetch) and
@@ -130,7 +193,9 @@ constexpr int K_MAX = 64;        // "warp": the largest k
 constexpr size_t SMEM_MAX = 232448;  // H100: 227 KB of dynamic shared memory
 constexpr int WARP_PROBES = 4;  // "warp": probes (warps) a CTA
 constexpr int WARP_CAP = 64;    // "warp": the largest bucket, two slots a lane
-enum Design { BLOCK = 0, WARP = 1, CHUNKED = 2 };
+enum Design { BLOCK = 0, WARP = 1, CHUNKED = 2, GROUPED = 3 };
+constexpr int GROUP_THREADS = 1024;        // "grouped": the grouping CTA
+constexpr int GROUP_ROWS = WARPS * ROWS;   // "grouped": the scorer's row step
 
 // shared memory layout of "block": cap fp32 scores, then the query on a
 // 16-byte boundary, then (sharded) the k finalists' values and slots
@@ -164,6 +229,13 @@ struct Scorer {
                                               Acc (&acc)[R][1]) {
     dot::warp_dot<E, VEC, R, 1>(erow, sq, d, 1, lane, acc);
   }
+  // R rows against the first nq of QB queries (sq: QB x d)
+  template <int R, int QB>
+  static __device__ __forceinline__ void rows_q(const E* const (&erow)[R],
+                                                const E* sq, int d, int nq,
+                                                int lane, Acc (&acc)[R][QB]) {
+    dot::warp_dot<E, VEC, R, QB>(erow, sq, d, nq, lane, acc);
+  }
   static __device__ __forceinline__ float finish(Acc acc, const float*,
                                                  float) {
     return acc;
@@ -178,6 +250,12 @@ struct Scorer<int8_t, VEC> {
       const int8_t* const (&erow)[R], const int8_t* sq, int d, int lane,
       Acc (&acc)[R][1]) {
     dot::warp_dot_i8<VEC, R, 1>(erow, sq, d, 1, lane, acc);
+  }
+  template <int R, int QB>
+  static __device__ __forceinline__ void rows_q(
+      const int8_t* const (&erow)[R], const int8_t* sq, int d, int nq,
+      int lane, Acc (&acc)[R][QB]) {
+    dot::warp_dot_i8<VEC, R, QB>(erow, sq, d, nq, lane, acc);
   }
   static __device__ __forceinline__ float finish(Acc acc,
                                                  const float* slot_scale,
@@ -694,6 +772,486 @@ ivf_warp_sharded(const int* __restrict__ sel_, const int* __restrict__ en,
   }
 }
 
+// ------------------------------------------------------------ "grouped"
+
+__host__ __device__ inline size_t align16(size_t n) {
+  return (n + 15) & ~static_cast<size_t>(15);
+}
+
+// the warps' buffers of select.cuh's threshold pass (warp_tile_topk)
+constexpr size_t GROUP_TBUF = sel::tile_smem<THREADS>();
+// the dynamic shared memory a CTA of "grouped" may take: SMEM_MAX less
+// 1 KB for its static variables (the group's probes, the merge's)
+constexpr size_t GROUPED_SMEM = SMEM_MAX - 1024;
+
+// The int32 scratch of "grouped", in this order: per bucket its probe
+// count, their exclusive scan (then the placement cursor) and its first
+// group; the probes ordered by bucket; per group its bucket, its first
+// probe in that order, its probe count and its ticket; the group count.
+struct GroupScratch {
+  int *cnt, *start, *gofs, *order, *gbucket, *gfirst, *gcount, *ticket,
+      *n_groups;
+  __host__ __device__ GroupScratch(int* s, int c, int p, int g)
+      : cnt(s), start(s + c), gofs(s + 2 * c), order(s + 3 * c),
+        gbucket(order + p), gfirst(gbucket + g), gcount(gfirst + g),
+        ticket(gcount + g), n_groups(ticket + g) {}
+};
+
+// Block-wide exclusive scan of in[0..n) into out[0..n) (they may be the
+// same array); returns the total to every thread. sh: NT / 32 + 1 ints of
+// shared scratch. Ends with a block barrier.
+template <int NT>
+__device__ int block_scan(const int* in, int* out, int n, int* sh) {
+  constexpr int NW = NT / 32;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int carry = 0;
+  for (int base = 0; base < n; base += NT) {
+    const int i = base + threadIdx.x;
+    const int x = i < n ? in[i] : 0;
+    int incl = x;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(sel::FULL, incl, off);
+      if (lane >= off) incl += y;
+    }
+    if (lane == 31) sh[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      const int w = lane < NW ? sh[lane] : 0;
+      int wi = w;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(sel::FULL, wi, off);
+        if (lane >= off) wi += y;
+      }
+      __syncwarp();
+      if (lane < NW) sh[lane] = wi - w;
+      if (lane == NW - 1) sh[NW] = wi;
+    }
+    __syncthreads();
+    if (i < n) out[i] = carry + sh[warp] + incl - x;
+    carry += sh[NW];
+    __syncthreads();
+  }
+  return carry;
+}
+
+// Step 1 of "grouped", one CTA: the enabled, in-range probes grouped by
+// bucket (counting sort over the C buckets), at most qb probes a group;
+// the groups' tickets zeroed; NEG and slot p for every other probe.
+__global__ void __launch_bounds__(GROUP_THREADS)
+ivf_grouped_probes(const int* __restrict__ sel_, const int* __restrict__ en,
+                   int n_probes, int c_count, int qb, int g_max, int k,
+                   int* __restrict__ scratch, float* __restrict__ vals,
+                   int* __restrict__ slots) {
+  __shared__ int sh[GROUP_THREADS / 32 + 1];
+  const GroupScratch gs(scratch, c_count, n_probes, g_max);
+  for (int i = threadIdx.x; i < c_count; i += GROUP_THREADS) gs.cnt[i] = 0;
+  for (int i = threadIdx.x; i < g_max; i += GROUP_THREADS) gs.ticket[i] = 0;
+  __syncthreads();
+  for (int p = threadIdx.x; p < n_probes; p += GROUP_THREADS) {
+    const int c = sel_[p];
+    if (en[p] != 0 && c >= 0 && c < c_count) {
+      atomicAdd(gs.cnt + c, 1);
+    } else {
+      write_disabled(vals + static_cast<size_t>(p) * k,
+                     slots + static_cast<size_t>(p) * k, k, 0, 1);
+    }
+  }
+  __syncthreads();
+  block_scan<GROUP_THREADS>(gs.cnt, gs.start, c_count, sh);
+  for (int c = threadIdx.x; c < c_count; c += GROUP_THREADS)
+    gs.gofs[c] = (gs.cnt[c] + qb - 1) / qb;
+  __syncthreads();
+  const int total = block_scan<GROUP_THREADS>(gs.gofs, gs.gofs, c_count, sh);
+  for (int c = threadIdx.x; c < c_count; c += GROUP_THREADS) {
+    const int n = gs.cnt[c];
+    for (int i = 0; i * qb < n; ++i) {
+      const int g = gs.gofs[c] + i;
+      gs.gbucket[g] = c;
+      gs.gfirst[g] = gs.start[c] + i * qb;
+      gs.gcount[g] = min(qb, n - i * qb);
+    }
+  }
+  if (threadIdx.x == 0) *gs.n_groups = total;
+  __syncthreads();  // start becomes the placement cursor
+  for (int p = threadIdx.x; p < n_probes; p += GROUP_THREADS) {
+    const int c = sel_[p];
+    if (en[p] != 0 && c >= 0 && c < c_count)
+      gs.order[atomicAdd(gs.start + c, 1)] = p;
+  }
+}
+
+// The largest index i in [0, n) with a[i] <= x (a ascending, a[0] <= x).
+__device__ __forceinline__ int last_at_most(const int* a, int n, int x) {
+  int lo = 0, hi = n - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (a[mid] <= x) lo = mid;
+    else hi = mid - 1;
+  }
+  return lo;
+}
+
+// Entries of a power-of-two network at least n long (1 for n = 0).
+__host__ __device__ inline size_t pow2_at_least(size_t n) {
+  size_t p2 = 1;
+  while (p2 < n) p2 <<= 1;
+  return p2;
+}
+
+// Bytes of "grouped"'s dynamic shared memory for the merge: per list its
+// count above Lv, its count at Lv and their scans, the scans' scratch, and
+// the entries above Lv (at most k - 1 a list) as (value, slot) pairs over
+// a power-of-two network, on 16 bytes.
+__host__ __device__ inline size_t merge_bytes(int ntiles, int k) {
+  return align16((4 * static_cast<size_t>(ntiles) + WARPS + 1) * sizeof(int)) +
+         pow2_at_least(static_cast<size_t>(ntiles) * (k - 1)) *
+             (sizeof(float) + sizeof(int));
+}
+
+// Does a bucket of ntiles tiles of T slots merge in shared memory
+// (merge_lists)? Its lists must hold k entries each (T >= k) and its
+// network fit; else its lists merge by levels in device memory
+// (merge_levels).
+__host__ __device__ inline bool shared_merge(int ntiles, int tile, int k) {
+  return tile >= k && merge_bytes(ntiles, k) <= GROUPED_SMEM;
+}
+
+// Entries of one half of a probe's level scratch for merge_levels: the
+// largest level but the last (which writes the probe's row), of ntiles
+// lists of kt; 0 where one level merges them all.
+__host__ __device__ inline size_t level_entries(int ntiles, int kt, int k) {
+  size_t most = 0;
+  for (int cnt = ntiles, len = kt; cnt > 2;) {
+    cnt = (cnt + 1) / 2;
+    len = 2 * len < k ? 2 * len : k;
+    const size_t n = static_cast<size_t>(cnt) * len;
+    most = n > most ? n : most;
+  }
+  return most;
+}
+
+// The whole block sorts n (value, slot) pairs in shared memory into
+// ranks_before order: a bitonic network over the next power of two, pads
+// (-inf, INT_MAX) last (select.cuh::warp_sort, block-wide). Ends with a
+// block barrier.
+__device__ void block_sort(float* cv, int* cr, int n) {
+  const int p2 = static_cast<int>(pow2_at_least(n));
+  for (int i = n + threadIdx.x; i < p2; i += THREADS) {
+    cv[i] = -INFINITY;
+    cr[i] = INT_MAX;
+  }
+  __syncthreads();
+  for (int size = 2; size <= p2; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = threadIdx.x; i < p2 / 2; i += THREADS) {
+        const int lo = 2 * i - (i & (stride - 1));
+        sel::order_pair(cv[lo], cr[lo], cv[lo + stride], cr[lo + stride],
+                        (lo & size) == 0);
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// The whole block merges one probe's ntiles lists (v, r: list t at t * k,
+// each its tile's k best in ranks_before order, slots of one tile below
+// the next tile's) into its k best, ov/oi. ms: merge_bytes of shared
+// memory. Other CTAs wrote the lists, so they are read through L2.
+__device__ void merge_lists(const float* v, const int* r, int ntiles, int k,
+                            float* ov, int* oi, unsigned char* ms) {
+  __shared__ float red[WARPS];
+  __shared__ float lv_s;
+  int* above = reinterpret_cast<int*>(ms);
+  int* at_lv = above + ntiles;
+  int* off_above = at_lv + ntiles;
+  int* off_at = off_above + ntiles;
+  int* sh = off_at + ntiles;
+  const size_t net =
+      pow2_at_least(static_cast<size_t>(ntiles) * (k - 1));
+  float* cv = reinterpret_cast<float*>(
+      ms + align16((4 * static_cast<size_t>(ntiles) + WARPS + 1) *
+                   sizeof(int)));
+  int* cr = reinterpret_cast<int*>(cv + net);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  // Lv: the largest k-th entry of the lists. k entries are at or above
+  // it, so no finalist is below it, and a list holds every one of its
+  // entries above it (at most k - 1: its k-th is not above Lv).
+  float x = -INFINITY;
+  for (int t = threadIdx.x; t < ntiles; t += THREADS) {
+    x = fmaxf(x, __ldcg(v + static_cast<size_t>(t) * k + k - 1));
+    above[t] = 0;
+    at_lv[t] = 0;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(sel::FULL, x, off));
+  if (lane == 0) red[warp] = x;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float best = red[0];
+    for (int w = 1; w < WARPS; ++w) best = fmaxf(best, red[w]);
+    lv_s = best;
+  }
+  __syncthreads();
+  const float lv = lv_s;
+  const int m = ntiles * k;
+  for (int e = threadIdx.x; e < m; e += THREADS) {
+    const float y = __ldcg(v + e);
+    if (y > lv) atomicAdd(above + e / k, 1);
+    else if (y == lv) atomicAdd(at_lv + e / k, 1);
+  }
+  __syncthreads();
+  const int na = block_scan<THREADS>(above, off_above, ntiles, sh);
+  block_scan<THREADS>(at_lv, off_at, ntiles, sh);
+  // the entries above Lv (a prefix of each list), sorted: the first k of
+  // them are finalists
+  for (int e = threadIdx.x; e < m; e += THREADS) {
+    const int t = e / k;
+    const int i = e - t * k;
+    if (i < above[t]) {
+      cv[off_above[t] + i] = __ldcg(v + e);
+      cr[off_above[t] + i] = __ldcg(r + e);
+    }
+  }
+  if (na > 0) {
+    block_sort(cv, cr, na);
+    for (int p = threadIdx.x; p < min(k, na); p += THREADS) {
+      ov[p] = cv[p];
+      oi[p] = cr[p];
+    }
+  }
+  // fewer than k above Lv: the rest are entries at Lv in list order (the
+  // lowest slots first). The list whose k-th entry is Lv holds enough of
+  // them by itself, and every list before it holds all of its own.
+  for (int j = threadIdx.x; j < k - na; j += THREADS) {
+    const int t = last_at_most(off_at, ntiles, j);
+    const size_t at = static_cast<size_t>(t) * k + above[t] + j - off_at[t];
+    ov[na + j] = __ldcg(v + at);
+    oi[na + j] = __ldcg(r + at);
+  }
+  __syncthreads();  // ms is the next probe's
+}
+
+// The whole block merges one probe's ntiles lists of kt (v, r: list t at
+// t * kt, in ranks_before order) into its k best, ov/oi, in device
+// memory: each level merges the lists two by two (select.cuh::merge_path,
+// the merge "wide"'s levels run), each cut to k, into one half of the
+// probe's level scratch (gv/gr, 2 * level_entries) and the next level
+// into the other; the last level writes ov/oi, a pad there NEG at its own
+// position. One block barrier a level and no shared memory, so neither k
+// nor the tile count is bounded.
+__device__ void merge_levels(const float* v, const int* r, int ntiles,
+                             int kt, int k, float* gv, int* gr, float* ov,
+                             int* oi) {
+  const size_t half = level_entries(ntiles, kt, k);
+  const float* sv = v;
+  const int* sr = r;
+  for (int cnt = ntiles, len = kt, level = 0;; ++level) {
+    const int ncnt = (cnt + 1) / 2;
+    const bool last = ncnt == 1;
+    const int nlen = last ? k : (2 * len < k ? 2 * len : k);
+    float* dv = last ? ov : gv + (level & 1) * half;
+    int* dr = last ? oi : gr + (level & 1) * half;
+    for (int e = threadIdx.x; e < ncnt * nlen; e += THREADS) {
+      const int o = e / nlen;
+      const size_t a0 = 2 * static_cast<size_t>(o) * len;
+      sel::merge_path<true>(sv + a0, sr + a0, len, sv + a0 + len,
+                            sr + a0 + len, 2 * o + 1 < cnt ? len : 0,
+                            e - o * nlen, last, dv[e], dr[e]);
+    }
+    __syncthreads();
+    if (last) return;
+    cnt = ncnt;
+    len = nlen;
+    sv = dv;
+    sr = dr;
+  }
+}
+
+// One warp: the kt best of a tile's m scores s[0..m) (position i is slot
+// s0 + i) in ranks_before order into ov/oi; kt <= m. bv, br: the warp's
+// TILE_CAP pairs of select.cuh's threshold pass.
+__device__ __forceinline__ void tile_best(float* s, int m, int kt, int s0,
+                                          float* ov, int* oi, float* bv,
+                                          int* br) {
+  if (m <= 64) {
+    sel::warp_best_of_few(m, kt, [&](int i, float& x, int& xr) {
+      x = s[i];
+      xr = s0 + i;
+    }, ov, oi);
+  } else if (kt <= 32) {
+    sel::warp_tile_topk(s, m, kt, ov, oi, s0, bv, br);
+  } else {
+    sel::warp_topk(s, m, kt, ov, oi, s0);
+  }
+}
+
+// Bytes of "grouped"'s dynamic shared memory for the scan: QB x T scores,
+// T compacted slots, the warps' threshold buffers, and (unless read in
+// place) QB queries; each part on 16 bytes.
+__host__ __device__ inline size_t grouped_scan_bytes(int qb, int tile, int d,
+                                                     size_t elem,
+                                                     bool qglobal) {
+  return align16(static_cast<size_t>(qb) * tile * sizeof(float)) +
+         align16(static_cast<size_t>(tile) * sizeof(int)) +
+         GROUP_TBUF +
+         (qglobal ? 0 : align16(static_cast<size_t>(qb) * d * elem));
+}
+
+// Step 2 of "grouped": one CTA per (group g, tile t), blockIdx.x = g *
+// ntiles + t; grid CTAs past the group count return at once.
+template <typename E, int VEC, int QB>
+__global__ void __launch_bounds__(THREADS)
+ivf_grouped(int* __restrict__ scratch, const E* __restrict__ q,
+            const float* __restrict__ qs, const E* __restrict__ buckets,
+            const float* __restrict__ bscale,
+            const uint8_t* __restrict__ valid, int n_probes, int nprobe,
+            int c_count, int cap, int d, int k, int tile, int ntiles,
+            int g_max, int qglobal, float* __restrict__ fv,
+            int* __restrict__ fr, float* __restrict__ gv,
+            int* __restrict__ gr, float* __restrict__ vals,
+            int* __restrict__ slots) {
+  using S = Scorer<E, VEC>;
+  constexpr bool kScaled = std::is_same_v<E, int8_t>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int probe[QB];
+  __shared__ int qrow[QB];
+  __shared__ float qscale[QB];
+  __shared__ int nrows;
+  __shared__ int last;
+  const GroupScratch gs(scratch, c_count, n_probes, g_max);
+  const int g = blockIdx.x / ntiles;
+  const int t = blockIdx.x - g * ntiles;
+  if (g >= *gs.n_groups) return;  // the whole block
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int c = gs.gbucket[g];
+  const int first = gs.gfirst[g];
+  const int nq = gs.gcount[g];
+  float* sc = reinterpret_cast<float*>(smem);  // [nq][tile]
+  size_t off = align16(static_cast<size_t>(QB) * tile * sizeof(float));
+  int* rows = reinterpret_cast<int*>(smem + off);  // the tile's valid slots
+  off += align16(static_cast<size_t>(tile) * sizeof(int));
+  unsigned char* tbuf = smem + off;
+  off += GROUP_TBUF;
+  E* sq = reinterpret_cast<E*>(smem + off);  // [nq][d] unless qglobal
+  if (threadIdx.x < nq) {
+    const int bj = gs.order[first + threadIdx.x];
+    probe[threadIdx.x] = bj;
+    qrow[threadIdx.x] = bj / nprobe;
+    qscale[threadIdx.x] = kScaled ? qs[bj / nprobe] : 1.f;
+  }
+  if (threadIdx.x == 0) nrows = 0;
+  const int s0 = t * tile;
+  const int m = min(tile, cap - s0);
+  const size_t base = static_cast<size_t>(c) * cap;
+  for (int i = threadIdx.x; i < nq * tile; i += THREADS) sc[i] = sel::NEG;
+  __syncthreads();
+  if (!qglobal) {
+    for (int j = 0; j < nq; ++j) {
+      const E* src = q + static_cast<size_t>(qrow[j]) * d;
+      for (int i = threadIdx.x; i < d; i += THREADS) sq[j * d + i] = src[i];
+    }
+  }
+  const E* qsrc = qglobal ? q + static_cast<size_t>(qrow[0]) * d : sq;
+  // the valid slots of the tile, compacted (any order: each score lands
+  // at its own position)
+  const unsigned below = (1u << lane) - 1u;
+  for (int i0 = 0; i0 < m; i0 += THREADS) {
+    const int i = i0 + threadIdx.x;
+    const bool ok = i < m && valid[base + s0 + i] != 0;
+    const unsigned ball = __ballot_sync(sel::FULL, ok);
+    int at = 0;
+    if (lane == 0 && ball != 0) at = atomicAdd(&nrows, __popc(ball));
+    at = __shfl_sync(sel::FULL, at, 0);
+    if (ok) rows[at + __popc(ball & below)] = i;
+  }
+  __syncthreads();
+  const int n = nrows;
+  const E* bucket = buckets + (base + s0) * d;
+  const float* bs = kScaled ? bscale + base + s0 : nullptr;
+  for (int r0 = warp * ROWS; r0 < n; r0 += WARPS * ROWS) {
+    const E* erow[ROWS];
+    int pos[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      pos[r] = rows[min(r0 + r, n - 1)];
+      erow[r] = bucket + static_cast<size_t>(pos[r]) * d;
+    }
+    typename S::Acc acc[ROWS][QB];
+    S::template rows_q<ROWS, QB>(erow, qsrc, d, nq, lane, acc);
+    if (lane == 0) {
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        if (r0 + r < n) {
+#pragma unroll
+          for (int j = 0; j < QB; ++j)
+            if (j < nq)
+              sc[j * tile + pos[r]] = S::finish(
+                  acc[r][j], kScaled ? bs + pos[r] : nullptr, qscale[j]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  // each probe's best of the tile: its (k,) row where the bucket is one
+  // tile (NEG and slot p past T), else its list of this tile, kt long; a
+  // warp a probe, or above K_MAX the whole block a probe at a time (kt
+  // argmax passes by one warp would be the floor)
+  const int kt = min(k, tile);
+  const bool by_block = kt > K_MAX;
+  for (int j = by_block ? 0 : warp; j < nq; j += by_block ? 1 : WARPS) {
+    const int bj = probe[j];
+    const size_t at = ntiles == 1
+                          ? static_cast<size_t>(bj) * k
+                          : (static_cast<size_t>(bj) * ntiles + t) * kt;
+    float* ov = (ntiles == 1 ? vals : fv) + at;
+    int* oi = (ntiles == 1 ? slots : fr) + at;
+    if (by_block) {
+      sel::block_topk<THREADS>(sc + j * tile, tile, kt, ov, oi,
+                               reinterpret_cast<float*>(tbuf),
+                               reinterpret_cast<int*>(tbuf) + WARPS, s0);
+    } else {
+      tile_best(sc + j * tile, tile, kt, s0, ov, oi,
+                reinterpret_cast<float*>(tbuf) + warp * sel::TILE_CAP,
+                reinterpret_cast<int*>(tbuf) +
+                    (WARPS + warp) * sel::TILE_CAP);
+    }
+    if (ntiles == 1) {
+      const int i0 = by_block ? threadIdx.x : lane;
+      for (int p = kt + i0; p < k; p += by_block ? THREADS : 32) {
+        ov[p] = sel::NEG;
+        oi[p] = p;
+      }
+    }
+  }
+  if (ntiles == 1) return;
+  // the last CTA of the group merges its probes' lists
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(gs.ticket + g, 1) == ntiles - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const bool in_smem = shared_merge(ntiles, tile, k);
+  const size_t levels = 2 * level_entries(ntiles, kt, k);
+  for (int j = 0; j < nq; ++j) {
+    const size_t bj = static_cast<size_t>(probe[j]);
+    const size_t list = bj * ntiles * kt;
+    if (in_smem) {
+      merge_lists(fv + list, fr + list, ntiles, k, vals + bj * k,
+                  slots + bj * k, smem);
+    } else {
+      merge_levels(fv + list, fr + list, ntiles, kt, k, gv + bj * levels,
+                   gr + bj * levels, vals + bj * k, slots + bj * k);
+    }
+  }
+}
+
 // Every entry point's arguments; bounds == nullptr is the unsharded scan.
 struct Args {
   const int* sel;
@@ -710,8 +1268,15 @@ struct Args {
   float* vals;
   int* idx;  // slots, or the sharded scan's global rows
   int chunk = 0;  // "chunked": slots a chunk, and its k-long scratch rows
-  float* tmp_v = nullptr;
+  float* tmp_v = nullptr;  // "grouped": the tile lists, (b, nprobe, ntiles, kt)
   int* tmp_i = nullptr;
+  int qb = 0;       // "grouped": probes a group (1 or 4), slots a tile,
+  int tile = 0;     // the grid's groups, queries read in place, and the
+  int groups = 0;   // int32 scratch (GroupScratch::ints)
+  int qglobal = 0;
+  int* scratch = nullptr;
+  float* lev_v = nullptr;  // "grouped": merge_levels' scratch, (b, nprobe,
+  int* lev_i = nullptr;    // 2 * level_entries)
 };
 
 // kernels above 48 KB of dynamic shared memory must ask for it
@@ -788,9 +1353,54 @@ cudaError_t launch_chunked(const Args& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// "grouped": ivf_grouped_probes, then ivf_grouped<E, VEC, QB>
+template <typename E, int VEC, int QB>
+cudaError_t launch_grouped_qb(const Args& a, cudaStream_t s) {
+  const int n_probes = a.b * a.nprobe;
+  const int ntiles = (a.cap + a.tile - 1) / a.tile;
+  const size_t scan =
+      grouped_scan_bytes(QB, a.tile, a.d, sizeof(E), a.qglobal != 0);
+  const bool in_smem = shared_merge(ntiles, a.tile, a.k);
+  const size_t merge = ntiles > 1 && in_smem ? merge_bytes(ntiles, a.k) : 0;
+  const size_t smem = scan > merge ? scan : merge;
+  const int kt = a.k < a.tile ? a.k : a.tile;
+  const size_t grid = static_cast<size_t>(a.groups) * ntiles;
+  if (smem > GROUPED_SMEM || grid > INT_MAX || a.groups < 1 ||
+      (ntiles > 1 && (a.tmp_v == nullptr || a.tmp_i == nullptr)) ||
+      (ntiles > 1 && !in_smem && level_entries(ntiles, kt, a.k) > 0 &&
+       (a.lev_v == nullptr || a.lev_i == nullptr)) ||
+      (a.qglobal && (QB != 1 || reinterpret_cast<uintptr_t>(a.q) % 16 != 0)))
+    return cudaErrorInvalidValue;
+  ivf_grouped_probes<<<1, GROUP_THREADS, 0, s>>>(
+      a.sel, a.en, n_probes, a.c, QB, a.groups, a.k, a.scratch, a.vals, a.idx);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  auto kern = ivf_grouped<E, VEC, QB>;
+  if ((err = allow_smem(kern, smem)) != cudaSuccess) return err;
+  kern<<<static_cast<unsigned>(grid), THREADS, smem, s>>>(
+      a.scratch, static_cast<const E*>(a.q), a.qs,
+      static_cast<const E*>(a.buckets), a.bscale, a.valid, n_probes,
+      a.nprobe, a.c, a.cap, a.d, a.k, a.tile, ntiles, a.groups, a.qglobal,
+      a.tmp_v, a.tmp_i, a.lev_v, a.lev_i, a.vals, a.idx);
+  return cudaGetLastError();
+}
+
+template <typename E, int VEC>
+cudaError_t launch_grouped(const Args& a, cudaStream_t s) {
+  if (a.bounds != nullptr || a.scratch == nullptr || a.tile < GROUP_ROWS ||
+      a.tile % GROUP_ROWS != 0)
+    return cudaErrorInvalidValue;
+  switch (a.qb) {
+    case 1: return launch_grouped_qb<E, VEC, 1>(a, s);
+    case 4: return launch_grouped_qb<E, VEC, 4>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename E, int VEC>
 cudaError_t launch(const Args& a, cudaStream_t s) {
   if (a.design == WARP) return launch_warp<E, VEC>(a, s);
+  if (a.design == GROUPED) return launch_grouped<E, VEC>(a, s);
   if (a.design == CHUNKED) return launch_chunked<E, VEC>(a, s);
   // scores, query, and for the sharded writer its finalists (block_smem)
   const size_t smem =
@@ -823,7 +1433,8 @@ cudaError_t launch(const Args& a, cudaStream_t s) {
 bool bad_shape(const Args& a) {
   return a.b < 1 || a.nprobe < 1 || a.c < 1 || a.cap < 1 || a.d < 1 ||
          a.k < 1 || a.n_shards < 1 || (a.design == WARP && a.k > K_MAX) ||
-         (a.design != BLOCK && a.design != WARP && a.design != CHUNKED);
+         (a.design != BLOCK && a.design != WARP && a.design != CHUNKED &&
+          a.design != GROUPED);
 }
 
 int launch_f32(const Args& a, void* stream) {
@@ -851,6 +1462,7 @@ extern "C" {
 
 // design 0 "block", 1 "warp" (cap <= 64, k <= 64); vals/slots: (b, nprobe,
 // k) fp32/int32. Each entry point returns the cudaError_t of the launch.
+// "chunked" and "grouped" have entry points of their own, below.
 int ann_topk_ivf_launch(const void* sel_, const void* enabled, const void* q,
                         const void* buckets, const void* bucket_valid, int b,
                         int nprobe, int c, int cap, int d, int k, int design,
@@ -938,6 +1550,41 @@ int ann_topk_ivf_chunked_launch(int quant, const void* sel_,
          s, b, nprobe, c, cap, d, k, CHUNKED, static_cast<float*>(vals),
          static_cast<int*>(idx), chunk, static_cast<float*>(tmp_v),
          static_cast<int*>(tmp_i)};
+  return quant ? launch_i8(a, stream) : launch_f32(a, stream);
+}
+
+// Design "grouped", the unsharded scans: quant 0 (fp32: q, buckets;
+// q_scales and bucket_scale null) or 1 (int8 with both scales). qb:
+// probes a group (1 or 4); tile: slots a tile (a multiple of 32); groups:
+// the grid's
+// groups, at least the groups any sel can make (min(P, min(P, c) + P /
+// qb) for P = b * nprobe probes); qglobal: read the query in place (qb 1,
+// q on a 16-byte boundary); scratch: 3 c + P + 4 groups + 1 int32
+// (GroupScratch); tmp_v/tmp_i: (b, nprobe, ntiles, min(k, tile))
+// fp32/int32 tile lists (null for one tile); lev_v/lev_i: (b, nprobe,
+// 2 * level_entries) fp32/int32 for merge_levels (null where the lists
+// merge in shared memory, shared_merge, or in one level); vals/slots as
+// ann_topk_ivf_launch gives them. Returns the cudaError_t of the
+// launches.
+int ann_topk_ivf_grouped_launch(int quant, const void* sel_,
+                                const void* enabled, const void* q,
+                                const void* q_scales, const void* buckets,
+                                const void* bucket_scale,
+                                const void* bucket_valid, int b, int nprobe,
+                                int c, int cap, int d, int k, int qb,
+                                int tile, int groups, int qglobal,
+                                void* scratch, void* tmp_v, void* tmp_i,
+                                void* lev_v, void* lev_i, void* vals,
+                                void* slots, void* stream) {
+  Args a{static_cast<const int*>(sel_), static_cast<const int*>(enabled), q,
+         static_cast<const float*>(q_scales), buckets,
+         static_cast<const float*>(bucket_scale),
+         static_cast<const uint8_t*>(bucket_valid), nullptr, nullptr, 1, b,
+         nprobe, c, cap, d, k, GROUPED, static_cast<float*>(vals),
+         static_cast<int*>(slots), 0, static_cast<float*>(tmp_v),
+         static_cast<int*>(tmp_i), qb, tile, groups, qglobal,
+         static_cast<int*>(scratch), static_cast<float*>(lev_v),
+         static_cast<int*>(lev_i)};
   return quant ? launch_i8(a, stream) : launch_f32(a, stream);
 }
 

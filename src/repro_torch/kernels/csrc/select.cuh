@@ -61,10 +61,11 @@ __device__ __forceinline__ void warp_topk(float* s, int m, int k, float* ov,
 // The whole block: k argmax passes over s[0..m) (shared memory). Pass p
 // writes ov[p], oi[p]; once all m entries are taken (k > m) it writes NEG
 // and index p, as a stable sort of the NEG-padded scores would. red_v and
-// red_i are WARPS-long shared scratch.
+// red_i are WARPS-long shared scratch; base is added to each taken index.
 template <int THREADS>
 __device__ __forceinline__ void block_topk(float* s, int m, int k, float* ov,
-                                           int* oi, float* red_v, int* red_i) {
+                                           int* oi, float* red_v, int* red_i,
+                                           int base = 0) {
   constexpr int WARPS = THREADS / 32;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -90,7 +91,7 @@ __device__ __forceinline__ void block_topk(float* s, int m, int k, float* ov,
           oi[p] = p;
         } else {
           ov[p] = best;
-          oi[p] = bi;
+          oi[p] = base + bi;
           s[bi] = -INFINITY;
         }
       }
@@ -147,17 +148,57 @@ merge_topk(float* fv, const int* fr, int m, int k, float* __restrict__ vals,
 // one is left (kernels/ann_topk.py::merge_levels). Nothing is kept in
 // shared memory, so no k is too large.
 
+// Entry p of the merge of lists a (la entries) and b (lb), each in
+// ranks_before order, into (v, r). Merge path: the number i of entries of
+// list a among the first p of the merge is found by binary search (a's
+// entry mid is among them unless b's entry p - mid - 1 ranks before it; a
+// first on equal pairs), and entry p is the one of a[i], b[p - i] that
+// ranks first. Positions past both lists hold the pad (-inf, INT_MAX),
+// which ranks last. On the last level (the result) a pad becomes NEG at
+// row p: it is reached only where no list was ever cut, so the rows before
+// p are every row of the padded tiles, and the stable sort of the
+// NEG-padded scores puts row p there. CG: read through L2 only (lists
+// that other CTAs wrote).
+template <bool CG>
+__device__ __forceinline__ void merge_path(const float* av, const int* ar,
+                                           int la, const float* bv,
+                                           const int* br, int lb, int p,
+                                           bool last, float& v, int& r) {
+  const auto ldv = [](const float* x) { return CG ? __ldcg(x) : *x; };
+  const auto ldr = [](const int* x) { return CG ? __ldcg(x) : *x; };
+  v = -INFINITY;
+  r = INT_MAX;
+  if (p < la + lb) {
+    int lo = max(0, p - lb), hi = min(p, la);
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      const int j = p - mid - 1;
+      if (ranks_before(ldv(bv + j), ldr(br + j), ldv(av + mid),
+                       ldr(ar + mid))) {
+        hi = mid;
+      } else {
+        lo = mid + 1;
+      }
+    }
+    const int j = p - lo;
+    if (lo < la && (j >= lb || !ranks_before(ldv(bv + j), ldr(br + j),
+                                             ldv(av + lo), ldr(ar + lo)))) {
+      v = ldv(av + lo);
+      r = ldr(ar + lo);
+    } else {
+      v = ldv(bv + j);
+      r = ldr(br + j);
+    }
+  }
+  if (last && v == -INFINITY) {
+    v = NEG;
+    r = p;
+  }
+}
+
 // One thread per output entry (query, list o, position p) of a level:
 // entry p of the merge of source lists 2o and 2o + 1 (a last list without
 // a partner merges with nothing), each len long, of cnt lists a query.
-// Merge path: the number i of entries of list a among the first p of the
-// merge is found by binary search (a's entry mid is among them unless b's
-// entry p - mid - 1 ranks before it; a first on equal pairs), and entry p
-// is the one of a[i], b[p - i] that ranks first. Positions past both
-// lists hold the pad (-inf, INT_MAX), which ranks last. On the last level
-// (the result) a pad becomes NEG at row p: it is reached only where no
-// list was ever cut, so the rows before p are every row of the padded
-// tiles, and the stable sort of the NEG-padded scores puts row p there.
 template <int THREADS>
 __global__ void __launch_bounds__(THREADS)
 merge_pairs(const float* __restrict__ sv, const int* __restrict__ sr, int cnt,
@@ -170,37 +211,10 @@ merge_pairs(const float* __restrict__ sv, const int* __restrict__ sr, int cnt,
   const int o = static_cast<int>((at % per_q) / nlen);
   const int p = static_cast<int>(at % nlen);
   const size_t a0 = (bq * cnt + 2 * static_cast<size_t>(o)) * len;
-  const float* av = sv + a0;
-  const int* ar = sr + a0;
-  const float* bv = av + len;
-  const int* br = ar + len;
-  const int la = len, lb = 2 * o + 1 < cnt ? len : 0;
-  float v = -INFINITY;
-  int r = INT_MAX;
-  if (p < la + lb) {
-    int lo = max(0, p - lb), hi = min(p, la);
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      const int j = p - mid - 1;
-      if (ranks_before(bv[j], br[j], av[mid], ar[mid])) {
-        hi = mid;
-      } else {
-        lo = mid + 1;
-      }
-    }
-    const int j = p - lo;
-    if (lo < la && (j >= lb || !ranks_before(bv[j], br[j], av[lo], ar[lo]))) {
-      v = av[lo];
-      r = ar[lo];
-    } else {
-      v = bv[j];
-      r = br[j];
-    }
-  }
-  if (last && v == -INFINITY) {
-    v = NEG;
-    r = p;
-  }
+  float v;
+  int r;
+  merge_path<false>(sv + a0, sr + a0, len, sv + a0 + len, sr + a0 + len,
+                    2 * o + 1 < cnt ? len : 0, p, last != 0, v, r);
   dv[at] = v;
   dr[at] = r;
 }

@@ -1,8 +1,9 @@
 """The designs of the routed bucket scans, kernels 3 and 4
 (``ann_topk_ivf`` / ``ann_topk_ivf_quant``) and kernel 5, the shard-owned
 scans (``ann_topk_ivf_sharded`` / ``ann_topk_ivf_quant_sharded``): which
-inputs take one warp per probe ("warp") and which the CTA per probe
-("block") under their one ``pick_design``, the counts by design, the C
+inputs take one warp per probe ("warp"), which the grouped bucket scan
+("grouped", kernels 3 and 4) and which the CTA per probe ("block", kernel
+5) under their one ``pick_design``, the counts by design, the C
 entry points' ctypes signatures and launch arguments, and a CPU rehearsal
 of the warp design's selection (``csrc/ann_topk_ivf.cu::warp_probe`` and
 its two writers, ``ivf_warp`` and ``ivf_warp_sharded``).
@@ -48,7 +49,7 @@ INT_MAX = 2**31 - 1
 def test_design_by_bucket_size(cap, k, quant):
     """Buckets of at most 64 slots take "warp" at every k, whatever the
     payload type (the engine's caps, powers of two from 8); larger ones,
-    the real-size router's, keep "block"."""
+    the real-size router's, keep "block" in kernel 5."""
     want = "warp" if cap <= 64 else "block"
     assert sh.pick_design(cap, k, 128, quant) == want
 
@@ -70,7 +71,7 @@ def test_designs_are_named_by_the_counts():
     """Each design has its count on both wrappers, starting at 0 in a fresh
     process and never touched by the CPU path; ``_launch`` refuses a
     design it does not know before it touches the card."""
-    assert sh.DESIGNS == ("warp", "block", "chunked")
+    assert sh.DESIGNS == ("warp", "grouped", "block", "chunked")
     for w in (sh.ann_topk_ivf_sharded, sh.ann_topk_ivf_quant_sharded):
         for d in sh.DESIGNS:
             assert isinstance(getattr(w, f"launches_{d}"), int)
@@ -95,7 +96,8 @@ def test_cpu_calls_leave_the_design_counts_alone():
 
 WRAPPERS = (ivf.ann_topk_ivf, ivf.ann_topk_ivf_quant,
             sh.ann_topk_ivf_sharded, sh.ann_topk_ivf_quant_sharded)
-COUNTS = ("launches", "launches_warp", "launches_block", "plain_calls")
+COUNTS = ("launches", "launches_warp", "launches_grouped", "launches_block",
+          "plain_calls")
 
 
 @pytest.mark.parametrize("quant", [False, True])
@@ -103,10 +105,13 @@ COUNTS = ("launches", "launches_warp", "launches_block", "plain_calls")
 @pytest.mark.parametrize("cap", [8, 16, 32, 64, 128, 4096])
 def test_unsharded_design_by_bucket_size(cap, k, quant):
     """Kernels 3 and 4 take "warp" for buckets of at most 64 slots at
-    every k, as kernel 5 does, and "block" for larger ones."""
-    want = "warp" if cap <= 64 else "block"
-    assert ivf.pick_design(cap, k, 128, quant, sharded=False) == want
-    assert sh.pick_design(cap, k, 128, quant, sharded=True) == want
+    every k, as kernel 5 does, and "grouped" for larger ones, where kernel
+    5 takes "block"."""
+    small = cap <= 64
+    assert ivf.pick_design(cap, k, 128, quant, sharded=False) == \
+        ("warp" if small else "grouped")
+    assert sh.pick_design(cap, k, 128, quant, sharded=True) == \
+        ("warp" if small else "block")
 
 
 def test_kernel_5_resolves_the_same_dispatch():
@@ -115,7 +120,7 @@ def test_kernel_5_resolves_the_same_dispatch():
     for name in ("pick_design", "warp_smem", "_launch", "DESIGNS",
                  "WARP_CAP", "WARP_PROBES", "SMEM_MAX"):
         assert getattr(sh, name) is getattr(ivf, name)
-    assert ivf.DESIGNS == ("warp", "block", "chunked") \
+    assert ivf.DESIGNS == ("warp", "grouped", "block", "chunked") \
         and ivf.WARP_CAP == 64
 
 
@@ -133,7 +138,7 @@ def test_unsharded_writer_needs_only_the_queries_shared_memory(quant):
     assert ivf.pick_design(16, 4, d_max, quant, sharded=False) == "warp"
     assert ivf.pick_design(16, 4, d_max, quant, sharded=True) == "block"
     assert ivf.pick_design(16, 4, d_max + 16, quant, sharded=False) == \
-        "block"
+        "grouped"
 
 
 def test_every_routed_scan_counts_by_design():
@@ -158,7 +163,8 @@ def test_cpu_calls_of_the_unsharded_scans_leave_the_launch_counts_at_0():
     ivf.ann_topk_ivf_quant(t(sel), t(en), t(qq), t(qs), t(bq), t(bs),
                            t(valid), 16)
     for w in WRAPPERS:
-        assert (w.launches, w.launches_warp, w.launches_block) == (0, 0, 0)
+        assert (w.launches, w.launches_warp, w.launches_grouped,
+                w.launches_block) == (0, 0, 0, 0)
     assert [w.plain_calls for w in WRAPPERS] == \
         [before[0] + 1, before[1] + 1, before[2], before[3]]
 
@@ -166,7 +172,8 @@ def test_cpu_calls_of_the_unsharded_scans_leave_the_launch_counts_at_0():
 ENTRY_POINTS = ("ann_topk_ivf_launch", "ann_topk_ivf_quant_launch",
                 "ann_topk_ivf_sharded_launch",
                 "ann_topk_ivf_quant_sharded_launch",
-                "ann_topk_ivf_chunked_launch", "ann_topk_ivf_error_string")
+                "ann_topk_ivf_chunked_launch", "ann_topk_ivf_grouped_launch",
+                "ann_topk_ivf_error_string")
 
 
 def _c_signatures() -> dict:

@@ -299,18 +299,27 @@ def test_wide_k_takes_the_wide_design(k, dtype):
 @pytest.mark.parametrize("k", [4, 100])
 def test_routed_scans_take_block_where_it_fits_else_chunks(cap, d, k, quant,
                                                             sharded):
+    """Kernel 5 takes "block" where a bucket's scores and query fit shared
+    memory, else "chunked"; kernels 3 and 4 take "grouped" at every such
+    shape, whose plan fits shared memory at these shapes' B and nprobe."""
     design = ivf.pick_design(cap, k, d, quant, sharded)
     fits = ivf.block_smem(cap, d, k, quant, sharded) <= ivf.SMEM_MAX
     if cap <= ivf.WARP_CAP and k <= k1.K_MAX and \
             ivf.warp_smem(d, quant, sharded) <= ivf.SMEM_MAX:
         assert design == "warp"
+    elif not sharded:
+        assert design == "grouped"
+        for b, nprobe in ((1, 64), (4, 4), (16, 64)):
+            plan = ivf.grouped_plan(b, nprobe, 512, cap, d, k, quant)
+            assert plan["smem"] <= ivf.GROUPED_SMEM
     else:
         assert design == ("block" if fits else "chunked")
     chunk = ivf.chunk_slots(cap)
     assert 1 <= chunk <= cap and chunk * 4 + 1024 <= ivf.SMEM_MAX
     assert chunk == cap or chunk % 256 == 0
     if (cap, d) == (65536, 768):     # 2^20 rows over 16 clusters
-        assert design == "chunked" and -(-cap // chunk) == 2
+        assert design == ("chunked" if sharded else "grouped")
+        assert -(-cap // chunk) == 2
 
 
 def test_block_shared_memory_is_the_kernels_layout():
@@ -484,7 +493,8 @@ ENTRIES = {k1: ("ann_topk_launch", "ann_topk_fused_launch",
            ivf: ("ann_topk_ivf_launch", "ann_topk_ivf_quant_launch",
                  "ann_topk_ivf_sharded_launch",
                  "ann_topk_ivf_quant_sharded_launch",
-                 "ann_topk_ivf_chunked_launch", "ann_topk_ivf_error_string")}
+                 "ann_topk_ivf_chunked_launch", "ann_topk_ivf_grouped_launch",
+                 "ann_topk_ivf_error_string")}
 
 
 def _fake(monkeypatch, module):
