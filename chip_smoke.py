@@ -31,7 +31,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            the design the dispatch gives it (buckets of at most 64 slots:
            one warp per probe, "warp", held on "block" too; larger:
            "grouped", held at two tiles and two group sizes and bitwise on
-           "block"), int8 bitwise, the slots of NEG entries as the plain
+           "block" and "chunked"), int8 bitwise, the slots of NEG entries
+           as the plain
            version's stable sort: the reference's kernel-test shapes,
            D=100/50, k above the bucket size, disabled probes, duplicates
            inside a bucket, buckets of 100-4096 slots over several tiles
@@ -47,14 +48,18 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    kernel_sharded  ann_topk_ivf_sharded and ann_topk_ivf_quant_sharded
            against their plain versions, each case on the design the
            dispatch gives it (buckets of at most 64 slots: one warp per
-           probe, "warp"; larger: "block") and on "block" too: S = 1, 2,
-           3, 8 and S > C, with empty shards, disabled probes, B in 1/4/16
-           and duplicates inside a bucket, then the engine's shapes (C=64,
-           cap 8/16/32/64 with members a prefix, D=128, nprobe 8, S=8, B
-           in 1/4/16, k 4 fp32 and 16 int8) and runs (d)/(f)'s (C=16, cap
-           64, D=32, nprobe 4), timed at B=1 on both designs; merged, on
-           both designs, S=1 equals the unsharded scan on the other design
-           bitwise and S=8 the S=1 values bitwise.
+           probe, "warp", held on "block" too; larger: "grouped", held at
+           two tiles and two group sizes and bitwise on "block" and
+           "chunked"): S = 1, 2, 3, 8 and S > C, with empty shards, cut
+           points that leave clusters unowned (above 64 slots), disabled
+           probes, B in 1/4/16 and duplicates inside a bucket (and across
+           tiles), buckets of 100-4096 slots at k 1-1000, then the
+           engine's shapes (C=64, cap 8/16/32/64 with members a prefix,
+           D=128, nprobe 8, S=8, B in 1/4/16, k 4 fp32 and 16 int8) and
+           runs (d)/(f)'s (C=16, cap 64, D=32, nprobe 4), timed at B=1
+           with "block" in one profiler session; merged, on both designs,
+           S=1 equals the unsharded scan on both of its designs bitwise
+           and S=8 the S=1 values bitwise.
    kernel_attn  flash_attention_fwd (kernel 6) and decode_attention (kernel
            7) against their plain versions, each call on the design its
            inputs take (bf16 rows on 16-byte boundaries: the tensor-core
@@ -129,9 +134,11 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            (the shards re-cut, rows migrate), on the hot and the warm
            index: the sharded routed scans agree with numpy's at B=16
            within the near-tie allowance, the shard layout adds only its
-           cut points on the card, kernel 5 holds against its plain
-           version and the unsharded kernels, with times at B in 1/16 and
-           the bytes the reference's padded shard stack would take.
+           cut points on the card, every kernel-5 launch of those searches
+           is on "grouped", kernel 5 holds against its plain version and
+           the unsharded kernels, with times at B in 1/16 ("block" in the
+           same profiler session) and the bytes the reference's padded
+           shard stack would take.
    stage1_shapes  kernels 1-5 at the shapes the reference takes beyond
            the first designs' limits, each bitwise against its plain
            version on small-integer inputs (every summation order
@@ -143,15 +150,16 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
            65/100/256, "tc" and "dp4a" at D 4096, 16384 and 32768, B 16;
            routing at nprobe 65/128/C over C = 256 and kernels 3 and 4
            at k 100 ("grouped", two tiles and two group sizes, bitwise
-           on "block"), kernel 5 at 4 shards ("block"); "chunked" at a
+           on "block"), kernel 5 at 4 shards likewise; "chunked" at a
            chunk of 1024 against "block" at cap 4096, every scan, and
-           "grouped" against both; kernel 3 at cap 65,536, D 768 (2^20
-           rows over 16 clusters, "grouped", bitwise on "chunked") at k
-           4, 100 and 6000, and kernels 3 and 4 at cap 2^20, D 64, k 500
-           (both past the shared-memory merge: lists merged by levels),
-           bitwise on "chunked". Then the new designs' times (device ms,
-           plain, library, bound; "grouped" and "chunked" in one
-           profiler session at cap 65,536) and two engine runs equal to
+           "grouped" against both; kernels 3 and 5 (3 shards, one empty)
+           at cap 65,536, D 768 (2^20 rows over 16 clusters, "grouped",
+           bitwise on "chunked") at k 4, 100 and 6000, and kernels 3 and
+           4 at cap 2^20, D 64, k 500 (both past the shared-memory merge:
+           lists merged by levels), bitwise on "chunked". Then the new
+           designs' times (device ms, plain, library, bound; "grouped"
+           and "chunked" in one profiler session at cap 65,536, kernel 3
+           at k 4 and 6000, kernel 5 at k 4) and two engine runs equal to
            numpy key for key: nprobe=None over 128 clusters (routing on
            "wide") and D 4096 with micro-batches up to 16. ``python3
            chip_smoke.py stage1_shapes`` runs this phase alone after the
@@ -324,8 +332,10 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    memory and its replays; kernels 1 and 2 with
    theirs in every serve run, all on the one-launch designs, and their
    CUDA launches a call; kernels 3-5 with their launches by design in
-   the runs that launch them and both designs' device times, kernels 3
-   and 4 also with kernel 5's "warp" at S=1 on the same inputs), max abs
+   the runs that launch them and both designs' device times, "grouped"
+   at real size beside "block", kernel 5's launches by design in
+   stage1_sharded, kernels 3 and 4 also with kernel 5's "warp" at S=1
+   on the same inputs), max abs
    error against the plain version over every phase, and its time, the
    plain version's, one library call's and the card's bound, at its
    main-path shape, with the other measured
@@ -1034,7 +1044,7 @@ def measure_ivf(sel, en, q, buckets, valid, k, *, quant=None,
         s = torch.where(valid[sb] & (en > 0)[:, :, None], s, NEG)
         return torch.sort(-s, dim=2, stable=True).indices[..., :k]
 
-    design = expect_routed_design(cap, False, k)
+    design = expect_routed_design(cap, k)
     bound_ms, bound_by = bound_ivf(sel, en, valid, d, k, quant is not None)
     out = {"b": b, "nprobe": nprobe, "c": c, "cap": cap, "d": d, "k": k,
            "dtype": "fp32" if quant is None else "int8", "design": design,
@@ -1126,20 +1136,23 @@ def grouped_variants(args, k) -> list:
     return [(tile, qb2), (other, qb), (other, qb2)]
 
 
+HOLD_CHUNK = 256   # "chunked" beside "grouped": several chunks a bucket
+
+
 def routed_outs(wrapper, args, k) -> list:
     """``wrapper(*args, k)`` (any routed scan of kernels 3-5) on the design
     the dispatch gives it (the wrapper's counts say which ran), then on
     "block" too where that is "warp"; where it is "grouped", three more
     "grouped" launches at another tile and group size
-    (``grouped_variants``) and "block" (where its scores fit shared
-    memory, else "chunked"), each bitwise the first, the slots of NEG
-    entries included."""
+    (``grouped_variants``), "block" (where its scores fit shared memory)
+    and "chunked" (chunks of ``HOLD_CHUNK`` slots), each bitwise the
+    first, the slots of NEG entries (rows, for kernel 5) included."""
     from repro_torch.kernels import ann_topk_ivf as ivf
     quant = args[2].dtype == torch.int8
     buckets = args[4 if quant else 3]
     _, cap, d = buckets.shape
     sharded = wrapper.__name__.endswith("_sharded")
-    design = expect_routed_design(cap, sharded, k)
+    design = expect_routed_design(cap, k)
     before = design_counts(wrapper)
     outs = [wrapper(*args, k)]
     what = f"{wrapper.__name__} at cap={cap} k={k}"
@@ -1150,9 +1163,10 @@ def routed_outs(wrapper, args, k) -> list:
         for tile, qb in grouped_variants(args, k):
             outs.append(ivf._launch("grouped", wrapper, *args, k=k,
                                     tile=tile, qb=qb))
-        other = "block" if ivf.block_smem(cap, d, k, quant, False) \
-            <= ivf.SMEM_MAX else "chunked"
-        outs.append(ivf._launch(other, wrapper, *args, k=k))
+        if ivf.block_smem(cap, d, k, quant, sharded) <= ivf.SMEM_MAX:
+            outs.append(ivf._launch("block", wrapper, *args, k=k))
+        outs.append(ivf._launch("chunked", wrapper, *args, k=k,
+                                chunk=min(ivf.chunk_slots(cap), HOLD_CHUNK)))
         for got in outs[1:]:
             hold_bitwise(got, outs[0], f"{what}: grouped", all_rows=True)
     return outs
@@ -1283,7 +1297,7 @@ def hold_brute_routed_parity(g, dev) -> float:
     designs) and the routed scan (ann_topk_ivf, every design: buckets of
     64 slots take "warp", held on "block" and "grouped" too; buckets of
     256 take "grouped", held at two tiles and group sizes and on
-    "block"), the shared summation order of dot.cuh: N rows laid out as C
+    "block" and "chunked"), the shared summation order of dot.cuh: N rows laid out as C
     buckets of consecutive rows, every bucket probed, the finalists
     merged; values and rows must be equal."""
     from repro_torch.kernels import ann_topk as k1
@@ -1305,7 +1319,7 @@ def hold_brute_routed_parity(g, dev) -> float:
             check(len(outs) == 2, "the parity shape did not take \"warp\"")
             outs.append(ivf._launch("grouped", ivf.ann_topk_ivf, *args, k=k))
         else:
-            check(len(outs) == 5, "the parity shape did not take "
+            check(len(outs) == 6, "the parity shape did not take "
                   "\"grouped\"")
         for vals, slots in outs:
             got = _merge_probes(vals, slots, sel, rows.reshape(c, cap), k)
@@ -1459,15 +1473,12 @@ def sharded_args(sel, en, q, buckets, valid, rows, bounds, quant):
     return (sel, en, q, qs, buckets, bscale, valid, rows, bounds)
 
 
-def expect_routed_design(cap: int, sharded: bool = True, k: int = 4) -> str:
+def expect_routed_design(cap: int, k: int = 4) -> str:
     """The design a CUDA call of kernels 3-5 must take: one warp per probe
-    ("warp") for buckets of at most 64 slots at k <= 64, else "grouped"
-    for kernels 3 and 4 and "block" for kernel 5 (``sharded``; at every
-    width checked here, D <= 768, the warp design's queries fit and so do
-    the block design's scores)."""
-    if cap <= 64 and k <= 64:
-        return "warp"
-    return "block" if sharded else "grouped"
+    ("warp") for buckets of at most 64 slots at k <= 64 (at every width
+    checked here, D <= 768, the warp design's queries fit, the sharded
+    writer's too), else "grouped"."""
+    return "warp" if cap <= 64 and k <= 64 else "grouped"
 
 
 def shard_scans(quant):
@@ -1482,9 +1493,11 @@ def hold_sharded(sel, en, q, buckets, valid, rows, bounds, k, *, quant=None,
                  exact_rows=False) -> float:
     """Kernel 5 against its plain version on the same inputs, on the
     design the dispatch gives them (the wrapper's counts say which ran)
-    and on "block" too where it gives "warp": int8 stacks bitwise (vals
-    and rows everywhere), fp32 stacks as ``hold_ivf`` holds the routed
-    scan; every masked entry carries row -1."""
+    and on the others ``routed_outs`` holds bitwise beside it ("block"
+    beside "warp"; beside "grouped" its other tiles and group sizes,
+    "block" and "chunked"): int8 stacks bitwise (vals and rows
+    everywhere), fp32 stacks as ``hold_ivf`` holds the routed scan;
+    every masked entry carries row -1."""
     args = sharded_args(sel, en, q, buckets, valid, rows, bounds, quant)
     wrapper, plain = shard_scans(quant)
     want = plain(*args, k + (quant is None))
@@ -1508,15 +1521,15 @@ def hold_sharded(sel, en, q, buckets, valid, rows, bounds, k, *, quant=None,
 
 def hold_sharded_merge(sel, en, q, buckets, valid, rows, bounds, k, *,
                        quant=None) -> None:
-    """On the design the dispatch gives and on "block", for kernel 3 (or
-    4) and kernel 5 alike: the unsharded scan's designs agree bitwise
-    (slots of NEG entries too; "grouped" too where kernel 3 takes it);
-    merged (ops._merge_shards) at S=1 the
-    sharded scan equals the unsharded one merged (ops._merge_probes)
-    bitwise on the other design (kernel 5's "warp" against kernel 3's
-    "block", and the reverse); at ``bounds``' S the merged vals equal
-    S=1's bitwise and so do the rows, except inside runs of exactly equal
-    values, which merge shard-major."""
+    """On the design the dispatch gives ("warp" or "grouped", the same for
+    kernel 3 (or 4) and kernel 5) and on "block": the unsharded scan's
+    two designs agree bitwise (slots of NEG entries too); merged
+    (ops._merge_shards) at S=1 the sharded scan on either design equals
+    the unsharded one merged (ops._merge_probes) on either design bitwise
+    (kernel 5's "grouped" against kernel 3's "grouped" and "block", and
+    the reverse); at ``bounds``' S the merged vals equal S=1's bitwise
+    and so do the rows, except inside runs of exactly equal values, which
+    merge shard-major."""
     from repro_torch.kernels import ann_topk_ivf as ivf
     from repro_torch.kernels.ops import _merge_probes, _merge_shards
     one = torch.tensor([0, buckets.shape[0]], dtype=torch.int32,
@@ -1528,33 +1541,28 @@ def hold_sharded_merge(sel, en, q, buckets, valid, rows, bounds, k, *,
         scan3 = ivf.ann_topk_ivf_quant
         args3 = (sel, en, q, qs, buckets, bscale, valid)
     wrapper = shard_scans(quant)[0]
-    designs = tuple(dict.fromkeys((expect_routed_design(buckets.shape[1]),
-                                   "block")))
+    designs = (expect_routed_design(buckets.shape[1], k), "block")
     unsharded = {d: ivf._launch(d, scan3, *args3, k=k) for d in designs}
-    first = unsharded[designs[0]]
-    # kernels 3 and 4's own design where it is not kernel 5's
-    own = expect_routed_design(buckets.shape[1], False, k)
-    extra = {own: ivf._launch(own, scan3, *args3, k=k)} \
-        if own not in designs else {}
-    for d, got in [*unsharded.items(), *extra.items()][1:]:
-        check(all(torch.equal(x, y) for x, y in zip(got, first)),
-              f"{scan3.__name__}: {d} differs from {designs[0]}")
-    for design, other in zip(designs, reversed(designs)):
-        wv, wr = _merge_probes(*unsharded[other], sel, rows, k + 1)
+    check(all(torch.equal(x, y) for x, y in zip(*unsharded.values())),
+          f"{scan3.__name__}: block differs from {designs[0]}")
+    merged3 = {d: _merge_probes(*got, sel, rows, k + 1)
+               for d, got in unsharded.items()}
+    for design in designs:
+        def scan(cuts):
+            return ivf._launch(design, wrapper, *sharded_args(
+                sel, en, q, buckets, valid, rows, cuts, quant), k=k)
+        s1 = _merge_shards(*scan(one), k + 1)
+        for other, (wv, wr) in merged3.items():
+            check(torch.equal(s1[0], wv) and torch.equal(s1[1], wr),
+                  f"{design}: S=1 merged differs from the unsharded scan "
+                  f"on {other}")
+        wv, wr = merged3[designs[0]]
         eq = wv[:, 1:] == wv[:, :-1]
         tie = torch.zeros_like(wv, dtype=torch.bool)
         tie[:, 1:] |= eq
         tie[:, :-1] |= eq
         cols = min(k, wv.shape[1])
         sure = (~tie & (wv > NEG / 2))[:, :cols]
-
-        def scan(cuts):
-            return ivf._launch(design, wrapper, *sharded_args(
-                sel, en, q, buckets, valid, rows, cuts, quant), k=k)
-        s1 = _merge_shards(*scan(one), k + 1)
-        check(torch.equal(s1[0], wv) and torch.equal(s1[1], wr),
-              f"{design}: S=1 merged differs from the unsharded scan on "
-              f"{other}")
         sv, sr = _merge_shards(*scan(bounds), k + 1)
         check(torch.equal(sv, wv),
               f"{design}: sharded merged vals differ from S=1")
@@ -1576,26 +1584,41 @@ def phase_kernel_sharded(dev):
     its plain versions at S in {1, 2, 3, 8} and S > C, random cut points
     (empty shards among them) and one set chosen with two empty shards,
     disabled probes, B in {1, 4, 16}, widths the wide loads do not divide
-    and k above the bucket size; duplicates inside a bucket (tie order);
-    and the merges of ``hold_sharded_merge``."""
+    and k above the bucket size; buckets of 100-4096 slots ("grouped",
+    held at two tiles and two group sizes and bitwise on "block" and
+    "chunked"; several tiles a bucket, k above the tile and above K_MAX,
+    sparse and all-invalid buckets, one query probing one bucket twice,
+    cut points that leave clusters unowned); duplicates inside a bucket
+    (tie order), across tiles too; and the merges of
+    ``hold_sharded_merge``."""
     g = torch.Generator(device=dev).manual_seed(8)
     errs_f, errs_q = [], []
-    for c, cap, d, b, nprobe, k in [(8, 16, 32, 4, 3, 2),
-                                    (16, 64, 64, 16, 5, 4),
-                                    (4, 8, 16, 1, 4, 3),
-                                    (8, 32, 100, 4, 4, 16),
-                                    (8, 40, 48, 16, 6, 6)]:
+    for c, cap, d, b, nprobe, k, p_valid in [
+            (8, 16, 32, 4, 3, 2, 0.7), (16, 64, 64, 16, 5, 4, 0.7),
+            (4, 8, 16, 1, 4, 3, 0.7), (8, 32, 100, 4, 4, 16, 0.7),
+            (8, 40, 48, 16, 6, 6, 0.7),
+            # above 64 slots: "grouped"
+            (8, 100, 32, 3, 4, 4, 0.7), (8, 300, 48, 4, 5, 16, 0.5),
+            (6, 1000, 128, 5, 6, 100, 0.6), (4, 4096, 64, 8, 4, 7, 0.02),
+            (16, 130, 100, 16, 16, 1, 0.9), (5, 700, 16, 2, 3, 1000, 0.4)]:
         buckets = torch.randn((c, cap, d), device=dev, generator=g)
-        valid = torch.rand((c, cap), device=dev, generator=g) > 0.3
+        valid = torch.rand((c, cap), device=dev, generator=g) < p_valid
+        sel, en = random_probes(g, b, c, nprobe, dev, p_off=0.2)
+        if cap > 64:
+            valid[0] = False
+            sel[0, 1] = sel[0, 0]
         rows = global_rows(g, valid)
         q = torch.randn((b, d), device=dev, generator=g)
-        sel, en = random_probes(g, b, c, nprobe, dev, p_off=0.2)
         bq, bs = quantize_dev(buckets.reshape(c * cap, d))
         bq, bs = bq.reshape(c, cap, d), bs.reshape(c, cap)
         qq, qs = quantize_dev(q)
         cuts = [random_bounds(g, c, s, dev) for s in (1, 2, 3, 8, c + 3)]
         cuts.append(torch.tensor([0, 0, c // 2, c // 2, c], dtype=torch.int32,
                                  device=dev))
+        if cap > 64:
+            # clusters 0 and c - 1 owned by no shard
+            cuts.append(torch.tensor([1, c // 2, c - 1], dtype=torch.int32,
+                                     device=dev))
         for bounds in cuts:
             errs_f.append(hold_sharded(sel, en, q, buckets, valid, rows,
                                        bounds, k))
@@ -1617,6 +1640,22 @@ def phase_kernel_sharded(dev):
         buckets[bk, [9, 30, 41, 60]] = buckets[bk, 17].clone()
         q[i] = buckets[bk, 17]
     for s in (1, 3, 8):
+        errs_f.append(hold_sharded(sel, en, q, buckets, valid, rows,
+                                   random_bounds(g, c, s, dev), k,
+                                   exact_rows=True))
+    # a row copied into three other tiles of its bucket ("grouped") ties
+    # bitwise: the lowest slot, so the lowest global row, first
+    c, cap, d, b, nprobe, k = 4, 1024, 128, 4, 2, 6
+    buckets = unit_rows(g, c * cap, d, dev).reshape(c, cap, d)
+    valid = torch.ones((c, cap), dtype=torch.bool, device=dev)
+    rows = global_rows(g, valid)
+    sel, en = random_probes(g, b, c, nprobe, dev)
+    q = torch.empty((b, d), device=dev)
+    for i in range(b):
+        bk = int(sel[i, 0])
+        buckets[bk, [40, 300, 700, 1000]] = buckets[bk, 555].clone()
+        q[i] = buckets[bk, 555]
+    for s in (1, 3):
         errs_f.append(hold_sharded(sel, en, q, buckets, valid, rows,
                                    random_bounds(g, c, s, dev), k,
                                    exact_rows=True))
@@ -1710,8 +1749,9 @@ def measure_sharded(sel, en, q, buckets, valid, rows, bounds, k, *,
     stable sort, the finalists' global rows, each probe's finalists placed
     at its owning shard. The plain version scans every shard's slice for
     every probe, so it is timed 5 times. Beside them, the unsharded kernel
-    (3 or 4) on the same inputs, and "block" where the dispatch gives
-    "warp"."""
+    (3 or 4) on the same inputs, and "block" timed beside the dispatch's
+    design in one profiler session; where that is "grouped", its plan and
+    its CUDA launches a call (two)."""
     from repro_torch.kernels import ann_topk_ivf as ivf
     from repro_torch.kernels import ann_topk_sharded as sh
     b, nprobe = sel.shape
@@ -1730,10 +1770,7 @@ def measure_sharded(sel, en, q, buckets, valid, rows, bounds, k, *,
         def scan_unsharded():
             return ivf.ann_topk_ivf_quant(sel, en, q, quant[0], buckets,
                                           quant[1], valid, k)
-    design = expect_routed_design(cap)
-
-    def block():
-        return sh._launch("block", kernel, *args, k=k)
+    design = expect_routed_design(cap, k)
 
     library = sharded_library(sel, en, q, buckets, valid, rows, bounds, k,
                               quant)
@@ -1751,10 +1788,22 @@ def measure_sharded(sel, en, q, buckets, valid, rows, bounds, k, *,
             "unsharded": {"ms": timed_ms(scan_unsharded),
                           "device_ms": device_ms(scan_unsharded),
                           "amortized_ms": amortized_ms(scan_unsharded)}}
-    if design != "block":
-        # the first design on the same inputs, timed beside it
-        out["block_ms"] = timed_ms(block)
-        out["block_device_ms"] = device_ms(block, required=required)
+    if design == "grouped":
+        plan = ivf.grouped_plan(b, nprobe, c, cap, d, k, quant is not None)
+        out.update({key: plan[key] for key in ("tile", "qb", "ntiles")})
+        out["launches_per_call"] = launches_per_call(lambda: kernel(*args, k))
+        check(out["launches_per_call"] == 2,
+              f"{kernel.__name__} grouped: {out['launches_per_call']} CUDA "
+              f"launches a call")
+    # "block" in one profiler session with the dispatch's design
+    marker = {"warp": "ivf_warp_sharded<", "grouped": "ivf_grouped"}[design]
+    same = session_ms({
+        design: (lambda: sh._launch(design, kernel, *args, k=k), marker),
+        "block": (lambda: sh._launch("block", kernel, *args, k=k),
+                  "ivf_topk_sharded<")}, required=required)
+    out.update({f"{name}_device_ms": v for name, v in same.items()})
+    out["block_ms"] = timed_ms(lambda: sh._launch("block", kernel, *args,
+                                                  k=k))
     return out
 
 
@@ -1897,9 +1946,11 @@ def phase_stage1_sharded(dev, world, caches, warm):
     numpy hot index and to both warm indexes. Building the shard layout
     adds only the cut points on the device. At B=16 the kernel backend's
     sharded routed scans are held to the numpy sharded path with phase 4's
-    near-tie allowance, hot and warm; kernel 5 is held to its plain
-    version and to the unsharded kernels (``hold_sharded_merge``) on the
-    real layouts, then timed at B in 1 and 16."""
+    near-tie allowance, hot and warm, every kernel-5 launch of those
+    searches on "grouped"; kernel 5 is held to its plain version and to
+    the unsharded kernels (``hold_sharded_merge``) on the real layouts,
+    then timed at B in 1 and 16 ("block" beside it in one profiler
+    session)."""
     from repro_torch.convert import cluster_router_from_numpy
     from repro_torch.core.clustering import ClusterConfig
     from repro_torch.core.seri import probe_count
@@ -1938,12 +1989,17 @@ def phase_stage1_sharded(dev, world, caches, warm):
     t_search = {"kernel": 0.0, "numpy": 0.0}
     scanned = {}
     qe = held_queries(world, rng, N_INTENTS, 8, 16)
+    wrappers = kernel_wrappers()
+    reset_counts(wrappers)
+    log = []
     for tier, pair in (("hot", (kidx, nidx)), ("warm", tuple(warm.values()))):
         out = {}
         for backend, index in zip(("kernel", "numpy"), pair):
             t = time.perf_counter()
-            out[backend] = index.search_batch(qe, k, tau_sim=-1.0)
+            with routed_launch_log() as seen:
+                out[backend] = index.search_batch(qe, k, tau_sim=-1.0)
             t_search[backend] += time.perf_counter() - t
+            log += seen
             scanned[f"{tier}_{backend}"] = (index.last_scanned,
                                             index.last_scanned_max_shard)
         check(scanned[f"{tier}_kernel"] == scanned[f"{tier}_numpy"],
@@ -1954,6 +2010,12 @@ def phase_stage1_sharded(dev, world, caches, warm):
     check(cands > 0, "the sharded index found nothing")
     check(scanned["hot_kernel"][1] < scanned["hot_kernel"][0],
           f"no shard scanned less than the whole: {scanned}")
+    # every kernel-5 launch of the real-size layouts on "grouped"
+    designs = check_routed_designs(wrappers, log, "stage1_sharded")
+    check(all(designs[n].get("grouped", 0) > 0
+              for n in ("ann_topk_ivf_sharded", "ann_topk_ivf_quant_sharded"))
+          and not any(w.plain_calls for w in wrappers.values()),
+          f"stage1_sharded: routed scans by design {designs}")
     wl = layouts["int8"].layout
     wbq, wbs = wl.payload
     sizes_f, sizes_q, merges = [], [], 0
@@ -1991,6 +2053,7 @@ def phase_stage1_sharded(dev, world, caches, warm):
         "port_host_shard_map_bytes": sh.shard_rows.nbytes
         + sh.shard_valid.nbytes,
         "queries": 16, "candidates": cands, "near_tie_swaps": swaps,
+        "routed_launches_by_design": designs,
         "rows_scanned_and_max_shard": scanned, "merge_checks": merges,
         "train_s": t_train, "host_s_kernel_backend": t_search["kernel"],
         "host_s_numpy_backend": t_search["numpy"]}
@@ -2026,8 +2089,8 @@ def hold_parts(one, per, parts, k: int, what: str,
     check(wrapper.launches - before == len(live) == len(log),
           f"per-device kernel 5 ({what}): {wrapper.launches - before} "
           f"launches for {len(live)} non-empty shards")
-    wrong = [(d, cap) for _, d, cap, *_ in log
-             if d != expect_routed_design(cap)]
+    wrong = [(d, cap) for _, d, cap, kk, _ in log
+             if d != expect_routed_design(cap, kk)]
     check(not wrong, f"per-device kernel 5 ({what}): designs {wrong}")
     by_device: dict = {}
     for *_, dev_name in log:
@@ -2063,7 +2126,9 @@ def split_device_ms(fn, marker: str):
 def index_parts_hold(index, quant: bool, q: torch.Tensor, k: int,
                      devs: list, timed: bool = False) -> dict:
     """hold_parts on a finished index's own layout: routing as the index
-    routes, its shards on ``devs``."""
+    routes, its shards on ``devs``; with ``timed`` also kernel 5's own
+    device ms on the dispatch's design and on "block" in one profiler
+    session, as one launch and as a launch a shard."""
     from repro_torch.core.seri import probe_count
     from repro_torch.kernels import ann_topk_sharded as aks
     from repro_torch.kernels.ops import _route
@@ -2073,25 +2138,32 @@ def index_parts_hold(index, quant: bool, q: torch.Tensor, k: int,
     parts = device_parts(index, quant, devs)
     lay = sh.layout
     sel, en = _route(lay.centroids, lay.live, q, probe_count(rt.cfg))
+    w = shard_scans(True if quant else None)[0]
     if quant:
         qq, qs = quantize_dev(q)
         bq, bsc = lay.payload
-        one = lambda: aks.ann_topk_ivf_quant_sharded(
-            sel, en, qq, qs, bq, bsc, lay.bucket_valid, lay.bucket_rows,
-            sh.bounds_dev, k)
-        per = lambda: aks.ann_topk_ivf_quant_sharded_parts(
-            sel, en, qq, qs, parts, sh.bounds_dev, k)
+        queries = [qq, qs]
+        one_args = (sel, en, qq, qs, bq, bsc, lay.bucket_valid,
+                    lay.bucket_rows, sh.bounds_dev)
+        part_args = lambda loc, en_s, qv, p: (
+            loc, en_s, *qv, *p.payload, p.bucket_valid, p.bucket_rows,
+            p.bounds)
         library = sharded_library(sel, en, qq, bq, lay.bucket_valid,
                                   lay.bucket_rows, sh.bounds_dev, k,
                                   (qs, bsc))
     else:
-        one = lambda: aks.ann_topk_ivf_sharded(
-            sel, en, q, lay.payload, lay.bucket_valid, lay.bucket_rows,
-            sh.bounds_dev, k)
-        per = lambda: aks.ann_topk_ivf_sharded_parts(sel, en, q, parts,
-                                                     sh.bounds_dev, k)
+        queries = [q]
+        one_args = (sel, en, q, lay.payload, lay.bucket_valid,
+                    lay.bucket_rows, sh.bounds_dev)
+        part_args = lambda loc, en_s, qv, p: (
+            loc, en_s, *qv, p.payload, p.bucket_valid, p.bucket_rows,
+            p.bounds)
         library = sharded_library(sel, en, q, lay.payload, lay.bucket_valid,
                                   lay.bucket_rows, sh.bounds_dev, k)
+    one = lambda: w(*one_args, k)
+    per_scan = aks.ann_topk_ivf_quant_sharded_parts if quant else \
+        aks.ann_topk_ivf_sharded_parts
+    per = lambda: per_scan(sel, en, *queries, parts, sh.bounds_dev, k)
     out = hold_parts(one, per, parts, k, "int8" if quant else "fp32", timed)
     if timed:
         # the same function as one launch's: its bound and library call
@@ -2101,6 +2173,23 @@ def index_parts_hold(index, quant: bool, q: torch.Tensor, k: int,
             n_shards=len(parts))
         out["library_ms"] = timed_ms(library)
         out["library_device_ms"] = device_ms(library)
+        design = expect_routed_design(lay.bucket_rows.shape[1], k)
+        marker = {"warp": "ivf_warp_sharded<", "grouped": "ivf_grouped"}
+        # one session for the one-launch path and one for the per-card
+        # path: each design's kernels have the same names on both, so a
+        # session tells the designs apart, not the paths
+        one_fns, per_fns = {}, {}
+        for dsg in (design, "block"):
+            mark = marker.get(dsg, "ivf_topk_sharded<")
+            one_fns[f"one_launch_{dsg}"] = (
+                lambda dsg=dsg: aks._launch(dsg, w, *one_args, k=k), mark)
+            per_fns[f"per_card_{dsg}"] = (
+                lambda dsg=dsg: aks._parts(
+                    lambda *a: aks._launch(dsg, w, *part_args(*a), k=k),
+                    sel, en, queries, parts, sh.bounds_dev, k), mark)
+        out["design"] = design
+        out["kernel_device_ms_by_design"] = {**session_ms(one_fns),
+                                             **session_ms(per_fns)}
     del parts
     return {"b": q.shape[0], **out}
 
@@ -2109,7 +2198,9 @@ def phase_stage1_devices(dev, world, caches, warm) -> dict:
     """(i) Stage 1 with one shard's bucket range per device, every device
     this card (``cuda:0`` REAL_SHARDS times): the real-size sharded hot
     and warm indexes of ``phase_stage1_sharded``, at B in 1 and 16,
-    held to the one-launch path bitwise and timed beside it."""
+    held to the one-launch path bitwise and timed beside it, every
+    kernel-5 launch on "grouped", timed beside "block" in one profiler
+    session."""
     kidx, widx = caches["kernel"].seri.index, warm["kernel"]
     k = caches["numpy"].seri.top_k
     rng = np.random.default_rng(11)
@@ -2323,16 +2414,15 @@ def routed_launch_log():
 def check_routed_designs(wrappers: dict, log: list, run: str) -> dict:
     """Every launch of kernels 3-5 in ``run`` took the design its bucket
     size and k give (``expect_routed_design``: "warp" at every cap the
-    engine lays out; above 64 slots "grouped" for kernels 3 and 4), and
+    engine lays out; above 64 slots "grouped"), and
     the wrappers' counts by design agree with the log. Returns the counts
     by design and the caps seen, per wrapper."""
     out = {}
     for name in ROUTED:
-        sharded = name.endswith("_sharded")
         mine = [(design, cap, k) for n, design, cap, k, _ in log
                 if n == name]
         wrong = [(d, cap) for d, cap, k in mine
-                 if d != expect_routed_design(cap, sharded, k)]
+                 if d != expect_routed_design(cap, k)]
         check(not wrong, f"{run}: {name} launched {len(wrong)} times on the "
               f"wrong design: {sorted(set(wrong))}")
         counts = design_counts(wrappers[name])
@@ -6957,10 +7047,11 @@ def phase_mesh_train() -> dict:
 
 # ------------------------------------------- stage 1 at every shape
 # The shapes the reference's kernels take beyond the first designs' limits:
-# k and nprobe above 64 ("wide" for kernels 1 and 2; "block" for 3-5 at
+# k and nprobe above 64 ("wide" for kernels 1 and 2; "grouped" for 3-5 at
 # any k), query blocks of any width (kernels 1 and 2 shrink the block, and
 # read the queries in place where not even one fits) and buckets larger
-# than shared memory ("chunked", kernels 3-5). The holds' inputs are small
+# than shared memory ("grouped", held against "chunked", kernels 3-5). The
+# holds' inputs are small
 # integers, so every summation order gives the same fp32 sums: each hold is
 # bitwise, the many exact ties included.
 SHAPES_N = 1 << 16        # rows of the brute holds
@@ -6969,9 +7060,10 @@ WIDE_KS = (65, 100, 256)
 WIDE_DS = (3072, 4096)    # text-embedding-3-large; e5-mistral, NV-Embed-v2
 WIDE_BS = (5, 16, 64)
 QUANT_DS = (4096, 16384)
-ROUTE_C, ROUTE_CAP = 256, 64          # kernels 3-5 at k 100: "block"
+ROUTE_C, ROUTE_CAP = 256, 64          # kernels 3-5 at k 100: "grouped"
 ROUTE_NPROBES = (65, 128, ROUTE_C)
-# 2^20 rows over 16 clusters at D 768 (3.2 GB fp32): "chunked"
+# 2^20 rows over 16 clusters at D 768 (3.2 GB fp32): "grouped", held
+# against "chunked"
 BIG_C, BIG_CAP, BIG_D = 16, 1 << 16, 768
 HUGE_CAP, HUGE_D = 1 << 20, 64        # kernels 3 and 4 at k 500
 CHUNK_CAP, CHUNK = 4096, 1024         # "chunked" held bitwise to "block"
@@ -7209,14 +7301,23 @@ def phase_stage1_shapes(dev) -> dict:
                     (sh.ann_topk_ivf_quant_sharded,
                      sh.ann_topk_ivf_quant_sharded_plain,
                      (*int8, rows, bounds))):
-                hold_call(w, "block", lambda: w(*a, 100), plain(*a, 100),
+                want = plain(*a, 100)
+                hold_call(w, "grouped", lambda: w(*a, 100), want,
                           f"{w.__name__} 4 shards nprobe=128 k=100",
                           all_rows=True)
+                for tile, qb in grouped_variants(a, 100):
+                    hold_bitwise(ivf._launch("grouped", w, *a, k=100,
+                                             tile=tile, qb=qb), want,
+                                 f"{w.__name__} grouped tile={tile} qb={qb}",
+                                 all_rows=True)
+                hold_bitwise(ivf._launch("block", w, *a, k=100), want,
+                             f"{w.__name__} block 4 shards k=100",
+                             all_rows=True)
                 case("ann_topk_ivf_sharded k=100")
 
     # "chunked" at a chunk of 1024 against "block" at cap 4096, bitwise,
-    # every scan; kernels 3 and 4 on "grouped" (two tiles, two group
-    # sizes) against both
+    # every scan; every scan on "grouped" (two tiles, two group sizes)
+    # against both
     small = (8, CHUNK_CAP, 128)
     buckets = int_rows(g, small, dev)
     valid = torch.rand(small[:2], device=dev, generator=g) > 0.3
@@ -7247,18 +7348,17 @@ def phase_stage1_shapes(dev) -> dict:
             hold_bitwise(got, block, f"{w.__name__} chunked vs block k={k}",
                          all_rows=True)
             case("chunked vs block")
-            if w in (ivf.ann_topk_ivf, ivf.ann_topk_ivf_quant):
-                for tile, qb in [(None, None),
-                                 *grouped_variants(a, k)]:
-                    hold_bitwise(ivf._launch("grouped", w, *a, k=k,
-                                             tile=tile, qb=qb), block,
-                                 f"{w.__name__} grouped tile={tile} qb={qb}"
-                                 f" vs block k={k}", all_rows=True)
-                case("grouped vs block and chunked")
+            for tile, qb in [(None, None), *grouped_variants(a, k)]:
+                hold_bitwise(ivf._launch("grouped", w, *a, k=k, tile=tile,
+                                         qb=qb), block,
+                             f"{w.__name__} grouped tile={tile} qb={qb}"
+                             f" vs block k={k}", all_rows=True)
+            case("grouped vs block and chunked")
 
-    # kernel 3 at cap 65536, D 768: 2^20 rows over 16 clusters: "grouped"
-    # (at two tiles and two group sizes) against the plain version and
-    # bitwise against "chunked", kernel 5's design at this cap
+    # kernels 3 and 5 at cap 65536, D 768: 2^20 rows over 16 clusters,
+    # kernel 5 over 3 shards (one empty): "grouped" (kernel 3 at two tiles
+    # and two group sizes) against the plain version and bitwise against
+    # "chunked"
     big = torch.randint(-3, 4, (BIG_C, BIG_CAP, BIG_D), device=dev,
                         generator=g, dtype=torch.int8).float()
     big_valid = torch.rand((BIG_C, BIG_CAP), device=dev, generator=g) > 0.2
@@ -7266,11 +7366,26 @@ def phase_stage1_shapes(dev) -> dict:
     big_sel = torch.stack([torch.randperm(BIG_C, device=dev, generator=g)[:4]
                            for _ in range(4)]).to(torch.int32)
     big_en = torch.ones((4, 4), dtype=torch.int32, device=dev)
-    check(ivf.pick_design(BIG_CAP, 4, BIG_D, False, False) == "grouped"
-          and ivf.pick_design(BIG_CAP, 4, BIG_D, False, True) == "chunked",
-          "cap 65536 at D 768: kernel 3 not on 'grouped' or kernel 5 not "
-          "on 'chunked'")
+    check(all(ivf.pick_design(BIG_CAP, k, BIG_D, False, sharded) == "grouped"
+              for k in (4, 100, 6000) for sharded in (False, True)),
+          "cap 65536 at D 768: kernel 3 or 5 not on 'grouped'")
     big_args = (big_sel, big_en, qb, big, big_valid)
+    big_rows = torch.where(big_valid, torch.arange(
+        BIG_C * BIG_CAP, dtype=torch.int32, device=dev).reshape(
+            BIG_C, BIG_CAP), -1)
+    big_cuts = torch.tensor([0, 5, 5, BIG_C], dtype=torch.int32, device=dev)
+    big5 = (*big_args, big_rows, big_cuts)
+    k5 = sh.ann_topk_ivf_sharded
+    for k in (4, 100, 6000):
+        want = sh.ann_topk_ivf_sharded_plain(*big5, k)
+        hold_call(k5, "grouped", lambda: k5(*big5, k), want,
+                  f"ann_topk_ivf_sharded cap={BIG_CAP} d={BIG_D} k={k} vs "
+                  f"plain", all_rows=True)
+        hold_bitwise(ivf._launch("chunked", k5, *big5, k=k), want,
+                     f"ann_topk_ivf_sharded cap={BIG_CAP} chunked vs plain "
+                     f"k={k}", all_rows=True)
+        del want
+        case("ann_topk_ivf_sharded grouped cap 65536")
     for k in (4, 100, 6000):
         hold_call(ivf.ann_topk_ivf, "grouped",
                   lambda: ivf.ann_topk_ivf(*big_args, k),
@@ -7367,18 +7482,22 @@ def phase_stage1_shapes(dev) -> dict:
         int_mm_sort, bound_quant(qact, 128, 1, 128),
         {"n": 8192, "d": 128, "b": 1, "k": 128, "design": "wide"})
 
-    def gathered_bmm():
-        sb = big_sel.long()
-        s = torch.bmm(big[sb].reshape(16, BIG_CAP, BIG_D),
-                      qb.repeat_interleave(4, 0)[:, :, None])
-        s = torch.where(big_valid[sb] & (big_en > 0)[:, :, None],
-                        s.reshape(4, 4, BIG_CAP), NEG)
-        return torch.topk(s, 4, dim=2)
+    def gathered_topk(k):
+        """The library yardstick at cap 65,536: gathered buckets,
+        ``torch.bmm``, ``topk``."""
+        def library():
+            sb = big_sel.long()
+            s = torch.bmm(big[sb].reshape(16, BIG_CAP, BIG_D),
+                          qb.repeat_interleave(4, 0)[:, :, None])
+            s = torch.where(big_valid[sb] & (big_en > 0)[:, :, None],
+                            s.reshape(4, 4, BIG_CAP), NEG)
+            return torch.topk(s, k, dim=2)
+        return library
 
     plan = ivf.grouped_plan(4, 4, BIG_C, BIG_CAP, BIG_D, 4, False)
     big_times = time_design(
         lambda: ivf.ann_topk_ivf(*big_args, 4),
-        lambda: ivf.ann_topk_ivf_plain(*big_args, 4), gathered_bmm,
+        lambda: ivf.ann_topk_ivf_plain(*big_args, 4), gathered_topk(4),
         bound_ivf(big_sel, big_en, big_valid, BIG_D, 4, False),
         {"b": 4, "nprobe": 4, "c": BIG_C, "cap": BIG_CAP, "d": BIG_D, "k": 4,
          "design": "grouped", "tile": plan["tile"], "qb": plan["qb"],
@@ -7391,7 +7510,46 @@ def phase_stage1_shapes(dev) -> dict:
                                         *big_args, k=4), "ivf_chunked<")})
     big_times.update({f"{n}_device_ms": v for n, v in same.items()})
     times["ann_topk_ivf grouped, cap=65536 d=768"] = big_times
-    del big, big_valid, big_args
+
+    # k 6000: the lists merge by levels; its plain version and library
+    plan = ivf.grouped_plan(4, 4, BIG_C, BIG_CAP, BIG_D, 6000, False)
+    wide_k = {**timings(lambda: ivf.ann_topk_ivf(*big_args, 6000),
+                        lambda: ivf.ann_topk_ivf_plain(*big_args, 6000),
+                        gathered_topk(6000), plain_repeats=5,
+                        required=True),
+              "b": 4, "nprobe": 4, "c": BIG_C, "cap": BIG_CAP, "d": BIG_D,
+              "k": 6000, "design": "grouped", "tile": plan["tile"],
+              "qb": plan["qb"], "ntiles": plan["ntiles"],
+              "merge": plan["merge"]}
+    wide_k["bound_ms"], wide_k["bound_by"] = bound_ivf(
+        big_sel, big_en, big_valid, BIG_D, 6000, False)
+    wide_k.update({f"{n}_device_ms": v for n, v in session_ms({
+        "grouped": (lambda: ivf._launch("grouped", ivf.ann_topk_ivf,
+                                        *big_args, k=6000), "ivf_grouped"),
+        "chunked": (lambda: ivf._launch("chunked", ivf.ann_topk_ivf,
+                                        *big_args, k=6000), "ivf_chunked<")},
+        required=True).items()})
+    times["ann_topk_ivf grouped, cap=65536 d=768 k=6000"] = wide_k
+
+    # kernel 5 at cap 65536 over 3 shards: "grouped" beside "chunked" in
+    # one profiler session, its plain version and library yardstick
+    big_times5 = {**timings(
+        lambda: k5(*big5, 4), lambda: sh.ann_topk_ivf_sharded_plain(*big5, 4),
+        sharded_library(*big5, 4), plain_repeats=3, required=True),
+        "b": 4, "nprobe": 4, "c": BIG_C, "cap": BIG_CAP, "d": BIG_D, "k": 4,
+        "shards": 3, "design": "grouped",
+        "library": "gathered buckets, torch.bmm + stable sort, rows "
+                   "gathered, placed at the owning shard",
+        "launches_per_call": launches_per_call(lambda: k5(*big5, 4))}
+    big_times5["bound_ms"], big_times5["bound_by"] = bound_ivf(
+        big_sel, big_en, big_valid, BIG_D, 4, False, n_shards=3)
+    big_times5.update({f"{n}_device_ms": v for n, v in session_ms({
+        "grouped": (lambda: ivf._launch("grouped", k5, *big5, k=4),
+                    "ivf_grouped"),
+        "chunked": (lambda: ivf._launch("chunked", k5, *big5, k=4),
+                    "ivf_chunked_sharded<")}, required=True).items()})
+    times["ann_topk_ivf_sharded grouped, cap=65536 d=768"] = big_times5
+    del big, big_valid, big_args, big5, big_rows
     torch.cuda.empty_cache()
 
     # the engine runs, every count 0 just before and read just after
@@ -7557,7 +7715,7 @@ def main_mesh() -> int:
 def main(only: str | None = None) -> int:
     """The whole script, or with ``only = "stage1_shapes"``,
     ``"grouped_sweep"`` or ``"attn_shapes"`` the card, the build and that
-    phase alone."""
+    phase alone (``"kernel_sharded"``: kernel_sharded and stage1_shapes)."""
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: no port sources under {SRC}", file=sys.stderr)
         return 2
@@ -7588,6 +7746,20 @@ def main(only: str | None = None) -> int:
          nvcc_seconds={n: b.seconds for n, b in built.items()})
 
     if only == "stage1_shapes":
+        t = time.perf_counter()
+        shapes = phase_stage1_shapes(dev)
+        emit(phase="stage1_shapes", **shapes, seconds=time.perf_counter() - t)
+        print(card, flush=True)
+        emit(ok=True, device={"platform": "gpu",
+                              "kind": torch.cuda.get_device_name(0),
+                              "count": torch.cuda.device_count()})
+        return 0
+    if only == "kernel_sharded":
+        t = time.perf_counter()
+        shard_err, shardq_err, shard_cases, _ = phase_kernel_sharded(dev)
+        emit(phase="kernel_sharded", cases=shard_cases,
+             max_abs_err_fp32=shard_err, max_abs_err_int8=shardq_err,
+             seconds=time.perf_counter() - t)
         t = time.perf_counter()
         shapes = phase_stage1_shapes(dev)
         emit(phase="stage1_shapes", **shapes, seconds=time.perf_counter() - t)
@@ -7679,9 +7851,9 @@ def main(only: str | None = None) -> int:
          **phase_stage1_clustered(dev, world, caches),
          seconds=time.perf_counter() - t)
     t = time.perf_counter()
-    shard_sizes, shardq_sizes, line = phase_stage1_sharded(dev, world,
-                                                           caches, warm)
-    emit(phase="stage1_sharded", **line, real_size_fp32=shard_sizes,
+    shard_sizes, shardq_sizes, sharded_line = phase_stage1_sharded(
+        dev, world, caches, warm)
+    emit(phase="stage1_sharded", **sharded_line, real_size_fp32=shard_sizes,
          real_size_int8=shardq_sizes, seconds=time.perf_counter() - t)
     t = time.perf_counter()
     stage1_devices = phase_stage1_devices(dev, world, caches, warm)
@@ -7831,17 +8003,19 @@ def main(only: str | None = None) -> int:
                 extra["per_device"] = {
                     "e_tiered_clustered_sharded": run_e["per_device"][dt],
                     "real_size": stage1_devices[dt]}
-            if not name.endswith("_sharded"):
+                extra["stage1_sharded_launches_by_design"] = sharded_line[
+                    "routed_launches_by_design"][name]
+            else:
                 extra["warp_device_ms"] = at.get("warp_device_ms")
                 extra["sharded_warp_s1_device_ms"] = at.get(
                     "sharded_warp_s1_device_ms")
-                # "grouped" at real size, "block" in the same session
-                extra["grouped_real_size"] = [
-                    {key: x.get(key) for key in (
-                        "b", "k", "tile", "qb", "launches_per_call",
-                        "grouped_device_ms", "block_device_ms", "bound_ms",
-                        "bound_by", "plain_device_ms", "library_device_ms")}
-                    for x in real]
+            # "grouped" at real size, "block" in the same session
+            extra["grouped_real_size"] = [
+                {key: x.get(key) for key in (
+                    "b", "k", "shards", "tile", "qb", "launches_per_call",
+                    "grouped_device_ms", "block_device_ms", "bound_ms",
+                    "bound_by", "plain_device_ms", "library_device_ms")}
+                for x in real]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
@@ -7956,6 +8130,6 @@ if __name__ == "__main__":
         sys.exit(main_mesh())
     sys.exit(main(*sys.argv[1:2])
              if sys.argv[1:] in ([], ["stage1_shapes"], ["grouped_sweep"],
-                                 ["attn_shapes"])
+                                 ["attn_shapes"], ["kernel_sharded"])
              else f"usage: {sys.argv[0]} [--mesh | stage1_shapes | "
-                  f"grouped_sweep | attn_shapes]")
+                  f"grouped_sweep | attn_shapes | kernel_sharded]")

@@ -31,35 +31,39 @@ them. The routed scans of this module and the shard-owned ones of
   ``WARP_PROBES`` probes a CTA and no block barrier: the warp scores only
   the row groups that hold a valid slot, keeps two scores a lane, sorts
   them with one bitonic network and writes the probe's k finalists.
-* ``"grouped"``: every other unsharded scan (kernels 3 and 4; the
-  real-size router's buckets of thousands of slots, buckets larger than
-  shared memory, any k). Each probed bucket is read once for all the
-  probes on it, and only its valid rows: a first launch groups the probes
-  by bucket on the device (a counting sort, at most ``qb`` probes a
-  group); the second runs one CTA per (group, tile of ``tile`` slots),
-  which stages the group's queries in shared memory, scores each valid
-  row of its tile against all of them and keeps each probe's best
+* ``"grouped"``: every other scan, unsharded (kernels 3 and 4) or
+  shard-owned (kernel 5; the real-size router's buckets of thousands of
+  slots, buckets larger than shared memory, any k, any S). Each probed
+  bucket is read once for all the probes on it, and only its valid rows:
+  a first launch groups the probes by bucket on the device (a counting
+  sort, at most ``qb`` probes a group; kernel 5 takes only the probes
+  whose bucket a shard owns and writes every other probe's (S, k) column
+  NEG / -1); the second runs one CTA per (group, tile of ``tile``
+  slots), which stages the group's queries in shared memory, scores each
+  valid row of its tile against all of them and keeps each probe's best
   min(k, tile) of the tile; the CTA that finishes a group last merges its
   probes' tile lists, in shared memory where their network fits
   (:func:`shared_merge`), else by levels in device memory, so no cap, D,
-  k, B or nprobe is refused. :func:`grouped_plan` picks ``qb`` and
-  ``tile`` from the shape alone (the tile so that the grid fills the card
-  at B = 1), and the scratch; two CUDA launches a call.
-* ``"block"``: kernel 5's larger buckets, and any k: one CTA of 256
-  threads per (query, probe) that reads its own ``sel``/``enabled`` entry
-  (the TPU's scalar prefetch), scores every slot of the bucket into
-  shared memory and runs k block-wide argmax passes.
-* ``"chunked"``: kernel 5's buckets whose scores and query overflow
+  k, B, nprobe or S is refused. Kernel 5 writes a probe's finalists at the
+  shard that owns its bucket, with their global rows, and NEG / -1 at the
+  others. :func:`grouped_plan` picks ``qb`` and ``tile`` from the shape
+  alone (the tile so that the grid fills the card at B = 1), and the
+  scratch, which does not grow with S; two CUDA launches a call.
+* ``"block"``: one CTA of 256 threads per (query, probe) that reads its
+  own ``sel``/``enabled`` entry (the TPU's scalar prefetch), scores every
+  slot of the bucket into shared memory and runs k block-wide argmax
+  passes.
+* ``"chunked"``: "block" for buckets whose scores and query overflow
   shared memory (:func:`block_smem`; a cap above about 57,000 slots at
   D = 768): the CTA reads its query in place and scores the bucket in
   chunks of :func:`chunk_slots` slots, merging each chunk into a running
   list of the probe's k best kept in device memory.
 
-"block" and "chunked" stay launchable for kernels 3 and 4 (``_launch``),
-as the designs chip_smoke.py holds and times "grouped" against. All four
-give the same finalists bitwise, the slots of NEG entries included. A
-shape a design cannot take fails, with the shape and the design in the
-error; there is no fall back to another design.
+No dispatch takes "block" or "chunked"; both stay launchable for every
+scan (``_launch``), as the designs chip_smoke.py holds and times
+"grouped" against. All four give the same finalists bitwise, the slots of NEG
+entries included. A shape a design cannot take fails, with the shape and
+the design in the error; there is no fall back to another design.
 
 :func:`ann_topk_ivf` and :func:`ann_topk_ivf_quant` launch the kernels for
 CUDA tensors and raise if they cannot; they take the plain versions only
@@ -273,18 +277,13 @@ def pick_design(cap: int, k: int, d: int, quant: bool,
                 sharded: bool = True) -> str:
     """The design of a CUDA call of kernels 3–5: ``"warp"`` for buckets of
     at most ``WARP_CAP`` slots (any k up to ``K_MAX``: its network sorts
-    max(cap, k) <= 64 entries) whose queries fit its shared memory; else,
-    for kernels 3 and 4 (``sharded=False``), ``"grouped"``; for kernel 5,
-    ``"block"`` where the bucket's scores and the query fit shared memory
-    (:func:`block_smem`), else ``"chunked"``."""
+    max(cap, k) <= 64 entries) whose queries fit its shared memory (the
+    sharded writer, kernel 5, also stages its finalists there); else
+    ``"grouped"``, whatever the cap, D or k."""
     if cap <= WARP_CAP and k <= K_MAX \
             and warp_smem(d, quant, sharded) <= SMEM_MAX:
         return "warp"
-    if not sharded:
-        return "grouped"
-    if block_smem(cap, d, k, quant, sharded) <= SMEM_MAX:
-        return "block"
-    return "chunked"
+    return "grouped"
 
 
 def _stable_topk(s: torch.Tensor, k: int):
@@ -398,8 +397,8 @@ def _lib():
         lib.ann_topk_ivf_chunked_launch.argtypes = [i] + [p] * 9 + [i] * 8 \
             + [p] * 5
         lib.ann_topk_ivf_chunked_launch.restype = i
-        lib.ann_topk_ivf_grouped_launch.argtypes = [i] + [p] * 7 + \
-            [i] * 10 + [p] * 8
+        lib.ann_topk_ivf_grouped_launch.argtypes = [i] + [p] * 9 + \
+            [i] * 11 + [p] * 8
         lib.ann_topk_ivf_grouped_launch.restype = i
         lib.ann_topk_ivf_error_string.argtypes = [i]
         lib.ann_topk_ivf_error_string.restype = ctypes.c_char_p
@@ -414,14 +413,14 @@ def _u8(t: torch.Tensor) -> torch.Tensor:
 def _launch(design: str, wrapper, *args, k: int, chunk: int | None = None,
             tile: int | None = None, qb: int | None = None):
     """Launch ``design``'s kernel for ``wrapper`` (any of the routed scans
-    of kernels 3–5; "grouped" the unsharded ones only) on its checked CUDA
-    inputs, in the wrapper's argument order, on the inputs' current
-    stream, into fresh (B, nprobe, k) outputs, or (S, B, nprobe, k) stacks
-    for the shard-owned scans, and count it; raises with the shape and the
-    design if it fails. chip_smoke.py also calls it to hold and time
-    "block" and "chunked" (at a smaller ``chunk`` than
-    :func:`chunk_slots`'s) on inputs the dispatch sends elsewhere, and
-    "grouped" at another ``tile`` and ``qb`` than :func:`grouped_plan`'s."""
+    of kernels 3–5) on its checked CUDA inputs, in the wrapper's argument
+    order, on the inputs' current stream, into fresh (B, nprobe, k)
+    outputs, or (S, B, nprobe, k) stacks for the shard-owned scans, and
+    count it; raises with the shape, S and the design if it fails.
+    chip_smoke.py also calls it to hold and time "block" and "chunked" (at
+    a smaller ``chunk`` than :func:`chunk_slots`'s) on inputs the dispatch
+    sends elsewhere, and "grouped" at another ``tile`` and ``qb`` than
+    :func:`grouped_plan`'s."""
     if design not in DESIGNS:
         raise ValueError(f"design must be one of {DESIGNS}, got {design!r}")
     # the int8 scans carry the queries' scales after the queries, and the
@@ -436,9 +435,8 @@ def _launch(design: str, wrapper, *args, k: int, chunk: int | None = None,
     vals = torch.empty((*lead, b, nprobe, k), dtype=torch.float32, device=dev)
     idx = torch.empty((*lead, b, nprobe, k), dtype=torch.int32, device=dev)
     name = wrapper.__name__
-    if design == "grouped" and lead:
-        raise ValueError(f"{name}: \"grouped\" is the unsharded scans' "
-                         f"design")
+    # the shard-owned scans' bucket_rows and bounds; null for the others
+    tail = args[at + 1:] if lead else (None, None)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -459,14 +457,14 @@ def _launch(design: str, wrapper, *args, k: int, chunk: int | None = None,
             scales = (args[3], args[5]) if quant else (None, None)
             ptrs = [0 if t is None else t.data_ptr() for t in (
                 sel, args[1], q, scales[0], buckets, scales[1],
-                _u8(args[at]))]
+                _u8(args[at]), *tail)]
             lists = tuple(t.data_ptr() if t.numel() else 0
                           for t in (tmp_v, tmp_i, lev_v, lev_i))
             err = lib.ann_topk_ivf_grouped_launch(
-                int(quant), *ptrs, b, nprobe, c, cap, d, k, plan["qb"],
-                plan["tile"], plan["groups"], int(plan["qglobal"]),
-                scratch.data_ptr(), *lists, vals.data_ptr(), idx.data_ptr(),
-                stream)
+                int(quant), *ptrs, *(lead or (1,)), b, nprobe, c, cap, d, k,
+                plan["qb"], plan["tile"], plan["groups"],
+                int(plan["qglobal"]), scratch.data_ptr(), *lists,
+                vals.data_ptr(), idx.data_ptr(), stream)
         elif design == "chunked":
             chunk = chunk or chunk_slots(cap)
             tmp_v = torch.empty((b, nprobe, k), dtype=torch.float32,
@@ -476,7 +474,6 @@ def _launch(design: str, wrapper, *args, k: int, chunk: int | None = None,
             # the query is read in place, 16 bytes at a time
             q = _aligned(args[2])
             scales = (args[3], args[5]) if quant else (None, None)
-            tail = args[at + 1:] if lead else (None, None)
             ptrs = [0 if t is None else t.data_ptr() for t in (
                 sel, args[1], q, scales[0], buckets, scales[1], _u8(args[at]),
                 *tail)]

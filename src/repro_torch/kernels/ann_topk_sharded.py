@@ -6,7 +6,10 @@ Replaces ``repro/kernels/ann_topk_sharded.py::ann_topk_ivf_sharded`` and
 ``::ann_topk_ivf_quant_sharded``, which run the Pallas routed-scan kernels
 once per shard. ``sel`` carries GLOBAL cluster ids from the shared router;
 shard s owns the contiguous cluster range ``[bounds[s], bounds[s+1])``
-(a repeated cut point is an empty shard). Output contract, the
+(a repeated cut point is an empty shard). The cut points ascend, as the
+router's prefix of shard sizes does: the CUDA designs find a bucket's
+owner by binary search over them, so a ``bounds`` that descends is
+refused where it lies on the host (on a card it is not read back). Output contract, the
 reference's: ``(vals, rows)`` stacks of shape (S, B, nprobe, k), where
 entry (s, b, j) holds probe (b, j)'s finalists if shard s owns
 ``sel[b, j]`` and NEG otherwise, rows are GLOBAL index rows, -1 where
@@ -21,18 +24,20 @@ keeps on the device, so these functions take that layout, its
 ``bucket_valid`` and ``bucket_rows`` (C, cap), and ``bounds`` (S+1,)
 int32, and no second copy of the payload exists.
 
-The CUDA kernels scan each probed bucket once, for its probe, and write
-the probe's whole (S, k) column of the stacks: the finalists with their
-global rows (read from ``bucket_rows``) at the owning shard, NEG / -1 at
-the others. They score exactly as ``ann_topk_ivf`` /
-``ann_topk_ivf_quant`` do (the same device code), so at S = 1 the stacks
-equal the unsharded kernels' bitwise. They share the unsharded scans'
-dispatch (``ann_topk_ivf.pick_design``, ``"warp"`` for buckets of at most
-64 slots at k <= 64, ``"block"`` above, ``"chunked"`` for buckets larger
-than shared memory; kernels 3 and 4 take ``"grouped"`` above 64 slots,
-whose writer is the unsharded one's alone) and launcher; ``csrc/ann_topk_ivf.cu`` has the
-details. Shapes a design cannot take fail at launch, with the shape and
-the design in the error; there is no fall back to another design.
+The CUDA kernels write each probe's whole (S, k) column of the stacks:
+the finalists with their global rows (read from ``bucket_rows``) at the
+shard that owns its bucket, NEG / -1 at the others (and throughout for a
+probe that is disabled, out of range or on a bucket no shard owns). They
+score exactly as ``ann_topk_ivf`` / ``ann_topk_ivf_quant`` do (the same
+device code), so at S = 1 the stacks equal the unsharded kernels'
+bitwise after the slot -> row map. They share the unsharded scans'
+dispatch and launcher (``ann_topk_ivf.pick_design``: ``"warp"``, a warp
+a probe, for buckets of at most 64 slots at k <= 64; ``"grouped"``
+above, which reads each probed bucket once for all its probes, tile by
+tile, and writes the stacks from the group's last CTA).
+``csrc/ann_topk_ivf.cu`` has the details. Shapes a design cannot take
+fail at launch, with the shape, S and the design in the error; there is
+no fall back to another design.
 
 :func:`ann_topk_ivf_sharded` and :func:`ann_topk_ivf_quant_sharded` launch
 the kernels for CUDA tensors and raise if they cannot; they take the plain
@@ -61,8 +66,7 @@ import torch
 from repro_torch.kernels.ann_topk import NEG
 from repro_torch.kernels.ann_topk_ivf import (  # noqa: F401 (kernel 5's names)
     DESIGNS, SMEM_MAX, WARP_CAP, WARP_PROBES, _check, _launch,
-    ann_topk_ivf_plain, ann_topk_ivf_quant_plain, block_smem, chunk_slots,
-    pick_design, warp_smem)
+    ann_topk_ivf_plain, ann_topk_ivf_quant_plain, pick_design, warp_smem)
 
 
 def mesh_available(n_shards: int) -> bool:
@@ -161,6 +165,8 @@ def _check_shards(c: int, cap: int, bucket_rows, bounds) -> None:
     if bounds.ndim != 1 or bounds.numel() < 2 or bounds.dtype != torch.int32:
         raise ValueError(f"want bounds (S+1,) int32 with S >= 1; got "
                          f"{tuple(bounds.shape)} {bounds.dtype}")
+    if bounds.device.type == "cpu" and bool((bounds[1:] < bounds[:-1]).any()):
+        raise ValueError(f"want ascending bounds; got {bounds.tolist()}")
 
 
 def ann_topk_ivf_sharded(sel: torch.Tensor, enabled: torch.Tensor,
@@ -308,7 +314,7 @@ def ann_topk_ivf_quant_sharded_parts(sel: torch.Tensor, enabled: torch.Tensor,
 for _w in (ann_topk_ivf_sharded, ann_topk_ivf_quant_sharded):
     _w.launches = 0
     _w.launches_warp = 0
-    _w.launches_grouped = 0   # never: "grouped" is kernels 3 and 4's
+    _w.launches_grouped = 0
     _w.launches_block = 0
     _w.launches_chunked = 0
     _w.plain_calls = 0

@@ -40,9 +40,11 @@
 //   -> vals, rows (S, B, nprobe, k). Entry (s, b, j) holds probe (b, j)'s
 //   finalists if shard s owns sel[b, j], with the slot's global row where
 //   the value is a real score (> NEG / 2) and -1 elsewhere; every other
-//   entry is NEG / -1. A repeated cut point is an empty shard. This is
-//   the reference's per-shard loop (mask the probes to the shard's range,
-//   scan its slice, map slots to global rows) in one launch.
+//   entry is NEG / -1. The cut points ascend; a repeated one is an empty
+//   shard, and a cluster outside [bounds[0], bounds[S]) has no owner (its
+//   probes' columns are NEG / -1 throughout). This is the reference's
+//   per-shard loop (mask the probes to the shard's range, scan its slice,
+//   map slots to global rows) in one call.
 //
 // What bounds it on an H100: a scan must read, for each distinct probed
 // bucket, its cap-byte valid mask and its valid slots, D*4 (fp32) or D + 4
@@ -55,14 +57,13 @@
 //
 // Four designs; the wrappers' one pick_design sends buckets of at most
 // WARP_CAP = 64 slots (every bucket the engine lays out) at k <= 64 to
-// "warp". Above that the unsharded scans (kernels 3 and 4) take
-// "grouped", whatever the cap, D or k; the sharded ones (kernel 5) take
-// "block" where a bucket's scores and the query fit shared memory, else
-// "chunked". "block" and "chunked" stay launchable for kernels 3 and 4 as
-// the designs "grouped" is held and timed against.
+// "warp". Above that every scan, unsharded (kernels 3 and 4) or sharded
+// (kernel 5), takes "grouped", whatever the cap, D, k or S. "block" and
+// "chunked" stay launchable for every scan as the designs "grouped" is
+// held and timed against.
 //
-// Design "grouped" (ivf_grouped_probes, then ivf_grouped; the unsharded
-// scans above 64 slots). "block" and "chunked" lose to two faults: one CTA
+// Design "grouped" (ivf_grouped_probes, then ivf_grouped; every scan above
+// 64 slots). "block" and "chunked" lose to two faults: one CTA
 // per (query, probe), so a bucket that several queries probe is read once
 // per query (at B = 16 x nprobe 64 over 512 buckets, 1024 reads of
 // 12.6 MB for about 451 distinct buckets; reuse in the 50 MB L2 only by
@@ -75,9 +76,9 @@
 //    scratch: counts, their exclusive scan, and up to QB probes a group
 //    (a bucket with more probes forms more groups); it zeroes the groups'
 //    tickets, and writes NEG and slot p for every disabled or
-//    out-of-range probe, as write_disabled does. The order of probes
-//    within a bucket comes from atomics and may differ between calls; no
-//    output depends on it.
+//    out-of-range probe, as write_disabled does, a warp a probe. The
+//    order of probes within a bucket comes from atomics and may differ
+//    between calls; no output depends on it.
 // 2. ivf_grouped<E, VEC, QB>: one CTA per (group, tile of T slots), T a
 //    multiple of the scorer's row step (8 warps x ROWS). The CTA stages
 //    the group's queries in shared memory (or, one query too wide for
@@ -122,6 +123,19 @@
 // the merge runs in device memory, past the largest tile the lists hold T
 // entries each. Scratch: the tile lists (P x ntiles x kt pairs) and the
 // levels' (2 level_entries pairs a probe).
+// Sharded (kernel 5: the same two launches, bounds given): step 1 groups
+// the probes by their global bucket and takes only those whose bucket a
+// shard owns (the shards are contiguous cluster ranges, so a bucket has
+// one owner); it writes the whole (S, k) column of every other probe NEG
+// / -1, a warp a probe. In step 2 a probe's finalists go to its owner's
+// row of the stacks (straight from the tile for a one-tile bucket, from
+// the last CTA's merge otherwise), whose CTA then maps their slots to
+// global rows (bucket_rows; -1 where the value is NEG); the tile-0 CTA of
+// each group writes its probes' other S - 1 rows NEG / -1. No CTA's share
+// of the writes grows with S x B x nprobe, and the scratch does not grow
+// with S. Every score and order is the unsharded path's, so the stacks
+// are bitwise "block"'s and "chunked"'s, and at S = 1 kernel 3's
+// "grouped" output after the slot -> row map.
 
 // Design "block" (ivf_topk, ivf_topk_sharded): one kernel for both payload
 // types over a scorer policy; one CTA per (query b, probe j), reading
@@ -137,9 +151,10 @@
 // (staged in dynamic shared memory after the query), with their rows read
 // from bucket_rows, at the owner, NEG / -1 at the others.
 //
-// Design "chunked" (ivf_chunked, ivf_chunked_sharded; buckets whose cap
-// scores and query overflow shared memory): "block" over chunks of the
-// bucket that fit. One CTA per (query, probe) reads its query in place
+// Design "chunked" (ivf_chunked, ivf_chunked_sharded; no dispatch takes it
+// since every scan above 64 slots takes "grouped", and it takes buckets
+// whose cap scores and query overflow shared memory): "block" over chunks
+// of the bucket that fit. One CTA per (query, probe) reads its query in place
 // from device memory (on a 16-byte boundary) and scores chunk after chunk
 // of `chunk` slots into shared memory with the same dot.cuh code, so
 // every score is bitwise "block"'s. The probe's running list, its best
@@ -837,26 +852,69 @@ __device__ int block_scan(const int* in, int* out, int n, int* sh) {
   return carry;
 }
 
-// Step 1 of "grouped", one CTA: the enabled, in-range probes grouped by
-// bucket (counting sort over the C buckets), at most qb probes a group;
-// the groups' tickets zeroed; NEG and slot p for every other probe.
+// The largest index i in [0, n) with a[i] <= x (a ascending, a[0] <= x).
+__device__ __forceinline__ int last_at_most(const int* a, int n, int x) {
+  int lo = 0, hi = n - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (a[mid] <= x) lo = mid;
+    else hi = mid - 1;
+  }
+  return lo;
+}
+
+// The shard of "grouped"'s sharded writer that owns bucket c: the s with
+// bounds[s] <= c < bounds[s + 1], or -1 where none does. The cut points
+// ascend (a repeated one is an empty shard), so at most one shard owns c
+// and it is the last s with bounds[s] <= c. The unsharded scan (bounds
+// null) writes every bucket's probes at "shard" 0.
+__device__ __forceinline__ int owner_of(const int* bounds, int n_shards,
+                                        int c) {
+  if (bounds == nullptr) return 0;
+  if (c < bounds[0]) return -1;
+  const int s = last_at_most(bounds, n_shards, c);
+  return c < bounds[s + 1] ? s : -1;
+}
+
+// Does "grouped" scan probe p: enabled, its bucket in [0, C) and owned?
+__device__ __forceinline__ bool grouped_probe(const int* sel_, const int* en,
+                                              int p, int c_count,
+                                              const int* bounds,
+                                              int n_shards) {
+  const int c = sel_[p];
+  return en[p] != 0 && c >= 0 && c < c_count &&
+         owner_of(bounds, n_shards, c) >= 0;
+}
+
+// Step 1 of "grouped", one CTA: the probes it scans (grouped_probe)
+// grouped by bucket (counting sort over the C global buckets), at most qb
+// probes a group; the groups' tickets zeroed; every other probe's whole
+// column written, a warp a probe: NEG and slot p (unsharded), or NEG / -1
+// at every one of the S shards.
 __global__ void __launch_bounds__(GROUP_THREADS)
 ivf_grouped_probes(const int* __restrict__ sel_, const int* __restrict__ en,
+                   const int* __restrict__ bounds, int n_shards,
                    int n_probes, int c_count, int qb, int g_max, int k,
                    int* __restrict__ scratch, float* __restrict__ vals,
                    int* __restrict__ slots) {
   __shared__ int sh[GROUP_THREADS / 32 + 1];
   const GroupScratch gs(scratch, c_count, n_probes, g_max);
+  const int lane = threadIdx.x & 31;
   for (int i = threadIdx.x; i < c_count; i += GROUP_THREADS) gs.cnt[i] = 0;
   for (int i = threadIdx.x; i < g_max; i += GROUP_THREADS) gs.ticket[i] = 0;
   __syncthreads();
-  for (int p = threadIdx.x; p < n_probes; p += GROUP_THREADS) {
-    const int c = sel_[p];
-    if (en[p] != 0 && c >= 0 && c < c_count) {
-      atomicAdd(gs.cnt + c, 1);
-    } else {
-      write_disabled(vals + static_cast<size_t>(p) * k,
-                     slots + static_cast<size_t>(p) * k, k, 0, 1);
+  for (int p = threadIdx.x; p < n_probes; p += GROUP_THREADS)
+    if (grouped_probe(sel_, en, p, c_count, bounds, n_shards))
+      atomicAdd(gs.cnt + sel_[p], 1);
+  const int column = bounds == nullptr ? k : n_shards * k;
+  for (int p = threadIdx.x >> 5; p < n_probes; p += GROUP_THREADS / 32) {
+    if (grouped_probe(sel_, en, p, c_count, bounds, n_shards)) continue;
+    for (int e = lane; e < column; e += 32) {
+      const int s = e / k;
+      const int i = e - s * k;
+      const size_t o = (static_cast<size_t>(s) * n_probes + p) * k + i;
+      vals[o] = sel::NEG;
+      slots[o] = bounds == nullptr ? i : -1;
     }
   }
   __syncthreads();
@@ -876,22 +934,9 @@ ivf_grouped_probes(const int* __restrict__ sel_, const int* __restrict__ en,
   }
   if (threadIdx.x == 0) *gs.n_groups = total;
   __syncthreads();  // start becomes the placement cursor
-  for (int p = threadIdx.x; p < n_probes; p += GROUP_THREADS) {
-    const int c = sel_[p];
-    if (en[p] != 0 && c >= 0 && c < c_count)
-      gs.order[atomicAdd(gs.start + c, 1)] = p;
-  }
-}
-
-// The largest index i in [0, n) with a[i] <= x (a ascending, a[0] <= x).
-__device__ __forceinline__ int last_at_most(const int* a, int n, int x) {
-  int lo = 0, hi = n - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (a[mid] <= x) lo = mid;
-    else hi = mid - 1;
-  }
-  return lo;
+  for (int p = threadIdx.x; p < n_probes; p += GROUP_THREADS)
+    if (grouped_probe(sel_, en, p, c_count, bounds, n_shards))
+      gs.order[atomicAdd(gs.start + sel_[p], 1)] = p;
 }
 
 // Entries of a power-of-two network at least n long (1 for n = 0).
@@ -1102,16 +1147,38 @@ __host__ __device__ inline size_t grouped_scan_bytes(int qb, int tile, int d,
          (qglobal ? 0 : align16(static_cast<size_t>(qb) * d * elem));
 }
 
+// The sharded writer's last step, the whole block: in the owner's rows of
+// the group's probes (row (owner, bj) at (obase + bj) * k), each
+// finalist's slot becomes its global row, srow[slot] (the bucket's
+// bucket_rows), or -1 where its value is NEG. The block wrote those rows
+// before its last barrier.
+__device__ __forceinline__ void slots_to_rows(const float* vals, int* rows,
+                                              const int* probe, int nq,
+                                              size_t obase, int k,
+                                              const int* srow) {
+  for (int e = threadIdx.x; e < nq * k; e += THREADS) {
+    const int j = e / k;
+    const size_t o = (obase + probe[j]) * k + (e - j * k);
+    rows[o] = vals[o] > sel::NEG / 2 ? srow[rows[o]] : -1;
+  }
+}
+
 // Step 2 of "grouped": one CTA per (group g, tile t), blockIdx.x = g *
-// ntiles + t; grid CTAs past the group count return at once.
+// ntiles + t; grid CTAs past the group count return at once. Unsharded
+// (bounds null) probe bj's finalists go to its (k,) row of vals/slots;
+// sharded, to row (owner, bj) of the (S, P, k) stacks, the tile-0 CTA of
+// each group writing its probes' other S - 1 rows NEG / -1, and the slots
+// become global rows once the row is final.
 template <typename E, int VEC, int QB>
 __global__ void __launch_bounds__(THREADS)
 ivf_grouped(int* __restrict__ scratch, const E* __restrict__ q,
             const float* __restrict__ qs, const E* __restrict__ buckets,
             const float* __restrict__ bscale,
-            const uint8_t* __restrict__ valid, int n_probes, int nprobe,
-            int c_count, int cap, int d, int k, int tile, int ntiles,
-            int g_max, int qglobal, float* __restrict__ fv,
+            const uint8_t* __restrict__ valid,
+            const int* __restrict__ bucket_rows,
+            const int* __restrict__ bounds, int n_shards, int n_probes,
+            int nprobe, int c_count, int cap, int d, int k, int tile,
+            int ntiles, int g_max, int qglobal, float* __restrict__ fv,
             int* __restrict__ fr, float* __restrict__ gv,
             int* __restrict__ gr, float* __restrict__ vals,
             int* __restrict__ slots) {
@@ -1149,8 +1216,25 @@ ivf_grouped(int* __restrict__ scratch, const E* __restrict__ q,
   const int s0 = t * tile;
   const int m = min(tile, cap - s0);
   const size_t base = static_cast<size_t>(c) * cap;
+  // the row of (owner, bj) is at (obase + bj) * k; every grouped probe's
+  // bucket has an owner (ivf_grouped_probes)
+  const int owner = owner_of(bounds, n_shards, c);
+  const size_t obase = static_cast<size_t>(owner) * n_probes;
   for (int i = threadIdx.x; i < nq * tile; i += THREADS) sc[i] = sel::NEG;
   __syncthreads();
+  if (bounds != nullptr && t == 0) {
+    // the group's probes at every other shard: NEG / -1
+    const int column = n_shards * k;
+    for (int e = threadIdx.x; e < nq * column; e += THREADS) {
+      const int j = e / column;
+      const int s = (e - j * column) / k;
+      if (s == owner) continue;
+      const size_t o = (static_cast<size_t>(s) * n_probes + probe[j]) * k +
+                       (e - j * column - s * k);
+      vals[o] = sel::NEG;
+      slots[o] = -1;
+    }
+  }
   if (!qglobal) {
     for (int j = 0; j < nq; ++j) {
       const E* src = q + static_cast<size_t>(qrow[j]) * d;
@@ -1207,7 +1291,7 @@ ivf_grouped(int* __restrict__ scratch, const E* __restrict__ q,
   for (int j = by_block ? 0 : warp; j < nq; j += by_block ? 1 : WARPS) {
     const int bj = probe[j];
     const size_t at = ntiles == 1
-                          ? static_cast<size_t>(bj) * k
+                          ? (obase + bj) * k
                           : (static_cast<size_t>(bj) * ntiles + t) * kt;
     float* ov = (ntiles == 1 ? vals : fv) + at;
     int* oi = (ntiles == 1 ? slots : fr) + at;
@@ -1229,7 +1313,13 @@ ivf_grouped(int* __restrict__ scratch, const E* __restrict__ q,
       }
     }
   }
-  if (ntiles == 1) return;
+  if (ntiles == 1) {
+    if (bounds != nullptr) {
+      __syncthreads();
+      slots_to_rows(vals, slots, probe, nq, obase, k, bucket_rows + base);
+    }
+    return;
+  }
   // the last CTA of the group merges its probes' lists
   __threadfence();
   __syncthreads();
@@ -1242,14 +1332,18 @@ ivf_grouped(int* __restrict__ scratch, const E* __restrict__ q,
   for (int j = 0; j < nq; ++j) {
     const size_t bj = static_cast<size_t>(probe[j]);
     const size_t list = bj * ntiles * kt;
+    const size_t at = (obase + bj) * k;
     if (in_smem) {
-      merge_lists(fv + list, fr + list, ntiles, k, vals + bj * k,
-                  slots + bj * k, smem);
+      merge_lists(fv + list, fr + list, ntiles, k, vals + at, slots + at,
+                  smem);
     } else {
       merge_levels(fv + list, fr + list, ntiles, kt, k, gv + bj * levels,
-                   gr + bj * levels, vals + bj * k, slots + bj * k);
+                   gr + bj * levels, vals + at, slots + at);
     }
   }
+  // each merge ends with a block barrier
+  if (bounds != nullptr)
+    slots_to_rows(vals, slots, probe, nq, obase, k, bucket_rows + base);
 }
 
 // Every entry point's arguments; bounds == nullptr is the unsharded scan.
@@ -1372,23 +1466,27 @@ cudaError_t launch_grouped_qb(const Args& a, cudaStream_t s) {
       (a.qglobal && (QB != 1 || reinterpret_cast<uintptr_t>(a.q) % 16 != 0)))
     return cudaErrorInvalidValue;
   ivf_grouped_probes<<<1, GROUP_THREADS, 0, s>>>(
-      a.sel, a.en, n_probes, a.c, QB, a.groups, a.k, a.scratch, a.vals, a.idx);
+      a.sel, a.en, a.bounds, a.n_shards, n_probes, a.c, QB, a.groups, a.k,
+      a.scratch, a.vals, a.idx);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   auto kern = ivf_grouped<E, VEC, QB>;
   if ((err = allow_smem(kern, smem)) != cudaSuccess) return err;
   kern<<<static_cast<unsigned>(grid), THREADS, smem, s>>>(
       a.scratch, static_cast<const E*>(a.q), a.qs,
-      static_cast<const E*>(a.buckets), a.bscale, a.valid, n_probes,
-      a.nprobe, a.c, a.cap, a.d, a.k, a.tile, ntiles, a.groups, a.qglobal,
-      a.tmp_v, a.tmp_i, a.lev_v, a.lev_i, a.vals, a.idx);
+      static_cast<const E*>(a.buckets), a.bscale, a.valid, a.bucket_rows,
+      a.bounds, a.n_shards, n_probes, a.nprobe, a.c, a.cap, a.d, a.k, a.tile,
+      ntiles, a.groups, a.qglobal, a.tmp_v, a.tmp_i, a.lev_v, a.lev_i,
+      a.vals, a.idx);
   return cudaGetLastError();
 }
 
+// "grouped", unsharded (bounds null) or with the sharded writer
 template <typename E, int VEC>
 cudaError_t launch_grouped(const Args& a, cudaStream_t s) {
-  if (a.bounds != nullptr || a.scratch == nullptr || a.tile < GROUP_ROWS ||
-      a.tile % GROUP_ROWS != 0)
+  if (a.scratch == nullptr || a.tile < GROUP_ROWS ||
+      a.tile % GROUP_ROWS != 0 ||
+      (a.bounds != nullptr && a.bucket_rows == nullptr))
     return cudaErrorInvalidValue;
   switch (a.qb) {
     case 1: return launch_grouped_qb<E, VEC, 1>(a, s);
@@ -1553,35 +1651,38 @@ int ann_topk_ivf_chunked_launch(int quant, const void* sel_,
   return quant ? launch_i8(a, stream) : launch_f32(a, stream);
 }
 
-// Design "grouped", the unsharded scans: quant 0 (fp32: q, buckets;
-// q_scales and bucket_scale null) or 1 (int8 with both scales). qb:
-// probes a group (1 or 4); tile: slots a tile (a multiple of 32); groups:
-// the grid's
-// groups, at least the groups any sel can make (min(P, min(P, c) + P /
-// qb) for P = b * nprobe probes); qglobal: read the query in place (qb 1,
-// q on a 16-byte boundary); scratch: 3 c + P + 4 groups + 1 int32
-// (GroupScratch); tmp_v/tmp_i: (b, nprobe, ntiles, min(k, tile))
-// fp32/int32 tile lists (null for one tile); lev_v/lev_i: (b, nprobe,
-// 2 * level_entries) fp32/int32 for merge_levels (null where the lists
-// merge in shared memory, shared_merge, or in one level); vals/slots as
-// ann_topk_ivf_launch gives them. Returns the cudaError_t of the
+// Design "grouped", every scan: quant 0 (fp32: q, buckets; q_scales and
+// bucket_scale null) or 1 (int8 with both scales); bucket_rows and bounds
+// null for the unsharded scans, else as the sharded entry points take
+// them (s shards). qb: probes a group (1 or 4); tile: slots a tile (a
+// multiple of 32); groups: the grid's groups, at least the groups any sel
+// can make (min(P, min(P, c) + P / qb) for P = b * nprobe probes);
+// qglobal: read the query in place (qb 1, q on a 16-byte boundary);
+// scratch: 3 c + P + 4 groups + 1 int32 (GroupScratch); tmp_v/tmp_i: (b,
+// nprobe, ntiles, min(k, tile)) fp32/int32 tile lists (null for one
+// tile); lev_v/lev_i: (b, nprobe, 2 * level_entries) fp32/int32 for
+// merge_levels (null where the lists merge in shared memory,
+// shared_merge, or in one level); none of them grows with s. vals/idx as
+// the other entry points give them. Returns the cudaError_t of the
 // launches.
 int ann_topk_ivf_grouped_launch(int quant, const void* sel_,
                                 const void* enabled, const void* q,
                                 const void* q_scales, const void* buckets,
                                 const void* bucket_scale,
-                                const void* bucket_valid, int b, int nprobe,
-                                int c, int cap, int d, int k, int qb,
-                                int tile, int groups, int qglobal,
-                                void* scratch, void* tmp_v, void* tmp_i,
-                                void* lev_v, void* lev_i, void* vals,
-                                void* slots, void* stream) {
+                                const void* bucket_valid,
+                                const void* bucket_rows, const void* bounds,
+                                int s, int b, int nprobe, int c, int cap,
+                                int d, int k, int qb, int tile, int groups,
+                                int qglobal, void* scratch, void* tmp_v,
+                                void* tmp_i, void* lev_v, void* lev_i,
+                                void* vals, void* idx, void* stream) {
   Args a{static_cast<const int*>(sel_), static_cast<const int*>(enabled), q,
          static_cast<const float*>(q_scales), buckets,
          static_cast<const float*>(bucket_scale),
-         static_cast<const uint8_t*>(bucket_valid), nullptr, nullptr, 1, b,
-         nprobe, c, cap, d, k, GROUPED, static_cast<float*>(vals),
-         static_cast<int*>(slots), 0, static_cast<float*>(tmp_v),
+         static_cast<const uint8_t*>(bucket_valid),
+         static_cast<const int*>(bucket_rows), static_cast<const int*>(bounds),
+         s, b, nprobe, c, cap, d, k, GROUPED, static_cast<float*>(vals),
+         static_cast<int*>(idx), 0, static_cast<float*>(tmp_v),
          static_cast<int*>(tmp_i), qb, tile, groups, qglobal,
          static_cast<int*>(scratch), static_cast<float*>(lev_v),
          static_cast<int*>(lev_i)};

@@ -238,7 +238,7 @@ def test_nprobe_above_the_kernel_limit_is_refused():
 
 @pytest.mark.parametrize("bad", ["sel_dtype", "shape", "k"])
 def test_wrappers_refuse_bad_inputs(bad):
-    """Bad types and shapes are refused. k 65 is taken (the "block"
+    """Bad types and shapes are refused. k 65 is taken (the "grouped"
     design on the card): the finalists equal the plain version's and the
     reference's (values within ATOL, slots scoring the same)."""
     arrays = _inputs(4, 8, 16, 2, 2, seed=8)

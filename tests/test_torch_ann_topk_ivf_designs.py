@@ -1,9 +1,9 @@
 """The designs of the routed bucket scans, kernels 3 and 4
 (``ann_topk_ivf`` / ``ann_topk_ivf_quant``) and kernel 5, the shard-owned
 scans (``ann_topk_ivf_sharded`` / ``ann_topk_ivf_quant_sharded``): which
-inputs take one warp per probe ("warp"), which the grouped bucket scan
-("grouped", kernels 3 and 4) and which the CTA per probe ("block", kernel
-5) under their one ``pick_design``, the counts by design, the C
+inputs take one warp per probe ("warp") and which the grouped bucket scan
+("grouped") under their one ``pick_design`` ("block" and "chunked" stay
+launchable, and no dispatch takes them), the counts by design, the C
 entry points' ctypes signatures and launch arguments, and a CPU rehearsal
 of the warp design's selection (``csrc/ann_topk_ivf.cu::warp_probe`` and
 its two writers, ``ivf_warp`` and ``ivf_warp_sharded``).
@@ -49,22 +49,23 @@ INT_MAX = 2**31 - 1
 def test_design_by_bucket_size(cap, k, quant):
     """Buckets of at most 64 slots take "warp" at every k, whatever the
     payload type (the engine's caps, powers of two from 8); larger ones,
-    the real-size router's, keep "block" in kernel 5."""
-    want = "warp" if cap <= 64 else "block"
+    the real-size router's, take "grouped" in kernel 5 as in kernels 3
+    and 4."""
+    want = "warp" if cap <= 64 else "grouped"
     assert sh.pick_design(cap, k, 128, quant) == want
 
 
 @pytest.mark.parametrize("quant", [False, True])
 def test_design_falls_back_where_the_queries_overflow_shared_memory(quant):
     """"warp" keeps each of its warps' queries in shared memory: a width
-    that overflows it takes "block" (whose launch then raises with the
-    shape, as it always did)."""
+    that overflows it takes "grouped", which reads a query too wide for
+    its shared memory in place."""
     item = 1 if quant else 4
     d_max = (sh.SMEM_MAX // sh.WARP_PROBES - K_MAX * 8 - sh.WARP_CAP * 4) \
         // item // 16 * 16
     assert sh.warp_smem(d_max, quant) <= sh.SMEM_MAX
     assert sh.pick_design(16, 4, d_max, quant) == "warp"
-    assert sh.pick_design(16, 4, d_max + 16, quant) == "block"
+    assert sh.pick_design(16, 4, d_max + 16, quant) == "grouped"
 
 
 def test_designs_are_named_by_the_counts():
@@ -97,7 +98,7 @@ def test_cpu_calls_leave_the_design_counts_alone():
 WRAPPERS = (ivf.ann_topk_ivf, ivf.ann_topk_ivf_quant,
             sh.ann_topk_ivf_sharded, sh.ann_topk_ivf_quant_sharded)
 COUNTS = ("launches", "launches_warp", "launches_grouped", "launches_block",
-          "plain_calls")
+          "launches_chunked", "plain_calls")
 
 
 @pytest.mark.parametrize("quant", [False, True])
@@ -105,13 +106,41 @@ COUNTS = ("launches", "launches_warp", "launches_grouped", "launches_block",
 @pytest.mark.parametrize("cap", [8, 16, 32, 64, 128, 4096])
 def test_unsharded_design_by_bucket_size(cap, k, quant):
     """Kernels 3 and 4 take "warp" for buckets of at most 64 slots at
-    every k, as kernel 5 does, and "grouped" for larger ones, where kernel
-    5 takes "block"."""
+    every k, as kernel 5 does, and "grouped" for larger ones, as kernel 5
+    does."""
     small = cap <= 64
     assert ivf.pick_design(cap, k, 128, quant, sharded=False) == \
         ("warp" if small else "grouped")
     assert sh.pick_design(cap, k, 128, quant, sharded=True) == \
-        ("warp" if small else "block")
+        ("warp" if small else "grouped")
+
+
+def _old_kernel_5_rule(cap, k, d, quant):
+    """Kernel 5's dispatch before it took "grouped": "warp", else "block"
+    where the bucket's scores and the query fit shared memory, else
+    "chunked"."""
+    if cap <= ivf.WARP_CAP and k <= K_MAX \
+            and ivf.warp_smem(d, quant, True) <= ivf.SMEM_MAX:
+        return "warp"
+    return "block" if ivf.block_smem(cap, d, k, quant, True) <= \
+        ivf.SMEM_MAX else "chunked"
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_kernel_5_takes_grouped_wherever_it_took_block_or_chunked(quant):
+    """Over caps, k and widths on both sides of every limit: kernel 5
+    takes "warp" exactly where it did, and "grouped" wherever it took
+    "block" or "chunked" (both of which the grid reaches)."""
+    seen = set()
+    for cap in (8, 64, 65, 100, 4096, 57000, 65536, 2**20):
+        for k in (1, 16, 64, 65, 6000):
+            for d in (16, 768, 14000, 60000):
+                old = _old_kernel_5_rule(cap, k, d, quant)
+                seen.add(old)
+                new = sh.pick_design(cap, k, d, quant, sharded=True)
+                assert new == ("warp" if old == "warp" else "grouped"), \
+                    (cap, k, d, old, new)
+    assert seen == {"warp", "block", "chunked"}
 
 
 def test_kernel_5_resolves_the_same_dispatch():
@@ -136,14 +165,16 @@ def test_unsharded_writer_needs_only_the_queries_shared_memory(quant):
     assert ivf.warp_smem(d_max, quant, sharded=False) < \
         ivf.warp_smem(d_max, quant, sharded=True)
     assert ivf.pick_design(16, 4, d_max, quant, sharded=False) == "warp"
-    assert ivf.pick_design(16, 4, d_max, quant, sharded=True) == "block"
+    assert ivf.pick_design(16, 4, d_max, quant, sharded=True) == "grouped"
     assert ivf.pick_design(16, 4, d_max + 16, quant, sharded=False) == \
         "grouped"
 
 
 def test_every_routed_scan_counts_by_design():
-    """All four wrappers carry the same counts; ``_launch`` refuses a
-    design it does not know before it touches the card."""
+    """All four wrappers carry the same counts, one for every design,
+    kernel 5's "grouped" among them; ``_launch`` refuses a design it does
+    not know before it touches the card."""
+    assert COUNTS[1:-1] == tuple(f"launches_{d}" for d in ivf.DESIGNS)
     for w in WRAPPERS:
         for name in COUNTS:
             assert isinstance(getattr(w, name), int), (w.__name__, name)
@@ -220,6 +251,12 @@ def test_ctypes_signatures_match_the_c_entry_points(monkeypatch):
     # every launcher takes its design code just before its outputs
     for name in ENTRY_POINTS[:4]:
         assert sigs[name][-5:] == ["i", "i", "p", "p", "p"], name
+    # "chunked" and "grouped" take every scan: the dtype, the inputs with
+    # the shard-owned scans' bucket_rows and bounds (null for the others),
+    # then S and the shape
+    for name in ENTRY_POINTS[4:6]:
+        assert sigs[name][:12] == ["i"] + ["p"] * 9 + ["i"] * 2, name
+    assert len(sigs["ann_topk_ivf_grouped_launch"]) == 1 + 9 + 11 + 8
 
 
 def _routed_args(which: str):

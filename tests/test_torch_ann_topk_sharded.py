@@ -34,12 +34,14 @@ torch.set_num_threads(1)
 ATOL = 2e-5
 # (C, cap, D, B, nprobe, k, cut points): one shard; two; S > C with
 # repeated cut points (empty shards) and k above the bucket size; an
-# empty shard in the middle
+# empty shard in the middle; buckets above 64 slots (the "grouped" design
+# on the card) with an empty shard
 CASES = {
     "s1": (8, 16, 32, 4, 3, 2, [0, 8]),
     "s2": (8, 16, 32, 4, 3, 4, [0, 5, 8]),
     "s8_over_c": (4, 8, 16, 2, 3, 12, [0, 0, 1, 1, 2, 3, 3, 4, 4]),
     "s3_empty": (8, 32, 48, 3, 4, 6, [0, 3, 3, 8]),
+    "s3_cap96": (8, 96, 16, 3, 4, 6, [0, 3, 3, 8]),
 }
 
 
@@ -247,11 +249,12 @@ def test_wrappers_count_plain_calls_on_the_cpu():
                                                before[2])
 
 
-@pytest.mark.parametrize("bad", ["bounds_dtype", "bounds_short", "rows_shape",
-                                 "k"])
+@pytest.mark.parametrize("bad", ["bounds_dtype", "bounds_short",
+                                 "bounds_descend", "rows_shape", "k"])
 def test_wrappers_refuse_bad_inputs(bad):
-    """Malformed cut points and rows are refused. k 65, above the "warp"
-    design's 64, is taken (the "block" design on the card): the stacks
+    """Malformed cut points (descending ones too: the CUDA designs look a
+    bucket's owner up by binary search) and rows are refused. k 65, above the "warp"
+    design's 64, is taken (the "grouped" design on the card): the stacks
     equal the plain version's and the reference's."""
     arrays = _inputs(4, 8, 16, 2, 2, seed=8)
     sel, en, q, buckets, valid, rows = _t(*arrays)
@@ -261,6 +264,12 @@ def test_wrappers_refuse_bad_inputs(bad):
         bounds = bounds.long()
     elif bad == "bounds_short":
         bounds = bounds[:1]
+    elif bad == "bounds_descend":
+        bounds = torch.tensor([0, 3, 1, 4], dtype=torch.int32)
+        bq, bs, qq, qs = _quant(arrays[3], arrays[2])
+        with pytest.raises(ValueError, match="ascending"):
+            ann_topk_ivf_quant_sharded(*_t(arrays[0], arrays[1], qq, qs, bq,
+                                           bs), valid, rows, bounds, k)
     elif bad == "rows_shape":
         rows = rows[:, :4]
     else:

@@ -1,8 +1,10 @@
-"""The "grouped" design of the unsharded routed scans, kernels 3 and 4
-(``ann_topk_ivf`` / ``ann_topk_ivf_quant`` above 64 slots): its plan
-(``ann_topk_ivf.grouped_plan``: the tile, the probes a group, the shared
-memory, the scratch), the C entry point's arguments, and a numpy
-rehearsal of its three steps against the plain versions.
+"""The "grouped" design of the routed scans above 64 slots, unsharded
+(kernels 3 and 4, ``ann_topk_ivf`` / ``ann_topk_ivf_quant``) and
+shard-owned (kernel 5, ``ann_topk_ivf_sharded`` /
+``ann_topk_ivf_quant_sharded``): its plan (``ann_topk_ivf.grouped_plan``:
+the tile, the probes a group, the shared memory, the scratch), the C
+entry point's arguments, and a numpy rehearsal of its three steps and of
+the sharded writer against the plain versions.
 
 The CUDA kernels run only on the card, where chip_smoke.py holds them
 bitwise against "block", "chunked" and the plain versions. The rehearsal
@@ -27,9 +29,18 @@ repeats ``csrc/ann_topk_ivf.cu``'s steps in numpy:
    cut to k, level after level in device memory, a pad on the last level
    NEG at its own position.
 
+The sharded writer (kernel 5) groups only the probes whose bucket a
+shard owns (the last shard whose first cut point is at or below it, if
+the bucket lies below its next cut point) and writes every other probe's
+(S, k) column NEG / -1 in step 1; step 2 writes a probe's finalists in
+its owner's row (from the tile, or from the last CTA's merge), that CTA
+then maps their slots to global rows (-1 where the value is NEG), and the
+tile-0 CTA of each group writes its probes' other S - 1 rows NEG / -1.
+
 Each must give its plain version's output bitwise, the slots of NEG
-entries and pads included. The inputs are integer-valued (the int8 rows
-with their scales), so every summation order gives the same fp32 sums.
+entries and pads included, and the sharded writer every entry of the
+stacks exactly once. The inputs are integer-valued (the int8 rows with
+their scales), so every summation order gives the same fp32 sums.
 """
 import contextlib
 import types
@@ -50,11 +61,24 @@ NEG32 = np.float32(NEG)
 
 # ------------------------------------------------ the numpy rehearsal
 
-def _group(sel, en, c, qb, rng):
+def _owner(bounds, c):
+    """csrc/ann_topk_ivf.cu::owner_of for the cluster ids ``c``: the last
+    shard whose first cut point is at or below it, if it lies below that
+    shard's next one; else -1."""
+    bounds = np.asarray(bounds)
+    s = np.searchsorted(bounds[:-1], c, side="right") - 1
+    at = np.clip(s, 0, len(bounds) - 2)
+    return np.where((s >= 0) & (c < bounds[at + 1]), at, -1)
+
+
+def _group(sel, en, c, qb, rng, bounds=None):
     """Step 1: (order, groups), groups as (bucket, first, count) in bucket
-    order; the probes of a bucket in a shuffled order."""
+    order; the probes of a bucket in a shuffled order. With ``bounds``
+    (the sharded writer) only the probes whose bucket a shard owns."""
     flat_sel, flat_en = sel.reshape(-1), en.reshape(-1)
     ok = (flat_en != 0) & (flat_sel >= 0) & (flat_sel < c)
+    if bounds is not None:
+        ok &= _owner(bounds, flat_sel) >= 0
     cnt = np.bincount(flat_sel[ok], minlength=c)
     start = np.concatenate([[0], np.cumsum(cnt)[:-1]])
     order = np.empty(int(ok.sum()), np.int64)
@@ -138,38 +162,75 @@ def _merge_levels(lv_, lr_, k):
         lists = nxt
 
 
-def _grouped(sel, en, scores, valid, k, tile, qb, rng):
+def _grouped(sel, en, scores, valid, k, tile, qb, rng, bounds=None,
+             rows=None):
     """The whole design: scores (B, C, cap) the fp32 score of every slot
-    of every bucket against every query."""
+    of every bucket against every query. Unsharded: (B, nprobe, k) vals
+    and slots. With ``bounds`` and ``rows`` (bucket_rows, (C, cap)) the
+    sharded writer: (S, B, nprobe, k) vals and global rows, each entry
+    written once (an entry left unwritten would stay NaN / -7)."""
     b, nprobe = sel.shape
     c, cap = valid.shape
+    p = b * nprobe
     ntiles = -(-cap // tile)
     kt = min(k, tile)
-    vals = np.full((b * nprobe, k), NEG32, np.float32)
-    slots = np.tile(np.arange(k), (b * nprobe, 1))   # disabled probes
-    order, groups = _group(sel, en, c, qb, rng)
-    assert len(groups) <= ivf.grouped_groups(b * nprobe, c, qb)
-    lists_v = np.zeros((b * nprobe, ntiles, kt), np.float32)
-    lists_r = np.zeros((b * nprobe, ntiles, kt), np.int64)
-    # the grid's CTAs in any order: each writes only its own lists
+    n_s = 1 if bounds is None else len(bounds) - 1
+    vals = np.full((n_s, p, k), np.nan, np.float32)
+    slots = np.full((n_s, p, k), -7, np.int64)
+    written = np.zeros((n_s, p, k), np.int64)
+
+    def write(s, bj, v, r, at=slice(None)):
+        vals[s, bj, at], slots[s, bj, at] = v, r
+        written[s, bj, at] += 1
+
+    order, groups = _group(sel, en, c, qb, rng, bounds)
+    assert len(groups) <= ivf.grouped_groups(p, c, qb)
+    # step 1: every probe no group takes, its whole column
+    for bj in sorted(set(range(p)) - set(order.tolist())):
+        for s in range(n_s):
+            write(s, bj, NEG32, np.arange(k) if bounds is None else -1)
+    owner = [0 if bounds is None else int(_owner(bounds, bucket))
+             for bucket, _, _ in groups]
+    lists_v = np.zeros((p, ntiles, kt), np.float32)
+    lists_r = np.zeros((p, ntiles, kt), np.int64)
+
+    def to_rows(g, bj):
+        """The sharded writer's slot -> global row map of a final row."""
+        if bounds is not None:
+            s, bucket = owner[g], groups[g][0]
+            live = vals[s, bj] > NEG / 2
+            slots[s, bj] = np.where(
+                live, rows[bucket][np.where(live, slots[s, bj], 0)], -1)
+
+    # step 2: the grid's CTAs in any order: each writes only its own
+    # lists, or its own probes' rows
     for g, t in rng.permutation([(g, t) for g in range(len(groups))
                                  for t in range(ntiles)]):
         bucket, first, count = groups[g]
         for bj in order[first:first + count]:
+            if bounds is not None and t == 0:
+                for s in set(range(n_s)) - {owner[g]}:
+                    write(s, bj, NEG32, -1)
             v, r = _tile_best(scores[bj // nprobe, bucket], valid[bucket],
                               t * tile, tile, cap, kt)
             if ntiles == 1:
-                vals[bj, :kt], slots[bj, :kt] = v, r
-                slots[bj, kt:] = np.arange(kt, k)    # NEG and slot p
+                pad = np.arange(kt, k)                # NEG and slot p
+                write(owner[g], bj, np.concatenate(
+                    [v, np.full(k - kt, NEG32, np.float32)]),
+                    np.concatenate([r, pad]))
+                to_rows(g, bj)
             else:
                 lists_v[bj, t], lists_r[bj, t] = v, r
+    # step 3: the group's last CTA
     merge = _merge if ivf.shared_merge(ntiles, tile, k) else _merge_levels
     if ntiles > 1:
-        for bucket, first, count in groups:
+        for g, (bucket, first, count) in enumerate(groups):
             for bj in order[first:first + count]:
-                vals[bj], slots[bj] = merge(lists_v[bj], lists_r[bj], k)
-    return (vals.reshape(b, nprobe, k),
-            slots.reshape(b, nprobe, k).astype(np.int32))
+                write(owner[g], bj, *merge(lists_v[bj], lists_r[bj], k))
+                to_rows(g, bj)
+    assert (written == 1).all()
+    shape = (b, nprobe, k) if bounds is None else (n_s, b, nprobe, k)
+    return vals.reshape(shape), slots.reshape(shape).astype(np.int32)
 
 
 # --------------------------------------------------------- the inputs
@@ -372,15 +433,134 @@ def test_merge_takes_ties_at_the_threshold_in_slot_order(merge):
         np.testing.assert_array_equal(got[1], want[1])
 
 
+# ------------------------------------------- kernel 5's sharded writer
+
+# cut points over C = 6 clusters: one shard; three, one of them empty;
+# eight, three empty; C + 3 = 9, four empty; and two shards that leave
+# clusters 0 and 5 unowned
+CUTS = {"s1": [0, 6], "s3": [0, 2, 2, 6], "s8": [0, 0, 1, 1, 3, 4, 6, 6, 6],
+        "s9": [0, 0, 0, 1, 2, 3, 3, 4, 5, 6], "unowned": [1, 3, 5]}
+
+
+def _rows(rng, valid):
+    """bucket_rows: distinct global rows, ascending within a bucket (so
+    the lower slot is the lower row), -1 at the invalid slots."""
+    c, cap = valid.shape
+    rows = np.sort(rng.choice(4 * c * cap, (c, cap), replace=False), axis=1)
+    return np.where(valid, rows, -1).astype(np.int32)
+
+
+def _plain_sharded(sel, en, valid, rows, bounds, args, k, quant):
+    t = torch.from_numpy
+    tail = (t(valid), t(rows), t(np.asarray(bounds, np.int32)))
+    if quant:
+        bq, bs, qq, qs = args
+        out = sh.ann_topk_ivf_quant_sharded_plain(
+            t(sel), t(en), t(qq), t(qs), t(bq), t(bs), *tail, k)
+    else:
+        buckets, q = args
+        out = sh.ann_topk_ivf_sharded_plain(t(sel), t(en), t(q), t(buckets),
+                                            *tail, k)
+    return [x.numpy() for x in out]
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("qb", ivf.GROUPED_QBS)
+@pytest.mark.parametrize("k,tile", [(4, 64), (16, 256), (100, 64),
+                                    (70, 256), (257, 96)])
+@pytest.mark.parametrize("cuts", sorted(CUTS))
+def test_sharded_grouped_is_the_plain_version(cuts, k, tile, qb, quant):
+    """The sharded writer's stacks are the plain version's bitwise: global
+    rows, NEG / -1 at every other shard and for the disabled, out-of-range
+    and unowned probes; one tile (T >= cap) and several, k above the tile
+    (merged by levels), above K_MAX and above cap; empty shards."""
+    c, cap, d, b, nprobe = 6, 200, 16, 3, 4
+    rng, sel, en, valid, scores, args = _case(c, cap, d, b, nprobe, 0.6,
+                                              k + tile + qb, quant)
+    sel[0, 1], sel[2, 3] = -1, c
+    rows = _rows(rng, valid)
+    want = _plain_sharded(sel, en, valid, rows, CUTS[cuts], args, k, quant)
+    got = _grouped(sel, en, scores, valid, k, tile, qb, rng, CUTS[cuts],
+                   rows)
+    _same(got, want)
+    assert (got[1][..., 0, 1, :] == -1).all()
+    assert (got[1][got[0] <= NEG / 2] == -1).all()
+
+
+@pytest.mark.parametrize("qb", ivf.GROUPED_QBS)
+def test_sharded_one_query_probing_one_bucket_several_times(qb):
+    """Every probe of one query on one bucket gets the same column, at
+    the bucket's owner, whatever the group size and the order within a
+    group."""
+    c, cap, k, cuts = 6, 256, 8, CUTS["s3"]
+    rng, sel, en, valid, scores, args = _case(c, cap, 8, 3, 6, 0.5, 3,
+                                              False)
+    sel[0] = 3
+    sel[1, :4] = 3
+    en[:] = 1
+    rows = _rows(rng, valid)
+    want = _plain_sharded(sel, en, valid, rows, cuts, args, k, False)
+    for seed in range(3):
+        got = _grouped(sel, en, scores, valid, k, 64, qb,
+                       np.random.default_rng(seed), cuts, rows)
+        _same(got, want)
+        assert all((got[1][:, 0, j] == got[1][:, 0, 0]).all()
+                   for j in range(6))
+        assert (got[1][2, 0] >= 0).any() and (got[1][:2, 0] == -1).all()
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_sharded_duplicate_rows_in_two_tiles_tie_to_the_lower_slot(quant):
+    """A row copied into slots of other tiles ties bitwise across the
+    tiles' lists; the lower slot, and so the lower global row, ranks
+    first at the owner."""
+    c, cap, d, k, cuts = 3, 256, 8, 5, [0, 1, 1, 3]
+    rng, sel, en, valid, _, args = _case(c, cap, d, 2, 3, 1.0, 4, quant)
+    dups = [200, 10, 70, 140]                    # tiles 3, 0, 1, 2 of 64
+    top = 127 if quant else 3
+    args[0][:, dups] = top
+    if quant:
+        args[1][:, dups] = 1.0
+    args[2 if quant else 1][:] = top
+    en[:] = 1
+    rows = _rows(rng, valid)
+    scores = _scores(args, quant)
+    want = _plain_sharded(sel, en, valid, rows, cuts, args, k, quant)
+    got = _grouped(sel, en, scores, valid, k, 64, 4, rng, cuts, rows)
+    _same(got, want)
+    owner = _owner(cuts, sel)
+    for bi in range(2):
+        for j in range(3):
+            r = got[1][owner[bi, j], bi, j, :4]
+            assert (r == rows[sel[bi, j], sorted(dups)]).all()
+
+
+def test_sharded_at_one_shard_is_the_unsharded_rows():
+    """At S = 1 the stacks are the unsharded "grouped" output with each
+    real finalist's slot mapped to its global row, -1 elsewhere."""
+    c, cap, k = 6, 300, 12
+    rng, sel, en, valid, scores, args = _case(c, cap, 16, 4, 3, 0.4, 7,
+                                              False)
+    rows = _rows(rng, valid)
+    one = _grouped(sel, en, scores, valid, k, 64, 4, rng, [0, c], rows)
+    vals, slots = _grouped(sel, en, scores, valid, k, 64, 4, rng)
+    inside = np.clip(sel, 0, c - 1)[..., None]
+    real = vals > NEG / 2
+    _same((one[0][0], one[1][0]),
+          (vals, np.where(real, rows[inside, np.where(real, slots, 0)], -1)))
+
+
 # ------------------------------------------------------------ the plan
 
 def test_grouped_takes_every_unsharded_scan_above_64_slots():
+    """Kernels 3 and 4 above 64 slots, and kernel 5 (``sharded``) at the
+    same shapes, where it took "block" or "chunked" before."""
     for cap in (65, 128, 4096, 65536, 2**20):
         for k in (1, 4, 16, 64, 100):
             for quant in (False, True):
                 assert ivf.pick_design(cap, k, 768, quant, False) == \
                     "grouped"
-                assert ivf.pick_design(cap, k, 768, quant, True) != \
+                assert ivf.pick_design(cap, k, 768, quant, True) == \
                     "grouped"
     assert ivf.pick_design(64, 100, 128, False, False) == "grouped"
     assert ivf.pick_design(64, 64, 128, False, False) == "warp"
@@ -583,8 +763,10 @@ def _fake(monkeypatch, err=0):
                         lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev: types.SimpleNamespace(cuda_stream=9))
-    for w in (ivf.ann_topk_ivf, ivf.ann_topk_ivf_quant):
-        for name in ("launches", "launches_grouped", "launches_block"):
+    for w in (ivf.ann_topk_ivf, ivf.ann_topk_ivf_quant,
+              sh.ann_topk_ivf_sharded, sh.ann_topk_ivf_quant_sharded):
+        for name in ("launches", "launches_grouped", "launches_block",
+                     "launches_chunked"):
             monkeypatch.setattr(w, name, 0)
     return calls
 
@@ -612,12 +794,13 @@ def test_launch_passes_the_plan_and_the_scratch(monkeypatch, quant):
     ptrs = (args[0], args[1], args[2], args[3] if quant else None,
             args[4] if quant else args[3], args[5] if quant else None)
     assert call[1:7] == tuple(0 if t is None else t.data_ptr() for t in ptrs)
-    assert call[8:18] == (2, 3, 4, 300, 16, 7, 4, 64, plan["groups"], 0)
+    assert call[8:11] == (0, 0, 1)                 # unsharded: no shards
+    assert call[11:21] == (2, 3, 4, 300, 16, 7, 4, 64, plan["groups"], 0)
     assert plan["ntiles"] == 5 and plan["lists"] == 2 * 3 * 5 * 7
     assert plan["merge"] == "shared" and plan["levels"] == 0
-    assert all(x != 0 for x in call[18:21])        # scratch and the lists
-    assert call[21:23] == (0, 0)                   # no levels' scratch
-    assert call[23:] == (vals.data_ptr(), idx.data_ptr(), 9)
+    assert all(x != 0 for x in call[21:24])        # scratch and the lists
+    assert call[24:26] == (0, 0)                   # no levels' scratch
+    assert call[26:] == (vals.data_ptr(), idx.data_ptr(), 9)
     assert vals.shape == idx.shape == (2, 3, 7)
     assert (w.launches, w.launches_grouped, w.launches_block) == (1, 1, 0)
 
@@ -626,7 +809,7 @@ def test_one_tile_passes_no_lists(monkeypatch):
     calls = _fake(monkeypatch)
     ivf._launch("grouped", ivf.ann_topk_ivf, *_small(False, cap=100), k=4)
     (call,) = calls
-    assert call[15] == 128 and call[19:23] == (0, 0, 0, 0)
+    assert call[18] == 128 and call[22:26] == (0, 0, 0, 0)
 
 
 @pytest.mark.parametrize("quant", [False, True])
@@ -639,7 +822,7 @@ def test_k_above_the_tile_passes_the_levels_scratch(monkeypatch, quant):
     assert plan["merge"] == "levels" and plan["ntiles"] == 5
     assert plan["lists"] == 6 * 5 * 64
     assert plan["levels"] == 2 * 6 * ivf.level_entries(5, 64, 100) > 0
-    assert all(x != 0 for x in call[18:23])
+    assert all(x != 0 for x in call[21:26])
     assert w.launches_grouped == 1
 
 
@@ -652,19 +835,49 @@ def test_query_read_in_place_is_on_16_bytes(monkeypatch):
                 torch.zeros(1, 100, d), torch.ones((1, 100), dtype=torch.bool),
                 k=4)
     (call,) = calls
-    assert call[17] == 1 and call[14] == 1               # qglobal, qb 1
+    assert call[20] == 1 and call[17] == 1               # qglobal, qb 1
     assert call[3] % 16 == 0 and call[3] != q.data_ptr()
 
 
-def test_grouped_is_not_kernel_5s(monkeypatch):
-    _fake(monkeypatch)
-    c, cap = 4, 300
-    args = (*_small(False, c=c, cap=cap),
+def _small_sharded(quant, c=4, cap=300, cuts=(0, 2, 2, 4)):
+    return (*_small(quant, c=c, cap=cap),
             torch.zeros((c, cap), dtype=torch.int32),
-            torch.tensor([0, 2, 4], dtype=torch.int32))
-    with pytest.raises(ValueError, match="unsharded"):
-        ivf._launch("grouped", sh.ann_topk_ivf_sharded, *args, k=4)
-    assert sh.ann_topk_ivf_sharded.launches_grouped == 0
+            torch.tensor(cuts, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_kernel_5s_grouped_launch_passes_the_shards(monkeypatch, quant):
+    """Kernel 5 on "grouped": the same plan and scratch as kernel 3 or 4
+    at the shape (none grows with S), bucket_rows, bounds and S passed
+    to the C entry point, (S, B, nprobe, k) stacks, counted as its
+    "grouped" launch."""
+    calls = _fake(monkeypatch)
+    w = sh.ann_topk_ivf_quant_sharded if quant else sh.ann_topk_ivf_sharded
+    args = _small_sharded(quant)
+    vals, idx = ivf._launch("grouped", w, *args, k=7, tile=64, qb=4)
+    (call,) = calls
+    plan = ivf.grouped_plan(2, 3, 4, 300, 16, 7, quant, tile=64, qb=4)
+    assert call[0] == int(quant)
+    assert call[7:11] == (args[-3].data_ptr(), args[-2].data_ptr(),
+                          args[-1].data_ptr(), 3)  # valid, rows, bounds, S
+    assert call[11:21] == (2, 3, 4, 300, 16, 7, 4, 64, plan["groups"], 0)
+    assert all(x != 0 for x in call[21:24])
+    assert call[26:] == (vals.data_ptr(), idx.data_ptr(), 9)
+    assert vals.shape == idx.shape == (3, 2, 3, 7)
+    assert (w.launches, w.launches_grouped, w.launches_block,
+            w.launches_chunked) == (1, 1, 0, 0)
+
+
+def test_failed_sharded_launch_names_s_the_shape_and_the_design(
+        monkeypatch):
+    _fake(monkeypatch, err=1)
+    w = sh.ann_topk_ivf_sharded
+    with pytest.raises(RuntimeError, match=r"ann_topk_ivf_sharded launch "
+                                           r"failed .*s=3 b=2 nprobe=3 c=4 "
+                                           r"cap=300 d=16 k=4 "
+                                           r"design=grouped"):
+        ivf._launch("grouped", w, *_small_sharded(False), k=4)
+    assert w.launches == w.launches_grouped == 0
 
 
 def test_failed_launch_names_the_shape_and_the_design(monkeypatch):

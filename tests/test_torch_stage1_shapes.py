@@ -299,26 +299,26 @@ def test_wide_k_takes_the_wide_design(k, dtype):
 @pytest.mark.parametrize("k", [4, 100])
 def test_routed_scans_take_block_where_it_fits_else_chunks(cap, d, k, quant,
                                                             sharded):
-    """Kernel 5 takes "block" where a bucket's scores and query fit shared
-    memory, else "chunked"; kernels 3 and 4 take "grouped" at every such
-    shape, whose plan fits shared memory at these shapes' B and nprobe."""
+    """Kernels 3 and 4 and kernel 5 (``sharded``) take "grouped" at every
+    shape "warp" does not take, whose plan fits shared memory at these
+    shapes' B and nprobe. "block" and "chunked" stay launchable as the
+    designs "grouped" is held against: "block" where a bucket's scores
+    and query fit shared memory, else "chunked", in chunks that fit."""
     design = ivf.pick_design(cap, k, d, quant, sharded)
     fits = ivf.block_smem(cap, d, k, quant, sharded) <= ivf.SMEM_MAX
     if cap <= ivf.WARP_CAP and k <= k1.K_MAX and \
             ivf.warp_smem(d, quant, sharded) <= ivf.SMEM_MAX:
         assert design == "warp"
-    elif not sharded:
+    else:
         assert design == "grouped"
         for b, nprobe in ((1, 64), (4, 4), (16, 64)):
             plan = ivf.grouped_plan(b, nprobe, 512, cap, d, k, quant)
             assert plan["smem"] <= ivf.GROUPED_SMEM
-    else:
-        assert design == ("block" if fits else "chunked")
     chunk = ivf.chunk_slots(cap)
     assert 1 <= chunk <= cap and chunk * 4 + 1024 <= ivf.SMEM_MAX
     assert chunk == cap or chunk % 256 == 0
     if (cap, d) == (65536, 768):     # 2^20 rows over 16 clusters
-        assert design == ("chunked" if sharded else "grouped")
+        assert design == "grouped" and not fits
         assert -(-cap // chunk) == 2
 
 
